@@ -16,6 +16,24 @@ Each phase prints one JSON line:
               of 1,048,576 records, for two queries.
 4. timing   — CUDA-event times of the kernel and its plain version at the
               main path's shapes, beside the card's bound for that work.
+5. flash_kernels — the CUDA ``flash_attention`` against its plain PyTorch
+              version on the card, by absolute and per-row limits: the JAX
+              package's test shapes, GQA groups 1, 7 and 8, D = 256, ragged
+              lengths, and the serving shape (B 4, S 4096, H 64, K 8,
+              D 128) in f32 and bf16; and a planted fault (one KV tile's
+              P.V skipped) that the per-row limit must reject.
+6. dense_path — the dense family's serving path at deepseek-67b's full
+              width (d_model 8192, 64 query and 8 KV heads of 128, d_ff
+              22016, vocab 102400), depth cut to 4 layers, bf16, seeded
+              random weights: prefill of 4 requests of 4,096 tokens, then 32
+              greedy ``decode_step``s each; each layer's kernel output held
+              against the plain version on the prefill's own inputs, and
+              the logits against the same model's ``forward`` with the
+              kernel's plain version in its place, one request at a time.
+7. flash_timing — CUDA-event times of the kernel, its plain version and
+              ``scaled_dot_product_attention`` at the serving shape, beside
+              the card's bound; and profiles of one prefill and one decode
+              step.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -29,6 +47,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -36,9 +55,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 on CUDA cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 on CUDA cores and
+# dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # kernel vs plain version: both IEEE fp32, summed in different orders
 SCORE_TOL = 1e-5
 # kernel path vs the raw-params reference path: the packed form folds the
@@ -64,6 +85,47 @@ KERNEL_CASES = (
     (8192, 8000, 64, 32, 1, "float32", True, (0,)),
     (4096, 4096, 128, 128, 130, "int8", True, (0, 64, 129)),
 )
+# flash_attention kernel vs its plain version: the tolerances of the JAX
+# package's kernel test (tests/test_kernels.py:68), atol = rtol.  f32: both
+# IEEE f32, summed in other orders.  bf16: p is rounded to bf16 against the
+# running row max in the kernel and against the whole row's max in the plain
+# version.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# ... and, per output row (one query position of one head), the largest
+# difference over the row's largest plain value.  A row that attends n
+# random keys has values near sqrt(e/n), about 0.03 at n = 4096, as small as
+# the absolute tolerance, so the absolute check alone cannot see a dropped KV
+# tile there.  bf16: two bf16 steps of the row's largest value (both versions
+# round an f32 result that differs by far less than a step, so they differ
+# by at most one step).  f32: many f32 steps, far below any fault.
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+SERVING_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D) of the prefill
+# The planted fault the row check must catch at the serving shape: the P.V
+# product of the last 64-key tile skipped (its values zeroed in the kernel's
+# input), which only the rows that attend the most keys see.
+FAULT_KEYS = (4032, 4096)
+# (B, Sq, Sk, H, K, D, causal, dtype)
+FLASH_CASES = tuple(
+    (*shape, causal, dtype) for dtype in ("float32", "bfloat16") for shape, causal in (
+        # the JAX package's test shapes (tests/test_kernels.py:54-58)
+        ((1, 128, 128, 4, 4, 32), True), ((1, 128, 128, 4, 4, 32), False),
+        ((2, 256, 256, 8, 2, 64), True), ((2, 256, 256, 8, 2, 64), False),
+        ((1, 128, 384, 4, 1, 128), False),
+        # GQA groups 1, 7 and 8 at ragged lengths
+        ((2, 333, 333, 8, 8, 128), True), ((2, 200, 200, 14, 2, 64), True),
+        ((1, 257, 257, 64, 8, 128), True), ((1, 100, 300, 16, 2, 128), False),
+        # D = 256, and the smallest head dims
+        ((2, 130, 130, 8, 1, 256), True), ((1, 64, 200, 4, 2, 256), False),
+        ((3, 1, 1, 4, 2, 32), True), ((1, 77, 131, 8, 1, 16), False),
+        (SERVING_SHAPE, True)))
+# The dense serving path (phase 6) and its logits tolerances against the
+# plain-attention forward: those the JAX package holds its own bf16 serving
+# path to (tests/test_models_consistency.py:38 for prefill vs forward, :88
+# for decode vs forward): bf16 rounds at other places when the kernel and
+# the GEMMs see other shapes and orders.
+DENSE = dict(arch="deepseek-67b", layers=4, batch=4, prompt=4096, new_tokens=32)
+PREFILL_TOL = 5e-2
+DECODE_TOL = 8e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -347,6 +409,248 @@ def profile_main_path(plans, stream, dev, tiles: int = 16):
         emit("main_path_profile", query=name, records=len(x), **prof)
 
 
+# ------------------------------------------------------------- phase 5
+def make_flash_case(case, dev, seed):
+    B, Sq, Sk, H, K, D, _causal, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dt)
+            for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D))]
+
+
+def flash_errors(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max abs difference, largest per-row difference over that row's
+    largest |ref|, whether allclose at FLASH_TOL) of an attention output."""
+    dtype = str(ref.dtype).removeprefix("torch.")
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    tol = FLASH_TOL[dtype]
+    row = diff.amax(dim=-1) / ref.abs().amax(dim=-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return (float(diff.max()), float(row.max()),
+            bool(torch.allclose(out, ref, rtol=tol, atol=tol)))
+
+
+def check_flash_output(what: str, out, ref) -> tuple:
+    """``out`` within FLASH_TOL (atol = rtol) and FLASH_ROW_TOL of ``ref``.
+    Returns (max abs error, max row error)."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype, f"{what}: bad output")
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    dtype = str(ref.dtype).removeprefix("torch.")
+    err, row_err, close = flash_errors(out, ref)
+    check(close, f"{what}: kernel differs from its plain version by {err} "
+          f"(tol {FLASH_TOL[dtype]})")
+    check(row_err <= FLASH_ROW_TOL[dtype], f"{what}: a row differs from its plain version "
+          f"by {row_err} of its largest value (tol {FLASH_ROW_TOL[dtype]})")
+    return err, row_err
+
+
+def check_flash_case(case, dev, seed=0) -> tuple:
+    """Kernel vs plain version on the card.  Returns (max abs error, max
+    row error)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    causal = case[6]
+    q, k, v = make_flash_case(case, dev, seed)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    sync(dev)
+    return check_flash_output(str(case), out, ref)
+
+
+def planted_fault(dev) -> dict:
+    """The serving-shape bf16 check against a kernel output with a fault
+    planted: the kernel run with the values of FAULT_KEYS zeroed, which is
+    what a kernel that skipped that tile's P.V product would return, held
+    against the plain version on the true values.  The row check must
+    reject it."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    case = (*SERVING_SHAPE, True, "bfloat16")
+    q, k, v = make_flash_case(case, dev, seed=0)
+    bad_v = v.clone()
+    bad_v[:, FAULT_KEYS[0]:FAULT_KEYS[1]] = 0
+    err, row_err, close = flash_errors(flash_attention(q, k, bad_v, causal=True),
+                                       flash_attention_plain(q, k, v, causal=True))
+    caught = row_err > FLASH_ROW_TOL["bfloat16"]
+    check(caught, f"a skipped KV tile passes the row check ({row_err})")
+    return dict(keys=list(FAULT_KEYS), max_abs_err=err, max_row_err=row_err,
+                caught_by_abs_tol=not close, caught_by_row_tol=caught)
+
+
+# ------------------------------------------------------------- phase 6
+def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> dict:
+    """Prefill ``batch`` requests of ``prompt`` tokens through the port's
+    family API, decode ``new_tokens`` greedy tokens each, and hold every
+    logit row against ``forward`` with the plain attention in the kernel's
+    place.  Returns the phase's numbers, ``launches`` among them: the kernel
+    launches of the prefill-and-decode run alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models.registry import get_family, make_batch
+
+    cfg = get_config(DENSE["arch"]).replace(num_layers=layers)
+    fam = get_family(cfg)
+    t0 = time.perf_counter()
+    model = fam.init(0, cfg, device=dev)
+    tokens = make_batch(cfg, batch, prompt, seed=0, device=dev)["tokens"]
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    seen = []  # each layer's (q, k, v, kernel output) in the prefill
+
+    def kept(q, k, v, *, causal=True):
+        out = flash_attention(q, k, v, causal=causal)
+        seen.append((q, k, v, out))
+        return out
+
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(model_layers, "flash_attention", kept):
+        logits, cache = fam.prefill(model, cfg, {"tokens": tokens})
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    pad = (0, 0, 0, 0, 0, new_tokens)
+    cache = {"k": torch.nn.functional.pad(cache["k"], pad),
+             "v": torch.nn.functional.pad(cache["v"], pad), "pos": cache["pos"]}
+    steps = [logits]
+    fed = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        fed.append(steps[-1].argmax(dim=-1))
+        lg, cache = fam.decode_step(model, cfg, cache, fed[-1])
+        steps.append(lg)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    check(prefill_launches == cfg.num_layers,
+          f"prefill launched the kernel {prefill_launches} times for {cfg.num_layers} layers")
+    check(launches == prefill_launches, f"decode launched the kernel {launches - prefill_launches}"
+          " times; it takes the plain path")
+    # With random weights the attention adds little to the logits, so the
+    # logits check below cannot see an attention fault: hold each layer's
+    # kernel output against the plain version on the path's own inputs.
+    attn_errs = [check_flash_output(f"layer {layer}, request {r}", o[r:r + 1],
+                                    flash_attention_plain(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                                          causal=True))
+                 for layer, (q, k, v, o) in enumerate(seen) for r in range(batch)]
+    check(len(attn_errs) == cfg.num_layers * batch,
+          f"{len(seen)} layers of the prefill reached the kernel's wrapper")
+    attn_err = max((e for e, _ in attn_errs), default=0.0)
+    attn_row_err = max((r for _, r in attn_errs), default=0.0)
+    seen.clear()
+    got = torch.stack(steps, dim=1)  # (B, new_tokens + 1, V): positions prompt-1 ...
+    check(got.shape == (batch, new_tokens + 1, cfg.vocab_size), f"logits {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite serving logits")
+    seq = torch.cat([tokens, torch.stack(fed, dim=1)], dim=1)  # (B, prompt + new_tokens)
+
+    prefill_err = decode_err = 0.0
+    t0 = time.perf_counter()
+    with mock.patch.object(model_layers, "flash_attention", flash_attention_plain):
+        for r in range(batch):  # one request at a time: the plain (S, S) scores fit
+            ref = fam.forward(model, cfg, {"tokens": seq[r:r + 1]})[0, prompt - 1:]
+            check(bool(torch.isfinite(ref).all()), f"request {r}: non-finite reference")
+            ok_p = torch.allclose(got[r, 0], ref[0], rtol=PREFILL_TOL, atol=PREFILL_TOL)
+            ok_d = torch.allclose(got[r, 1:], ref[1:], rtol=DECODE_TOL, atol=DECODE_TOL)
+            prefill_err = max(prefill_err, float((got[r, 0] - ref[0]).abs().max()))
+            decode_err = max(decode_err, float((got[r, 1:] - ref[1:]).abs().max()))
+            check(ok_p, f"request {r}: prefill logits differ from forward by {prefill_err}")
+            check(ok_d, f"request {r}: decode logits differ from forward by {decode_err}")
+            del ref
+    reference_s = time.perf_counter() - t0
+    check(flash_attention.launches == launches, "the reference launched the kernel")
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               heads=cfg.attention.num_heads, kv_heads=cfg.attention.num_kv_heads,
+               head_dim=cfg.attention.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+               dtype=cfg.dtype, params=n_params, requests=batch, prompt_tokens=prompt,
+               new_tokens=new_tokens, cache_len=cache["k"].shape[2], launches=launches,
+               prefill_launches=prefill_launches, init_s=init_s, prefill_s=prefill_s,
+               prefill_tokens_per_s=batch * prompt / prefill_s, decode_s=decode_s,
+               decode_ms_per_step=decode_s / new_tokens * 1e3,
+               decode_tokens_per_s=batch * new_tokens / decode_s,
+               attention_max_abs_err=attn_err, attention_max_row_err=attn_row_err,
+               prefill_max_abs_err=prefill_err, prefill_tol=PREFILL_TOL,
+               decode_max_abs_err=decode_err, decode_tol=DECODE_TOL,
+               logits_max_abs=float(got.abs().max()), reference_s=reference_s,
+               peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else None)
+    emit("dense_path", **out)
+    out["model"], out["cfg"], out["tokens"] = model, cfg, tokens
+    return out
+
+
+# ------------------------------------------------------------- phase 7
+def flash_bound(B, Sq, Sk, H, K, D, causal, dtype):
+    """Least time for the function on these inputs: q, k, v read once and o
+    written once over HBM; the two products' flops (the causal pairs only)
+    over the peak for the type: bf16 tensor cores, or IEEE f32 CUDA cores."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * (2 * B * Sq * H * D + 2 * B * Sk * K * D)
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    flops = 4 * B * H * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def time_flash(dev, dtype: str, iters: int) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at the
+    serving shape, in turns (plain, kernel, library, kernel, plain).  The
+    library call gets K and V repeated to every query head beforehand (its
+    GQA layout), outside the timed region."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    B, Sq, Sk, H, K, D = SERVING_SHAPE
+    case = (*SERVING_SHAPE, True, dtype)
+    q, k, v = make_flash_case(case, dev, seed=7)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(H // K, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(H // K, dim=1)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    out = flash_attention(q, k, v, causal=True)
+    lib_err = float((library().transpose(1, 2).float() - out.float()).abs().max())
+    plain_a = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), dev, 1, warmup=1)
+    kern_a = cuda_ms(lambda: flash_attention(q, k, v, causal=True), dev, iters, warmup=1)
+    lib_ms = cuda_ms(library, dev, 10 * iters, warmup=2)
+    kern_b = cuda_ms(lambda: flash_attention(q, k, v, causal=True), dev, iters, warmup=0)
+    plain_b = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), dev, 1, warmup=0)
+    bound_ms, bound_by, nbytes, flops = flash_bound(*case)
+    ms = min(kern_a, kern_b)
+    row = dict(shape=list(SERVING_SHAPE), causal=True, dtype=dtype, ms=ms,
+               ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
+               plain_ms_runs=[plain_a, plain_b], library_ms=lib_ms,
+               library="scaled_dot_product_attention (K, V repeated to H heads)",
+               library_max_abs_diff=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
+               share_of_bound=bound_ms / ms)
+    emit("flash_timing", **row)
+    return row
+
+
+def profile_serving(dense: dict, dev) -> None:
+    """Device time by kernel over one more prefill of the serving batch and
+    over one decode step after it."""
+    from repro_torch.models.registry import get_family
+
+    cfg, model, tokens = dense["cfg"], dense["model"], dense["tokens"]
+    fam = get_family(cfg)
+    prof = device_profile(lambda: fam.prefill(model, cfg, {"tokens": tokens}), dev)
+    emit("prefill_profile", **prof)
+    logits, cache = fam.prefill(model, cfg, {"tokens": tokens})
+    pad = (0, 0, 0, 0, 0, 1)
+    cache = {"k": torch.nn.functional.pad(cache["k"], pad),
+             "v": torch.nn.functional.pad(cache["v"], pad), "pos": cache["pos"]}
+    prof = device_profile(lambda: fam.decode_step(model, cfg, cache, logits.argmax(-1)), dev)
+    emit("decode_profile", **prof)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
@@ -357,7 +661,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels import proxy_score
+    from repro_torch.kernels import flash_attention, proxy_score
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -368,11 +672,14 @@ def main(argv=None) -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    lib_path = _build.build("cascade_score")
+    libs = _build.build_all(["cascade_score", "flash_attention"])
     proxy_score._lib()
-    log = lib_path.with_suffix(".log").read_text().splitlines()
-    emit("build", seconds=time.perf_counter() - t0, library=lib_path.name,
-         ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
+    flash_attention._lib()
+    for lib_path in libs.values():
+        log = lib_path.with_suffix(".log").read_text().splitlines()
+        emit("build", seconds=time.perf_counter() - t0, library=lib_path.name,
+             ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln
+                    or "smem" in ln])
 
     errs = []
     for i, case in enumerate(KERNEL_CASES):
@@ -384,6 +691,29 @@ def main(argv=None) -> int:
     timings = time_main_shapes(plans, stream, dev, iters=200)
     profile_main_path(plans, stream, dev)
     main_row = max(timings, key=lambda r: r["flops"])
+    del plans, stream
+
+    flash_errs = []
+    t0 = time.perf_counter()
+    for i, case in enumerate(FLASH_CASES):
+        flash_errs.append(check_flash_case(case, dev, seed=i))
+    fault = planted_fault(dev)
+    emit("flash_kernels", cases=len(FLASH_CASES), seconds=time.perf_counter() - t0,
+         max_abs_err={dt: max(e[0] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
+                      for dt in FLASH_TOL},
+         max_row_err={dt: max(e[1] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
+                      for dt in FLASH_TOL},
+         tol=FLASH_TOL, row_tol=FLASH_ROW_TOL, planted_fault=fault,
+         shapes=[list(c) for c in FLASH_CASES])
+    torch.cuda.empty_cache()
+
+    dense = run_dense_path(dev, DENSE["layers"], DENSE["batch"], DENSE["prompt"],
+                           DENSE["new_tokens"])
+    profile_serving(dense, dev)
+    del dense["model"], dense["tokens"]
+    torch.cuda.empty_cache()
+    flash_rows = {dt: time_flash(dev, dt, iters=3) for dt in ("bfloat16", "float32")}
+    flash_row = flash_rows["bfloat16"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
@@ -392,7 +722,15 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": max(errs + [main_row["max_abs_err"]]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": dense["launches"],
+        "max_abs_err": max([e for e, _ in flash_errs] + [dense["attention_max_abs_err"]]),
+        "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,4 @@
+"""Config module for --arch: re-exports the canonical config from archs.py."""
+from repro_torch.configs.archs import LLAMA3_405B as CONFIG
+
+__all__ = ["CONFIG"]

@@ -1,0 +1,4 @@
+"""Config module for --arch: re-exports the canonical config from archs.py."""
+from repro_torch.configs.archs import RECURRENTGEMMA_2B as CONFIG
+
+__all__ = ["CONFIG"]

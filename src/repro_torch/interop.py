@@ -7,7 +7,7 @@ Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +16,9 @@ from repro_torch.core.proxy import ProxyModel, RCurve
 from repro_torch.core.query import PhysicalPlan, PlanStage, Query
 from repro_torch.training.proxy_models import LinearParams, MLPParams, PackedProxy
 from repro_torch.util import resolve_device
+
+if TYPE_CHECKING:
+    from repro_torch.models.transformer import Transformer
 
 
 def _t(a, dev: torch.device) -> torch.Tensor:
@@ -86,3 +89,40 @@ def physical_plan(ref_plan, query: Query, device="cuda") -> PhysicalPlan:
     meta = {k: v for k, v in ref_plan.meta.items() if k not in ("builder", "bnb")}
     return PhysicalPlan(query=query, stages=stages,
                         est_total_cost=float(ref_plan.est_total_cost), meta=meta)
+
+
+def _tensor_as_is(a, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev`` in its own type.  A bfloat16 numpy array (the
+    ``ml_dtypes`` type, named "bfloat16") travels as its raw 16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def transformer_params(ref_params, cfg, device="cuda") -> Transformer:
+    """The JAX package's dense-transformer params (its nested dict, layers
+    stacked on a leading L dim) as this package's ``Transformer`` on
+    ``device``: the L dim unstacked, every array in its own type."""
+    from repro_torch.models.transformer import Transformer
+
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    layers = ref_params["layers"]
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                src = layers
+                for key in parts[2:]:
+                    src = src[key]
+                src = np.asarray(src)[int(parts[1])]
+            else:
+                src = ref_params[parts[-1]]
+            t = _tensor_as_is(src, dev)
+            if t.shape != param.shape or t.dtype != param.dtype:
+                raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
+                                 f"model {tuple(param.shape)} {param.dtype}")
+            param.copy_(t)
+    return model

@@ -41,20 +41,34 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
     library path.  The compiler's resource report (``-Xptxas -v``) goes to
     ``<library>.log`` beside it."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log = out.with_name(f"{out.name}.log.tmp.{os.getpid()}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(log, out.with_suffix(".log"))
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[name]
 
+
+def build_all(names) -> dict:
+    """``build`` for several sources, one ``nvcc`` each, all started
+    together.  Returns {name: library path}; raises if any build fails."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log_text = proc.communicate()[0]
+        out = todo[name]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu ({proc.returncode}):\n{log_text}")
+            continue
+        log = out.with_name(f"{out.name}.log.tmp.{os.getpid()}")
+        log.write_text(log_text)
+        os.replace(log, out.with_suffix(".log"))
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs

@@ -1,0 +1,134 @@
+"""Blockwise causal or full GQA attention: the ``flash_attention`` kernel wrapper.
+
+The dense transformer's prefill and forward send every causal, unwindowed,
+full-length attention here (``models/layers.py::mha``).  For q (B, Sq, H, D)
+and k, v (B, Sk, K, D) with H % K == 0, query head h attends to KV head
+h // (H // K):
+
+    s = (f32(q) * scale) @ f32(k)^T,  masked to -1e30 where causal and k > q
+    o = softmax(s) @ v   (p cast to v's type before the product, f32 sums)
+
+and the output comes back in q's type.  ``flash_attention`` takes its route
+from the tensors' device: a CUDA tensor launches the hand-written kernel in
+``csrc/flash_attention.cu`` (or raises), a CPU tensor runs
+``flash_attention_plain``, the same function in plain PyTorch.
+``flash_attention.launches`` counts the CUDA launches.
+
+The kernel keeps a running row max and sum (an online softmax) and divides
+once at the end, as the Pallas kernel does; the plain version takes the
+whole row at once.  Both sum in f32 in different orders, and in bf16 they
+round p to bf16 against different running maxima, so they agree to about
+1e-6 in f32 and to bf16's precision in bf16.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+NEG_INF = -1e30
+MAX_BATCH_HEADS = 65535  # the kernel's grid puts batch * heads on its y axis
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(_build.build("flash_attention")))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 8 + [ctypes.c_float, vp]
+        lib.flash_attention_launch.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_operands(q, k, v):
+    """Raise on what the kernel does not take; returns (B, Sq, Sk, H, K, D)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D (B, S, heads, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k and v must both be (B={B}, Sk, K, D={D}), got {tuple(k.shape)} "
+                         f"and {tuple(v.shape)}")
+    if Sq < 1 or Sk < 1 or K < 1 or H % K != 0:
+        raise ValueError(f"need Sq, Sk >= 1 and H % K == 0, got Sq={Sq}, Sk={Sk}, H={H}, K={K}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one type of {DTYPES}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if B * H > MAX_BATCH_HEADS:
+        raise ValueError(f"batch * heads = {B * H} exceeds {MAX_BATCH_HEADS}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"operands on {t.device} and {q.device}: all must share one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention operands must be contiguous")
+    return B, Sq, Sk, H, K, D
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """The same function as the kernel in plain PyTorch (the CPU route and
+    the on-card reference).  One batch row at a time, so that the f32
+    (H, Sq, Sk) scores of only one row are held at once."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    keep = None
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+    for b in range(B):
+        qg = (q[b].to(torch.float32) * scale).reshape(Sq, K, G, D)
+        s = torch.einsum("qkgd,skd->kgqs", qg, k[b].to(torch.float32))
+        if keep is not None:
+            s.masked_fill_(~keep, NEG_INF)
+        p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+        l = p.sum(dim=-1)  # (K, G, Sq)
+        o = torch.einsum("kgqs,skd->qkgd", p.to(v.dtype).to(torch.float32),
+                         v[b].to(torch.float32))
+        o = o / l.clamp_min(1e-20).permute(2, 0, 1)[..., None]
+        out[b] = o.reshape(Sq, H, D).to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D), H % K == 0, one type of
+    float32 or bfloat16, D in ``HEAD_DIMS``, contiguous.  Returns
+    (B, Sq, H, D) in q's type.  ``scale`` defaults to 1/sqrt(D).  The
+    causal mask aligns both sequences at position 0.  All tensors share one
+    device, which picks the route: CUDA launches the kernel, CPU runs
+    ``flash_attention_plain``."""
+    B, Sq, Sk, H, K, D = _check_operands(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
+    lib = _lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
+            int(causal), int(q.dtype == torch.bfloat16), scale, stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} ({msg})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

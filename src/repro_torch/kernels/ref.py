@@ -1,6 +1,8 @@
 """Plain PyTorch oracles for the kernels (the allclose references)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -23,3 +25,20 @@ def cascade_score_ref(x, w1, b1, w2, b2, thresholds, out_scale=None):
     packed = [torch.nonzero(mask[:, p]).flatten().to(torch.int32)
               for p in range(mask.shape[1])]
     return scores, mask, packed
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0.  fp32 softmax."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    qg = q.reshape(B, Sq, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * scale
+    if causal:
+        mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)

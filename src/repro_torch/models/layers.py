@@ -1,0 +1,294 @@
+"""Shared model building blocks in PyTorch.
+
+Conventions (those of the JAX package, kept so that the same weights give
+the same numbers):
+
+* Matmul weights are stored as (in, out) in ``cfg.dtype`` (bf16) and applied
+  as ``x @ w``; norms, softmax and RoPE run in f32 and cast back to the
+  input's type; attention scores and logits accumulate in f32.
+* The GQA block, the gated MLP and the embedding are ``nn.Module``s that
+  hold their weights (no ``forward``); the plain functions beside them
+  (``gqa_attend``, ``mlp_apply``, ...) take the module as ``p`` and do the
+  arithmetic, under the names the JAX package gives them.
+* Initialisation draws from an explicit ``torch.Generator`` on the weights'
+  device; it cannot reproduce ``jax.random``'s numbers, so tests carry the
+  JAX package's weights across with ``interop.transformer_params``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+F32 = torch.float32
+
+
+def param_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def dense_init(generator: torch.Generator, shape, in_axis: int = -2, dtype=torch.bfloat16):
+    """Truncated-normal fan-in init: std 1/sqrt(fan_in), cut at 2 std."""
+    std = 1.0 / math.sqrt(shape[in_axis])
+    w = torch.empty(shape, dtype=F32, device=generator.device)
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    return w.to(dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ----------------------------------------------------------------- RMSNorm
+def rms_norm(x, w, eps: float, plus_one: bool = False):
+    xf = x.to(F32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = w.to(F32)
+    if plus_one:
+        scale = scale + 1.0
+    return (y * scale).to(x.dtype)
+
+
+def init_rms_for(cfg, d: int, device) -> nn.Parameter:
+    # gemma-style norms are stored as zeros and applied as (1 + w)
+    fill = torch.zeros if cfg.gemma_scaling else torch.ones
+    return _param(fill((d,), dtype=F32, device=device))
+
+
+def apply_norm(cfg, x, w):
+    return rms_norm(x, w, cfg.norm_eps, plus_one=cfg.gemma_scaling)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exponents = torch.arange(0, head_dim, 2, dtype=F32, device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=F32, device=device), exponents)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].to(F32) * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+def mha(q, k, v, *, causal: bool, q_positions, kv_positions, kv_valid=None, window: int = 0):
+    """Grouped-query attention.
+
+    q: (B, S, H, hd); k/v: (B, T, K, hd_k/hd_v).  H must be a multiple of K.
+    ``q_positions``/``kv_positions``: (B, S) / (B, T) absolute positions used
+    for causal/window masking.  ``kv_valid``: optional (B, T) bool mask for
+    cache slots beyond the current length.
+
+    On the card, plain-causal full-length attention (no window, no
+    ``kv_valid``, S == T, equal q and v head dims) goes to the
+    ``flash_attention`` kernel, which takes positions to be 0..S-1;
+    everything else, and everything on the CPU, takes the einsum path below.
+    """
+    if (q.is_cuda and causal and window == 0 and kv_valid is None
+            and q.shape[1] == k.shape[1] and q.shape[-1] == v.shape[-1]):
+        return flash_attention(q, k, v, causal=True)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    # f32 products of the stored values: JAX's preferred_element_type=f32
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.to(F32), k.to(F32))
+    scores = scores / math.sqrt(hd)
+    mask = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_positions[:, :, None] >= kv_positions[:, None, :]
+    if window:
+        mask &= q_positions[:, :, None] - kv_positions[:, None, :] < window
+    if kv_valid is not None:
+        mask &= kv_valid[:, None, :]
+    scores = scores.masked_fill(~mask[:, None, None, :, :], torch.finfo(F32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+# ------------------------------------------------------------ GQA block
+class GQA(nn.Module):
+    """Grouped-query attention weights: wq (d, H*hd), wk/wv (d, K*hd),
+    wo (H*hd, d); biases with ``qkv_bias``, per-head norms with
+    ``qk_norm``."""
+
+    def __init__(self, cfg, d_model: Optional[int] = None, *, device="cpu"):
+        super().__init__()
+        a = cfg.attention
+        d = d_model or cfg.d_model
+        dt = param_dtype(cfg)
+        qd, kvd = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+        for name, shape in (("wq", (d, qd)), ("wk", (d, kvd)), ("wv", (d, kvd)), ("wo", (qd, d))):
+            setattr(self, name, _param(torch.empty(shape, dtype=dt, device=device)))
+        if a.qkv_bias:
+            self.bq = _param(torch.zeros((qd,), dtype=dt, device=device))
+            self.bk = _param(torch.zeros((kvd,), dtype=dt, device=device))
+            self.bv = _param(torch.zeros((kvd,), dtype=dt, device=device))
+        if a.qk_norm:
+            self.q_norm = _param(torch.ones((a.head_dim,), dtype=F32, device=device))
+            self.k_norm = _param(torch.ones((a.head_dim,), dtype=F32, device=device))
+
+
+def init_gqa(generator: torch.Generator, cfg, d_model: Optional[int] = None) -> GQA:
+    p = GQA(cfg, d_model, device=generator.device)
+    with torch.no_grad():
+        for name in ("wq", "wk", "wv", "wo"):
+            w = getattr(p, name)
+            w.copy_(dense_init(generator, tuple(w.shape), dtype=w.dtype))
+    return p
+
+
+def gqa_project_qkv(p: GQA, cfg, x):
+    a = cfg.attention
+    B, S, _ = x.shape
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if a.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, a.num_heads, a.head_dim)
+    k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
+    v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_attend(p: GQA, cfg, x, positions, *, causal=True, rope=True,
+               kv_override=None, kv_positions=None, kv_valid=None):
+    """Full (training/prefill) attention.  ``kv_override``: (k, v) for
+    cross-attention."""
+    a = cfg.attention
+    q, k, v = gqa_project_qkv(p, cfg, x)
+    if kv_override is not None:
+        k, v = kv_override
+    if rope and kv_override is None:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    kv_pos = kv_positions if kv_positions is not None else positions
+    out = mha(q, k, v, causal=causal, q_positions=positions, kv_positions=kv_pos,
+              kv_valid=kv_valid, window=a.window if a.kind == "local" else 0)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, -1) @ p.wo
+
+
+def gqa_decode(p: GQA, cfg, x, cache_k, cache_v, pos: int, *, rope=True, window: int = 0):
+    """One-token decode against a preallocated KV cache.
+
+    x: (B, 1, d); cache_k/v: (B, T, K, hd); pos: the current length.  The
+    new K/V are written into the cache in place (the JAX package returns
+    updated copies from ``dynamic_update_slice``).  Returns
+    (out (B,1,d), cache_k, cache_v).
+    """
+    a = cfg.attention
+    B = x.shape[0]
+    q, k, v = gqa_project_qkv(p, cfg, x)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    T = cache_k.shape[1]
+    idx = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]
+    if window and T >= window:
+        # cache is sized exactly to the window -> ring buffer indexing
+        slot = pos % window
+        # in place, where the JAX package's dynamic_update_slice makes a copy
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
+        # ring buffer: slot i holds position pos-slot+i (i<=slot) else one
+        # window earlier
+        kv_positions = torch.where(idx <= slot, idx + (pos - slot), idx + (pos - slot) - T)
+        kv_positions = kv_positions.expand(B, T)
+        kv_valid = (kv_positions >= 0) & (kv_positions <= pos)
+    else:
+        # in place, where the JAX package's dynamic_update_slice makes a copy
+        cache_k[:, pos] = k[:, 0]
+        cache_v[:, pos] = v[:, 0]
+        kv_positions = idx.expand(B, T)
+        kv_valid = kv_positions <= pos
+    out = mha(q, cache_k, cache_v, causal=False, q_positions=positions,
+              kv_positions=kv_positions, kv_valid=kv_valid)
+    return out.reshape(B, 1, -1) @ p.wo, cache_k, cache_v
+
+
+# --------------------------------------------------------------- gated MLP
+class MLP(nn.Module):
+    """Gated MLP weights: wg, wi (d, f) and wo (f, d)."""
+
+    def __init__(self, cfg, d_ff: Optional[int] = None, d_model: Optional[int] = None, *,
+                 device="cpu"):
+        super().__init__()
+        d = d_model or cfg.d_model
+        f = d_ff or cfg.d_ff
+        dt = param_dtype(cfg)
+        self.wg = _param(torch.empty((d, f), dtype=dt, device=device))
+        self.wi = _param(torch.empty((d, f), dtype=dt, device=device))
+        self.wo = _param(torch.empty((f, d), dtype=dt, device=device))
+
+
+def init_mlp(generator: torch.Generator, cfg, d_ff: Optional[int] = None,
+             d_model: Optional[int] = None) -> MLP:
+    p = MLP(cfg, d_ff, d_model, device=generator.device)
+    with torch.no_grad():
+        for w in (p.wg, p.wi, p.wo):
+            w.copy_(dense_init(generator, tuple(w.shape), dtype=w.dtype))
+    return p
+
+
+def mlp_apply(p: MLP, cfg, x):
+    if cfg.act == "silu":
+        gate = nn.functional.silu(x @ p.wg)
+    else:  # jax.nn.gelu's default is the tanh approximation
+        gate = nn.functional.gelu(x @ p.wg, approximate="tanh")
+    return (gate * (x @ p.wi)) @ p.wo
+
+
+# ------------------------------------------------------------- embeddings
+class Embedding(nn.Module):
+    """Token embedding (V, d) and, unless tied, the output head (d, V)."""
+
+    def __init__(self, cfg, *, device="cpu"):
+        super().__init__()
+        dt = param_dtype(cfg)
+        self.embed = _param(torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt,
+                                              device=device))
+
+
+def init_embed(generator: torch.Generator, cfg) -> Embedding:
+    p = Embedding(cfg, device=generator.device)
+    with torch.no_grad():
+        p.embed.copy_(dense_init(generator, tuple(p.embed.shape), in_axis=-1,
+                                 dtype=p.embed.dtype))
+        if not cfg.tie_embeddings:
+            p.lm_head.copy_(dense_init(generator, tuple(p.lm_head.shape), dtype=p.lm_head.dtype))
+    return p
+
+
+def embed_tokens(p: Embedding, cfg, tokens):
+    x = p.embed[tokens]
+    if cfg.gemma_scaling:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def lm_logits(p: Embedding, cfg, x):
+    """(B, S, d) -> (B, S, V) f32 logits, f32 products of the stored
+    values (JAX's preferred_element_type=f32)."""
+    w = p.embed.T if cfg.tie_embeddings else p.lm_head
+    return x.to(F32) @ w.to(F32)

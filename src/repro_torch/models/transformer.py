@@ -1,0 +1,141 @@
+"""Dense decoder-only transformer (llama/qwen/deepseek-dense style).
+
+The family API of the JAX package's ``models/transformer.py``, serving half:
+
+    init(seed, cfg, device)              -> Transformer (an nn.Module)
+    forward(params, cfg, batch)          -> logits (B,S,V) fp32
+    init_cache(cfg, batch, max_len)      -> cache dict
+    prefill(params, cfg, batch)          -> (last_logits, cache)
+    decode_step(params, cfg, cache, tok) -> (logits, cache)
+
+The JAX package stacks the layers' params on a leading L dim and scans
+them; here they are an ``nn.ModuleList`` walked in a loop.  A cache is
+{"k", "v": (L, B, T, K, hd) tensors, "pos": int}; ``decode_step`` writes
+into its tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.util import resolve_device
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg, generator=None, *, device="cpu"):
+        super().__init__()
+        self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
+        drawn = generator is not None
+        self.attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
+        self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
+        self.mlp = L.init_mlp(generator, cfg) if drawn else L.MLP(cfg, device=device)
+
+
+class Transformer(nn.Module):
+    """The model's weights: ``embed`` (token embedding and head), ``layers``
+    and ``final_norm``.  Drawn from ``generator`` (on ``device``) when one
+    is given, else left empty for ``interop.transformer_params`` to fill."""
+
+    def __init__(self, cfg, generator=None, *, device="cpu"):
+        super().__init__()
+        self.embed = (L.init_embed(generator, cfg) if generator is not None
+                      else L.Embedding(cfg, device=device))
+        self.layers = nn.ModuleList(Layer(cfg, generator, device=device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
+
+
+def init(seed: int, cfg, device="cuda") -> Transformer:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    dev = resolve_device(device)
+    return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _layer_fwd(cfg, x, lp: Layer, positions):
+    h = L.apply_norm(cfg, x, lp.ln1)
+    x = x + L.gqa_attend(lp.attn, cfg, h, positions, causal=True)
+    h = L.apply_norm(cfg, x, lp.ln2)
+    return x + L.mlp_apply(lp.mlp, cfg, h)
+
+
+def backbone(params: Transformer, cfg, x, positions):
+    """x: (B,S,d) embeddings -> (B,S,d) final-normed activations."""
+    for lp in params.layers:
+        x = _layer_fwd(cfg, x, lp, positions)
+    return L.apply_norm(cfg, x, params.final_norm)
+
+
+@torch.no_grad()
+def forward(params: Transformer, cfg, batch):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_tokens(params.embed, cfg, tokens)
+    x = backbone(params, cfg, x, _positions(B, S, tokens.device))
+    return L.lm_logits(params.embed, cfg, x)
+
+
+# -------------------------------------------------------------- serving
+def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    a = cfg.attention
+    window = a.window if a.kind == "local" else 0
+    T = min(max_len, window) if window else max_len
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, T, a.num_kv_heads, a.head_dim)
+    dt = L.param_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+
+
+@torch.no_grad()
+def prefill(params: Transformer, cfg, batch):
+    """Processes the full prompt, returns logits at the last position and a
+    populated cache sized to the prompt (caller may re-pad)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = _positions(B, S, tokens.device)
+    x = L.embed_tokens(params.embed, cfg, tokens)
+    a = cfg.attention
+    window = a.window if a.kind == "local" else 0
+    ks, vs = [], []
+    for lp in params.layers:
+        hn = L.apply_norm(cfg, x, lp.ln1)
+        q, k, v = L.gqa_project_qkv(lp.attn, cfg, hn)
+        q = L.apply_rope(q, positions, a.rope_theta)
+        k = L.apply_rope(k, positions, a.rope_theta)
+        out = L.mha(q, k, v, causal=True, q_positions=positions, kv_positions=positions,
+                    window=window)
+        x = x + out.reshape(B, S, -1) @ lp.attn.wo
+        hn = L.apply_norm(cfg, x, lp.ln2)
+        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+        ks.append(k)
+        vs.append(v)
+    x = L.apply_norm(cfg, x, params.final_norm)
+    logits = L.lm_logits(params.embed, cfg, x[:, -1:, :])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, cfg, cache, tokens):
+    """tokens: (B,) int -> (logits (B,V) fp32, cache).  The new K/V go into
+    ``cache``'s tensors in place; the returned cache shares them, with
+    ``pos`` advanced by one."""
+    a = cfg.attention
+    x = L.embed_tokens(params.embed, cfg, tokens[:, None])
+    pos = cache["pos"]
+    window = a.window if a.kind == "local" else 0
+    for i, lp in enumerate(params.layers):
+        hn = L.apply_norm(cfg, x, lp.ln1)
+        out, _, _ = L.gqa_decode(lp.attn, cfg, hn, cache["k"][i], cache["v"][i], pos,
+                                 window=window)
+        x = x + out
+        hn = L.apply_norm(cfg, x, lp.ln2)
+        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+    x = L.apply_norm(cfg, x, params.final_norm)
+    logits = L.lm_logits(params.embed, cfg, x)
+    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -1,8 +1,9 @@
 """Card-only checks of the port (marker ``gpu``; they skip without a CUDA
-device): the CUDA ``cascade_score`` against its plain version over
-``chip_smoke.py``'s shapes and tolerances, its launch counter, and the main
-path on a short stream.  On the card: ``python -m pytest -m gpu
-tests/test_torch_gpu.py``."""
+device): the CUDA ``cascade_score`` and ``flash_attention`` against their
+plain versions over ``chip_smoke.py``'s shapes and tolerances, their launch
+counters, the optimize-and-execute path on a short stream, and the dense
+serving path at deepseek-67b's width with two layers and a short prompt.
+On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import sys
 from pathlib import Path
 
@@ -45,3 +46,28 @@ def test_main_path_short_stream(cuda):
     tiles = 3
     _plans, _stream, launches = chip_smoke.run_main_path(cuda, tiles * 8192 + 5)
     assert launches == (tiles + 1) * len(chip_smoke.QUERIES)
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.FLASH_CASES
+                                  if c[:6] != chip_smoke.SERVING_SHAPE])
+def test_flash_kernel_matches_plain_version(cuda, case):
+    chip_smoke.check_flash_case(case, cuda, seed=sum(case[:6]))
+
+
+def test_flash_launch_counter_and_no_fallback(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = chip_smoke.make_flash_case((1, 70, 70, 8, 2, 64, True, "bfloat16"), cuda, seed=0)
+    before = flash_attention.launches
+    flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    for bad in ((q.double(), k.double(), v.double()),  # a type the kernel does not take
+                (q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous())):
+        with pytest.raises(ValueError):
+            flash_attention(*bad, causal=True)
+    assert flash_attention.launches == before + 1
+
+
+def test_dense_path_short_prompt(cuda):
+    out = chip_smoke.run_dense_path(cuda, layers=2, batch=2, prompt=300, new_tokens=4)
+    assert out["launches"] == out["prefill_launches"] == 2

@@ -1,6 +1,7 @@
 """The port stands alone: it imports with ``jax``, ``ml_dtypes`` and the JAX
 package blocked, and its CUDA-default entry points raise on a host without
 a card instead of carrying on on the CPU."""
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -28,6 +29,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "repro"))
     assert not leaked, leaked
+    print(" ".join(names))
     print(len(names))
 """)
 
@@ -37,7 +39,10 @@ def test_port_imports_without_jax_or_repro():
                           text=True, cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
                                                     "PATH": "/usr/bin:/bin"}, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the package
+    assert int(proc.stdout.split()[-1]) >= 30  # every module of the package
+    for name in ("repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
+                 "repro_torch.configs.registry"):
+        assert name in proc.stdout
 
 
 def test_cuda_default_entry_points_raise_without_a_card():
@@ -48,6 +53,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.core.proxy import train_proxy
     from repro_torch.data.synthetic import make_dataset, make_query, make_udfs
     from repro_torch.kernels.ops import CascadeScorer
+    from repro_torch.configs import reduced_config
+    from repro_torch.interop import transformer_params
+    from repro_torch.kernels.flash_attention import _lib as flash_attention_lib
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_batch
     from repro_torch.training.proxy_models import train_linear_svm
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
@@ -57,7 +68,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     x = ds.x[:200].astype(np.float32)
     labels = udfs[0](x) == 0
     proxy = train_proxy(x, labels, 0, (), device="cpu")
+    cfg = reduced_config("deepseek-67b")
     calls = {
+        "transformer.init": lambda: transformer.init(0, cfg),
+        "transformer.init_cache": lambda: transformer.init_cache(cfg, 1, 8),
+        "make_batch": lambda: make_batch(cfg, 1, 8),
+        "transformer_params": lambda: transformer_params({}, cfg),
         "make_udfs": lambda: make_udfs(ds, hidden=8, depth=1, train_rows=200),
         "build_plan": lambda: build_plan(query, x),
         "ProxyBuilder": lambda: ProxyBuilder(query, x),
@@ -69,4 +85,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the kernel's route never lands on the plain version for a non-CPU tensor,
+    # and without the toolkit its build raises
+    q = torch.zeros(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        flash_attention(q, q, q)
+    if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            flash_attention_lib()
     assert isinstance(query, Query)
