@@ -34,6 +34,28 @@ Each phase prints one JSON line:
               ``scaled_dot_product_attention`` at the serving shape, beside
               the card's bound; and profiles of one prefill and one decode
               step.
+8. ssd_kernels — the CUDA ``ssd_chunk`` against its plain PyTorch version
+              on the card, each output by a limit relative to its largest
+              plain value (``chunk_decay`` element by element): the JAX
+              package's test shapes, G = 2 < H, Q = 256 with realistic,
+              near-zero and JAX-init log-decays, and the serving shape
+              (mamba2-2.7b, 4 x 4,096 tokens) in f32 and bf16; and a planted
+              fault (``chunk_decay`` forced to 0) that the check must reject.
+9. ssm_path — the SSM family's serving path at mamba2-2.7b's full width and
+              depth (64 layers, d_model 2560, 80 heads of 64, d_state 128,
+              vocab 50288), bf16, seeded random weights with Mamba-2's
+              published A_log / dt_bias ranges: prefill of 4 requests of
+              4,096 tokens, then 32 greedy ``decode_step``s each (64 kernel
+              launches in the prefill, none in decode); each layer's
+              ``ops.ssd`` output and final state held against the plain
+              route on the layer's own inputs, a planted fault in one layer
+              caught there, and the logits against ``forward`` with the
+              plain version in the kernel's place, one request at a time:
+              held in f32 at 64 layers and in bf16 at the first 4, reported
+              in bf16 at 64 (``SSM_LOGIT_LAYERS``).
+10. ssd_timing — CUDA-event times of the kernel and its plain version at the
+              serving shape, beside the card's bound; and profiles of one
+              SSM prefill and one decode step.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -42,10 +64,14 @@ Weights are random (seeded); nothing is read from disk but the sources.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -126,6 +152,52 @@ FLASH_CASES = tuple(
 DENSE = dict(arch="deepseek-67b", layers=4, batch=4, prompt=4096, new_tokens=32)
 PREFILL_TOL = 5e-2
 DECODE_TOL = 8e-2
+# The SSM serving path (phases 8-10) at mamba2-2.7b's full width and depth,
+# and the shape its prefill gives ``ssd_chunk`` in every layer:
+# (nc, Q, H, G, P, N) = (4 x 4096 / 256 chunks, 256, 80, 1, 64, 128).
+SSM = dict(arch="mamba2-2.7b", layers=64, batch=4, prompt=4096, new_tokens=32)
+SSD_SERVING = (64, 256, 80, 1, 64, 128)
+# ssd_chunk kernel vs its plain version, y_diag and states: the largest
+# difference over the tensor's largest plain value.  Both widen to f32 and sum
+# in f32 in other orders; 1e-4 is the JAX package's kernel test tolerance
+# (tests/test_kernels.py:81), taken relative to the largest value because at
+# Q = 256 single elements where large terms cancel miss it element by element
+# (tests/test_torch_ssd.py::test_ssd_chunk_at_q256).  The same for bf16
+# inputs: both versions widen the same bf16 values.
+SSD_TOL = 1e-4
+# chunk_decay = exp(cum[-1]), element by element: relative error up to
+# DECAY_TOL (the JAX test's 1e-5) plus the f32 summation bound of the two
+# cumsums, 2 (Q - 1) 2^-24 sum|dA| (the kernel sums in sequence, a CUDA
+# torch.cumsum in a scan; exp turns the exponent's absolute error into a
+# relative one); below f32's smallest normal, absolutely.
+DECAY_TOL = 1e-5
+# Per layer of the SSM prefill, the kernel route of ``ops.ssd`` against its
+# plain route: y is bf16, so two bf16 steps of its largest value (the f32
+# results differ by far less, and each rounds to one step); the final state is
+# f32, held like ``states``.
+SSM_Y_TOL = 2.0 ** -6
+SSM_STATE_TOL = SSD_TOL
+# The logits against forward at PREFILL_TOL / DECODE_TOL hold in bf16 at the
+# depth the JAX package sets those bounds for (its reduced configs: 4
+# layers); at 64 layers bf16 rounding alone moves them by more (two plain
+# routes that round at other places differ by 0.15), so there they are held
+# in f32 and reported in bf16.
+SSM_LOGIT_LAYERS = 4
+# (nc, Q, H, G, P, N, dA, dtype); dA: how the log-decay is drawn (ssd_inputs)
+SSD_CASES = (
+    # the JAX package's test shapes (tests/test_kernels.py:75)
+    (2, 16, 4, 4, 8, 16, "jax_test", "float32"), (4, 64, 2, 2, 16, 32, "jax_test", "float32"),
+    # G = 2 < H, and chunks that are not a multiple of the 64-row tile
+    (3, 128, 8, 2, 64, 128, "published", "float32"),
+    (3, 128, 8, 2, 64, 128, "published", "bfloat16"),
+    (5, 80, 6, 3, 8, 16, "jax_test", "float32"), (2, 208, 4, 1, 32, 64, "published", "float32"),
+    # Q = 256 with realistic, near-zero and JAX-init (chunk_decay 0) log-decays
+    (8, 256, 16, 1, 64, 128, "published", "float32"),
+    (8, 256, 16, 1, 64, 128, "near_zero", "float32"),
+    (8, 256, 16, 1, 64, 128, "jax_init", "float32"),
+    # the serving shape
+    (*SSD_SERVING, "published", "float32"), (*SSD_SERVING, "published", "bfloat16"),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -651,6 +723,376 @@ def profile_serving(dense: dict, dev) -> None:
     emit("decode_profile", **prof)
 
 
+# ------------------------------------------------------------- phase 8
+def published_dynamics(num_layers: int, heads: int, seed: int):
+    """(A_log, dt_bias), each (num_layers, heads) float32 numpy, drawn from
+    Mamba-2's published init ranges (arXiv:2405.21060; mamba_ssm's
+    A_init_range (1, 16), dt_min 1e-3, dt_max 1e-1): A = U[1, 16], dt
+    log-uniform in [1e-3, 1e-1], dt_bias = softplus^-1(dt).  The JAX
+    package's init (A_log 0, dt_bias 0) gives a 256-step chunk a log-decay
+    near -200, whose exp is exactly 0 in f32: no state crosses a chunk."""
+    rng = np.random.RandomState(seed)
+    A_log = np.log(rng.uniform(1.0, 16.0, (num_layers, heads)))
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (num_layers, heads)))
+    dt_bias = dt + np.log(-np.expm1(-dt))
+    return A_log.astype(np.float32), dt_bias.astype(np.float32)
+
+
+def ssd_inputs(case, dev, seed):
+    """x, dA, B, C of one ``SSD_CASES`` entry on ``dev``.  dA per head and
+    step: "jax_test" -|N(0,1)| 0.1 (the JAX test's); "published" -A dt with
+    (A, dt) per head from ``published_dynamics`` and dt moved per step as a
+    projection moves it, softplus(N(0,1) + dt_bias); "near_zero"
+    -|N(0,1)| 1e-4; "jax_init" -softplus(N(0,1)) (A_log 0, dt_bias 0)."""
+    nc, Q, H, G, P, N, kind, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    x, B, C = randn(nc, Q, H, P), randn(nc, Q, G, N), randn(nc, Q, G, N)
+    z = randn(nc, Q, H)
+    if kind == "jax_test":
+        dA = -z.abs() * 0.1
+    elif kind == "near_zero":
+        dA = -z.abs() * 1e-4
+    elif kind == "jax_init":
+        dA = -torch.nn.functional.softplus(z)
+    else:
+        A_log, dt_bias = (torch.from_numpy(a[0]).to(dev) for a in published_dynamics(1, H, seed))
+        dA = -torch.exp(A_log) * torch.nn.functional.softplus(z + dt_bias)
+    dt = getattr(torch, dtype)
+    return x.to(dt), dA.contiguous(), B.to(dt), C.to(dt)
+
+
+def ssd_errors(out, ref, dA) -> dict:
+    """Kernel outputs against plain ones: y_diag's and states' largest
+    absolute difference and that over the tensor's largest plain value;
+    chunk_decay's largest relative difference, and whether every element
+    lies within DECAY_TOL plus the cumsum bound (below f32's smallest normal
+    absolutely)."""
+    tiny = torch.finfo(torch.float32).tiny
+    errs = {}
+    for name, a, b in (("y_diag", out[0], ref[0]), ("states", out[1], ref[1])):
+        diff = float((a - b).abs().max())
+        errs[name] = diff
+        errs[f"{name}_rel"] = diff / max(float(b.abs().max()), tiny)
+    Q = dA.shape[1]
+    depth = dA.abs().sum(dim=1)  # (nc, H): sum |dA| over each chunk
+    limit = DECAY_TOL + 2 * (Q - 1) * 2.0 ** -24 * depth
+    dk, dp = out[2], ref[2]
+    diff = (dk - dp).abs()
+    errs["chunk_decay_rel"] = float((diff / dp.abs().clamp_min(tiny)).max())
+    errs["chunk_decay_limit_max"] = float(limit.max())
+    errs["chunk_decay_ok"] = bool((diff <= limit * dp.abs() + tiny).all())
+    errs["chunk_decay_min"] = float(dp.min())
+    return errs
+
+
+def check_ssd_output(what: str, out, ref, dA) -> dict:
+    """``out`` within SSD_TOL (y_diag, states) and the chunk_decay limit of
+    ``ref``; returns ``ssd_errors``."""
+    for a, b in zip(out, ref):
+        check(a.shape == b.shape and a.dtype == b.dtype == torch.float32, f"{what}: bad output")
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite output")
+    errs = ssd_errors(out, ref, dA)
+    for name in ("y_diag", "states"):
+        check(errs[f"{name}_rel"] <= SSD_TOL, f"{what}: {name} differs from its plain version by "
+              f"{errs[f'{name}_rel']} of its largest value (tol {SSD_TOL})")
+    check(errs["chunk_decay_ok"], f"{what}: chunk_decay differs from its plain version by "
+          f"{errs['chunk_decay_rel']} relative (limit up to {errs['chunk_decay_limit_max']})")
+    return errs
+
+
+def check_ssd_case(case, dev, seed=0) -> dict:
+    """Kernel vs plain version on the card; returns ``ssd_errors``."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+
+    x, dA, B, C = ssd_inputs(case, dev, seed)
+    out = ssd_chunk(x, dA, B, C)
+    ref = ssd_chunk_plain(x, dA, B, C)
+    sync(dev)
+    return check_ssd_output(str(case), out, ref, dA)
+
+
+def ssd_planted_fault(dev) -> dict:
+    """The serving-shape bf16 check against kernel outputs with chunk_decay
+    forced to 0 (what a kernel that never wrote it, or underflowed it,
+    returns).  The chunk_decay check must reject it."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+
+    x, dA, B, C = ssd_inputs((*SSD_SERVING, "published", "bfloat16"), dev, seed=0)
+    y, st, dec = ssd_chunk(x, dA, B, C)
+    errs = ssd_errors((y, st, torch.zeros_like(dec)), ssd_chunk_plain(x, dA, B, C), dA)
+    check(not errs["chunk_decay_ok"], "chunk_decay forced to 0 passes the check")
+    return dict(chunk_decay_rel=errs["chunk_decay_rel"], caught=not errs["chunk_decay_ok"])
+
+
+# ------------------------------------------------------------- phase 9
+def set_published_dynamics(model, cfg, seed: int) -> None:
+    A_log, dt_bias = published_dynamics(cfg.num_layers, cfg.ssm_heads, seed)
+    with torch.no_grad():
+        for i, lp in enumerate(model.layers):
+            lp.A_log.copy_(torch.from_numpy(A_log[i]))
+            lp.dt_bias.copy_(torch.from_numpy(dt_bias[i]))
+
+
+def ssd_route_errors(got, ref) -> tuple:
+    """(y's and the final state's largest difference over their largest
+    plain value) of one ``ops.ssd`` call."""
+    tiny = torch.finfo(torch.float32).tiny
+    return tuple(float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), tiny)
+                 for a, b in zip(got, ref))
+
+
+def check_ssm_layers(model, cfg, tokens, fault_layer: int) -> dict:
+    """One more prefill with a pass-through around ``ops.ssd``: each layer's
+    kernel-route output and final state against the plain route on the
+    layer's own inputs (SSM_Y_TOL, SSM_STATE_TOL), and, at
+    ``fault_layer``, the kernel's outputs with chunk_decay forced to 0,
+    which the same check must reject."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    from repro_torch.models import ssm as ssm_model
+
+    errs, fault = [], {}
+    ssd = ops.ssd
+
+    def faulty(*args):
+        y, st, dec = ssd_chunk(*args)
+        return y, st, torch.zeros_like(dec)
+
+    def checked(*args):
+        got = ssd(*args)
+        with mock.patch.object(ops, "ssd_chunk", ssd_chunk_plain):
+            ref = ssd(*args)
+        errs.append(ssd_route_errors(got, ref))
+        if len(errs) - 1 == fault_layer:
+            with mock.patch.object(ops, "ssd_chunk", faulty):
+                fault["y_rel"], fault["state_rel"] = ssd_route_errors(ssd(*args), ref)
+        return got
+
+    with mock.patch.object(ssm_model.ops, "ssd", checked):
+        ssm_model.prefill(model, cfg, {"tokens": tokens})
+    check(len(errs) == cfg.num_layers, f"{len(errs)} layers of the prefill reached ops.ssd")
+    for i, (y_rel, st_rel) in enumerate(errs):
+        check(y_rel <= SSM_Y_TOL, f"layer {i}: ssd output differs from the plain route by "
+              f"{y_rel} of its largest value (tol {SSM_Y_TOL})")
+        check(st_rel <= SSM_STATE_TOL, f"layer {i}: final state differs from the plain route "
+              f"by {st_rel} of its largest value (tol {SSM_STATE_TOL})")
+    caught = fault["y_rel"] > SSM_Y_TOL or fault["state_rel"] > SSM_STATE_TOL
+    check(caught, f"layer {fault_layer}: chunk_decay forced to 0 passes the layer check ({fault})")
+    return dict(layer_max_y_rel=max(e[0] for e in errs),
+                layer_max_state_rel=max(e[1] for e in errs),
+                planted_fault=dict(layer=fault_layer, **fault, caught=caught))
+
+
+def serve_greedy(fam, params, cfg, tokens, new_tokens: int) -> dict:
+    """Prefill ``tokens`` and decode ``new_tokens`` greedy tokens through the
+    family API.  Returns the logits (B, new_tokens + 1, V) for positions
+    prompt-1 ..., the sequence with the decoded tokens, the final cache, and
+    the kernel launches and host-clock seconds of each half."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    dev = tokens.device
+    before = ssd_chunk.launches
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = fam.prefill(params, cfg, {"tokens": tokens})
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ssd_chunk.launches - before
+    steps, fed = [logits], []
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        fed.append(steps[-1].argmax(dim=-1))
+        lg, cache = fam.decode_step(params, cfg, cache, fed[-1])
+        steps.append(lg)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    got = torch.stack(steps, dim=1)
+    check(bool(torch.isfinite(got).all()), "non-finite serving logits")
+    return dict(logits=got, seq=torch.cat([tokens, torch.stack(fed, dim=1)], dim=1),
+                cache=cache, prefill_s=prefill_s, decode_s=decode_s,
+                prefill_launches=prefill_launches,
+                decode_launches=ssd_chunk.launches - before - prefill_launches)
+
+
+def logits_vs_forward(fam, params, cfg, served: dict, prompt: int, gate: bool) -> dict:
+    """The served logits against ``forward`` with the kernel's plain version
+    in its place, one request at a time: the prefill row against forward
+    over the prompt at the model's chunk, the decode rows against forward
+    over prompt + new tokens at the largest chunk that divides that length
+    (the SSD decomposition gives the same function for any chunk length;
+    tests/test_torch_ssd.py).  With ``gate``, fails unless they are within
+    PREFILL_TOL and DECODE_TOL (allclose)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_chunk_plain
+
+    got, seq = served["logits"], served["seq"]
+    short = math.gcd(seq.shape[1], cfg.ssm.chunk)
+    ref_cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=short))
+    prefill_err = decode_err = 0.0
+    ok = True
+    with mock.patch.object(ops, "ssd_chunk", ssd_chunk_plain):
+        for r in range(got.shape[0]):
+            ref_p = fam.forward(params, cfg, {"tokens": seq[r:r + 1, :prompt]})[0, -1]
+            ref_d = fam.forward(params, ref_cfg, {"tokens": seq[r:r + 1]})[0, prompt:]
+            check(bool(torch.isfinite(ref_p).all() and torch.isfinite(ref_d).all()),
+                  f"request {r}: non-finite reference")
+            prefill_err = max(prefill_err, float((got[r, 0] - ref_p).abs().max()))
+            decode_err = max(decode_err, float((got[r, 1:] - ref_d).abs().max()))
+            ok &= bool(torch.allclose(got[r, 0], ref_p, rtol=PREFILL_TOL, atol=PREFILL_TOL))
+            ok &= bool(torch.allclose(got[r, 1:], ref_d, rtol=DECODE_TOL, atol=DECODE_TOL))
+            if gate:
+                check(ok, f"{cfg.num_layers} layers, {cfg.dtype}, request {r}: logits differ "
+                      f"from forward by {prefill_err} (prefill) / {decode_err} (decode)")
+    return dict(layers=len(params.layers), dtype=cfg.dtype, prefill_max_abs_err=prefill_err,
+                decode_max_abs_err=decode_err, within_tol=ok, gated=gate,
+                decode_reference_chunk=short)
+
+
+def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> dict:
+    """Prefill ``batch`` requests of ``prompt`` tokens through the port's
+    family API and decode ``new_tokens`` greedy tokens each (the counted
+    run: ``launches``); then hold every layer's ``ops.ssd`` against its
+    plain route (with a planted fault), and the logits against ``forward``
+    with the plain version in the kernel's place (``logits_vs_forward``):
+    at PREFILL_TOL / DECODE_TOL for the model run in f32 at full depth and
+    for its first SSM_LOGIT_LAYERS layers in bf16, and reported for the
+    bf16 run at full depth, where rounding alone moves the logits by more
+    (PERF.md, section 6).  Returns the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels import proxy_score
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.registry import get_family, make_batch
+
+    cfg = get_config(SSM["arch"]).replace(num_layers=layers)
+    fam = get_family(cfg)
+    t0 = time.perf_counter()
+    model = fam.init(0, cfg, device=dev)
+    set_published_dynamics(model, cfg, seed=0)
+    tokens = make_batch(cfg, batch, prompt, seed=0, device=dev)["tokens"]
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    counters = (ssd_chunk, flash_module.flash_attention, proxy_score.cascade_score)
+    for fn in counters:
+        fn.launches = 0
+    served = serve_greedy(fam, model, cfg, tokens, new_tokens)
+    launches = ssd_chunk.launches
+    others = [fn.launches for fn in counters[1:]]
+    check(served["prefill_launches"] == cfg.num_layers,
+          f"prefill launched the kernel {served['prefill_launches']} times for "
+          f"{cfg.num_layers} layers")
+    check(served["decode_launches"] == 0,
+          f"decode launched the kernel {served['decode_launches']} times; it takes the "
+          "recurrent step")
+    check(others == [0, 0], f"the SSM path launched other kernels: {others}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    check(served.pop("cache")["pos"] == prompt + new_tokens, "cache position")
+    got = served["logits"]
+    check(got.shape == (batch, new_tokens + 1, cfg.vocab_size), f"logits {tuple(got.shape)}")
+
+    layer_check = check_ssm_layers(model, cfg, tokens, fault_layer=layers // 2)
+    t0 = time.perf_counter()
+    full_bf16 = logits_vs_forward(fam, model, cfg, served, prompt, gate=False)
+    n_short = min(SSM_LOGIT_LAYERS, layers)
+    shallow = types.SimpleNamespace(embed=model.embed, layers=model.layers[:n_short],
+                                    final_norm=model.final_norm)
+    cfg_short = cfg.replace(num_layers=n_short)
+    short_bf16 = logits_vs_forward(fam, shallow, cfg_short,
+                                   serve_greedy(fam, shallow, cfg_short, tokens, new_tokens),
+                                   prompt, gate=True)
+    model32, cfg32 = copy.deepcopy(model).float(), cfg.replace(dtype="float32")
+    full_f32 = logits_vs_forward(fam, model32, cfg32,
+                                 serve_greedy(fam, model32, cfg32, tokens, new_tokens),
+                                 prompt, gate=True)
+    del model32
+    reference_s = time.perf_counter() - t0
+    s = cfg.ssm
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               d_inner=cfg.d_inner, heads=cfg.ssm_heads, head_dim=s.head_dim,
+               d_state=s.d_state, ngroups=s.ngroups, chunk=s.chunk, vocab=cfg.vocab_size,
+               dtype=cfg.dtype, params=n_params, requests=batch, prompt_tokens=prompt,
+               new_tokens=new_tokens, launches=launches,
+               prefill_launches=served["prefill_launches"], init_s=init_s,
+               prefill_s=served["prefill_s"],
+               prefill_tokens_per_s=batch * prompt / served["prefill_s"],
+               decode_s=served["decode_s"],
+               decode_ms_per_step=served["decode_s"] / new_tokens * 1e3,
+               decode_tokens_per_s=batch * new_tokens / served["decode_s"], **layer_check,
+               layer_y_tol=SSM_Y_TOL, layer_state_tol=SSM_STATE_TOL,
+               prefill_tol=PREFILL_TOL, decode_tol=DECODE_TOL,
+               logits_vs_forward=[full_bf16, short_bf16, full_f32],
+               logits_max_abs=float(got.abs().max()), reference_s=reference_s,
+               peak_memory_gib=peak)
+    emit("ssm_path", **out)
+    out["model"], out["cfg"], out["tokens"] = model, cfg, tokens
+    return out
+
+
+# ------------------------------------------------------------- phase 10
+def ssd_bound(nc, Q, H, G, P, N, dtype):
+    """Least time for the function on these inputs: x, B, C and dA read once
+    and y_diag, states, chunk_decay written once over HBM; its multiply-adds
+    over the peak for the input type (bf16 tensor cores, or IEEE f32 CUDA
+    cores): C B^T over N once per chunk and group for the causal pairs, the
+    scores times x over P per head, and the states over Q per head."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * (nc * Q * H * P + 2 * nc * Q * G * N) + 4 * (
+        nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * nc * (G * pairs * N + H * pairs * P + H * Q * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def time_ssd(dev, dtype: str, iters: int) -> dict:
+    """Kernel and plain version at the serving shape, in turns (plain,
+    kernel, kernel, plain).  No single PyTorch call computes the function,
+    so there is no library time."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+
+    case = (*SSD_SERVING, "published", dtype)
+    x, dA, B, C = ssd_inputs(case, dev, seed=7)
+    errs = ssd_errors(ssd_chunk(x, dA, B, C), ssd_chunk_plain(x, dA, B, C), dA)
+    plain_a = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=1)
+    kern_a = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=2)
+    kern_b = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=0)
+    plain_b = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=0)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(*SSD_SERVING, dtype)
+    ms = min(kern_a, kern_b)
+    row = dict(shape=list(SSD_SERVING), dtype=dtype, ms=ms, ms_runs=[kern_a, kern_b],
+               plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
+               share_of_bound=bound_ms / ms, max_abs_err=max(errs["y_diag"], errs["states"]))
+    emit("ssd_timing", **row)
+    return row
+
+
+def profile_ssm(ssm: dict, dev) -> None:
+    """Device time by kernel over one more SSM prefill of the serving batch
+    and over one decode step after it."""
+    from repro_torch.models.registry import get_family
+
+    cfg, model, tokens = ssm["cfg"], ssm["model"], ssm["tokens"]
+    fam = get_family(cfg)
+    prof = device_profile(lambda: fam.prefill(model, cfg, {"tokens": tokens}), dev)
+    emit("ssm_prefill_profile", **prof)
+    logits, cache = fam.prefill(model, cfg, {"tokens": tokens})
+    prof = device_profile(lambda: fam.decode_step(model, cfg, cache, logits.argmax(-1)), dev)
+    emit("ssm_decode_profile", **prof)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
@@ -661,7 +1103,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention, proxy_score
+    from repro_torch.kernels import flash_attention, proxy_score, ssd_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -672,9 +1114,10 @@ def main(argv=None) -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["cascade_score", "flash_attention"])
+    libs = _build.build_all(["cascade_score", "flash_attention", "ssd_chunk"])
     proxy_score._lib()
     flash_attention._lib()
+    ssd_scan._lib()
     for lib_path in libs.values():
         log = lib_path.with_suffix(".log").read_text().splitlines()
         emit("build", seconds=time.perf_counter() - t0, library=lib_path.name,
@@ -714,6 +1157,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash_rows = {dt: time_flash(dev, dt, iters=3) for dt in ("bfloat16", "float32")}
     flash_row = flash_rows["bfloat16"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ssd_errs = [check_ssd_case(case, dev, seed=i) for i, case in enumerate(SSD_CASES)]
+    ssd_fault = ssd_planted_fault(dev)
+    emit("ssd_kernels", cases=len(SSD_CASES), seconds=time.perf_counter() - t0,
+         max_y_diag_rel={dt: max(e["y_diag_rel"] for c, e in zip(SSD_CASES, ssd_errs)
+                                 if c[7] == dt) for dt in ("float32", "bfloat16")},
+         max_states_rel={dt: max(e["states_rel"] for c, e in zip(SSD_CASES, ssd_errs)
+                                 if c[7] == dt) for dt in ("float32", "bfloat16")},
+         max_chunk_decay_rel=max(e["chunk_decay_rel"] for e in ssd_errs), tol=SSD_TOL,
+         decay_tol=DECAY_TOL, planted_fault=ssd_fault,
+         cases_detail=[dict(case=list(c), **e) for c, e in zip(SSD_CASES, ssd_errs)])
+    torch.cuda.empty_cache()
+
+    ssm = run_ssm_path(dev, SSM["layers"], SSM["batch"], SSM["prompt"], SSM["new_tokens"])
+    profile_ssm(ssm, dev)
+    del ssm["model"], ssm["tokens"]
+    torch.cuda.empty_cache()
+    ssd_rows = {dt: time_ssd(dev, dt, iters=10) for dt in ("bfloat16", "float32")}
+    ssd_row = ssd_rows["bfloat16"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
@@ -730,7 +1194,16 @@ def main(argv=None) -> int:
         "max_abs_err": max([e for e, _ in flash_errs] + [dense["attention_max_abs_err"]]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
-        "library_ms": flash_row["library_ms"]}]}), flush=True)
+        "library_ms": flash_row["library_ms"]}, {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "launches": ssm["launches"],
+        "max_abs_err": max([max(e["y_diag"], e["states"]) for e in ssd_errs]
+                           + [ssd_row["max_abs_err"]]),
+        "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
+        "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

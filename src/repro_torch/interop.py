@@ -18,6 +18,7 @@ from repro_torch.training.proxy_models import LinearParams, MLPParams, PackedPro
 from repro_torch.util import resolve_device
 
 if TYPE_CHECKING:
+    from repro_torch.models.ssm import Mamba2
     from repro_torch.models.transformer import Transformer
 
 
@@ -101,14 +102,11 @@ def _tensor_as_is(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def transformer_params(ref_params, cfg, device="cuda") -> Transformer:
-    """The JAX package's dense-transformer params (its nested dict, layers
-    stacked on a leading L dim) as this package's ``Transformer`` on
-    ``device``: the L dim unstacked, every array in its own type."""
-    from repro_torch.models.transformer import Transformer
-
-    dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+def _load_stacked(model: torch.nn.Module, ref_params, dev: torch.device):
+    """Copy the JAX package's nested params dict (layers stacked on a
+    leading L dim) into ``model`` by parameter name: ``layers.<i>.<path>``
+    reads ``ref_params["layers"][<path>][i]``, any other name its last
+    part at the top level.  Every array keeps its own type."""
     layers = ref_params["layers"]
     with torch.no_grad():
         for name, param in model.named_parameters():
@@ -126,3 +124,21 @@ def transformer_params(ref_params, cfg, device="cuda") -> Transformer:
                                  f"model {tuple(param.shape)} {param.dtype}")
             param.copy_(t)
     return model
+
+
+def transformer_params(ref_params, cfg, device="cuda") -> Transformer:
+    """The JAX package's dense-transformer params as this package's
+    ``Transformer`` on ``device``."""
+    from repro_torch.models.transformer import Transformer
+
+    dev = resolve_device(device)
+    return _load_stacked(Transformer(cfg, device=dev), ref_params, dev)
+
+
+def ssm_params(ref_params, cfg, device="cuda") -> Mamba2:
+    """The JAX package's Mamba-2 params as this package's ``Mamba2`` on
+    ``device``."""
+    from repro_torch.models.ssm import Mamba2
+
+    dev = resolve_device(device)
+    return _load_stacked(Mamba2(cfg, device=dev), ref_params, dev)

@@ -1,5 +1,6 @@
-"""Host-side scoring around the ``cascade_score`` kernel, and ``attention``
-over the ``flash_attention`` kernel.
+"""Host-side scoring around the ``cascade_score`` kernel, ``attention``
+over the ``flash_attention`` kernel, and the full SSD (``ssd``) over the
+``ssd_chunk`` kernel.
 
 ``CascadeScorer`` packs a plan's proxies once, keeps the operands on its
 device, and scores numpy record tiles through ``cascade_score``: one launch
@@ -22,6 +23,7 @@ from repro_torch.core.proxy_family import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.proxy_score import cascade_score
+from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.training.proxy_models import PackedProxy
 from repro_torch.util import resolve_device
 
@@ -282,3 +284,42 @@ def attention(q, k, v, *, causal=True):
     """Blockwise GQA attention through ``flash_attention``: the kernel on a
     CUDA tensor, its plain version on a CPU one."""
     return flash_attention(q, k, v, causal=causal)
+
+
+# ------------------------------------------------------------------- SSD
+def ssd(x, dt, A_log, B, C, D, chunk: int):
+    """Full SSD forward: the ``ssd_chunk`` kernel for the intra-chunk block,
+    then the inter-chunk recurrence and its output term in PyTorch.
+
+    x: (b, s, h, p); dt: (b, s, h) softplus'd timesteps; A_log, D: (h,);
+    B, C: (b, s, g, n), h % g == 0 (groups are indexed, never repeated).
+    ``s`` must be a multiple of ``chunk``.  Returns (y (b, s, h, p) in x's
+    type, final state (b, h, p, n) float32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    nc, rep = s // chunk, h // g
+    f32 = torch.float32
+    A = -torch.exp(A_log.to(f32))
+    dA = dt.to(f32) * A[None, None, :]  # (b, s, h)
+    xdt = x * dt[..., None].to(x.dtype)
+    y_diag, states, chunk_decay = ssd_chunk(
+        xdt.reshape(b * nc, chunk, h, p), dA.reshape(b * nc, chunk, h),
+        B.reshape(b * nc, chunk, g, n), C.reshape(b * nc, chunk, g, n))
+    # inter-chunk recurrence over the nc chunks, in f32 (the JAX package's
+    # lax.scan): prev[:, c] is the state entering chunk c
+    states = states.view(b, nc, h, p, n)
+    chunk_decay = chunk_decay.view(b, nc, h)
+    prev = torch.empty_like(states)
+    carry = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    for c in range(nc):
+        prev[:, c] = carry
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    cum = torch.cumsum(dA.view(b, nc, chunk, h), dim=2)  # (b, nc, Q, h)
+    y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", C.to(f32).reshape(b, nc, chunk, g, n),
+                         prev.view(b, nc, g, rep, p, n)).reshape(b, nc, chunk, h, p)
+    y_off = y_off * torch.exp(cum)[..., None]
+    y = (y_diag.view(b, nc, chunk, h, p) + y_off).reshape(b, s, h, p)
+    y = y + x.to(f32) * D.to(f32)[None, None, :, None]
+    return y.to(x.dtype), carry

@@ -42,3 +42,29 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale: float | None = N
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return o.reshape(B, Sq, H, D)
+
+
+def ssd_chunk_ref(x, dA, B, C):
+    """Per-chunk SSD terms (the kernel computes these for every chunk):
+
+    x: (nc, Q, H, P) inputs (pre-multiplied by dt)
+    dA: (nc, Q, H) per-step log-decay (dt * A, negative)
+    B, C: (nc, Q, H, N) input/output projections (groups pre-broadcast)
+
+    Returns:
+      y_diag: (nc, Q, H, P) intra-chunk output
+      states: (nc, H, P, N) per-chunk end state contribution
+      chunk_decay: (nc, H) exp(sum dA) per chunk
+    """
+    f32 = torch.float32
+    dAc = torch.movedim(dA.to(f32), -1, 1)  # (nc, H, Q)
+    cum = torch.cumsum(dAc, dim=-1)  # (nc, H, Q)
+    Q = x.shape[1]
+    seg = cum[..., :, None] - cum[..., None, :]  # (nc, H, Q, Q)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.where(mask, torch.exp(seg), torch.zeros((), dtype=f32, device=x.device))
+    scores = torch.einsum("cqhn,cshn->chqs", C.to(f32), B.to(f32))
+    y_diag = torch.einsum("chqs,chqs,cshp->cqhp", scores, L, x.to(f32))
+    decay_states = torch.exp(cum[..., -1:] - cum)  # (nc, H, Q)
+    states = torch.einsum("cqhn,chq,cqhp->chpn", B.to(f32), decay_states, x.to(f32))
+    return y_diag, states, torch.exp(cum[..., -1])

@@ -1,0 +1,153 @@
+"""Mamba-2 SSD intra-chunk block: the ``ssd_chunk`` kernel wrapper.
+
+The SSM family's prefill and forward send every layer's chunked SSD here
+through ``kernels/ops.py::ssd``.  Per chunk c and head h, with head h
+reading group h // (H // G) of B and C:
+
+    cum         = cumsum(dA)                         (Q,)   f32
+    L[i, j]     = exp(cum[i] - cum[j]) for j <= i, else 0
+    y_diag      = ((C B^T) * L) @ x                  (Q, P)
+    states      = (x * exp(cum[-1] - cum))^T @ B     (P, N)
+    chunk_decay = exp(cum[-1])
+
+with x, B, C widened to f32 and every sum in f32.  ``ssd_chunk`` takes its
+route from the tensors' device: a CUDA tensor launches the hand-written
+kernel in ``csrc/ssd_chunk.cu`` (or raises), a CPU tensor runs
+``ssd_chunk_plain``, the same function in plain PyTorch.
+``ssd_chunk.launches`` counts the CUDA launches.
+
+Both take cum in the cumsum-difference form of the JAX package's kernel
+and reference, so they round alike; L is selected to 0 above the diagonal
+before anything multiplies it (exp overflows there).  The kernel sums the
+cumsum in sequence, as the CPU does; a CUDA ``torch.cumsum`` sums in
+another order, so on the card the two agree to the f32 rounding of
+|cum|, not bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_Q, MAX_P, MAX_N = 256, 64, 128
+Q_STEP = 16  # chunk lengths are multiples of this
+MAX_BLOCKS = 2**31 - 1  # the kernel's grid puts chunks * heads on its x axis
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(_build.build("ssd_chunk")))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_chunk_launch.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i, vp]
+        lib.ssd_chunk_launch.restype = i
+        lib.ssd_chunk_error_string.argtypes = [i]
+        lib.ssd_chunk_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _token_stride(t: torch.Tensor, name: str) -> int:
+    """Elements between consecutive tokens of a (nc, Q, K, D) operand whose
+    (K, D) rows are packed and whose tokens are evenly spaced (a slice of
+    a wider projection qualifies); raises on any other layout."""
+    nc, Q, K, D = t.shape
+    packed = (D == 1 or t.stride(3) == 1) and (K == 1 or t.stride(2) == D)
+    even = nc == 1 or t.stride(0) == Q * t.stride(1)
+    if not (packed and even and t.stride(1) >= K * D):
+        raise ValueError(f"{name}: layout {tuple(t.stride())} for shape {tuple(t.shape)} is not "
+                         "(tokens evenly spaced, each token's (heads, dim) packed)")
+    return t.stride(1)
+
+
+def _check_operands(x, dA, B, C):
+    """Raise on what the kernel does not take; returns (nc, Q, H, G, P, N)."""
+    if x.dim() != 4 or dA.dim() != 3 or B.dim() != 4 or C.dim() != 4:
+        raise ValueError(f"need x (nc, Q, H, P), dA (nc, Q, H), B and C (nc, Q, G, N); got "
+                         f"{tuple(x.shape)}, {tuple(dA.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    nc, Q, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if tuple(dA.shape) != (nc, Q, H) or B.shape != C.shape or tuple(B.shape[:2]) != (nc, Q):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dA {tuple(dA.shape)}, "
+                         f"B {tuple(B.shape)}, C {tuple(C.shape)}")
+    if nc < 1 or G < 1 or H % G != 0:
+        raise ValueError(f"need nc >= 1 and H % G == 0, got nc={nc}, H={H}, G={G}")
+    if Q % Q_STEP or not Q_STEP <= Q <= MAX_Q:
+        raise ValueError(f"chunk length {Q} is not a multiple of {Q_STEP} in [{Q_STEP}, {MAX_Q}]")
+    if not (1 <= P <= MAX_P and 1 <= N <= MAX_N):
+        raise ValueError(f"head dim {P} or state dim {N} outside [1, {MAX_P}] / [1, {MAX_N}]")
+    if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B, C must share one type of {DTYPES}, got {x.dtype}, {B.dtype}, "
+                         f"{C.dtype}")
+    if dA.dtype != torch.float32 or not dA.is_contiguous():
+        raise ValueError(f"dA must be contiguous float32, got {dA.dtype}")
+    if nc * H > MAX_BLOCKS:
+        raise ValueError(f"chunks * heads = {nc * H} exceeds {MAX_BLOCKS}")
+    for t in (dA, B, C):
+        if t.device != x.device:
+            raise ValueError(f"operands on {t.device} and {x.device}: all must share one device")
+    return nc, Q, H, G, P, N
+
+
+def ssd_chunk_plain(x, dA, B, C):
+    """The same function as the kernel in plain PyTorch (the CPU route and
+    the on-card reference).  Groups broadcast to heads by views, never by
+    copies."""
+    f32 = torch.float32
+    nc, Q, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    cum = torch.cumsum(dA.to(f32).transpose(1, 2), dim=-1)  # (nc, H, Q)
+    seg = cum[..., :, None] - cum[..., None, :]  # (nc, H, Q, Q)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.where(tri, torch.exp(seg), torch.zeros((), dtype=f32, device=x.device))
+    scores = torch.einsum("cqgn,csgn->cgqs", C.to(f32), B.to(f32))  # (nc, G, Q, Q)
+    mix = scores[:, :, None] * L.view(nc, G, rep, Q, Q)
+    xg = x.to(f32).reshape(nc, Q, G, rep, P)
+    y_diag = torch.einsum("cgrqs,csgrp->cqgrp", mix, xg).reshape(nc, Q, H, P)
+    decay_states = torch.exp(cum[..., -1:] - cum)  # (nc, H, Q)
+    xw = xg * decay_states.transpose(1, 2).reshape(nc, Q, G, rep, 1)
+    states = torch.einsum("csgn,csgrp->cgrpn", B.to(f32), xw).reshape(nc, H, P, N)
+    return y_diag, states, torch.exp(cum[..., -1])
+
+
+def ssd_chunk(x, dA, B, C):
+    """x: (nc, Q, H, P) and B, C: (nc, Q, G, N) of one type of float32 or
+    bfloat16, H % G == 0; dA: (nc, Q, H) contiguous float32.  Q is a
+    multiple of 16 up to 256, P <= 64, N <= 128.  Each token's (heads, dim)
+    row of x, B and C is packed and tokens are evenly spaced, so slices of
+    one wider projection pass without a copy.  Returns (y_diag
+    (nc, Q, H, P), states (nc, H, P, N), chunk_decay (nc, H)), all float32.
+    All tensors share one device, which picks the route: CUDA launches the
+    kernel, CPU runs ``ssd_chunk_plain``."""
+    nc, Q, H, G, P, N = _check_operands(x, dA, B, C)
+    strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dA, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk runs on CUDA or the CPU, not {x.device}")
+    lib = _lib()
+    f32 = torch.float32
+    y = torch.empty((nc, Q, H, P), dtype=f32, device=x.device)
+    states = torch.empty((nc, H, P, N), dtype=f32, device=x.device)
+    decay = torch.empty((nc, H), dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_chunk_launch(
+            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), nc, Q, H, G, P, N, *strides,
+            int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        msg = lib.ssd_chunk_error_string(rc).decode()
+        raise RuntimeError(f"ssd_chunk launch failed: CUDA error {rc} ({msg})")
+    ssd_chunk.launches += 1
+    return y, states, decay
+
+
+ssd_chunk.launches = 0

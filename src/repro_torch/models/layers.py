@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.util import resolve_device
 
 F32 = torch.float32
 
@@ -125,8 +126,9 @@ class GQA(nn.Module):
     wo (H*hd, d); biases with ``qkv_bias``, per-head norms with
     ``qk_norm``."""
 
-    def __init__(self, cfg, d_model: Optional[int] = None, *, device="cpu"):
+    def __init__(self, cfg, d_model: Optional[int] = None, *, device):
         super().__init__()
+        device = resolve_device(device)
         a = cfg.attention
         d = d_model or cfg.d_model
         dt = param_dtype(cfg)
@@ -230,8 +232,9 @@ class MLP(nn.Module):
     """Gated MLP weights: wg, wi (d, f) and wo (f, d)."""
 
     def __init__(self, cfg, d_ff: Optional[int] = None, d_model: Optional[int] = None, *,
-                 device="cpu"):
+                 device):
         super().__init__()
+        device = resolve_device(device)
         d = d_model or cfg.d_model
         f = d_ff or cfg.d_ff
         dt = param_dtype(cfg)
@@ -261,8 +264,9 @@ def mlp_apply(p: MLP, cfg, x):
 class Embedding(nn.Module):
     """Token embedding (V, d) and, unless tied, the output head (d, V)."""
 
-    def __init__(self, cfg, *, device="cpu"):
+    def __init__(self, cfg, *, device):
         super().__init__()
+        device = resolve_device(device)
         dt = param_dtype(cfg)
         self.embed = _param(torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=device))
         if not cfg.tie_embeddings:

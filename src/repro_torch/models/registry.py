@@ -1,23 +1,22 @@
 """Family registry and concrete batches.
 
-The port has the dense family so far; every other family raises and names
-the ``ROADMAP.md`` item that ports it.
+The port has the dense and SSM families so far; every other family raises
+and names the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 from repro_torch.util import resolve_device
 
-FAMILIES = {"dense": transformer}
+FAMILIES = {"dense": transformer, "ssm": ssm}
 _TO_PORT = {  # family -> where ROADMAP.md queues its port
-    "ssm": "Queue 1, the SSM family (models/ssm.py with the ssd_chunk kernel)",
-    "moe": "Queue 1, slice D item 13 (models/moe.py, models/mla.py)",
-    "hybrid": "Queue 1, slice D item 13 (models/rglru.py)",
-    "encdec": "Queue 1, slice D item 13 (models/encdec.py)",
-    "vlm": "Queue 1, slice D item 13 (models/vlm.py)",
+    "moe": "Queue 1 item 2, slice D item 13 (models/moe.py, models/mla.py)",
+    "hybrid": "Queue 1 item 2, slice D item 13 (models/rglru.py)",
+    "encdec": "Queue 1 item 2, slice D item 13 (models/encdec.py)",
+    "vlm": "Queue 1 item 2, slice D item 13 (models/vlm.py)",
 }
 
 

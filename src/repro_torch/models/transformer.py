@@ -23,8 +23,9 @@ from repro_torch.util import resolve_device
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg, generator=None, *, device="cpu"):
+    def __init__(self, cfg, generator=None, *, device):
         super().__init__()
+        device = resolve_device(device)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
         drawn = generator is not None
         self.attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
@@ -37,8 +38,9 @@ class Transformer(nn.Module):
     and ``final_norm``.  Drawn from ``generator`` (on ``device``) when one
     is given, else left empty for ``interop.transformer_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device="cpu"):
+    def __init__(self, cfg, generator=None, *, device):
         super().__init__()
+        device = resolve_device(device)
         self.embed = (L.init_embed(generator, cfg) if generator is not None
                       else L.Embedding(cfg, device=device))
         self.layers = nn.ModuleList(Layer(cfg, generator, device=device)

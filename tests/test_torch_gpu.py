@@ -1,8 +1,9 @@
 """Card-only checks of the port (marker ``gpu``; they skip without a CUDA
-device): the CUDA ``cascade_score`` and ``flash_attention`` against their
-plain versions over ``chip_smoke.py``'s shapes and tolerances, their launch
-counters, the optimize-and-execute path on a short stream, and the dense
-serving path at deepseek-67b's width with two layers and a short prompt.
+device): the CUDA ``cascade_score``, ``flash_attention`` and ``ssd_chunk``
+against their plain versions over ``chip_smoke.py``'s shapes and
+tolerances, their launch counters, the optimize-and-execute path on a short
+stream, the dense serving path at deepseek-67b's width and the SSM serving
+path at mamba2-2.7b's, each with two layers and a short prompt.
 On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import sys
 from pathlib import Path
@@ -71,3 +72,34 @@ def test_flash_launch_counter_and_no_fallback(cuda):
 def test_dense_path_short_prompt(cuda):
     out = chip_smoke.run_dense_path(cuda, layers=2, batch=2, prompt=300, new_tokens=4)
     assert out["launches"] == out["prefill_launches"] == 2
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.SSD_CASES
+                                  if c[:6] != chip_smoke.SSD_SERVING])
+def test_ssd_kernel_matches_plain_version(cuda, case):
+    chip_smoke.check_ssd_case(case, cuda, seed=sum(case[:6]))
+
+
+def test_ssd_planted_fault_is_caught(cuda):
+    assert chip_smoke.ssd_planted_fault(cuda)["caught"]
+
+
+def test_ssd_launch_counter_and_no_fallback(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    x, dA, B, C = chip_smoke.ssd_inputs((2, 64, 4, 2, 16, 32, "published", "bfloat16"), cuda,
+                                        seed=0)
+    before = ssd_chunk.launches
+    ssd_chunk(x, dA, B, C)
+    assert ssd_chunk.launches == before + 1
+    for bad in ((x.double(), dA, B.double(), C.double()),  # a type the kernel does not take
+                (x[:, :40], dA[:, :40].contiguous(), B[:, :40], C[:, :40])):  # Q = 40
+        with pytest.raises(ValueError):
+            ssd_chunk(*bad)
+    assert ssd_chunk.launches == before + 1
+
+
+def test_ssm_path_short_prompt(cuda):
+    out = chip_smoke.run_ssm_path(cuda, layers=2, batch=2, prompt=512, new_tokens=16)
+    assert out["launches"] == out["prefill_launches"] == 2
+    assert out["planted_fault"]["caught"]

@@ -41,7 +41,8 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 30  # every module of the package
     for name in ("repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
-                 "repro_torch.configs.registry"):
+                 "repro_torch.configs.registry", "repro_torch.models.ssm",
+                 "repro_torch.kernels.ssd_scan"):
         assert name in proc.stdout
 
 
@@ -54,10 +55,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.data.synthetic import make_dataset, make_query, make_udfs
     from repro_torch.kernels.ops import CascadeScorer
     from repro_torch.configs import reduced_config
-    from repro_torch.interop import transformer_params
+    from repro_torch.interop import ssm_params, transformer_params
     from repro_torch.kernels.flash_attention import _lib as flash_attention_lib
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import transformer
+    from repro_torch.kernels.ssd_scan import _lib as ssd_chunk_lib
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models import ssm, transformer
     from repro_torch.models.registry import make_batch
     from repro_torch.training.proxy_models import train_linear_svm
 
@@ -69,11 +72,15 @@ def test_cuda_default_entry_points_raise_without_a_card():
     labels = udfs[0](x) == 0
     proxy = train_proxy(x, labels, 0, (), device="cpu")
     cfg = reduced_config("deepseek-67b")
+    ssm_cfg = reduced_config("mamba2-2.7b")
     calls = {
         "transformer.init": lambda: transformer.init(0, cfg),
         "transformer.init_cache": lambda: transformer.init_cache(cfg, 1, 8),
         "make_batch": lambda: make_batch(cfg, 1, 8),
         "transformer_params": lambda: transformer_params({}, cfg),
+        "ssm.init": lambda: ssm.init(0, ssm_cfg),
+        "ssm.init_cache": lambda: ssm.init_cache(ssm_cfg, 1, 16),
+        "ssm_params": lambda: ssm_params({}, ssm_cfg),
         "make_udfs": lambda: make_udfs(ds, hidden=8, depth=1, train_rows=200),
         "build_plan": lambda: build_plan(query, x),
         "ProxyBuilder": lambda: ProxyBuilder(query, x),
@@ -90,7 +97,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     q = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         flash_attention(q, q, q)
+    x = torch.zeros(1, 16, 2, 8, device="meta")
+    dA = torch.zeros(1, 16, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ssd_chunk(x, dA, x, x)
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            flash_attention_lib()
+        for lib in (flash_attention_lib, ssd_chunk_lib):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                lib()
     assert isinstance(query, Query)

@@ -23,7 +23,7 @@ from repro.models.registry import get_family as jax_get_family
 from repro_torch import interop
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import layers as TL
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 from repro_torch.models.registry import get_family, make_batch
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
@@ -125,7 +125,7 @@ def test_ring_buffer_decode_matches():
     attn = dataclasses.replace(cfg.attention, kind="local", window=8)
     jcfg, cfg = jcfg.replace(attention=attn), cfg.replace(attention=attn)
     jp = JL.init_gqa(jax.random.PRNGKey(0), jcfg)
-    p = TL.GQA(cfg)
+    p = TL.GQA(cfg, device="cpu")
     with torch.no_grad():
         for name, a in jp.items():
             getattr(p, name).copy_(torch.from_numpy(np.array(a)))
@@ -162,8 +162,9 @@ def test_init_draws_seeded_truncated_normals():
 def test_registry():
     cfg = reduced_config("deepseek-67b")
     assert get_family(cfg) is transformer
+    assert get_family(reduced_config("mamba2-2.7b")) is ssm
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_family(reduced_config("mamba2-2.7b"))
+        get_family(reduced_config("recurrentgemma-2b"))
     a = make_batch(cfg, 2, 10, seed=5, device="cpu")["tokens"]
     assert a.shape == (2, 10) and a.dtype == torch.int64
     assert torch.equal(a, make_batch(cfg, 2, 10, seed=5, device="cpu")["tokens"])
