@@ -16,12 +16,14 @@ Each phase prints one JSON line:
               of 1,048,576 records, for two queries.
 4. timing   — CUDA-event times of the kernel and its plain version at the
               main path's shapes, beside the card's bound for that work.
-5. flash_kernels — the CUDA ``flash_attention`` against its plain PyTorch
-              version on the card, by absolute and per-row limits: the JAX
-              package's test shapes, GQA groups 1, 7 and 8, D = 256, ragged
-              lengths, and the serving shape (B 4, S 4096, H 64, K 8,
-              D 128) in f32 and bf16; and a planted fault (one KV tile's
-              P.V skipped) that the per-row limit must reject.
+5. flash_kernels — the CUDA ``flash_attention`` (bf16: wgmma on the tensor
+              cores; f32: CUDA cores) against its plain PyTorch version on
+              the card, by absolute and per-row limits: the JAX package's
+              test shapes, GQA groups 1, 7 and 8, D = 256, ragged lengths on
+              either side of a 128-row tile, D = 16 and 32 over several KV
+              tiles, and the serving shape (B 4, S 4096, H 64, K 8, D 128)
+              in f32 and bf16; and a planted fault (64 keys' P.V skipped)
+              that the per-row limit must reject.
 6. dense_path — the dense family's serving path at deepseek-67b's full
               width (d_model 8192, 64 query and 8 KV heads of 128, d_ff
               22016, vocab 102400), depth cut to 4 layers, bf16, seeded
@@ -32,8 +34,9 @@ Each phase prints one JSON line:
               kernel's plain version in its place, one request at a time.
 7. flash_timing — CUDA-event times of the kernel, its plain version and
               ``scaled_dot_product_attention`` at the serving shape, beside
-              the card's bound; and profiles of one prefill and one decode
-              step.
+              the card's bound, with the kernel's registers and spills from
+              the compiler's report and its shared memory a block; and
+              profiles of one prefill and one decode step.
 8. ssd_kernels — the CUDA ``ssd_chunk`` against its plain PyTorch version
               on the card, each output by a limit relative to its largest
               plain value (``chunk_decay`` element by element): the JAX
@@ -68,6 +71,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +147,11 @@ FLASH_CASES = tuple(
         # D = 256, and the smallest head dims
         ((2, 130, 130, 8, 1, 256), True), ((1, 64, 200, 4, 2, 256), False),
         ((3, 1, 1, 4, 2, 32), True), ((1, 77, 131, 8, 1, 16), False),
+        # ragged edges on either side of the bf16 kernel's 128-row tile
+        ((1, 255, 255, 8, 8, 128), True), ((2, 129, 385, 4, 1, 64), False),
+        # the narrow-swizzle head dims (32 B at D = 16, 64 B at D = 32) over
+        # more than one KV tile
+        ((1, 512, 512, 8, 2, 16), True), ((1, 512, 512, 8, 2, 32), True),
         (SERVING_SHAPE, True)))
 # The dense serving path (phase 6) and its logits tolerances against the
 # plain-attention forward: those the JAX package holds its own bf16 serving
@@ -669,12 +678,29 @@ def flash_bound(B, Sq, Sk, H, K, D, causal, dtype):
             nbytes, flops)
 
 
+def ptxas_entry(log: str, fragment: str) -> dict:
+    """Registers and spills that the compiler's report (``-Xptxas -v``)
+    gives for the entry function whose mangled name holds ``fragment``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fragment in line:
+            block = "\n".join(lines[i + 1:i + 6])
+            stack, stores, loads = (int(x) for x in re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                block).groups())
+            return {"registers": int(re.search(r"Used (\d+) registers", block).group(1)),
+                    "stack_bytes": stack, "spill_store_bytes": stores, "spill_load_bytes": loads}
+    raise SmokeFailure(f"no entry function {fragment} in the compiler's report")
+
+
 def time_flash(dev, dtype: str, iters: int) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     serving shape, in turns (plain, kernel, library, kernel, plain).  The
     library call gets K and V repeated to every query head beforehand (its
     GQA layout), outside the timed region."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     resources)
 
     B, Sq, Sk, H, K, D = SERVING_SHAPE
     case = (*SERVING_SHAPE, True, dtype)
@@ -702,6 +728,10 @@ def time_flash(dev, dtype: str, iters: int) -> dict:
                library_max_abs_diff=lib_err, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
                share_of_bound=bound_ms / ms)
+    entry = "flash_attention_wgmma" if dtype == "bfloat16" else "flash_attention_kernel"
+    log = _build.library_path("flash_attention").with_suffix(".log").read_text()
+    row["ptxas"] = {"entry": f"{entry}<{D}>", **ptxas_entry(log, f"{entry}ILi{D}E")}
+    row.update(resources(D, q.dtype))
     emit("flash_timing", **row)
     return row
 

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` source has a plain C interface.  It is compiled at first
 use into ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``), under a name that carries a digest of the source, so an
-edited source rebuilds and an unchanged one loads the library it already
-has.  A failed build raises: nothing falls back to the plain versions.
+``.gitignore``), under a name that carries a digest of the source, the
+shared headers (``csrc/*.cuh``) and the compiler flags, so an edited source
+or header rebuilds and an unchanged one loads the library it already has.
+A failed build raises: nothing falls back to the plain versions.  The
+libraries link ``libcuda`` (``-lcuda``) for ``cuTensorMapEncodeTiled``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 
 def _nvcc() -> str:
@@ -31,9 +33,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    every header beside it, and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

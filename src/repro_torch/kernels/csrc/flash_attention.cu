@@ -21,36 +21,353 @@
 // path's prefill shape (B 4, S 4096, H 64, K 8, D 128, bf16) that is
 // 1.1e12 flops, 1.1 ms at the 989 TFLOP/s bf16 tensor-core peak, while each
 // input read once and the output written once is 0.6 GB, 0.18 ms at
-// 3.35 TB/s.  This first kernel does not reach that bound: it works in
-// IEEE f32 on CUDA cores (q is scaled in f32 and the scores are f32, as the
-// reference has them), whose peak is 67 TFLOP/s, so 16 ms is its floor at
-// that shape.  wgmma, TMA and warp specialisation are later work.
+// 3.35 TB/s.
 //
-// Design.  One block of 256 threads per (batch*head, 64-row query tile).
-// The block keeps its scaled queries, one KV tile (64 rows, or 32 at
-// D = 256) of K and V, and the tile's probabilities in shared memory as f32
-// (115 KB at D = 128, 137 KB at D = 256: dynamic shared memory above 48 KB,
-// opted into with cudaFuncSetAttribute before each launch).  Each thread
-// owns four query rows and a 4 x (BK / 16) register tile of scores, then a
-// 4 x (D / 16) register tile of the f32 accumulator; a row's running max
-// and sum are reduced across the 16 threads that share it with warp
-// shuffles.  Row strides are padded by one float so that the score loop's
-// shared-memory reads do not collide in a bank.  Under causal masking the
-// KV loop stops at the tile that holds the block's last query position, and
-// blocks are issued longest-first so the causal triangle's heavy tiles do
-// not trail.  GQA maps the head by index and reads K and V through their
-// (B, S, K, D) strides: nothing is repeated or transposed.  The ragged edge
-// (Sq or Sk not a multiple of the tile) is masked in the kernel.
+// Two kernels, one per type.
+//
+// bf16: `flash_attention_wgmma`, on the tensor cores.  A bf16 x bf16 product
+// is exact in f32, so wgmma with f32 accumulation gives the reference's f32
+// scores up to the order of summation, provided the scale is applied to the
+// f32 accumulator and never to a bf16 operand: q is not rounded anywhere.
+// The scale and log2(e) are folded into one factor c, and p = exp2(s*c - m)
+// with m the running row max of s*c.  l is summed from the f32 p, then p is
+// rounded to bf16 for the P.V product, as the reference rounds it.
+//   One block of 384 threads per (batch*head, 128-row query tile).  Warp-
+// groups 0 and 1 consume, 64 query rows each; warpgroup 2 produces: one of
+// its threads issues every TMA load, and `setmaxnreg` moves registers from
+// it (24 a thread) to the consumers (240).  The block's q tile is loaded
+// once by TMA; K and V tiles of BK rows (128, or 64 at D = 256, where the
+// f32 accumulator alone takes 128 registers) stream through a two-stage
+// ring in shared memory, one `mbarrier` per stage for "full" (TMA bytes
+// arrived) and one for "empty" (both consumers done).  Tiles are swizzled
+// 128 B (64 B at D = 32, 32 B at D = 16) and split into chunks of one
+// swizzle row across D.  The tensor maps are rank 4 over (D, heads, S, B) on
+// the contiguous tensors, so GQA is a coordinate (kvh = h / (H / K)) and
+// rows past Sq or Sk arrive as zeros, which the kernel masks by position.
+// Per KV tile a consumer runs S = Q.K^T as wgmma m64nBKk16 from shared
+// memory (K as stored is the K-major B operand), the online softmax in
+// registers (a row's max and sum reduced over the 4 threads that share it),
+// then O += P.V as wgmma m64nDk16 with P from registers (the score
+// accumulator's layout is the A operand's) and V read MN-major through the
+// descriptor's transpose bit.  Only the causal diagonal tile and the ragged
+// edge tile are masked.  The output is divided by l, rounded to bf16,
+// staged in the warpgroup's own q rows of shared memory and written with
+// coalesced 16-byte stores, rows < Sq only.  Blocks are issued longest
+// first: the grid's fastest axis is batch*head, its slow axis the q tile
+// from the last one down, so the causal triangle's heavy tiles do not trail.
+// Still serial within a consumer: softmax waits for its S product and the
+// next S product for the P.V product (FA3's ping-pong between the two
+// warpgroups and its intra-warpgroup overlap are later work).
+//
+// f32: `flash_attention_kernel`, IEEE f32 FMAs on CUDA cores (no TF32),
+// whose 67 TFLOP/s peak makes 16 ms its floor at the serving shape.  One
+// block of 256 threads per (batch*head, 64-row query tile).  The block keeps
+// its scaled queries, one KV tile (64 rows, or 32 at D = 256) of K and V,
+// and the tile's probabilities in shared memory (115 KB at D = 128, 137 KB
+// at D = 256).  Each thread owns four query rows and a 4 x (BK / 16)
+// register tile of scores, then a 4 x (D / 16) register tile of the
+// accumulator; a row's running max and sum are reduced across the 16
+// threads that share it with warp shuffles.  Row strides are padded by one
+// float against bank conflicts.  Under causal masking the KV loop stops at
+// the tile that holds the block's last query position, and blocks are
+// issued longest-first.  K and V are read through their (B, S, K, D)
+// strides; the ragged edge is masked.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kThreads = 256;     // 16 x 16: ty picks rows, tx picks columns
-constexpr int kRows = kBQ / 16;   // query rows per thread
-constexpr float kNegInf = -1e30f; // the reference's masked score
+constexpr float kNegInf = -1e30f;  // the reference's masked score
+
+// ------------------------------------------------- bf16: tensor cores
+namespace tc {
+
+constexpr int kBQ = 128;        // query rows per block
+constexpr int kRowsPerWG = 64;  // query rows per consumer warpgroup
+constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D >= 256 ? 64 : 128;  // KV rows per tile
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;  // swizzle span: bytes of one chunk row
+  static constexpr int CW = SW / 2;                // bf16 columns per chunk
+  static constexpr int NC = D / CW;                // chunks across D
+  static constexpr uint32_t kMode = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor swizzle
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kWGQBytes = kRowsPerWG * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  // 1 KB of slack to align the swizzled tiles to 1 KB
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+    int H, int K, int causal, float c) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, SW = C::SW, CW = C::CW, NC = C::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;                            // [2 WG][NC][64][CW]
+  const uint32_t k_s = q_s + C::kQBytes;                // [stage][NC][BK][CW]
+  const uint32_t v_s = k_s + kStages * C::kTileBytes;   // [stage][NC][BK][CW]
+  const uint32_t bars = v_s + kStages * C::kTileBytes;  // q, full[stages], empty[stages]
+  const uint32_t q_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal rows first
+  int n_kv = (Sk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / BK + 1);  // tiles at or before the last row
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      const int halves = Sq - q0 > kRowsPerWG ? 2 : 1;  // no box wholly past Sq
+      hopper::mbar_expect_tx(q_bar, halves * C::kWGQBytes);
+      for (int w = 0; w < halves; ++w)
+        for (int cc = 0; cc < NC; ++cc)
+          hopper::tma_load_4d(q_s + w * C::kWGQBytes + cc * kRowsPerWG * SW, &qmap, q_bar,
+                              cc * CW, h, q0 + w * kRowsPerWG, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        hopper::mbar_wait(empty_bar(s), ((j / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), 2 * C::kTileBytes);
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = s * C::kTileBytes + cc * BK * SW;
+          hopper::tma_load_4d(k_s + off, &kmap, full_bar(s), cc * CW, kvh, j * BK, b);
+          hopper::tma_load_4d(v_s + off, &vmap, full_bar(s), cc * CW, kvh, j * BK, b);
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int qw0 = q0 + wg * kRowsPerWG;          // this warpgroup's first row
+    const int r0 = qw0 + 16 * warp + lane / 4;     // this thread's rows: r0 and r0 + 8
+    int n_w = qw0 < Sq ? n_kv : 0;                 // tiles this warpgroup computes
+    if (causal) n_w = min(n_w, (qw0 + kRowsPerWG - 1) / BK + 1);
+    const uint32_t qw = q_s + wg * C::kWGQBytes;
+
+    float acc[D / 2], s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's part
+
+    hopper::mbar_wait(q_bar, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kStages;
+      hopper::mbar_wait(full_bar(st), (j / kStages) & 1);
+      if (j < n_w) {
+        const int k0 = j * BK;
+        const uint32_t kt = k_s + st * C::kTileBytes, vt = v_s + st * C::kTileBytes;
+        // S = Q.K^T, both K-major; a k16 step is 32 bytes along a chunk row
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk * 16 % CW) * 2;
+          const uint32_t chunk = kk * 16 / CW;
+          hopper::wgmma_ss(s,
+                           hopper::make_desc(qw + chunk * kRowsPerWG * SW + col, 16, 8 * SW,
+                                             C::kMode),
+                           hopper::make_desc(kt + chunk * BK * SW + col, 16, 8 * SW, C::kMode),
+                           kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+
+        if (k0 + BK > Sk || (causal && k0 + BK - 1 > qw0)) {  // diagonal or ragged tile
+          const int kc = k0 + 2 * (lane % 4);
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kpos = kc + 8 * i + (e & 1);
+              const int qpos = r0 + 8 * (e >> 1);
+              if (kpos >= Sk || (causal && kpos > qpos)) s[4 * i + e] = kNegInf;
+            }
+        }
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0 * c), mn1 = fmaxf(m1, mx1 * c);
+        const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          s[4 * i] = exp2f(fmaf(s[4 * i], c, -mn0));
+          s[4 * i + 1] = exp2f(fmaf(s[4 * i + 1], c, -mn0));
+          s[4 * i + 2] = exp2f(fmaf(s[4 * i + 2], c, -mn1));
+          s[4 * i + 3] = exp2f(fmaf(s[4 * i + 3], c, -mn1));
+          sum0 += s[4 * i] + s[4 * i + 1];
+          sum1 += s[4 * i + 2] + s[4 * i + 3];
+        }
+        l0 = corr0 * l0 + sum0;  // from the f32 p, as the reference sums it
+        l1 = corr1 * l1 + sum1;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          acc[4 * i] *= corr0;
+          acc[4 * i + 1] *= corr0;
+          acc[4 * i + 2] *= corr1;
+          acc[4 * i + 3] *= corr1;
+        }
+        // p rounded to bf16: the k16 slice kk of the scores is A fragment kk
+        uint32_t p[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        // O += P.V, V MN-major: a k16 step is 16 key rows
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_rs(acc, p[kk],
+                           hopper::make_desc(vt + kk * 16 * SW, BK * SW, 8 * SW, C::kMode), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+      hopper::mbar_arrive(empty_bar(st));
+    }
+
+    if (n_w > 0) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
+      // Stage the bf16 tile in this warpgroup's q rows, [64][D] with its
+      // 16-byte chunks swizzled by row, then store 16 bytes a thread.
+      constexpr int NCH = D / 8;
+      constexpr int kSwz = NCH >= 8 ? 7 : NCH - 1;
+      uint8_t* const ost = gbase + wg * C::kWGQBytes;
+      named_sync(1 + wg);  // every warp's last Q.K^T has read q
+      const int lr = 16 * warp + lane / 4;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(ost + lr * D * 2 + ((i ^ (lr & kSwz)) * 16) +
+                                     4 * (lane % 4)) =
+            pack_bf16(acc[4 * i] / den0, acc[4 * i + 1] / den0);
+        *reinterpret_cast<uint32_t*>(ost + (lr + 8) * D * 2 + ((i ^ ((lr + 8) & kSwz)) * 16) +
+                                     4 * (lane % 4)) =
+            pack_bf16(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
+      }
+      named_sync(1 + wg);
+      for (int idx = tid; idx < kRowsPerWG * NCH; idx += 128) {
+        const int row = idx / NCH, ch = idx - row * NCH;
+        const int qpos = qw0 + row;
+        if (qpos >= Sq) break;  // rows only grow with idx
+        const uint4 val =
+            *reinterpret_cast<const uint4*>(ost + row * D * 2 + ((ch ^ (row & kSwz)) * 16));
+        *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + qpos) * H + h) * D + ch * 8) = val;
+      }
+    }
+  }
+}
+
+CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
+                    int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                   int H, int K, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const CUtensorMapSwizzle sw = C::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap qm, km, vm;
+  if (encode_map(&qm, q, D, H, Sq, B, kRowsPerWG, C::CW, sw) != CUDA_SUCCESS ||
+      encode_map(&km, k, D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS ||
+      encode_map(&vm, v, D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_attention_wgmma<D><<<grid, kThreads, C::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t resources(int* regs, int* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma<D>);
+  *regs = attr.numRegs;
+  *smem = (int)(attr.sharedSizeBytes + Cfg<D>::kSmem);
+  return err;
+}
+
+}  // namespace tc
+
+// ----------------------------------------------------- f32: CUDA cores
+namespace cc {
+
+constexpr int kBQ = 64;          // query rows per block
+constexpr int kThreads = 256;    // 16 x 16: ty picks rows, tx picks columns
+constexpr int kRows = kBQ / 16;  // query rows per thread
 
 template <int D>
 struct Tile {
@@ -64,20 +381,6 @@ size_t smem_bytes() {
                           (size_t)kBQ * (BK + 1));
 }
 
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ inline T from_f32(float x);
-template <>
-__device__ inline float from_f32<float>(float x) { return x; }
-template <>
-__device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
-// p rounded to v's type, back in f32 for the accumulation
-template <typename T>
-__device__ inline float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
 __device__ inline float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -90,10 +393,10 @@ __device__ inline float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int K, int causal, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int Sq, int Sk, int H, int K, int causal, float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int CJ = BK / 16;  // score columns per thread
   constexpr int DJ = D / 16;   // accumulator columns per thread
@@ -103,20 +406,20 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float* qs = smem;             // kBQ x QS  scaled queries
   float* ks = qs + kBQ * QS;    // BK x QS   keys
   float* vs = ks + BK * QS;     // BK x D    values
-  float* ps = vs + BK * D;      // kBQ x PS  probabilities, rounded to v's type
+  float* ps = vs + BK * D;      // kBQ x PS  probabilities
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y - b * H;
   const int kvh = h / (H / K);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest causal rows first
   const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
-  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * D;
+  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
-    qs[r * QS + d] = q0 + r < Sq ? to_f32(qb[(size_t)(q0 + r) * q_row + d]) * scale : 0.f;
+    qs[r * QS + d] = q0 + r < Sq ? qb[(size_t)(q0 + r) * q_row + d] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][DJ];
@@ -138,8 +441,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int c = e / D, d = e - c * D;
       const bool in = k0 + c < Sk;
       const size_t off = (size_t)(k0 + c) * kv_row + d;
-      ks[c * QS + d] = in ? to_f32(kb[off]) : 0.f;
-      vs[c * D + d] = in ? to_f32(vb[off]) : 0.f;
+      ks[c * QS + d] = in ? kb[off] : 0.f;
+      vs[c * D + d] = in ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -178,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       for (int c = 0; c < CJ; ++c) {
         const float p = expf(s[i][c] - m_new);
         sum += p;
-        ps[r * PS + tx + 16 * c] = round_to<T>(p);
+        ps[r * PS + tx + 16 * c] = p;
       }
       const float corr = expf(m[i] - m_new);
       l[i] = corr * l[i] + row_sum16(sum);
@@ -207,37 +510,57 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    T* orow = o + ((size_t)b * Sq + r) * q_row + (size_t)h * D;
+    float* orow = o + ((size_t)b * Sq + r) * q_row + (size_t)h * D;
 #pragma unroll
-    for (int dj = 0; dj < DJ; ++dj) orow[tx + 16 * dj] = from_f32<T>(acc[i][dj] / den);
+    for (int dj = 0; dj < DJ; ++dj) orow[tx + 16 * dj] = acc[i][dj] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int H, int K, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, causal, scale);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Sk, H, K, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                     int Sk, int H, int K, int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, K, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, K, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t resources(int* regs, int* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_kernel<D>);
+  *regs = attr.numRegs;
+  *smem = (int)(attr.sharedSizeBytes + smem_bytes<D>());
+  return err;
+}
+
+}  // namespace cc
+
+#define FLASH_DISPATCH(NS, FN, ...)                          \
+  switch (D) {                                               \
+    case 16: return NS::FN<16>(__VA_ARGS__);                 \
+    case 32: return NS::FN<32>(__VA_ARGS__);                 \
+    case 64: return NS::FN<64>(__VA_ARGS__);                 \
+    case 128: return NS::FN<128>(__VA_ARGS__);               \
+    case 256: return NS::FN<256>(__VA_ARGS__);               \
+    default: return cudaErrorInvalidValue;                   \
   }
+
+cudaError_t dispatch(int D, int is_bf16, const void* q, const void* k, const void* v, void* o,
+                     int B, int Sq, int Sk, int H, int K, int causal, float scale,
+                     cudaStream_t st) {
+  if (is_bf16) FLASH_DISPATCH(tc, launch, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
+  FLASH_DISPATCH(cc, launch, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
+}
+
+cudaError_t dispatch_resources(int D, int is_bf16, int* regs, int* smem) {
+  if (is_bf16) FLASH_DISPATCH(tc, resources, regs, smem)
+  FLASH_DISPATCH(cc, resources, regs, smem)
 }
 
 }  // namespace
@@ -245,15 +568,21 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 extern "C" {
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, K, D); all contiguous, of one type
-// (bf16 when is_bf16, else f32).  Returns the launch's cudaError_t.
+// (bf16 when is_bf16, else f32); bf16 pointers 16-byte aligned (TMA).
+// Returns the launch's cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                            int Sk, int H, int K, int D, int causal, int is_bf16, float scale,
                            void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
-                       : dispatch<float>(D, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st));
+  return (int)dispatch(D, is_bf16, q, k, v, o, B, Sq, Sk, H, K, causal, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The kernel's registers a thread at launch and shared memory a block
+// (static plus the dynamic bytes the launch asks for).
+int flash_attention_resources(int D, int is_bf16, int* regs, int* smem_bytes) {
+  return (int)dispatch_resources(D, is_bf16, regs, smem_bytes);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -16,9 +16,14 @@ from the tensors' device: a CUDA tensor launches the hand-written kernel in
 
 The kernel keeps a running row max and sum (an online softmax) and divides
 once at the end, as the Pallas kernel does; the plain version takes the
-whole row at once.  Both sum in f32 in different orders, and in bf16 they
-round p to bf16 against different running maxima, so they agree to about
-1e-6 in f32 and to bf16's precision in bf16.
+whole row at once.  In bf16 the kernel runs both products on the tensor
+cores (wgmma, f32 accumulation: exact bf16 products, so the reference's f32
+scores up to the order of summation) with q unscaled and the scale folded
+into ``exp2``; in f32 it runs IEEE f32 FMAs on CUDA cores.  Both sum in f32
+in different orders, and in bf16 they round p to bf16 against different
+running maxima, so they agree to about 1e-6 in f32 and to bf16's precision
+in bf16.  The bf16 kernel reads its operands with TMA, which needs 16-byte
+aligned data pointers; the wrapper refuses others on every device.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
-MAX_BATCH_HEADS = 65535  # the kernel's grid puts batch * heads on its y axis
+MAX_BATCH_HEADS = 65535  # the f32 kernel's grid puts batch * heads on its y axis
+ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 
 _LIB = None
 
@@ -44,6 +50,9 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 8 + [ctypes.c_float, vp]
         lib.flash_attention_launch.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.flash_attention_resources.argtypes = [i, i, ip, ip]
+        lib.flash_attention_resources.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -74,6 +83,9 @@ def _check_operands(q, k, v):
             raise ValueError(f"operands on {t.device} and {q.device}: all must share one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention operands must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}'s data pointer is not {ALIGN}-byte aligned")
     return B, Sq, Sk, H, K, D
 
 
@@ -132,3 +144,16 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
 
 
 flash_attention.launches = 0
+
+
+def resources(D: int, dtype: torch.dtype) -> dict:
+    """The CUDA kernel's registers a thread at launch and shared memory a
+    block (static plus dynamic) for head dim ``D`` and ``dtype``.  The bf16
+    kernel then moves registers between its warpgroups with ``setmaxnreg``:
+    240 a consumer thread, 24 a producer thread."""
+    regs, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().flash_attention_resources(D, int(dtype == torch.bfloat16), ctypes.byref(regs),
+                                          ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_resources: CUDA error {rc}")
+    return {"registers_at_launch": regs.value, "smem_bytes": smem.value}

@@ -1,6 +1,5 @@
-"""Host-side scoring around the ``cascade_score`` kernel, ``attention``
-over the ``flash_attention`` kernel, and the full SSD (``ssd``) over the
-``ssd_chunk`` kernel.
+"""Host-side scoring around the ``cascade_score`` kernel and the full SSD
+(``ssd``) over the ``ssd_chunk`` kernel.
 
 ``CascadeScorer`` packs a plan's proxies once, keeps the operands on its
 device, and scores numpy record tiles through ``cascade_score``: one launch
@@ -21,7 +20,6 @@ from repro_torch.core.proxy_family import (
     pack_cascade,
     quantize_cascade,
 )
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.proxy_score import cascade_score
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.training.proxy_models import PackedProxy
@@ -277,13 +275,6 @@ def cascade_scorer_for_plan(plan, *, max_tile: int = 8192, device="cuda"):
         _SCORER_CACHE.pop(next(iter(_SCORER_CACHE)))
     _SCORER_CACHE[key] = scorer
     return scorer, False
-
-
-# -------------------------------------------------------------- attention
-def attention(q, k, v, *, causal=True):
-    """Blockwise GQA attention through ``flash_attention``: the kernel on a
-    CUDA tensor, its plain version on a CPU one."""
-    return flash_attention(q, k, v, causal=causal)
 
 
 # ------------------------------------------------------------------- SSD

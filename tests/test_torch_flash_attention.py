@@ -1,7 +1,8 @@
 """The port's ``flash_attention`` (its plain route, on the CPU) against the
 JAX package's oracle ``repro.kernels.ref.flash_attention_ref``, over
 ``tests/test_kernels.py``'s shapes plus a GQA group of 7, D = 256 and
-ragged lengths; and the wrapper's refusal of what the kernel cannot take.
+ragged lengths; the bf16 kernel's rounding, emulated tile by tile, against
+the plain version; and the wrapper's refusal of what the kernel cannot take.
 
 Held against the oracle, not the Pallas kernel: the Pallas kernel misses
 its own oracle in bf16 (ROADMAP.md Queue 3).  Tolerances are those of
@@ -9,6 +10,7 @@ its own oracle in bf16 (ROADMAP.md Queue 3).  Tolerances are those of
 orders), 3e-2 in bf16 (p is rounded to bf16 before the PV product, after
 normalising in the oracle and before it in the port).
 """
+import math
 import sys
 from pathlib import Path
 from unittest import mock
@@ -21,7 +23,6 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
@@ -89,7 +90,7 @@ def test_cpu_route_is_the_plain_version_and_launches_nothing():
     before = flash_attention.launches
     with mock.patch.object(fa, "flash_attention_plain", wraps=flash_attention_plain) as plain:
         out = flash_attention(q, k, v, causal=False)
-        attn = ops.attention(q, k, v, causal=True)
+        attn = flash_attention(q, k, v, causal=True)
     assert [c.kwargs["causal"] for c in plain.call_args_list] == [False, True]
     assert out.shape == attn.shape == q.shape and out.dtype == attn.dtype == q.dtype
     assert flash_attention.launches == before
@@ -107,9 +108,63 @@ def _bad_inputs():
     yield "contiguity", (q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     yield "grid", (torch.zeros(1, 1, 65536, 16), torch.zeros(1, 1, 1, 16),
                    torch.zeros(1, 1, 1, 16))
+    # contiguous, but 4 bytes past a 16-byte boundary: TMA cannot read it
+    yield "alignment", (torch.zeros(q.numel() + 1)[1:].view(q.shape), k, v)
 
 
 @pytest.mark.parametrize("what,qkv", list(_bad_inputs()), ids=[w for w, _ in _bad_inputs()])
 def test_wrapper_rejects_what_the_kernel_cannot_take(what, qkv):
     with pytest.raises(ValueError):
         flash_attention(*qkv, causal=True)
+
+
+def _tensor_core_emulation(q, k, v, *, causal, bq=128):
+    """The bf16 kernel's rounding in plain torch, tile by tile: an emulation,
+    not the kernel.  Scores are f32 products of the unscaled bf16 operands
+    (exact in f32, as wgmma's f32 accumulation has them); scale * log2(e) is
+    folded into exp2 on the f32 scores; p is rounded to bf16 against the
+    running max; l is summed from the f32 p; KV tiles of 128 rows (64 at
+    D = 256), 128-row query tiles, tiles past the causal diagonal skipped."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    bk = 64 if D >= 256 else 128
+    c = torch.tensor(1.0 / math.sqrt(D) * math.log2(math.e), dtype=torch.float32)
+    heads = torch.arange(H) // (H // K)
+    out = torch.empty_like(q)
+    for b in range(B):
+        qf = q[b].float().transpose(0, 1)  # (H, Sq, D)
+        kf, vf = (t[b].float()[:, heads].transpose(0, 1) for t in (k, v))  # (H, Sk, D)
+        for q0 in range(0, Sq, bq):
+            rows = qf[:, q0:q0 + bq]
+            qpos = torch.arange(q0, q0 + rows.shape[1])[:, None]
+            m = torch.full(rows.shape[:2], -math.inf)
+            l = torch.zeros(rows.shape[:2])
+            acc = torch.zeros(rows.shape)
+            for k0 in range(0, Sk, bk):
+                if causal and k0 > q0 + bq - 1:
+                    break
+                s = rows @ kf[:, k0:k0 + bk].transpose(1, 2)
+                kpos = torch.arange(k0, k0 + s.shape[2])[None, :]
+                if causal:
+                    s = s.masked_fill(kpos > qpos, fa.NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1) * c)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s * c - m_new[..., None])
+                l = corr * l + p.sum(dim=-1)
+                acc = corr[..., None] * acc + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + bk]
+                m = m_new
+            out[b, q0:q0 + bq] = (acc / l.clamp_min(1e-20)[..., None]).transpose(0, 1).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 333, 333, 8, 2, 64), True),
+                                          ((1, 200, 260, 4, 1, 256), False)])
+def test_tensor_core_rounding_within_the_card_limits(shape, causal):
+    """The tolerance argument behind the bf16 kernel (an emulation of its
+    rounding, not the kernel): held to ``flash_attention_plain`` under the
+    card check's limits, ``chip_smoke.FLASH_TOL`` and ``FLASH_ROW_TOL``."""
+    (q, k, v), _ = _qkv(shape, "bfloat16", seed=sum(shape))
+    got = _tensor_core_emulation(q, k, v, causal=causal)
+    err, row_err = chip_smoke.check_flash_output("emulation", got,
+                                                 flash_attention_plain(q, k, v, causal=causal))
+    assert 0 < row_err <= chip_smoke.FLASH_ROW_TOL["bfloat16"] and err > 0

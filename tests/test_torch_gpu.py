@@ -62,8 +62,11 @@ def test_flash_launch_counter_and_no_fallback(cuda):
     before = flash_attention.launches
     flash_attention(q, k, v, causal=True)
     assert flash_attention.launches == before + 1
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:].view(q.shape)
+    shifted.copy_(q)  # contiguous, 2 bytes past a 16-byte boundary: TMA cannot read it
     for bad in ((q.double(), k.double(), v.double()),  # a type the kernel does not take
-                (q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous())):
+                (q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous()),
+                (shifted, k, v)):
         with pytest.raises(ValueError):
             flash_attention(*bad, causal=True)
     assert flash_attention.launches == before + 1
