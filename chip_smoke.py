@@ -37,19 +37,24 @@ Each phase prints one JSON line:
               the card's bound, with the kernel's registers and spills from
               the compiler's report and its shared memory a block; and
               profiles of one prefill and one decode step.
-8. ssd_kernels — the CUDA ``ssd_chunk`` against its plain PyTorch version
-              on the card, each output by a limit relative to its largest
-              plain value (``chunk_decay`` element by element): the JAX
-              package's test shapes, G = 2 < H, Q = 256 with realistic,
-              near-zero and JAX-init log-decays, and the serving shape
-              (mamba2-2.7b, 4 x 4,096 tokens) in f32 and bf16; and a planted
-              fault (``chunk_decay`` forced to 0) that the check must reject.
+8. ssd_kernels — the CUDA ``ssd_chunk`` (bf16: wgmma on the tensor cores
+              where dtype, shape and layout allow; otherwise CUDA cores)
+              against its plain PyTorch version on the card, each output by
+              a limit relative to its largest plain value (``chunk_decay``
+              element by element): the JAX package's test shapes, G = 2 < H,
+              the tensor-core route's edges (ragged Q, P 16 and 32, N 16 to
+              64, B and C sliced from one wider tensor), Q = 256 with
+              realistic, near-zero and JAX-init log-decays, and the serving
+              shape (mamba2-2.7b, 4 x 4,096 tokens) in f32 and bf16, each on
+              the route it must take; and two planted faults the check must
+              reject (``chunk_decay`` forced to 0; M rounded to bf16 alone).
 9. ssm_path — the SSM family's serving path at mamba2-2.7b's full width and
               depth (64 layers, d_model 2560, 80 heads of 64, d_state 128,
               vocab 50288), bf16, seeded random weights with Mamba-2's
               published A_log / dt_bias ranges: prefill of 4 requests of
               4,096 tokens, then 32 greedy ``decode_step``s each (64 kernel
-              launches in the prefill, none in decode); each layer's
+              launches in the prefill, all on the tensor cores, none in
+              decode); each layer's
               ``ops.ssd`` output and final state held against the plain
               route on the layer's own inputs, a planted fault in one layer
               caught there, and the logits against ``forward`` with the
@@ -57,8 +62,9 @@ Each phase prints one JSON line:
               held in f32 at 64 layers and in bf16 at the first 4, reported
               in bf16 at 64 (``SSM_LOGIT_LAYERS``).
 10. ssd_timing — CUDA-event times of the kernel and its plain version at the
-              serving shape, beside the card's bound; and profiles of one
-              SSM prefill and one decode step.
+              serving shape, beside the card's bound, with the route taken
+              and the kernel's registers, spills and shared memory a block;
+              and profiles of one SSM prefill and one decode step.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -192,18 +198,30 @@ SSM_STATE_TOL = SSD_TOL
 # routes that round at other places differ by 0.15), so there they are held
 # in f32 and reported in bf16.
 SSM_LOGIT_LAYERS = 4
-# (nc, Q, H, G, P, N, dA, dtype); dA: how the log-decay is drawn (ssd_inputs)
+# (nc, Q, H, G, P, N, dA, dtype[, "sliced"]); dA: how the log-decay is drawn,
+# "sliced": B and C slices of one wider tensor, as the model passes them
+# (ssd_inputs)
 SSD_CASES = (
-    # the JAX package's test shapes (tests/test_kernels.py:75)
+    # the JAX package's test shapes (tests/test_kernels.py:75); P = 8 in bf16
+    # takes the CUDA-core route
     (2, 16, 4, 4, 8, 16, "jax_test", "float32"), (4, 64, 2, 2, 16, 32, "jax_test", "float32"),
+    (2, 16, 4, 4, 8, 16, "jax_test", "bfloat16"),
     # G = 2 < H, and chunks that are not a multiple of the 64-row tile
     (3, 128, 8, 2, 64, 128, "published", "float32"),
     (3, 128, 8, 2, 64, 128, "published", "bfloat16"),
     (5, 80, 6, 3, 8, 16, "jax_test", "float32"), (2, 208, 4, 1, 32, 64, "published", "float32"),
+    # the tensor-core route's edges: ragged Q (80, 208, and 48 under one
+    # 64-row box), G < H, P 16 and 32, N 16 to 64
+    (5, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), (2, 208, 4, 1, 32, 64, "published", "bfloat16"),
+    (4, 64, 4, 2, 16, 32, "jax_test", "bfloat16"), (3, 48, 4, 2, 32, 32, "published", "bfloat16"),
     # Q = 256 with realistic, near-zero and JAX-init (chunk_decay 0) log-decays
     (8, 256, 16, 1, 64, 128, "published", "float32"),
     (8, 256, 16, 1, 64, 128, "near_zero", "float32"),
     (8, 256, 16, 1, 64, 128, "jax_init", "float32"),
+    (8, 256, 16, 1, 64, 128, "near_zero", "bfloat16"),
+    (8, 256, 16, 1, 64, 128, "jax_init", "bfloat16"),
+    # B and C at the token stride of one wider tensor, as in the model
+    (4, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"),
     # the serving shape
     (*SSD_SERVING, "published", "float32"), (*SSD_SERVING, "published", "bfloat16"),
 )
@@ -403,9 +421,10 @@ def cuda_ms(fn, dev, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, dev) -> dict:
+def device_profile(fn, dev, watch: str | None = None) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host wall time, the summed
-    device time of every kernel and copy it ran, and the busiest names."""
+    device time of every kernel and copy it ran, the busiest names, and
+    (with ``watch``) the time and count of the names that hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
@@ -421,10 +440,16 @@ def device_profile(fn, dev) -> dict:
             by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "device_busy_share": busy_us / wall_us if wall_us else None,
-            "device_events": sum(n for _, n in by_name.values()),
-            "top": [{"name": k[:80], "us": t, "count": n} for k, (t, n) in top]}
+    out = {"wall_us": wall_us, "device_busy_us": busy_us,
+           "device_busy_share": busy_us / wall_us if wall_us else None,
+           "device_events": sum(n for _, n in by_name.values()),
+           "top": [{"name": k[:80], "us": t, "count": n} for k, (t, n) in top]}
+    if watch is not None:
+        hits = [v for k, v in by_name.items() if watch in k]
+        us = sum(t for t, _ in hits)
+        out["watch"] = {"name": watch, "us": us, "count": sum(n for _, n in hits),
+                        "share": us / busy_us if busy_us else None}
+    return out
 
 
 def bound(N, F, HP, P, C, wbytes, with_scores, quantized):
@@ -774,7 +799,7 @@ def ssd_inputs(case, dev, seed):
     (A, dt) per head from ``published_dynamics`` and dt moved per step as a
     projection moves it, softplus(N(0,1) + dt_bias); "near_zero"
     -|N(0,1)| 1e-4; "jax_init" -softplus(N(0,1)) (A_log 0, dt_bias 0)."""
-    nc, Q, H, G, P, N, kind, dtype = case
+    nc, Q, H, G, P, N, kind, dtype = case[:8]
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
 
@@ -782,6 +807,11 @@ def ssd_inputs(case, dev, seed):
         return torch.randn(shape, generator=gen, device=dev, dtype=f32)
 
     x, B, C = randn(nc, Q, H, P), randn(nc, Q, G, N), randn(nc, Q, G, N)
+    if case[8:] == ("sliced",):  # [x-wide filler, B, C] per token, as the conv output
+        wide = torch.cat([randn(nc, Q, H * P), B.flatten(2), C.flatten(2)], dim=-1)
+        wide = wide.to(getattr(torch, dtype))
+        B = wide[..., H * P:H * P + G * N].unflatten(2, (G, N))
+        C = wide[..., H * P + G * N:].unflatten(2, (G, N))
     z = randn(nc, Q, H)
     if kind == "jax_test":
         dA = -z.abs() * 0.1
@@ -793,7 +823,7 @@ def ssd_inputs(case, dev, seed):
         A_log, dt_bias = (torch.from_numpy(a[0]).to(dev) for a in published_dynamics(1, H, seed))
         dA = -torch.exp(A_log) * torch.nn.functional.softplus(z + dt_bias)
     dt = getattr(torch, dtype)
-    return x.to(dt), dA.contiguous(), B.to(dt), C.to(dt)
+    return x.to(dt), dA.contiguous(), B.to(dt), C.to(dt)  # a slice keeps its strides
 
 
 def ssd_errors(out, ref, dA) -> dict:
@@ -835,28 +865,64 @@ def check_ssd_output(what: str, out, ref, dA) -> dict:
     return errs
 
 
+def ssd_route_taken(before: dict) -> str:
+    """The route whose launch count rose since ``before`` (a copy of
+    ``ssd_chunk.route_launches``): "plain" when none did (a CPU run)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    rose = [r for r, n in ssd_chunk.route_launches.items() if n > before[r]]
+    check(len(rose) <= 1, f"one call launched on several routes: {rose}")
+    return rose[0] if rose else "plain"
+
+
 def check_ssd_case(case, dev, seed=0) -> dict:
-    """Kernel vs plain version on the card; returns ``ssd_errors``."""
+    """Kernel vs plain version on the card; returns ``ssd_errors`` and the
+    route the call took."""
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
 
     x, dA, B, C = ssd_inputs(case, dev, seed)
+    before = dict(ssd_chunk.route_launches)
     out = ssd_chunk(x, dA, B, C)
+    taken = ssd_route_taken(before)
     ref = ssd_chunk_plain(x, dA, B, C)
     sync(dev)
-    return check_ssd_output(str(case), out, ref, dA)
+    return dict(check_ssd_output(str(case), out, ref, dA), route=taken)
+
+
+def ssd_one_term(x, dA, B, C):
+    """y_diag of ``ssd_chunk_plain`` with M = (C B^T) * L rounded to bf16
+    alone before its product with x: a tensor-core kernel that lost M's lo
+    term."""
+    f32 = torch.float32
+    nc, Q, H, P = x.shape
+    G = B.shape[2]
+    cum = torch.cumsum(dA.transpose(1, 2), dim=-1)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), dtype=f32, device=x.device))
+    scores = torch.einsum("cqgn,csgn->cgqs", C.to(f32), B.to(f32))
+    mix = (scores[:, :, None] * L.view(nc, G, H // G, Q, Q)).to(torch.bfloat16).to(f32)
+    xg = x.to(f32).reshape(nc, Q, G, H // G, P)
+    return torch.einsum("cgrqs,csgrp->cqgrp", mix, xg).reshape(nc, Q, H, P)
 
 
 def ssd_planted_fault(dev) -> dict:
-    """The serving-shape bf16 check against kernel outputs with chunk_decay
-    forced to 0 (what a kernel that never wrote it, or underflowed it,
-    returns).  The chunk_decay check must reject it."""
+    """The serving-shape bf16 check against two faults it must reject:
+    kernel outputs with chunk_decay forced to 0 (what a kernel that never
+    wrote it, or underflowed it, returns), and y_diag with M rounded to
+    bf16 alone (``ssd_one_term``)."""
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
 
     x, dA, B, C = ssd_inputs((*SSD_SERVING, "published", "bfloat16"), dev, seed=0)
     y, st, dec = ssd_chunk(x, dA, B, C)
-    errs = ssd_errors((y, st, torch.zeros_like(dec)), ssd_chunk_plain(x, dA, B, C), dA)
+    ref = ssd_chunk_plain(x, dA, B, C)
+    errs = ssd_errors((y, st, torch.zeros_like(dec)), ref, dA)
     check(not errs["chunk_decay_ok"], "chunk_decay forced to 0 passes the check")
-    return dict(chunk_decay_rel=errs["chunk_decay_rel"], caught=not errs["chunk_decay_ok"])
+    one = ssd_errors((ssd_one_term(x, dA, B, C), st, dec), ref, dA)
+    check(one["y_diag_rel"] > SSD_TOL, f"y_diag with M rounded to bf16 alone passes the check "
+          f"({one['y_diag_rel']} of its largest value, tol {SSD_TOL})")
+    return dict(chunk_decay_rel=errs["chunk_decay_rel"], caught=not errs["chunk_decay_ok"],
+                one_term_y_diag_rel=one["y_diag_rel"], one_term_caught=True)
 
 
 # ------------------------------------------------------------- phase 9
@@ -995,7 +1061,7 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
     (PERF.md, section 6).  Returns the phase's numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash_module
-    from repro_torch.kernels import proxy_score
+    from repro_torch.kernels import proxy_score, ssd_scan
     from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.models.registry import get_family, make_batch
 
@@ -1014,8 +1080,10 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
     counters = (ssd_chunk, flash_module.flash_attention, proxy_score.cascade_score)
     for fn in counters:
         fn.launches = 0
+    ssd_scan.reset_launches()
     served = serve_greedy(fam, model, cfg, tokens, new_tokens)
     launches = ssd_chunk.launches
+    route_launches = dict(ssd_chunk.route_launches)
     others = [fn.launches for fn in counters[1:]]
     check(served["prefill_launches"] == cfg.num_layers,
           f"prefill launched the kernel {served['prefill_launches']} times for "
@@ -1024,6 +1092,9 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
           f"decode launched the kernel {served['decode_launches']} times; it takes the "
           "recurrent step")
     check(others == [0, 0], f"the SSM path launched other kernels: {others}")
+    if dev.type == "cuda":
+        check(route_launches["tensor_cores"] == launches,
+              f"not every prefill launch took the tensor cores: {route_launches}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     check(served.pop("cache")["pos"] == prompt + new_tokens, "cache position")
     got = served["logits"]
@@ -1050,7 +1121,7 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
                d_inner=cfg.d_inner, heads=cfg.ssm_heads, head_dim=s.head_dim,
                d_state=s.d_state, ngroups=s.ngroups, chunk=s.chunk, vocab=cfg.vocab_size,
                dtype=cfg.dtype, params=n_params, requests=batch, prompt_tokens=prompt,
-               new_tokens=new_tokens, launches=launches,
+               new_tokens=new_tokens, launches=launches, route_launches=route_launches,
                prefill_launches=served["prefill_launches"], init_s=init_s,
                prefill_s=served["prefill_s"],
                prefill_tokens_per_s=batch * prompt / served["prefill_s"],
@@ -1087,13 +1158,25 @@ def ssd_bound(nc, Q, H, G, P, N, dtype):
 
 def time_ssd(dev, dtype: str, iters: int) -> dict:
     """Kernel and plain version at the serving shape, in turns (plain,
-    kernel, kernel, plain).  No single PyTorch call computes the function,
-    so there is no library time."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    kernel, kernel, plain), with the route the kernel took and its
+    registers, spills (the compiler's report) and shared memory a block.
+    No single PyTorch call computes the function, so there is no library
+    time."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import resources, route, ssd_chunk, ssd_chunk_plain
 
     case = (*SSD_SERVING, "published", dtype)
     x, dA, B, C = ssd_inputs(case, dev, seed=7)
     errs = ssd_errors(ssd_chunk(x, dA, B, C), ssd_chunk_plain(x, dA, B, C), dA)
+    path = route(x, B, C)
+    _nc, Q, _H, _G, P, N = SSD_SERVING
+    entry, fragment = (("ssd_chunk_wgmma", f"ssd_chunk_wgmmaILi{P}ELi{N}E")
+                       if path == "tensor_cores" else
+                       ("ssd_chunk_kernel", "ssd_chunk_kernelI"
+                        + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E"))
+    log = _build.library_path("ssd_chunk").with_suffix(".log").read_text()
+    kernel = dict(route=path, entry=entry, **ptxas_entry(log, fragment),
+                  **resources(path, Q, P, N, x.dtype))
     plain_a = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=1)
     kern_a = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=0)
@@ -1104,7 +1187,8 @@ def time_ssd(dev, dtype: str, iters: int) -> dict:
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
-               share_of_bound=bound_ms / ms, max_abs_err=max(errs["y_diag"], errs["states"]))
+               share_of_bound=bound_ms / ms, max_abs_err=max(errs["y_diag"], errs["states"]),
+               kernel=kernel)
     emit("ssd_timing", **row)
     return row
 
@@ -1116,7 +1200,8 @@ def profile_ssm(ssm: dict, dev) -> None:
 
     cfg, model, tokens = ssm["cfg"], ssm["model"], ssm["tokens"]
     fam = get_family(cfg)
-    prof = device_profile(lambda: fam.prefill(model, cfg, {"tokens": tokens}), dev)
+    prof = device_profile(lambda: fam.prefill(model, cfg, {"tokens": tokens}), dev,
+                          watch="ssd_chunk")
     emit("ssm_prefill_profile", **prof)
     logits, cache = fam.prefill(model, cfg, {"tokens": tokens})
     prof = device_profile(lambda: fam.decode_step(model, cfg, cache, logits.argmax(-1)), dev)
@@ -1192,6 +1277,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ssd_errs = [check_ssd_case(case, dev, seed=i) for i, case in enumerate(SSD_CASES)]
     ssd_fault = ssd_planted_fault(dev)
+    for c, e in zip(SSD_CASES, ssd_errs):
+        want = ("tensor_cores" if c[7] == "bfloat16" and c[4] in ssd_scan.TC_P
+                and c[5] in ssd_scan.TC_N else "cuda_cores")
+        check(e["route"] == want, f"{c}: took the {e['route']} route, not {want}")
     emit("ssd_kernels", cases=len(SSD_CASES), seconds=time.perf_counter() - t0,
          max_y_diag_rel={dt: max(e["y_diag_rel"] for c, e in zip(SSD_CASES, ssd_errs)
                                  if c[7] == dt) for dt in ("float32", "bfloat16")},
@@ -1199,6 +1288,8 @@ def main(argv=None) -> int:
                                  if c[7] == dt) for dt in ("float32", "bfloat16")},
          max_chunk_decay_rel=max(e["chunk_decay_rel"] for e in ssd_errs), tol=SSD_TOL,
          decay_tol=DECAY_TOL, planted_fault=ssd_fault,
+         cases_by_route={r: sum(e["route"] == r for e in ssd_errs)
+                         for r in ("tensor_cores", "cuda_cores")},
          cases_detail=[dict(case=list(c), **e) for c, e in zip(SSD_CASES, ssd_errs)])
     torch.cuda.empty_cache()
 

@@ -5,44 +5,96 @@
 // x (nc, Q, H, P), dA (nc, Q, H) and B, C (nc, Q, G, N) with H % G == 0,
 // head h reading group g = h / (H / G), per chunk c and head h:
 //
-//   cum         = cumsum(dA[c, :, h])                      f32, in sequence
+//   cum         = cumsum(dA[c, :, h])                      f32
 //   L[i, j]     = exp(cum[i] - cum[j]) if j <= i else 0    selected, never masked by a product
 //   y_diag      = ((C B^T) * L) @ x                        (Q, P) f32
 //   states      = (x * exp(cum[Q-1] - cum))^T @ B          (P, N) f32
 //   chunk_decay = exp(cum[Q-1])
 //
-// with x, B and C widened to f32 in registers and every sum in f32.  Outputs
-// are y_diag (nc, Q, H, P), states (nc, H, P, N) and chunk_decay (nc, H).
+// with every product of the inputs exact and every sum in f32.  Outputs are
+// y_diag (nc, Q, H, P), states (nc, H, P, N) and chunk_decay (nc, H).
 //
 // Bound on an H100 SXM: bytes.  At the SSM path's prefill shape (mamba2-2.7b,
 // batch 4 x 4096 tokens in chunks of 256: nc 64, Q 256, H 80, G 1, P 64,
 // N 128, bf16 inputs) the function reads x (168 MB), B, C and dA (14 MB) and
-// writes y_diag (336 MB) and states (168 MB): 0.69 GB, 0.20 ms at 3.35 TB/s.
-// Its 8.6e10 flops on the causal half take 0.09 ms at the 989 TFLOP/s bf16
-// tensor-core peak.  This first kernel works in IEEE f32 on CUDA cores
-// (67 TFLOP/s, 1.3 ms at that shape), as the reference computes in f32;
-// wgmma, TMA and a fused inter-chunk pass are later work.
+// writes y_diag (336 MB) and states (168 MB): 0.69 GB, 0.20 ms at 3.35 TB/s,
+// three quarters of it the f32 stores.  Its 8.6e10 flops on the causal half
+// take 0.09 ms at the 989 TFLOP/s bf16 tensor-core peak.
 //
-// Design.  One block of 256 threads per (chunk, head): 5,120 blocks at that
-// shape.  dA's chunk goes to shared memory and one thread sums it in
-// sequence (the CPU's order).  y_diag runs over 64 x 64 tiles (i, j) with
-// j <= i only: L is exactly 0 above the diagonal, so the skipped tiles are
-// exact.  For each row tile i the block keeps C_i in shared memory and a
-// 4 x 4 register tile of y per thread; for each j it loads B_j and x_j,
-// forms the 64 x 64 scores C_i B_j^T over N in registers, multiplies by L
-// (selected to 0 where j > i), parks them in shared memory, and accumulates
-// scores @ x_j.  Then states: x_j scaled by exp(cum[Q-1] - cum) and B_j per
-// tile, a 4 x 8 register tile of the (P, N) state per thread.  Row strides of
-// the score and B/C tiles are padded to an odd number of floats, so that the
-// inner loops read shared memory without bank conflicts.  B and C are read
-// through their group's offset and the token strides the wrapper passes:
-// groups are never repeated to heads, and slices of one projection need no
-// copy.  Shared memory is 100 KB (dynamic, opted into before each launch).
+// Two kernels; the wrapper picks one by dtype, shape and layout before the
+// launch, and a route that does not take its operands refuses them.
+//
+// bf16, P in {16, 32, 64}, N in {16, 32, 64, 128}, x, B and C 16-byte
+// aligned with token strides of a multiple of 8 elements:
+// `ssd_chunk_wgmma`, on the tensor cores.
+//   One block of four warpgroups (512 threads) per chunk and run of R
+// consecutive heads of one group; R divides the group's heads and is chosen
+// for waves on the card's SMs (40 at the serving shape: 128 blocks, one
+// wave).  Blocks go head-run fastest, so a chunk's blocks share its B and C
+// in L2.  Thread 0 loads the chunk's B and C once by TMA (rank-4 maps over
+// (N, G, Q, nc) at their real token stride: slices of one projection need no
+// copy) and each head's x tile into one of two buffers, head h + 1's while
+// head h computes.  Rows come in 64-row TMA boxes; a box's rows past Q
+// arrive as zeros.  Tiles are swizzled 128 B (64 B at a width of 32, 32 B at
+// 16), 1 KB aligned.  Warp 0 scans the next head's dA (loaded one head
+// ahead) into cum and the states weights.  Shared memory is 197 KB a block
+// at the serving shape, so one block a SM.
+//   Per head, warpgroups 0, 1 and 3 take the 64-row tiles of y_diag, the
+// last tile to 0, the one before it and the first to 1, the rest to 3 (at
+// Q = 256: 4, 3 + 1 and 2 of the 10 causal (i, j) tiles), and warpgroup 2
+// takes states.  For each j <= i: S = C_i B_j^T as wgmma m64n64k16 from
+// shared memory, both K-major (rows are N-contiguous), f32 accumulation: a
+// product of bf16 values is exact in f32, so S is the reference's up to
+// summation order.  M = S * L stays f32, L selected to 0 above the diagonal
+// and past Q (there cum[i] - cum[j] > 0 may overflow), its exp the
+// special-function unit's (`__expf`: ex2.approx of x log2(e), within
+// 2 + 1.2|x| ulp, where |x| is small exactly where L is large).  M feeds the
+// second product, where a bf16 M would miss the 1e-4 tolerance by about
+// 20x, so M is split in registers into hi = bf16(M) and lo = bf16(M - hi),
+// with |M - hi - lo| <= 2^-18 |M|, and y_i += hi x_j + lo x_j as two
+// wgmma m64nPk16 with A from registers (S's accumulator layout is the A
+// operand's) and x_j MN-major through the descriptor's transpose bit.  The
+// f32 y tile is stored from registers, 8 bytes a thread, a quad covering 32
+// contiguous bytes, rows < Q only.
+//   states: xw = x * exp(cum[Q-1] - cum) is f32, split the same way, read
+// transposed from the swizzled x tile into A fragments (one bf16 load an
+// element); states += xw_hi^T B + xw_lo^T B as wgmma m64nNk16 with B
+// MN-major.
+//   The cumsum is one warp's, in a fixed order: each lane sums its 8
+// consecutive steps in sequence, the 32 lane totals go through an inclusive
+// shuffle scan (offsets 1, 2, 4, 8, 16), and each step adds its lane's
+// exclusive prefix.  The reference sums in another order; the checks admit
+// the f32 bound of either order.
+//   Within a warpgroup every step waits for its product (S, then M's split,
+// then the y product); the four warpgroups overlap one another.  At the
+// serving shape that is about 0.45 ms against the 0.20 ms bound (PERF.md).
+//
+// f32, and bf16 operands outside those shapes: `ssd_chunk_kernel`, IEEE f32
+// on CUDA cores (67 TFLOP/s, 1.3 ms at the serving shape).  One block of 256
+// threads per (chunk, head).  dA's chunk goes to shared memory and one
+// thread sums it in sequence (the CPU's order).  y_diag runs over 64 x 64
+// tiles (i, j) with j <= i only: L is exactly 0 above the diagonal, so the
+// skipped tiles are exact.  For each row tile i the block keeps C_i in
+// shared memory and a 4 x 4 register tile of y per thread; for each j it
+// loads B_j and x_j, forms the 64 x 64 scores C_i B_j^T over N in registers,
+// multiplies by L (selected to 0 where j > i), parks them in shared memory,
+// and accumulates scores @ x_j.  Then states: x_j scaled by
+// exp(cum[Q-1] - cum) and B_j per tile, a 4 x 8 register tile of the (P, N)
+// state per thread.  Row strides of the score and B/C tiles are padded to an
+// odd number of floats, so that the inner loops read shared memory without
+// bank conflicts.  B and C are read through their group's offset and the
+// token strides the wrapper passes.  Shared memory is 100 KB.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ----------------------------------------------- f32 (and other shapes): CUDA cores
+namespace cc {
 
 constexpr int kT = 64;            // rows and columns of one (i, j) tile
 constexpr int kThreads = 256;     // 16 x 16: ty picks rows, tx picks columns
@@ -238,6 +290,406 @@ cudaError_t launch(const void* x, const void* dA, const void* B, const void* C, 
   return cudaGetLastError();
 }
 
+
+}  // namespace cc
+
+// ------------------------------------------------- bf16: tensor cores
+namespace tc {
+
+constexpr int kThreads = 512;  // warpgroups 0, 1, 3: y_diag; 2: states; thread 0 issues TMA
+constexpr int kRows = 64;      // rows of a (i, j) tile and of a TMA box
+constexpr int kMaxQ = 256;
+
+template <int P, int N>
+struct Cfg {
+  static constexpr int SWB = N >= 64 ? 128 : 2 * N;  // B, C swizzle span (bytes of a chunk row)
+  static constexpr int CWB = SWB / 2;                // bf16 columns per B/C chunk
+  static constexpr int NCB = N / CWB;                // chunks across N
+  static constexpr uint32_t kModeB = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
+  static constexpr int SWX = 2 * P;                  // x swizzle span: one chunk, P <= 64
+  static constexpr uint32_t kModeX = SWX == 128 ? 1 : SWX == 64 ? 2 : 3;
+};
+
+// Shared memory a block: B and C of the chunk, x of two heads, cum and the
+// states weights of two heads, three mbarriers, 1 KB of slack to align the
+// swizzled tiles to 1 KB.
+size_t smem_bytes(int Q, int P, int N) {
+  const size_t qpad = (size_t)((Q + kRows - 1) / kRows) * kRows;
+  return 1024 + 2 * qpad * N * 2 + 2 * qpad * P * 2 + 4 * 4 * kMaxQ + 3 * 8;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi): hi + lo
+// is (a, b) within 2^-18 of each value.
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// Byte offset of (row, byte) in a tile whose rows are `sw` bytes, swizzled
+// as TMA writes it (16-byte unit u of a row XOR bits 7.. of the offset).
+__device__ __forceinline__ uint32_t swz(uint32_t off, uint32_t sw) {
+  return off ^ (((off >> 7) & (sw / 16 - 1)) << 4);
+}
+
+// dA of head h for this lane's 8 steps 8 lane .. 8 lane + 7 (0 past Q).
+__device__ __forceinline__ void load_dA(float (&v)[8], const float* dA, int c, int Q, int H,
+                                        int h, int lane) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int t = 8 * lane + e;
+    v[e] = t < Q ? dA[((size_t)c * Q + t) * H + h] : 0.f;
+  }
+}
+
+// One warp's cumsum of a head's dA, in a fixed order: each lane sums its 8
+// steps in sequence, the lanes' totals go through an inclusive shuffle scan
+// (offsets 1, 2, 4, 8, 16), and each step adds the lane's exclusive prefix
+// (the next lower lane's inclusive total).  Writes cum[0..256) (steps past Q
+// hold cum[Q-1]), the states weights w[t] = exp(cum[Q-1] - cum[t]) (0 past
+// Q), and chunk_decay = exp(cum[Q-1]).
+__device__ __forceinline__ void scan_head(const float (&v)[8], int lane, int Q, float* cum,
+                                          float* w, float* decay) {
+  float part[8], run = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    run += v[e];
+    part[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += n;
+  }
+  float base = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) base = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) cum[8 * lane + e] = base + part[e];
+  __syncwarp();
+  const float end = cum[Q - 1];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int t = 8 * lane + e;
+    w[t] = t < Q ? expf(end - cum[t]) : 0.f;
+  }
+  if (lane == 0) *decay = expf(end);
+}
+
+// Head h's x tile of chunk c into `dst`, nt boxes of 64 rows, counted on `bar`.
+template <int SWX>
+__device__ __forceinline__ void load_x(const CUtensorMap* xmap, uint32_t dst, uint32_t bar,
+                                       uint32_t bytes, int nt, int h, int c) {
+  hopper::mbar_expect_tx(bar, bytes);
+  for (int t = 0; t < nt; ++t)
+    hopper::tma_load_4d(dst + t * kRows * SWX, xmap, bar, 0, h, t * kRows, c);
+}
+
+// Tile i's rows go to warpgroup 0 if it is the last tile, 1 if it is the
+// one before it or the first, else 3: at 4 tiles, 4, 3 + 1 and 2 of the 10
+// causal (i, j) tiles.  Warpgroup 2 takes states.
+__device__ __forceinline__ int tile_owner(int i, int nt) {
+  return i == nt - 1 ? 0 : (i == nt - 2 || i == 0) ? 1 : 3;
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1) ssd_chunk_wgmma(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap cmap, const float* __restrict__ dA,
+    float* __restrict__ y, float* __restrict__ states, float* __restrict__ decay, int Q, int H,
+    int G, int R) {
+  using K = Cfg<P, N>;
+  constexpr int SWB = K::SWB, CWB = K::CWB, SWX = K::SWX;
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t bc_bytes = (uint32_t)qpad * N * 2, x_bytes = (uint32_t)qpad * P * 2;
+  const uint32_t b_s = base;               // [NCB][qpad][CWB], swizzled
+  const uint32_t c_s = b_s + bc_bytes;     // [NCB][qpad][CWB]
+  const uint32_t x_s = c_s + bc_bytes;     // [2 heads][qpad][P]
+  float* const cumf = reinterpret_cast<float*>(gbase + 2 * bc_bytes + 2 * x_bytes);
+  const uint32_t bars = x_s + 2 * x_bytes + 4 * 4 * kMaxQ;  // bc, x[2]
+  const uint32_t bc_bar = bars;
+  auto x_bar = [&](int s) { return bars + 8u * (1 + s); };
+
+  const int runs = H / R;
+  const int c = blockIdx.x / runs, h0 = (blockIdx.x - c * runs) * R;
+  const int g = h0 / (H / G);
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bc_bar, 1);
+    hopper::mbar_init(x_bar(0), 1);
+    hopper::mbar_init(x_bar(1), 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bc_bar, 2 * bc_bytes);
+    for (int cc = 0; cc < K::NCB; ++cc)
+      for (int t = 0; t < nt; ++t) {
+        const uint32_t off = cc * qpad * SWB + t * kRows * SWB;
+        hopper::tma_load_4d(b_s + off, &bmap, bc_bar, cc * CWB, g, t * kRows, c);
+        hopper::tma_load_4d(c_s + off, &cmap, bc_bar, cc * CWB, g, t * kRows, c);
+      }
+    load_x<SWX>(&xmap, x_s, x_bar(0), x_bytes, nt, h0, c);
+  }
+  float nxt[8];  // warp 0: dA of the next head, loaded one head ahead
+  if (threadIdx.x < 32) {
+    load_dA(nxt, dA, c, Q, H, h0, lane);
+    scan_head(nxt, lane, Q, cumf, cumf + 2 * kMaxQ, decay + (size_t)c * H + h0);
+    if (R > 1) load_dA(nxt, dA, c, Q, H, h0 + 1, lane);
+  }
+  __syncthreads();
+
+  const int p0 = 16 * warp + lane / 4, p1 = p0 + 8;  // this thread's accumulator rows
+  const int cq = 2 * (lane % 4);                      // and its first column in each 8
+  for (int k = 0; k < R; ++k) {
+    const int s = k & 1, h = h0 + k;
+    if (threadIdx.x < 32 && k + 1 < R) {
+      scan_head(nxt, lane, Q, cumf + (s ^ 1) * kMaxQ, cumf + (2 + (s ^ 1)) * kMaxQ,
+                decay + (size_t)c * H + h + 1);
+      if (k + 2 < R) load_dA(nxt, dA, c, Q, H, h + 2, lane);
+    }
+    if (threadIdx.x == 0 && k + 1 < R)
+      load_x<SWX>(&xmap, x_s + (s ^ 1) * x_bytes, x_bar(s ^ 1), x_bytes, nt, h + 1, c);
+    if (k == 0) hopper::mbar_wait(bc_bar, 0);
+    hopper::mbar_wait(x_bar(s), (k >> 1) & 1);
+    const float* cum = cumf + s * kMaxQ;
+    const float* w = cumf + (2 + s) * kMaxQ;
+    const uint32_t xs = x_s + s * x_bytes;
+    const uint8_t* const xg = gbase + (xs - base);
+
+    // ---- y_diag: row tile i against the causal column tiles j <= i
+    for (int i = 0; i < nt; ++i) {
+      if (tile_owner(i, nt) != wg) continue;
+      const int i0 = i * kRows, r0 = i0 + p0, r1 = i0 + p1;
+      const float cr0 = cum[r0], cr1 = cum[r1];
+      float acc[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) acc[e] = 0.f;
+      for (int j = 0; j <= i; ++j) {
+        const int j0 = j * kRows;
+        // S = C_i . B_j^T, both K-major (N contiguous): exact bf16 products, f32 sums
+        float sc[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const uint32_t off = (kk * 16 / CWB) * qpad * SWB + (kk * 16 % CWB) * 2;
+          hopper::wgmma_ss(sc, hopper::make_desc(c_s + off + i0 * SWB, 16, 8 * SWB, K::kModeB),
+                           hopper::make_desc(b_s + off + j0 * SWB, 16, 8 * SWB, K::kModeB),
+                           kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        // M = S * L, L selected (never multiplied) to 0 above the diagonal and
+        // past Q, then split into bf16 hi + lo: the A fragments of M . x_j
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int cb = j0 + 8 * jj + cq;
+          const float cc0 = cum[cb], cc1 = cum[cb + 1];
+          const bool v0 = r0 < Q, v1 = r1 < Q;
+          const float m00 = v0 && cb <= r0 ? sc[4 * jj] * __expf(cr0 - cc0) : 0.f;
+          const float m01 = v0 && cb + 1 <= r0 ? sc[4 * jj + 1] * __expf(cr0 - cc1) : 0.f;
+          const float m10 = v1 && cb <= r1 ? sc[4 * jj + 2] * __expf(cr1 - cc0) : 0.f;
+          const float m11 = v1 && cb + 1 <= r1 ? sc[4 * jj + 3] * __expf(cr1 - cc1) : 0.f;
+          split(m00, m01, hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
+          split(m10, m11, hi[jj / 2][2 * (jj % 2) + 1], lo[jj / 2][2 * (jj % 2) + 1]);
+        }
+        // y_i += hi . x_j + lo . x_j, x_j MN-major (P contiguous): a k16 step is 16 rows
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t xd =
+              hopper::make_desc(xs + (j0 + 16 * kk) * SWX, qpad * SWX, 8 * SWX, K::kModeX);
+          hopper::wgmma_rs(acc, hi[kk], xd, 1);
+          hopper::wgmma_rs(acc, lo[kk], xd, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+#pragma unroll
+      for (int jj = 0; jj < P / 8; ++jj) {
+        const int col = 8 * jj + cq;
+        if (r0 < Q)
+          *reinterpret_cast<float2*>(y + (((size_t)c * Q + r0) * H + h) * P + col) =
+              make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        if (r1 < Q)
+          *reinterpret_cast<float2*>(y + (((size_t)c * Q + r1) * H + h) * P + col) =
+              make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+    }
+
+    // ---- states[p][n] = sum_t xw[t][p] B[t][n], xw = x * w split into bf16
+    // hi + lo and read transposed from the swizzled x tile into A fragments;
+    // B MN-major (N contiguous).  Warpgroup 2 computes it beside the y tiles.
+    if (wg == 2) {
+      float st[N / 2];
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) st[e] = 0.f;
+      auto xw = [&](int p, int t) {
+        if (p >= P) return 0.f;
+        const __nv_bfloat16 v =
+            *reinterpret_cast<const __nv_bfloat16*>(xg + swz(t * SWX + p * 2, SWX));
+        return __bfloat162float(v) * w[t];
+      };
+      for (int t0 = 0; t0 < qpad; t0 += 64) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int t = t0 + 16 * kk + cq;
+          split(xw(p0, t), xw(p0, t + 1), ah[kk][0], al[kk][0]);
+          split(xw(p1, t), xw(p1, t + 1), ah[kk][1], al[kk][1]);
+          split(xw(p0, t + 8), xw(p0, t + 9), ah[kk][2], al[kk][2]);
+          split(xw(p1, t + 8), xw(p1, t + 9), ah[kk][3], al[kk][3]);
+        }
+        hopper::fence_regs(st);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bd =
+              hopper::make_desc(b_s + (t0 + 16 * kk) * SWB, qpad * SWB, 8 * SWB, K::kModeB);
+          hopper::wgmma_rs(st, ah[kk], bd, 1);
+          hopper::wgmma_rs(st, al[kk], bd, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+      }
+      float* const sblk = states + ((size_t)c * H + h) * P * N;
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int col = 8 * jj + cq;
+        if (p0 < P)
+          *reinterpret_cast<float2*>(sblk + (size_t)p0 * N + col) =
+              make_float2(st[4 * jj], st[4 * jj + 1]);
+        if (p1 < P)
+          *reinterpret_cast<float2*>(sblk + (size_t)p1 * N + col) =
+              make_float2(st[4 * jj + 2], st[4 * jj + 3]);
+      }
+    }
+    __syncthreads();  // buffers s are free for head k + 2, cum of head k + 1 is written
+  }
+}
+
+// A rank-4 map over (width, heads or groups, Q, nc) of a bf16 operand whose
+// (heads, width) rows are packed and whose tokens are `tok` elements apart.
+CUresult encode_map(CUtensorMap* map, const void* ptr, int width, int heads, int Q, int nc,
+                    long long tok, int box_cols, int swizzle_bytes) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)Q,
+                              (cuuint64_t)nc};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)tok * 2,
+                                 (cuuint64_t)Q * tok * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Heads per block: a divisor R of the heads of one group, chosen for waves
+// on the card's SMs.  Cost waves * (4 R + 1): a wave runs R heads one after
+// the other, plus about a quarter of a head to load the chunk's B and C.
+// Ties go to the larger R (fewer B and C loads).
+int heads_per_block(int nc, int H, int G, int sms) {
+  const int hg = H / G;
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 1; r <= hg; ++r) {
+    if (hg % r) continue;
+    const long long blocks = (long long)nc * (H / r);
+    const long long cost = (blocks + sms - 1) / sms * (4LL * r + 1);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = r;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int P, int N>
+cudaError_t launch(const void* x, const void* dA, const void* B, const void* C, void* y,
+                   void* states, void* decay, int nc, int Q, int H, int G, long long x_tok,
+                   long long b_tok, long long c_tok, cudaStream_t stream) {
+  using K = Cfg<P, N>;
+  CUtensorMap xm, bm, cm;
+  if (encode_map(&xm, x, P, H, Q, nc, x_tok, P, K::SWX) != CUDA_SUCCESS ||
+      encode_map(&bm, B, N, G, Q, nc, b_tok, K::CWB, K::SWB) != CUDA_SUCCESS ||
+      encode_map(&cm, C, N, G, Q, nc, c_tok, K::CWB, K::SWB) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int R = heads_per_block(nc, H, G, sms);
+  const size_t smem = smem_bytes(Q, P, N);
+  err = cudaFuncSetAttribute(ssd_chunk_wgmma<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_wgmma<P, N><<<nc * (H / R), kThreads, smem, stream>>>(
+      xm, bm, cm, static_cast<const float*>(dA), static_cast<float*>(y),
+      static_cast<float*>(states), static_cast<float*>(decay), Q, H, G, R);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t resources(int Q, int* regs, int* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, ssd_chunk_wgmma<P, N>);
+  *regs = attr.numRegs;
+  *smem = (int)(attr.sharedSizeBytes + smem_bytes(Q, P, N));
+  return err;
+}
+
+// The route's shapes: P in {16, 32, 64}, N in {16, 32, 64, 128}.
+bool takes(int P, int N) {
+  return (P == 16 || P == 32 || P == 64) && (N == 16 || N == 32 || N == 64 || N == 128);
+}
+
+#define SSD_TC_DISPATCH(FN, ...)                                      \
+  switch (P * 1000 + N) {                                             \
+    case 16016: return FN<16, 16>(__VA_ARGS__);                       \
+    case 16032: return FN<16, 32>(__VA_ARGS__);                       \
+    case 16064: return FN<16, 64>(__VA_ARGS__);                       \
+    case 16128: return FN<16, 128>(__VA_ARGS__);                      \
+    case 32016: return FN<32, 16>(__VA_ARGS__);                       \
+    case 32032: return FN<32, 32>(__VA_ARGS__);                       \
+    case 32064: return FN<32, 64>(__VA_ARGS__);                       \
+    case 32128: return FN<32, 128>(__VA_ARGS__);                      \
+    case 64016: return FN<64, 16>(__VA_ARGS__);                       \
+    case 64032: return FN<64, 32>(__VA_ARGS__);                       \
+    case 64064: return FN<64, 64>(__VA_ARGS__);                       \
+    case 64128: return FN<64, 128>(__VA_ARGS__);                      \
+    default: return cudaErrorInvalidValue;                            \
+  }
+
+cudaError_t dispatch(const void* x, const void* dA, const void* B, const void* C, void* y,
+                     void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
+                     long long x_tok, long long b_tok, long long c_tok, cudaStream_t st) {
+  SSD_TC_DISPATCH(launch, x, dA, B, C, y, states, decay, nc, Q, H, G, x_tok, b_tok, c_tok, st)
+}
+
+cudaError_t dispatch_resources(int Q, int P, int N, int* regs, int* smem) {
+  SSD_TC_DISPATCH(resources, Q, regs, smem)
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -245,19 +697,46 @@ extern "C" {
 // x: (nc, Q, H, P) and B, C: (nc, Q, G, N) of one type (bf16 when is_bf16,
 // else f32), each token's row packed, tokens `*_tok` elements apart; dA:
 // (nc, Q, H) contiguous f32.  Writes y (nc, Q, H, P), states (nc, H, P, N)
-// and decay (nc, H), contiguous f32.  Returns the launch's cudaError_t.
+// and decay (nc, H), contiguous f32.  tensor_cores picks the route: 1 the
+// wgmma kernel (bf16 only; P in {16, 32, 64}, N in {16, 32, 64, 128},
+// x, B, C 16-byte aligned with token strides of a multiple of 8 elements),
+// 0 the CUDA-core kernel.  Returns the launch's cudaError_t; a route that
+// does not take the operands returns cudaErrorInvalidValue and launches
+// nothing.
 int ssd_chunk_launch(const void* x, const void* dA, const void* B, const void* C, void* y,
                      void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
                      long long x_tok, long long b_tok, long long c_tok, int is_bf16,
-                     void* stream) {
-  if (nc < 1 || Q < 16 || Q > kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 || P < 1 ||
-      P > kMaxP || N < 1 || N > kMaxN || (long long)nc * H > 2147483647LL)
+                     int tensor_cores, void* stream) {
+  if (nc < 1 || Q < 16 || Q > cc::kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 || P < 1 ||
+      P > cc::kMaxP || N < 1 || N > cc::kMaxN || (long long)nc * H > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16>(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N,
-                                               x_tok, b_tok, c_tok, st)
-                       : launch<float>(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N, x_tok,
-                                       b_tok, c_tok, st));
+  if (tensor_cores) {
+    const bool aligned = ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) % 16 == 0 &&
+                         x_tok % 8 == 0 && b_tok % 8 == 0 && c_tok % 8 == 0;
+    if (!is_bf16 || !tc::takes(P, N) || !aligned) return (int)cudaErrorInvalidValue;
+    return (int)tc::dispatch(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N, x_tok, b_tok,
+                             c_tok, st);
+  }
+  return (int)(is_bf16 ? cc::launch<__nv_bfloat16>(x, dA, B, C, y, states, decay, nc, Q, H, G,
+                                                   P, N, x_tok, b_tok, c_tok, st)
+                       : cc::launch<float>(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N,
+                                           x_tok, b_tok, c_tok, st));
+}
+
+// A route's registers a thread and shared memory a block (static plus the
+// dynamic bytes its launch asks for) at chunk length Q, head dim P and
+// state dim N.
+int ssd_chunk_resources(int tensor_cores, int is_bf16, int Q, int P, int N, int* regs,
+                        int* smem_bytes) {
+  if (tensor_cores) return (int)tc::dispatch_resources(Q, P, N, regs, smem_bytes);
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      is_bf16 ? cudaFuncGetAttributes(&attr, cc::ssd_chunk_kernel<__nv_bfloat16>)
+              : cudaFuncGetAttributes(&attr, cc::ssd_chunk_kernel<float>);
+  *regs = attr.numRegs;
+  *smem_bytes = (int)(attr.sharedSizeBytes + cc::kSmemBytes);
+  return (int)err;
 }
 
 const char* ssd_chunk_error_string(int err) {

@@ -11,17 +11,25 @@ reading group h // (H // G) of B and C:
     chunk_decay = exp(cum[-1])
 
 with x, B, C widened to f32 and every sum in f32.  ``ssd_chunk`` takes its
-route from the tensors' device: a CUDA tensor launches the hand-written
+route from the tensors' device: a CUDA tensor launches a hand-written
 kernel in ``csrc/ssd_chunk.cu`` (or raises), a CPU tensor runs
 ``ssd_chunk_plain``, the same function in plain PyTorch.
-``ssd_chunk.launches`` counts the CUDA launches.
 
-Both take cum in the cumsum-difference form of the JAX package's kernel
+On the card ``route`` picks the kernel from dtype, shape and layout alone,
+before the launch: bf16 operands with P in ``TC_P``, N in ``TC_N``, 16-byte
+aligned data and token strides of a multiple of 8 elements go to the
+tensor cores (``"tensor_cores"``: wgmma with M and x*w split into bf16
+hi + lo, within 2^-18 of the f32 values); everything else to the CUDA-core
+kernel (``"cuda_cores"``, IEEE f32).  Nothing retries on another route: a
+failed build or launch raises.  ``ssd_chunk.launches`` counts the CUDA
+launches, ``ssd_chunk.route_launches`` the same per route.
+
+All take cum in the cumsum-difference form of the JAX package's kernel
 and reference, so they round alike; L is selected to 0 above the diagonal
-before anything multiplies it (exp overflows there).  The kernel sums the
-cumsum in sequence, as the CPU does; a CUDA ``torch.cumsum`` sums in
-another order, so on the card the two agree to the f32 rounding of
-|cum|, not bit for bit.
+before anything multiplies it (exp overflows there).  The CUDA-core kernel
+sums the cumsum in sequence, as the CPU does, the tensor-core kernel in a
+warp scan; a CUDA ``torch.cumsum`` sums in yet another order, so on the
+card they agree to the f32 rounding of |cum|, not bit for bit.
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q, MAX_P, MAX_N = 256, 64, 128
 Q_STEP = 16  # chunk lengths are multiples of this
 MAX_BLOCKS = 2**31 - 1  # the kernel's grid puts chunks * heads on its x axis
+ROUTES = ("tensor_cores", "cuda_cores")
+TC_P, TC_N = (16, 32, 64), (16, 32, 64, 128)  # the tensor-core kernel's head and state dims
+ALIGN = 16  # bytes: TMA's alignment of a base address and a token stride
 
 _LIB = None
 
@@ -44,8 +55,11 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build("ssd_chunk")))
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_chunk_launch.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i, vp]
+        lib.ssd_chunk_launch.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i, i, vp]
         lib.ssd_chunk_launch.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ssd_chunk_resources.argtypes = [i] * 5 + [ip, ip]
+        lib.ssd_chunk_resources.restype = i
         lib.ssd_chunk_error_string.argtypes = [i]
         lib.ssd_chunk_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -95,6 +109,17 @@ def _check_operands(x, dA, B, C):
     return nc, Q, H, G, P, N
 
 
+def route(x, B, C) -> str:
+    """The kernel a CUDA call takes, from dtype, shape and layout alone
+    (operands already checked by ``_check_operands``)."""
+    P, N = x.shape[3], B.shape[3]
+    aligned = all(t.data_ptr() % ALIGN == 0 and t.stride(1) * t.element_size() % ALIGN == 0
+                  for t in (x, B, C))
+    if x.dtype == torch.bfloat16 and P in TC_P and N in TC_N and aligned:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def ssd_chunk_plain(x, dA, B, C):
     """The same function as the kernel in plain PyTorch (the CPU route and
     the on-card reference).  Groups broadcast to heads by views, never by
@@ -132,6 +157,7 @@ def ssd_chunk(x, dA, B, C):
         return ssd_chunk_plain(x, dA, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on CUDA or the CPU, not {x.device}")
+    path = route(x, B, C)
     lib = _lib()
     f32 = torch.float32
     y = torch.empty((nc, Q, H, P), dtype=f32, device=x.device)
@@ -142,12 +168,30 @@ def ssd_chunk(x, dA, B, C):
         rc = lib.ssd_chunk_launch(
             x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
             states.data_ptr(), decay.data_ptr(), nc, Q, H, G, P, N, *strides,
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), int(path == "tensor_cores"), stream)
     if rc != 0:
         msg = lib.ssd_chunk_error_string(rc).decode()
-        raise RuntimeError(f"ssd_chunk launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"ssd_chunk launch failed ({path}): CUDA error {rc} ({msg})")
     ssd_chunk.launches += 1
+    ssd_chunk.route_launches[path] += 1
     return y, states, decay
 
 
-ssd_chunk.launches = 0
+def reset_launches() -> None:
+    """Set ``ssd_chunk.launches`` and every per-route count to 0."""
+    ssd_chunk.launches = 0
+    ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
+
+
+def resources(path: str, Q: int, P: int, N: int, dtype: torch.dtype) -> dict:
+    """A route's registers a thread and shared memory a block (static plus
+    dynamic) at chunk length Q, head dim P and state dim N."""
+    regs, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().ssd_chunk_resources(int(path == "tensor_cores"), int(dtype == torch.bfloat16),
+                                    Q, P, N, ctypes.byref(regs), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk_resources: CUDA error {rc}")
+    return {"registers_at_launch": regs.value, "smem_bytes": smem.value}

@@ -1,8 +1,9 @@
 """Card-only checks of the port (marker ``gpu``; they skip without a CUDA
 device): the CUDA ``cascade_score``, ``flash_attention`` and ``ssd_chunk``
 against their plain versions over ``chip_smoke.py``'s shapes and
-tolerances, their launch counters, the optimize-and-execute path on a short
-stream, the dense serving path at deepseek-67b's width and the SSM serving
+tolerances, their launch counters (``ssd_chunk``'s per route, with the
+route each dtype, shape and layout takes), the optimize-and-execute path on
+a short stream, the dense serving path at deepseek-67b's width and the SSM serving
 path at mamba2-2.7b's, each with two layers and a short prompt.
 On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import sys
@@ -102,7 +103,54 @@ def test_ssd_launch_counter_and_no_fallback(cuda):
     assert ssd_chunk.launches == before + 1
 
 
+@pytest.mark.parametrize("case,want", [
+    ((2, 64, 4, 2, 16, 32, "published", "bfloat16"), "tensor_cores"),
+    ((4, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
+    ((2, 64, 4, 2, 8, 32, "published", "bfloat16"), "cuda_cores"),  # P = 8
+    ((2, 64, 4, 2, 16, 48, "published", "bfloat16"), "cuda_cores"),  # N = 48
+    ((2, 64, 4, 2, 16, 32, "published", "float32"), "cuda_cores"),
+])
+def test_ssd_routes_and_their_launch_counts(cuda, case, want):
+    """Each call launches on the route its dtype, shape and layout pick, and
+    only that route's count moves; both routes match the plain version."""
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk
+
+    x, dA, B, C = chip_smoke.ssd_inputs(case, cuda, seed=1)
+    assert route(x, B, C) == want
+    before = dict(ssd_chunk.route_launches)
+    errs = chip_smoke.check_ssd_case(case, cuda, seed=1)
+    assert errs["route"] == want
+    assert {r: n - before[r] for r, n in ssd_chunk.route_launches.items()} == {
+        r: int(r == want) for r in before}
+
+
+def test_ssd_tensor_core_route_refuses_a_misaligned_layout(cuda):
+    """x 2 bytes past a 16-byte boundary cannot be read by TMA: the call
+    takes the CUDA-core route, decided before the launch, and the C entry
+    refuses the tensor-core route for it without launching."""
+    from repro_torch.kernels import ssd_scan
+
+    x, dA, B, C = chip_smoke.ssd_inputs((2, 64, 4, 2, 16, 32, "published", "bfloat16"), cuda,
+                                        seed=2)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert ssd_scan.route(shifted, B, C) == "cuda_cores"
+    before = dict(ssd_scan.ssd_chunk.route_launches)
+    got = ssd_scan.ssd_chunk(shifted, dA, B, C)
+    assert chip_smoke.ssd_route_taken(before) == "cuda_cores"
+    chip_smoke.check_ssd_output("misaligned x", got, ssd_scan.ssd_chunk_plain(shifted, dA, B, C),
+                                dA)
+    out = [torch.empty(s, dtype=torch.float32, device=cuda)
+           for s in ((2, 64, 4, 16), (2, 4, 16, 32), (2, 4))]
+    rc = ssd_scan._lib().ssd_chunk_launch(
+        shifted.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
+        *(t.data_ptr() for t in out), 2, 64, 4, 2, 16, 32, 64, 64, 64, 1, 1,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc != 0
+
+
 def test_ssm_path_short_prompt(cuda):
     out = chip_smoke.run_ssm_path(cuda, layers=2, batch=2, prompt=512, new_tokens=16)
     assert out["launches"] == out["prefill_launches"] == 2
+    assert out["route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
     assert out["planted_fault"]["caught"]
