@@ -7,15 +7,20 @@ Needs one CUDA card; exits non-zero without one, and when any phase fails.
 Each phase prints one JSON line:
 
 1. device   — torch / CUDA versions, card name, power limit; kernel build.
-2. kernels  — the CUDA ``cascade_score`` against its plain PyTorch version
-              on the card over ragged shapes, both weight types and every
-              output option.
+2. kernels  — the CUDA ``cascade_score`` (scoring, survivor scan and
+              compaction in one launch) against its plain PyTorch version
+              on the card over ragged shapes, int8 / fp8 / f32 weights,
+              every output option, no and all survivors, and 1,024 blocks.
 3. main_path — the port's optimize-and-execute path at the ``twitter``
               profile's full width (F=64, four UDFs of hidden 48 and depth
               2, a 5% optimization sample of 40,000 records) over a stream
-              of 1,048,576 records, for two queries.
+              of 1,048,576 records, for two queries; then a profile of 16
+              tiles of each (device busy share, pinned and pageable
+              uploads, the host's busiest calls).
 4. timing   — CUDA-event times of the kernel and its plain version at the
-              main path's shapes, beside the card's bound for that work.
+              main path's shapes, beside the card's bound for that work;
+              the kernel's device µs and device events a call, host µs a
+              call, and the scorer's whole route on warm and cold tiles.
 5. flash_kernels — the CUDA ``flash_attention`` (bf16: wgmma on the tensor
               cores; f32: CUDA cores) against its plain PyTorch version on
               the card, by absolute and per-row limits: the JAX package's
@@ -110,7 +115,9 @@ QUERIES = (  # (name, columns, selectivity, A, proxy kind, make_query seed)
     ("quickstart", [0, 1], 0.5, 0.9, "svm", 1),
     ("mixed3", [0, 1, 2], 0.5, 0.9, "mixed", 2),
 )
-# (N, n_valid, F, H, P, weights, with_scores, compact_cols)
+# (N, n_valid, F, H, P, weights, with_scores, compact_cols[, thresholds]):
+# thresholds "median" (the default: each column's median plain score),
+# "none" (float32 max: no survivors) or "all" (-max: every valid row)
 KERNEL_CASES = (
     (1, 1, 64, 2, 1, "float32", True, None),
     (127, 127, 64, 32, 3, "float32", False, (0, 1, 2)),
@@ -120,6 +127,16 @@ KERNEL_CASES = (
     (8192, 8192, 64, 2, 2, "float32", False, (0,)),
     (8192, 8000, 64, 32, 1, "float32", True, (0,)),
     (4096, 4096, 128, 128, 130, "int8", True, (0, 64, 129)),
+    # ragged 64-row blocks, F and int8 HP that rule out 16-byte copies
+    (255, 200, 64, 2, 2, "float32", True, None),
+    (257, 257, 17, 1, 3, "int8", True, (0, 2)),
+    (8191, 8191, 33, 3, 5, "float32", True, (4,)),
+    # no survivors, every valid row a survivor, fp8 codes
+    (8192, 8192, 64, 32, 3, "float32", False, (0,), "none"),
+    (8192, 6000, 64, 32, 3, "int8", False, (0, 1, 2), "all"),
+    (2048, 2048, 64, 32, 3, "fp8", True, (0,)),
+    # 1,024 blocks: many waves, look-back windows of 32 across them
+    (65536, 65001, 64, 8, 2, "float32", False, (1,)),
 )
 # flash_attention kernel vs its plain version: the tolerances of the JAX
 # package's kernel test (tests/test_kernels.py:68), atol = rtol.  f32: both
@@ -260,7 +277,8 @@ def make_kernel_case(case, dev, seed):
                                                quantize_cascade)
     from repro_torch.kernels.proxy_score import cascade_score_plain
 
-    N, n_valid, F, H, P, weights, _scores, _cols = case
+    N, n_valid, F, H, P, weights, _scores, _cols = case[:8]
+    thr_mode = case[8] if len(case) > 8 else "median"
     rng = np.random.RandomState(seed)
     packed = PackedCascade(
         w1=(rng.randn(F, H, P) / np.sqrt(F)).astype(np.float32),
@@ -268,15 +286,18 @@ def make_kernel_case(case, dev, seed):
         w2=(rng.randn(H, P) / np.sqrt(H)).astype(np.float32),
         b2=(0.1 * rng.randn(P)).astype(np.float32),
         hidden=(H,) * P, families=("mlp1",) * P)
-    if weights == "int8":
-        packed = quantize_cascade(packed, "int8")
+    if weights != "float32":
+        packed = quantize_cascade(packed, weights)
     ops = [torch.from_numpy(a).to(dev) for a in cascade_kernel_operands(packed)]
     out_scale = (None if packed.out_scale is None
                  else torch.from_numpy(packed.out_scale).to(dev))
     x = torch.from_numpy(rng.randn(N, F).astype(np.float32)).to(dev)
     s, _m, _p, _c = cascade_score_plain(x, *ops, torch.zeros(P, device=dev), N,
                                         out_scale=out_scale, with_compaction=False)
-    thr = s.median(dim=0).values.contiguous()
+    fmax = float(np.finfo(np.float32).max)
+    thr = {"median": s.median(dim=0).values.contiguous(),
+           "none": torch.full((P,), fmax, device=dev),
+           "all": torch.full((P,), -fmax, device=dev)}[thr_mode]
     return x, ops, thr, out_scale
 
 
@@ -288,7 +309,7 @@ def check_kernel_case(case, dev, seed=0) -> float:
     what the kernel's own mask implies."""
     from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 
-    N, n_valid, F, H, P, weights, with_scores, cols = case
+    N, n_valid, F, H, P, weights, with_scores, cols = case[:8]
     x, (w1, b1, w2, b2), thr, out_scale = make_kernel_case(case, dev, seed)
     sk, mk, pk, ck = cascade_score(x, w1, b1, w2, b2, thr, n_valid, out_scale=out_scale,
                                    with_scores=with_scores, compact_cols=cols)
@@ -307,6 +328,9 @@ def check_kernel_case(case, dev, seed=0) -> float:
     bad = (mk != mp) & ~tie
     check(not bool(bad.any()), f"{case}: {int(bad.sum())} mask entries differ off a tie")
     check(not bool(mk[n_valid:].any()), f"{case}: padding rows kept")
+    if len(case) > 8:
+        want = 0 if case[8] == "none" else n_valid
+        check(bool((ck == want).all()), f"{case}: counts {ck.tolist()[:4]}, want {want}")
     check(torch.equal(ck, mk.sum(0, dtype=torch.int32)), f"{case}: counts != mask sums")
     sel = list(range(P)) if cols is None else list(cols)
     check(tuple(pk.shape) == (len(sel), N), f"{case}: packed shape {tuple(pk.shape)}")
@@ -399,6 +423,7 @@ def run_main_path(dev, n_stream: int):
              passed=int(len(res.passed)), passed_diff_vs_reference_path=int(len(diff)),
              launches=launches, tiles=n_tiles, optimize_s=optimize_s, execute_s=exec_s,
              rows_per_s=n_stream / exec_s, fused_score_s=res.fused_score_ms / 1e3,
+             fused_score_ms_per_tile=res.fused_score_ms / n_tiles,
              proxy_gate_s=sum(s.proxy_ms for s in res.stages) / 1e3,
              udf_s=sum(s.udf_ms for s in res.stages) / 1e3,
              optimizer_stats=plan.meta["stats"])
@@ -443,7 +468,11 @@ def device_profile(fn, dev, watch: str | None = None) -> dict:
     out = {"wall_us": wall_us, "device_busy_us": busy_us,
            "device_busy_share": busy_us / wall_us if wall_us else None,
            "device_events": sum(n for _, n in by_name.values()),
-           "top": [{"name": k[:80], "us": t, "count": n} for k, (t, n) in top]}
+           "top": [{"name": k[:80], "us": t, "count": n} for k, (t, n) in top],
+           "copies": {k: n for k, (_t, n) in by_name.items() if k.startswith("Memcpy")},
+           "host_top": [{"name": e.key[:60], "self_us": e.self_cpu_time_total, "count": e.count}
+                        for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+                        [:8]]}
     if watch is not None:
         hits = [v for k, v in by_name.items() if watch in k]
         us = sum(t for t, _ in hits)
@@ -470,7 +499,7 @@ def time_main_shapes(plans, stream, dev, iters: int):
     rows = []
     x = torch.from_numpy(np.ascontiguousarray(stream[:8192], np.float32)).to(dev)
     N = x.shape[0]
-    for name, plan in plans:
+    for qi, (name, plan) in enumerate(plans):
         sc = CascadeScorer.from_plan(plan, device=dev)
         cols = (next(c for c in sc.stage_cols if c is not None),)
         args = (x, sc.w1, sc.b1, sc.w2, sc.b2, sc.thr, N)
@@ -488,6 +517,37 @@ def time_main_shapes(plans, stream, dev, iters: int):
         prof = device_profile(lambda: [cascade_score(*args, **kw) for _ in range(calls)], dev)
         kernel_us = {t["name"]: t["us"] / calls for t in prof["top"]
                      if "cascade_" in t["name"]}
+        # host time to issue one call (no synchronise inside the loop)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            cascade_score(*args, **kw)
+        host_us = (time.perf_counter() - t0) * 1e6 / iters
+        sync(dev)
+        # the scorer's whole route for one host tile: staging into pinned
+        # memory, upload, the kernel, one fetch, one event wait
+        tile = np.ascontiguousarray(stream[:N], np.float32)
+        sc.score_compact(tile, compact_cols=cols)
+        t0 = time.perf_counter()
+        for _ in range(iters // 4):
+            sc.score_compact(tile, compact_cols=cols)
+        tile_ms = (time.perf_counter() - t0) * 1e3 / (iters // 4)
+        tprof = device_profile(lambda: [sc.score_compact(tile, compact_cols=cols)
+                                        for _ in range(10)], dev)
+        # the same on tiles the host has not touched since phase 3 (as the
+        # executor meets them), and the copy into pinned memory alone
+        n_cold = min(32, len(stream) // N // (2 * len(plans)))
+        cold = [stream[(2 * qi * n_cold + i) * N:(2 * qi * n_cold + i + 1) * N]
+                for i in range(2 * n_cold)]
+        t0 = time.perf_counter()
+        for tl in cold[:n_cold]:
+            sc.score_compact(tl, compact_cols=cols)
+        cold_tile_ms = (time.perf_counter() - t0) * 1e3 / n_cold
+        pinned = torch.empty(tile.shape, dtype=torch.float32, pin_memory=True)
+        t0 = time.perf_counter()
+        for tl in cold[n_cold:]:
+            pinned.copy_(torch.from_numpy(tl))
+        stage_ms = (time.perf_counter() - t0) * 1e3 / n_cold
         F, HP = sc.w1.shape
         P = sc.w2.shape[1]
         bound_ms, bound_by, nbytes, flops = bound(
@@ -498,8 +558,15 @@ def time_main_shapes(plans, stream, dev, iters: int):
                          plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                          max_abs_err=err, kernel_device_us_per_call=kernel_us,
+                         kernel_device_us=sum(kernel_us.values()),
+                         device_events_per_call=prof["device_events"] / calls,
                          device_us_per_call=prof["device_busy_us"] / calls,
-                         wall_us_per_call=prof["wall_us"] / calls))
+                         host_us_per_call=host_us,
+                         wall_us_per_call=prof["wall_us"] / calls,
+                         scorer_tile_ms=tile_ms, scorer_cold_tile_ms=cold_tile_ms,
+                         pinned_stage_cold_ms=stage_ms, host_threads=torch.get_num_threads(),
+                         scorer_device_events_per_tile=tprof["device_events"] / 10,
+                         scorer_copies_per_10_tiles=tprof["copies"]))
         emit("timing", **rows[-1])
     return rows
 
@@ -511,8 +578,15 @@ def profile_main_path(plans, stream, dev, tiles: int = 16):
     x = stream[:tiles * 8192]
     for name, plan in plans:
         execute_plan(plan, x[:8192], use_kernel=True, device=dev)  # warm
-        prof = device_profile(lambda: execute_plan(plan, x, use_kernel=True, device=dev), dev)
-        emit("main_path_profile", query=name, records=len(x), **prof)
+        out = {}
+        prof = device_profile(
+            lambda: out.update(res=execute_plan(plan, x, use_kernel=True, device=dev)), dev)
+        copies = prof["copies"]
+        emit("main_path_profile", query=name, records=len(x), tiles=tiles,
+             fused_score_ms_per_tile=out["res"].fused_score_ms / tiles,
+             h2d_pinned=sum(n for k, n in copies.items() if "HtoD" in k and "Pinned" in k),
+             h2d_pageable=sum(n for k, n in copies.items()
+                              if "HtoD" in k and "Pageable" in k), **prof)
 
 
 # ------------------------------------------------------------- phase 5

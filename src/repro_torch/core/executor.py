@@ -113,12 +113,15 @@ def execute_plan(
             )[:1]
 
     for start in range(0, n, batch_size):
-        idx = np.arange(start, min(start + batch_size, n))
+        stop = min(start + batch_size, n)
+        idx = np.arange(start, stop)
         masks = packed = None
         if cascade is not None:
             t0 = advisory_wall_ms()
+            # the tile as a view: the scorer copies it once, into its
+            # (pinned) staging buffer
             _, masks, packed, _counts = cascade.score_compact(
-                x[idx], compact_cols=compact_cols)
+                x[start:stop], compact_cols=compact_cols)
             fused_ms += advisory_wall_ms() - t0
         loc = np.arange(len(idx))  # tile-local survivor positions
         for si, stage in enumerate(plan.stages):

@@ -2,9 +2,11 @@
 (``ssd``) over the ``ssd_chunk`` kernel.
 
 ``CascadeScorer`` packs a plan's proxies once, keeps the operands on its
-device, and scores numpy record tiles through ``cascade_score``: one launch
-yields every stage's keep mask plus on-device-compacted survivor lists.
-Host fetches (``.cpu()``) live here, never in ``proxy_score.py``.
+device, and scores numpy record tiles through the ``cascade_score`` kernel:
+one launch yields every stage's keep mask plus on-device-compacted survivor
+lists.  On a card each tile goes up in one copy from pinned memory and its
+results come back in one copy into pinned memory.  Host fetches live here,
+never in ``proxy_score.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.core.proxy_family import (
     pack_cascade,
     quantize_cascade,
 )
-from repro_torch.kernels.proxy_score import cascade_score
+from repro_torch.kernels import proxy_score
+from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.training.proxy_models import PackedProxy
 from repro_torch.util import resolve_device
@@ -72,16 +75,73 @@ def proxy_score_batch(params, x, threshold: float, *, device="cuda") -> np.ndarr
     return mask[:, 0].cpu().numpy()
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class _TileBuffers:
+    """One bucket's buffers for one output layout (C compacted columns or
+    None for masks only, with or without scores):
+
+    * ``x``: the device input (rows, F); ``x_host`` its staging copy, pinned
+      on a card (on the CPU it is ``x`` itself).  A tile of n rows fills the
+      first n; the rows after them keep what an earlier tile left, since the
+      kernel masks every row from ``n_valid`` = n out of every output;
+    * ``result``: one device buffer ``[counts (P) | packed (C, rows) |
+      mask (rows, P) | scores (rows, P)?]``, and ``result_host`` its pinned
+      mirror (on the CPU, ``result`` itself), with numpy views cut from it.
+    """
+
+    def __init__(self, rows: int, F: int, P: int, C, with_scores: bool,
+                 device: torch.device):
+        cuda = device.type == "cuda"
+        nc = C or 0
+        off_packed = 4 * P
+        off_mask = off_packed + 4 * nc * rows
+        off_scores = _align16(off_mask + rows * P)
+        nbytes = off_scores + (4 * rows * P if with_scores else 0)
+        self.rows, self.cuda = rows, cuda
+        self.x = torch.zeros((rows, F), dtype=torch.float32, device=device)
+        self.x_host = (torch.zeros((rows, F), dtype=torch.float32, pin_memory=True)
+                       if cuda else self.x)
+        self.result = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.result_host = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                            if cuda else self.result)
+        self.ready = torch.cuda.Event() if cuda else None
+
+        def views(buf):
+            counts = buf[:off_packed].view(torch.int32)
+            packed = buf[off_packed:off_mask].view(torch.int32).view(nc, rows)
+            mask = buf[off_mask:off_mask + rows * P].view(torch.bool).view(rows, P)
+            scores = (buf[off_scores:].view(torch.float32).view(rows, P)
+                      if with_scores else None)
+            return counts, packed, mask, scores
+
+        self.counts, self.packed, self.mask, self.scores = views(self.result)
+        self.host = tuple(None if v is None else v.numpy()
+                          for v in views(self.result_host))
+
+    def stage(self, x_tile: np.ndarray) -> None:
+        """Copy the tile into ``x_host`` (torch's copy, threaded for a large
+        tile), and on a card upload those rows in one copy."""
+        n = x_tile.shape[0]
+        self.x_host[:n].copy_(torch.from_numpy(x_tile))
+        if self.cuda:
+            self.x[:n].copy_(self.x_host[:n], non_blocking=True)
+
+
 class CascadeScorer:
     """Whole-cascade fused scorer, every proxy family.
 
     Packs every stage's params ONCE at construction via the family
     registry (standardizers folded, the cascade stacked into bucket-padded
     ``(F, H, P)`` arrays, optionally quantized), uploads the kernel
-    operands to ``device``, and scores record tiles through
-    ``cascade_score``.  Input tiles are zero-padded to a geometric ladder
-    of row counts starting at ``block_m`` (so a handful of shapes recur);
-    batches larger than ``max_tile`` are chunked.
+    operands to ``device`` and checks them once, and scores record tiles
+    through the ``cascade_score`` kernel (on the CPU, its plain version).
+    A tile is scored at the first size of a geometric ladder of row counts
+    starting at ``block_m`` that holds it (so a handful of shapes recur),
+    each size with its own input and result buffers; batches larger than
+    ``max_tile`` are chunked.
     """
 
     def __init__(self, param_list, thresholds, *, block_m: int = 256,
@@ -101,6 +161,8 @@ class CascadeScorer:
         self.out_scale = (None if self.packed.out_scale is None
                           else _to_device([self.packed.out_scale], self.device)[0])
         self.thr = torch.tensor(np.asarray(thresholds, np.float32), device=self.device)
+        self.ops = proxy_score.KernelOperands(self.w1, self.b1, self.w2, self.b2, self.thr,
+                                              self.out_scale)
         self.families = self.packed.families
         self.n_proxies = len(param_list)
         self.n_features = int(self.w1.shape[0])
@@ -113,6 +175,7 @@ class CascadeScorer:
         buckets.append(max_tile)
         self.buckets = tuple(buckets)
         self.max_tile = max_tile
+        self._buffers: dict = {}  # (bucket, C or None, with scores) -> _TileBuffers
         # stage index -> proxy column (filled by from_plan; identity default)
         self.stage_cols = list(range(self.n_proxies))
 
@@ -153,30 +216,53 @@ class CascadeScorer:
                 return size
         return self.max_tile
 
-    def _pad_tile(self, x_tile: np.ndarray) -> torch.Tensor:
-        """Zero-pad to the ladder bucket and upload."""
-        n = x_tile.shape[0]
-        bucket = self._bucket(n)
-        if n < bucket:
-            xp = np.zeros((bucket, x_tile.shape[1]), np.float32)
-            xp[:n] = x_tile
-        else:
-            xp = np.ascontiguousarray(x_tile, np.float32)
-        return torch.from_numpy(xp).to(self.device)
+    def _tile_buffers(self, rows: int, C, with_scores: bool) -> _TileBuffers:
+        key = (rows, C, with_scores)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = self._buffers[key] = _TileBuffers(rows, self.n_features, self.n_proxies, C,
+                                                    with_scores, self.device)
+        return buf
 
     def _score_tile(self, x_tile: np.ndarray, need_scores: bool,
                     need_compaction: bool = True, compact_cols=None):
+        """Score one tile (at most ``max_tile`` rows).  Returns numpy views
+        (scores (n, P) | None, mask (n, P), packed (C, bucket) | None,
+        counts (P,) | None) into the tile's result buffer: valid until the
+        next call with the same bucket and layout."""
         n = x_tile.shape[0]
-        scores, mask, packed, counts = cascade_score(
-            self._pad_tile(x_tile), self.w1, self.b1, self.w2, self.b2, self.thr, n,
-            out_scale=self.out_scale, block_m=self.block_m,
-            with_scores=need_scores, with_compaction=need_compaction,
-            compact_cols=compact_cols,
-        )
-        return (scores[:n].cpu().numpy() if need_scores else None,
-                mask[:n].cpu().numpy(),
-                packed.cpu().numpy() if need_compaction else None,
-                counts.cpu().numpy() if need_compaction else None)
+        cols = (tuple(range(self.n_proxies)) if compact_cols is None
+                else tuple(compact_cols)) if need_compaction else None
+        C = None if cols is None else len(cols)
+        buf = self._tile_buffers(self._bucket(n), C, need_scores)
+        buf.stage(x_tile)
+        if buf.cuda:
+            ptr = proxy_score._ptr
+            if cols is None:
+                proxy_score.launch(self.ops, buf.x.data_ptr(), buf.rows, n, ptr(buf.scores),
+                                   buf.mask.data_ptr())
+            else:
+                cols_t = proxy_score.cols_tensor(cols, self.device) if cols else None
+                proxy_score.launch(self.ops, buf.x.data_ptr(), buf.rows, n, ptr(buf.scores),
+                                   buf.mask.data_ptr(), buf.counts.data_ptr(),
+                                   buf.packed.data_ptr() if cols else None, ptr(cols_t), C)
+            buf.result_host.copy_(buf.result, non_blocking=True)
+            buf.ready.record()
+            buf.ready.synchronize()
+        else:
+            s, m, pk, cnt = cascade_score_plain(
+                buf.x, self.w1, self.b1, self.w2, self.b2, self.thr, n,
+                out_scale=self.out_scale, with_scores=need_scores,
+                with_compaction=cols is not None, compact_cols=cols)
+            buf.mask.copy_(m)
+            if need_scores:
+                buf.scores.copy_(s)
+            if cols is not None:
+                buf.counts.copy_(cnt)
+                buf.packed.copy_(pk)
+        counts, packed, mask, scores = buf.host
+        return (scores[:n] if need_scores else None, mask[:n],
+                packed if cols is not None else None, counts if cols is not None else None)
 
     def score_compact(self, x: np.ndarray, *, need_scores: bool = False,
                       compact_cols=None):
@@ -198,8 +284,9 @@ class CascadeScorer:
                 x, need_scores, compact_cols=kernel_cols)
             out = [None] * self.n_proxies
             for ci, col in enumerate(cols_sel):
-                out[col] = packed[ci, :counts[col]]
-            return scores, masks, out, counts
+                out[col] = packed[ci, :counts[col]].copy()
+            return (None if scores is None else scores.copy(), masks.copy(), out,
+                    counts.copy())
         scores = np.empty((n, self.n_proxies), np.float32) if need_scores else None
         masks = np.empty((n, self.n_proxies), bool)
         parts = {col: [] for col in cols_sel}

@@ -15,6 +15,15 @@ launches the hand-written kernel in ``csrc/cascade_score.cu`` (or raises),
 a CPU tensor runs ``cascade_score_plain``, the same function in plain
 PyTorch.  ``cascade_score.launches`` counts the CUDA launches.
 
+On the card one launch does all of it, the survivor scan and compaction
+included (a decoupled look-back across the kernel's blocks): no PyTorch op
+runs before or after it.  The look-back's scratch, kept per stream, is a
+ticket counter and a buffer of status words that is zeroed once and never
+cleared again: each call tags its words with a new epoch.  ``launch``
+takes raw pointers to preallocated outputs, for callers such as
+``ops.CascadeScorer`` that check their operands once (``KernelOperands``)
+and reuse their buffers.
+
 Both routes are IEEE fp32: the kernel uses fp32 FMAs on CUDA cores, and a
 caller timing the plain version on the card keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (TF32 would flip keep /
@@ -30,23 +39,33 @@ import torch
 
 from repro_torch.kernels import _build
 
+ROWS_PER_BLOCK = 64  # rows a kernel block scores (kRows in csrc/cascade_score.cu)
+_EPOCH_LIMIT = 1 << 30  # status-word epochs run 1 .. 2^30 - 1
+
 _LIB = None
 _COLS: dict = {}  # (columns, device) -> int32 index tensor on that device
+_LOOKBACK: dict = {}  # (device index, stream) -> _LookBack
+_SMEM: dict = {}  # (F, HP, P, int8, device) -> (shared memory needed, allowed)
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build("cascade_score")))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.cascade_score_launch.argtypes = [vp] * 7 + [i] * 6 + [vp] * 4
+        vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.cascade_score_launch.argtypes = ([vp] * 7 + [i] * 6 + [vp] * 5 + [i] + [vp] * 2
+                                             + [u] * 2 + [vp])
         lib.cascade_score_launch.restype = i
-        lib.cascade_compact_launch.argtypes = [vp] * 4 + [i] * 3 + [vp] * 2
-        lib.cascade_compact_launch.restype = i
         lib.cascade_rows_per_block.argtypes = []
         lib.cascade_rows_per_block.restype = i
+        lib.cascade_smem_bytes.argtypes = [i] * 4
+        lib.cascade_smem_bytes.restype = ctypes.c_long
+        lib.cascade_smem_limit.argtypes = []
+        lib.cascade_smem_limit.restype = i
         lib.cascade_error_string.argtypes = [i]
         lib.cascade_error_string.restype = ctypes.c_char_p
+        if lib.cascade_rows_per_block() != ROWS_PER_BLOCK:
+            raise RuntimeError("csrc/cascade_score.cu and ROWS_PER_BLOCK disagree")
         _LIB = lib
     return _LIB
 
@@ -61,39 +80,143 @@ def _ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
-def _check_operands(x, w1, b1, w2, b2, thresholds, out_scale, block_m, compact_cols):
+def _check_x(x, F: int) -> int:
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be a 2-D float32 tensor, got {tuple(x.shape)} {x.dtype}")
-    N, F = x.shape
-    if N < 1:
+    if x.shape[0] < 1:
         raise ValueError("x must hold at least one row")
-    if w1.dim() != 2 or w1.shape[0] != F:
-        raise ValueError(f"w1 must be (F={F}, HP), got {tuple(w1.shape)}")
-    HP = w1.shape[1]
-    if w2.dim() != 2 or w2.shape[0] != HP:
-        raise ValueError(f"w2 must be (HP={HP}, P), got {tuple(w2.shape)}")
-    P = w2.shape[1]
-    if w1.dtype != w2.dtype or w1.dtype not in (torch.float32, torch.int8):
-        raise ValueError(f"w1/w2 must both be float32 or both int8, got {w1.dtype}/{w2.dtype}")
-    vectors = {"b1": (b1, HP), "b2": (b2, P), "thresholds": (thresholds, P)}
-    if out_scale is not None:
-        vectors["out_scale"] = (out_scale, P)
-    for name, (v, n) in vectors.items():
-        if v.shape != (n,) or v.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 of shape ({n},), got "
-                             f"{tuple(v.shape)} {v.dtype}")
-    tensors = [x, w1, w2] + [v for v, _ in vectors.values()]
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"operands on {t.device} and {x.device}: all must share one device")
-        if not t.is_contiguous():
-            raise ValueError("cascade_score operands must be contiguous")
-    if block_m < 1:
-        raise ValueError(f"block_m must be positive, got {block_m}")
+    if x.shape[1] != F:
+        raise ValueError(f"w1 must be (F={x.shape[1]}, HP), got F={F}")
+    if not x.is_contiguous():
+        raise ValueError("cascade_score operands must be contiguous")
+    return x.shape[0]
+
+
+def _check_cols(compact_cols, P: int) -> tuple:
     cols = tuple(range(P)) if compact_cols is None else tuple(int(c) for c in compact_cols)
     if any(not 0 <= c < P for c in cols):
         raise ValueError(f"compact_cols {cols} out of range for {P} stages")
-    return N, F, HP, P, cols
+    return cols
+
+
+class KernelOperands:
+    """A cascade's weights checked once for ``cascade_score``: shapes,
+    types, one device, contiguity, and on a CUDA device that the kernel's
+    shared memory for these extents fits a block (else ValueError, before
+    any launch).  Holds the tensors and, for the CUDA route, their
+    pointers."""
+
+    def __init__(self, w1, b1, w2, b2, thresholds, out_scale=None):
+        if w1.dim() != 2:
+            raise ValueError(f"w1 must be (F, HP), got {tuple(w1.shape)}")
+        F, HP = w1.shape
+        if w2.dim() != 2 or w2.shape[0] != HP:
+            raise ValueError(f"w2 must be (HP={HP}, P), got {tuple(w2.shape)}")
+        P = w2.shape[1]
+        if w1.dtype != w2.dtype or w1.dtype not in (torch.float32, torch.int8):
+            raise ValueError(f"w1/w2 must both be float32 or both int8, got "
+                             f"{w1.dtype}/{w2.dtype}")
+        vectors = {"b1": (b1, HP), "b2": (b2, P), "thresholds": (thresholds, P)}
+        if out_scale is not None:
+            vectors["out_scale"] = (out_scale, P)
+        for name, (v, n) in vectors.items():
+            if v.shape != (n,) or v.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 of shape ({n},), got "
+                                 f"{tuple(v.shape)} {v.dtype}")
+        for t in [w1, w2] + [v for v, _ in vectors.values()]:
+            if t.device != w1.device:
+                raise ValueError(f"operands on {t.device} and {w1.device}: all must share "
+                                 "one device")
+            if not t.is_contiguous():
+                raise ValueError("cascade_score operands must be contiguous")
+        self.tensors = (w1, b1, w2, b2, thresholds, out_scale)
+        self.device = w1.device
+        self.F, self.HP, self.P = int(F), int(HP), int(P)
+        self.int8 = int(w1.dtype == torch.int8)
+        if self.device.type == "cuda":
+            key = (self.F, self.HP, self.P, self.int8, str(self.device))
+            if key not in _SMEM:
+                lib = _lib()
+                with torch.cuda.device(self.device):
+                    _SMEM[key] = (lib.cascade_smem_bytes(self.F, self.HP, self.P, self.int8),
+                                  lib.cascade_smem_limit())
+            need, limit = _SMEM[key]
+            if need > limit:
+                raise ValueError(f"cascade_score needs {need} B of shared memory a block at "
+                                 f"F={F}, HP={HP}, P={P}; the card allows {limit}")
+            self.ptrs = tuple(_ptr(t) for t in self.tensors)
+        elif self.device.type != "cpu":
+            raise ValueError(f"cascade_score runs on CUDA or the CPU, not {self.device}")
+
+
+class _LookBack:
+    """Scratch of the kernel's decoupled look-back on one stream: 64-bit
+    status words (zeroed when allocated, tagged by each call with its own
+    epoch, so none is ever cleared) and the ticket counter the blocks draw
+    their tiles from (``base`` tracks its value, modulo 2^32)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.ticket_ptr = self.ticket.data_ptr()
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.status_ptr = self.status.data_ptr()
+        self.epoch = 0
+        self.base = 0
+
+    def reserve(self, n_blocks: int, P: int):
+        """(status, ticket, ticket base, epoch) for one launch of n_blocks."""
+        words = n_blocks * P
+        if words > self.status.numel() or self.epoch + 1 >= _EPOCH_LIMIT:
+            self.status = torch.zeros(max(words, 2 * self.status.numel()),
+                                      dtype=torch.int64, device=self.device)
+            self.status_ptr = self.status.data_ptr()
+            self.epoch = 0
+        self.epoch += 1
+        base = self.base
+        self.base = (base + n_blocks) & 0xFFFFFFFF
+        return self.status_ptr, self.ticket_ptr, base, self.epoch
+
+
+def cols_tensor(cols, device) -> torch.Tensor:
+    """int32 tensor of ``cols`` on ``device`` (cached)."""
+    key = (cols, str(device))
+    t = _COLS.get(key)
+    if t is None:
+        t = torch.tensor(cols, dtype=torch.int32, device=device)
+        _COLS[key] = t
+    return t
+
+
+def launch(ops: KernelOperands, x_ptr: int, N: int, n_valid: int, scores_ptr, mask_ptr: int,
+           counts_ptr=None, packed_ptr=None, cols_ptr=None, C: int = 0) -> None:
+    """One launch of the kernel on the current stream into preallocated
+    outputs (raw pointers: x (N, F) f32; scores (N, P) f32 or None; mask
+    (N, P) bool; counts (P,) int32, packed (C, N) int32 and cols (C,) int32,
+    or counts None for no compaction).  Scoring, the survivor scan and the
+    compaction are all in this launch: no PyTorch op runs here.  The caller
+    has checked every operand."""
+    lib = _LIB or _lib()
+    stream = torch.cuda.current_stream(ops.device).cuda_stream
+    if counts_ptr is None:
+        status = ticket = None
+        base = epoch = 0
+    else:
+        key = (ops.device.index, stream)
+        lb = _LOOKBACK.get(key)
+        if lb is None:
+            lb = _LOOKBACK[key] = _LookBack(ops.device)
+        status, ticket, base, epoch = lb.reserve(-(-N // ROWS_PER_BLOCK), ops.P)
+    w1, b1, w2, b2, thr, out_scale = ops.ptrs
+    rc = lib.cascade_score_launch(
+        x_ptr, w1, b1, w2, b2, thr, out_scale, ops.int8, N, ops.F, ops.HP, ops.P,
+        int(n_valid), scores_ptr, mask_ptr, counts_ptr, packed_ptr, cols_ptr, C, status,
+        ticket, base, epoch, stream)
+    if rc != 0 and counts_ptr is not None:
+        # no block drew a ticket, so the counter is behind this scratch's base
+        del _LOOKBACK[(ops.device.index, stream)]
+    _raise_on(rc, "cascade_score launch")
+    cascade_score.launches += 1
 
 
 def cascade_score_plain(x, w1, b1, w2, b2, thresholds, n_valid, *, out_scale=None,
@@ -123,52 +246,6 @@ def cascade_score_plain(x, w1, b1, w2, b2, thresholds, n_valid, *, out_scale=Non
     return scores, mask, packed[:, :N].contiguous(), counts
 
 
-def _cols_tensor(cols, device) -> torch.Tensor:
-    key = (cols, str(device))
-    t = _COLS.get(key)
-    if t is None:
-        t = torch.tensor(cols, dtype=torch.int32, device=device)
-        _COLS[key] = t
-    return t
-
-
-def _cascade_score_cuda(x, w1, b1, w2, b2, thresholds, n_valid, out_scale,
-                        with_scores, with_compaction, cols, N, F, HP, P):
-    lib = _lib()
-    dev = x.device
-    rows_per_block = lib.cascade_rows_per_block()
-    n_blocks = -(-N // rows_per_block)
-    scores = torch.empty((N, P), dtype=torch.float32, device=dev) if with_scores else None
-    mask = torch.empty((N, P), dtype=torch.bool, device=dev)
-    block_counts = (torch.empty((n_blocks, P), dtype=torch.int32, device=dev)
-                    if with_compaction else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cascade_score_launch(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            thresholds.data_ptr(), _ptr(out_scale), int(w1.dtype == torch.int8),
-            N, F, HP, P, int(n_valid), _ptr(scores), mask.data_ptr(), _ptr(block_counts),
-            stream)
-        _raise_on(rc, "cascade_score launch")
-        cascade_score.launches += 1
-        if not with_compaction:
-            return scores, mask, None, None
-        counts = block_counts.sum(0, dtype=torch.int32)
-        C = len(cols)
-        packed = torch.empty((C, N), dtype=torch.int32, device=dev)
-        if C:
-            cols_t = _cols_tensor(cols, dev)
-            cnt_sel = block_counts.index_select(1, cols_t)
-            # inter-block exclusive scan: each row block's first packed slot
-            block_base = (torch.cumsum(cnt_sel, 0, dtype=torch.int32) - cnt_sel).contiguous()
-            totals = counts.index_select(0, cols_t)
-            rc = lib.cascade_compact_launch(
-                mask.data_ptr(), block_base.data_ptr(), cols_t.data_ptr(),
-                totals.data_ptr(), N, P, C, packed.data_ptr(), stream)
-            _raise_on(rc, "cascade_score compaction launch")
-    return scores, mask, packed, counts
-
-
 def cascade_score(x, w1, b1, w2, b2, thresholds, n_valid, *, out_scale=None,
                   block_m: int = 256, with_scores: bool = True,
                   with_compaction: bool = True, compact_cols=None):
@@ -194,16 +271,29 @@ def cascade_score(x, w1, b1, w2, b2, thresholds, n_valid, *, out_scale=None,
       counts (P,) int32    survivors per stage, every column (None unless
                            with_compaction)
     """
-    N, F, HP, P, cols = _check_operands(x, w1, b1, w2, b2, thresholds, out_scale,
-                                        block_m, compact_cols)
+    ops = KernelOperands(w1, b1, w2, b2, thresholds, out_scale)
+    N = _check_x(x, ops.F)
+    if x.device != ops.device:
+        raise ValueError(f"operands on {x.device} and {ops.device}: all must share one device")
+    if block_m < 1:
+        raise ValueError(f"block_m must be positive, got {block_m}")
+    cols = _check_cols(compact_cols, ops.P)
     if x.device.type == "cpu":
         return cascade_score_plain(x, w1, b1, w2, b2, thresholds, n_valid,
                                    out_scale=out_scale, with_scores=with_scores,
                                    with_compaction=with_compaction, compact_cols=cols)
-    if x.device.type != "cuda":
-        raise ValueError(f"cascade_score runs on CUDA or the CPU, not {x.device}")
-    return _cascade_score_cuda(x, w1, b1, w2, b2, thresholds, n_valid, out_scale,
-                               with_scores, with_compaction, cols, N, F, HP, P)
+    dev, P = x.device, ops.P
+    scores = torch.empty((N, P), dtype=torch.float32, device=dev) if with_scores else None
+    mask = torch.empty((N, P), dtype=torch.bool, device=dev)
+    if not with_compaction:
+        launch(ops, x.data_ptr(), N, n_valid, _ptr(scores), mask.data_ptr())
+        return scores, mask, None, None
+    counts = torch.empty(P, dtype=torch.int32, device=dev)
+    packed = torch.empty((len(cols), N), dtype=torch.int32, device=dev)
+    cols_t = cols_tensor(cols, dev) if cols else None
+    launch(ops, x.data_ptr(), N, n_valid, _ptr(scores), mask.data_ptr(), counts.data_ptr(),
+           _ptr(packed) if cols else None, _ptr(cols_t), len(cols))
+    return scores, mask, packed, counts
 
 
 cascade_score.launches = 0

@@ -44,6 +44,106 @@ def test_launch_counter_and_no_fallback(cuda):
     assert cascade_score.launches == before + 1
 
 
+def test_kernel_refuses_a_cascade_too_wide_for_shared_memory(cuda):
+    """x of 4,096 features cannot sit in a block's shared memory: the
+    wrapper raises before any launch, with no fallback."""
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    x, (w1, b1, w2, b2), thr, _ = chip_smoke.make_kernel_case(
+        (64, 64, 4096, 2, 2, "float32", True, None), cuda, seed=0)
+    before = cascade_score.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        cascade_score(x, w1, b1, w2, b2, thr, 64)
+    assert cascade_score.launches == before
+
+
+def test_back_to_back_calls_reset_the_scan(cuda):
+    """Calls of other shapes, stages and n_valid queued on one stream with
+    no synchronise between them: each call's look-back reads only its own
+    status words."""
+    from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
+
+    cases = [(8192, 8192, 64, 32, 3, "float32", False, (0,)),
+             (300, 111, 64, 2, 2, "float32", False, None),
+             (65536, 40000, 64, 2, 2, "float32", False, (1,)),
+             (8192, 8192, 64, 32, 3, "float32", False, (0, 2)),
+             (700, 650, 64, 2, 130, "int8", False, (0, 129))]
+    inputs = [chip_smoke.make_kernel_case(c, cuda, seed=i) for i, c in enumerate(cases)]
+    torch.cuda.synchronize()
+    outs = [cascade_score(x, *w, thr, c[1], out_scale=sc, with_scores=False,
+                          compact_cols=c[7])
+            for c, (x, w, thr, sc) in zip(cases * 3, inputs * 3)]
+    torch.cuda.synchronize()
+    for c, (x, w, thr, sc), (_s, mk, pk, ck) in zip(cases * 3, inputs * 3, outs):
+        _sp, _mp, pp, cp = cascade_score_plain(x, *w, thr, c[1], out_scale=sc,
+                                               compact_cols=c[7])
+        assert torch.equal(mk.sum(0, dtype=torch.int32), ck)
+        sel = range(c[4]) if c[7] is None else c[7]
+        for ci, col in enumerate(sel):
+            rows = torch.nonzero(mk[:, col]).flatten().to(torch.int32)
+            assert torch.equal(pk[ci, :rows.numel()], rows)
+            assert bool((pk[ci, rows.numel():] == -1).all())
+
+
+def _device_ops(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_compaction_path_is_one_launch(cuda):
+    """Scoring, the survivor scan and the compaction: one kernel, and no
+    other device op (no allocation fill, no PyTorch kernel)."""
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    x, (w1, b1, w2, b2), thr, _ = chip_smoke.make_kernel_case(
+        (8192, 8192, 64, 32, 3, "float32", False, (0,)), cuda, seed=0)
+    cascade_score(x, w1, b1, w2, b2, thr, 8000, compact_cols=(0,))  # scratch allocated
+    names = _device_ops(lambda: cascade_score(x, w1, b1, w2, b2, thr, 8000,
+                                              compact_cols=(0,)))
+    assert len(names) == 1 and "cascade_score_kernel" in names[0], names
+
+
+def test_scorer_tile_is_one_pinned_upload_one_launch_one_fetch(cuda):
+    import numpy as np
+
+    from repro_torch.kernels.ops import CascadeScorer
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    from repro_torch.core.proxy_family import PackedCascade
+
+    rng = np.random.RandomState(0)
+    P, H, F = 3, 32, 64  # the main path's mixed3 shape
+    pc = PackedCascade(w1=(rng.randn(F, H, P) / 8).astype(np.float32),
+                       b1=np.zeros((H, P), np.float32),
+                       w2=(rng.randn(H, P) / 6).astype(np.float32),
+                       b2=np.zeros(P, np.float32), hidden=(H,) * P, families=("mlp1",) * P)
+    scorer = CascadeScorer([None] * P, np.zeros(P, np.float32), packed=pc, device=cuda)
+    tile = rng.randn(8000, F).astype(np.float32)
+    want = CascadeScorer([None] * P, np.zeros(P, np.float32), packed=pc,
+                         device="cpu").score_compact(tile, need_scores=True, compact_cols=(0,))
+    scorer.score_compact(tile, compact_cols=(0,))  # buffers and scratch allocated
+    before = cascade_score.launches
+    out = {}
+    names = _device_ops(lambda: out.update(r=scorer.score_compact(tile, compact_cols=(0,))))
+    assert cascade_score.launches == before + 1
+    assert len(names) == 3, names
+    assert "Pinned" in names[0] and "HtoD" in names[0], names
+    assert "cascade_score_kernel" in names[1], names
+    assert "DtoH" in names[2] and "Pinned" in names[2], names
+    _s, masks, packed_rows, counts = out["r"]
+    assert masks.shape == (8000, P)
+    np.testing.assert_array_equal(counts, masks.sum(0))
+    np.testing.assert_array_equal(packed_rows[0], np.flatnonzero(masks[:, 0]))
+    tie = np.abs(want[0]) <= chip_smoke.SCORE_TOL  # thresholds are 0
+    assert not ((masks != want[1]) & ~tie).any()
+
+
 def test_main_path_short_stream(cuda):
     tiles = 3
     _plans, _stream, launches = chip_smoke.run_main_path(cuda, tiles * 8192 + 5)
