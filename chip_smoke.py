@@ -70,6 +70,32 @@ Each phase prints one JSON line:
               serving shape, beside the card's bound, with the route taken
               and the kernel's registers, spills and shared memory a block;
               and profiles of one SSM prefill and one decode step.
+11. serving_path — CORE's adaptive serving stack (``CoreSession.serve`` with
+              ``ServeConfig(adaptive=True, tile=1024)``, the serve CLI's
+              ``--adaptive --drift`` flow) over 1,048,576 records: a 5%
+              optimization sample, two predicates, A = 0.9, UDFs of hidden
+              64 and depth 2, and a drifting stream over the other 95% with
+              the CLI's shift targets and the boundary at a quarter.  Every
+              submit-time tile on ``cascade_score`` (launches == tiles),
+              emitted + rejected == served, a plan swap after the boundary,
+              served accuracy >= A - 0.05, and ``score_margins`` on 4 of the
+              stream's tiles against the plain route.
+12. multiquery_path — three queries in one ``CoreSession`` (phase 3's
+              quickstart and mixed3, and a third that shares the first's
+              proxy on their common predicate) over 262,144 held-out records
+              of phase 11's dataset: one stacked ``cascade_score`` launch a
+              chunk, the stacked (F, HP, P) and its shared columns, each
+              query's emissions against an isolated ``CascadeServer`` twin,
+              the rows whose stacked mask differs from the isolated one, the
+              UDF cache's hit rate, and conservation.  Phases 11 and 12 then
+              time the kernel at their launch shapes (``serving_timing``):
+              the ``score_margins`` tile and the stacked chunk, each beside
+              its plain version and its bound.
+13. frontend_path — the SLO front end through ``CoreSession.serve(slo=)``:
+              phase 3's mixed3 query over 65,536 held-out rows of phase 11's
+              dataset as 128-row requests at 1.3x capacity, each due 3x its
+              full-plan cost: conservation, at least one degrade swap, and
+              one ``cascade_score`` launch a submitted tile across the swaps.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -106,6 +132,16 @@ SCORE_TOL = 1e-5
 # kernel path vs the raw-params reference path: the packed form folds the
 # standardizer into the weights, a float32 reassociation
 FOLD_TIE_TOL = 1e-4
+# The serving path (phase 11): the serve CLI's --adaptive --drift flow at
+# 2^20 records; the multi-query path (phase 12) over 2^18 held-out records
+# of the same dataset.
+SERVING = dict(n=1_048_576, correlation=0.9, udf_hidden=64, udf_depth=2, udf_train_rows=3000,
+               declared_cost_ms=20.0, k_frac=0.05, preds=2, accuracy=0.9, tile=1024)
+MULTIQUERY_RECORDS = 262_144
+# The SLO front-end path (phase 13): requests of 128 held-out rows at 1.3x
+# the full plan's capacity (the serve CLI's default load), each due 3x its
+# full-plan cost after it arrives
+FRONTEND = dict(records=65_536, request_rows=128, load=1.3, slo_factor=3.0)
 
 TWITTER = dict(n=40_000, n_features=64, n_columns=4, correlation=0.9,
                feature_noise=1.1, label_noise=0.25, udf_hidden=48, udf_depth=2,
@@ -116,8 +152,10 @@ QUERIES = (  # (name, columns, selectivity, A, proxy kind, make_query seed)
     ("mixed3", [0, 1, 2], 0.5, 0.9, "mixed", 2),
 )
 # (N, n_valid, F, H, P, weights, with_scores, compact_cols[, thresholds]):
-# thresholds "median" (the default: each column's median plain score),
-# "none" (float32 max: no survivors) or "all" (-max: every valid row)
+# compact_cols None (every column), a tuple, or "off" (no compaction
+# outputs, as ``score_masks`` and ``score_margins`` launch); thresholds
+# "median" (the default: each column's median plain score), "none" (float32
+# max: no survivors) or "all" (-max: every valid row)
 KERNEL_CASES = (
     (1, 1, 64, 2, 1, "float32", True, None),
     (127, 127, 64, 32, 3, "float32", False, (0, 1, 2)),
@@ -137,6 +175,11 @@ KERNEL_CASES = (
     (2048, 2048, 64, 32, 3, "fp8", True, (0,)),
     # 1,024 blocks: many waves, look-back windows of 32 across them
     (65536, 65001, 64, 8, 2, "float32", False, (1,)),
+    # the serving path's score_margins tile (scores on, no compaction), full
+    # and ragged, and the multi-query path's stacked score_masks chunk
+    (1024, 1024, 64, 2, 2, "float32", True, "off"),
+    (1024, 847, 64, 2, 2, "float32", True, "off"),
+    (4096, 4096, 64, 32, 6, "float32", False, "off"),
 )
 # flash_attention kernel vs its plain version: the tolerances of the JAX
 # package's kernel test (tests/test_kernels.py:68), atol = rtol.  f32: both
@@ -310,9 +353,11 @@ def check_kernel_case(case, dev, seed=0) -> float:
     from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 
     N, n_valid, F, H, P, weights, with_scores, cols = case[:8]
+    compact = cols != "off"
     x, (w1, b1, w2, b2), thr, out_scale = make_kernel_case(case, dev, seed)
     sk, mk, pk, ck = cascade_score(x, w1, b1, w2, b2, thr, n_valid, out_scale=out_scale,
-                                   with_scores=with_scores, compact_cols=cols)
+                                   with_scores=with_scores, with_compaction=compact,
+                                   compact_cols=cols if compact else None)
     sp, mp, _pp, _cp = cascade_score_plain(x, w1, b1, w2, b2, thr, n_valid,
                                            out_scale=out_scale, with_compaction=False)
     sync(dev)
@@ -328,6 +373,9 @@ def check_kernel_case(case, dev, seed=0) -> float:
     bad = (mk != mp) & ~tie
     check(not bool(bad.any()), f"{case}: {int(bad.sum())} mask entries differ off a tie")
     check(not bool(mk[n_valid:].any()), f"{case}: padding rows kept")
+    if not compact:
+        check(pk is None and ck is None, f"{case}: compaction outputs without compaction")
+        return err
     if len(case) > 8:
         want = 0 if case[8] == "none" else n_valid
         check(bool((ck == want).all()), f"{case}: counts {ck.tolist()[:4]}, want {want}")
@@ -1282,10 +1330,385 @@ def profile_ssm(ssm: dict, dev) -> None:
     emit("ssm_decode_profile", **prof)
 
 
+# ------------------------------------------------------------- phase 11
+SERVE_CHUNK = 4096  # records a ``run_stream`` submit takes (its default)
+
+
+def serving_workload(dev, n: int):
+    """Phase 11's dataset (``make_dataset`` at the serve CLI's settings, n
+    records), its UDFs on ``dev``, and the optimization sample's size k (the
+    CLI's 5%)."""
+    from repro_torch.data.synthetic import make_dataset, make_udfs
+
+    prof = SERVING
+    ds = make_dataset(n=n, correlation=prof["correlation"], seed=0)
+    udfs = make_udfs(ds, hidden=prof["udf_hidden"], depth=prof["udf_depth"],
+                     train_rows=prof["udf_train_rows"], seed=0,
+                     declared_cost_ms=prof["declared_cost_ms"], device=dev)
+    return ds, udfs, max(1000, int(prof["k_frac"] * n))
+
+
+def submit_tiles(n: int, max_tile: int) -> int:
+    """Scorer tiles that ``run_stream(x, chunk=SERVE_CHUNK)`` submits for n
+    records when each submit is cut into tiles of ``max_tile`` rows."""
+    return sum(-(-min(SERVE_CHUNK, n - s) // max_tile) for s in range(0, n, SERVE_CHUNK))
+
+
+def check_margins(scorer, plan, x: np.ndarray, dev) -> dict:
+    """``scorer.score_margins`` on the tile ``x`` against the plain route on
+    the card: masks equal except tie rows (``tie_rows`` at FOLD_TIE_TOL),
+    margins min_p |s_p - thr_p| within SCORE_TOL * max(1, max |thr|)."""
+    from repro_torch.kernels.proxy_score import cascade_score_plain
+
+    masks, margins = scorer.score_margins(x)
+    xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    s, m, _pk, _cnt = cascade_score_plain(xt, scorer.w1, scorer.b1, scorer.w2, scorer.b2,
+                                          scorer.thr, len(x), out_scale=scorer.out_scale,
+                                          with_compaction=False)
+    want_margins = (s - scorer.thr).abs().min(dim=1).values.cpu().numpy()
+    want_masks = m.cpu().numpy()
+    check(masks.shape == want_masks.shape and margins.shape == (len(x),),
+          f"score_margins shapes {masks.shape} {margins.shape}")
+    diff = np.flatnonzero((masks != want_masks).any(axis=1))
+    unexplained = set(diff.tolist()) - tie_rows(plan, x, diff, FOLD_TIE_TOL)
+    check(not unexplained, f"score_margins: {len(unexplained)} mask rows differ off a tie")
+    tol = SCORE_TOL * max(1.0, float(np.abs(scorer.thr_host).max()))
+    err = float(np.abs(margins - want_margins).max())
+    check(err <= tol, f"score_margins: margins differ by {err} (tol {tol})")
+    return dict(rows=len(x), mask_rows_differ=int(len(diff)), margin_max_abs_err=err,
+                margin_tol=tol)
+
+
+def time_serving_shape(shape: str, scorer, x_host: np.ndarray, with_scores: bool, dev,
+                       iters: int) -> dict:
+    """CUDA-event times of ``cascade_score`` and its plain version at one
+    serving launch shape (no compaction outputs, as ``score_margins`` and
+    ``score_masks`` launch), with the serving scorer's own weights, beside
+    the card's bound for that work; the kernel's device µs a call from a
+    profile; and the scorer's whole route for the same host tile on the
+    host clock."""
+    from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
+
+    x = torch.from_numpy(np.ascontiguousarray(x_host, np.float32)).to(dev)
+    N = x.shape[0]
+    args = (x, scorer.w1, scorer.b1, scorer.w2, scorer.b2, scorer.thr, N)
+    kw = dict(out_scale=scorer.out_scale, with_scores=with_scores, with_compaction=False)
+    sk = cascade_score(*args, out_scale=scorer.out_scale, with_compaction=False)[0]
+    sp = cascade_score_plain(*args, out_scale=scorer.out_scale, with_compaction=False)[0]
+    err = float((sk - sp).abs().max())
+    check(err <= SCORE_TOL * (1.0 + float(sp.abs().max())), f"{shape}: score error {err}")
+    # plain, kernel, kernel, plain: the two versions compared within one call
+    plain_a = cuda_ms(lambda: cascade_score_plain(*args, **kw), dev, iters)
+    kern_a = cuda_ms(lambda: cascade_score(*args, **kw), dev, iters)
+    kern_b = cuda_ms(lambda: cascade_score(*args, **kw), dev, iters)
+    plain_b = cuda_ms(lambda: cascade_score_plain(*args, **kw), dev, iters)
+    calls = 50
+    prof = device_profile(lambda: [cascade_score(*args, **kw) for _ in range(calls)], dev)
+    kernel_us = sum(t["us"] for t in prof["top"] if "cascade_" in t["name"]) / calls
+    route = scorer.score_margins if with_scores else scorer.score_masks
+    route(x_host)
+    t0 = time.perf_counter()
+    for _ in range(iters // 4):
+        route(x_host)
+    tile_ms = (time.perf_counter() - t0) * 1e3 / (iters // 4)
+    F, HP = scorer.w1.shape
+    P = scorer.w2.shape[1]
+    bound_ms, bound_by, nbytes, flops = bound(
+        N, F, HP, P, 0, 1 if scorer.dtype == "int8" else 4, with_scores,
+        scorer.out_scale is not None)
+    row = dict(shape=shape, N=N, F=int(F), HP=int(HP), P=int(P), with_scores=with_scores,
+               ms=min(kern_a, kern_b), ms_runs=[kern_a, kern_b],
+               plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+               max_abs_err=err, kernel_device_us=kernel_us,
+               device_events_per_call=prof["device_events"] / calls, scorer_tile_ms=tile_ms)
+    emit("serving_timing", **row)
+    return row
+
+
+def run_serving_path(dev, n: int) -> dict:
+    """The serve CLI's ``--adaptive --drift`` flow through ``CoreSession``:
+    optimize on a 5% sample, serve the drifting stream over the other 95%
+    (boundary at a quarter) with the adaptive engine, and hold it to
+    conservation, a swap after the boundary, served accuracy and one
+    ``cascade_score`` launch a submitted tile; then ``score_margins`` on 4
+    of the stream's tiles against the plain route.  Returns the phase's
+    numbers and its workload for phase 12."""
+    from repro_torch.core import (CoreSession, OptimizeOptions, ServeConfig, execute_plan,
+                                  orig_plan)
+    from repro_torch.data.synthetic import make_drifting_stream, make_query
+    from repro_torch.kernels.proxy_score import cascade_score
+    from repro_torch.serving.engine import CascadeServer
+
+    prof = SERVING
+    t_phase = t0 = time.perf_counter()
+    ds, udfs, k = serving_workload(dev, n)
+    n_stream = n - k
+    stream = make_drifting_stream(
+        ds, n_stream // 4, n_stream - n_stream // 4,
+        shift_targets={c: (2.8 if c != 1 else -2.6) for c in range(prof["preds"])},
+        corr_gain=2.5, seed=0)
+    q = make_query(ds, udfs, columns=list(range(prof["preds"])), target_selectivity=0.5,
+                   accuracy_target=prof["accuracy"], seed=1)
+    setup_s = time.perf_counter() - t0
+    session = CoreSession(options=OptimizeOptions(mode="core"), device=dev)
+    session.register_query(q, ds.x[:k])
+    t0 = time.perf_counter()
+    srv = session.serve(config=ServeConfig(adaptive=True, tile=prof["tile"]))
+    optimize_s = time.perf_counter() - t0
+    check(isinstance(srv, CascadeServer), f"serve() built a {type(srv).__name__}")
+    order_0 = list(srv.plan.order)
+    cascade_score.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = session.run_stream(stream.x, chunk=SERVE_CHUNK)
+    sync(dev)
+    serve_s = time.perf_counter() - t0
+    launches = cascade_score.launches
+    tiles = submit_tiles(stream.n, max(prof["tile"], 1024))
+    orig = execute_plan(orig_plan(q), stream.x, device=dev)
+    orig_set = set(orig.passed.tolist())
+    served_acc = sum(1 for i in srv.emitted if i in orig_set) / max(len(orig_set), 1)
+    events = [dict(signal=ev.signal, at_record=ev.at_record, observed=ev.observed,
+                   expected=ev.expected, escalated=ev.escalated, nodes_visited=ev.nodes_visited,
+                   reopt_ms=ev.reopt_ms, order_before=list(ev.order_before),
+                   order_after=list(ev.order_after)) for ev in stats.drift_events]
+    tile = prof["tile"]
+    starts = (0, stream.boundary // tile * tile, stream.n // 2 // tile * tile,
+              (stream.n - 1) // tile * tile)  # the last, ragged tile
+    margins = [check_margins(srv._states[-1].cascade, srv.plan,
+                             stream.x[s0:s0 + tile], dev) for s0 in starts]
+    timing = time_serving_shape("score_margins", srv._states[-1].cascade,
+                                stream.x[starts[1]:starts[1] + tile], True, dev, iters=200)
+    out = dict(records=stream.n, boundary=stream.boundary, k=k, dataset_records=n,
+               predicates=prof["preds"], accuracy_target=prof["accuracy"],
+               order=order_0, final_order=list(srv.plan.order),
+               families=[None if st.proxy is None else st.proxy.family for st in srv.plan.stages],
+               emitted=stats.emitted, rejected=stats.rejected, in_flight=srv.in_flight(),
+               served_accuracy=served_acc, accuracy_floor=prof["accuracy"] - 0.05,
+               plan_swaps=stats.plan_swaps, drift_events=events,
+               audit_records=stats.audit_records, launches=launches, tiles=tiles,
+               setup_s=setup_s, optimize_s=optimize_s, serve_s=serve_s,
+               records_per_s=stream.n / serve_s, fused_score_s=stats.fused_score_ms / 1e3,
+               fused_score_ms_per_tile=stats.fused_score_ms / tiles,
+               reopt_s=stats.reopt_ms / 1e3, model_cost_ms_per_record=stats.model_cost_ms
+               / stream.n, orig_ms_per_record=orig.cost_per_record(stream.n),
+               score_margins=margins, seconds=time.perf_counter() - t_phase)
+    emit("serving_path", **out)
+    out["timing"] = timing
+    check(stats.emitted + stats.rejected == stream.n and srv.in_flight() == 0
+          and len(set(srv.emitted)) == len(srv.emitted),
+          f"conservation: {stats.emitted} + {stats.rejected} != {stream.n}")
+    check(any(ev["at_record"] > stream.boundary for ev in events),
+          f"no plan swap after the drift boundary ({stats.plan_swaps} swaps)")
+    check(served_acc >= prof["accuracy"] - 0.05, f"served accuracy {served_acc:.4f}")
+    check(launches == tiles, f"{launches} cascade_score launches for {tiles} submitted tiles")
+    out["workload"] = (ds, udfs, k)
+    return out
+
+
+# ------------------------------------------------------------- phase 12
+def share_stage(plan, donor, pred_idx: int):
+    """``plan`` with its stage for ``pred_idx`` replaced by ``donor``'s stage
+    for the same predicate (the same proxy and threshold): a tenant that
+    reuses another's proxy on a predicate they share."""
+    from repro_torch.core.query import PhysicalPlan
+
+    given = next(st for st in donor.stages if st.pred_idx == pred_idx)
+    stages = [given if st.pred_idx == pred_idx else st for st in plan.stages]
+    return PhysicalPlan(plan.query, stages, plan.est_total_cost, dict(plan.meta))
+
+
+def run_multiquery_path(dev, workload, n_records: int) -> dict:
+    """Three queries in one ``CoreSession`` over ``n_records`` held-out rows
+    of phase 11's dataset: phase 3's quickstart and mixed3, and a third on
+    columns (0, 3) that takes the first's stage for their common predicate,
+    so the stacked scorer dedupes that column.  Holds one stacked launch a
+    chunk, conservation, each query's emissions against an isolated
+    ``CascadeServer`` twin (except tie rows), and the stacked masks against
+    the isolated scorers' (differing rows counted, and tie rows only)."""
+    from repro_torch.core import CoreSession, OptimizeOptions, ServeConfig, build_plan
+    from repro_torch.data.synthetic import make_query
+    from repro_torch.kernels.proxy_score import cascade_score
+    from repro_torch.serving.engine import CascadeServer
+    from repro_torch.serving.multiquery import MultiQueryEngine
+
+    ds, udfs, k = workload
+    x = ds.x[k:k + n_records]
+    specs = [(name, cols, sel, A, kind, seed) for name, cols, sel, A, kind, seed in QUERIES]
+    specs.append(("shares_q0", [0, 3], 0.5, 0.9, "svm", 1))
+    session = CoreSession(device=dev)
+    t_phase = t0 = time.perf_counter()
+    handles = []
+    for name, cols, sel, A, kind, seed in specs:
+        q = make_query(ds, udfs, columns=cols, target_selectivity=sel, accuracy_target=A,
+                       seed=seed)
+        h = session.register_query(q, ds.x[:k], options=OptimizeOptions(mode="core", kind=kind))
+        h.optimize()
+        handles.append(h)
+    first, third = handles[0], handles[2]
+    check(third.query.predicates[0].values == first.query.predicates[0].values,
+          "the third query shares no predicate with the first")
+    third.plan = share_stage(third.plan, first.plan, 0)
+    optimize_s = time.perf_counter() - t0
+    eng = session.serve(config=ServeConfig(tile=SERVING["tile"]))
+    check(isinstance(eng, MultiQueryEngine), f"serve() built a {type(eng).__name__}")
+    cascade_score.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    session.run_stream(x, chunk=SERVE_CHUNK)
+    sync(dev)
+    serve_s = time.perf_counter() - t0
+    launches = cascade_score.launches
+    chunks = -(-len(x) // SERVE_CHUNK)
+    st = eng.session_stats()
+    ok, why = eng.conserved()
+    sc = eng.scorer
+    full = sc.score_masks(x)
+    per_query = []
+    for h, (name, *_rest) in zip(handles, specs):
+        twin = CascadeServer(h.plan, tile=SERVING["tile"], device=dev)
+        twin.run_stream(x, chunk=SERVE_CHUNK)
+        got, want = set(eng.servers[h.qid].emitted), set(twin.emitted)
+        diff = np.asarray(sorted(got ^ want), np.int64)
+        iso = twin._states[-1].cascade.score_masks(x)
+        differ = np.flatnonzero((full[:, eng._gcols[h.qid]] != iso).any(axis=1))
+        per_query.append(dict(
+            query=name, order=list(h.plan.order), emitted=len(got), twin_emitted=len(want),
+            emitted_diff=int(len(diff)),
+            emitted_diff_off_tie=len(set(diff.tolist()) - tie_rows(h.plan, x, diff,
+                                                                    FOLD_TIE_TOL)),
+            stacked_cols=list(eng._gcols[h.qid]), stacked_mask_rows_differ=int(len(differ)),
+            stacked_differ_off_tie=len(set(differ.tolist()) - tie_rows(h.plan, x, differ,
+                                                                       FOLD_TIE_TOL)),
+            served_cost_ms=eng.query_stats(h.qid)["served_cost_ms"],
+            weight=eng.query_stats(h.qid)["weight"]))
+    out = dict(records=len(x), queries=len(handles), F=int(sc.w1.shape[0]),
+               HP=int(sc.w1.shape[1]), P=sc.n_proxies, shared_cols=st["shared_cols"],
+               stacked_cols_saved=st["stacked_cols_saved"], launches=launches, chunks=chunks,
+               conserved=ok, conservation=why, finalized_per_query=st["finalized_per_query"],
+               udf_cache=st["dedupe"], optimize_s=optimize_s, serve_s=serve_s,
+               records_per_s=len(x) / serve_s, shared_score_s=st["shared_score_ms"] / 1e3,
+               per_query=per_query, seconds=time.perf_counter() - t_phase)
+    emit("multiquery_path", **out)
+    out["timing"] = time_serving_shape("stacked_score_masks", sc, x[:SERVE_CHUNK], False, dev,
+                                       iters=200)
+    check(ok and st["finalized_per_query"] == [len(x)] * len(handles),
+          f"conservation: {why}, finalized {st['finalized_per_query']}")
+    check(st["stacked_cols_saved"] >= 1, "the stacked scorer shares no column")
+    check(launches == chunks, f"{launches} cascade_score launches for {chunks} chunks")
+    check(st["dedupe"]["hits"] > 0, "no UDF evaluation was shared")
+    for row in per_query:
+        check(row["emitted_diff_off_tie"] == 0,
+              f"{row['query']}: {row['emitted_diff_off_tie']} emissions differ from the "
+              "isolated twin off a tie")
+        check(row["stacked_differ_off_tie"] == 0,
+              f"{row['query']}: {row['stacked_differ_off_tie']} stacked mask rows differ "
+              "from the isolated scorer off a tie")
+    return out
+
+
+# ------------------------------------------------------------- phase 13
+def run_frontend_path(dev, workload, n_records: int) -> dict:
+    """CORE's SLO front end through ``CoreSession.serve(slo=...)``: phase
+    3's mixed3 query (three stages, so a degrade ladder of three rungs with
+    scorers prebuilt on the card) over ``n_records`` held-out rows of phase
+    11's dataset, arriving as Poisson requests of ``FRONTEND["request_rows"]``
+    rows at ``FRONTEND["load"]`` times the full plan's capacity, each with a
+    deadline of ``FRONTEND["slo_factor"]`` times its full-plan cost (the
+    cost-model clock).  Holds conservation, at least one degrade swap, and
+    one ``cascade_score`` launch for each tile submitted: tiles are counted
+    at each ``engine.submit`` with the scorer installed at that moment, so
+    the count crosses every degrade and restore swap."""
+    from repro_torch.core import CoreSession, OptimizeOptions, ServeConfig
+    from repro_torch.data.synthetic import make_query
+    from repro_torch.kernels.proxy_score import cascade_score
+    from repro_torch.serving.frontend import ServingFrontEnd
+
+    ds, udfs, k = workload
+    x = ds.x[k:k + n_records]
+    name, cols, sel, A, kind, seed = QUERIES[1]
+    t_phase = time.perf_counter()
+    q = make_query(ds, udfs, columns=cols, target_selectivity=sel, accuracy_target=A,
+                   seed=seed)
+    session = CoreSession(options=OptimizeOptions(mode="core", kind=kind), device=dev)
+    h = session.register_query(q, ds.x[:k])
+    h.optimize()
+    rows_per = FRONTEND["request_rows"]
+    req_ms = h.plan.est_total_cost * rows_per
+    slo_ms = FRONTEND["slo_factor"] * req_ms
+    fe = session.serve(slo=slo_ms, config=ServeConfig(tile=SERVING["tile"]))
+    check(isinstance(fe, ServingFrontEnd), f"serve(slo=) built a {type(fe).__name__}")
+    engine = fe.engine
+    n_req = len(x) // rows_per
+    rate = FRONTEND["load"] / (req_ms / 1e3)
+    arrivals = np.cumsum(np.random.RandomState(0).exponential(1e3 / rate, n_req))
+    for r in range(n_req):
+        idx = np.arange(k + r * rows_per, k + (r + 1) * rows_per)
+        fe.submit_request(idx, ds.x[idx], deadline_ms=slo_ms, arrival_ms=float(arrivals[r]))
+    count = dict(tiles=0, behind=0, tiles_by_level={})
+
+    def on_submit(idxs):
+        # runs right before each engine.submit: every earlier tile's launch
+        # has been counted by now, and the scorer installed now scores this one
+        sc = engine._states[-1].cascade
+        count["behind"] += int(cascade_score.launches != count["tiles"])
+        n_tiles = 0 if sc is None else -(-len(idxs) // sc.max_tile)
+        count["tiles"] += n_tiles
+        lvl = str(fe.level)
+        count["tiles_by_level"][lvl] = count["tiles_by_level"].get(lvl, 0) + n_tiles
+
+    fe.add_submit_hook(on_submit)
+    cascade_score.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    st = fe.run()
+    sync(dev)
+    serve_s = time.perf_counter() - t0
+    launches = cascade_score.launches
+    ok, why = fe.conserved()
+    lat = [r.latency_ms for r in fe.requests.values() if r.done]
+    out = dict(records=n_req * rows_per, requests=st.requests_total, request_rows=rows_per,
+               query=name, stages=len(h.plan.stages), ladder_rungs=len(fe._ladder),
+               slo_ms=slo_ms, arrivals_per_s=rate, load=FRONTEND["load"],
+               admitted=st.requests_total - st.requests_rejected_admission,
+               rejected_admission=st.requests_rejected_admission,
+               requests_shed=st.requests_shed, records_shed=st.records_shed,
+               degrades=st.degrades, restores=st.restores, final_level=st.final_level,
+               plan_swaps=engine.stats.plan_swaps, records_submitted=st.records_submitted,
+               records_emitted=st.records_emitted, records_rejected=st.records_rejected,
+               conserved=ok, conservation=why, goodput_ratio=st.goodput_ratio,
+               latency_p50_ms=float(np.percentile(lat, 50)) if lat else None,
+               latency_p95_ms=float(np.percentile(lat, 95)) if lat else None,
+               launches=launches, tiles=count["tiles"], tiles_by_level=count["tiles_by_level"],
+               submits_with_launches_behind=count["behind"], batches=st.batches,
+               serve_s=serve_s, records_per_s=st.records_submitted / serve_s,
+               seconds=time.perf_counter() - t_phase)
+    emit("frontend_path", **out)
+    check(ok and st.records_emitted + st.records_rejected == st.records_submitted,
+          f"conservation: {why}; {st.records_emitted} + {st.records_rejected} != "
+          f"{st.records_submitted}")
+    check(st.records_submitted > 0, "the front end admitted no record")
+    check(st.degrades >= 1 and engine.stats.plan_swaps >= 1,
+          f"no degrade swap ({st.degrades} degrades, {engine.stats.plan_swaps} swaps)")
+    check(any(int(lvl) > 0 and n > 0 for lvl, n in count["tiles_by_level"].items()),
+          f"no tile was scored after a degrade: {count['tiles_by_level']}")
+    check(launches == count["tiles"] and count["behind"] == 0,
+          f"{launches} cascade_score launches for {count['tiles']} submitted tiles "
+          f"({count['behind']} submits found the count behind)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
                     help="records in the executed stream (default 1,048,576 = 128 tiles)")
+    ap.add_argument("--serving-records", type=int, default=SERVING["n"],
+                    help="records in the serving path's dataset (default 1,048,576)")
+    ap.add_argument("--multiquery-records", type=int, default=MULTIQUERY_RECORDS,
+                    help="records the multi-query path serves (default 262,144)")
+    ap.add_argument("--frontend-records", type=int, default=FRONTEND["records"],
+                    help="records the SLO front-end path serves (default 65,536)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1373,12 +1796,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ssd_rows = {dt: time_ssd(dev, dt, iters=10) for dt in ("bfloat16", "float32")}
     ssd_row = ssd_rows["bfloat16"]
+    torch.cuda.empty_cache()
+
+    serving = run_serving_path(dev, args.serving_records)
+    workload = serving.pop("workload")
+    multiquery = run_multiquery_path(dev, workload, args.multiquery_records)
+    frontend = run_frontend_path(dev, workload, args.frontend_records)
+    del workload
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cascade_score.cu",
         "replaces": "src/repro/kernels/proxy_score.py:114",
-        "launches": launches, "max_abs_err": max(errs + [main_row["max_abs_err"]]),
+        "launches": launches,
+        "launches_by_path": {"main_path": launches, "serving_path": serving["launches"],
+                             "multiquery_path": multiquery["launches"],
+                             "frontend_path": frontend["launches"]},
+        "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
+                                              "bound_ms", "bound_by", "max_abs_err")}
+                           for r in (serving["timing"], multiquery["timing"])],
+        "max_abs_err": max(errs + [main_row["max_abs_err"], serving["timing"]["max_abs_err"],
+                                   multiquery["timing"]["max_abs_err"]]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None}, {

@@ -1,16 +1,26 @@
-"""CORE optimizer entry points: ``OptimizeOptions``, ``build_plan`` and
-``rebuild_plan``.
+"""CORE's session API: the optimizer entry points (``OptimizeOptions``,
+``build_plan``, ``rebuild_plan``) and the serving surface (``ServeConfig``,
+``QueryHandle``, ``CoreSession``).
 
 ``OptimizeOptions`` carries every optimizer knob; ``build_plan`` builds
 proxies online on the optimization sample and searches the plan,
-``rebuild_plan`` re-optimizes a plan against fresh statistics.  Proxies
-train and score on ``device`` (CUDA by default; raises without a card).
+``rebuild_plan`` re-optimizes a plan against fresh statistics.
+``ServeConfig`` carries the serving knobs that ``CoreSession.serve`` and
+the ``launch/serve.py`` CLI share; ``CoreSession`` registers N queries,
+optimizes each, and serves them: one query through ``CascadeServer`` (or
+the SLO front end), several through ``MultiQueryEngine``.  Proxies train
+and score on ``device`` (CUDA by default; raises without a card).
+
+Not ported yet, and refused rather than ignored: the cross-query plan
+cache (ROADMAP item 9) and serving across hosts (ROADMAP item 10).
+Serving modules are imported inside methods: ``core`` does not depend on
+``serving`` at import time (serving imports core).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -19,7 +29,7 @@ from repro_torch.core.bnb import BranchAndBound, SearchTrace
 from repro_torch.core.builder import ProxyBuilder
 from repro_torch.core.proxy_family import QUANT_DTYPES
 from repro_torch.core.query import PhysicalPlan, PlanStage, Query, all_orders
-from repro_torch.util import advisory_wall_ms
+from repro_torch.util import advisory_wall_ms, resolve_device
 
 
 @dataclass(frozen=True)
@@ -214,3 +224,222 @@ def rebuild_plan(
         if bb is not None:
             meta["bnb"] = bb
     return _plan_from_allocation(query, alloc, meta)
+
+
+# --------------------------------------------------------------- serving API
+#: ``ServeConfig`` fields that only serving across hosts (the fleet) reads
+FLEET_FIELDS = ("transport", "drift_skew", "kill_coordinator_at", "straggler_host")
+
+
+def reject_fleet(cfg: "ServeConfig") -> None:
+    """Serving across hosts (the fleet) is not ported yet: refuse
+    ``hosts > 1``, and any fleet-only knob set away from its default,
+    rather than serve on one host and ignore them."""
+    if cfg.hosts > 1:
+        raise NotImplementedError(
+            f"serving across {cfg.hosts} hosts is not ported to repro_torch yet "
+            "(ROADMAP item 10, the fleet); use hosts=1")
+    default = ServeConfig()
+    set_ = [f for f in FLEET_FIELDS if getattr(cfg, f) != getattr(default, f)]
+    if set_:
+        raise NotImplementedError(
+            f"{', '.join(set_)} configure serving across hosts, which is not "
+            "ported to repro_torch yet (ROADMAP item 10, the fleet); leave "
+            "them at their defaults")
+
+
+def reject_plan_cache(plan_cache) -> None:
+    """The cross-query plan cache is not ported yet: refuse one rather
+    than serve without it."""
+    if plan_cache is not None:
+        raise NotImplementedError(
+            "the cross-query plan cache is not ported to repro_torch yet "
+            "(ROADMAP item 9); pass plan_cache=None")
+
+
+@dataclass
+class ServeConfig:
+    """Serving knobs, shared between ``CoreSession.serve`` and the
+    ``launch/serve.py`` CLI (every flag maps onto one field).  ``slo_ms``
+    wraps the engine in the deadline-aware request front end;
+    ``queries_path`` points at a multi-query JSON spec served through one
+    ``CoreSession``.  ``hosts > 1`` (with ``FLEET_FIELDS``: ``transport``,
+    ``kill_coordinator_at``, ``straggler_host``, ``drift_skew``) and
+    ``plan_cache_path`` are the fleet's and the plan cache's knobs, kept
+    so a config round-trips; serving refuses any of them set away from
+    its default until those are ported (ROADMAP items 10 and 9).  There
+    is no switch around the scorer: every proxied stage is scored by
+    ``cascade_score`` on a card, by its plain route on the CPU."""
+
+    tile: int = 1024
+    adaptive: bool = False
+    hosts: int = 1
+    transport: str = "inline"
+    slo_ms: Optional[float] = None
+    arrival_rate: Optional[float] = None
+    request_rows: int = 128
+    backpressure: bool = True
+    seed: int = 0
+    drift: bool = False
+    drift_skew: float = 0.3
+    kill_coordinator_at: Optional[str] = None
+    straggler_host: Optional[int] = None
+    plan_cache_path: Optional[str] = None
+    queries_path: Optional[str] = None
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+class QueryHandle:
+    """One registered query inside a ``CoreSession``: its options, its
+    optimized plan, and per-query serving stats.  ``handle.optimize()``
+    builds the plan on the session's device; ``handle.submit()`` routes
+    records to this query only; ``handle.stats()`` reads this query's
+    serving counters."""
+
+    def __init__(self, session: "CoreSession", qid: int, query: Query,
+                 x_sample: Optional[np.ndarray], *, options: OptimizeOptions,
+                 slo: Optional[float] = None):
+        self.session = session
+        self.qid = qid
+        self.query = query
+        self.x_sample = x_sample
+        self.options = options
+        self.slo = slo
+        self.plan: Optional[PhysicalPlan] = None
+
+    def optimize(self, x_sample: Optional[np.ndarray] = None, *,
+                 options: Optional[OptimizeOptions] = None) -> PhysicalPlan:
+        x = self.x_sample if x_sample is None else x_sample
+        if x is None:
+            raise ValueError("no optimization sample: pass x_sample to register_query "
+                             "or to handle.optimize")
+        opts = self.options if options is None else options
+        self.plan = build_plan(self.query, x, opts, device=self.session.device)
+        return self.plan
+
+    def submit(self, indices, rows) -> None:
+        self.session.submit(indices, rows, qids=(self.qid,))
+
+    def stats(self) -> dict:
+        return self.session.query_stats(self.qid)
+
+
+class CoreSession:
+    """Registry of N concurrent cascade queries served as one unit.
+
+    ``register_query`` hands out ``QueryHandle``s; ``serve()`` builds the
+    serving stack once every query is registered: a single query goes to
+    ``CascadeServer`` or, with an SLO, ``ServingFrontEnd``; several queries
+    go to the shared ``MultiQueryEngine`` (one stacked scorer, cross-query
+    UDF dedupe, weighted-fair scheduling).  ``submit`` / ``run_stream`` /
+    ``query_stats`` then route through whichever stack was built.  Plans
+    are built and scored on ``device`` (CUDA by default; raises without a
+    card)."""
+
+    def __init__(self, *, options: Optional[OptimizeOptions] = None,
+                 plan_cache=None, seed: int = 0, device="cuda"):
+        reject_plan_cache(plan_cache)
+        self.device = resolve_device(device)
+        self.options = options or OptimizeOptions()
+        self.seed = seed
+        self.handles: List[QueryHandle] = []
+        self.server = None  # whatever serve() built
+        self._multi = False
+
+    # ------------------------------------------------------------- registry
+    def register_query(self, query: Query, x_sample: Optional[np.ndarray] = None, *,
+                       quant_dtype: Optional[str] = None, plan_cache=None,
+                       slo: Optional[float] = None,
+                       options: Optional[OptimizeOptions] = None) -> QueryHandle:
+        reject_plan_cache(plan_cache)
+        if self.server is not None:
+            raise RuntimeError("register_query must precede serve()")
+        opts = options or self.options
+        if quant_dtype is not None:
+            opts = opts.replace(quant_dtype=(
+                None if quant_dtype in ("fp32", "float32") else quant_dtype))
+        handle = QueryHandle(self, len(self.handles), query, x_sample, options=opts,
+                             slo=slo)
+        self.handles.append(handle)
+        return handle
+
+    def optimize_all(self, *, keep_state: Optional[bool] = None) -> List[PhysicalPlan]:
+        """Optimize every registered query that has no plan yet.
+        ``keep_state=True`` forces live builder/B&B state onto the plans
+        (adaptive serving warm-starts rebuilds from it)."""
+        plans = []
+        for h in self.handles:
+            if h.plan is None:
+                opts = (h.options if keep_state is None
+                        else h.options.replace(keep_state=keep_state))
+                h.optimize(options=opts)
+            plans.append(h.plan)
+        return plans
+
+    # -------------------------------------------------------------- serving
+    def serve(self, *, hosts: Optional[int] = None, slo: Optional[float] = None,
+              config: Optional[ServeConfig] = None, policy=None):
+        """Build the serving stack for the registered queries.  The keyword
+        shortcuts override ``config`` fields; both roads lead to the same
+        ``ServeConfig``.  Returns the server (also kept on ``self.server``);
+        drive it with ``submit``/``run_stream`` here or use its own
+        interface."""
+        if not self.handles:
+            raise RuntimeError("serve() with no registered query")
+        if self.server is not None:
+            raise RuntimeError("serve() already built a server")
+        cfg = config or ServeConfig()
+        if hosts is not None:
+            cfg = cfg.replace(hosts=hosts)
+        if slo is not None:
+            cfg = cfg.replace(slo_ms=slo)
+        reject_fleet(cfg)
+        reject_plan_cache(cfg.plan_cache_path)
+        self.optimize_all(keep_state=True if cfg.adaptive else None)
+        if len(self.handles) > 1:
+            from repro_torch.serving.multiquery import MultiQueryEngine
+
+            self.server = MultiQueryEngine(
+                self.handles, tile=cfg.tile, adaptive=cfg.adaptive, policy=policy,
+                seed=cfg.seed, device=self.device)
+            self._multi = True
+            return self.server
+        from repro_torch.serving.engine import CascadeServer
+
+        h = self.handles[0]
+        slo_ms = cfg.slo_ms if cfg.slo_ms is not None else h.slo
+        engine = CascadeServer(h.plan, tile=cfg.tile, adaptive=cfg.adaptive,
+                               policy=policy, seed=cfg.seed, device=self.device)
+        if slo_ms is not None:
+            from repro_torch.serving.frontend import ServingFrontEnd, SLOPolicy
+
+            self.server = ServingFrontEnd(engine, policy=SLOPolicy(
+                degrade=cfg.backpressure, shed_expired=cfg.backpressure))
+        else:
+            self.server = engine
+        return self.server
+
+    def submit(self, indices, rows, *, qids=None) -> None:
+        if self.server is None:
+            raise RuntimeError("serve() before submit()")
+        if self._multi:
+            self.server.submit(indices, rows, qids=qids)
+        else:
+            self.server.submit(indices, rows)
+
+    def run_stream(self, x: np.ndarray, *, chunk: int = 4096):
+        if self.server is None:
+            self.serve()
+        return self.server.run_stream(x, chunk=chunk)
+
+    def query_stats(self, qid: int) -> dict:
+        if self._multi:
+            return self.server.query_stats(qid)
+        if qid != 0:
+            raise KeyError(f"no query {qid} in a single-query session")
+        if self.server is None:
+            return {}
+        stats = getattr(self.server, "stats", None)
+        return dict(stats.__dict__) if stats is not None else {}

@@ -160,7 +160,8 @@ class CascadeScorer:
             cascade_kernel_operands(self.packed), self.device)
         self.out_scale = (None if self.packed.out_scale is None
                           else _to_device([self.packed.out_scale], self.device)[0])
-        self.thr = torch.tensor(np.asarray(thresholds, np.float32), device=self.device)
+        self.thr_host = np.asarray(thresholds, np.float32).reshape(-1)
+        self.thr = torch.tensor(self.thr_host, device=self.device)
         self.ops = proxy_score.KernelOperands(self.w1, self.b1, self.w2, self.b2, self.thr,
                                               self.out_scale)
         self.families = self.packed.families
@@ -200,6 +201,51 @@ class CascadeScorer:
         scorer = cls(params, thrs, **kw)
         scorer.stage_cols = cols
         return scorer
+
+    @classmethod
+    def from_plans(cls, plans, **kw):
+        """Stack several plans' proxied stages into ONE packed cascade
+        (multi-query serving).  Returns ``(scorer | None, col_maps)`` where
+        ``col_maps[qi][si]`` is the stacked scorer's column for plan
+        ``qi``'s stage ``si`` (None for proxy-less stages).  Stages whose
+        packed params AND threshold are byte-identical (keyed on the content
+        fingerprint, never on object identity) share one column, so a
+        predicate proxied identically by two queries is scored once.
+
+        The readout is block-diagonal, so a column's score sums only its own
+        hidden block; every cross-block term is an exact zero.  Whether the
+        sum is bit-identical to the isolated scorer's depends on the route's
+        summation order at the wider width, so callers that need bit
+        identity measure it.
+
+        The weights' storage dtype is the plans' common ``quant_dtype`` when
+        they agree; otherwise float32 (one shared launch must not quantize a
+        tenant that asked for full precision).  A None scorer means no plan
+        has a proxied stage."""
+        params, thrs = [], []
+        col_of = {}
+        col_maps = []
+        for plan in plans:
+            cols = []
+            for stage in plan.stages:
+                if stage.proxy is None:
+                    cols.append(None)
+                    continue
+                key = (params_fingerprint(stage.proxy.params), float(stage.threshold))
+                col = col_of.get(key)
+                if col is None:
+                    col = col_of[key] = len(params)
+                    params.append(stage.proxy.params)
+                    thrs.append(stage.threshold)
+                cols.append(col)
+            col_maps.append(cols)
+        if not params:
+            return None, col_maps
+        dtypes = {str(plan.meta.get("quant_dtype", "float32")) for plan in plans}
+        kw.setdefault("dtype", dtypes.pop() if len(dtypes) == 1 else "float32")
+        scorer = cls(params, thrs, **kw)
+        scorer.stage_cols = list(range(len(params)))
+        return scorer, col_maps
 
     def covers_all(self, plan) -> bool:
         """Every proxied stage has a column (the packed format covers every
@@ -319,6 +365,25 @@ class CascadeScorer:
                 x[start:stop], need_scores=False, need_compaction=False)
             masks[start:stop] = mask
         return masks
+
+    def score_margins(self, x: np.ndarray):
+        """Masks (N, P) plus each record's distance to the NEAREST stage
+        threshold, ``min_p |s_p - thr_p|`` (N,): the importance-audit
+        signal.  A tile is one pinned upload, one launch with the scores on
+        and compaction off, and one fetch; the scores arrive in the copy
+        that carries the masks (P x 4 bytes a row), so the min reduction
+        runs on the host over the fetched scores, in float32."""
+        x = np.asarray(x, np.float32)
+        n = x.shape[0]
+        masks = np.empty((n, self.n_proxies), bool)
+        margins = np.empty(n, np.float32)
+        for start in range(0, n, self.max_tile):
+            stop = min(start + self.max_tile, n)
+            scores, mask, _pk, _cnt = self._score_tile(
+                x[start:stop], need_scores=True, need_compaction=False)
+            masks[start:stop] = mask
+            np.min(np.abs(scores - self.thr_host), axis=1, out=margins[start:stop])
+        return masks, margins
 
 
 # --------------------------------------------- scorer cache (plan re-entry)

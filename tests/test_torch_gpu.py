@@ -254,3 +254,119 @@ def test_ssm_path_short_prompt(cuda):
     assert out["launches"] == out["prefill_launches"] == 2
     assert out["route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
     assert out["planted_fault"]["caught"]
+
+
+# ------------------------------------------------------------ serving routes
+def _packed_plans(hidden_per_plan, F=64, seed=0):
+    """Plans over random folded proxies (``PackedProxy``), one list of
+    hidden widths a plan; thresholds 0.  The last plan's first stage is
+    the first plan's first stage (the same proxy and threshold), so a stack
+    of them shares that column."""
+    import numpy as np
+
+    from repro_torch.core.proxy import ProxyModel
+    from repro_torch.core.query import PhysicalPlan, PlanStage
+    from repro_torch.training.proxy_models import PackedProxy
+
+    rng = np.random.RandomState(seed)
+    plans = []
+    for hs in hidden_per_plan:
+        stages = []
+        for i, h in enumerate(hs):
+            pp = PackedProxy(w1=(rng.randn(F, h) / 8).astype(np.float32),
+                             b1=(0.1 * rng.randn(h)).astype(np.float32),
+                             w2=(rng.randn(h) / np.sqrt(h)).astype(np.float32),
+                             b2=np.float32(0.05 * rng.randn()), hidden=h)
+            proxy = ProxyModel(pred_idx=i, d=(), family="packed1", params=pp, r_curve=None,
+                               cost=0.0)
+            stages.append(PlanStage(pred_idx=i, proxy=proxy, threshold=0.0))
+        plans.append(PhysicalPlan(query=None, stages=stages))
+    plans[-1].stages[0] = plans[0].stages[0]
+    return plans
+
+
+def _tie(scores, thr):
+    import numpy as np
+
+    return np.abs(scores - thr) <= chip_smoke.SCORE_TOL * np.maximum(1.0, np.abs(thr))
+
+
+@pytest.mark.parametrize("rows,max_tile", [(1024, 1024), (3000, 1024), (8000, 8192)])
+def test_score_margins_matches_plain_route(cuda, rows, max_tile):
+    """Masks equal to the plain route's except tie rows; margins
+    min_p |s_p - thr_p| within SCORE_TOL * max(1, |thr|)."""
+    import numpy as np
+
+    from repro_torch.kernels.ops import CascadeScorer
+
+    plan = _packed_plans([[2, 32, 7]])[0]
+    x = np.random.RandomState(1).randn(rows, 64).astype(np.float32)
+    got_m, got_d = CascadeScorer.from_plan(plan, max_tile=max_tile, device=cuda).score_margins(x)
+    plain = CascadeScorer.from_plan(plan, max_tile=max_tile, device="cpu")
+    want_m, want_d = plain.score_margins(x)
+    scores = plain.score_compact(x, need_scores=True)[0]
+    assert got_m.shape == want_m.shape and got_d.shape == (rows,)
+    assert not ((got_m != want_m) & ~_tie(scores, plain.thr_host)).any()
+    tol = chip_smoke.SCORE_TOL * max(1.0, float(np.abs(plain.thr_host).max()))
+    np.testing.assert_allclose(got_d, want_d, rtol=0, atol=tol)
+
+
+def test_score_margins_tile_is_one_pinned_upload_one_launch_one_fetch(cuda):
+    import numpy as np
+
+    from repro_torch.kernels.ops import CascadeScorer
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    scorer = CascadeScorer.from_plan(_packed_plans([[2, 2]])[0], max_tile=1024, device=cuda)
+    tile = np.random.RandomState(2).randn(1000, 64).astype(np.float32)
+    scorer.score_margins(tile)  # buffers allocated
+    before = cascade_score.launches
+    out = {}
+    names = _device_ops(lambda: out.update(r=scorer.score_margins(tile)))
+    assert cascade_score.launches == before + 1
+    assert len(names) == 3, names
+    assert "Pinned" in names[0] and "HtoD" in names[0], names
+    assert "cascade_score_kernel" in names[1], names
+    assert "DtoH" in names[2] and "Pinned" in names[2], names
+    masks, margins = out["r"]
+    assert masks.shape == (1000, 2) and margins.shape == (1000,)
+
+
+def test_stacked_scorer_matches_isolated_scorers(cuda):
+    """The stacked (block-diagonal) scorer's column slices against each
+    plan's isolated scorer at the multi-query path's widths (hidden 2 and
+    32, P 6 stacked after one shared column): rows that differ are counted
+    and must all be ties."""
+    import numpy as np
+
+    from repro_torch.kernels.ops import CascadeScorer
+
+    plans = _packed_plans([[2, 2], [2, 2, 32], [2, 2]])
+    x = np.random.RandomState(3).randn(4096, 64).astype(np.float32)
+    stacked, col_maps = CascadeScorer.from_plans(plans, device=cuda)
+    assert (stacked.n_features, stacked.n_proxies) == (64, 6)
+    assert col_maps[2][0] == col_maps[0][0]
+    full = stacked.score_masks(x)
+    differ = 0
+    for plan, cols in zip(plans, col_maps):
+        iso = CascadeScorer.from_plan(plan, device=cuda).score_masks(x)
+        plain = CascadeScorer.from_plan(plan, device="cpu")
+        scores = plain.score_compact(x, need_scores=True)[0]
+        bad = full[:, cols] != iso
+        differ += int(bad.any(axis=1).sum())
+        assert not (bad & ~_tie(scores, plain.thr_host)).any()
+    print(f"stacked vs isolated: {differ} rows differ")
+
+
+def test_serving_and_multiquery_paths_short(cuda):
+    out = chip_smoke.run_serving_path(cuda, 40_000)
+    assert out["launches"] == out["tiles"] and out["plan_swaps"] >= 1
+    mq = chip_smoke.run_multiquery_path(cuda, out["workload"], 16_384)
+    assert mq["launches"] == mq["chunks"] == 4 and mq["stacked_cols_saved"] >= 1
+
+
+def test_frontend_path_short(cuda):
+    """The SLO front end on the card: every tile submitted across its degrade
+    and restore swaps is one ``cascade_score`` launch."""
+    fe = chip_smoke.run_frontend_path(cuda, chip_smoke.serving_workload(cuda, 40_000), 16_384)
+    assert fe["launches"] == fe["tiles"] > 0 and fe["degrades"] >= 1 and fe["conserved"]

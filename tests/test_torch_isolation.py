@@ -42,7 +42,9 @@ def test_port_imports_without_jax_or_repro():
     assert int(proc.stdout.split()[-1]) >= 30  # every module of the package
     for name in ("repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
                  "repro_torch.configs.registry", "repro_torch.models.ssm",
-                 "repro_torch.kernels.ssd_scan"):
+                 "repro_torch.kernels.ssd_scan", "repro_torch.serving.stats",
+                 "repro_torch.serving.engine", "repro_torch.serving.frontend",
+                 "repro_torch.serving.multiquery", "repro_torch.launch.serve"):
         assert name in proc.stdout
 
 
@@ -63,6 +65,10 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.models import ssm, transformer
     from repro_torch.models.registry import make_batch
     from repro_torch.training.proxy_models import train_linear_svm
+    from repro_torch.core import CoreSession
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import CascadeServer
+    from repro_torch.serving.multiquery import MultiQueryEngine
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
     udfs = make_udfs(ds, hidden=8, depth=1, train_rows=200, seed=0, declared_cost_ms=1.0,
@@ -88,6 +94,10 @@ def test_cuda_default_entry_points_raise_without_a_card():
         "train_linear_svm": lambda: train_linear_svm(x, np.where(labels, 1.0, -1.0)),
         "CascadeScorer": lambda: CascadeScorer([proxy.params], [0.0]),
         "execute_plan": lambda: execute_plan(orig_plan(query), x),
+        "CascadeServer": lambda: CascadeServer(orig_plan(query)),
+        "CoreSession": lambda: CoreSession(),
+        "MultiQueryEngine": lambda: MultiQueryEngine([]),
+        "serve.main": lambda: serve.main(["--n", "2000"]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

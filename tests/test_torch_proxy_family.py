@@ -130,6 +130,7 @@ def test_pack_cache_is_weak_and_memoizes():
     port = interop.proxy_params(_cascade(6)[1], "cpu")
     first = tops.pack_proxy_cached(port)
     assert tops.pack_proxy_cached(port) is first
+    gc.collect()  # entries of earlier tests' unreachable cycles go now, not below
     n = len(tops._PACK_CACHE)
     del port
     gc.collect()
