@@ -96,6 +96,25 @@ Each phase prints one JSON line:
               dataset as 128-row requests at 1.3x capacity, each due 3x its
               full-plan cost: conservation, at least one degrade swap, and
               one ``cascade_score`` launch a submitted tile across the swaps.
+14. artifact_path — COREWIRE on the card: phase 3's two plans and mixed3
+              at int8 and fp8 weights serialized, deserialized onto the card
+              (the codes handed to the scorer as they came) and serialized
+              again to identical bytes; phase 3's stream scored through the
+              original and the deserialized scorer (masks, survivor lists and
+              counts equal bit for bit, one launch a tile); ``execute_plan``
+              on the deserialized plans against phase 3; frames of the three
+              kinds; a frame and an artifact kept apart; three planted faults
+              (minor 3, a truncated payload, a wrong predicate count)
+              rejected; the int8 and fp8 quant parity gates on the card.
+15. plan_cache_path — the cross-query plan cache over phase 11's dataset
+              (a query on three columns, proxies trained on the card): cold,
+              an exact repeat (HIT, its replayed scorer bit-identical to the
+              cold plan's on 262,144 held-out rows through the kernel, build
+              time at most 0.2 of cold), the COREPLNC container byte-stable,
+              a similar query (WARM, fewer B&B visits, cost within 5%), a
+              dissimilar one (COLD, accuracy >= A - 0.05), and an adaptive
+              ``CascadeServer`` over a 262,144-record drifting stream that
+              writes back its initial plan and every swap.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -142,6 +161,9 @@ MULTIQUERY_RECORDS = 262_144
 # the full plan's capacity (the serve CLI's default load), each due 3x its
 # full-plan cost after it arrives
 FRONTEND = dict(records=65_536, request_rows=128, load=1.3, slo_factor=3.0)
+# The plan-cache path (phase 15): held-out rows the replayed scorer scores,
+# and the drifting stream the write-back server serves
+PLAN_CACHE_RECORDS = 262_144
 
 TWITTER = dict(n=40_000, n_features=64, n_columns=4, correlation=0.9,
                feature_noise=1.1, label_noise=0.25, udf_hidden=48, udf_depth=2,
@@ -431,7 +453,7 @@ def run_main_path(dev, n_stream: int):
          setup_s=time.perf_counter() - t0)
     tile = 8192
     n_tiles = -(-n_stream // tile)
-    plans = []
+    plans, outcomes = [], {}
     cascade_score.launches = 0
     for name, cols, sel, A, kind, seed in QUERIES:
         q = make_query(ds, udfs, columns=cols, target_selectivity=sel, accuracy_target=A,
@@ -461,6 +483,7 @@ def run_main_path(dev, n_stream: int):
         acc = plan_accuracy(res, orig)
         saving = 1.0 - res.model_cost_ms / orig.model_cost_ms
         check(acc >= A - 0.05, f"{name}: accuracy {acc:.4f} < {A - 0.05}")
+        outcomes[name] = dict(passed=res.passed, accuracy=acc, orig=orig)
         emit("main_path", query=name, kind=kind, order=list(plan.order),
              families=[None if s.proxy is None else s.proxy.family for s in plan.stages],
              hidden=[None if s.proxy is None else int(s.proxy.packed().hidden)
@@ -476,7 +499,7 @@ def run_main_path(dev, n_stream: int):
              udf_s=sum(s.udf_ms for s in res.stages) / 1e3,
              optimizer_stats=plan.meta["stats"])
     total = cascade_score.launches
-    return plans, stream, total
+    return plans, stream, total, outcomes
 
 
 # ------------------------------------------------------------- phase 4
@@ -1698,6 +1721,265 @@ def run_frontend_path(dev, workload, n_records: int) -> dict:
           f"({count['behind']} submits found the count behind)")
     return out
 
+# ------------------------------------------------------------- phase 14
+def score_through(scorer, x: np.ndarray):
+    """``scorer.score_compact(x)`` and the tiles it submits (one
+    ``cascade_score`` launch each on a card)."""
+    return scorer.score_compact(x), -(-len(x) // scorer.max_tile)
+
+
+def same_compaction(a, b) -> tuple:
+    """(rows whose masks differ, whether the survivor lists and counts are
+    equal) of two ``score_compact`` results."""
+    _sa, ma, pa, ca = a
+    _sb, mb, pb, cb = b
+    rows = int((ma != mb).any(axis=1).sum()) if ma.shape == mb.shape else len(ma)
+    return rows, (np.array_equal(ca, cb) and len(pa) == len(pb)
+                  and all(np.array_equal(u, v) for u, v in zip(pa, pb)))
+
+
+def run_artifact_path(dev, plans, stream: np.ndarray, outcomes: dict) -> dict:
+    """COREWIRE on the card: phase 3's plans and mixed3 at int8 and fp8
+    weights, each serialized from its scorer, deserialized onto the card
+    (``packed=``: the codes as they came) and serialized again (the bytes
+    must be identical); the stream scored through the original and the
+    deserialized scorer (masks, survivor lists and counts equal bit for bit,
+    one ``cascade_score`` launch a tile); ``execute_plan`` on the
+    deserialized fp32 plans against phase 3's passed rows and accuracy;
+    frames of the three kinds; the two channels kept apart; three planted
+    faults rejected; and the int8 and fp8 parity gates on the card."""
+    from repro_torch.core import execute_plan, plan_accuracy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    t_phase = time.perf_counter()
+    named = list(plans)
+    base = dict(plans)["mixed3"]
+    for dt in ("int8", "fp8"):
+        named.append((f"mixed3_{dt}", dataclasses.replace(
+            base, meta={**base.meta, "quant_dtype": dt})))
+    rows, blobs, tiles = [], {}, 0
+    cascade_score.launches = 0
+    for name, plan in named:
+        sc = ops.CascadeScorer.from_plan(plan, device=dev)
+        t0 = time.perf_counter()
+        blob = ops.serialize_scorer(plan, sc)
+        serialize_ms = (time.perf_counter() - t0) * 1e3
+        sync(dev)
+        t0 = time.perf_counter()
+        plan2, sc2 = ops.deserialize_scorer(blob, plan.query, device=dev)
+        sync(dev)
+        deserialize_ms = (time.perf_counter() - t0) * 1e3
+        identical = ops.serialize_scorer(plan2, sc2) == blob
+        blobs[name] = (plan, blob)
+        a, n_a = score_through(sc, stream)
+        b, n_b = score_through(sc2, stream)
+        tiles += n_a + n_b
+        differ, lists_equal = same_compaction(a, b)
+        row = dict(artifact=name, dtype=sc.dtype, minor=ops.unpack_le(blob, 10, 2),
+                   bytes=len(blob), serialize_ms=serialize_ms, deserialize_ms=deserialize_ms,
+                   reserialized_identical=identical, rows_differ=differ,
+                   lists_and_counts_equal=lists_equal, tiles=n_a + n_b)
+        if name in outcomes:
+            res = execute_plan(plan2, stream, batch_size=8192, use_kernel=True, fused=True,
+                               device=dev)
+            tiles += -(-len(stream) // 8192)
+            want = outcomes[name]
+            row.update(passed=int(len(res.passed)),
+                       passed_equal=bool(np.array_equal(res.passed, want["passed"])),
+                       accuracy=plan_accuracy(res, want["orig"]), main_path_accuracy=want["accuracy"])
+        rows.append(row)
+    sync(dev)
+    launches = cascade_score.launches
+    # the card's time on a deserialized scorer: 16 tiles through its route
+    plan2, sc2 = ops.deserialize_scorer(blobs["mixed3"][1], base.query, device=dev)
+    x16 = stream[:16 * sc2.max_tile]
+    sc2.score_compact(x16)
+    prof = device_profile(lambda: sc2.score_compact(x16), dev, watch="cascade_")
+    kernel_us = prof["watch"]["us"] / max(prof["watch"]["count"], 1)
+
+    q_plan, q_blob = blobs["quickstart"]
+    frames = {
+        ops.FRAME_RESYNC: (q_blob, {"host": 3}),
+        ops.FRAME_DELTA: (json.dumps({"epoch": 4, "votes": [0, 2]}).encode(), {"kind": "prepare"}),
+        ops.FRAME_PLANCACHE: (q_blob, {"digest": "0" * 32, "stat_vec": [0.9, 0.5, 0.5]}),
+    }
+    frames_ok = {}
+    for epoch, (kind, (payload, meta)) in enumerate(frames.items()):
+        frame = ops.serialize_frame(kind, epoch, payload, meta=meta)
+        back = ops.deserialize_frame(frame)
+        frames_ok[kind] = (back == (kind, epoch, payload, meta)
+                           and ops.serialize_frame(*back[:3], meta=back[3]) == frame)
+
+    def refused(call) -> bool:
+        try:
+            call()
+        except ops.WireFormatError:
+            return True
+        return False
+
+    channels = {
+        "frame_as_scorer": refused(lambda: ops.deserialize_scorer(
+            ops.serialize_frame(ops.FRAME_RESYNC, 0, q_blob), q_plan.query, device=dev)),
+        "scorer_as_frame": refused(lambda: ops.deserialize_frame(q_blob)),
+    }
+    rejected = {
+        "minor_3": refused(lambda: ops.deserialize_scorer(
+            q_blob[:10] + ops.pack_le(3, 2) + q_blob[12:], q_plan.query, device=dev)),
+        "truncated_payload": refused(lambda: ops.deserialize_scorer(
+            q_blob[:-7], q_plan.query, device=dev)),
+        "wrong_n_predicates": refused(lambda: ops.deserialize_scorer(
+            q_blob, base.query, device=dev)),
+    }
+    parity = {}
+    x_par = stream[:131_072]
+    for dt in ("int8", "fp8"):
+        before = cascade_score.launches
+        rep = ops.quant_parity_report(base, x_par, dtype=dt, device=dev)
+        parity[dt] = dict(flips_within_tol=rep["flips_within_tol"], n_flips=rep["n_flips"],
+                          n_eval=rep["n_eval"], tol=rep["tol"],
+                          max_sel_delta=rep["max_sel_delta"],
+                          launches=cascade_score.launches - before)
+    out = dict(records=len(stream), artifacts=rows, launches=launches, tiles=tiles,
+               deserialized_kernel_device_us_per_call=kernel_us,
+               deserialized_profile_tiles=16, frames_round_trip=frames_ok,
+               channels_kept_apart=channels, planted_faults_rejected=rejected,
+               quant_parity=parity,
+               seconds=time.perf_counter() - t_phase)
+    emit("artifact_path", **out)
+    for row in rows:
+        name = row["artifact"]
+        check(row["reserialized_identical"], f"{name}: the artifact re-serializes differently")
+        check(row["rows_differ"] == 0 and row["lists_and_counts_equal"],
+              f"{name}: deserialized scorer differs on {row['rows_differ']} rows")
+        if "passed_equal" in row:
+            check(row["passed_equal"] and row["accuracy"] == row["main_path_accuracy"],
+                  f"{name}: deserialized plan passes other rows than phase 3")
+    check(len(rows) == 4 and {r["minor"] for r in rows} == {0, 2}, "artifact minors")
+    check(launches == tiles, f"{launches} cascade_score launches for {tiles} tiles")
+    check(all(frames_ok.values()), f"frames: {frames_ok}")
+    check(all(channels.values()), f"a frame and an artifact were confused: {channels}")
+    check(all(rejected.values()), f"faults accepted: {rejected}")
+    for dt, rep in parity.items():
+        check(rep["flips_within_tol"], f"{dt}: a decision flipped outside the tolerance")
+        check(rep["launches"] == 4 * -(-len(x_par) // 2 // 8192),
+              f"{dt}: parity report launched {rep['launches']} times")
+    return out
+
+
+# ------------------------------------------------------------- phase 15
+def run_plan_cache_path(dev, workload, n_records: int) -> dict:
+    """The cross-query plan cache on the card, in the sequence of
+    ``benchmarks/bench_plan_cache.py``, at phase 11's dataset (its UDFs on
+    the card, its 5% sample) for a query on columns (0, 1, 2), fingerprinted
+    with the sample's audited selectivities s: cold; an exact repeat (HIT:
+    no proxy trained, the replayed scorer bit-identical to the cold plan's
+    on ``n_records`` held-out rows through the kernel); the COREPLNC
+    container byte-stable; a similar query at s shifted by the bench's
+    (-0.05, 0, +0.05) along the cold plan's order, so that the order stays
+    the optimum (WARM: fewer B&B visits, cost within 5%); a dissimilar one
+    at A = 0.95 whose selectivities invert the cold plan's
+    order (its first stage passing 95% of records, its last 5%: COLD by the
+    regret guard, accuracy at least A - 0.05); and an adaptive
+    ``CascadeServer`` over a drifting stream of ``n_records`` that writes
+    its initial plan and every swap back.  (The bench's literal
+    selectivities are set around its own query's statistics and plan; these
+    are set the same way around this query's.)"""
+    from repro_torch.core import OptimizeOptions, PlanCache, execute_plan, orig_plan, plan_accuracy
+    from repro_torch.data.synthetic import make_drifting_stream, make_query
+    from repro_torch.kernels.ops import CascadeScorer
+    from repro_torch.kernels.proxy_score import cascade_score
+    from repro_torch.serving.engine import CascadeServer
+
+    ds, udfs, k = workload
+    t_phase = time.perf_counter()
+    x = ds.x[:k]
+    held = ds.x[k:k + n_records]
+    opts = OptimizeOptions(step=0.05, seed=0)
+    q = make_query(ds, udfs, columns=[0, 1, 2], target_selectivity=0.5, accuracy_target=0.9,
+                   seed=1)
+    sels = {p: float(np.mean(pred.evaluate(pred.udf(x)))) for p, pred in enumerate(q.predicates)}
+    cache = PlanCache()
+    cold_plan, cold = cache.optimize_query(q, x, opts, selectivities=sels, device=dev)
+    builds = cache.stats.misses + cache.stats.hits_warm
+    hit_plan, hit = cache.optimize_query(q, x, opts, selectivities=sels, device=dev)
+    # a hit replays the artifact: no builder runs, so no proxy is trained
+    hit_builds = cache.stats.misses + cache.stats.hits_warm - builds
+    cascade_score.launches = 0
+    a, n_a = score_through(CascadeScorer.from_plan(cold_plan, device=dev), held)
+    b, n_b = score_through(hit["scorer"], held)
+    sync(dev)
+    replay_launches, replay_tiles = cascade_score.launches, n_a + n_b
+    replay_differ, replay_lists_equal = same_compaction(a, b)
+    blob = cache.to_bytes()
+    stable = PlanCache.from_bytes(blob).to_bytes() == blob
+    similar = {p: min(max(sels[p] + d, 0.0), 1.0) for p, d in zip(cold_plan.order, (-0.05, 0, 0.05))}
+    warm_plan, warm = cache.optimize_query(q, x, opts, selectivities=similar, device=dev)
+    warm_delta = abs(warm_plan.est_total_cost - cold_plan.est_total_cost) / cold_plan.est_total_cost
+    q_far = make_query(ds, udfs, columns=[0, 1, 2], target_selectivity=0.5,
+                       accuracy_target=0.95, seed=1)
+    inverted = dict(zip(cold_plan.order, (0.95, 0.5, 0.05)))
+    far_plan, far = cache.optimize_query(q_far, x, opts, selectivities=inverted, device=dev)
+    far_acc = plan_accuracy(execute_plan(far_plan, held, use_kernel=True, device=dev),
+                            execute_plan(orig_plan(q_far), held, device=dev))
+    # adaptive serving with write-backs, on a plan with live optimizer state
+    serve_plan, serve_info = cache.optimize_query(q, x, opts.replace(keep_state=True),
+                                                  selectivities=sels, accept_hit=False,
+                                                  device=dev)
+    stream = make_drifting_stream(ds, n_records // 4, n_records - n_records // 4,
+                                  shift_targets={0: 2.8, 1: -2.6, 2: 2.8}, corr_gain=2.5, seed=0)
+    writes_before = cache.stats.writes
+    srv = CascadeServer(serve_plan, tile=SERVING["tile"], adaptive=True, plan_cache=cache,
+                        device=dev)
+    cascade_score.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = srv.run_stream(stream.x, chunk=SERVE_CHUNK)
+    sync(dev)
+    serve_s = time.perf_counter() - t0
+    serve_launches = cascade_score.launches
+    serve_tiles = submit_tiles(stream.n, max(SERVING["tile"], 1024))
+    launches = replay_launches + serve_launches
+    out = dict(records=len(held), sample=k, predicates=3, order=list(cold_plan.order),
+               sample_selectivities=sels, similar_selectivities=similar,
+               inverted_selectivities=inverted, regrets=[cold["regret"], warm["regret"], far["regret"]],
+               paths=[cold["path"], hit["path"], warm["path"], far["path"]],
+               cold_nodes=cold["trace"]["nodes_visited"], warm_nodes=warm["trace"]["nodes_visited"],
+               cold_build_ms=cold["build_ms"], hit_build_ms=hit["build_ms"],
+               warm_build_ms=warm["build_ms"], far_build_ms=far["build_ms"],
+               hit_build_ratio=hit["build_ms"] / cold["build_ms"], hit_builds=hit_builds,
+               cold_trained=cold_plan.meta["stats"]["n_trained"],
+               hit_same_order=list(hit_plan.order) == list(cold_plan.order),
+               replay_rows_differ=replay_differ, replay_lists_and_counts_equal=replay_lists_equal,
+               replay_launches=replay_launches, replay_tiles=replay_tiles,
+               container_bytes=len(blob), container_stable=stable,
+               warm_distance=warm["distance"], warm_cost_rel_delta=warm_delta,
+               dissimilar_accuracy=far_acc, dissimilar_floor=q_far.accuracy_target - 0.05,
+               serve_path=serve_info["path"], served=stream.n, boundary=stream.boundary,
+               emitted=stats.emitted, rejected=stats.rejected, in_flight=srv.in_flight(),
+               plan_swaps=stats.plan_swaps, plan_cache_writebacks=stats.plan_cache_writebacks,
+               cache_writes=cache.stats.writes - writes_before, serve_launches=serve_launches,
+               serve_tiles=serve_tiles, serve_s=serve_s, launches=launches,
+               tiles=replay_tiles + serve_tiles, entries=len(cache),
+               cache_stats=cache.stats.as_dict(), seconds=time.perf_counter() - t_phase)
+    emit("plan_cache_path", **out)
+    check(out["paths"] == ["cold", "hit", "warm", "cold"], f"paths {out['paths']}")
+    check(hit_builds == 0 and out["hit_same_order"], "the exact repeat built or reordered")
+    check(out["hit_build_ratio"] <= 0.2, f"hit / cold build {out['hit_build_ratio']:.3f} > 0.2")
+    check(replay_differ == 0 and replay_lists_equal,
+          f"the replayed scorer differs from the cold plan's on {replay_differ} rows")
+    check(stable, "the COREPLNC container is not byte-stable")
+    check(out["warm_nodes"] < out["cold_nodes"],
+          f"warm visited {out['warm_nodes']} nodes, cold {out['cold_nodes']}")
+    check(warm_delta <= 0.05, f"warm cost {warm_delta:.4f} off the cold plan's")
+    check(far_acc >= q_far.accuracy_target - 0.05, f"dissimilar accuracy {far_acc:.4f}")
+    check(stats.emitted + stats.rejected == stream.n and srv.in_flight() == 0,
+          f"conservation: {stats.emitted} + {stats.rejected} != {stream.n}")
+    check(stats.plan_cache_writebacks >= 1 + stats.plan_swaps,
+          f"{stats.plan_cache_writebacks} write-backs for {stats.plan_swaps} swaps")
+    check(launches == out["tiles"], f"{launches} cascade_score launches for {out['tiles']} tiles")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
@@ -1709,6 +1991,9 @@ def main(argv=None) -> int:
                     help="records the multi-query path serves (default 262,144)")
     ap.add_argument("--frontend-records", type=int, default=FRONTEND["records"],
                     help="records the SLO front-end path serves (default 65,536)")
+    ap.add_argument("--plan-cache-records", type=int, default=PLAN_CACHE_RECORDS,
+                    help="held-out and drifting records of the plan-cache path "
+                         "(default 262,144)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1742,11 +2027,12 @@ def main(argv=None) -> int:
     emit("kernels", cases=len(KERNEL_CASES), max_abs_err=max(errs),
          shapes=[list(c[:5]) + [c[5]] for c in KERNEL_CASES])
 
-    plans, stream, launches = run_main_path(dev, args.stream_records)
+    plans, stream, launches, outcomes = run_main_path(dev, args.stream_records)
     timings = time_main_shapes(plans, stream, dev, iters=200)
     profile_main_path(plans, stream, dev)
     main_row = max(timings, key=lambda r: r["flops"])
-    del plans, stream
+    artifacts = run_artifact_path(dev, plans, stream, outcomes)
+    del plans, stream, outcomes
 
     flash_errs = []
     t0 = time.perf_counter()
@@ -1802,6 +2088,7 @@ def main(argv=None) -> int:
     workload = serving.pop("workload")
     multiquery = run_multiquery_path(dev, workload, args.multiquery_records)
     frontend = run_frontend_path(dev, workload, args.frontend_records)
+    plan_cache = run_plan_cache_path(dev, workload, args.plan_cache_records)
     del workload
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1811,7 +2098,9 @@ def main(argv=None) -> int:
         "launches": launches,
         "launches_by_path": {"main_path": launches, "serving_path": serving["launches"],
                              "multiquery_path": multiquery["launches"],
-                             "frontend_path": frontend["launches"]},
+                             "frontend_path": frontend["launches"],
+                             "artifact_path": artifacts["launches"],
+                             "plan_cache_path": plan_cache["launches"]},
         "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "max_abs_err")}
                            for r in (serving["timing"], multiquery["timing"])],

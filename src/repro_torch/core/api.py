@@ -9,12 +9,14 @@ proxies online on the optimization sample and searches the plan,
 the ``launch/serve.py`` CLI share; ``CoreSession`` registers N queries,
 optimizes each, and serves them: one query through ``CascadeServer`` (or
 the SLO front end), several through ``MultiQueryEngine``.  Proxies train
-and score on ``device`` (CUDA by default; raises without a card).
+and score on ``device`` (CUDA by default; raises without a card).  A
+session, a query or a server may take a cross-query plan cache
+(``core/plan_cache.py``): queries optimize through it, servers write their
+committed plans back to it.
 
-Not ported yet, and refused rather than ignored: the cross-query plan
-cache (ROADMAP item 9) and serving across hosts (ROADMAP item 10).
-Serving modules are imported inside methods: ``core`` does not depend on
-``serving`` at import time (serving imports core).
+Not ported yet, and refused rather than ignored: serving across hosts
+(ROADMAP item 10).  Serving modules are imported inside methods: ``core``
+does not depend on ``serving`` at import time (serving imports core).
 """
 from __future__ import annotations
 
@@ -99,6 +101,7 @@ def build_plan(
     options: Optional[OptimizeOptions] = None,
     *,
     builder: Optional[ProxyBuilder] = None,
+    warm_start=None,
     device="cuda",
 ) -> PhysicalPlan:
     """Build proxy models ONLINE on the optimization sample (on ``device``)
@@ -108,14 +111,23 @@ def build_plan(
                        tree) + accuracy allocation (Alg. 1). [the paper]
     * mode="core-a"  — input order, accuracy allocation only. [§6.5 CORE-a]
     * mode="core-h"  — exhaustive order search.               [§6.5 CORE-h]
-    """
+
+    ``warm_start`` is a cross-query donor state from the plan cache
+    (``plan_cache.WarmStart``: classifiers / s_stars / orders): the
+    builder adopts the donor's trained-classifier cache (re-validated by
+    the Eq.-4.7 eps test before any reuse), and mode="core" seeds the
+    branch-and-bound tree with the donor's stale L-node measurements and
+    surviving candidate set, then ``resume``s instead of cold-running."""
     opt = options or OptimizeOptions()
     t_start = advisory_wall_ms()
     A = query.accuracy_target
     builder = builder or ProxyBuilder(query, x_sample, kind=opt.kind,
                                       eps=opt.eps, seed=opt.seed, device=device)
+    if warm_start is not None and warm_start.classifiers:
+        builder.adopt_classifiers(warm_start.classifiers)
     trace: Optional[SearchTrace] = None
     bb: Optional[BranchAndBound] = None
+    warmed = False
     if opt.mode == "core-a":
         alloc = accuracy_allocation(builder, tuple(range(query.n)), A,
                                     step=opt.step, framework=opt.framework)
@@ -131,7 +143,12 @@ def build_plan(
         bb = BranchAndBound(builder, A, step=opt.step,
                             fine_grained=opt.fine_grained,
                             framework=opt.framework)
-        alloc, trace = bb.run()
+        if warm_start is not None and warm_start.s_stars:
+            bb.seed_from(warm_start.s_stars, orders=warm_start.orders)
+            alloc, trace = bb.resume()
+            warmed = True
+        else:
+            alloc, trace = bb.run()
     else:
         raise ValueError(f"unknown mode {opt.mode!r}")
     meta = {
@@ -140,6 +157,8 @@ def build_plan(
         "wall_ms": advisory_wall_ms() - t_start,
         "plan_version": 0,
     }
+    if warmed:
+        meta["warm_start"] = True
     if opt.quant_dtype is not None and opt.quant_dtype != "float32":
         if opt.quant_dtype not in QUANT_DTYPES:
             raise ValueError(f"unknown quant_dtype {opt.quant_dtype!r}")
@@ -248,28 +267,21 @@ def reject_fleet(cfg: "ServeConfig") -> None:
             "them at their defaults")
 
 
-def reject_plan_cache(plan_cache) -> None:
-    """The cross-query plan cache is not ported yet: refuse one rather
-    than serve without it."""
-    if plan_cache is not None:
-        raise NotImplementedError(
-            "the cross-query plan cache is not ported to repro_torch yet "
-            "(ROADMAP item 9); pass plan_cache=None")
-
-
 @dataclass
 class ServeConfig:
     """Serving knobs, shared between ``CoreSession.serve`` and the
     ``launch/serve.py`` CLI (every flag maps onto one field).  ``slo_ms``
     wraps the engine in the deadline-aware request front end;
     ``queries_path`` points at a multi-query JSON spec served through one
-    ``CoreSession``.  ``hosts > 1`` (with ``FLEET_FIELDS``: ``transport``,
-    ``kill_coordinator_at``, ``straggler_host``, ``drift_skew``) and
-    ``plan_cache_path`` are the fleet's and the plan cache's knobs, kept
-    so a config round-trips; serving refuses any of them set away from
-    its default until those are ported (ROADMAP items 10 and 9).  There
-    is no switch around the scorer: every proxied stage is scored by
-    ``cascade_score`` on a card, by its plain route on the CPU."""
+    ``CoreSession``.  ``plan_cache_path`` names the serve CLI's plan-cache
+    file (only the CLI reads it; a session takes a ``PlanCache`` object).
+    ``hosts > 1`` (with ``FLEET_FIELDS``: ``transport``,
+    ``kill_coordinator_at``, ``straggler_host``, ``drift_skew``) are the
+    fleet's knobs, kept so a config round-trips; serving refuses any of
+    them set away from its default until the fleet is ported (ROADMAP
+    item 10).  There is no switch around the scorer: every proxied stage
+    is scored by ``cascade_score`` on a card, by its plain route on the
+    CPU."""
 
     tile: int = 1024
     adaptive: bool = False
@@ -294,30 +306,44 @@ class ServeConfig:
 class QueryHandle:
     """One registered query inside a ``CoreSession``: its options, its
     optimized plan, and per-query serving stats.  ``handle.optimize()``
-    builds the plan on the session's device; ``handle.submit()`` routes
-    records to this query only; ``handle.stats()`` reads this query's
-    serving counters."""
+    builds the plan on the session's device (through the query's plan
+    cache when one is attached); ``handle.submit()`` routes records to
+    this query only; ``handle.stats()`` reads this query's serving
+    counters."""
 
     def __init__(self, session: "CoreSession", qid: int, query: Query,
                  x_sample: Optional[np.ndarray], *, options: OptimizeOptions,
-                 slo: Optional[float] = None):
+                 plan_cache=None, slo: Optional[float] = None):
         self.session = session
         self.qid = qid
         self.query = query
         self.x_sample = x_sample
         self.options = options
+        self.plan_cache = plan_cache
         self.slo = slo
         self.plan: Optional[PhysicalPlan] = None
+        self.optimize_info: Optional[dict] = None
 
     def optimize(self, x_sample: Optional[np.ndarray] = None, *,
-                 options: Optional[OptimizeOptions] = None) -> PhysicalPlan:
+                 options: Optional[OptimizeOptions] = None,
+                 warm_start=None) -> PhysicalPlan:
         x = self.x_sample if x_sample is None else x_sample
         if x is None:
             raise ValueError("no optimization sample: pass x_sample to register_query "
                              "or to handle.optimize")
         opts = self.options if options is None else options
-        self.plan = build_plan(self.query, x, opts, device=self.session.device)
-        return self.plan
+        dev = self.session.device
+        if self.plan_cache is not None:
+            # serving needs live builder/B&B state when keep_state is on,
+            # which an exact-hit wire replay cannot carry
+            plan, info = self.plan_cache.optimize_query(
+                self.query, x, opts, accept_hit=not opts.keep_state, device=dev)
+            self.optimize_info = info
+        else:
+            plan = build_plan(self.query, x, opts, warm_start=warm_start, device=dev)
+            self.optimize_info = {"path": "cold", "trace": plan.meta.get("trace")}
+        self.plan = plan
+        return plan
 
     def submit(self, indices, rows) -> None:
         self.session.submit(indices, rows, qids=(self.qid,))
@@ -336,13 +362,14 @@ class CoreSession:
     UDF dedupe, weighted-fair scheduling).  ``submit`` / ``run_stream`` /
     ``query_stats`` then route through whichever stack was built.  Plans
     are built and scored on ``device`` (CUDA by default; raises without a
-    card)."""
+    card).  ``plan_cache`` is the session's default ``PlanCache``: queries
+    optimize through it and the servers write committed plans back."""
 
     def __init__(self, *, options: Optional[OptimizeOptions] = None,
                  plan_cache=None, seed: int = 0, device="cuda"):
-        reject_plan_cache(plan_cache)
         self.device = resolve_device(device)
         self.options = options or OptimizeOptions()
+        self.plan_cache = plan_cache
         self.seed = seed
         self.handles: List[QueryHandle] = []
         self.server = None  # whatever serve() built
@@ -353,15 +380,15 @@ class CoreSession:
                        quant_dtype: Optional[str] = None, plan_cache=None,
                        slo: Optional[float] = None,
                        options: Optional[OptimizeOptions] = None) -> QueryHandle:
-        reject_plan_cache(plan_cache)
         if self.server is not None:
             raise RuntimeError("register_query must precede serve()")
         opts = options or self.options
         if quant_dtype is not None:
             opts = opts.replace(quant_dtype=(
                 None if quant_dtype in ("fp32", "float32") else quant_dtype))
-        handle = QueryHandle(self, len(self.handles), query, x_sample, options=opts,
-                             slo=slo)
+        handle = QueryHandle(
+            self, len(self.handles), query, x_sample, options=opts,
+            plan_cache=self.plan_cache if plan_cache is None else plan_cache, slo=slo)
         self.handles.append(handle)
         return handle
 
@@ -396,14 +423,13 @@ class CoreSession:
         if slo is not None:
             cfg = cfg.replace(slo_ms=slo)
         reject_fleet(cfg)
-        reject_plan_cache(cfg.plan_cache_path)
         self.optimize_all(keep_state=True if cfg.adaptive else None)
         if len(self.handles) > 1:
             from repro_torch.serving.multiquery import MultiQueryEngine
 
             self.server = MultiQueryEngine(
                 self.handles, tile=cfg.tile, adaptive=cfg.adaptive, policy=policy,
-                seed=cfg.seed, device=self.device)
+                seed=cfg.seed, plan_cache=self.plan_cache, device=self.device)
             self._multi = True
             return self.server
         from repro_torch.serving.engine import CascadeServer
@@ -411,7 +437,8 @@ class CoreSession:
         h = self.handles[0]
         slo_ms = cfg.slo_ms if cfg.slo_ms is not None else h.slo
         engine = CascadeServer(h.plan, tile=cfg.tile, adaptive=cfg.adaptive,
-                               policy=policy, seed=cfg.seed, device=self.device)
+                               policy=policy, seed=cfg.seed, plan_cache=h.plan_cache,
+                               device=self.device)
         if slo_ms is not None:
             from repro_torch.serving.frontend import ServingFrontEnd, SLOPolicy
 

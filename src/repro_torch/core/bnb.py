@@ -167,6 +167,44 @@ class BranchAndBound:
         self.trace = SearchTrace(nodes_total=len(self.nodes))
         return self._search()
 
+    def seed_from(self, s_stars: Dict[Tuple[int, ...], float],
+                  orders: Optional[Sequence[Tuple[int, ...]]] = None) -> None:
+        """Inject a previous search's L-node measurements — the plan
+        cache's cross-query warm start (DESIGN.md §8).
+
+        Each known prefix enters at the current epoch and then the epoch
+        advances, so everything injected is *stale*: the old s* values
+        guide stale-slack-widened bounds exactly like a drifted
+        ``resume``, and the next ``resume()`` spends fresh L/M phases only
+        on prefixes those bounds cannot prune.  ``orders`` optionally
+        restores the donor search's surviving candidate set (its ``_Q``).
+        Prefixes or orders that do not exist in this tree (a donor query
+        of a different shape) are ignored — a bad seed can cost visits,
+        never correctness, because every surviving candidate is still
+        re-measured under the new builder before it can win.
+        """
+        for prefix, s in s_stars.items():
+            info = self.nodes.get(tuple(prefix))
+            if info is not None:
+                info.s_star = float(s)
+                info.state = "labeled"
+                info.alloc = None
+                info.epoch = self.epoch
+        self.epoch += 1
+        if orders:
+            known = set(self.orders)
+            survivors = [tuple(o) for o in orders if tuple(o) in known]
+            if survivors:
+                self._Q = survivors
+
+    def export_state(self) -> Tuple[Dict[Tuple[int, ...], float],
+                                    List[Tuple[int, ...]]]:
+        """(s_stars, surviving orders) snapshot for ``seed_from`` on a
+        future search — only measured (labeled/built) nodes export."""
+        s_stars = {prefix: info.s_star for prefix, info in self.nodes.items()
+                   if info.state != "unvisited"}
+        return s_stars, list(self._Q) if self._Q is not None else []
+
     def resume(self, builder: Optional[ProxyBuilder] = None
                ) -> Tuple[Allocation, SearchTrace]:
         """Warm-started re-search for the adaptive serving loop.

@@ -16,6 +16,7 @@ Table-4/5 benchmarks can decompose optimization cost.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, FrozenSet, Optional, Sequence, Tuple
 
@@ -24,7 +25,7 @@ import numpy as np
 from repro_torch.core.proxy import ProxyModel, train_proxy
 from repro_torch.core.proxy_family import get_family
 from repro_torch.core.query import Query
-from repro_torch.training.proxy_models import f1_score
+from repro_torch.training.proxy_models import f1_score, params_on
 from repro_torch.util import advisory_wall_ms, resolve_device
 
 
@@ -191,6 +192,32 @@ class ProxyBuilder:
         phi_star = f1_score(proxy.score(self.x[rows]), y_here) if len(rows) else 0.0
         self._proxies[key] = (proxy, phi_star)
         return proxy, rows
+
+    def export_classifiers(
+        self,
+    ) -> Dict[Tuple[int, FrozenSet[int], str], Tuple[ProxyModel, float]]:
+        """Snapshot of the trained-classifier cache for a cross-query
+        transplant (the plan cache's warm start).  Keys are query-shape-
+        relative (pred index within the query, prefix set, family), so a
+        same-shaped future query can adopt them; the Eq.-4.7 eps-approx
+        test re-validates every entry against the new query's labels
+        before it is ever reused."""
+        return dict(self._proxies)
+
+    def adopt_classifiers(
+        self,
+        proxies: Dict[Tuple[int, FrozenSet[int], str], Tuple[ProxyModel, float]],
+    ) -> None:
+        """Transplant a donor builder's classifier cache (the mechanism
+        ``rebase`` uses across samples, opened up across queries).  A
+        classifier trained on another device is copied onto this builder's
+        (the donor's own entry is left as it is), so the Eq.-4.7 test and
+        any reuse score where this builder trains."""
+        for key, (proxy, phi_star) in proxies.items():
+            params = params_on(proxy.params, self.device)
+            if params is not proxy.params:
+                proxy = dataclasses.replace(proxy, params=params)
+            self._proxies[key] = (proxy, phi_star)
 
     # ----------------------------------------------------------- adaptivity
     def rebase(

@@ -1,5 +1,6 @@
-"""Host-side scoring around the ``cascade_score`` kernel and the full SSD
-(``ssd``) over the ``ssd_chunk`` kernel.
+"""Host-side scoring around the ``cascade_score`` kernel, the COREWIRE
+scorer artifacts and control frames, and the full SSD (``ssd``) over the
+``ssd_chunk`` kernel.
 
 ``CascadeScorer`` packs a plan's proxies once, keeps the operands on its
 device, and scores numpy record tiles through the ``cascade_score`` kernel:
@@ -7,21 +8,30 @@ one launch yields every stage's keep mask plus on-device-compacted survivor
 lists.  On a card each tile goes up in one copy from pinned memory and its
 results come back in one copy into pinned memory.  Host fetches live here,
 never in ``proxy_score.py``.
+
+COREWIRE (``serialize_scorer`` / ``deserialize_scorer``, ``serialize_frame``
+/ ``deserialize_frame``) is byte-compatible with the JAX package's: either
+package reads what the other wrote and writes it back byte for byte.
 """
 from __future__ import annotations
 
 import hashlib
+import json
 import weakref
 
 import numpy as np
 import torch
 
+from repro_torch.core.proxy import ProxyModel, RCurve
 from repro_torch.core.proxy_family import (
+    PackedCascade,
     cascade_kernel_operands,
     family_of,
     pack_cascade,
     quantize_cascade,
+    unpack_cascade,
 )
+from repro_torch.core.query import PhysicalPlan, PlanStage
 from repro_torch.kernels import proxy_score
 from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 from repro_torch.kernels.ssd_scan import ssd_chunk
@@ -427,6 +437,362 @@ def cascade_scorer_for_plan(plan, *, max_tile: int = 8192, device="cuda"):
         _SCORER_CACHE.pop(next(iter(_SCORER_CACHE)))
     _SCORER_CACHE[key] = scorer
     return scorer, False
+
+
+# ------------------------------------------------- scorer wire format (v1)
+# A scorer artifact carries a plan's stage metadata, its bucket-padded
+# packed cascade and its thresholds:
+#
+#   b"COREWIRE" | u16 version | u16 minor | u64 header_len
+#   | header (canonical JSON, utf-8) | concatenated raw array payloads
+#
+# Every array travels as raw dtype bytes (descriptors in the header) and
+# scalar floats as JSON (float64 round-trips exactly), so deserializing
+# then serializing reproduces the bytes, and the receiver's scorer computes
+# the sender's masks.  Deserialized plans carry ``packed1`` proxies: the
+# folded form is what travels, never the training-side parameters.
+WIRE_MAGIC = b"COREWIRE"
+WIRE_VERSION = 1
+# minor 0: the v1 scorer artifact; minor 1: a control FRAME wrapping a
+# kind-tagged payload; minor 2: a QUANTIZED scorer artifact (int8 or fp8
+# codes, the header gaining "dtype" and a per-stage "out_scale" array).
+# Readers reject any other minor.
+WIRE_MINOR_FRAME = 1
+FRAME_RESYNC = "resync"  # payload: a scorer artifact for a fenced host
+FRAME_DELTA = "delta"  # payload: JSON-encoded coordinator state delta
+# payload: a scorer artifact; meta: the plan cache's stats sidecar (one
+# frame per persisted entry, core/plan_cache.py)
+FRAME_PLANCACHE = "plancache"
+WIRE_MINOR_QUANT = 2
+
+
+class WireFormatError(ValueError):
+    """Malformed / incompatible scorer artifact."""
+
+
+def pack_le(value: int, width: int) -> bytes:
+    """Canonical little-endian unsigned field for COREWIRE containers
+    (scorer artifacts, control frames, the plan-cache file): the byte
+    layout lives in this module alone."""
+    return int(value).to_bytes(width, "little")
+
+
+def unpack_le(buf, start: int, width: int) -> int:
+    """Inverse of :func:`pack_le`: read ``width`` bytes at ``start``."""
+    return int.from_bytes(bytes(buf[start:start + width]), "little")
+
+
+class _ArrayPool:
+    """Array blob registry for one serialization pass."""
+
+    def __init__(self):
+        self.descs: list = []
+        self.blobs: list = []
+        self._offset = 0
+
+    def put(self, a: np.ndarray) -> int:
+        a = np.ascontiguousarray(a)
+        raw = a.tobytes()
+        self.descs.append({
+            "dtype": a.dtype.str, "shape": list(a.shape),
+            "offset": self._offset, "nbytes": len(raw),
+        })
+        self.blobs.append(raw)
+        self._offset += len(raw)
+        return len(self.descs) - 1
+
+
+def _pool_get(descs, payload: memoryview, ref: int) -> np.ndarray:
+    d = descs[ref]
+    if d["offset"] + d["nbytes"] > len(payload):
+        raise WireFormatError(
+            f"artifact payload truncated: array {ref} ends at byte "
+            f"{d['offset'] + d['nbytes']} of {len(payload)}")
+    a = np.frombuffer(
+        payload[d["offset"]:d["offset"] + d["nbytes"]], dtype=np.dtype(d["dtype"])
+    )
+    return a.reshape(d["shape"]).copy()
+
+
+def _wire_header(blob: bytes, what: str):
+    """(minor, header dict, payload view) of a COREWIRE blob; raises on a
+    bad magic, version or header."""
+    if blob[:len(WIRE_MAGIC)] != WIRE_MAGIC:
+        raise WireFormatError(f"bad magic: not a {what}")
+    ver = unpack_le(blob, 8, 2)
+    if ver != WIRE_VERSION:
+        raise WireFormatError(f"wire version {ver} != supported {WIRE_VERSION}")
+    hdr_len = unpack_le(blob, 12, 8)
+    if 20 + hdr_len > len(blob):
+        raise WireFormatError(f"{what} header truncated")
+    try:
+        header = json.loads(bytes(blob[20:20 + hdr_len]).decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise WireFormatError(f"{what} header is not JSON ({e})") from None
+    return unpack_le(blob, 10, 2), header, memoryview(blob)[20 + hdr_len:]
+
+
+def serialize_scorer(plan, scorer=None, *, max_tile: int = 8192) -> bytes:
+    """Pack ``(plan, fused scorer)`` into the versioned wire artifact.
+
+    Reads the scorer's host copies only (``packed``, ``thr_host``), never
+    its device tensors, so serializing a card's scorer costs no device
+    sync.  ``scorer=None`` packs the plan on the host (a CPU scorer: no
+    device touched).  Only stage metadata plus the packed cascade travels,
+    never UDFs: the receiver binds its own ``Query``."""
+    if scorer is None:
+        scorer = CascadeScorer.from_plan(plan, max_tile=max_tile, device="cpu")
+    if scorer is None:
+        raise WireFormatError("plan has no proxied stage: nothing to ship")
+    pool = _ArrayPool()
+    packed = scorer.packed
+    src_families = plan.meta.get("wire_src_families") or tuple(
+        s.proxy.family for s in plan.stages if s.proxy is not None)
+    stages = []
+    for s in plan.stages:
+        entry = {
+            "pred_idx": int(s.pred_idx), "alpha": float(s.alpha),
+            "threshold": float(s.threshold),
+            "est_reduction": float(s.est_reduction),
+            "est_selectivity": float(s.est_selectivity),
+            "est_cost": float(s.est_cost),
+            "proxy": None,
+        }
+        if s.proxy is not None:
+            rc = s.proxy.r_curve
+            entry["proxy"] = {
+                "d": [int(i) for i in s.proxy.d],
+                "cost": float(s.proxy.cost),
+                "train_f1": float(s.proxy.train_f1),
+                "n_train": int(s.proxy.n_train),
+                "r_curve": {
+                    "alphas": pool.put(np.asarray(rc.alphas)),
+                    "thresholds": pool.put(np.asarray(rc.thresholds)),
+                    "reductions": pool.put(np.asarray(rc.reductions)),
+                },
+            }
+        stages.append(entry)
+    header = {
+        "wire_version": WIRE_VERSION,
+        "plan": {
+            "stages": stages,
+            "est_total_cost": float(plan.est_total_cost),
+            "plan_version": int(plan.meta.get("plan_version", 0)),
+            "accuracy_target": float(plan.query.accuracy_target),
+            "n_predicates": int(plan.query.n),
+            "src_families": list(src_families),
+        },
+        "scorer": {
+            "w1": pool.put(packed.w1), "b1": pool.put(packed.b1),
+            "w2": pool.put(packed.w2), "b2": pool.put(packed.b2),
+            "thr": pool.put(np.asarray(scorer.thr_host, np.float32)),
+            "hidden": [int(h) for h in packed.hidden],
+            "stage_cols": [None if c is None else int(c)
+                           for c in scorer.stage_cols],
+            "block_m": int(scorer.block_m),
+            "max_tile": int(scorer.max_tile),
+        },
+        "arrays": pool.descs,
+    }
+    # fp32 keeps minor 0 and no quant header keys, byte for byte the v1.0
+    # layout; a quantized cascade is minor 2
+    minor = 0
+    if packed.dtype != "float32":
+        minor = WIRE_MINOR_QUANT
+        header["scorer"]["dtype"] = str(packed.dtype)
+        header["scorer"]["out_scale"] = pool.put(
+            np.asarray(packed.out_scale, np.float32))
+    hdr = json.dumps(header, sort_keys=True,
+                     separators=(",", ":")).encode("utf-8")
+    out = bytearray()
+    out += WIRE_MAGIC
+    out += pack_le(WIRE_VERSION, 2)
+    out += pack_le(minor, 2)
+    out += pack_le(len(hdr), 8)
+    out += hdr
+    for raw in pool.blobs:
+        out += raw
+    return bytes(out)
+
+
+def serialize_frame(kind: str, epoch: int, payload: bytes,
+                    meta: dict | None = None) -> bytes:
+    """Wrap a control payload in a COREWIRE v1.1 frame:
+
+      b"COREWIRE" | u16 major=1 | u16 minor=1 | u64 header_len
+      | header JSON {"kind", "epoch", "meta", "payload_len"} | payload
+
+    ``deserialize_scorer`` rejects frames and ``deserialize_frame`` rejects
+    scorer artifacts, so the two channels cannot be confused."""
+    hdr = json.dumps(
+        {"kind": str(kind), "epoch": int(epoch), "meta": meta or {},
+         "payload_len": len(payload)},
+        sort_keys=True, separators=(",", ":")).encode("utf-8")
+    out = bytearray()
+    out += WIRE_MAGIC
+    out += pack_le(WIRE_VERSION, 2)
+    out += pack_le(WIRE_MINOR_FRAME, 2)
+    out += pack_le(len(hdr), 8)
+    out += hdr
+    out += payload
+    return bytes(out)
+
+
+def deserialize_frame(blob: bytes):
+    """Inverse of ``serialize_frame``: returns (kind, epoch, payload,
+    meta).  Raises ``WireFormatError`` on scorer artifacts (minors 0 and
+    2), on any other minor, and on a truncated payload."""
+    minor, header, payload = _wire_header(blob, "COREWIRE frame")
+    if minor != WIRE_MINOR_FRAME:
+        raise WireFormatError(
+            f"wire {WIRE_VERSION}.{minor} is not a v{WIRE_VERSION}.{WIRE_MINOR_FRAME} "
+            f"control frame")
+    payload = bytes(payload)
+    if len(payload) != int(header["payload_len"]):
+        raise WireFormatError(
+            f"frame payload truncated: {len(payload)} != "
+            f"{header['payload_len']}")
+    return header["kind"], int(header["epoch"]), payload, header["meta"]
+
+
+def deserialize_scorer(blob: bytes, query, *, device="cuda"):
+    """Inverse of ``serialize_scorer``: rebuild ``(plan, scorer)`` against
+    the locally bound ``query``, the scorer's operands uploaded to
+    ``device``.  The packed codes go to the scorer as they came
+    (``packed=``: no re-pack, no re-quantize), so its masks are the
+    sender's and serializing it again reproduces the blob; ``block_m`` and
+    ``max_tile`` are kept verbatim.  Proxies come back as ``packed1``
+    models."""
+    minor, header, payload = _wire_header(blob, "CORE scorer artifact")
+    if minor == WIRE_MINOR_FRAME:
+        raise WireFormatError(
+            f"wire minor {minor} is a control frame, not a scorer artifact "
+            f"(use deserialize_frame)")
+    if minor not in (0, WIRE_MINOR_QUANT):
+        raise WireFormatError(
+            f"unknown wire minor {minor}: this reader supports scorer "
+            f"artifacts v{WIRE_VERSION}.0 (fp32) and "
+            f"v{WIRE_VERSION}.{WIRE_MINOR_QUANT} (quantized)")
+    descs = header["arrays"]
+    ph = header["plan"]
+    if int(ph["n_predicates"]) != query.n:
+        raise WireFormatError(
+            f"artifact built for {ph['n_predicates']} predicates; local "
+            f"query has {query.n}")
+    if abs(float(ph["accuracy_target"]) - float(query.accuracy_target)) > 1e-12:
+        raise WireFormatError("artifact/query accuracy targets differ")
+    sh = header["scorer"]
+    quant_dtype = str(sh.get("dtype", "float32"))
+    packed = PackedCascade(
+        w1=_pool_get(descs, payload, sh["w1"]),
+        b1=_pool_get(descs, payload, sh["b1"]),
+        w2=_pool_get(descs, payload, sh["w2"]),
+        b2=_pool_get(descs, payload, sh["b2"]),
+        hidden=tuple(int(h) for h in sh["hidden"]),
+        families=tuple(ph["src_families"]),
+        dtype=quant_dtype,
+        out_scale=(_pool_get(descs, payload, sh["out_scale"])
+                   if minor == WIRE_MINOR_QUANT else None),
+    )
+    thr = _pool_get(descs, payload, sh["thr"])
+    params_by_col = [unpack_cascade(packed, c) for c in range(packed.n_stages)]
+    stages = []
+    for st in ph["stages"]:
+        proxy = None
+        col = sh["stage_cols"][len(stages)]
+        if st["proxy"] is not None:
+            if col is None:
+                raise WireFormatError("proxied stage without a scorer column")
+            rc = st["proxy"]["r_curve"]
+            proxy = ProxyModel(
+                pred_idx=int(st["pred_idx"]),
+                d=tuple(st["proxy"]["d"]),
+                family="packed1",
+                params=params_by_col[col],
+                r_curve=RCurve(
+                    alphas=_pool_get(descs, payload, rc["alphas"]),
+                    thresholds=_pool_get(descs, payload, rc["thresholds"]),
+                    reductions=_pool_get(descs, payload, rc["reductions"]),
+                ),
+                cost=float(st["proxy"]["cost"]),
+                train_f1=float(st["proxy"]["train_f1"]),
+                n_train=int(st["proxy"]["n_train"]),
+            )
+        stages.append(PlanStage(
+            pred_idx=int(st["pred_idx"]), proxy=proxy,
+            alpha=float(st["alpha"]), threshold=float(st["threshold"]),
+            est_reduction=float(st["est_reduction"]),
+            est_selectivity=float(st["est_selectivity"]),
+            est_cost=float(st["est_cost"]),
+        ))
+    meta = {
+        "mode": "wire",
+        "plan_version": int(ph["plan_version"]),
+        "wire_src_families": tuple(ph["src_families"]),
+    }
+    if quant_dtype != "float32":
+        meta["quant_dtype"] = quant_dtype
+    plan = PhysicalPlan(
+        query=query, stages=stages,
+        est_total_cost=float(ph["est_total_cost"]),
+        meta=meta,
+    )
+    scorer = CascadeScorer(
+        params_by_col, thr, block_m=int(sh["block_m"]), max_tile=int(sh["max_tile"]),
+        packed=packed, device=device,
+    )
+    scorer.stage_cols = [None if c is None else int(c)
+                         for c in sh["stage_cols"]]
+    return plan, scorer
+
+
+# ------------------------------------------------------ quant parity gate
+def quant_parity_report(plan, x, *, dtype: str = "int8",
+                        calib_frac: float = 0.5,
+                        max_tile: int = 8192, device="cuda") -> dict:
+    """Decision-flip audit of a quantized cascade against its fp32 twin,
+    both scored on ``device`` (through ``cascade_score`` on a card).
+
+    Quantization may flip a keep decision ONLY for records whose fp32
+    score sits within ``tol`` of the stage threshold; ``tol`` is 2x the
+    max |quant - fp32| score error over the first ``calib_frac`` of ``x``
+    and is validated on the rest.  ``flips_within_tol`` is the gate bit;
+    the other fields (score errors, per-stage selectivity deltas) are
+    advisory."""
+    x = np.asarray(x, np.float32)
+    f32 = CascadeScorer.from_plan(plan, max_tile=max_tile, dtype="float32", device=device)
+    if f32 is None:
+        raise ValueError("plan has no proxied stage: nothing to audit")
+    qs = CascadeScorer.from_plan(plan, max_tile=max_tile, dtype=dtype, device=device)
+    n_cal = int(np.clip(int(len(x) * calib_frac), 1, len(x) - 1))
+    thr = f32.thr_host
+
+    def _scores_masks(scorer, chunk):
+        s, m, _pk, _cnt = scorer.score_compact(chunk, need_scores=True)
+        return s, m
+
+    s_f, _m_f = _scores_masks(f32, x[:n_cal])
+    s_q, _ = _scores_masks(qs, x[:n_cal])
+    tol = 2.0 * float(np.max(np.abs(s_q - s_f)))
+    ev_f, mask_f = _scores_masks(f32, x[n_cal:])
+    ev_q, mask_q = _scores_masks(qs, x[n_cal:])
+    flips = mask_f != mask_q
+    near = np.abs(ev_f - thr[None, :]) <= tol
+    sel_f = mask_f.mean(axis=0)
+    sel_q = mask_q.mean(axis=0)
+    return {
+        "dtype": dtype,
+        "tol": tol,
+        "max_err_calib": float(np.max(np.abs(s_q - s_f))),
+        "max_err_eval": float(np.max(np.abs(ev_q - ev_f))),
+        "n_eval": int(flips.shape[0]),
+        "n_flips": int(flips.sum()),
+        "flip_rate": float(flips.mean()),
+        "flips_within_tol": bool(np.all(near[flips])),
+        "max_sel_delta": float(np.max(np.abs(sel_f - sel_q))),
+        "sel_fp32": [float(v) for v in sel_f],
+        "sel_quant": [float(v) for v in sel_q],
+    }
 
 
 # ------------------------------------------------------------------- SSD

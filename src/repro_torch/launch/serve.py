@@ -12,12 +12,15 @@ re-optimize mid-stream (DESIGN.md §4).  ``--slo-ms`` serves the held-out
 rows as deadline-carrying requests through the SLO front end (DESIGN.md
 §7).  ``--queries spec.json`` registers SEVERAL concurrent queries in one
 ``CoreSession`` (DESIGN.md §10): shared fused scoring, cross-query UDF
-dedupe, and weighted-fair device-time scheduling.  ``--hosts K`` with
-K > 1 and the fleet-only flags (``--drift-skew``, ``--transport``,
-``--kill-coordinator-at``, ``--straggler-host``; the fleet is ROADMAP
-item 10) and ``--plan-cache`` (ROADMAP item 9) are not ported yet: set
-away from their defaults, they exit with an error instead of being
-ignored.
+dedupe, and weighted-fair device-time scheduling.  ``--plan-cache PATH``
+optimizes through the cross-query plan cache persisted at PATH (a COREPLNC
+file either package reads, DESIGN.md §8): an exact repeat replays the
+cached artifact (HIT), a similar query warm-starts (WARM), anything else
+builds COLD, and the servers' committed plans are written back and saved.
+``--hosts K`` with K > 1 and the fleet-only flags (``--drift-skew``,
+``--transport``, ``--kill-coordinator-at``, ``--straggler-host``; the
+fleet is ROADMAP item 10) are not ported yet: set away from their
+defaults, they exit with an error instead of being ignored.
 
 Every CLI flag maps onto a typed config field via ``FLAG_MAP`` — the
 parser is a thin veneer over ``(WorkloadConfig, OptimizeOptions,
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +39,7 @@ import numpy as np
 from repro_torch.core import (
     CoreSession,
     OptimizeOptions,
+    PlanCache,
     ServeConfig,
     build_plan,
     execute_plan,
@@ -42,7 +47,7 @@ from repro_torch.core import (
     orig_plan,
     pp_plan,
 )
-from repro_torch.core.api import reject_fleet, reject_plan_cache
+from repro_torch.core.api import reject_fleet
 from repro_torch.data.synthetic import (
     make_dataset,
     make_drifting_stream,
@@ -172,8 +177,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="disable degrade + shedding on the front end "
                          "(watch the latency collapse under overload)")
     ap.add_argument("--plan-cache", default=None, metavar="PATH",
-                    help="cross-query plan cache file (DESIGN.md §8); not "
-                         "ported yet (ROADMAP item 9): exits with an error")
+                    help="cross-query plan cache file (DESIGN.md §8): "
+                         "optimize through it (HIT / WARM / COLD), write the "
+                         "served plans back, and save it")
     ap.add_argument("--queries", default=None, metavar="SPEC.JSON",
                     help="multi-query session (DESIGN.md §10): JSON list "
                          "of query specs ({columns, accuracy?, seed?, "
@@ -217,7 +223,6 @@ def main(argv=None):
     wl, opt, sv = cfg.workload, cfg.optimize, cfg.serve
     try:
         reject_fleet(sv)
-        reject_plan_cache(sv.plan_cache_path)
     except NotImplementedError as e:
         raise SystemExit(f"repro_torch.launch.serve: {e}")
     dev = resolve_device(wl.device)
@@ -226,9 +231,15 @@ def main(argv=None):
     udfs = make_udfs(ds, hidden=64, depth=2, train_rows=3000, seed=wl.seed,
                      declared_cost_ms=wl.udf_cost_ms, device=dev)
     k = max(1000, int(0.05 * wl.n))
+    cache = None
+    if sv.plan_cache_path and wl.mode in ("core", "core-a", "core-h"):
+        cache = (PlanCache.load(sv.plan_cache_path)
+                 if os.path.exists(sv.plan_cache_path) else PlanCache())
+        print(f"plan cache: {sv.plan_cache_path} ({len(cache)} entries)")
 
     if sv.queries_path is not None:
-        _serve_multiquery(cfg, ds, udfs, k)
+        _serve_multiquery(cfg, ds, udfs, k, cache)
+        _save_cache(cache, sv)
         return
 
     q = make_query(ds, udfs, columns=list(range(wl.preds)),
@@ -242,7 +253,18 @@ def main(argv=None):
     elif wl.mode == "pp":
         plan = pp_plan(q, ds.x[:k], kind=opt.kind, device=dev)
     else:
-        plan = build_plan(q, ds.x[:k], opt.replace(keep_state=sv.adaptive), device=dev)
+        build_opts = opt.replace(keep_state=sv.adaptive)
+        if cache is not None:
+            # adaptive serving needs a live builder/B&B on the plan, which
+            # an exact-hit wire replay cannot carry: it takes the warm path
+            # instead of the HIT fast path
+            plan, info = cache.optimize_query(
+                q, ds.x[:k], build_opts, accept_hit=not sv.adaptive, device=dev)
+            print(f"plan cache: {info['path'].upper()} "
+                  f"(distance {info['distance']:.4f}, "
+                  f"build {info['build_ms']:.0f} ms)")
+        else:
+            plan = build_plan(q, ds.x[:k], build_opts, device=dev)
     print(plan.describe())
     if plan.meta.get("quant_dtype"):
         print(f"packed cascade weights: {plan.meta['quant_dtype']}")
@@ -251,7 +273,8 @@ def main(argv=None):
               " ".join(s.proxy.family for s in plan.stages if s.proxy is not None))
 
     if sv.slo_ms is not None:
-        _serve_frontend(cfg, ds, plan, k, dev)
+        _serve_frontend(cfg, ds, plan, k, dev, cache)
+        _save_cache(cache, sv)
         return
 
     if sv.drift:
@@ -265,7 +288,8 @@ def main(argv=None):
               f"{stream.boundary}")
     else:
         x_serve = ds.x[k:]
-    server = CascadeServer(plan, tile=sv.tile, adaptive=sv.adaptive, seed=sv.seed, device=dev)
+    server = CascadeServer(plan, tile=sv.tile, adaptive=sv.adaptive, seed=sv.seed,
+                           plan_cache=cache, device=dev)
     stats = server.run_stream(x_serve)
     orig_res = execute_plan(orig_plan(q), x_serve, device=dev)
     # accuracy of what was actually SERVED (mid-stream swaps included),
@@ -289,6 +313,19 @@ def main(argv=None):
     print(f"cost model: {stats.model_cost_ms / len(x_serve):.3f} ms/rec "
           f"(ORIG {orig_res.cost_per_record(len(x_serve)):.3f}); "
           f"served accuracy {served_acc:.3f}")
+    _save_cache(cache, sv)
+
+
+def _save_cache(cache, sv: ServeConfig):
+    """Persist the plan cache (COREPLNC container) with this run's
+    write-backs so the next ``--plan-cache`` run warm-starts from them."""
+    if cache is None:
+        return
+    cache.save(sv.plan_cache_path)
+    st = cache.stats
+    print(f"plan cache saved: {len(cache)} entries -> {sv.plan_cache_path} "
+          f"({st.hits_exact} exact / {st.hits_warm} warm hits, "
+          f"{st.writes} writes)")
 
 
 def _load_query_specs(path: str):
@@ -304,13 +341,13 @@ def _load_query_specs(path: str):
     return specs
 
 
-def _serve_multiquery(cfg: LaunchConfig, ds, udfs, k: int):
+def _serve_multiquery(cfg: LaunchConfig, ds, udfs, k: int, cache=None):
     """N concurrent queries through one CoreSession (DESIGN.md §10):
     shared block-diagonal fused scoring, cross-query UDF dedupe, and
     Eq. 3.1-weighted fair scheduling across the tenants."""
     wl, opt, sv = cfg.workload, cfg.optimize, cfg.serve
     specs = _load_query_specs(sv.queries_path)
-    session = CoreSession(options=opt, seed=sv.seed, device=wl.device)
+    session = CoreSession(options=opt, plan_cache=cache, seed=sv.seed, device=wl.device)
     queries = []
     for i, spec in enumerate(specs):
         q = make_query(ds, udfs, columns=[int(c) for c in spec["columns"]],
@@ -357,7 +394,7 @@ def _serve_multiquery(cfg: LaunchConfig, ds, udfs, k: int):
           f"total {st['model_cost_ms']:.0f} ms model cost")
 
 
-def _serve_frontend(cfg: LaunchConfig, ds, plan, k, dev):
+def _serve_frontend(cfg: LaunchConfig, ds, plan, k, dev, cache=None):
     """Single-host serving through the SLO-aware request front end: the
     held-out stream arrives as Poisson requests with per-request
     deadlines; goodput is reported next to raw throughput (DESIGN.md
@@ -377,7 +414,7 @@ def _serve_frontend(cfg: LaunchConfig, ds, plan, k, dev):
     rng = np.random.RandomState(sv.seed)
     arrivals = np.cumsum(rng.exponential(1e3 / rate, n_req))
     bp = sv.backpressure
-    server = CascadeServer(plan, tile=sv.tile, seed=sv.seed, device=dev)
+    server = CascadeServer(plan, tile=sv.tile, seed=sv.seed, plan_cache=cache, device=dev)
     fe = ServingFrontEnd(server, policy=SLOPolicy(degrade=bp,
                                                   shed_expired=bp))
     for r in range(n_req):

@@ -38,8 +38,10 @@ static AND the drift-swapping paths.
 Every server takes ``device`` (CUDA by default; raises without a card):
 the scorer's operands live there, and drift re-optimization trains and
 scores there.  Every proxied stage is gated by the plan's fused scorer at
-submit time: ``cascade_score`` on a card, its plain route on the CPU.  The cross-query plan cache is not
-ported yet (ROADMAP item 9): ``plan_cache`` must be None.
+submit time: ``cascade_score`` on a card, its plain route on the CPU.  With a
+cross-query plan cache (``core/plan_cache.py``), every plan the server
+commits is written back to it, serialized from the installed scorer's host
+copies: a write-back adds no launch and no device sync.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.api import REBUILD_DEFAULTS, rebuild_plan, reject_plan_cache
+from repro_torch.core.api import REBUILD_DEFAULTS, rebuild_plan
 from repro_torch.core.correlation import StreamingKappa2
 from repro_torch.core.query import PhysicalPlan
 from repro_torch.serving.stats import (
@@ -82,6 +84,7 @@ class ServeStats:
     audit_records: int = 0
     audit_cost_ms: float = 0.0  # cost-model charge for audit UDF runs
     scorer_cache_hits: int = 0
+    plan_cache_writebacks: int = 0  # committed plans recorded cross-query
     drift_events: List[DriftEvent] = field(default_factory=list)
 
     @property
@@ -179,12 +182,16 @@ class CascadeServer:
                  adaptive: bool = False,
                  policy: Optional[AdaptivePolicy] = None, seed: int = 0,
                  plan_cache=None, scorer=None, device="cuda"):
-        reject_plan_cache(plan_cache)
         self.device = resolve_device(device)
         self.query = plan.query
         self.tile = tile
         self.adaptive = adaptive
         self.policy = policy or AdaptivePolicy()
+        # cross-query plan cache (core.plan_cache.PlanCache): every plan
+        # this server commits (the initial install and each drift
+        # re-optimization) is written back so a similar future query can
+        # warm-start its optimization
+        self.plan_cache = plan_cache
         n = len(plan.stages)
         self.emitted: List[int] = []
         # plan version each emission was scored AND served under (parallel
@@ -203,6 +210,7 @@ class CascadeServer:
         self.udf_runner = None
         self._states: List[_PlanState] = []
         self._install(plan, scorer=scorer)
+        self._record_to_cache(plan)
         # adaptive machinery
         self._rng = np.random.RandomState(seed)
         self._audit_sampler = ImportanceAuditSampler(
@@ -259,6 +267,19 @@ class CascadeServer:
             for i in range(self.query.n) for j in range(i + 1, self.query.n)
         }
         self._kappa_snapshot: Optional[Dict[Tuple[int, int], float]] = None
+
+    def _record_to_cache(self, plan: PhysicalPlan) -> None:
+        """Write a committed plan back to the cross-query plan cache.
+        Fingerprinted with this server's re-optimization step so the
+        initial plan and every drift re-plan of the same query land on
+        one entry, each write refreshing it with reservoir-fresh
+        selectivities.  The artifact comes from the installed scorer's
+        host copies."""
+        if self.plan_cache is None:
+            return
+        if self.plan_cache.record_plan(plan, step=self.policy.step,
+                                       scorer=self._states[-1].cascade) is not None:
+            self.stats.plan_cache_writebacks += 1
 
     # -------------------------------------------------- external plan swaps
     def install_plan(self, plan: PhysicalPlan, *, scorer=None,
@@ -587,6 +608,7 @@ class CascadeServer:
             self.stats.model_cost_ms += charge
         self._install(new_plan)
         self.stats.plan_swaps += 1
+        self._record_to_cache(new_plan)
         trace = new_plan.meta.get("trace") or {}
         self.stats.drift_events.append(DriftEvent(
             at_record=self._records_submitted, signal=signal,

@@ -176,7 +176,7 @@ class MultiQueryEngine:
 
     def __init__(self, handles, *, tile: int = 1024,
                  adaptive: bool = False,
-                 policy=None, seed: int = 0,
+                 policy=None, seed: int = 0, plan_cache=None,
                  weights: Optional[Dict[int, float]] = None,
                  max_tile: int = 8192, device="cuda"):
         self.device = resolve_device(device)
@@ -197,7 +197,7 @@ class MultiQueryEngine:
         for h in self.handles:
             srv = CascadeServer(
                 h.plan, tile=tile, adaptive=adaptive, policy=policy,
-                seed=seed + 101 * h.qid, device=self.device)
+                seed=seed + 101 * h.qid, plan_cache=plan_cache, device=self.device)
             srv.udf_runner = self.udf_cache.runner
             srv.add_finalize_hook(self._finalize_hook(h.qid))
             self.servers.append(srv)

@@ -12,6 +12,7 @@ packed form in a ``WeakKeyDictionary`` (no ``id()`` keys).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
@@ -50,6 +51,18 @@ class PackedProxy(NamedTuple):
     w2: np.ndarray  # (hidden,)
     b2: np.float32
     hidden: int
+
+
+def params_on(params, device: torch.device):
+    """``params`` with every tensor on ``device``: the same object when
+    they are all there already, else a copy (the original is left as it
+    is).  A ``PackedProxy`` is host numpy and has no device."""
+    if isinstance(params, PackedProxy):
+        return params
+    moved = {f.name: getattr(params, f.name).to(device) for f in dataclasses.fields(params)}
+    if all(t is getattr(params, name) for name, t in moved.items()):
+        return params
+    return dataclasses.replace(params, **moved)
 
 
 def _host(t) -> np.ndarray:

@@ -146,7 +146,7 @@ def test_scorer_tile_is_one_pinned_upload_one_launch_one_fetch(cuda):
 
 def test_main_path_short_stream(cuda):
     tiles = 3
-    _plans, _stream, launches = chip_smoke.run_main_path(cuda, tiles * 8192 + 5)
+    _plans, _stream, launches, _outcomes = chip_smoke.run_main_path(cuda, tiles * 8192 + 5)
     assert launches == (tiles + 1) * len(chip_smoke.QUERIES)
 
 
@@ -370,3 +370,52 @@ def test_frontend_path_short(cuda):
     and restore swaps is one ``cascade_score`` launch."""
     fe = chip_smoke.run_frontend_path(cuda, chip_smoke.serving_workload(cuda, 40_000), 16_384)
     assert fe["launches"] == fe["tiles"] > 0 and fe["degrades"] >= 1 and fe["conserved"]
+
+
+def test_artifact_path_short(cuda):
+    """Scorers rebuilt from COREWIRE bytes on the card (fp32, int8, fp8):
+    identical bytes on re-serializing, the same masks, survivor lists and
+    counts as the original scorers bit for bit, one launch a tile."""
+    plans, stream, _launches, outcomes = chip_smoke.run_main_path(cuda, 2 * 8192 + 5)
+    out = chip_smoke.run_artifact_path(cuda, plans, stream, outcomes)
+    assert out["launches"] == out["tiles"] > 0
+    assert all(r["rows_differ"] == 0 and r["reserialized_identical"] for r in out["artifacts"])
+
+
+def test_plan_cache_hit_replays_on_the_card(cuda):
+    """An exact hit's scorer, uploaded to the card from the cached artifact,
+    scores held-out rows as the cold plan's scorer does, bit for bit."""
+    out = chip_smoke.run_plan_cache_path(cuda, chip_smoke.serving_workload(cuda, 131_072),
+                                         16_384)
+    assert out["paths"][:2] == ["cold", "hit"] and out["replay_rows_differ"] == 0
+    assert out["replay_launches"] == out["replay_tiles"] > 0
+    assert out["plan_cache_writebacks"] >= 1 + out["plan_swaps"]
+
+
+def test_classifiers_trained_on_the_card_move_to_a_cpu_builder(cuda):
+    """A builder on the CPU adopts classifiers trained on the card as copies
+    on the CPU (the donor's stay on the card), and reuses them."""
+    import numpy as np
+
+    from repro_torch.core.builder import ProxyBuilder
+    from repro_torch.data.synthetic import make_dataset, make_query, make_udfs
+
+    ds = make_dataset(n=3000, n_columns=2, seed=5)
+    udfs = make_udfs(ds, hidden=8, depth=1, train_rows=600, seed=5, declared_cost_ms=5.0,
+                     device="cpu")
+    q = make_query(ds, udfs, columns=[0, 1], seed=6)
+    x = ds.x[:1000]
+    donor = ProxyBuilder(q, x, device=cuda)
+    rows = np.arange(len(x))
+    donor.get_proxy(0, ())
+    classifiers = donor.export_classifiers()
+    cpu = ProxyBuilder(q, x, device="cpu")
+    cpu.adopt_classifiers(classifiers)
+    for key, (proxy, _phi) in classifiers.items():
+        moved = cpu._proxies[key][0]
+        assert next(iter(vars(moved.params).values())).device.type == "cpu"
+        assert next(iter(vars(proxy.params).values())).device.type == "cuda"
+        np.testing.assert_allclose(moved.score(x[rows]), proxy.score(x[rows]), atol=1e-4)
+    reused = cpu.stats.n_reused
+    cpu.get_proxy(0, ())
+    assert cpu.stats.n_reused == reused + 1 and cpu.stats.n_trained == 0

@@ -1,6 +1,9 @@
 """The port stands alone: it imports with ``jax``, ``ml_dtypes`` and the JAX
-package blocked, and its CUDA-default entry points raise on a host without
-a card instead of carrying on on the CPU."""
+package blocked, no module names them even in an import inside a function,
+its artifact path (COREWIRE and the plan cache) runs with them blocked, and
+its CUDA-default entry points raise on a host without a card instead of
+carrying on on the CPU."""
+import ast
 import shutil
 import subprocess
 import sys
@@ -12,8 +15,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
-_BLOCKED_IMPORT = textwrap.dedent("""
+_BLOCK = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     class Block:
@@ -23,6 +27,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+""")
+
+_BLOCKED_IMPORT = _BLOCK + textwrap.dedent("""
     import repro_torch
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     for name in names:
@@ -33,18 +40,83 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     print(len(names))
 """)
 
+# the artifact path end to end on the CPU: a cold build through the plan
+# cache, an exact hit, the COREPLNC container, frames and the quant gate
+_BLOCKED_ARTIFACTS = _BLOCK + textwrap.dedent("""
+    import dataclasses
+    from repro_torch.core import OptimizeOptions, PlanCache
+    from repro_torch.data.synthetic import make_dataset, make_query, make_udfs
+    from repro_torch.kernels import ops
+
+    ds = make_dataset(n=3000, n_columns=2, seed=3)
+    udfs = make_udfs(ds, hidden=8, depth=1, train_rows=600, seed=3, declared_cost_ms=5.0,
+                     device="cpu")
+    q = make_query(ds, udfs, columns=[0, 1], seed=4)
+    x, opts = ds.x[:1000], OptimizeOptions(step=0.05)
+    cache = PlanCache()
+    plan, info = cache.optimize_query(q, x, opts, device="cpu")
+    assert info["path"] == "cold", info
+    restored = PlanCache.from_bytes(cache.to_bytes())
+    assert restored.to_bytes() == cache.to_bytes()
+    plan2, info = restored.optimize_query(q, x, opts, device="cpu")
+    assert info["path"] == "hit", info
+    blob = ops.serialize_scorer(dataclasses.replace(plan, meta={"quant_dtype": "int8"}))
+    frame = ops.serialize_frame(ops.FRAME_RESYNC, 1, blob)
+    plan3, scorer = ops.deserialize_scorer(ops.deserialize_frame(frame)[2], q, device="cpu")
+    assert ops.serialize_scorer(plan3, scorer) == blob
+    rep = ops.quant_parity_report(plan, ds.x[1000:2000], dtype="fp8", device="cpu")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "repro"))
+    assert not leaked, leaked
+    print("artifacts ok", rep["flips_within_tol"])
+""")
+
+
+def _run_blocked(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"}, timeout=240)
+
+
+def _imported_names(tree: ast.AST):
+    """Every module an import statement names, at top level or inside a
+    function (absolute imports; the port's own relative ones name no
+    outside package)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_module_names_jax_or_repro_even_inside_a_function():
+    """A lazy import inside a function (the JAX package's ``plan_cache.py``
+    and ``kernels/ops.py`` import that way) escapes the import test above;
+    the port's modules and ``chip_smoke.py`` name neither package anywhere."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    assert {"src/repro_torch/core/plan_cache.py", "src/repro_torch/kernels/ops.py"} <= rel
+    bad = [(str(f.relative_to(ROOT)), name) for f in files
+           for name in _imported_names(ast.parse(f.read_text()))
+           if name.split(".")[0] in BLOCKED]
+    assert not bad, bad
+
+
+def test_artifact_path_runs_without_jax_or_repro():
+    proc = _run_blocked(_BLOCKED_ARTIFACTS)
+    assert proc.returncode == 0, proc.stderr
+    assert "artifacts ok True" in proc.stdout
+
 
 def test_port_imports_without_jax_or_repro():
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], capture_output=True,
-                          text=True, cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
-                                                    "PATH": "/usr/bin:/bin"}, timeout=120)
+    proc = _run_blocked(_BLOCKED_IMPORT)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 30  # every module of the package
     for name in ("repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
                  "repro_torch.configs.registry", "repro_torch.models.ssm",
                  "repro_torch.kernels.ssd_scan", "repro_torch.serving.stats",
                  "repro_torch.serving.engine", "repro_torch.serving.frontend",
-                 "repro_torch.serving.multiquery", "repro_torch.launch.serve"):
+                 "repro_torch.serving.multiquery", "repro_torch.launch.serve",
+                 "repro_torch.core.plan_cache", "repro_torch.kernels.ops"):
         assert name in proc.stdout
 
 
@@ -65,7 +137,8 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.models import ssm, transformer
     from repro_torch.models.registry import make_batch
     from repro_torch.training.proxy_models import train_linear_svm
-    from repro_torch.core import CoreSession
+    from repro_torch.core import CoreSession, PlanCache
+    from repro_torch.kernels.ops import deserialize_scorer, quant_parity_report, serialize_scorer
     from repro_torch.launch import serve
     from repro_torch.serving.engine import CascadeServer
     from repro_torch.serving.multiquery import MultiQueryEngine
@@ -77,6 +150,10 @@ def test_cuda_default_entry_points_raise_without_a_card():
     x = ds.x[:200].astype(np.float32)
     labels = udfs[0](x) == 0
     proxy = train_proxy(x, labels, 0, (), device="cpu")
+    plan = build_plan(query, x, device="cpu")
+    blob = serialize_scorer(plan)
+    hit_cache = PlanCache()
+    hit_cache.optimize_query(query, x, device="cpu")
     cfg = reduced_config("deepseek-67b")
     ssm_cfg = reduced_config("mamba2-2.7b")
     calls = {
@@ -98,6 +175,10 @@ def test_cuda_default_entry_points_raise_without_a_card():
         "CoreSession": lambda: CoreSession(),
         "MultiQueryEngine": lambda: MultiQueryEngine([]),
         "serve.main": lambda: serve.main(["--n", "2000"]),
+        "deserialize_scorer": lambda: deserialize_scorer(blob, query),
+        "quant_parity_report": lambda: quant_parity_report(plan, x),
+        "PlanCache.optimize_query": lambda: PlanCache().optimize_query(query, x),
+        "PlanCache.optimize_query (hit)": lambda: hit_cache.optimize_query(query, x),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

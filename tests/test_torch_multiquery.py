@@ -3,8 +3,9 @@ package: ``CascadeScorer.score_margins`` and ``from_plans`` on the same
 plans (carried across with ``interop.physical_plan``), ``MultiQueryEngine``
 emissions against isolated ``CascadeServer`` twins across a mid-stream
 swap of one tenant, the weighted-fair scheduler's cases, ``CoreSession``
-dispatch with its refusals (the fleet and the plan cache are not ported),
-and the serve CLI's flag round trip.
+dispatch with its refusals (the fleet is not ported) and its plan cache,
+and the serve CLI's flag round trip, its refusals and its ``--plan-cache``
+runs.
 
 On the CPU the scorer's plain route keeps a stacked column's masks
 bit-identical to the isolated scorer's at these widths, so the session's
@@ -21,7 +22,7 @@ from repro.data import synthetic as jsyn
 from repro.kernels.ops import CascadeScorer as JScorer
 
 from repro_torch import interop
-from repro_torch.core import CoreSession, OptimizeOptions, ServeConfig, orig_plan
+from repro_torch.core import CoreSession, OptimizeOptions, PlanCache, ServeConfig, orig_plan
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.ops import CascadeScorer
 from repro_torch.launch import serve as cli
@@ -203,7 +204,7 @@ def test_wfq_pick_prefers_min_vtime_then_weight():
 
 
 # ------------------------------------------------------------- CoreSession
-def test_serve_dispatch_and_refusals(workload):
+def test_serve_dispatch_and_refusals(workload, tmp_path):
     tds, q1, q2 = workload["tds"], workload["tplans"][0].query, workload["tplans"][1].query
     x = tds.x[:800]
     opts = OptimizeOptions(**OPTS)
@@ -229,20 +230,36 @@ def test_serve_dispatch_and_refusals(workload):
     s3.register_query(q2, x)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         s3.serve(hosts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        s3.serve(config=ServeConfig(plan_cache_path="plans.bin"))
     for fleet_only in (dict(transport="thread"), dict(drift_skew=0.4),
                        dict(kill_coordinator_at="prepare"), dict(straggler_host=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
             s3.serve(config=ServeConfig(**fleet_only))
-    assert isinstance(s3.serve(), MultiQueryEngine)
+    # only the serve CLI reads plan_cache_path: a session serves and writes nothing
+    path = tmp_path / "plans.bin"
+    assert isinstance(s3.serve(config=ServeConfig(plan_cache_path=str(path))),
+                      MultiQueryEngine)
+    assert not path.exists()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        CoreSession(plan_cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        CoreSession(device="cpu").register_query(q1, x, plan_cache=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        CascadeServer(workload["tplans"][0], plan_cache=object(), device="cpu")
+    # a session, a query and a server each take a plan cache and serve
+    cache = PlanCache()
+    s5 = CoreSession(options=opts, plan_cache=cache, device="cpu")
+    h5 = s5.register_query(q1, x)
+    assert h5.plan_cache is cache and isinstance(s5.serve(), CascadeServer)
+    assert h5.optimize_info["path"] == "cold" and s5.server.stats.plan_cache_writebacks == 1
+    s5.run_stream(tds.x[800:2000], chunk=512)
+    assert h5.stats()["emitted"] + h5.stats()["rejected"] == 1200
+    own = PlanCache()
+    s6 = CoreSession(options=opts, device="cpu")
+    h6 = s6.register_query(q1, x, plan_cache=own)
+    s6.register_query(q2, x)
+    eng = s6.serve()
+    assert h6.plan_cache is own and isinstance(eng, MultiQueryEngine)
+    assert [srv.stats.plan_cache_writebacks for srv in eng.servers] == [0, 0]
+    assert h6.optimize_info["path"] == "cold" and len(own) == 1
+    srv = CascadeServer(workload["tplans"][0], plan_cache=cache, device="cpu")
+    assert srv.stats.plan_cache_writebacks == 1
+    srv.run_stream(tds.x[800:2000], chunk=512)
+    assert srv.stats.emitted + srv.stats.rejected == 1200
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         CoreSession(device="cpu").register_query(q1, x).session.serve(hosts=3)
     s4 = CoreSession(options=opts, device="cpu")
@@ -297,7 +314,6 @@ def test_cli_normalization_rules():
 
 
 @pytest.mark.parametrize("argv,item", [(["--hosts", "2"], "ROADMAP item 10"),
-                                       (["--plan-cache", "plans.bin"], "ROADMAP item 9"),
                                        (["--transport", "thread"], "ROADMAP item 10"),
                                        (["--drift-skew", "0.4"], "ROADMAP item 10"),
                                        (["--kill-coordinator-at", "prepare"], "ROADMAP item 10"),
@@ -305,6 +321,35 @@ def test_cli_normalization_rules():
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + ["--device", "cpu"])
+
+
+def test_cli_plan_cache_cold_then_hit(tmp_path, capsys):
+    """``--plan-cache`` run twice: the first run builds COLD and saves two
+    entries, the optimizer's and the engine's write-back (fingerprinted at
+    the engine's re-optimization step), as the JAX package's CLI does; the
+    second replays the cached artifact (HIT) and writes nothing; with
+    ``--adaptive`` the same query takes the warm path (the drift loop needs
+    a live builder) and saves its write-backs.  The saved file loads in the
+    JAX package byte for byte."""
+    from repro.core import PlanCache as JPlanCache
+
+    path = tmp_path / "p.bin"
+    argv = ["--device", "cpu", "--n", "6000", "--preds", "2", "--mode", "core",
+            "--plan-cache", str(path)]
+    cli.main(argv)
+    out = capsys.readouterr().out
+    assert "plan cache: COLD" in out and "plan cache saved: 2 entries" in out
+    cli.main(argv)
+    out = capsys.readouterr().out
+    assert "plan cache: HIT" in out and "(1 exact / 0 warm hits, 0 writes)" in out
+    assert "proxy families: packed1 packed1" in out
+    assert JPlanCache.from_bytes(path.read_bytes()).to_bytes() == path.read_bytes()
+    cli.main(argv + ["--adaptive"])
+    out = capsys.readouterr().out
+    assert "plan cache: WARM" in out and "(0 exact / 1 warm hits, " in out
+    swaps = int(out.split("adaptive: ")[1].split()[0])
+    writes = int(out.split("warm hits, ")[1].split()[0])
+    assert writes == 2 + swaps  # the warm build, the engine's install, each swap
 
 
 def test_cli_serves_on_the_cpu(capsys):
