@@ -21,14 +21,18 @@ Each phase prints one JSON line:
               main path's shapes, beside the card's bound for that work;
               the kernel's device µs and device events a call, host µs a
               call, and the scorer's whole route on warm and cold tiles.
-5. flash_kernels — the CUDA ``flash_attention`` (bf16: wgmma on the tensor
-              cores; f32: CUDA cores) against its plain PyTorch version on
-              the card, by absolute and per-row limits: the JAX package's
-              test shapes, GQA groups 1, 7 and 8, D = 256, ragged lengths on
-              either side of a 128-row tile, D = 16 and 32 over several KV
-              tiles, and the serving shape (B 4, S 4096, H 64, K 8, D 128)
-              in f32 and bf16; and a planted fault (64 keys' P.V skipped)
-              that the per-row limit must reject.
+5. flash_kernels — the CUDA ``flash_attention`` (bf16, and f32 up to
+              D = 128: wgmma on the tensor cores, f32 as three bf16 pieces
+              after the ``split_bf16`` pre-pass; f32 at D = 256: CUDA cores)
+              against its plain PyTorch version on the card, by absolute and
+              per-row limits, each case on the route ``route`` picks (counted
+              per route): the JAX package's test shapes, GQA groups 1, 7 and
+              8, D = 256, ragged lengths on either side of a 128-row tile,
+              D = 16 and 32 over several KV tiles, and the serving shape
+              (B 4, S 4096, H 64, K 8, D 128) in f32 and bf16; ``split_bf16``
+              against its plain version bit for bit; and planted faults in
+              both types (64 keys' P.V skipped, which the per-row limit must
+              reject; in f32 also inputs without their mid and lo pieces).
 6. dense_path — the dense family's serving path at deepseek-67b's full
               width (d_model 8192, 64 query and 8 KV heads of 128, d_ff
               22016, vocab 102400), depth cut to 4 layers, bf16, seeded
@@ -37,13 +41,18 @@ Each phase prints one JSON line:
               against the plain version on the prefill's own inputs, and
               the logits against the same model's ``forward`` with the
               kernel's plain version in its place, one request at a time.
+              Then the same in f32 (``dense_path_float32``): every launch on
+              the split route, two ``split_bf16`` launches each.
 7. flash_timing — CUDA-event times of the kernel, its plain version and
-              ``scaled_dot_product_attention`` at the serving shape, beside
-              the card's bound, with the kernel's registers and spills from
-              the compiler's report and its shared memory a block; and
-              profiles of one prefill and one decode step.
-8. ssd_kernels — the CUDA ``ssd_chunk`` (bf16: wgmma on the tensor cores
-              where dtype, shape and layout allow; otherwise CUDA cores)
+              ``scaled_dot_product_attention`` at the serving shape in bf16
+              and f32, beside the route's bound (and in f32 the CUDA-core
+              bound), with the route, the kernel's registers and spills from
+              the compiler's report and its shared memory a block, and in
+              f32 ``split_bf16`` alone; and profiles of one prefill and one
+              decode step.
+8. ssd_kernels — the CUDA ``ssd_chunk`` (wgmma on the tensor cores where
+              shape and layout allow, f32 as two bf16 pieces; otherwise CUDA
+              cores)
               against its plain PyTorch version on the card, each output by
               a limit relative to its largest plain value (``chunk_decay``
               element by element): the JAX package's test shapes, G = 2 < H,
@@ -51,8 +60,9 @@ Each phase prints one JSON line:
               64, B and C sliced from one wider tensor), Q = 256 with
               realistic, near-zero and JAX-init log-decays, and the serving
               shape (mamba2-2.7b, 4 x 4,096 tokens) in f32 and bf16, each on
-              the route it must take; and two planted faults the check must
-              reject (``chunk_decay`` forced to 0; M rounded to bf16 alone).
+              the route it must take; and planted faults the check must
+              reject (``chunk_decay`` forced to 0 in both types; M rounded to
+              bf16 alone; in f32 inputs without their lo pieces).
 9. ssm_path — the SSM family's serving path at mamba2-2.7b's full width and
               depth (64 layers, d_model 2560, 80 heads of 64, d_state 128,
               vocab 50288), bf16, seeded random weights with Mamba-2's
@@ -64,10 +74,12 @@ Each phase prints one JSON line:
               route on the layer's own inputs, a planted fault in one layer
               caught there, and the logits against ``forward`` with the
               plain version in the kernel's place, one request at a time:
-              held in f32 at 64 layers and in bf16 at the first 4, reported
-              in bf16 at 64 (``SSM_LOGIT_LAYERS``).
+              held in f32 at 64 layers (its 64 prefill launches all on the
+              tensor cores) and in bf16 at the first 4, reported in bf16 at
+              64 (``SSM_LOGIT_LAYERS``).
 10. ssd_timing — CUDA-event times of the kernel and its plain version at the
-              serving shape, beside the card's bound, with the route taken
+              serving shape in bf16 and f32, beside the route's bound (and
+              in f32 the CUDA-core bound), with the route taken
               and the kernel's registers, spills and shared memory a block;
               and profiles of one SSM prefill and one decode step.
 11. serving_path — CORE's adaptive serving stack (``CoreSession.serve`` with
@@ -695,6 +707,34 @@ def check_flash_output(what: str, out, ref) -> tuple:
     return err, row_err
 
 
+def route_taken(counter, before: dict) -> str:
+    """The route whose launch count in ``counter.route_launches`` rose since
+    ``before`` (a copy of it): "plain" when none did (a CPU run)."""
+    rose = [r for r, n in counter.route_launches.items() if n > before[r]]
+    check(len(rose) <= 1, f"one call launched on several routes: {rose}")
+    return rose[0] if rose else "plain"
+
+
+def check_split_bf16(dev) -> dict:
+    """``split_bf16`` against its plain version, bit for bit, at the serving
+    shape's K (uniform values over many binades) and at a ragged length."""
+    from repro_torch.kernels.flash_attention import split_bf16, split_bf16_plain
+
+    B, _Sq, Sk, _H, K, D = SERVING_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [torch.randn((B, Sk, K, D), generator=gen, device=dev)
+             * torch.exp(4 * torch.randn((B, Sk, K, D), generator=gen, device=dev)),
+             torch.randn(1_000_003, generator=gen, device=dev)]
+    differ, err = 0, 0.0
+    for t in cases:
+        for a, b in zip(split_bf16(t), split_bf16_plain(t)):
+            differ += int((a.view(torch.int16) != b.view(torch.int16)).sum())
+            err = max(err, float((a.float() - b.float()).abs().max()))
+    sync(dev)
+    check(differ == 0, f"split_bf16 differs from its plain version in {differ} pieces")
+    return dict(elements=sum(t.numel() for t in cases), pieces_differ=differ, max_abs_err=err)
+
+
 def check_flash_case(case, dev, seed=0) -> tuple:
     """Kernel vs plain version on the card.  Returns (max abs error, max
     row error)."""
@@ -708,39 +748,55 @@ def check_flash_case(case, dev, seed=0) -> tuple:
     return check_flash_output(str(case), out, ref)
 
 
-def planted_fault(dev) -> dict:
-    """The serving-shape bf16 check against a kernel output with a fault
-    planted: the kernel run with the values of FAULT_KEYS zeroed, which is
-    what a kernel that skipped that tile's P.V product would return, held
-    against the plain version on the true values.  The row check must
-    reject it."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+def planted_fault(dev, dtype: str = "bfloat16") -> dict:
+    """The serving-shape check against kernel outputs with faults planted.
+    Skipped tile: the kernel run with the values of FAULT_KEYS zeroed, which
+    is what a kernel that skipped that tile's P.V product would return; the
+    row check must reject it.  In f32 (the split route) also lost pieces:
+    the kernel run on q, k and v rounded to bf16, so their mid and lo pieces
+    are 0, which the f32 limits must reject.  Each held against the plain
+    version on the true values."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     route)
 
-    case = (*SERVING_SHAPE, True, "bfloat16")
+    case = (*SERVING_SHAPE, True, dtype)
     q, k, v = make_flash_case(case, dev, seed=0)
+    want = flash_attention_plain(q, k, v, causal=True)
     bad_v = v.clone()
     bad_v[:, FAULT_KEYS[0]:FAULT_KEYS[1]] = 0
-    err, row_err, close = flash_errors(flash_attention(q, k, bad_v, causal=True),
-                                       flash_attention_plain(q, k, v, causal=True))
-    caught = row_err > FLASH_ROW_TOL["bfloat16"]
-    check(caught, f"a skipped KV tile passes the row check ({row_err})")
-    return dict(keys=list(FAULT_KEYS), max_abs_err=err, max_row_err=row_err,
-                caught_by_abs_tol=not close, caught_by_row_tol=caught)
+    err, row_err, close = flash_errors(flash_attention(q, k, bad_v, causal=True), want)
+    del bad_v
+    caught = row_err > FLASH_ROW_TOL[dtype]
+    check(caught, f"{dtype}: a skipped KV tile passes the row check ({row_err})")
+    out = dict(dtype=dtype, route=route(q, k, v), keys=list(FAULT_KEYS), max_abs_err=err,
+               max_row_err=row_err, caught_by_abs_tol=not close, caught_by_row_tol=caught)
+    if dtype == "float32":
+        hi = [t.to(torch.bfloat16).float() for t in (q, k, v)]
+        err, row_err, close = flash_errors(flash_attention(*hi, causal=True), want)
+        lost = not close or row_err > FLASH_ROW_TOL[dtype]
+        check(lost, f"inputs without their mid and lo pieces pass the f32 check ({err}, "
+              f"{row_err})")
+        out["lost_pieces"] = dict(max_abs_err=err, max_row_err=row_err, caught=lost)
+    return out
 
 
 # ------------------------------------------------------------- phase 6
-def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> dict:
+def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int,
+                   dtype: str = "bfloat16") -> dict:
     """Prefill ``batch`` requests of ``prompt`` tokens through the port's
     family API, decode ``new_tokens`` greedy tokens each, and hold every
     logit row against ``forward`` with the plain attention in the kernel's
-    place.  Returns the phase's numbers, ``launches`` among them: the kernel
-    launches of the prefill-and-decode run alone."""
+    place.  ``dtype`` is the config's (the published bf16, or f32, whose
+    attention takes the split route).  Returns the phase's numbers,
+    ``launches`` among them: the kernel launches of the prefill-and-decode
+    run alone, with their routes and, in f32, the ``split_bf16`` launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_module
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.models import layers as model_layers
     from repro_torch.models.registry import get_family, make_batch
 
-    cfg = get_config(DENSE["arch"]).replace(num_layers=layers)
+    cfg = get_config(DENSE["arch"]).replace(num_layers=layers, dtype=dtype)
     fam = get_family(cfg)
     t0 = time.perf_counter()
     model = fam.init(0, cfg, device=dev)
@@ -756,7 +812,7 @@ def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -
         seen.append((q, k, v, out))
         return out
 
-    flash_attention.launches = 0
+    flash_module.reset_launches()
     t0 = time.perf_counter()
     with mock.patch.object(model_layers, "flash_attention", kept):
         logits, cache = fam.prefill(model, cfg, {"tokens": tokens})
@@ -777,10 +833,18 @@ def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -
     sync(dev)
     decode_s = time.perf_counter() - t0
     launches = flash_attention.launches
+    route_launches = dict(flash_attention.route_launches)
+    split_launches = flash_module.split_bf16.launches
     check(prefill_launches == cfg.num_layers,
           f"prefill launched the kernel {prefill_launches} times for {cfg.num_layers} layers")
     check(launches == prefill_launches, f"decode launched the kernel {launches - prefill_launches}"
           " times; it takes the plain path")
+    if dev.type == "cuda":
+        path = flash_module.route_for(cfg.attention.head_dim, getattr(torch, dtype))
+        check(route_launches[path] == launches, f"not every launch took {path}: {route_launches}")
+        split = dtype == "float32" and path == "tensor_cores"
+        check(split_launches == 2 * launches * split,
+              f"{split_launches} split_bf16 launches for {launches} attention launches")
     # With random weights the attention adds little to the logits, so the
     # logits check below cannot see an attention fault: hold each layer's
     # kernel output against the plain version on the path's own inputs.
@@ -818,6 +882,7 @@ def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -
                head_dim=cfg.attention.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
                dtype=cfg.dtype, params=n_params, requests=batch, prompt_tokens=prompt,
                new_tokens=new_tokens, cache_len=cache["k"].shape[2], launches=launches,
+               route_launches=route_launches, split_bf16_launches=split_launches,
                prefill_launches=prefill_launches, init_s=init_s, prefill_s=prefill_s,
                prefill_tokens_per_s=batch * prompt / prefill_s, decode_s=decode_s,
                decode_ms_per_step=decode_s / new_tokens * 1e3,
@@ -828,21 +893,34 @@ def run_dense_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -
                logits_max_abs=float(got.abs().max()), reference_s=reference_s,
                peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30
                if dev.type == "cuda" else None)
-    emit("dense_path", **out)
+    emit("dense_path" if dtype == "bfloat16" else f"dense_path_{dtype}", **out)
     out["model"], out["cfg"], out["tokens"] = model, cfg, tokens
     return out
 
 
 # ------------------------------------------------------------- phase 7
-def flash_bound(B, Sq, Sk, H, K, D, causal, dtype):
+# The f32 tensor-core routes run each product as several bf16 products of
+# pieces: flash six (three pieces each), ssd three (two pieces each).
+SPLIT_PRODUCTS = {"flash_attention": 6, "ssd_chunk": 3}
+
+
+def flash_bound(B, Sq, Sk, H, K, D, causal, dtype, route="cuda_cores"):
     """Least time for the function on these inputs: q, k, v read once and o
     written once over HBM; the two products' flops (the causal pairs only)
-    over the peak for the type: bf16 tensor cores, or IEEE f32 CUDA cores."""
+    over the peak for the type: bf16 tensor cores, or IEEE f32 CUDA cores.
+    The f32 tensor-core route's own bound instead counts its six bf16
+    products of pieces at the bf16 peak, plus the K and V pre-pass (read
+    once, three bf16 pieces written) over HBM."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * B * Sq * H * D + 2 * B * Sk * K * D)
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     flops = 4 * B * H * D * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
+    if dtype == "float32" and route == "tensor_cores":
+        t_ops = SPLIT_PRODUCTS["flash_attention"] * flops / BF16_FLOPS
+        t_pre = 2 * B * Sk * K * D * (4 + 3 * 2) / HBM_BYTES_PER_S
+        return ((max(t_bytes, t_ops) + t_pre) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
     t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
@@ -867,10 +945,15 @@ def time_flash(dev, dtype: str, iters: int) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     serving shape, in turns (plain, kernel, library, kernel, plain).  The
     library call gets K and V repeated to every query head beforehand (its
-    GQA layout), outside the timed region."""
+    GQA layout), outside the timed region.  The route taken, its bound and
+    (f32) the CUDA-core bound beside it; registers and spills from the
+    compiler's report and shared memory a block.  On the split route also
+    ``split_bf16`` alone on K, beside its plain version and its bytes
+    bound."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
-                                                     resources)
+                                                     resources, route, split_bf16,
+                                                     split_bf16_plain)
 
     B, Sq, Sk, H, K, D = SERVING_SHAPE
     case = (*SERVING_SHAPE, True, dtype)
@@ -889,19 +972,39 @@ def time_flash(dev, dtype: str, iters: int) -> dict:
     lib_ms = cuda_ms(library, dev, 10 * iters, warmup=2)
     kern_b = cuda_ms(lambda: flash_attention(q, k, v, causal=True), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), dev, 1, warmup=0)
-    bound_ms, bound_by, nbytes, flops = flash_bound(*case)
+    path = route(q, k, v)
+    bound_ms, bound_by, nbytes, flops = flash_bound(*case, route=path)
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SERVING_SHAPE), causal=True, dtype=dtype, ms=ms,
+    row = dict(shape=list(SERVING_SHAPE), causal=True, dtype=dtype, route=path, ms=ms,
                ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
                plain_ms_runs=[plain_a, plain_b], library_ms=lib_ms,
                library="scaled_dot_product_attention (K, V repeated to H heads)",
                library_max_abs_diff=lib_err, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
                share_of_bound=bound_ms / ms)
-    entry = "flash_attention_wgmma" if dtype == "bfloat16" else "flash_attention_kernel"
+    if dtype == "float32":
+        row["cuda_core_bound_ms"] = flash_bound(*case)[0]
+        row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] / ms
+    split = path == "tensor_cores" and dtype == "float32"
+    if path == "tensor_cores":
+        entry, fragment = "flash_attention_wgmma", f"flash_attention_wgmmaILi{D}ELb{int(split)}E"
+    else:
+        entry, fragment = "flash_attention_kernel", f"flash_attention_kernelILi{D}E"
     log = _build.library_path("flash_attention").with_suffix(".log").read_text()
-    row["ptxas"] = {"entry": f"{entry}<{D}>", **ptxas_entry(log, f"{entry}ILi{D}E")}
+    row["ptxas"] = {"entry": f"{entry}<{D}{', true' if split else ''}>",
+                    **ptxas_entry(log, fragment)}
     row.update(resources(D, q.dtype))
+    if split:
+        n = k.numel()
+        pre_a = cuda_ms(lambda: split_bf16(k), dev, 10 * iters, warmup=2)
+        pre_plain = cuda_ms(lambda: split_bf16_plain(k), dev, 10 * iters, warmup=2)
+        pre_b = cuda_ms(lambda: split_bf16(k), dev, 10 * iters, warmup=0)
+        pre_bound = n * (4 + 3 * 2) / HBM_BYTES_PER_S * 1e3
+        row["split_bf16"] = dict(shape=list(k.shape), ms=min(pre_a, pre_b),
+                                 ms_runs=[pre_a, pre_b], plain_ms=pre_plain,
+                                 bound_ms=pre_bound, bound_by="bytes",
+                                 share_of_bound=pre_bound / min(pre_a, pre_b),
+                                 ptxas=ptxas_entry(log, "split_bf16_kernel"))
     emit("flash_timing", **row)
     return row
 
@@ -1010,16 +1113,6 @@ def check_ssd_output(what: str, out, ref, dA) -> dict:
     return errs
 
 
-def ssd_route_taken(before: dict) -> str:
-    """The route whose launch count rose since ``before`` (a copy of
-    ``ssd_chunk.route_launches``): "plain" when none did (a CPU run)."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk
-
-    rose = [r for r, n in ssd_chunk.route_launches.items() if n > before[r]]
-    check(len(rose) <= 1, f"one call launched on several routes: {rose}")
-    return rose[0] if rose else "plain"
-
-
 def check_ssd_case(case, dev, seed=0) -> dict:
     """Kernel vs plain version on the card; returns ``ssd_errors`` and the
     route the call took."""
@@ -1028,7 +1121,7 @@ def check_ssd_case(case, dev, seed=0) -> dict:
     x, dA, B, C = ssd_inputs(case, dev, seed)
     before = dict(ssd_chunk.route_launches)
     out = ssd_chunk(x, dA, B, C)
-    taken = ssd_route_taken(before)
+    taken = route_taken(ssd_chunk, before)
     ref = ssd_chunk_plain(x, dA, B, C)
     sync(dev)
     return dict(check_ssd_output(str(case), out, ref, dA), route=taken)
@@ -1051,23 +1144,36 @@ def ssd_one_term(x, dA, B, C):
     return torch.einsum("cgrqs,csgrp->cqgrp", mix, xg).reshape(nc, Q, H, P)
 
 
-def ssd_planted_fault(dev) -> dict:
-    """The serving-shape bf16 check against two faults it must reject:
-    kernel outputs with chunk_decay forced to 0 (what a kernel that never
-    wrote it, or underflowed it, returns), and y_diag with M rounded to
-    bf16 alone (``ssd_one_term``)."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+def ssd_planted_fault(dev, dtype: str = "bfloat16") -> dict:
+    """The serving-shape check against faults it must reject: kernel outputs
+    with chunk_decay forced to 0 (what a kernel that never wrote it, or
+    underflowed it, returns); in bf16, y_diag with M rounded to bf16 alone
+    (``ssd_one_term``); in f32 (the split route), the kernel run on x, B and
+    C rounded to bf16 (their lo pieces 0), held against the plain version on
+    the true inputs."""
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk, ssd_chunk_plain
 
-    x, dA, B, C = ssd_inputs((*SSD_SERVING, "published", "bfloat16"), dev, seed=0)
+    x, dA, B, C = ssd_inputs((*SSD_SERVING, "published", dtype), dev, seed=0)
     y, st, dec = ssd_chunk(x, dA, B, C)
     ref = ssd_chunk_plain(x, dA, B, C)
     errs = ssd_errors((y, st, torch.zeros_like(dec)), ref, dA)
-    check(not errs["chunk_decay_ok"], "chunk_decay forced to 0 passes the check")
-    one = ssd_errors((ssd_one_term(x, dA, B, C), st, dec), ref, dA)
-    check(one["y_diag_rel"] > SSD_TOL, f"y_diag with M rounded to bf16 alone passes the check "
-          f"({one['y_diag_rel']} of its largest value, tol {SSD_TOL})")
-    return dict(chunk_decay_rel=errs["chunk_decay_rel"], caught=not errs["chunk_decay_ok"],
-                one_term_y_diag_rel=one["y_diag_rel"], one_term_caught=True)
+    check(not errs["chunk_decay_ok"], f"{dtype}: chunk_decay forced to 0 passes the check")
+    out = dict(dtype=dtype, route=route(x, B, C), chunk_decay_rel=errs["chunk_decay_rel"],
+               caught=not errs["chunk_decay_ok"])
+    if dtype == "bfloat16":
+        one = ssd_errors((ssd_one_term(x, dA, B, C), st, dec), ref, dA)
+        check(one["y_diag_rel"] > SSD_TOL, f"y_diag with M rounded to bf16 alone passes the "
+              f"check ({one['y_diag_rel']} of its largest value, tol {SSD_TOL})")
+        out.update(one_term_y_diag_rel=one["y_diag_rel"], one_term_caught=True)
+    else:
+        lost = ssd_errors(ssd_chunk(x.to(torch.bfloat16).float(), dA, B.to(torch.bfloat16).float(),
+                                    C.to(torch.bfloat16).float()), ref, dA)
+        caught = lost["y_diag_rel"] > SSD_TOL or lost["states_rel"] > SSD_TOL
+        check(caught, f"inputs without their lo pieces pass the check ({lost['y_diag_rel']}, "
+              f"{lost['states_rel']}, tol {SSD_TOL})")
+        out["lost_pieces"] = dict(y_diag_rel=lost["y_diag_rel"], states_rel=lost["states_rel"],
+                                  caught=caught)
+    return out
 
 
 # ------------------------------------------------------------- phase 9
@@ -1256,10 +1362,17 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
                                    serve_greedy(fam, shallow, cfg_short, tokens, new_tokens),
                                    prompt, gate=True)
     model32, cfg32 = copy.deepcopy(model).float(), cfg.replace(dtype="float32")
-    full_f32 = logits_vs_forward(fam, model32, cfg32,
-                                 serve_greedy(fam, model32, cfg32, tokens, new_tokens),
-                                 prompt, gate=True)
-    del model32
+    ssd_scan.reset_launches()
+    served32 = serve_greedy(fam, model32, cfg32, tokens, new_tokens)
+    f32_launches = dict(ssd_chunk.route_launches)
+    check(served32["prefill_launches"] == cfg.num_layers and served32["decode_launches"] == 0,
+          f"the f32 run launched the kernel {served32['prefill_launches']} / "
+          f"{served32['decode_launches']} times (prefill / decode) for {cfg.num_layers} layers")
+    if dev.type == "cuda":
+        check(f32_launches["tensor_cores"] == cfg.num_layers,
+              f"not every f32 prefill launch took the tensor cores: {f32_launches}")
+    full_f32 = logits_vs_forward(fam, model32, cfg32, served32, prompt, gate=True)
+    del model32, served32
     reference_s = time.perf_counter() - t0
     s = cfg.ssm
     out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
@@ -1267,6 +1380,7 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
                d_state=s.d_state, ngroups=s.ngroups, chunk=s.chunk, vocab=cfg.vocab_size,
                dtype=cfg.dtype, params=n_params, requests=batch, prompt_tokens=prompt,
                new_tokens=new_tokens, launches=launches, route_launches=route_launches,
+               f32_route_launches=f32_launches,
                prefill_launches=served["prefill_launches"], init_s=init_s,
                prefill_s=served["prefill_s"],
                prefill_tokens_per_s=batch * prompt / served["prefill_s"],
@@ -1284,19 +1398,24 @@ def run_ssm_path(dev, layers: int, batch: int, prompt: int, new_tokens: int) -> 
 
 
 # ------------------------------------------------------------- phase 10
-def ssd_bound(nc, Q, H, G, P, N, dtype):
+def ssd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores"):
     """Least time for the function on these inputs: x, B, C and dA read once
     and y_diag, states, chunk_decay written once over HBM; its multiply-adds
     over the peak for the input type (bf16 tensor cores, or IEEE f32 CUDA
     cores): C B^T over N once per chunk and group for the causal pairs, the
-    scores times x over P per head, and the states over Q per head."""
+    scores times x over P per head, and the states over Q per head.  The f32
+    tensor-core route's own bound counts its three bf16 products of pieces
+    at the bf16 peak instead."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (nc * Q * H * P + 2 * nc * Q * G * N) + 4 * (
         nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
     pairs = Q * (Q + 1) // 2
     flops = 2 * nc * (G * pairs * N + H * pairs * P + H * Q * P * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    if dtype == "float32" and route == "tensor_cores":
+        t_ops = SPLIT_PRODUCTS["ssd_chunk"] * flops / BF16_FLOPS
+    else:
+        t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
 
@@ -1315,10 +1434,12 @@ def time_ssd(dev, dtype: str, iters: int) -> dict:
     errs = ssd_errors(ssd_chunk(x, dA, B, C), ssd_chunk_plain(x, dA, B, C), dA)
     path = route(x, B, C)
     _nc, Q, _H, _G, P, N = SSD_SERVING
-    entry, fragment = (("ssd_chunk_wgmma", f"ssd_chunk_wgmmaILi{P}ELi{N}E")
-                       if path == "tensor_cores" else
-                       ("ssd_chunk_kernel", "ssd_chunk_kernelI"
-                        + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E"))
+    if path == "cuda_cores":
+        entry, fragment = ("ssd_chunk_kernel", "ssd_chunk_kernelI"
+                           + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E")
+    else:
+        entry = "ssd_chunk_wgmma" if dtype == "bfloat16" else "ssd_chunk_split"
+        fragment = f"{entry}ILi{P}ELi{N}E"
     log = _build.library_path("ssd_chunk").with_suffix(".log").read_text()
     kernel = dict(route=path, entry=entry, **ptxas_entry(log, fragment),
                   **resources(path, Q, P, N, x.dtype))
@@ -1326,14 +1447,16 @@ def time_ssd(dev, dtype: str, iters: int) -> dict:
     kern_a = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=0)
-    bound_ms, bound_by, nbytes, flops = ssd_bound(*SSD_SERVING, dtype)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(*SSD_SERVING, dtype, route=path)
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SSD_SERVING), dtype=dtype, ms=ms, ms_runs=[kern_a, kern_b],
+    row = dict(shape=list(SSD_SERVING), dtype=dtype, route=path, ms=ms, ms_runs=[kern_a, kern_b],
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
                share_of_bound=bound_ms / ms, max_abs_err=max(errs["y_diag"], errs["states"]),
                kernel=kernel)
+    if dtype == "float32":
+        row["cuda_core_bound_ms"] = ssd_bound(*SSD_SERVING, dtype)[0]
     emit("ssd_timing", **row)
     return row
 
@@ -2034,18 +2157,27 @@ def main(argv=None) -> int:
     artifacts = run_artifact_path(dev, plans, stream, outcomes)
     del plans, stream, outcomes
 
-    flash_errs = []
+    flash_errs, flash_routes = [], []
     t0 = time.perf_counter()
+    split_check = check_split_bf16(dev)
     for i, case in enumerate(FLASH_CASES):
+        before = dict(flash_attention.flash_attention.route_launches)
         flash_errs.append(check_flash_case(case, dev, seed=i))
-    fault = planted_fault(dev)
+        flash_routes.append(route_taken(flash_attention.flash_attention, before))
+        want = flash_attention.route_for(case[5], getattr(torch, case[7]))
+        check(flash_routes[-1] == want, f"{case}: took the {flash_routes[-1]} route, not {want}")
+    faults = [planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
     emit("flash_kernels", cases=len(FLASH_CASES), seconds=time.perf_counter() - t0,
          max_abs_err={dt: max(e[0] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
                       for dt in FLASH_TOL},
          max_row_err={dt: max(e[1] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
                       for dt in FLASH_TOL},
-         tol=FLASH_TOL, row_tol=FLASH_ROW_TOL, planted_fault=fault,
-         shapes=[list(c) for c in FLASH_CASES])
+         tol=FLASH_TOL, row_tol=FLASH_ROW_TOL, planted_fault=faults[0],
+         planted_faults_f32=faults[1], split_bf16=split_check,
+         cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(FLASH_CASES,
+                                                                             flash_routes))
+                              for r in flash_attention.ROUTES} for dt in FLASH_TOL},
+         shapes=[list(c) + [t] for c, t in zip(FLASH_CASES, flash_routes)])
     torch.cuda.empty_cache()
 
     dense = run_dense_path(dev, DENSE["layers"], DENSE["batch"], DENSE["prompt"],
@@ -2053,16 +2185,19 @@ def main(argv=None) -> int:
     profile_serving(dense, dev)
     del dense["model"], dense["tokens"]
     torch.cuda.empty_cache()
+    dense32 = run_dense_path(dev, DENSE["layers"], DENSE["batch"], DENSE["prompt"],
+                             DENSE["new_tokens"], dtype="float32")
+    del dense32["model"], dense32["tokens"]
+    torch.cuda.empty_cache()
     flash_rows = {dt: time_flash(dev, dt, iters=3) for dt in ("bfloat16", "float32")}
     flash_row = flash_rows["bfloat16"]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ssd_errs = [check_ssd_case(case, dev, seed=i) for i, case in enumerate(SSD_CASES)]
-    ssd_fault = ssd_planted_fault(dev)
+    ssd_faults = [ssd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
     for c, e in zip(SSD_CASES, ssd_errs):
-        want = ("tensor_cores" if c[7] == "bfloat16" and c[4] in ssd_scan.TC_P
-                and c[5] in ssd_scan.TC_N else "cuda_cores")
+        want = "tensor_cores" if c[4] in ssd_scan.TC_P and c[5] in ssd_scan.TC_N else "cuda_cores"
         check(e["route"] == want, f"{c}: took the {e['route']} route, not {want}")
     emit("ssd_kernels", cases=len(SSD_CASES), seconds=time.perf_counter() - t0,
          max_y_diag_rel={dt: max(e["y_diag_rel"] for c, e in zip(SSD_CASES, ssd_errs)
@@ -2070,9 +2205,10 @@ def main(argv=None) -> int:
          max_states_rel={dt: max(e["states_rel"] for c, e in zip(SSD_CASES, ssd_errs)
                                  if c[7] == dt) for dt in ("float32", "bfloat16")},
          max_chunk_decay_rel=max(e["chunk_decay_rel"] for e in ssd_errs), tol=SSD_TOL,
-         decay_tol=DECAY_TOL, planted_fault=ssd_fault,
-         cases_by_route={r: sum(e["route"] == r for e in ssd_errs)
-                         for r in ("tensor_cores", "cuda_cores")},
+         decay_tol=DECAY_TOL, planted_fault=ssd_faults[0], planted_faults_f32=ssd_faults[1],
+         cases_by_route={dt: {r: sum(c[7] == dt and e["route"] == r
+                                     for c, e in zip(SSD_CASES, ssd_errs))
+                              for r in ssd_scan.ROUTES} for dt in ("float32", "bfloat16")},
          cases_detail=[dict(case=list(c), **e) for c, e in zip(SSD_CASES, ssd_errs)])
     torch.cuda.empty_cache()
 
@@ -2081,7 +2217,8 @@ def main(argv=None) -> int:
     del ssm["model"], ssm["tokens"]
     torch.cuda.empty_cache()
     ssd_rows = {dt: time_ssd(dev, dt, iters=10) for dt in ("bfloat16", "float32")}
-    ssd_row = ssd_rows["bfloat16"]
+    ssd_row, ssd32_row = ssd_rows["bfloat16"], ssd_rows["float32"]
+    flash32_row = flash_rows["float32"]
     torch.cuda.empty_cache()
 
     serving = run_serving_path(dev, args.serving_records)
@@ -2109,22 +2246,52 @@ def main(argv=None) -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None}, {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "kernel_route": "tensor_cores",
+        "dtype": "bfloat16",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": dense["launches"],
-        "max_abs_err": max([e for e, _ in flash_errs] + [dense["attention_max_abs_err"]]),
+        "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
+                            if c[7] == "bfloat16"] + [dense["attention_max_abs_err"]]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"]}, {
-        "name": "ssd_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "name": "flash_attention[float32]", "route": "cuda", "kernel_route": "tensor_cores",
+        "dtype": "float32", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": dense32["launches"],
+        "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
+                            if c[7] == "float32"] + [dense32["attention_max_abs_err"]]),
+        "ms": flash32_row["ms"], "plain_ms": flash32_row["plain_ms"],
+        "bound_ms": flash32_row["bound_ms"], "bound_by": flash32_row["bound_by"],
+        "cuda_core_bound_ms": flash32_row["cuda_core_bound_ms"],
+        "library_ms": flash32_row["library_ms"]}, {
+        "name": "split_bf16", "route": "cuda", "kernel_route": "pre-pass of the f32 tensor cores",
+        "dtype": "float32", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": dense32["split_bf16_launches"],
+        "max_abs_err": split_check["max_abs_err"],
+        "ms": flash32_row["split_bf16"]["ms"], "plain_ms": flash32_row["split_bf16"]["plain_ms"],
+        "bound_ms": flash32_row["split_bf16"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "ssd_chunk", "route": "cuda", "kernel_route": "tensor_cores",
+        "dtype": "bfloat16", "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "launches": ssm["launches"],
-        "max_abs_err": max([max(e["y_diag"], e["states"]) for e in ssd_errs]
-                           + [ssd_row["max_abs_err"]]),
+        "max_abs_err": max([max(e["y_diag"], e["states"]) for c, e in zip(SSD_CASES, ssd_errs)
+                            if c[7] == "bfloat16"] + [ssd_row["max_abs_err"]]),
         "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
         "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+        "library_ms": None}, {
+        "name": "ssd_chunk[float32]", "route": "cuda", "kernel_route": "tensor_cores",
+        "dtype": "float32", "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "launches": ssm["f32_route_launches"]["tensor_cores"],
+        "max_abs_err": max([max(e["y_diag"], e["states"]) for c, e in zip(SSD_CASES, ssd_errs)
+                            if c[7] == "float32"] + [ssd32_row["max_abs_err"]]),
+        "ms": ssd32_row["ms"], "plain_ms": ssd32_row["plain_ms"],
+        "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
+        "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,12 +23,14 @@
 // input read once and the output written once is 0.6 GB, 0.18 ms at
 // 3.35 TB/s.
 //
-// Two kernels, one per type.
+// Three kernels; the wrapper picks one by dtype and head dim before the
+// launch (`flash_attention.route`).
 //
-// bf16: `flash_attention_wgmma`, on the tensor cores.  A bf16 x bf16 product
-// is exact in f32, so wgmma with f32 accumulation gives the reference's f32
-// scores up to the order of summation, provided the scale is applied to the
-// f32 accumulator and never to a bf16 operand: q is not rounded anywhere.
+// bf16: `flash_attention_wgmma<D, false>`, on the tensor cores.  A bf16 x
+// bf16 product is exact in f32, so wgmma with f32 accumulation gives the
+// reference's f32 scores up to the order of summation, provided the scale
+// is applied to the f32 accumulator and never to a bf16 operand: q is not
+// rounded anywhere.
 // The scale and log2(e) are folded into one factor c, and p = exp2(s*c - m)
 // with m the running row max of s*c.  l is summed from the f32 p, then p is
 // rounded to bf16 for the P.V product, as the reference rounds it.
@@ -59,12 +61,57 @@
 // next S product for the P.V product (FA3's ping-pong between the two
 // warpgroups and its intra-warpgroup overlap are later work).
 //
-// f32: `flash_attention_kernel`, IEEE f32 FMAs on CUDA cores (no TF32),
-// whose 67 TFLOP/s peak makes 16 ms its floor at the serving shape.  One
-// block of 256 threads per (batch*head, 64-row query tile).  The block keeps
-// its scaled queries, one KV tile (64 rows, or 32 at D = 256) of K and V,
-// and the tile's probabilities in shared memory (115 KB at D = 128, 137 KB
-// at D = 256).  Each thread owns four query rows and a 4 x (BK / 16)
+// f32, D in {16, 32, 64, 128}: `flash_attention_wgmma<D, true>`, the same
+// kernel on split-bf16 operands.  Each f32 operand v enters as three bf16
+// pieces, hi = bf16(v), mid = bf16(v - hi) and lo = bf16(v - hi - mid),
+// with |v - hi - mid - lo| <= 2^-25 |v| (derived in hopper.cuh), and each
+// product as six wgmma products of pieces, every bf16 x bf16 term exact in
+// f32 (smallest first):
+//   S  = Qm.Km^T + Ql.Kh^T + Qh.Kl^T + Qm.Kh^T + Qh.Km^T + Qh.Kh^T
+//   O += Pm.Vm   + Pl.Vh   + Ph.Vl   + Pm.Vh   + Ph.Vm   + Ph.Vh
+// (wgmma from shared memory for S; P split in registers).  The dropped
+// mid.lo, lo.mid and lo.lo terms and the pieces' own residuals are each at
+// most 2^-25 of |a||b| a term, so each product errs by a few f32 steps of
+// sum|a||b|.  Two pieces (hi, lo: |v - hi - lo| <= 2^-17 |v|, three
+// products) are not enough: their error reaches the f32 limits themselves
+// (2e-5 absolute and relative, 1e-4 of a row's largest value); the CPU
+// emulation in tests/test_torch_flash_attention.py reads 1.4e-5 to 2.2e-5
+// with two pieces and about 1.5e-6 with three, and one of the 18 f32 cases
+// missed with two on an H100.  A dropped hi.mid or mid.hi term, or inputs
+// without their mid and lo pieces, miss the limits by two orders of
+// magnitude.  The scale stays folded into exp2 (q is split unscaled), l is
+// summed from the f32 p, and p is split, not rounded, for P.V.  Each KV
+// tile's P.V goes to a fresh accumulator and is added to O with f32 FMAs
+// (O = corr O + tile): the tensor cores' f32 accumulation truncates, and
+// with all six products of every tile summed into O that bias grew with
+// the key count, to 5.5e-5 of outputs near 3 at 4,096 keys on the dense
+// model's own inputs on an H100 (twice the limit; the CPU emulation rounds to nearest
+// and cannot show it); per tile it stays a few ulp (9e-6 there, the
+// CUDA-core kernel's own difference from the plain version).  For the same
+// reason each product's small terms go first.  K and V are
+// split once a call by `split_bf16_kernel` into bf16 pieces in device
+// memory (K and V are H / K times smaller than q under GQA, and every q
+// tile of a head group reads them again), and loaded by TMA as in bf16: a
+// stage holds three pieces of a K tile and three of a V tile.  Each
+// consumer warpgroup splits its own 64 f32 q rows once, reading them from
+// device memory and writing the pieces where and as TMA would (16-byte
+// units, swizzled), then fences them for the async proxy; so q is read once
+// and never stored split.  KV tiles are 32 rows at D = 128, 64 at D = 64 and
+// 128 below: at D = 128 the q pieces take 96 KB and two stages of 6 x 8 KB
+// another 96 KB, 197,672 B of shared memory a block.  O is divided by l and
+// stored f32 from the accumulator, 8 bytes a thread.  Bound at the serving
+// shape: six products of each of the two, 6 x 1.1e12 flops at the 989
+// TFLOP/s bf16 peak, 6.67 ms, and the pre-pass (read K and V, write three
+// pieces of each: 0.34 GB, 0.10 ms); the f32 CUDA-core peak gives the
+// function 16.41 ms.  At D = 256 the q pieces alone take 192 KB, so f32 at
+// D = 256 stays on the CUDA-core kernel.
+//
+// f32, D = 256: `flash_attention_kernel`, IEEE f32 FMAs on CUDA cores (no
+// TF32), whose 67 TFLOP/s peak makes 16 ms its floor at the serving shape.
+// One block of 256 threads per (batch*head, 64-row query tile).  The block
+// keeps its scaled queries, one KV tile (64 rows, or 32 at D = 256) of K
+// and V, and the tile's probabilities in shared memory (115 KB at D = 128,
+// 137 KB at D = 256).  Each thread owns four query rows and a 4 x (BK / 16)
 // register tile of scores, then a 4 x (D / 16) register tile of the
 // accumulator; a row's running max and sum are reduced across the 16
 // threads that share it with warp shuffles.  Row strides are padded by one
@@ -83,7 +130,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 
-// ------------------------------------------------- bf16: tensor cores
+// ------------------------------------------ bf16 and split f32: tensor cores
 namespace tc {
 
 constexpr int kBQ = 128;        // query rows per block
@@ -93,20 +140,35 @@ constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
+// The split route's six products of pieces (0 hi, 1 mid, 2 lo): product t
+// multiplies piece term_a(t) of A by piece term_b(t) of B, smallest first
+// (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi); mid.lo, lo.mid and lo.lo
+// (each at most 2^-25 of |a||b|) drop.
+__device__ __forceinline__ constexpr int term_a(int t) {
+  return t == 0 ? 1 : t == 1 ? 2 : t == 3 ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int term_b(int t) {
+  return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
+}
 
-template <int D>
+// kSplit: f32 operands as bf16 hi, mid and lo pieces (q split by the
+// consumers, K and V by `split_bf16_kernel` beforehand); otherwise bf16.
+template <int D, bool kSplit>
 struct Cfg {
-  static constexpr int BK = D >= 256 ? 64 : 128;  // KV rows per tile
+  static constexpr int BK = kSplit ? (D >= 128 ? 32 : D >= 64 ? 64 : 128)  // KV rows a tile
+                                   : (D >= 256 ? 64 : 128);
   static constexpr int SW = D >= 64 ? 128 : 2 * D;  // swizzle span: bytes of one chunk row
   static constexpr int CW = SW / 2;                // bf16 columns per chunk
   static constexpr int NC = D / CW;                // chunks across D
   static constexpr uint32_t kMode = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor swizzle
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kWGQBytes = kRowsPerWG * D * 2;
-  static constexpr int kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr int kParts = kSplit ? 3 : 1;    // pieces of each operand: hi (, mid, lo)
+  static constexpr int kWGQBytes = kRowsPerWG * D * 2;  // one piece of a warpgroup's q rows
+  static constexpr int kQBytes = 2 * kParts * kWGQBytes;
+  static constexpr int kTileBytes = BK * D * 2;  // one piece of one K or V tile
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
   // 1 KB of slack to align the swizzled tiles to 1 KB
-  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kParts * kStages * kTileBytes + kBarBytes;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -118,21 +180,29 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
 
-template <int D>
+// The tensor maps of a launch: q (bf16 only) and each piece of K and V.
+struct Maps {
+  CUtensorMap q, k[3], v[3];
+};
+
+// kSplit: maps.q is unused and q is the f32 queries; maps.k and maps.v hold
+// the bf16 hi, mid and lo pieces of K and V; o is f32.  Otherwise q is
+// unused, maps.k[0] and maps.v[0] are K and V, and o is bf16.
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
-    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-    int H, int K, int causal, float c) {
-  using C = Cfg<D>;
+    const __grid_constant__ Maps maps, const float* __restrict__ q, void* __restrict__ o,
+    int Sq, int Sk, int H, int K, int causal, float c) {
+  using C = Cfg<D, kSplit>;
   constexpr int BK = C::BK, SW = C::SW, CW = C::CW, NC = C::NC;
+  constexpr uint32_t kPiece = kStages * C::kTileBytes;  // a piece's ring; the next follows
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  const uint32_t q_s = base;                            // [2 WG][NC][64][CW]
-  const uint32_t k_s = q_s + C::kQBytes;                // [stage][NC][BK][CW]
-  const uint32_t v_s = k_s + kStages * C::kTileBytes;   // [stage][NC][BK][CW]
-  const uint32_t bars = v_s + kStages * C::kTileBytes;  // q, full[stages], empty[stages]
+  const uint32_t q_s = base;                     // [2 WG][piece][NC][64][CW]
+  const uint32_t k_s = q_s + C::kQBytes;          // [piece][stage][NC][BK][CW]
+  const uint32_t v_s = k_s + C::kParts * kPiece;  // [piece][stage][NC][BK][CW]
+  const uint32_t bars = v_s + C::kParts * kPiece; // q, full[stages], empty[stages]
   const uint32_t q_bar = bars;
   auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
   auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
@@ -157,20 +227,26 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
   if (wg == 2) {  // ------------------------------------------ producer
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (tid == 0) {
-      const int halves = Sq - q0 > kRowsPerWG ? 2 : 1;  // no box wholly past Sq
-      hopper::mbar_expect_tx(q_bar, halves * C::kWGQBytes);
-      for (int w = 0; w < halves; ++w)
-        for (int cc = 0; cc < NC; ++cc)
-          hopper::tma_load_4d(q_s + w * C::kWGQBytes + cc * kRowsPerWG * SW, &qmap, q_bar,
-                              cc * CW, h, q0 + w * kRowsPerWG, b);
+      if constexpr (!kSplit) {  // split: the consumers build their q pieces
+        const int halves = Sq - q0 > kRowsPerWG ? 2 : 1;  // no box wholly past Sq
+        hopper::mbar_expect_tx(q_bar, halves * C::kWGQBytes);
+        for (int w = 0; w < halves; ++w)
+          for (int cc = 0; cc < NC; ++cc)
+            hopper::tma_load_4d(q_s + w * C::kWGQBytes + cc * kRowsPerWG * SW, &maps.q, q_bar,
+                                cc * CW, h, q0 + w * kRowsPerWG, b);
+      }
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         hopper::mbar_wait(empty_bar(s), ((j / kStages) & 1) ^ 1);
-        hopper::mbar_expect_tx(full_bar(s), 2 * C::kTileBytes);
+        hopper::mbar_expect_tx(full_bar(s), 2 * C::kParts * C::kTileBytes);
         for (int cc = 0; cc < NC; ++cc) {
           const uint32_t off = s * C::kTileBytes + cc * BK * SW;
-          hopper::tma_load_4d(k_s + off, &kmap, full_bar(s), cc * CW, kvh, j * BK, b);
-          hopper::tma_load_4d(v_s + off, &vmap, full_bar(s), cc * CW, kvh, j * BK, b);
+#pragma unroll
+          for (int piece = 0; piece < C::kParts; ++piece) {
+            const uint32_t po = piece * kPiece + off;
+            hopper::tma_load_4d(k_s + po, &maps.k[piece], full_bar(s), cc * CW, kvh, j * BK, b);
+            hopper::tma_load_4d(v_s + po, &maps.v[piece], full_bar(s), cc * CW, kvh, j * BK, b);
+          }
         }
       }
     }
@@ -181,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
     const int r0 = qw0 + 16 * warp + lane / 4;     // this thread's rows: r0 and r0 + 8
     int n_w = qw0 < Sq ? n_kv : 0;                 // tiles this warpgroup computes
     if (causal) n_w = min(n_w, (qw0 + kRowsPerWG - 1) / BK + 1);
-    const uint32_t qw = q_s + wg * C::kWGQBytes;
+    const uint32_t qw = q_s + wg * C::kParts * C::kWGQBytes;  // piece i at + i kWGQBytes
 
     float acc[D / 2], s[BK / 2];
 #pragma unroll
@@ -190,24 +266,72 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's part
 
-    hopper::mbar_wait(q_bar, 0);
+    if constexpr (kSplit) {
+      // This warpgroup's 64 f32 query rows (zeros past Sq) as bf16 hi, mid
+      // and lo, written where and as TMA would write them: 16-byte units of
+      // 8 columns, swizzled within 1 KB.
+      const float* qb = q + (size_t)b * Sq * H * D + (size_t)h * D;
+      uint8_t* const qg = gbase + (qw - base);
+      constexpr int kUnits = kRowsPerWG * D / 8, kBatch = kUnits < 512 ? kUnits / 128 : 4;
+#pragma unroll 1
+      for (int u0 = tid; u0 < kUnits; u0 += kBatch * 128) {
+        float4 v[kBatch][2];  // a batch's loads all issued before any is used
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int u = u0 + i * 128, row = u / (D / 8), col = (u - row * (D / 8)) * 8;
+          v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (qw0 + row < Sq) {
+            const float4* src =
+                reinterpret_cast<const float4*>(qb + (size_t)(qw0 + row) * H * D + col);
+            v[i][0] = src[0];
+            v[i][1] = src[1];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int u = u0 + i * 128, row = u / (D / 8), col = (u - row * (D / 8)) * 8;
+          uint4 hi, mid, lo;
+          hopper::split3_bf16(v[i][0].x, v[i][0].y, hi.x, mid.x, lo.x);
+          hopper::split3_bf16(v[i][0].z, v[i][0].w, hi.y, mid.y, lo.y);
+          hopper::split3_bf16(v[i][1].x, v[i][1].y, hi.z, mid.z, lo.z);
+          hopper::split3_bf16(v[i][1].z, v[i][1].w, hi.w, mid.w, lo.w);
+          const uint32_t off = (col / CW) * kRowsPerWG * SW +
+                               hopper::swz(row * SW + (col % CW) * 2, SW);
+          *reinterpret_cast<uint4*>(qg + off) = hi;
+          *reinterpret_cast<uint4*>(qg + C::kWGQBytes + off) = mid;
+          *reinterpret_cast<uint4*>(qg + 2 * C::kWGQBytes + off) = lo;
+        }
+      }
+      hopper::fence_proxy_async();
+      named_sync(1 + wg);
+    } else {
+      hopper::mbar_wait(q_bar, 0);
+    }
     for (int j = 0; j < n_kv; ++j) {
       const int st = j % kStages;
       hopper::mbar_wait(full_bar(st), (j / kStages) & 1);
       if (j < n_w) {
         const int k0 = j * BK;
         const uint32_t kt = k_s + st * C::kTileBytes, vt = v_s + st * C::kTileBytes;
-        // S = Q.K^T, both K-major; a k16 step is 32 bytes along a chunk row
+        // S = Q.K^T, both K-major; a k16 step is 32 bytes along a chunk row.
+        // Split: the six products of pieces term_a(t) and term_b(t); bf16: the
+        // one product hi.hi (t = 5).
+        constexpr int t0 = kSplit ? 0 : 5;
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t col = (kk * 16 % CW) * 2;
-          const uint32_t chunk = kk * 16 / CW;
-          hopper::wgmma_ss(s,
-                           hopper::make_desc(qw + chunk * kRowsPerWG * SW + col, 16, 8 * SW,
-                                             C::kMode),
-                           hopper::make_desc(kt + chunk * BK * SW + col, 16, 8 * SW, C::kMode),
-                           kk > 0);
+        for (int t = t0; t < 6; ++t) {
+          const uint32_t qp = qw + term_a(t) * C::kWGQBytes;
+          const uint32_t kp = kt + term_b(t) * kPiece;
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t col = (kk * 16 % CW) * 2;
+            const uint32_t chunk = kk * 16 / CW;
+            hopper::wgmma_ss(s,
+                             hopper::make_desc(qp + chunk * kRowsPerWG * SW + col, 16, 8 * SW,
+                                               C::kMode),
+                             hopper::make_desc(kp + chunk * BK * SW + col, 16, 8 * SW, C::kMode),
+                             t > t0 || kk > 0);
+          }
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -251,32 +375,69 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         }
         l0 = corr0 * l0 + sum0;  // from the f32 p, as the reference sums it
         l1 = corr1 * l1 + sum1;
+        if constexpr (kSplit) {
+          // p split into bf16 hi, mid and lo: the k16 slice kk of the scores
+          // is A fragment kk.  The tile's P.V, the six products of pieces
+          // smallest first, goes to a fresh accumulator, added to acc in
+          // f32 FMAs (acc = corr acc + tile): the tensor cores' f32
+          // accumulation truncates each sum, and summed into acc over every
+          // KV tile that bias grows with the key count (2e-5 of |o| at 4,096
+          // keys); within one tile it stays a few ulp.
+          uint32_t pp[3][BK / 16][4];
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-          acc[4 * i] *= corr0;
-          acc[4 * i + 1] *= corr0;
-          acc[4 * i + 2] *= corr1;
-          acc[4 * i + 3] *= corr1;
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hopper::split3_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], pp[0][kk][e],
+                                  pp[1][kk][e], pp[2][kk][e]);
+          float tile[D / 2];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int t = 0; t < 6; ++t)
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+              hopper::wgmma_rs(tile, pp[term_a(t)][kk],
+                               hopper::make_desc(vt + term_b(t) * kPiece + kk * 16 * SW,
+                                                 BK * SW, 8 * SW, C::kMode),
+                               t > 0 || kk > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(tile);
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i) {
+            acc[4 * i] = fmaf(acc[4 * i], corr0, tile[4 * i]);
+            acc[4 * i + 1] = fmaf(acc[4 * i + 1], corr0, tile[4 * i + 1]);
+            acc[4 * i + 2] = fmaf(acc[4 * i + 2], corr1, tile[4 * i + 2]);
+            acc[4 * i + 3] = fmaf(acc[4 * i + 3], corr1, tile[4 * i + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i) {
+            acc[4 * i] *= corr0;
+            acc[4 * i + 1] *= corr0;
+            acc[4 * i + 2] *= corr1;
+            acc[4 * i + 3] *= corr1;
+          }
+          // p rounded to bf16: the k16 slice kk of the scores is A fragment kk
+          uint32_t p[BK / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+          }
+          // O += P.V, V MN-major: a k16 step is 16 key rows
+          hopper::fence_regs(acc);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            hopper::wgmma_rs(acc, p[kk],
+                             hopper::make_desc(vt + kk * 16 * SW, BK * SW, 8 * SW, C::kMode), 1);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
         }
-        // p rounded to bf16: the k16 slice kk of the scores is A fragment kk
-        uint32_t p[BK / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        }
-        // O += P.V, V MN-major: a k16 step is 16 key rows
-        hopper::fence_regs(acc);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          hopper::wgmma_rs(acc, p[kk],
-                           hopper::make_desc(vt + kk * 16 * SW, BK * SW, 8 * SW, C::kMode), 1);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(acc);
       }
       hopper::mbar_arrive(empty_bar(st));
     }
@@ -288,6 +449,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
       const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
+      if constexpr (kSplit) {
+        // f32 straight from the accumulator: 8 bytes a thread, a quad
+        // covering 32 contiguous bytes of a row, rows < Sq only.
+        float* const of = static_cast<float*>(o);
+        const int cq = 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          if (r0 < Sq)
+            *reinterpret_cast<float2*>(of + (((size_t)b * Sq + r0) * H + h) * D + 8 * i + cq) =
+                make_float2(acc[4 * i] / den0, acc[4 * i + 1] / den0);
+          if (r0 + 8 < Sq)
+            *reinterpret_cast<float2*>(of + (((size_t)b * Sq + r0 + 8) * H + h) * D + 8 * i +
+                                       cq) = make_float2(acc[4 * i + 2] / den1,
+                                                         acc[4 * i + 3] / den1);
+        }
+        return;
+      }
       // Stage the bf16 tile in this warpgroup's q rows, [64][D] with its
       // 16-byte chunks swizzled by row, then store 16 bytes a thread.
       constexpr int NCH = D / 8;
@@ -311,7 +489,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         if (qpos >= Sq) break;  // rows only grow with idx
         const uint4 val =
             *reinterpret_cast<const uint4*>(ost + row * D * 2 + ((ch ^ (row & kSwz)) * 16));
-        *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + qpos) * H + h) * D + ch * 8) = val;
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(o) +
+                                  (((size_t)b * Sq + qpos) * H + h) * D + ch * 8) = val;
       }
     }
   }
@@ -330,39 +509,72 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, 
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int K, int causal, float scale, cudaStream_t stream) {
-  using C = Cfg<D>;
+// kSplit: q is f32 and k[0..2], v[0..2] the bf16 hi, mid and lo pieces of K
+// and V; otherwise q, k[0] and v[0] are bf16.
+template <int D, bool kSplit>
+cudaError_t launch(const void* q, const void* const* k, const void* const* v, void* o, int B,
+                   int Sq, int Sk, int H, int K, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D, kSplit>;
   const CUtensorMapSwizzle sw = C::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  CUtensorMap qm, km, vm;
-  if (encode_map(&qm, q, D, H, Sq, B, kRowsPerWG, C::CW, sw) != CUDA_SUCCESS ||
-      encode_map(&km, k, D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS ||
-      encode_map(&vm, v, D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS)
+  Maps maps{};  // the maps a route does not read stay zero
+  if (!kSplit && encode_map(&maps.q, q, D, H, Sq, B, kRowsPerWG, C::CW, sw) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  for (int piece = 0; piece < C::kParts; ++piece)
+    if (encode_map(&maps.k[piece], k[piece], D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS ||
+        encode_map(&maps.v[piece], v[piece], D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma<D, kSplit>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_wgmma<D><<<grid, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, causal, scale * kLog2e);
+  flash_attention_wgmma<D, kSplit><<<grid, kThreads, C::kSmem, stream>>>(
+      maps, kSplit ? static_cast<const float*>(q) : nullptr, o, Sq, Sk, H, K, causal,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kSplit>
 cudaError_t resources(int* regs, int* smem) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma<D>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma<D, kSplit>);
   *regs = attr.numRegs;
-  *smem = (int)(attr.sharedSizeBytes + Cfg<D>::kSmem);
+  *smem = (int)(attr.sharedSizeBytes + Cfg<D, kSplit>::kSmem);
   return err;
+}
+
+// f32 -> bf16 hi, mid and lo (hopper::split3_bf16), n elements, 4 a thread;
+// the split route's K and V pre-pass.
+__global__ void split_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi,
+                                  __nv_bfloat16* __restrict__ mid, __nv_bfloat16* __restrict__ lo,
+                                  long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; 4 * i < n; i += stride) {
+    if (4 * i + 4 <= n) {
+      const float4 v = reinterpret_cast<const float4*>(src)[i];
+      uint2 h, m, l;
+      hopper::split3_bf16(v.x, v.y, h.x, m.x, l.x);
+      hopper::split3_bf16(v.z, v.w, h.y, m.y, l.y);
+      reinterpret_cast<uint2*>(hi)[i] = h;
+      reinterpret_cast<uint2*>(mid)[i] = m;
+      reinterpret_cast<uint2*>(lo)[i] = l;
+    } else {
+      for (long long e = 4 * i; e < n; ++e) {
+        uint32_t h, m, l;
+        hopper::split3_bf16(src[e], 0.f, h, m, l);
+        hi[e] = __ushort_as_bfloat16((unsigned short)(h & 0xFFFFu));
+        mid[e] = __ushort_as_bfloat16((unsigned short)(m & 0xFFFFu));
+        lo[e] = __ushort_as_bfloat16((unsigned short)(l & 0xFFFFu));
+      }
+    }
+  }
 }
 
 }  // namespace tc
 
-// ----------------------------------------------------- f32: CUDA cores
+// ------------------------------------------- f32 at D = 256: CUDA cores
 namespace cc {
 
 constexpr int kBQ = 64;          // query rows per block
@@ -541,26 +753,45 @@ cudaError_t resources(int* regs, int* smem) {
 
 }  // namespace cc
 
-#define FLASH_DISPATCH(NS, FN, ...)                          \
+#define FLASH_SPLIT , true
+#define FLASH_BF16 , false
+#define FLASH_CC
+#define FLASH_DISPATCH(FN, TAIL, ...)                        \
   switch (D) {                                               \
-    case 16: return NS::FN<16>(__VA_ARGS__);                 \
-    case 32: return NS::FN<32>(__VA_ARGS__);                 \
-    case 64: return NS::FN<64>(__VA_ARGS__);                 \
-    case 128: return NS::FN<128>(__VA_ARGS__);               \
-    case 256: return NS::FN<256>(__VA_ARGS__);               \
+    case 16: return FN<16 TAIL>(__VA_ARGS__);                \
+    case 32: return FN<32 TAIL>(__VA_ARGS__);                \
+    case 64: return FN<64 TAIL>(__VA_ARGS__);                \
+    case 128: return FN<128 TAIL>(__VA_ARGS__);              \
+    case 256: return FN<256 TAIL>(__VA_ARGS__);              \
+    default: return cudaErrorInvalidValue;                   \
+  }
+// The split route's head dims: at D = 256 its q pieces alone take 192 KB.
+#define FLASH_SPLIT_DISPATCH(FN, ...)                        \
+  switch (D) {                                               \
+    case 16: return FN<16, true>(__VA_ARGS__);               \
+    case 32: return FN<32, true>(__VA_ARGS__);               \
+    case 64: return FN<64, true>(__VA_ARGS__);               \
+    case 128: return FN<128, true>(__VA_ARGS__);             \
     default: return cudaErrorInvalidValue;                   \
   }
 
 cudaError_t dispatch(int D, int is_bf16, const void* q, const void* k, const void* v, void* o,
                      int B, int Sq, int Sk, int H, int K, int causal, float scale,
                      cudaStream_t st) {
-  if (is_bf16) FLASH_DISPATCH(tc, launch, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
-  FLASH_DISPATCH(cc, launch, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
+  if (is_bf16) {
+    const void* const kp[1] = {k};
+    const void* const vp[1] = {v};
+    FLASH_DISPATCH(tc::launch, FLASH_BF16, q, kp, vp, o, B, Sq, Sk, H, K, causal, scale, st)
+  }
+  FLASH_DISPATCH(cc::launch, FLASH_CC, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
 }
 
-cudaError_t dispatch_resources(int D, int is_bf16, int* regs, int* smem) {
-  if (is_bf16) FLASH_DISPATCH(tc, resources, regs, smem)
-  FLASH_DISPATCH(cc, resources, regs, smem)
+// kernel: 0 the f32 CUDA-core kernel, 1 the bf16 tensor-core kernel, 2 the
+// split (f32) tensor-core kernel.
+cudaError_t dispatch_resources(int D, int kernel, int* regs, int* smem) {
+  if (kernel == 2) FLASH_SPLIT_DISPATCH(tc::resources, regs, smem)
+  if (kernel == 1) FLASH_DISPATCH(tc::resources, FLASH_BF16, regs, smem)
+  FLASH_DISPATCH(cc::resources, FLASH_CC, regs, smem)
 }
 
 }  // namespace
@@ -568,8 +799,9 @@ cudaError_t dispatch_resources(int D, int is_bf16, int* regs, int* smem) {
 extern "C" {
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, K, D); all contiguous, of one type
-// (bf16 when is_bf16, else f32); bf16 pointers 16-byte aligned (TMA).
-// Returns the launch's cudaError_t.
+// (bf16 when is_bf16: the tensor-core kernel; else f32: the CUDA-core
+// kernel); bf16 pointers 16-byte aligned (TMA).  Returns the launch's
+// cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                            int Sk, int H, int K, int D, int causal, int is_bf16, float scale,
                            void* stream) {
@@ -579,10 +811,43 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                        static_cast<cudaStream_t>(stream));
 }
 
-// The kernel's registers a thread at launch and shared memory a block
-// (static plus the dynamic bytes the launch asks for).
-int flash_attention_resources(int D, int is_bf16, int* regs, int* smem_bytes) {
-  return (int)dispatch_resources(D, is_bf16, regs, smem_bytes);
+// The split route: q, o (B, Sq, H, D) f32; k_pieces and v_pieces, 3
+// pointers each, to the bf16 hi, mid and lo pieces (B, Sk, K, D) of K and V
+// (split_bf16_launch); D in {16, 32, 64, 128}; all contiguous and 16-byte
+// aligned.  Returns the launch's cudaError_t; any other D returns
+// cudaErrorInvalidValue and launches nothing.
+int flash_attention_split_launch(const void* q, const void* const* k_pieces,
+                                 const void* const* v_pieces, void* o, int B, int Sq, int Sk,
+                                 int H, int K, int D, int causal, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535 ||
+      ((uintptr_t)q | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_SPLIT_DISPATCH(tc::launch, q, k_pieces, v_pieces, o, B, Sq, Sk, H, K, causal, scale, st)
+}
+
+// src (n f32) -> hi, mid, lo (n bf16 each): hi = bf16(src), mid = bf16(src -
+// hi), lo = bf16(src - hi - mid), each rounded to nearest even; all 16-byte
+// aligned.
+int split_bf16_launch(const void* src, void* hi, void* mid, void* lo, long long n,
+                      void* stream) {
+  if (n < 1 || ((uintptr_t)src | (uintptr_t)hi | (uintptr_t)mid | (uintptr_t)lo) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long units = (n + 3) / 4;
+  const int threads = 256;
+  const long long blocks = (units + threads - 1) / threads;
+  tc::split_bf16_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<__nv_bfloat16*>(hi),
+      static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), n);
+  return (int)cudaGetLastError();
+}
+
+// A kernel's registers a thread at launch and shared memory a block
+// (static plus the dynamic bytes the launch asks for); `kernel` as in
+// dispatch_resources.
+int flash_attention_resources(int D, int kernel, int* regs, int* smem_bytes) {
+  return (int)dispatch_resources(D, kernel, regs, smem_bytes);
 }
 
 const char* flash_attention_error_string(int err) {

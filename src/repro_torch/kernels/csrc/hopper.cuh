@@ -9,16 +9,68 @@
 // 16w + t/4 + 8, columns 8j + 2(t%4) and +1, in d[4j .. 4j+3]).  wgmma_ss
 // reads A and B from shared memory, both K-major; wgmma_rs reads A from
 // registers (the bf16 pairs of the same row/column layout) and B from
-// shared memory MN-major (its transpose bit set).  scale_d = 0 overwrites
-// d, 1 accumulates into it.
+// shared memory MN-major (its transpose bit set); wgmma_rs_kmajor reads B
+// K-major.  scale_d = 0 overwrites d, 1 accumulates into it.
+//
+// split_bf16 writes an f32 pair as bf16 hi = bf16(v) and lo = bf16(v - hi),
+// both rounded to nearest even.  |v - hi| is at most half an ulp of hi,
+// 2^(e-8) for 2^e <= |v| < 2^(e+1), and v - hi is exact in f32.  Unless
+// |v - hi| is exactly 2^(e-8) (then lo = v - hi), v - hi lies below
+// 2^(e-8), so its exponent is at most e - 9 and rounding it to bf16 (8
+// significant bits) errs by at most 2^(e-9-8) = 2^(e-17): |v - hi - lo| <=
+// 2^-17 |v|.  (The largest ratio over 10^7 random f32 values is 7.61e-6,
+// just under 2^-17 = 7.63e-6.)  A product of two bf16 values is exact in
+// f32, so a wgmma over hi and lo pieces loses only what the pieces drop.
+// split3_bf16 adds a third piece: hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid), every difference exact in f32; v - hi - mid is the
+// two-piece residual (at most 2^-17 |v|), and rounding it to bf16 errs by at
+// most 2^-8 of it, so |v - hi - mid - lo| <= 2^-25 |v|.
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi), each
+// within 2^-17 of its value (header).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// (a, b) -> bf16 pairs hi, mid and lo, within 2^-25 of each value (header).
+__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Byte offset of (row, byte) in a tile whose rows are `sw` bytes, swizzled
+// as TMA writes it (16-byte unit u of a row XOR bits 7.. of the offset);
+// `off` is relative to a 1 KB aligned base.
+__device__ __forceinline__ uint32_t swz(uint32_t off, uint32_t sw) {
+  return off ^ (((off >> 7) & (sw / 16 - 1)) << 4);
+}
+
+// Makes this thread's ordinary stores to shared memory visible to the async
+// proxy (wgmma operand reads); a barrier after it orders every thread's.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -111,6 +163,17 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // m64nNk16, bf16 x bf16 -> f32; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -229,6 +292,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
       "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// m64n64k16, bf16 x bf16 -> f32; A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

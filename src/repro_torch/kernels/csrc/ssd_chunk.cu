@@ -18,10 +18,14 @@
 // batch 4 x 4096 tokens in chunks of 256: nc 64, Q 256, H 80, G 1, P 64,
 // N 128, bf16 inputs) the function reads x (168 MB), B, C and dA (14 MB) and
 // writes y_diag (336 MB) and states (168 MB): 0.69 GB, 0.20 ms at 3.35 TB/s,
-// three quarters of it the f32 stores.  Its 8.6e10 flops on the causal half
-// take 0.09 ms at the 989 TFLOP/s bf16 tensor-core peak.
+// three quarters of it the f32 stores.  Its multiply-adds, C B^T over N
+// once per chunk and group on the causal pairs, the scores times x over P
+// and the states over Q per head, are 4.36e10 flops (chip_smoke.py
+// `ssd_bound`): 0.044 ms at the 989 TFLOP/s bf16 tensor-core peak, 0.65 ms
+// at the 67 TFLOP/s f32 CUDA-core peak.  With f32 inputs the function moves
+// 0.86 GB, 0.257 ms, its bound on either route.
 //
-// Two kernels; the wrapper picks one by dtype, shape and layout before the
+// Three kernels; the wrapper picks one by dtype, shape and layout before the
 // launch, and a route that does not take its operands refuses them.
 //
 // bf16, P in {16, 32, 64}, N in {16, 32, 64, 128}, x, B and C 16-byte
@@ -51,9 +55,10 @@
 // 2 + 1.2|x| ulp, where |x| is small exactly where L is large).  M feeds the
 // second product, where a bf16 M would miss the 1e-4 tolerance by about
 // 20x, so M is split in registers into hi = bf16(M) and lo = bf16(M - hi),
-// with |M - hi - lo| <= 2^-18 |M|, and y_i += hi x_j + lo x_j as two
-// wgmma m64nPk16 with A from registers (S's accumulator layout is the A
-// operand's) and x_j MN-major through the descriptor's transpose bit.  The
+// with |M - hi - lo| <= 2^-17 |M| (derived in hopper.cuh), and y_i +=
+// hi x_j + lo x_j as two wgmma m64nPk16 with A from registers (S's
+// accumulator layout is the A operand's) and x_j MN-major through the
+// descriptor's transpose bit.  The
 // f32 y tile is stored from registers, 8 bytes a thread, a quad covering 32
 // contiguous bytes, rows < Q only.
 //   states: xw = x * exp(cum[Q-1] - cum) is f32, split the same way, read
@@ -69,8 +74,45 @@
 // then the y product); the four warpgroups overlap one another.  At the
 // serving shape that is about 0.45 ms against the 0.20 ms bound (PERF.md).
 //
-// f32, and bf16 operands outside those shapes: `ssd_chunk_kernel`, IEEE f32
-// on CUDA cores (67 TFLOP/s, 1.3 ms at the serving shape).  One block of 256
+// f32 at the same shapes, alignment and token strides of a multiple of 4
+// elements: `ssd_chunk_split`, on the tensor cores.  x, B and C enter as
+// two bf16 pieces each, hi = bf16(v) and lo = bf16(v - hi), |v - hi - lo|
+// <= 2^-17 |v|, as M and xw already do, and each product runs as three
+// wgmma products of pieces (lo.lo, at most 2^-16 of |a||b| and far less on
+// average, drops):
+//   S       = Ch.Bh^T + Cl.Bh^T + Ch.Bl^T     (C from registers, B K-major)
+//   y      += Mh.xh   + Ml.xh   + Mh.xl       (M from registers, x MN-major)
+//   states += xwh^T.Bh + xwl^T.Bh + xwh^T.Bl  (xw = (xh + xl) w, split again)
+// At the shapes of chip_smoke.py's f32 cases the route stays within 1.9e-5
+// of the largest value (the 1e-4 limit; the CPU emulation in
+// tests/test_torch_ssd_tc.py, where dropping any one of the six lo terms
+// misses it).  Shared memory is what shapes the design: B and C in two
+// pieces alone would take 256 KB at the serving shape.  So C never enters
+// shared memory: S = C B^T is computed once per block, for all R of its
+// heads, from C's A fragments read straight from device memory and split
+// in registers, against B's pieces (K-major), and each y warpgroup keeps
+// its own (i, j) tiles of S in a scratch buffer in device memory (10 tiles
+// of 16 KB a block at Q = 256, in the accumulator's own layout, so each
+// thread reads back only what it wrote, 16 bytes at a time, from L2; the
+// next tile's read is issued before this tile's products, and C's next
+// fragments likewise while S is computed: without that the reads' latency
+// cost 0.27 ms of 1.22 at the serving shape on an H100).  The
+// block's threads split B (f32, from device memory) into its pieces once,
+// and each head's x into one buffer of pieces, written where and as TMA
+// would write them and fenced for the async proxy: B's pieces 128 KB, x's
+// 64 KB, cum and w 4 KB, 201,728 B a block at the serving shape.  Per head,
+// M = S * L from the kept S (L and its selection as in bf16) and the three
+// y products, and warpgroup 2's three states products, as in bf16; each
+// product's small terms go first, so that the tensor cores' truncating f32
+// accumulation adds them to small partial sums.  The x load of the next
+// head is not overlapped with this head's products (one buffer of x fits,
+// not two; it costs about 0.15 ms at the serving shape on an H100,
+// scripts/ssd_split_parts.py).  Bound at the
+// serving shape: bytes, 0.257 ms (the three products take 0.13 ms at the
+// bf16 peak).
+//
+// bf16 and f32 operands outside those shapes: `ssd_chunk_kernel`, IEEE f32
+// on CUDA cores (67 TFLOP/s, 0.65 ms at the serving shape).  One block of 256
 // threads per (chunk, head).  dA's chunk goes to shared memory and one
 // thread sums it in sequence (the CPU's order).  y_diag runs over 64 x 64
 // tiles (i, j) with j <= i only: L is exactly 0 above the diagonal, so the
@@ -318,24 +360,8 @@ size_t smem_bytes(int Q, int P, int N) {
   return 1024 + 2 * qpad * N * 2 + 2 * qpad * P * 2 + 4 * 4 * kMaxQ + 3 * 8;
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi): hi + lo
-// is (a, b) within 2^-18 of each value.
-__device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-}
-
-// Byte offset of (row, byte) in a tile whose rows are `sw` bytes, swizzled
-// as TMA writes it (16-byte unit u of a row XOR bits 7.. of the offset).
-__device__ __forceinline__ uint32_t swz(uint32_t off, uint32_t sw) {
-  return off ^ (((off >> 7) & (sw / 16 - 1)) << 4);
-}
+using hopper::split_bf16;
+using hopper::swz;
 
 // dA of head h for this lane's 8 steps 8 lane .. 8 lane + 7 (0 past Q).
 __device__ __forceinline__ void load_dA(float (&v)[8], const float* dA, int c, int Q, int H,
@@ -502,8 +528,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_wgmma(
           const float m01 = v0 && cb + 1 <= r0 ? sc[4 * jj + 1] * __expf(cr0 - cc1) : 0.f;
           const float m10 = v1 && cb <= r1 ? sc[4 * jj + 2] * __expf(cr1 - cc0) : 0.f;
           const float m11 = v1 && cb + 1 <= r1 ? sc[4 * jj + 3] * __expf(cr1 - cc1) : 0.f;
-          split(m00, m01, hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
-          split(m10, m11, hi[jj / 2][2 * (jj % 2) + 1], lo[jj / 2][2 * (jj % 2) + 1]);
+          split_bf16(m00, m01, hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
+          split_bf16(m10, m11, hi[jj / 2][2 * (jj % 2) + 1], lo[jj / 2][2 * (jj % 2) + 1]);
         }
         // y_i += hi . x_j + lo . x_j, x_j MN-major (P contiguous): a k16 step is 16 rows
         hopper::fence_regs(acc);
@@ -549,10 +575,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_wgmma(
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const int t = t0 + 16 * kk + cq;
-          split(xw(p0, t), xw(p0, t + 1), ah[kk][0], al[kk][0]);
-          split(xw(p1, t), xw(p1, t + 1), ah[kk][1], al[kk][1]);
-          split(xw(p0, t + 8), xw(p0, t + 9), ah[kk][2], al[kk][2]);
-          split(xw(p1, t + 8), xw(p1, t + 9), ah[kk][3], al[kk][3]);
+          split_bf16(xw(p0, t), xw(p0, t + 1), ah[kk][0], al[kk][0]);
+          split_bf16(xw(p1, t), xw(p1, t + 1), ah[kk][1], al[kk][1]);
+          split_bf16(xw(p0, t + 8), xw(p0, t + 9), ah[kk][2], al[kk][2]);
+          split_bf16(xw(p1, t + 8), xw(p1, t + 9), ah[kk][3], al[kk][3]);
         }
         hopper::fence_regs(st);
         hopper::wgmma_fence();
@@ -580,6 +606,298 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_wgmma(
       }
     }
     __syncthreads();  // buffers s are free for head k + 2, cum of head k + 1 is written
+  }
+}
+
+// ------------------------------------------------ split f32: tensor cores
+// Shared memory a block of the split route: B's hi and lo pieces, x's hi and
+// lo pieces of one head, cum and the states weights of two heads, 1 KB of
+// slack to align the swizzled tiles to 1 KB.
+size_t split_smem_bytes(int Q, int P, int N) {
+  const size_t qpad = (size_t)((Q + kRows - 1) / kRows) * kRows;
+  return 1024 + 2 * qpad * N * 2 + 2 * qpad * P * 2 + 4 * 4 * kMaxQ;
+}
+
+// The causal (i, j) score tiles of a chunk of nt row tiles; tile (i, j) is
+// number i (i + 1) / 2 + j.  A tile is 64 x 64 f32 in the accumulator
+// layout: float4 e (0..7) of thread t at (e * 128 + t) * 4.
+constexpr int kScoreTileFloats = kRows * kRows;
+__host__ __device__ __forceinline__ int score_tiles(int nt) { return nt * (nt + 1) / 2; }
+
+// Rows [0, qpad) of a (Q, W) f32 operand whose tokens are `tok` elements
+// apart, as bf16 hi and lo pieces (hopper::split_bf16) at `hi` and `lo`,
+// each [W / (SW / 2)][qpad][SW / 2] and swizzled as TMA writes a tile of SW
+// byte rows; zeros past Q.  Every thread of the block takes 16-byte units,
+// kBatch at a time: all of a batch's loads are issued before any is used,
+// so a batch costs one trip to device memory.
+template <int W, int SW>
+__device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo, const float* src,
+                                           long long tok, int Q, int qpad) {
+  constexpr int CW = SW / 2, U = W / 8, kBatch = 4;
+  const int units = qpad * U;
+  for (int u0 = threadIdx.x; u0 < units; u0 += kBatch * kThreads) {
+    float4 v[kBatch][2];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int u = u0 + i * kThreads, t = u / U, col = (u - t * U) * 8;
+      v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (u < units && t < Q) {
+        const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)t * tok + col);
+        v[i][0] = s4[0];
+        v[i][1] = s4[1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int u = u0 + i * kThreads, t = u / U, col = (u - t * U) * 8;
+      if (u >= units) break;
+      uint4 h, l;
+      split_bf16(v[i][0].x, v[i][0].y, h.x, l.x);
+      split_bf16(v[i][0].z, v[i][0].w, h.y, l.y);
+      split_bf16(v[i][1].x, v[i][1].y, h.z, l.z);
+      split_bf16(v[i][1].z, v[i][1].w, h.w, l.w);
+      const uint32_t off = (col / CW) * qpad * SW + swz(t * SW + (col % CW) * 2, SW);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1) ssd_chunk_split(
+    const float* __restrict__ x, const float* __restrict__ dA, const float* __restrict__ B,
+    const float* __restrict__ C, float* __restrict__ y, float* __restrict__ states,
+    float* __restrict__ decay, float* __restrict__ scores, int Q, int H, int G, int R,
+    long long x_tok, long long b_tok, long long c_tok) {
+  using K = Cfg<P, N>;
+  constexpr int SWB = K::SWB, CWB = K::CWB, SWX = K::SWX;
+  constexpr int KG = N / 16 < 4 ? N / 16 : 4;  // k16 steps of C held in registers at once
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t bc_bytes = (uint32_t)qpad * N * 2, x_bytes = (uint32_t)qpad * P * 2;
+  const uint32_t b_s = base;                // hi [NCB][qpad][CWB], lo at + bc_bytes
+  const uint32_t x_s = b_s + 2 * bc_bytes;  // hi [qpad][P], lo at + x_bytes
+  float* const cumf = reinterpret_cast<float*>(gbase + 2 * bc_bytes + 2 * x_bytes);
+
+  const int runs = H / R;
+  const int c = blockIdx.x / runs, h0 = (blockIdx.x - c * runs) * R;
+  const int g = h0 / (H / G);
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+  const int p0 = 16 * warp + lane / 4, p1 = p0 + 8;  // this thread's accumulator rows
+  const int cq = 2 * (lane % 4);                      // and its first column in each 8
+  float* const sblk = scores + (size_t)blockIdx.x * score_tiles(nt) * kScoreTileFloats;
+
+  float nxt[8];  // warp 0: dA of the next head, loaded one head ahead
+  if (threadIdx.x < 32) {
+    load_dA(nxt, dA, c, Q, H, h0, lane);
+    scan_head(nxt, lane, Q, cumf, cumf + 2 * kMaxQ, decay + (size_t)c * H + h0);
+    if (R > 1) load_dA(nxt, dA, c, Q, H, h0 + 1, lane);
+  }
+  split_rows<N, SWB>(gbase, gbase + bc_bytes, B + (size_t)c * Q * b_tok + (size_t)g * N, b_tok,
+                     Q, qpad);
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  // ---- S = C B^T, once for the block's heads: each y warpgroup computes
+  // its own row tiles' (i, j) tiles and keeps them in its scratch, where
+  // each thread reads back only what it wrote.  C_i enters as A fragments
+  // straight from device memory, split in registers; B_j K-major.
+  // S = Ch.Bh^T + Cl.Bh^T + Ch.Bl^T.
+  const float* cg = C + (size_t)c * Q * c_tok + (size_t)g * N;
+  constexpr int NG = N / 16 / KG;  // groups of KG k16 steps across N
+  for (int i = 0; i < nt; ++i) {
+    if (tile_owner(i, nt) != wg) continue;
+    const int r0 = i * kRows + p0, r1 = r0 + 8;
+    // C_i's f32 values of k group kg, for this thread's A fragments
+    float2 raw[KG][4];
+    auto load_c = [&](int kg) {
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e & 1 ? r1 : r0, col = 16 * (kg * KG + kk) + cq + (e & 2 ? 8 : 0);
+          raw[kk][e] = row < Q
+                           ? *reinterpret_cast<const float2*>(cg + (size_t)row * c_tok + col)
+                           : make_float2(0.f, 0.f);
+        }
+    };
+    load_c(0);
+    for (int j = 0; j <= i; ++j) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+#pragma unroll
+      for (int kg = 0; kg < NG; ++kg) {
+        uint32_t ch[KG][4], cl[KG][4];
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_bf16(raw[kk][e].x, raw[kk][e].y, ch[kk][e], cl[kk][e]);
+        // the next group's values, in flight while this group's products run
+        if (NG > 1 && (j < i || kg + 1 < NG)) load_c((kg + 1) % NG);
+        hopper::fence_regs(sc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk) {
+          const int ks = kg * KG + kk;
+          const uint32_t off = (ks * 16 / CWB) * qpad * SWB + (ks * 16 % CWB) * 2 + j * kRows * SWB;
+          const uint64_t bd = hopper::make_desc(b_s + off, 16, 8 * SWB, K::kModeB);
+          const uint64_t bld = hopper::make_desc(b_s + bc_bytes + off, 16, 8 * SWB, K::kModeB);
+          hopper::wgmma_rs_kmajor(sc, cl[kk], bd, 1);
+          hopper::wgmma_rs_kmajor(sc, ch[kk], bld, 1);
+          hopper::wgmma_rs_kmajor(sc, ch[kk], bd, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+      }
+      float4* const dst =
+          reinterpret_cast<float4*>(sblk + (size_t)(i * (i + 1) / 2 + j) * kScoreTileFloats) + wt;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e * 128] = make_float4(sc[4 * e], sc[4 * e + 1], sc[4 * e + 2], sc[4 * e + 3]);
+    }
+  }
+
+  for (int k = 0; k < R; ++k) {
+    const int s = k & 1, h = h0 + k;
+    if (threadIdx.x < 32 && k + 1 < R) {
+      scan_head(nxt, lane, Q, cumf + (s ^ 1) * kMaxQ, cumf + (2 + (s ^ 1)) * kMaxQ,
+                decay + (size_t)c * H + h + 1);
+      if (k + 2 < R) load_dA(nxt, dA, c, Q, H, h + 2, lane);
+    }
+    uint8_t* const xg = gbase + (x_s - base);
+    split_rows<P, SWX>(xg, xg + x_bytes, x + (size_t)c * Q * x_tok + (size_t)h * P, x_tok, Q,
+                       qpad);
+    hopper::fence_proxy_async();
+    __syncthreads();  // x's pieces written; head h's cum (scanned a head ahead) visible
+    const float* cum = cumf + s * kMaxQ;
+    const float* w = cumf + (2 + s) * kMaxQ;
+
+    // ---- y_diag: row tile i against the causal column tiles j <= i
+    for (int i = 0; i < nt; ++i) {
+      if (tile_owner(i, nt) != wg) continue;
+      const int i0 = i * kRows, r0 = i0 + p0, r1 = i0 + p1;
+      const float cr0 = cum[r0], cr1 = cum[r1];
+      float acc[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) acc[e] = 0.f;
+      // This thread's part of score tile (i, j), kept by this warpgroup
+      auto load_scores = [&](float (&sc)[32], int j) {
+        const float4* const src = reinterpret_cast<const float4*>(
+                                      sblk + (size_t)(i * (i + 1) / 2 + j) * kScoreTileFloats) +
+                                  wt;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float4 v = src[e * 128];
+          sc[4 * e] = v.x;
+          sc[4 * e + 1] = v.y;
+          sc[4 * e + 2] = v.z;
+          sc[4 * e + 3] = v.w;
+        }
+      };
+      float sc[32];
+      load_scores(sc, 0);
+      for (int j = 0; j <= i; ++j) {
+        const int j0 = j * kRows;
+        // M = S * L, L selected (never multiplied) to 0 above the diagonal and
+        // past Q, then split into bf16 hi + lo: the A fragments of M . x_j
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int cb = j0 + 8 * jj + cq;
+          const float cc0 = cum[cb], cc1 = cum[cb + 1];
+          const bool v0 = r0 < Q, v1 = r1 < Q;
+          const float m00 = v0 && cb <= r0 ? sc[4 * jj] * __expf(cr0 - cc0) : 0.f;
+          const float m01 = v0 && cb + 1 <= r0 ? sc[4 * jj + 1] * __expf(cr0 - cc1) : 0.f;
+          const float m10 = v1 && cb <= r1 ? sc[4 * jj + 2] * __expf(cr1 - cc0) : 0.f;
+          const float m11 = v1 && cb + 1 <= r1 ? sc[4 * jj + 3] * __expf(cr1 - cc1) : 0.f;
+          split_bf16(m00, m01, hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
+          split_bf16(m10, m11, hi[jj / 2][2 * (jj % 2) + 1], lo[jj / 2][2 * (jj % 2) + 1]);
+        }
+        // the next tile's scores, in flight while this tile's products run
+        if (j < i) load_scores(sc, j + 1);
+        // y_i += Ml.xh + Mh.xl + Mh.xh (the small terms first), x_j MN-major
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = (t == 1 ? x_bytes : 0) + (j0 + 16 * kk) * SWX;
+            hopper::wgmma_rs(acc, t == 0 ? lo[kk] : hi[kk],
+                             hopper::make_desc(x_s + off, qpad * SWX, 8 * SWX, K::kModeX), 1);
+          }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+#pragma unroll
+      for (int jj = 0; jj < P / 8; ++jj) {
+        const int col = 8 * jj + cq;
+        if (r0 < Q)
+          *reinterpret_cast<float2*>(y + (((size_t)c * Q + r0) * H + h) * P + col) =
+              make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        if (r1 < Q)
+          *reinterpret_cast<float2*>(y + (((size_t)c * Q + r1) * H + h) * P + col) =
+              make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+    }
+
+    // ---- states: xw = (xh + xl) * w, split again, read transposed from the
+    // swizzled x pieces into A fragments; states += xwh^T.Bh + xwl^T.Bh +
+    // xwh^T.Bl with B MN-major.  Warpgroup 2, beside the y tiles.
+    if (wg == 2) {
+      float st[N / 2];
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) st[e] = 0.f;
+      auto xw = [&](int p, int t) {
+        if (p >= P) return 0.f;
+        const uint32_t off = swz(t * SWX + p * 2, SWX);
+        return (__bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(xg + off)) +
+                __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(xg + x_bytes + off))) *
+               w[t];
+      };
+      for (int t0 = 0; t0 < qpad; t0 += 64) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int t = t0 + 16 * kk + cq;
+          split_bf16(xw(p0, t), xw(p0, t + 1), ah[kk][0], al[kk][0]);
+          split_bf16(xw(p1, t), xw(p1, t + 1), ah[kk][1], al[kk][1]);
+          split_bf16(xw(p0, t + 8), xw(p0, t + 9), ah[kk][2], al[kk][2]);
+          split_bf16(xw(p1, t + 8), xw(p1, t + 9), ah[kk][3], al[kk][3]);
+        }
+        hopper::fence_regs(st);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 3; ++t)  // xwl.Bh, xwh.Bl, xwh.Bh: the small terms first
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = (t == 1 ? bc_bytes : 0) + (t0 + 16 * kk) * SWB;
+            hopper::wgmma_rs(st, t == 0 ? al[kk] : ah[kk],
+                             hopper::make_desc(b_s + off, qpad * SWB, 8 * SWB, K::kModeB), 1);
+          }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+      }
+      float* const sout = states + ((size_t)c * H + h) * P * N;
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int col = 8 * jj + cq;
+        if (p0 < P)
+          *reinterpret_cast<float2*>(sout + (size_t)p0 * N + col) =
+              make_float2(st[4 * jj], st[4 * jj + 1]);
+        if (p1 < P)
+          *reinterpret_cast<float2*>(sout + (size_t)p1 * N + col) =
+              make_float2(st[4 * jj + 2], st[4 * jj + 3]);
+      }
+    }
+    __syncthreads();  // x's buffer is free for head h + 1, its cum is written
   }
 }
 
@@ -656,6 +974,52 @@ cudaError_t resources(int Q, int* regs, int* smem) {
   return err;
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// Floats of score scratch the split route needs: a block's causal score
+// tiles, for each of its nc * H / R blocks.
+cudaError_t split_scratch_floats(int nc, int Q, int H, int G, long long* floats) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)nc * (H / heads_per_block(nc, H, G, sms));
+  *floats = blocks * score_tiles((Q + kRows - 1) / kRows) * kScoreTileFloats;
+  return cudaSuccess;
+}
+
+template <int P, int N>
+cudaError_t launch_split(const void* x, const void* dA, const void* B, const void* C, void* y,
+                         void* states, void* decay, void* scores, int nc, int Q, int H, int G,
+                         long long x_tok, long long b_tok, long long c_tok, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int R = heads_per_block(nc, H, G, sms);
+  const size_t smem = split_smem_bytes(Q, P, N);
+  err = cudaFuncSetAttribute(ssd_chunk_split<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_split<P, N><<<nc * (H / R), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dA), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<float*>(y), static_cast<float*>(states),
+      static_cast<float*>(decay), static_cast<float*>(scores), Q, H, G, R, x_tok, b_tok, c_tok);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t resources_split(int Q, int* regs, int* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, ssd_chunk_split<P, N>);
+  *regs = attr.numRegs;
+  *smem = (int)(attr.sharedSizeBytes + split_smem_bytes(Q, P, N));
+  return err;
+}
+
 // The route's shapes: P in {16, 32, 64}, N in {16, 32, 64, 128}.
 bool takes(int P, int N) {
   return (P == 16 || P == 32 || P == 64) && (N == 16 || N == 32 || N == 64 || N == 128);
@@ -684,7 +1048,16 @@ cudaError_t dispatch(const void* x, const void* dA, const void* B, const void* C
   SSD_TC_DISPATCH(launch, x, dA, B, C, y, states, decay, nc, Q, H, G, x_tok, b_tok, c_tok, st)
 }
 
-cudaError_t dispatch_resources(int Q, int P, int N, int* regs, int* smem) {
+cudaError_t dispatch_split(const void* x, const void* dA, const void* B, const void* C, void* y,
+                           void* states, void* decay, void* scores, int nc, int Q, int H, int G,
+                           int P, int N, long long x_tok, long long b_tok, long long c_tok,
+                           cudaStream_t st) {
+  SSD_TC_DISPATCH(launch_split, x, dA, B, C, y, states, decay, scores, nc, Q, H, G, x_tok, b_tok,
+                  c_tok, st)
+}
+
+cudaError_t dispatch_resources(int is_bf16, int Q, int P, int N, int* regs, int* smem) {
+  if (!is_bf16) SSD_TC_DISPATCH(resources_split, Q, regs, smem)
   SSD_TC_DISPATCH(resources, Q, regs, smem)
 }
 
@@ -724,12 +1097,45 @@ int ssd_chunk_launch(const void* x, const void* dA, const void* B, const void* C
                                            x_tok, b_tok, c_tok, st));
 }
 
+// The split route (f32 operands on the tensor cores): as ssd_chunk_launch
+// with f32 x, B, C, P in {16, 32, 64}, N in {16, 32, 64, 128}, x, B, C
+// 16-byte aligned with token strides of a multiple of 4 elements, and
+// `scores` f32 scratch of at least ssd_chunk_split_scratch floats
+// (`scores_floats`).  Returns the launch's cudaError_t; operands it does not
+// take return cudaErrorInvalidValue and launch nothing.
+int ssd_chunk_split_launch(const void* x, const void* dA, const void* B, const void* C, void* y,
+                           void* states, void* decay, void* scores, long long scores_floats,
+                           int nc, int Q, int H, int G, int P, int N, long long x_tok,
+                           long long b_tok, long long c_tok, void* stream) {
+  if (nc < 1 || Q < 16 || Q > cc::kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 ||
+      !tc::takes(P, N) || (long long)nc * H > 2147483647LL ||
+      ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)scores) % 16 != 0 ||
+      x_tok % 4 != 0 || b_tok % 4 != 0 || c_tok % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  long long need = 0;
+  const cudaError_t err = tc::split_scratch_floats(nc, Q, H, G, &need);
+  if (err != cudaSuccess) return (int)err;
+  if (scores_floats < need) return (int)cudaErrorInvalidValue;
+  return (int)tc::dispatch_split(x, dA, B, C, y, states, decay, scores, nc, Q, H, G, P, N, x_tok,
+                                 b_tok, c_tok, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of score scratch ssd_chunk_split_launch needs for these shapes
+// (into *floats); returns a cudaError_t.
+int ssd_chunk_split_scratch(int nc, int Q, int H, int G, long long* floats) {
+  if (nc < 1 || Q < 1 || G < 1 || H % G != 0) return (int)cudaErrorInvalidValue;
+  return (int)tc::split_scratch_floats(nc, Q, H, G, floats);
+}
+
 // A route's registers a thread and shared memory a block (static plus the
 // dynamic bytes its launch asks for) at chunk length Q, head dim P and
-// state dim N.
+// state dim N; tensor_cores with f32 (is_bf16 0) is the split route.
 int ssd_chunk_resources(int tensor_cores, int is_bf16, int Q, int P, int N, int* regs,
                         int* smem_bytes) {
-  if (tensor_cores) return (int)tc::dispatch_resources(Q, P, N, regs, smem_bytes);
+  if (tensor_cores) {
+    if (!tc::takes(P, N)) return (int)cudaErrorInvalidValue;
+    return (int)tc::dispatch_resources(is_bf16, Q, P, N, regs, smem_bytes);
+  }
   cudaFuncAttributes attr;
   const cudaError_t err =
       is_bf16 ? cudaFuncGetAttributes(&attr, cc::ssd_chunk_kernel<__nv_bfloat16>)

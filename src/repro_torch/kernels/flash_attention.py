@@ -12,18 +12,29 @@ and the output comes back in q's type.  ``flash_attention`` takes its route
 from the tensors' device: a CUDA tensor launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (or raises), a CPU tensor runs
 ``flash_attention_plain``, the same function in plain PyTorch.
-``flash_attention.launches`` counts the CUDA launches.
 
-The kernel keeps a running row max and sum (an online softmax) and divides
+On the card ``route`` picks the kernel from dtype and head dim alone,
+before the launch: bf16 at any head dim, and f32 at D in ``SPLIT_HEAD_DIMS``,
+go to the tensor cores (``"tensor_cores"``); f32 at D = 256 to the CUDA-core
+kernel (``"cuda_cores"``, IEEE f32).  Nothing retries on another route: a
+failed build or launch raises.  ``flash_attention.launches`` counts the
+CUDA launches, ``flash_attention.route_launches`` the same per route.
+
+The kernels keep a running row max and sum (an online softmax) and divide
 once at the end, as the Pallas kernel does; the plain version takes the
 whole row at once.  In bf16 the kernel runs both products on the tensor
 cores (wgmma, f32 accumulation: exact bf16 products, so the reference's f32
 scores up to the order of summation) with q unscaled and the scale folded
-into ``exp2``; in f32 it runs IEEE f32 FMAs on CUDA cores.  Both sum in f32
-in different orders, and in bf16 they round p to bf16 against different
-running maxima, so they agree to about 1e-6 in f32 and to bf16's precision
-in bf16.  The bf16 kernel reads its operands with TMA, which needs 16-byte
-aligned data pointers; the wrapper refuses others on every device.
+into ``exp2``.  In f32 the tensor-core route splits every operand into bf16
+hi, mid and lo pieces (K and V by ``split_bf16`` beforehand, q inside the
+kernel, p in registers), together within 2^-25 of the f32 value, and runs
+each product as six products of pieces (every pair but mid.lo, lo.mid and
+lo.lo); the CUDA-core kernel runs IEEE f32 FMAs.
+All sum in f32 in different orders, and in bf16 they round p to bf16
+against different running maxima, so they agree to about 1e-6 in f32 and to
+bf16's precision in bf16.  The tensor-core kernels read their operands with
+TMA, which needs 16-byte aligned data pointers; the wrapper refuses others
+on every device and every route.
 """
 from __future__ import annotations
 
@@ -39,6 +50,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 MAX_BATCH_HEADS = 65535  # the f32 kernel's grid puts batch * heads on its y axis
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
+ROUTES = ("tensor_cores", "cuda_cores")
+SPLIT_HEAD_DIMS = (16, 32, 64, 128)  # f32 head dims the tensor-core (split) route takes
+_KERNEL_CODE = {("cuda_cores", torch.float32): 0, ("tensor_cores", torch.bfloat16): 1,
+                ("tensor_cores", torch.float32): 2}  # the C entry's resource selector
 
 _LIB = None
 
@@ -50,6 +65,12 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 8 + [ctypes.c_float, vp]
         lib.flash_attention_launch.restype = i
+        pieces = ctypes.c_void_p * 3
+        lib.flash_attention_split_launch.argtypes = [vp, pieces, pieces, vp] + [i] * 7 + [
+            ctypes.c_float, vp]
+        lib.flash_attention_split_launch.restype = i
+        lib.split_bf16_launch.argtypes = [vp] * 4 + [ctypes.c_longlong, vp]
+        lib.split_bf16_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
         lib.flash_attention_resources.argtypes = [i, i, ip, ip]
         lib.flash_attention_resources.restype = i
@@ -87,6 +108,62 @@ def _check_operands(q, k, v):
         if t.data_ptr() % ALIGN:
             raise ValueError(f"{name}'s data pointer is not {ALIGN}-byte aligned")
     return B, Sq, Sk, H, K, D
+
+
+def route_for(D: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of head dim ``D`` and ``dtype`` takes."""
+    if dtype == torch.bfloat16 or D in SPLIT_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def route(q, k, v) -> str:
+    """The kernel a CUDA call takes, from dtype and head dim alone (operands
+    already checked by ``_check_operands``, which refuses a layout or an
+    alignment that no route takes)."""
+    return route_for(q.shape[3], q.dtype)
+
+
+def split_bf16_plain(t):
+    """(hi, mid, lo) bf16 of an f32 tensor: hi = bf16(t), mid = bf16(t -
+    hi), lo = bf16(t - hi - mid), each rounded to nearest even (every
+    difference is exact in f32); |t - hi - mid - lo| <= 2^-25 |t|, and
+    |t - hi - mid| <= 2^-17 |t|."""
+    hi = t.to(torch.bfloat16)
+    rest = t - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.to(torch.float32)).to(torch.bfloat16)
+
+
+def split_bf16(t):
+    """``split_bf16_plain`` of a contiguous f32 tensor: a CUDA tensor
+    launches ``split_bf16_kernel`` (bit for bit the plain version), a CPU
+    tensor runs the plain version.  Returns (hi, mid, lo), bf16 of t's
+    shape.  ``split_bf16.launches`` counts the launches."""
+    if t.dtype != torch.float32 or not t.is_contiguous() or t.numel() == 0:
+        raise ValueError(f"split_bf16 takes a non-empty contiguous float32 tensor, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.data_ptr() % ALIGN:
+        raise ValueError(f"split_bf16: data pointer is not {ALIGN}-byte aligned")
+    if t.device.type == "cpu":
+        return split_bf16_plain(t)
+    if t.device.type != "cuda":
+        raise ValueError(f"split_bf16 runs on CUDA or the CPU, not {t.device}")
+    lib = _lib()
+    n = t.numel()
+    out = torch.empty((3, -(-n // 8) * 8), dtype=torch.bfloat16, device=t.device)  # 16 B rows
+    pieces = tuple(out[i, :n].view(t.shape) for i in range(3))
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = lib.split_bf16_launch(t.data_ptr(), *(x.data_ptr() for x in pieces), n, stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"split_bf16 launch failed: CUDA error {rc} ({msg})")
+    split_bf16.launches += 1
+    return pieces
+
+
+split_bf16.launches = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -129,31 +206,53 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
+    path = route(q, k, v)
     lib = _lib()
+    split = path == "tensor_cores" and q.dtype == torch.float32
+    if split:
+        kp, vp = split_bf16(k), split_bf16(v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-            int(causal), int(q.dtype == torch.bfloat16), scale, stream)
+        if split:
+            ptrs = ctypes.c_void_p * 3
+            rc = lib.flash_attention_split_launch(
+                q.data_ptr(), ptrs(*(t.data_ptr() for t in kp)),
+                ptrs(*(t.data_ptr() for t in vp)), out.data_ptr(), B, Sq, Sk, H, K, D,
+                int(causal), scale, stream)
+        else:
+            rc = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
+                int(causal), int(q.dtype == torch.bfloat16), scale, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"flash_attention launch failed ({path}): CUDA error {rc} ({msg})")
     flash_attention.launches += 1
+    flash_attention.route_launches[path] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Set ``flash_attention.launches``, its per-route counts and
+    ``split_bf16.launches`` to 0."""
+    flash_attention.launches = 0
+    flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+    split_bf16.launches = 0
+
+
+reset_launches()
 
 
 def resources(D: int, dtype: torch.dtype) -> dict:
-    """The CUDA kernel's registers a thread at launch and shared memory a
-    block (static plus dynamic) for head dim ``D`` and ``dtype``.  The bf16
-    kernel then moves registers between its warpgroups with ``setmaxnreg``:
-    240 a consumer thread, 24 a producer thread."""
+    """The registers a thread at launch and shared memory a block (static
+    plus dynamic) of the kernel that head dim ``D`` and ``dtype`` route to,
+    with that route.  The tensor-core kernel then moves registers between
+    its warpgroups with ``setmaxnreg``: 240 a consumer thread, 24 a
+    producer thread."""
+    path = route_for(D, dtype)
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _lib().flash_attention_resources(D, int(dtype == torch.bfloat16), ctypes.byref(regs),
+    rc = _lib().flash_attention_resources(D, _KERNEL_CODE[path, dtype], ctypes.byref(regs),
                                           ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"flash_attention_resources: CUDA error {rc}")
-    return {"registers_at_launch": regs.value, "smem_bytes": smem.value}
+    return {"route": path, "registers_at_launch": regs.value, "smem_bytes": smem.value}

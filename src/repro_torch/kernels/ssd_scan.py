@@ -16,13 +16,15 @@ kernel in ``csrc/ssd_chunk.cu`` (or raises), a CPU tensor runs
 ``ssd_chunk_plain``, the same function in plain PyTorch.
 
 On the card ``route`` picks the kernel from dtype, shape and layout alone,
-before the launch: bf16 operands with P in ``TC_P``, N in ``TC_N``, 16-byte
-aligned data and token strides of a multiple of 8 elements go to the
-tensor cores (``"tensor_cores"``: wgmma with M and x*w split into bf16
-hi + lo, within 2^-18 of the f32 values); everything else to the CUDA-core
-kernel (``"cuda_cores"``, IEEE f32).  Nothing retries on another route: a
-failed build or launch raises.  ``ssd_chunk.launches`` counts the CUDA
-launches, ``ssd_chunk.route_launches`` the same per route.
+before the launch: operands with P in ``TC_P``, N in ``TC_N``, 16-byte
+aligned data and 16-byte token strides go to the tensor cores
+(``"tensor_cores"``): bf16 to wgmma with M and x*w split into bf16 hi + lo,
+each within 2^-17 of its f32 value; f32 to the split kernel, which splits
+x, B and C as well and runs each product as three (hi.hi + lo.hi + hi.lo).
+Everything else goes to the CUDA-core kernel (``"cuda_cores"``, IEEE f32).
+Nothing retries on another route: a failed build or launch raises.
+``ssd_chunk.launches`` counts the CUDA launches, ``ssd_chunk.route_launches``
+the same per route.
 
 All take cum in the cumsum-difference form of the JAX package's kernel
 and reference, so they round alike; L is selected to 0 above the diagonal
@@ -44,8 +46,8 @@ MAX_Q, MAX_P, MAX_N = 256, 64, 128
 Q_STEP = 16  # chunk lengths are multiples of this
 MAX_BLOCKS = 2**31 - 1  # the kernel's grid puts chunks * heads on its x axis
 ROUTES = ("tensor_cores", "cuda_cores")
-TC_P, TC_N = (16, 32, 64), (16, 32, 64, 128)  # the tensor-core kernel's head and state dims
-ALIGN = 16  # bytes: TMA's alignment of a base address and a token stride
+TC_P, TC_N = (16, 32, 64), (16, 32, 64, 128)  # the tensor-core kernels' head and state dims
+ALIGN = 16  # bytes: a base address and a token stride for TMA and 16-byte loads
 
 _LIB = None
 
@@ -57,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_chunk_launch.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i, i, vp]
         lib.ssd_chunk_launch.restype = i
+        lib.ssd_chunk_split_launch.argtypes = [vp] * 8 + [ll] + [i] * 6 + [ll] * 3 + [vp]
+        lib.ssd_chunk_split_launch.restype = i
+        lib.ssd_chunk_split_scratch.argtypes = [i] * 4 + [ctypes.POINTER(ll)]
+        lib.ssd_chunk_split_scratch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
         lib.ssd_chunk_resources.argtypes = [i] * 5 + [ip, ip]
         lib.ssd_chunk_resources.restype = i
@@ -115,7 +121,7 @@ def route(x, B, C) -> str:
     P, N = x.shape[3], B.shape[3]
     aligned = all(t.data_ptr() % ALIGN == 0 and t.stride(1) * t.element_size() % ALIGN == 0
                   for t in (x, B, C))
-    if x.dtype == torch.bfloat16 and P in TC_P and N in TC_N and aligned:
+    if P in TC_P and N in TC_N and aligned:
         return "tensor_cores"
     return "cuda_cores"
 
@@ -163,12 +169,23 @@ def ssd_chunk(x, dA, B, C):
     y = torch.empty((nc, Q, H, P), dtype=f32, device=x.device)
     states = torch.empty((nc, H, P, N), dtype=f32, device=x.device)
     decay = torch.empty((nc, H), dtype=f32, device=x.device)
+    split = path == "tensor_cores" and x.dtype == torch.float32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_chunk_launch(
-            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-            states.data_ptr(), decay.data_ptr(), nc, Q, H, G, P, N, *strides,
-            int(x.dtype == torch.bfloat16), int(path == "tensor_cores"), stream)
+        if split:
+            n = ctypes.c_longlong(0)
+            rc = lib.ssd_chunk_split_scratch(nc, Q, H, G, ctypes.byref(n))
+            if rc == 0:
+                scores = torch.empty(n.value, dtype=f32, device=x.device)
+                rc = lib.ssd_chunk_split_launch(
+                    x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                    states.data_ptr(), decay.data_ptr(), scores.data_ptr(), n.value, nc, Q, H,
+                    G, P, N, *strides, stream)
+        else:
+            rc = lib.ssd_chunk_launch(
+                x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                states.data_ptr(), decay.data_ptr(), nc, Q, H, G, P, N, *strides,
+                int(x.dtype == torch.bfloat16), int(path == "tensor_cores"), stream)
     if rc != 0:
         msg = lib.ssd_chunk_error_string(rc).decode()
         raise RuntimeError(f"ssd_chunk launch failed ({path}): CUDA error {rc} ({msg})")
@@ -188,7 +205,8 @@ reset_launches()
 
 def resources(path: str, Q: int, P: int, N: int, dtype: torch.dtype) -> dict:
     """A route's registers a thread and shared memory a block (static plus
-    dynamic) at chunk length Q, head dim P and state dim N."""
+    dynamic) at chunk length Q, head dim P, state dim N and input ``dtype``
+    (the tensor-core route's f32 kernel is the split one)."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib().ssd_chunk_resources(int(path == "tensor_cores"), int(dtype == torch.bfloat16),
                                     Q, P, N, ctypes.byref(regs), ctypes.byref(smem))

@@ -1,8 +1,10 @@
 """The port's ``flash_attention`` (its plain route, on the CPU) against the
 JAX package's oracle ``repro.kernels.ref.flash_attention_ref``, over
 ``tests/test_kernels.py``'s shapes plus a GQA group of 7, D = 256 and
-ragged lengths; the bf16 kernel's rounding, emulated tile by tile, against
-the plain version; and the wrapper's refusal of what the kernel cannot take.
+ragged lengths; the tensor-core kernel's rounding, emulated tile by tile,
+against the plain version: bf16, and f32 as three bf16 pieces (also against
+the oracle, and with terms or pieces dropped); the route each dtype and head
+dim takes; and the wrapper's refusal of what the kernel cannot take.
 
 Held against the oracle, not the Pallas kernel: the Pallas kernel misses
 its own oracle in bf16 (ROADMAP.md Queue 3).  Tolerances are those of
@@ -118,16 +120,46 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(what, qkv):
         flash_attention(*qkv, causal=True)
 
 
-def _tensor_core_emulation(q, k, v, *, causal, bq=128):
-    """The bf16 kernel's rounding in plain torch, tile by tile: an emulation,
-    not the kernel.  Scores are f32 products of the unscaled bf16 operands
-    (exact in f32, as wgmma's f32 accumulation has them); scale * log2(e) is
-    folded into exp2 on the f32 scores; p is rounded to bf16 against the
-    running max; l is summed from the f32 p; KV tiles of 128 rows (64 at
-    D = 256), 128-row query tiles, tiles past the causal diagonal skipped."""
+def _pieces(t):
+    """bf16 hi, mid and lo of f32 ``t`` (``split_bf16_plain``), widened back
+    to f32."""
+    return [x.float() for x in fa.split_bf16_plain(t)]
+
+
+# The f32 route's six products of pieces (0 hi, 1 mid, 2 lo) of A and B,
+# in the kernel's order (smallest first); mid.lo, lo.mid and lo.lo drop.
+TERMS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+PIECE = ("hi", "mid", "lo")
+
+
+def _split_product(a, b, drop=None):
+    """a @ b as the f32 route's six products of bf16 pieces (each exact in
+    f32, f32 sums), less the one ``drop`` names ("hi.mid", ...)."""
+    pa, pb = _pieces(a), _pieces(b)
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]))
+    for i, j in TERMS:
+        if drop != f"{PIECE[i]}.{PIECE[j]}":
+            out = out + pa[i] @ pb[j]
+    return out
+
+
+def _tensor_core_emulation(q, k, v, *, causal, bq=128, drop=None):
+    """The tensor-core kernel's rounding in plain torch, tile by tile: an
+    emulation, not the kernel (its sums round to nearest; the tensor cores'
+    f32 accumulation truncates, which the kernel bounds by summing each
+    tile's P.V apart, and only the card shows).  bf16: scores are f32 products of the
+    unscaled bf16 operands (exact in f32, as wgmma's f32 accumulation has
+    them); p is rounded to bf16 against the running max.  f32 (the split
+    route): every operand, p included, enters as bf16 hi, mid and lo pieces
+    and each product as six products of pieces (``drop``, "S:hi.mid" or
+    "PV:mid.hi" and so on, leaves one out).  Both: scale * log2(e) folded
+    into exp2 on the f32 scores; l summed from the f32 p; 128-row query
+    tiles, KV tiles of 128 rows (bf16: 64 at D = 256; f32: 64 at D = 64, 32
+    at D = 128), tiles past the causal diagonal skipped."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    bk = 64 if D >= 256 else 128
+    split = q.dtype == torch.float32
+    bk = (32 if D >= 128 else 64 if D >= 64 else 128) if split else (64 if D >= 256 else 128)
     c = torch.tensor(1.0 / math.sqrt(D) * math.log2(math.e), dtype=torch.float32)
     heads = torch.arange(H) // (H // K)
     out = torch.empty_like(q)
@@ -143,7 +175,12 @@ def _tensor_core_emulation(q, k, v, *, causal, bq=128):
             for k0 in range(0, Sk, bk):
                 if causal and k0 > q0 + bq - 1:
                     break
-                s = rows @ kf[:, k0:k0 + bk].transpose(1, 2)
+                kt, vt = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+                if split:
+                    s = _split_product(rows, kt.transpose(1, 2),
+                                       drop and drop.removeprefix("S:"))
+                else:
+                    s = rows @ kt.transpose(1, 2)
                 kpos = torch.arange(k0, k0 + s.shape[2])[None, :]
                 if causal:
                     s = s.masked_fill(kpos > qpos, fa.NEG_INF)
@@ -151,7 +188,11 @@ def _tensor_core_emulation(q, k, v, *, causal, bq=128):
                 corr = torch.exp2(m - m_new)
                 p = torch.exp2(s * c - m_new[..., None])
                 l = corr * l + p.sum(dim=-1)
-                acc = corr[..., None] * acc + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + bk]
+                if split:
+                    pv = _split_product(p, vt, drop and drop.removeprefix("PV:"))
+                else:
+                    pv = p.to(torch.bfloat16).float() @ vt
+                acc = corr[..., None] * acc + pv
                 m = m_new
             out[b, q0:q0 + bq] = (acc / l.clamp_min(1e-20)[..., None]).transpose(0, 1).to(q.dtype)
     return out
@@ -168,3 +209,93 @@ def test_tensor_core_rounding_within_the_card_limits(shape, causal):
     err, row_err = chip_smoke.check_flash_output("emulation", got,
                                                  flash_attention_plain(q, k, v, causal=causal))
     assert 0 < row_err <= chip_smoke.FLASH_ROW_TOL["bfloat16"] and err > 0
+
+
+@pytest.fixture
+def one_thread():
+    """The emulations run many small products, fastest on one CPU thread
+    (about six times faster than on eight for these shapes, and far more
+    when other test processes share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_rounding_within_the_card_limits(shape, causal):
+    """The f32 tensor-core route's arithmetic (six products of bf16 pieces
+    for each of S and P.V, an emulation of its rounding, not the kernel) at
+    the JAX package's test shapes: held to ``flash_attention_plain`` and to
+    the JAX package's oracle under the unchanged f32 limits, ``FLASH_TOL``
+    (2e-5) and ``FLASH_ROW_TOL`` (1e-4), and within a fifth of the absolute
+    limit of the plain version."""
+    (q, k, v), (jq, jk, jv) = _qkv(shape, "float32", seed=sum(shape) + causal)
+    got = _tensor_core_emulation(q, k, v, causal=causal)
+    err, row_err = chip_smoke.check_flash_output(
+        "split emulation vs plain", got, flash_attention_plain(q, k, v, causal=causal))
+    assert 0 < err <= TOL["float32"] / 5 and row_err <= chip_smoke.FLASH_ROW_TOL["float32"]
+    oref = torch.from_numpy(np.array(jref.flash_attention_ref(jq, jk, jv, causal=causal),
+                                     np.float32))
+    chip_smoke.check_flash_output("split emulation vs JAX", got, oref)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("drop", ["S:hi.mid", "S:mid.hi", "PV:hi.mid", "PV:mid.hi"])
+def test_one_piece_fewer_misses_the_limit(drop):
+    """Dropping a first-order mid term (hi.mid or mid.hi, in S or in P.V)
+    moves the output past the f32 limits, so the card check sees it.  The
+    limit does not see the smaller ones: dropping one of hi.lo, lo.hi or
+    mid.mid leaves errors of 5e-6 to 1.5e-5 here, and the two-piece scheme
+    (hi + lo, three products each) 1.4e-5 to 2.2e-5, at the limit's own
+    scale; so the route takes three pieces, whose error (about 1.5e-6) sits
+    an order of magnitude under it."""
+    (q, k, v), _ = _qkv((1, 256, 256, 4, 1, 64), "float32", seed=11)
+    want = flash_attention_plain(q, k, v, causal=True)
+    got = _tensor_core_emulation(q, k, v, causal=True, drop=drop)
+    err, row_err, close = chip_smoke.flash_errors(got, want)
+    assert not close and row_err > chip_smoke.FLASH_ROW_TOL["float32"], (err, row_err)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_flash_output(drop, got, want)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_inputs_without_their_lower_pieces_miss_the_limit():
+    """The card's planted fault in plain torch: the route run on q, k and v
+    rounded to bf16 (their mid and lo pieces 0) against the plain version on
+    the true inputs must miss the f32 limits."""
+    (q, k, v), _ = _qkv((1, 256, 256, 4, 1, 64), "float32", seed=11)
+    hi = [t.to(torch.bfloat16).float() for t in (q, k, v)]
+    got = _tensor_core_emulation(*hi, causal=True)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_flash_output("hi pieces only", got,
+                                      flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("D,dtype,want", [
+    (d, "bfloat16", "tensor_cores") for d in fa.HEAD_DIMS] + [
+    (d, "float32", "tensor_cores") for d in fa.SPLIT_HEAD_DIMS] + [
+    (256, "float32", "cuda_cores")])
+def test_route_is_decided_by_dtype_and_head_dim(D, dtype, want):
+    """The rule the wrapper applies before a CUDA launch, on dtype and head
+    dim alone (the same on any device): every bf16 call and f32 up to
+    D = 128 on the tensor cores, f32 at D = 256 on the CUDA cores."""
+    (q, k, v), _ = _qkv((1, 16, 16, 4, 2, D), dtype, seed=D)
+    assert fa.route(q, k, v) == fa.route_for(D, getattr(torch, dtype)) == want
+
+
+def test_split_pieces_match_their_stated_bound():
+    """``split_bf16`` on a CPU tensor is its plain version: hi = bf16(t),
+    mid = bf16(t - hi), lo = bf16(t - hi - mid), with |t - hi - mid| <=
+    2^-17 |t| and |t - hi - mid - lo| <= 2^-25 |t| (the bounds the kernel
+    headers derive), and no launch."""
+    t = torch.from_numpy(np.random.RandomState(5).randn(4, 1000).astype(np.float32) * 1e3)
+    before = fa.split_bf16.launches
+    hi, mid, lo = fa.split_bf16(t)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert fa.split_bf16.launches == before and torch.equal(hi, t.to(torch.bfloat16))
+    two = (t.double() - hi.double() - mid.double()).abs() / t.double().abs()
+    three = (t.double() - hi.double() - mid.double() - lo.double()).abs() / t.double().abs()
+    assert 0 < float(two.max()) <= 2.0 ** -17 and float(three.max()) <= 2.0 ** -25

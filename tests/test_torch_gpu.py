@@ -1,11 +1,13 @@
 """Card-only checks of the port (marker ``gpu``; they skip without a CUDA
 device): the CUDA ``cascade_score``, ``flash_attention`` and ``ssd_chunk``
 against their plain versions over ``chip_smoke.py``'s shapes and
-tolerances, their launch counters (``ssd_chunk``'s per route, with the
-route each dtype, shape and layout takes), the optimize-and-execute path on
-a short stream, the dense serving path at deepseek-67b's width and the SSM serving
-path at mamba2-2.7b's, each with two layers and a short prompt.
-On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+tolerances, their launch counters (``flash_attention``'s and ``ssd_chunk``'s
+per route, with the route each dtype, shape and layout takes), the f32
+tensor-core routes and ``split_bf16`` bit for bit, the optimize-and-execute
+path on a short stream, the dense serving path at deepseek-67b's width and
+the SSM serving path at mamba2-2.7b's, each with two layers and a short
+prompt.  On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``
+(``-k f32`` for the f32 routes)."""
 import sys
 from pathlib import Path
 
@@ -178,6 +180,45 @@ def test_dense_path_short_prompt(cuda):
     assert out["launches"] == out["prefill_launches"] == 2
 
 
+@pytest.mark.parametrize("D,dtype,want", [(128, "bfloat16", "tensor_cores"),
+                                          (256, "bfloat16", "tensor_cores"),
+                                          (16, "float32", "tensor_cores"),
+                                          (64, "float32", "tensor_cores"),
+                                          (128, "float32", "tensor_cores"),
+                                          (256, "float32", "cuda_cores")])
+def test_flash_f32_and_bf16_routes_and_their_launch_counts(cuda, D, dtype, want):
+    """Each call launches on the route its dtype and head dim pick, and only
+    that route's count moves (``split_bf16`` twice a split call, for K and
+    V); every route matches the plain version at the chip limits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    case = (2, 200, 200, 8, 2, D, True, dtype)
+    q, k, v = chip_smoke.make_flash_case(case, cuda, seed=3)
+    assert fa.route(q, k, v) == want
+    before, splits = dict(fa.flash_attention.route_launches), fa.split_bf16.launches
+    chip_smoke.check_flash_case(case, cuda, seed=3)
+    assert {r: n - before[r] for r, n in fa.flash_attention.route_launches.items()} == {
+        r: int(r == want) for r in before}
+    assert fa.split_bf16.launches - splits == 2 * (dtype == "float32" and want == "tensor_cores")
+
+
+def test_split_bf16_matches_its_plain_version_bit_for_bit_f32(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    out = chip_smoke.check_split_bf16(cuda)
+    assert out["pieces_differ"] == 0 and out["max_abs_err"] == 0.0
+    with pytest.raises(ValueError):  # the pre-pass takes contiguous f32 only
+        fa.split_bf16(torch.zeros(8, 8, device=cuda).t())
+
+
+def test_flash_f32_planted_faults_are_caught(cuda):
+    """At the serving shape in f32 (the split route): a skipped KV tile and
+    inputs without their mid and lo pieces are both rejected."""
+    out = chip_smoke.planted_fault(cuda, "float32")
+    assert out["route"] == "tensor_cores" and out["caught_by_row_tol"]
+    assert out["lost_pieces"]["caught"]
+
+
 @pytest.mark.parametrize("case", [c for c in chip_smoke.SSD_CASES
                                   if c[:6] != chip_smoke.SSD_SERVING])
 def test_ssd_kernel_matches_plain_version(cuda, case):
@@ -186,6 +227,11 @@ def test_ssd_kernel_matches_plain_version(cuda, case):
 
 def test_ssd_planted_fault_is_caught(cuda):
     assert chip_smoke.ssd_planted_fault(cuda)["caught"]
+
+
+def test_ssd_f32_planted_faults_are_caught(cuda):
+    out = chip_smoke.ssd_planted_fault(cuda, "float32")
+    assert out["route"] == "tensor_cores" and out["caught"] and out["lost_pieces"]["caught"]
 
 
 def test_ssd_launch_counter_and_no_fallback(cuda):
@@ -208,7 +254,9 @@ def test_ssd_launch_counter_and_no_fallback(cuda):
     ((4, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
     ((2, 64, 4, 2, 8, 32, "published", "bfloat16"), "cuda_cores"),  # P = 8
     ((2, 64, 4, 2, 16, 48, "published", "bfloat16"), "cuda_cores"),  # N = 48
-    ((2, 64, 4, 2, 16, 32, "published", "float32"), "cuda_cores"),
+    ((2, 64, 4, 2, 16, 32, "published", "float32"), "tensor_cores"),
+    ((3, 208, 4, 1, 64, 128, "published", "float32"), "tensor_cores"),
+    ((2, 64, 4, 2, 8, 32, "published", "float32"), "cuda_cores"),  # P = 8
 ])
 def test_ssd_routes_and_their_launch_counts(cuda, case, want):
     """Each call launches on the route its dtype, shape and layout pick, and
@@ -237,7 +285,7 @@ def test_ssd_tensor_core_route_refuses_a_misaligned_layout(cuda):
     assert ssd_scan.route(shifted, B, C) == "cuda_cores"
     before = dict(ssd_scan.ssd_chunk.route_launches)
     got = ssd_scan.ssd_chunk(shifted, dA, B, C)
-    assert chip_smoke.ssd_route_taken(before) == "cuda_cores"
+    assert chip_smoke.route_taken(ssd_scan.ssd_chunk, before) == "cuda_cores"
     chip_smoke.check_ssd_output("misaligned x", got, ssd_scan.ssd_chunk_plain(shifted, dA, B, C),
                                 dA)
     out = [torch.empty(s, dtype=torch.float32, device=cuda)
@@ -253,6 +301,7 @@ def test_ssm_path_short_prompt(cuda):
     out = chip_smoke.run_ssm_path(cuda, layers=2, batch=2, prompt=512, new_tokens=16)
     assert out["launches"] == out["prefill_launches"] == 2
     assert out["route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
+    assert out["f32_route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
     assert out["planted_fault"]["caught"]
 
 
