@@ -127,6 +127,36 @@ Each phase prints one JSON line:
               dissimilar one (COLD, accuracy >= A - 0.05), and an adaptive
               ``CascadeServer`` over a 262,144-record drifting stream that
               writes back its initial plan and every swap.
+16. fleet_path — the fleet through ``CoreSession.serve(hosts=4)``: phase
+              11's workload and query, its plan optimized with
+              ``keep_state``, four inline hosts over ``bench_sharded.py``'s
+              skewed drift (4 x 262,144 records, boundary at a quarter),
+              tile 1024, ``AdaptivePolicy(audit_rate=0.015)``, every host
+              scoring with scorers it deserialized from COREWIRE bytes: a
+              committed quorum swap, every host at the final epoch, exact
+              conservation (each host's emitted + rejected == submitted,
+              nothing in flight, no index twice, disjoint hosts, each
+              emission under its submission's version), launches ==
+              submitted tiles, served accuracy >= A - 0.05 over the union
+              of the streams; records/s, consensus and re-optimization ms a
+              swap, the swap log.
+17. fleet_thread — the same streams with one thread a host: the swap log
+              and every host's emitted list equal phase 16's, launches ==
+              tiles.
+18. fleet_process — four worker processes (``python -m
+              repro_torch.distributed.procworker``), each rebuilding the
+              workload from its seeds on the card, over 2^17 records of the
+              same generator: a committed swap, conservation, every
+              worker's drain reply on the card with its own launches ==
+              its tiles, the swap log and emitted sets equal to an inline
+              run on the same streams; worker start seconds, and one UDF
+              trained twice on the card compared bit for bit.
+19. fleet_faults — inline, four hosts, 2^18 records: the primary
+              coordinator killed in ``prepare`` (the standby aborts), at
+              ``commit`` and ``mid-commit`` (it completes or re-syncs), and
+              host 0 silent through the first barrier under ``fence`` (one
+              fence, one re-sync, ``fenced [0]``) and ``nack`` (the swap
+              aborts); each conserving exactly with launches == tiles.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -176,6 +206,15 @@ FRONTEND = dict(records=65_536, request_rows=128, load=1.3, slo_factor=3.0)
 # The plan-cache path (phase 15): held-out rows the replayed scorer scores,
 # and the drifting stream the write-back server serves
 PLAN_CACHE_RECORDS = 262_144
+# The fleet (phases 16-19): four simulated hosts on phase 11's workload,
+# ``bench_sharded.py``'s skewed drift (shift targets, correlation gain, skew
+# 0.3) with each shard's boundary at a quarter, its policy (audit rate
+# 0.015), tile 1024 and one 1,024-record chunk a host a round.  Records over
+# all hosts: the inline and thread paths 2^20, the process path 2^17 (rows
+# travel base64 in JSON), the fault injections 2^18 each.
+FLEET = dict(hosts=4, records=1_048_576, process_records=131_072, fault_records=262_144,
+             shift_targets={0: 2.8, 1: -2.6, 2: 2.8}, corr_gain=2.5, drift_skew=0.3,
+             audit_rate=0.015, tile=1024, chunk=1024)
 
 TWITTER = dict(n=40_000, n_features=64, n_columns=4, correlation=0.9,
                feature_noise=1.1, label_noise=0.25, udf_hidden=48, udf_depth=2,
@@ -2104,6 +2143,306 @@ def run_plan_cache_path(dev, workload, n_records: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phases 16-19
+def fleet_streams(ds, per_host: int, seed: int = 0):
+    """``bench_sharded.py``'s skewed drift over K hosts, each shard of
+    ``per_host`` records with its boundary at a quarter."""
+    from repro_torch.data.synthetic import make_sharded_drifting_streams
+
+    return make_sharded_drifting_streams(
+        ds, FLEET["hosts"], per_host // 4, per_host - per_host // 4,
+        shift_targets=FLEET["shift_targets"], corr_gain=FLEET["corr_gain"],
+        drift_skew=FLEET["drift_skew"], seed=seed)
+
+
+def fleet_conservation(srv, stats) -> dict:
+    """The fleet's conservation, exact: every host's emitted + rejected ==
+    submitted with nothing in flight, no index emitted twice, the hosts'
+    emitted sets disjoint, each emission served under the plan version
+    current when it was submitted, and every host at the final epoch."""
+    emitted = [list(h.engine.emitted) for h in srv.hosts]
+    flat = [i for e in emitted for i in e]
+    per_host = all(st.emitted + st.rejected == n
+                   for st, n in zip(stats.per_host, stats.submitted_per_host))
+    versions = all(h.submit_version[i] == v for h in srv.hosts
+                   for i, v in zip(h.engine.emitted, h.engine.emitted_versions))
+    return dict(per_host=per_host, in_flight=sum(h.engine.in_flight() for h in srv.hosts),
+                twice=len(flat) - len(set(flat)) if all(len(e) == len(set(e)) for e in emitted)
+                else -1, disjoint=len(flat) == len(set(flat)),
+                versions=versions, epochs=sorted({h.epoch for h in srv.hosts}),
+                final_epoch=stats.final_epoch,
+                ok=(per_host and stats.submitted == stats.emitted + stats.rejected
+                    and all(h.engine.in_flight() == 0 for h in srv.hosts)
+                    and len(flat) == len(set(flat)) and versions
+                    and {h.epoch for h in srv.hosts} == {stats.final_epoch}))
+
+
+def swap_log(stats) -> list:
+    return [dict(epoch=r.epoch, voters=list(r.voters), signals=list(r.signals), mode=r.mode,
+                 merged_rows=r.merged_rows, committed=r.committed, aborted_by=r.aborted_by,
+                 fenced=list(r.fenced), initiated_by=r.initiated_by, lag_records=r.lag_records,
+                 reopt_ms=r.reopt_ms, consensus_ms=r.consensus_ms) for r in stats.swap_log]
+
+
+def same_swaps(a: list, b: list) -> bool:
+    """Two swap logs agree on every decision (the wall-clock ms aside)."""
+    keys = ("epoch", "voters", "signals", "mode", "merged_rows", "committed", "aborted_by",
+            "fenced", "initiated_by")
+    return [{k: r[k] for k in keys} for r in a] == [{k: r[k] for k in keys} for r in b]
+
+
+def run_fleet(plan, streams, dev, *, transport: str = "inline", worker_spec=None,
+              **kw) -> dict:
+    """Build a ``ShardedCascadeServer`` of ``plan`` with phase 16's
+    settings and serve ``streams`` (``serve_fleet``), timing the build."""
+    from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.serving.stats import AdaptivePolicy
+
+    t0 = time.perf_counter()
+    srv = ShardedCascadeServer(plan, FLEET["hosts"], tile=FLEET["tile"], seed=0,
+                               policy=AdaptivePolicy(audit_rate=FLEET["audit_rate"]),
+                               transport=transport, worker_spec=worker_spec, device=dev, **kw)
+    return serve_fleet(srv, streams, dev, start_s=time.perf_counter() - t0)
+
+
+def serve_fleet(srv, streams, dev, *, start_s: float = 0.0) -> dict:
+    """One run of the fleet ``srv`` over ``streams`` (version tracking on),
+    with ``cascade_score``'s count set to 0 just before and read just
+    after; returns the server, its stats, the launches, the submitted tiles
+    (one a chunk: ``FLEET["chunk"]`` is at most every scorer's tile), the
+    seconds to build the fleet and to serve, and the checks' inputs."""
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    try:
+        for h in srv.hosts:
+            h.track_versions = True
+        cascade_score.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        stats = srv.run_streams([s.x for s in streams], chunk=FLEET["chunk"])
+        sync(dev)
+        serve_s = time.perf_counter() - t0
+        launches = cascade_score.launches
+    finally:
+        srv.close()
+    tiles = [-(-len(s.x) // FLEET["chunk"]) for s in streams]
+    return dict(srv=srv, stats=stats, launches=launches, tiles=tiles, start_s=start_s,
+                serve_s=serve_s, conservation=fleet_conservation(srv, stats),
+                swap_log=swap_log(stats), emitted=[list(h.engine.emitted) for h in srv.hosts])
+
+
+def check_fleet_run(name: str, run: dict, dev, *, workers: bool = False) -> None:
+    """Exact conservation, and one launch a submitted tile (on the CPU,
+    where the plain route runs, none): summed over the hosts, or with
+    ``workers`` each worker's own count against its own tiles."""
+    cons = run["conservation"]
+    check(cons["ok"], f"{name}: conservation {cons}")
+    on_card = dev.type == "cuda"
+    if workers:
+        got = [h.engine.launches for h in run["srv"].hosts]
+        want = run["tiles"] if on_card else [0] * len(got)
+        check(got == want, f"{name}: worker launches {got} for tiles {run['tiles']}")
+    else:
+        want = sum(run["tiles"]) if on_card else 0
+        check(run["launches"] == want,
+              f"{name}: {run['launches']} cascade_score launches for {sum(run['tiles'])} tiles")
+
+
+def fleet_summary(run: dict) -> dict:
+    st = run["stats"]
+    committed = [r for r in run["swap_log"] if r["committed"]]
+    return dict(records=st.submitted, emitted=st.emitted, rejected=st.rejected,
+                votes_cast=st.votes_cast, swaps_committed=st.swaps_committed,
+                swaps_aborted=st.swaps_aborted, final_epoch=st.final_epoch,
+                failovers=st.failovers, failover_resolution=st.failover_resolution,
+                fences=st.fences, resyncs=st.resyncs, launches=run["launches"],
+                tiles=sum(run["tiles"]), start_s=run["start_s"], serve_s=run["serve_s"],
+                records_per_s=st.submitted / run["serve_s"],
+                consensus_ms_per_swap=[r["consensus_ms"] for r in committed],
+                reopt_ms_per_swap=[r["reopt_ms"] for r in committed],
+                conservation=run["conservation"], swap_log=run["swap_log"])
+
+
+def run_fleet_path(dev, workload, n_records: int) -> dict:
+    """The fleet through ``CoreSession.serve(hosts=4)``: phase 11's
+    workload and query, its plan optimized with ``keep_state=True``, four
+    inline hosts on ``bench_sharded.py``'s skewed drift (n_records / 4 a
+    host, boundary at a quarter), tile 1024, ``AdaptivePolicy(audit_rate=
+    0.015)``: a committed quorum swap, every host at the final epoch, exact
+    conservation, one launch a submitted tile, and served accuracy against
+    ORIG over the union of the streams at least A - 0.05.  Returns the
+    phase's numbers, the seed plan (a copy taken before the run: the
+    coordinator's re-optimizations advance the plan's B&B state) and the
+    streams, for phases 17-19."""
+    from repro_torch.core import (CoreSession, OptimizeOptions, ServeConfig, execute_plan,
+                                  orig_plan)
+    from repro_torch.data.synthetic import make_query
+    from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.serving.stats import AdaptivePolicy
+
+    prof = SERVING
+    t_phase = time.perf_counter()
+    ds, udfs, k = workload
+    q = make_query(ds, udfs, columns=list(range(prof["preds"])), target_selectivity=0.5,
+                   accuracy_target=prof["accuracy"], seed=1)
+    streams = fleet_streams(ds, n_records // FLEET["hosts"])
+    session = CoreSession(options=OptimizeOptions(mode="core"), device=dev)
+    handle = session.register_query(q, ds.x[:k])
+    t0 = time.perf_counter()
+    srv = session.serve(hosts=FLEET["hosts"], config=ServeConfig(tile=FLEET["tile"]),
+                        policy=AdaptivePolicy(audit_rate=FLEET["audit_rate"]))
+    optimize_s = time.perf_counter() - t0
+    check(isinstance(srv, ShardedCascadeServer), f"serve(hosts=4) built a {type(srv).__name__}")
+    check("bnb" in handle.plan.meta or "builder" in handle.plan.meta,
+          "serve(hosts=4) optimized without keep_state")
+    seed_plan = copy.deepcopy(handle.plan)
+    run = serve_fleet(srv, streams, dev)
+    stats = run["stats"]
+    x_all = np.concatenate([s.x for s in streams])
+    orig_set = set(execute_plan(orig_plan(q), x_all, device=dev).passed.tolist())
+    served_acc = sum(1 for e in run["emitted"] for i in e if i in orig_set) / max(len(orig_set), 1)
+    out = dict(fleet_summary(run), hosts=FLEET["hosts"], transport="inline",
+               per_host_records=[len(s.x) for s in streams], boundary=streams[0].boundary,
+               drift_scales=[s.meta["drift_scale"] for s in streams], optimize_s=optimize_s,
+               served_accuracy=served_acc, accuracy_floor=prof["accuracy"] - 0.05,
+               seconds=time.perf_counter() - t_phase)
+    emit("fleet_path", **out)
+    check(stats.swaps_committed >= 1, f"no committed quorum swap ({stats.votes_cast} votes)")
+    check_fleet_run("fleet_path", run, dev)
+    check(served_acc >= prof["accuracy"] - 0.05, f"fleet served accuracy {served_acc:.4f}")
+    out["run"] = run
+    out["fleet"] = (q, seed_plan, streams)
+    return out
+
+
+def run_fleet_thread(dev, fleet, inline: dict) -> dict:
+    """Phase 16's streams with one thread a host: the swap log (epoch,
+    voters, signals, mode, merged rows) and each host's emitted list equal
+    the inline run's, and one launch a submitted tile."""
+    q, seed_plan, streams = fleet
+    t_phase = time.perf_counter()
+    run = run_fleet(copy.deepcopy(seed_plan), streams, dev, transport="thread")
+    same_log = same_swaps(run["swap_log"], inline["swap_log"])
+    same_emitted = run["emitted"] == inline["emitted"]
+    out = dict(fleet_summary(run), transport="thread", swap_log_equals_inline=same_log,
+               emitted_equals_inline=same_emitted, seconds=time.perf_counter() - t_phase)
+    emit("fleet_thread", **out)
+    check_fleet_run("fleet_thread", run, dev)
+    check(same_log, "fleet_thread: the swap log differs from the inline run's")
+    check(same_emitted, "fleet_thread: a host's emitted list differs from the inline run's")
+    return out
+
+
+def udf_training_repeats(ds, dev) -> bool:
+    """One UDF (column 0, the serve CLI's widths) trained twice on ``dev``
+    from the same seed: bit for bit the same weights?"""
+    from repro_torch.data.synthetic import _train_udf_model
+
+    prof = SERVING
+    idx = np.random.RandomState(0).choice(ds.n, min(prof["udf_train_rows"], ds.n), replace=False)
+    runs = [_train_udf_model(ds.x[idx], ds.truth[idx, 0], ds.n_classes[0], prof["udf_hidden"],
+                             prof["udf_depth"], 0, device=dev) for _ in range(2)]
+    return all(torch.equal(a, b) for la, lb in zip(*runs) for a, b in zip(la, lb))
+
+
+def run_fleet_process(dev, workload, fleet, n_records: int) -> dict:
+    """Four worker processes (``python -m repro_torch.distributed.
+    procworker``), each rebuilding phase 11's workload from its seeds on
+    ``dev``, over a shorter run of the same generator (n_records / 4 a
+    host): a committed swap, conservation, every worker's drain reply on
+    ``dev`` with one launch a tile of its own, and the swap log and emitted
+    sets equal to an inline run on the same streams; the worker start
+    seconds, and whether one UDF trains bit for bit the same twice."""
+    ds, _udfs, _k = workload
+    q, seed_plan, _ = fleet
+    prof = SERVING
+    t_phase = time.perf_counter()
+    streams = fleet_streams(ds, n_records // FLEET["hosts"])
+    spec = {"dataset": dict(n=ds.n, correlation=prof["correlation"], seed=0),
+            "udfs": dict(hidden=prof["udf_hidden"], depth=prof["udf_depth"],
+                         train_rows=prof["udf_train_rows"], seed=0,
+                         declared_cost_ms=prof["declared_cost_ms"]),
+            "query": dict(columns=list(range(prof["preds"])), target_selectivity=0.5,
+                          accuracy_target=prof["accuracy"], seed=1)}
+    repeats = udf_training_repeats(ds, dev)
+    inline = run_fleet(copy.deepcopy(seed_plan), streams, dev)
+    run = run_fleet(copy.deepcopy(seed_plan), streams, dev, transport="process",
+                    worker_spec=spec)
+    workers = [dict(device=h.engine.device, launches=h.engine.launches, start_s=h.start_s)
+               for h in run["srv"].hosts]
+    same_log = same_swaps(run["swap_log"], inline["swap_log"])
+    same_emitted = [set(e) for e in run["emitted"]] == [set(e) for e in inline["emitted"]]
+    out = dict(fleet_summary(run), transport="process", per_host_records=[len(s.x) for s in streams],
+               workers=workers, worker_start_s=run["start_s"],
+               parent_launches=run["launches"], udf_training_bitwise_repeatable=repeats,
+               swap_log_equals_inline=same_log, emitted_sets_equal_inline=same_emitted,
+               inline_swap_log=inline["swap_log"], seconds=time.perf_counter() - t_phase)
+    out["launches"] = sum(w["launches"] for w in workers)  # the workers' own counts
+    emit("fleet_process", **out)
+    check(run["stats"].swaps_committed >= 1, "fleet_process: no committed swap")
+    check(all(w["device"] is not None and torch.device(w["device"]).type == dev.type
+              for w in workers), f"fleet_process: worker devices {workers}")
+    check_fleet_run("fleet_process", run, dev, workers=True)
+    check(run["launches"] == 0, f"fleet_process: {run['launches']} launches in the parent")
+    check(same_log, "fleet_process: the swap log differs from the inline run's")
+    check(same_emitted, "fleet_process: the emitted sets differ from the inline run's")
+    return out
+
+
+FAULT_CASES = (  # (name, ShardedCascadeServer keywords)
+    ("kill_prepare", dict(kill_coordinator_at="prepare")),
+    ("kill_commit", dict(kill_coordinator_at="commit")),
+    ("kill_mid_commit", dict(kill_coordinator_at="mid-commit")),
+    ("straggler_fence", dict(straggler_host=0, straggler_policy="fence")),
+    ("straggler_nack", dict(straggler_host=0, straggler_policy="nack")),
+)
+
+
+def fault_resolution_ok(name: str, st, log: list) -> bool:
+    """The resolution the JAX package's tests expect of each injection."""
+    if name == "kill_prepare":
+        return st.failovers == 1 and st.failover_resolution == "aborted"
+    if name in ("kill_commit", "kill_mid_commit"):
+        return st.failovers == 1 and st.failover_resolution in ("completed", "resync")
+    if name == "straggler_fence":
+        fenced = [r for r in log if r["committed"] and r["fenced"]]
+        return st.fences == 1 and st.resyncs == 1 and bool(fenced) and fenced[0]["fenced"] == [0]
+    aborted = [r for r in log if not r["committed"]]
+    return st.fences == 0 and bool(aborted) and aborted[0]["aborted_by"] == 0
+
+
+def run_fleet_faults(dev, workload, fleet, n_records: int) -> dict:
+    """Inline, four hosts, n_records / 4 a host of the same generator: the
+    primary coordinator killed in ``prepare`` (the standby aborts), at
+    ``commit`` and ``mid-commit`` (it completes or re-syncs), and host 0
+    silent through the first prepare barrier under ``fence`` (one fence,
+    one re-sync, ``fenced [0]`` on the swap) and ``nack`` (the swap
+    aborts); each run conserves exactly with one launch a tile."""
+    ds, _udfs, _k = workload
+    _q, seed_plan, _ = fleet
+    t_phase = time.perf_counter()
+    streams = fleet_streams(ds, n_records // FLEET["hosts"])
+    runs, launches = {}, 0
+    for name, kw in FAULT_CASES:
+        run = run_fleet(copy.deepcopy(seed_plan), streams, dev, **kw)
+        launches += run["launches"]
+        st = run["stats"]
+        runs[name] = dict(fleet_summary(run),
+                          resolution_ok=fault_resolution_ok(name, st, run["swap_log"]))
+        runs[name]["run"] = run
+    out = dict(hosts=FLEET["hosts"], per_host_records=[len(s.x) for s in streams],
+               cases={n: {k: v for k, v in r.items() if k != "run"} for n, r in runs.items()},
+               launches=launches, tiles=sum(sum(r["run"]["tiles"]) for r in runs.values()),
+               seconds=time.perf_counter() - t_phase)
+    emit("fleet_faults", **out)
+    for name, r in runs.items():
+        check(r["resolution_ok"], f"fleet_faults {name}: failovers {r['failovers']} "
+              f"({r['failover_resolution']}), fences {r['fences']}, resyncs {r['resyncs']}, "
+              f"swaps {r['swap_log']}")
+        check_fleet_run(f"fleet_faults {name}", r["run"], dev)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
@@ -2117,6 +2456,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plan-cache-records", type=int, default=PLAN_CACHE_RECORDS,
                     help="held-out and drifting records of the plan-cache path "
                          "(default 262,144)")
+    ap.add_argument("--fleet-records", type=int, default=FLEET["records"],
+                    help="records over all hosts of the fleet's inline and thread "
+                         "paths (default 1,048,576); the process path takes 1/8 of "
+                         "it, each fault injection 1/4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2226,7 +2569,11 @@ def main(argv=None) -> int:
     multiquery = run_multiquery_path(dev, workload, args.multiquery_records)
     frontend = run_frontend_path(dev, workload, args.frontend_records)
     plan_cache = run_plan_cache_path(dev, workload, args.plan_cache_records)
-    del workload
+    fleet = run_fleet_path(dev, workload, args.fleet_records)
+    fleet_thread = run_fleet_thread(dev, fleet["fleet"], fleet.pop("run"))
+    fleet_process = run_fleet_process(dev, workload, fleet["fleet"], args.fleet_records // 8)
+    fleet_faults = run_fleet_faults(dev, workload, fleet["fleet"], args.fleet_records // 4)
+    del workload, fleet["fleet"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
@@ -2237,7 +2584,11 @@ def main(argv=None) -> int:
                              "multiquery_path": multiquery["launches"],
                              "frontend_path": frontend["launches"],
                              "artifact_path": artifacts["launches"],
-                             "plan_cache_path": plan_cache["launches"]},
+                             "plan_cache_path": plan_cache["launches"],
+                             "fleet_path": fleet["launches"],
+                             "fleet_thread": fleet_thread["launches"],
+                             "fleet_process": fleet_process["launches"],
+                             "fleet_faults": fleet_faults["launches"]},
         "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "max_abs_err")}
                            for r in (serving["timing"], multiquery["timing"])],

@@ -8,15 +8,15 @@ proxies online on the optimization sample and searches the plan,
 ``ServeConfig`` carries the serving knobs that ``CoreSession.serve`` and
 the ``launch/serve.py`` CLI share; ``CoreSession`` registers N queries,
 optimizes each, and serves them: one query through ``CascadeServer`` (or
-the SLO front end), several through ``MultiQueryEngine``.  Proxies train
-and score on ``device`` (CUDA by default; raises without a card).  A
-session, a query or a server may take a cross-query plan cache
-(``core/plan_cache.py``): queries optimize through it, servers write their
-committed plans back to it.
+the SLO front end), across K hosts through ``ShardedCascadeServer`` (the
+fleet, ``distributed/serving.py``), several queries through
+``MultiQueryEngine``.  Proxies train and score on ``device`` (CUDA by
+default; raises without a card).  A session, a query or a server may take
+a cross-query plan cache (``core/plan_cache.py``): queries optimize through
+it, servers write their committed plans back to it.
 
-Not ported yet, and refused rather than ignored: serving across hosts
-(ROADMAP item 10).  Serving modules are imported inside methods: ``core``
-does not depend on ``serving`` at import time (serving imports core).
+Serving modules are imported inside methods: ``core`` does not depend on
+``serving`` or ``distributed`` at import time (both import core).
 """
 from __future__ import annotations
 
@@ -246,27 +246,6 @@ def rebuild_plan(
 
 
 # --------------------------------------------------------------- serving API
-#: ``ServeConfig`` fields that only serving across hosts (the fleet) reads
-FLEET_FIELDS = ("transport", "drift_skew", "kill_coordinator_at", "straggler_host")
-
-
-def reject_fleet(cfg: "ServeConfig") -> None:
-    """Serving across hosts (the fleet) is not ported yet: refuse
-    ``hosts > 1``, and any fleet-only knob set away from its default,
-    rather than serve on one host and ignore them."""
-    if cfg.hosts > 1:
-        raise NotImplementedError(
-            f"serving across {cfg.hosts} hosts is not ported to repro_torch yet "
-            "(ROADMAP item 10, the fleet); use hosts=1")
-    default = ServeConfig()
-    set_ = [f for f in FLEET_FIELDS if getattr(cfg, f) != getattr(default, f)]
-    if set_:
-        raise NotImplementedError(
-            f"{', '.join(set_)} configure serving across hosts, which is not "
-            "ported to repro_torch yet (ROADMAP item 10, the fleet); leave "
-            "them at their defaults")
-
-
 @dataclass
 class ServeConfig:
     """Serving knobs, shared between ``CoreSession.serve`` and the
@@ -275,13 +254,12 @@ class ServeConfig:
     ``queries_path`` points at a multi-query JSON spec served through one
     ``CoreSession``.  ``plan_cache_path`` names the serve CLI's plan-cache
     file (only the CLI reads it; a session takes a ``PlanCache`` object).
-    ``hosts > 1`` (with ``FLEET_FIELDS``: ``transport``,
-    ``kill_coordinator_at``, ``straggler_host``, ``drift_skew``) are the
-    fleet's knobs, kept so a config round-trips; serving refuses any of
-    them set away from its default until the fleet is ported (ROADMAP
-    item 10).  There is no switch around the scorer: every proxied stage
-    is scored by ``cascade_score`` on a card, by its plain route on the
-    CPU."""
+    ``hosts > 1`` serves across K simulated hosts (the fleet), with
+    ``transport``, ``kill_coordinator_at`` and ``straggler_host``;
+    ``drift_skew`` shapes the serve CLI's sharded drifting streams.  With
+    ``hosts == 1`` the fleet's knobs are left unread.  There is no switch
+    around the scorer: every proxied stage is scored by ``cascade_score``
+    on a card, by its plain route on the CPU."""
 
     tile: int = 1024
     adaptive: bool = False
@@ -357,8 +335,9 @@ class CoreSession:
 
     ``register_query`` hands out ``QueryHandle``s; ``serve()`` builds the
     serving stack once every query is registered: a single query goes to
-    ``CascadeServer`` or, with an SLO, ``ServingFrontEnd``; several queries
-    go to the shared ``MultiQueryEngine`` (one stacked scorer, cross-query
+    ``CascadeServer``, ``ShardedCascadeServer`` (``hosts > 1``) or, with an
+    SLO, ``ServingFrontEnd``; several queries go to the shared
+    ``MultiQueryEngine`` (one stacked scorer, cross-query
     UDF dedupe, weighted-fair scheduling).  ``submit`` / ``run_stream`` /
     ``query_stats`` then route through whichever stack was built.  Plans
     are built and scored on ``device`` (CUDA by default; raises without a
@@ -406,25 +385,36 @@ class CoreSession:
         return plans
 
     # -------------------------------------------------------------- serving
-    def serve(self, *, hosts: Optional[int] = None, slo: Optional[float] = None,
-              config: Optional[ServeConfig] = None, policy=None):
+    def serve(self, *, transport: Optional[str] = None, hosts: Optional[int] = None,
+              slo: Optional[float] = None, config: Optional[ServeConfig] = None,
+              policy=None, worker_spec=None):
         """Build the serving stack for the registered queries.  The keyword
         shortcuts override ``config`` fields; both roads lead to the same
         ``ServeConfig``.  Returns the server (also kept on ``self.server``);
         drive it with ``submit``/``run_stream`` here or use its own
-        interface."""
+        interface.  ``hosts > 1`` builds a ``ShardedCascadeServer`` on the
+        session's device (its plan keeps builder state so the coordinator's
+        re-optimizations warm-start); ``worker_spec`` is the seeds the
+        process transport's workers rebuild the workload from."""
         if not self.handles:
             raise RuntimeError("serve() with no registered query")
         if self.server is not None:
             raise RuntimeError("serve() already built a server")
         cfg = config or ServeConfig()
+        if transport is not None:
+            cfg = cfg.replace(transport=transport)
         if hosts is not None:
             cfg = cfg.replace(hosts=hosts)
         if slo is not None:
             cfg = cfg.replace(slo_ms=slo)
-        reject_fleet(cfg)
-        self.optimize_all(keep_state=True if cfg.adaptive else None)
+        needs_state = cfg.adaptive or cfg.hosts > 1
+        self.optimize_all(keep_state=True if needs_state else None)
         if len(self.handles) > 1:
+            if cfg.hosts > 1:
+                raise ValueError(
+                    "multi-query sharded serving is not wired yet "
+                    "(ROADMAP follow-up); serve each tenant fleet "
+                    "separately or use hosts=1")
             from repro_torch.serving.multiquery import MultiQueryEngine
 
             self.server = MultiQueryEngine(
@@ -432,10 +422,20 @@ class CoreSession:
                 seed=cfg.seed, plan_cache=self.plan_cache, device=self.device)
             self._multi = True
             return self.server
-        from repro_torch.serving.engine import CascadeServer
-
         h = self.handles[0]
         slo_ms = cfg.slo_ms if cfg.slo_ms is not None else h.slo
+        if cfg.hosts > 1:
+            from repro_torch.distributed.serving import ShardedCascadeServer
+
+            self.server = ShardedCascadeServer(
+                h.plan, cfg.hosts, tile=cfg.tile, seed=cfg.seed,
+                policy=policy, transport=cfg.transport,
+                kill_coordinator_at=cfg.kill_coordinator_at,
+                straggler_host=cfg.straggler_host, worker_spec=worker_spec,
+                slo_ms=slo_ms, plan_cache=h.plan_cache, device=self.device)
+            return self.server
+        from repro_torch.serving.engine import CascadeServer
+
         engine = CascadeServer(h.plan, tile=cfg.tile, adaptive=cfg.adaptive,
                                policy=policy, seed=cfg.seed, plan_cache=h.plan_cache,
                                device=self.device)

@@ -19,7 +19,10 @@ On the card one launch does all of it, the survivor scan and compaction
 included (a decoupled look-back across the kernel's blocks): no PyTorch op
 runs before or after it.  The look-back's scratch, kept per stream, is a
 ticket counter and a buffer of status words that is zeroed once and never
-cleared again: each call tags its words with a new epoch.  ``launch``
+cleared again: each call tags its words with a new epoch.  Threads may
+launch into one stream (the fleet's thread transport does): a lock per
+stream makes the reservation, the enqueue and the count one critical
+section, so launches enqueue in the order of their tickets.  ``launch``
 takes raw pointers to preallocated outputs, for callers such as
 ``ops.CascadeScorer`` that check their operands once (``KernelOperands``)
 and reuse their buffers.
@@ -34,6 +37,7 @@ whose score ties the threshold at that precision.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -45,6 +49,8 @@ _EPOCH_LIMIT = 1 << 30  # status-word epochs run 1 .. 2^30 - 1
 _LIB = None
 _COLS: dict = {}  # (columns, device) -> int32 index tensor on that device
 _LOOKBACK: dict = {}  # (device index, stream) -> _LookBack
+_LOOKBACK_LOCK = threading.Lock()  # guards _LOOKBACK itself
+_COUNT_LOCK = threading.Lock()  # guards launches without compaction
 _SMEM: dict = {}  # (F, HP, P, int8, device) -> (shared memory needed, allowed)
 
 
@@ -157,6 +163,8 @@ class _LookBack:
 
     def __init__(self, device):
         self.device = device
+        # held from ``reserve`` through the enqueue and the count
+        self.lock = threading.Lock()
         self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
         self.ticket_ptr = self.ticket.data_ptr()
         self.status = torch.zeros(0, dtype=torch.int64, device=device)
@@ -198,25 +206,39 @@ def launch(ops: KernelOperands, x_ptr: int, N: int, n_valid: int, scores_ptr, ma
     has checked every operand."""
     lib = _LIB or _lib()
     stream = torch.cuda.current_stream(ops.device).cuda_stream
+    w1, b1, w2, b2, thr, out_scale = ops.ptrs
     if counts_ptr is None:
-        status = ticket = None
-        base = epoch = 0
-    else:
-        key = (ops.device.index, stream)
+        # no look-back scratch: only the count is shared
+        rc = lib.cascade_score_launch(
+            x_ptr, w1, b1, w2, b2, thr, out_scale, ops.int8, N, ops.F, ops.HP, ops.P,
+            int(n_valid), scores_ptr, mask_ptr, None, None, None, C, None, None, 0, 0,
+            stream)
+        _raise_on(rc, "cascade_score launch")
+        with _COUNT_LOCK:
+            cascade_score.launches += 1
+        return
+    key = (ops.device.index, stream)
+    with _LOOKBACK_LOCK:
         lb = _LOOKBACK.get(key)
         if lb is None:
             lb = _LOOKBACK[key] = _LookBack(ops.device)
+    # the ctypes call releases the GIL: without the lock, two threads could
+    # enqueue in the opposite order to their tickets, or share an epoch
+    with lb.lock:
         status, ticket, base, epoch = lb.reserve(-(-N // ROWS_PER_BLOCK), ops.P)
-    w1, b1, w2, b2, thr, out_scale = ops.ptrs
-    rc = lib.cascade_score_launch(
-        x_ptr, w1, b1, w2, b2, thr, out_scale, ops.int8, N, ops.F, ops.HP, ops.P,
-        int(n_valid), scores_ptr, mask_ptr, counts_ptr, packed_ptr, cols_ptr, C, status,
-        ticket, base, epoch, stream)
-    if rc != 0 and counts_ptr is not None:
-        # no block drew a ticket, so the counter is behind this scratch's base
-        del _LOOKBACK[(ops.device.index, stream)]
+        rc = lib.cascade_score_launch(
+            x_ptr, w1, b1, w2, b2, thr, out_scale, ops.int8, N, ops.F, ops.HP, ops.P,
+            int(n_valid), scores_ptr, mask_ptr, counts_ptr, packed_ptr, cols_ptr, C, status,
+            ticket, base, epoch, stream)
+        if rc != 0:
+            # no block drew a ticket, so the counter is behind this scratch's base
+            with _LOOKBACK_LOCK:
+                if _LOOKBACK.get(key) is lb:
+                    del _LOOKBACK[key]
+        else:
+            with _COUNT_LOCK:
+                cascade_score.launches += 1
     _raise_on(rc, "cascade_score launch")
-    cascade_score.launches += 1
 
 
 def cascade_score_plain(x, w1, b1, w2, b2, thresholds, n_valid, *, out_scale=None,

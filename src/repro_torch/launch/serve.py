@@ -17,10 +17,13 @@ optimizes through the cross-query plan cache persisted at PATH (a COREPLNC
 file either package reads, DESIGN.md §8): an exact repeat replays the
 cached artifact (HIT), a similar query warm-starts (WARM), anything else
 builds COLD, and the servers' committed plans are written back and saved.
-``--hosts K`` with K > 1 and the fleet-only flags (``--drift-skew``,
-``--transport``, ``--kill-coordinator-at``, ``--straggler-host``; the
-fleet is ROADMAP item 10) are not ported yet: set away from their
-defaults, they exit with an error instead of being ignored.
+``--hosts K`` (with K > 1) shards the stream across K simulated hosts with
+quorum-voted global plan swaps (DESIGN.md §6), every host on ``--device``:
+per-shard drift magnitudes are skewed (``--drift-skew``), so single-host
+detectors disagree and the quorum is load-bearing; ``--transport`` picks
+inline hosts, one thread per host or one OS process per host, and
+``--kill-coordinator-at`` / ``--straggler-host`` inject a primary
+coordinator's death and a silent host.
 
 Every CLI flag maps onto a typed config field via ``FLAG_MAP`` — the
 parser is a thin veneer over ``(WorkloadConfig, OptimizeOptions,
@@ -47,11 +50,11 @@ from repro_torch.core import (
     orig_plan,
     pp_plan,
 )
-from repro_torch.core.api import reject_fleet
 from repro_torch.data.synthetic import (
     make_dataset,
     make_drifting_stream,
     make_query,
+    make_sharded_drifting_streams,
     make_udfs,
 )
 from repro_torch.serving.engine import CascadeServer
@@ -144,21 +147,25 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="serve a drifting stream (selectivity + correlation shift)")
     ap.add_argument("--hosts", type=int, default=1,
                     help="shard serving across K simulated hosts with "
-                         "quorum-voted plan swaps; K > 1 is not ported yet "
-                         "(ROADMAP item 10) and exits with an error")
+                         "quorum-voted plan swaps (K > 1 implies adaptive)")
     ap.add_argument("--drift-skew", type=float, default=0.3,
-                    help="per-shard drift magnitude skew (the fleet, not "
-                         "ported yet: a non-default value exits with an error)")
+                    help="per-shard drift magnitude skew (multi-host only)")
     ap.add_argument("--transport", default="inline",
                     choices=["inline", "thread", "process"],
-                    help="multi-host transport (the fleet, not ported yet: "
-                         "a non-default value exits with an error)")
+                    help="multi-host transport: same-thread objects, one "
+                         "worker thread per host, or one OS subprocess per "
+                         "host (COREWIRE + newline-JSON control pipes), each "
+                         "on --device")
     ap.add_argument("--kill-coordinator-at", default=None,
-                    help="fleet failure injection (not ported yet: exits "
-                         "with an error)")
+                    help="failure injection: kill the primary coordinator "
+                         "at 'prepare' | 'commit' | 'mid-commit' (phases "
+                         "of an in-flight swap) or an integer submitted-"
+                         "record count; the standby takes over on "
+                         "heartbeat loss (DESIGN.md §6 failure model)")
     ap.add_argument("--straggler-host", type=int, default=None,
-                    help="fleet failure injection (not ported yet: exits "
-                         "with an error)")
+                    help="failure injection: this host misses the first "
+                         "prepare barrier; the fleet commits without it "
+                         "(serve-behind fencing) and re-syncs it on rejoin")
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="serve through the SLO-aware request front end "
                          "(DESIGN.md §7): the stream becomes deadline-"
@@ -221,10 +228,6 @@ def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     cfg = config_from_args(args)
     wl, opt, sv = cfg.workload, cfg.optimize, cfg.serve
-    try:
-        reject_fleet(sv)
-    except NotImplementedError as e:
-        raise SystemExit(f"repro_torch.launch.serve: {e}")
     dev = resolve_device(wl.device)
 
     ds = make_dataset(n=wl.n, correlation=wl.correlation, seed=wl.seed)
@@ -253,13 +256,16 @@ def main(argv=None):
     elif wl.mode == "pp":
         plan = pp_plan(q, ds.x[:k], kind=opt.kind, device=dev)
     else:
-        build_opts = opt.replace(keep_state=sv.adaptive)
+        # K > 1 implies the adaptive loop: the coordinator's quorum
+        # re-optimizations need the builder/B&B state to warm-start
+        keep = sv.adaptive or sv.hosts > 1
+        build_opts = opt.replace(keep_state=keep)
         if cache is not None:
-            # adaptive serving needs a live builder/B&B on the plan, which
-            # an exact-hit wire replay cannot carry: it takes the warm path
-            # instead of the HIT fast path
+            # adaptive/sharded serving needs a live builder/B&B on the
+            # plan, which an exact-hit wire replay cannot carry: it takes
+            # the warm path instead of the HIT fast path
             plan, info = cache.optimize_query(
-                q, ds.x[:k], build_opts, accept_hit=not sv.adaptive, device=dev)
+                q, ds.x[:k], build_opts, accept_hit=not keep, device=dev)
             print(f"plan cache: {info['path'].upper()} "
                   f"(distance {info['distance']:.4f}, "
                   f"build {info['build_ms']:.0f} ms)")
@@ -271,6 +277,11 @@ def main(argv=None):
     if any(s.proxy is not None for s in plan.stages):
         print("proxy families:",
               " ".join(s.proxy.family for s in plan.stages if s.proxy is not None))
+
+    if sv.hosts > 1:
+        _serve_sharded(cfg, ds, q, plan, dev, cache)
+        _save_cache(cache, sv)
+        return
 
     if sv.slo_ms is not None:
         _serve_frontend(cfg, ds, plan, k, dev, cache)
@@ -438,6 +449,103 @@ def _serve_frontend(cfg: LaunchConfig, ds, plan, k, dev, cache=None):
     print(f"records: {st.records_submitted} submitted -> "
           f"{st.records_emitted} emitted + {st.records_rejected} "
           f"rejected; conservation {'OK' if ok else 'VIOLATED: ' + msg}")
+
+
+def _serve_sharded(cfg: LaunchConfig, ds, q, plan, dev, cache=None):
+    """K-host sharded serving with quorum-voted swaps (DESIGN.md §6),
+    every host (and every process worker) on ``dev``."""
+    from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.serving.stats import AdaptivePolicy
+
+    wl, sv = cfg.workload, cfg.serve
+    if not any(s.proxy is not None for s in plan.stages):
+        raise SystemExit(
+            f"--hosts {sv.hosts} needs a proxied plan: quorum swaps "
+            f"broadcast the packed scorer artifact, which mode="
+            f"{wl.mode!r} does not produce")
+
+    K = sv.hosts
+    per_host = max(wl.n // (2 * K), 1500)
+    if sv.drift:
+        streams = make_sharded_drifting_streams(
+            ds, K, max(per_host // 4, 500), per_host,
+            shift_targets={c: (2.8 if c != 1 else -2.6)
+                           for c in range(wl.preds)},
+            corr_gain=2.5, drift_skew=sv.drift_skew, seed=sv.seed,
+        )
+        xs = [s.x for s in streams]
+        print(f"{K} drifting shards x {[s.n for s in streams]} records, "
+              f"drift scales "
+              f"{[round(s.meta['drift_scale'], 2) for s in streams]}")
+    else:
+        k0 = max(1000, int(0.05 * wl.n))
+        held = ds.x[k0:]
+        xs = [held[i::K] for i in range(K)]
+        print(f"{K} shards x {[len(x) for x in xs]} held-out records")
+    # demo-scale detector sensitivity: per-shard streams are short, so the
+    # default (production-length) CUSUM/audit budgets would never freeze a
+    # baseline before the stream ends
+    policy = AdaptivePolicy(audit_rate=0.03, threshold=50.0,
+                            min_reservoir=128, cooldown_records=1024,
+                            reservoir_capacity=512)
+    kill_at = sv.kill_coordinator_at
+    if kill_at is not None and kill_at not in ("prepare", "commit",
+                                               "mid-commit"):
+        kill_at = int(kill_at)
+    worker_spec = None
+    if sv.transport == "process":
+        worker_spec = {
+            "dataset": dict(n=wl.n, correlation=wl.correlation,
+                            seed=wl.seed),
+            "udfs": dict(hidden=64, depth=2, train_rows=3000,
+                         seed=wl.seed, declared_cost_ms=wl.udf_cost_ms),
+            "query": dict(columns=list(range(wl.preds)),
+                          target_selectivity=0.5,
+                          accuracy_target=wl.accuracy, seed=wl.seed + 1),
+        }
+    srv = ShardedCascadeServer(plan, K, tile=sv.tile, seed=sv.seed,
+                               policy=policy, transport=sv.transport,
+                               kill_coordinator_at=kill_at,
+                               straggler_host=sv.straggler_host,
+                               worker_spec=worker_spec,
+                               slo_ms=sv.slo_ms,
+                               plan_cache=cache, device=dev)
+    stats = srv.run_streams(xs)
+    x_all = np.concatenate(xs)
+    orig_res = execute_plan(orig_plan(q), x_all, device=dev)
+    orig_set = set(orig_res.passed.tolist())
+    emitted_global = [i for host in srv.emitted for i in host]
+    served_acc = (sum(1 for i in emitted_global if i in orig_set)
+                  / max(len(orig_set), 1))
+    print(f"\nserved {stats.submitted} records on {K} hosts in "
+          f"{stats.wall_ms:.0f} ms wall; emitted {stats.emitted} "
+          f"(+{stats.rejected} rejected)")
+    print(f"consensus: {stats.votes_cast} votes -> "
+          f"{stats.swaps_committed} quorum swap(s) "
+          f"(+{stats.swaps_aborted} aborted), final epoch "
+          f"{stats.final_epoch}, protocol overhead "
+          f"{stats.consensus_ms_total:.1f} ms total")
+    if stats.frontend_stats:
+        shed = sum(f.records_shed for f in stats.frontend_stats)
+        print(f"request front end: fleet goodput ratio "
+              f"{stats.fleet_goodput_ratio:.3f} at SLO {sv.slo_ms:.0f} ms "
+              f"(shed-only backpressure; {shed} record(s) shed)")
+    if stats.failovers or stats.fences or stats.resyncs or stats.pooled_swaps:
+        print(f"fault tolerance: {stats.failovers} failover(s) "
+              f"({stats.failover_resolution or 'n/a'}), {stats.fences} "
+              f"fence(s), {stats.resyncs} re-sync(s), "
+              f"{stats.pooled_swaps} pooled-kappa² swap(s)")
+    for r in stats.swap_log:
+        extra = f", fenced {r.fenced}" if r.fenced else ""
+        print(f"  epoch {r.epoch} [{r.initiated_by}]: voters {r.voters} "
+              f"[{', '.join(r.signals)}] -> {r.mode} on {r.merged_rows} "
+              f"merged reservoir rows (reopt {r.reopt_ms:.0f} ms, "
+              f"consensus {r.consensus_ms:.1f} ms{extra})")
+    cp = stats.critical_path_cost_ms
+    print(f"cost model: critical path {cp / max(stats.submitted, 1):.3f} "
+          f"ms/rec aggregate ({stats.aggregate_rows_per_cost_s:.0f} rows/s; "
+          f"ORIG {orig_res.cost_per_record(len(x_all)):.3f} ms/rec); "
+          f"served accuracy {served_acc:.3f}")
 
 
 if __name__ == "__main__":

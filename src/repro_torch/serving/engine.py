@@ -284,16 +284,39 @@ class CascadeServer:
     # -------------------------------------------------- external plan swaps
     def install_plan(self, plan: PhysicalPlan, *, scorer=None,
                      version: Optional[int] = None) -> int:
-        """Hot-swap to an externally decided plan (the front end's degrade
-        ladder, a multi-query session's swap of one tenant): ``scorer`` may
-        be a pre-built ``CascadeScorer``; ``version`` pins the version
-        number.  In-flight entries still finish under the version that
-        scored them.  Returns the installed version."""
+        """Hot-swap to an externally decided plan (multi-host quorum swaps,
+        DESIGN.md §6; the front end's degrade ladder; a multi-query
+        session's swap of one tenant): ``scorer`` may be a pre-built or
+        deserialized ``CascadeScorer``; ``version`` pins the version number
+        (a fleet's global epoch, so every host serves the same version).
+        In-flight entries still finish under the version that scored them.
+        Returns the installed version."""
         self._install(plan, scorer=scorer, version=version)
         self.stats.plan_swaps += 1
         self._last_swap_at = self._records_submitted
         self._drift = None  # stale local trigger: superseded by the swap
         return self._states[-1].version
+
+    def take_drift(self) -> Optional[Tuple[str, float, float]]:
+        """Pop the pending local drift trigger (signal, observed, expected)
+        without re-optimizing — the sharded serving loop turns it into a
+        quorum VOTE instead of a local swap (multi-host quorum swaps).
+        Clearing it re-arms ``_may_trigger`` (cooldown still applies)."""
+        drift, self._drift = self._drift, None
+        return drift
+
+    def reservoir_export(self):
+        """Weighted snapshot of the local reservoir (rows + labels + IPW
+        weights) for coordinator-side merging."""
+        return self._reservoir.export()
+
+    def kappa_export(self):
+        """Cumulative weighted IPW contingency counts per predicate pair
+        (reset at every plan install) — the fleet coordinator sums these
+        across hosts into pooled ``StreamingKappa2`` tables, so
+        correlation evidence too weak for any single shard's guard still
+        escalates at the fleet level (DESIGN.md §6)."""
+        return {pair: k.export() for pair, k in self._kappa.items()}
 
     def has_ready_batch(self, *, drain: bool = False) -> bool:
         """Whether ``pump_one(drain=drain)`` would find work: a
@@ -581,6 +604,12 @@ class CascadeServer:
         mode, _regret = self.policy.choose_escalation(
             self._states[-1].plan, fresh_sels)
         return mode, mode == "bnb"
+
+    def escalation_hint(self) -> Tuple[str, bool]:
+        """Public read of the local escalation decision (mode, escalated)
+        — the sharded serving loop attaches it to a quorum vote instead of
+        acting on it locally."""
+        return self._escalate()
 
     def maybe_reoptimize(self) -> bool:
         """Re-optimize and hot-swap if a drift trigger is pending.  Called

@@ -87,6 +87,50 @@ def test_back_to_back_calls_reset_the_scan(cuda):
             assert bool((pk[ci, rows.numel():] == -1).all())
 
 
+def test_concurrent_launches_one_stream(cuda):
+    """Four threads launch ``cascade_score`` with compaction into one
+    stream, 200 times each, with no synchronise between them (the fleet's
+    thread transport can do so): every launch's masks, survivor lists and
+    counts equal a serial run's on the same inputs, and the counter counts
+    all 800 launches."""
+    import threading
+
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    case = (8192, 8000, 64, 32, 3, "float32", False, None)
+    inputs = [chip_smoke.make_kernel_case(case, cuda, seed=i) for i in range(4)]
+    serial = [cascade_score(x, *w, thr, case[1], out_scale=sc, with_scores=False)
+              for x, w, thr, sc in inputs]
+    torch.cuda.synchronize()
+    before = cascade_score.launches
+    outs = [[] for _ in inputs]
+    errors = []
+    start = threading.Barrier(len(inputs))
+
+    def launch_many(t):
+        x, w, thr, sc = inputs[t]
+        try:
+            start.wait()
+            for _ in range(200):
+                outs[t].append(cascade_score(x, *w, thr, case[1], out_scale=sc,
+                                             with_scores=False))
+        except Exception as e:  # surfaced on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch_many, args=(t,)) for t in range(len(inputs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert cascade_score.launches == before + 800
+    for (_s, mk, pk, ck), runs in zip(serial, outs):
+        assert len(runs) == 200
+        for _s2, m2, p2, c2 in runs:
+            assert torch.equal(c2, ck) and torch.equal(p2, pk) and torch.equal(m2, mk)
+
+
 def _device_ops(fn):
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,3 +512,21 @@ def test_classifiers_trained_on_the_card_move_to_a_cpu_builder(cuda):
     reused = cpu.stats.n_reused
     cpu.get_proxy(0, ())
     assert cpu.stats.n_reused == reused + 1 and cpu.stats.n_trained == 0
+
+
+def test_fleet_paths_short(cuda):
+    """The fleet on the card at a short size: four inline hosts through
+    ``CoreSession.serve(hosts=4)``, the same streams on threads, four
+    worker processes on the card and the five fault injections; each
+    conserves exactly with one ``cascade_score`` launch a submitted tile
+    (each worker's own), and the thread and process runs decide as the
+    inline runs do."""
+    workload = chip_smoke.serving_workload(cuda, 131_072)
+    fleet = chip_smoke.run_fleet_path(cuda, workload, 131_072)
+    assert fleet["swaps_committed"] >= 1 and fleet["launches"] == fleet["tiles"]
+    thread = chip_smoke.run_fleet_thread(cuda, fleet["fleet"], fleet.pop("run"))
+    assert thread["swap_log_equals_inline"] and thread["emitted_equals_inline"]
+    proc = chip_smoke.run_fleet_process(cuda, workload, fleet["fleet"], 65_536)
+    assert all(w["device"].startswith("cuda") for w in proc["workers"])
+    faults = chip_smoke.run_fleet_faults(cuda, workload, fleet["fleet"], 131_072)
+    assert all(c["resolution_ok"] for c in faults["cases"].values())

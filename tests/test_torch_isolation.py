@@ -1,9 +1,11 @@
 """The port stands alone: it imports with ``jax``, ``ml_dtypes`` and the JAX
 package blocked, no module names them even in an import inside a function,
-its artifact path (COREWIRE and the plan cache) runs with them blocked, and
-its CUDA-default entry points raise on a host without a card instead of
+its artifact path (COREWIRE and the plan cache) and its fleet (inline, and
+worker processes blocked the same way) run with them blocked, and its
+CUDA-default entry points raise on a host without a card instead of
 carrying on on the CPU."""
 import ast
+import os
 import shutil
 import subprocess
 import sys
@@ -71,9 +73,44 @@ _BLOCKED_ARTIFACTS = _BLOCK + textwrap.dedent("""
 """)
 
 
-def _run_blocked(code: str) -> subprocess.CompletedProcess:
+# the fleet end to end on the CPU: two inline hosts, then two worker
+# processes (each importing the port afresh) on the same plan and streams
+_BLOCKED_FLEET = _BLOCK + textwrap.dedent("""
+    import torch
+    from repro_torch.core import OptimizeOptions, build_plan
+    from repro_torch.data.synthetic import (make_dataset, make_query,
+                                            make_sharded_drifting_streams, make_udfs)
+    from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.serving.stats import AdaptivePolicy
+
+    torch.set_num_threads(1)  # many small products; the workers take this count too
+    spec = {"dataset": dict(n=3000, n_columns=2, seed=3),
+            "udfs": dict(hidden=8, depth=1, train_rows=600, seed=3, declared_cost_ms=5.0),
+            "query": dict(columns=[0, 1], seed=4)}
+    ds = make_dataset(**spec["dataset"])
+    q = make_query(ds, make_udfs(ds, **spec["udfs"], device="cpu"), **spec["query"])
+    opts = OptimizeOptions(step=0.05, keep_state=True)
+    xs = [s.x for s in make_sharded_drifting_streams(ds, 2, 300, 900,
+                                                      shift_targets={0: 2.8, 1: -2.6},
+                                                      corr_gain=2.5, seed=3)]
+    policy = AdaptivePolicy(audit_rate=0.03, threshold=50.0, min_reservoir=128,
+                            cooldown_records=512, reservoir_capacity=512)
+    for kw in ({}, dict(transport="process", worker_spec=spec, init_timeout_s=120.0)):
+        srv = ShardedCascadeServer(build_plan(q, ds.x[:1000], opts, device="cpu"), 2,
+                                   tile=256, policy=policy, seed=3, device="cpu", **kw)
+        st = srv.run_streams(xs, chunk=300)
+        assert st.submitted == st.emitted + st.rejected == 2400, st
+        assert {h.epoch for h in srv.hosts} == {st.final_epoch}
+        print("fleet ok", kw.get("transport", "inline"), st.votes_cast, st.swaps_committed)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "repro"))
+    assert not leaked, leaked
+""")
+
+
+def _run_blocked(code: str, pythonpath=None) -> subprocess.CompletedProcess:
+    path = [str(p) for p in (pythonpath or [])] + [str(ROOT / "src")]
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                          cwd=ROOT, env={"PYTHONPATH": os.pathsep.join(path),
                                          "PATH": "/usr/bin:/bin"}, timeout=240)
 
 
@@ -107,6 +144,21 @@ def test_artifact_path_runs_without_jax_or_repro():
     assert "artifacts ok True" in proc.stdout
 
 
+def test_fleet_runs_without_jax_or_repro(tmp_path):
+    """A two-host inline fleet and a two-worker process fleet on the CPU
+    with the blocker in the parent; each worker gets it too, from a
+    ``sitecustomize.py`` first on its ``PYTHONPATH`` that also leaves a
+    mark per process, so the test sees it ran in both workers."""
+    (tmp_path / "sitecustomize.py").write_text(_BLOCK + textwrap.dedent(f"""
+        import os
+        open(os.path.join({str(tmp_path)!r}, f"blocked.{{os.getpid()}}"), "w").close()
+    """))
+    proc = _run_blocked(_BLOCKED_FLEET, pythonpath=[tmp_path])
+    assert proc.returncode == 0, proc.stderr
+    assert "fleet ok inline" in proc.stdout and "fleet ok process" in proc.stdout
+    assert len(list(tmp_path.glob("blocked.*"))) == 3  # the parent and both workers
+
+
 def test_port_imports_without_jax_or_repro():
     proc = _run_blocked(_BLOCKED_IMPORT)
     assert proc.returncode == 0, proc.stderr
@@ -116,7 +168,10 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.kernels.ssd_scan", "repro_torch.serving.stats",
                  "repro_torch.serving.engine", "repro_torch.serving.frontend",
                  "repro_torch.serving.multiquery", "repro_torch.launch.serve",
-                 "repro_torch.core.plan_cache", "repro_torch.kernels.ops"):
+                 "repro_torch.core.plan_cache", "repro_torch.kernels.ops",
+                 "repro_torch.distributed.serving", "repro_torch.distributed.consensus",
+                 "repro_torch.distributed.procworker",
+                 "repro_torch.distributed.fault_tolerance"):
         assert name in proc.stdout
 
 
@@ -142,6 +197,7 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.launch import serve
     from repro_torch.serving.engine import CascadeServer
     from repro_torch.serving.multiquery import MultiQueryEngine
+    from repro_torch.distributed.serving import ShardedCascadeServer
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
     udfs = make_udfs(ds, hidden=8, depth=1, train_rows=200, seed=0, declared_cost_ms=1.0,
@@ -174,6 +230,7 @@ def test_cuda_default_entry_points_raise_without_a_card():
         "CascadeServer": lambda: CascadeServer(orig_plan(query)),
         "CoreSession": lambda: CoreSession(),
         "MultiQueryEngine": lambda: MultiQueryEngine([]),
+        "ShardedCascadeServer": lambda: ShardedCascadeServer(plan),
         "serve.main": lambda: serve.main(["--n", "2000"]),
         "deserialize_scorer": lambda: deserialize_scorer(blob, query),
         "quant_parity_report": lambda: quant_parity_report(plan, x),

@@ -3,9 +3,10 @@ package: ``CascadeScorer.score_margins`` and ``from_plans`` on the same
 plans (carried across with ``interop.physical_plan``), ``MultiQueryEngine``
 emissions against isolated ``CascadeServer`` twins across a mid-stream
 swap of one tenant, the weighted-fair scheduler's cases, ``CoreSession``
-dispatch with its refusals (the fleet is not ported) and its plan cache,
-and the serve CLI's flag round trip, its refusals and its ``--plan-cache``
-runs.
+dispatch (one host, the fleet, several queries; the JAX package's refusal
+of a multi-query fleet) and its plan cache, and the serve CLI's flag round
+trip, its fleet flags reaching ``ShardedCascadeServer`` and its
+``--plan-cache`` runs.
 
 On the CPU the scorer's plain route keeps a stacked column's masks
 bit-identical to the isolated scorer's at these widths, so the session's
@@ -24,6 +25,7 @@ from repro.kernels.ops import CascadeScorer as JScorer
 from repro_torch import interop
 from repro_torch.core import CoreSession, OptimizeOptions, PlanCache, ServeConfig, orig_plan
 from repro_torch.data import synthetic as tsyn
+from repro_torch.distributed.serving import ShardedCascadeServer
 from repro_torch.kernels.ops import CascadeScorer
 from repro_torch.launch import serve as cli
 from repro_torch.serving.engine import CascadeServer
@@ -228,12 +230,15 @@ def test_serve_dispatch_and_refusals(workload, tmp_path):
     s3 = CoreSession(options=opts, device="cpu")
     s3.register_query(q1, x)
     s3.register_query(q2, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # the JAX package's refusal: a multi-query session does not shard
+    with pytest.raises(ValueError, match="multi-query sharded serving is not wired yet"):
         s3.serve(hosts=2)
+    # with hosts == 1 the fleet's knobs are left unread: one host serves
     for fleet_only in (dict(transport="thread"), dict(drift_skew=0.4),
                        dict(kill_coordinator_at="prepare"), dict(straggler_host=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            s3.serve(config=ServeConfig(**fleet_only))
+        one = CoreSession(options=opts, device="cpu")
+        one.register_query(q1, x)
+        assert isinstance(one.serve(config=ServeConfig(**fleet_only)), CascadeServer)
     # only the serve CLI reads plan_cache_path: a session serves and writes nothing
     path = tmp_path / "plans.bin"
     assert isinstance(s3.serve(config=ServeConfig(plan_cache_path=str(path))),
@@ -260,8 +265,9 @@ def test_serve_dispatch_and_refusals(workload, tmp_path):
     assert srv.stats.plan_cache_writebacks == 1
     srv.run_stream(tds.x[800:2000], chunk=512)
     assert srv.stats.emitted + srv.stats.rejected == 1200
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        CoreSession(device="cpu").register_query(q1, x).session.serve(hosts=3)
+    fleet = CoreSession(options=opts, device="cpu").register_query(q1, x).session.serve(hosts=3)
+    assert isinstance(fleet, ShardedCascadeServer) and len(fleet.hosts) == 3
+    assert fleet.device.type == "cpu" and "builder" in fleet.plan0.meta  # keep_state
     s4 = CoreSession(options=opts, device="cpu")
     s4.register_query(q1, x, quant_dtype="fp32")
     s4.register_query(q1, x, quant_dtype="int8")
@@ -313,14 +319,61 @@ def test_cli_normalization_rules():
     assert cfg.workload.mode == "pp" and cfg.optimize.mode != "pp"
 
 
-@pytest.mark.parametrize("argv,item", [(["--hosts", "2"], "ROADMAP item 10"),
-                                       (["--transport", "thread"], "ROADMAP item 10"),
-                                       (["--drift-skew", "0.4"], "ROADMAP item 10"),
-                                       (["--kill-coordinator-at", "prepare"], "ROADMAP item 10"),
-                                       (["--straggler-host", "1"], "ROADMAP item 10")])
-def test_cli_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(argv + ["--device", "cpu"])
+class _Reached(Exception):
+    pass
+
+
+@pytest.fixture
+def one_thread():
+    """The CLI trains its UDFs and proxies with many small products: one
+    torch thread is fastest, and stays fast when other test processes share
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("argv,field,want", [
+    (["--hosts", "2"], None, None),
+    (["--transport", "thread"], "transport", "thread"),
+    (["--drift-skew", "0.4"], "drift_scales", "drift scales [0.6, 1.4]"),
+    (["--kill-coordinator-at", "prepare"], "kill_coordinator_at", "prepare"),
+    (["--straggler-host", "1"], "straggler_host", 1)])
+@pytest.mark.usefixtures("one_thread")
+def test_cli_fleet_flags_reach_the_fleet(argv, field, want, monkeypatch, capsys):
+    """``--hosts 2`` serves across two hosts on the CPU; each fleet flag's
+    value reaches ``ShardedCascadeServer`` (``--drift-skew`` the shards'
+    drift scales), caught where the fleet is built."""
+    from repro_torch.distributed import serving
+
+    base = ["--device", "cpu", "--n", "3000", "--preds", "2", "--udf-cost-ms", "10"]
+    if field is None:
+        cli.main(base + argv)
+        out = capsys.readouterr().out
+        served = int(out.split("\nserved ")[1].split()[0])
+        emitted = int(out.split("emitted ")[1].split()[0])
+        rejected = int(out.split("(+")[1].split()[0])
+        assert "on 2 hosts" in out and served == emitted + rejected == 2000  # held out
+        assert "consensus: " in out and "served accuracy" in out
+        return
+    seen = {}
+
+    class Fleet:
+        def __init__(self, plan, n_hosts, **kw):
+            seen.update(kw, n_hosts=n_hosts)
+
+        def run_streams(self, xs, **kw):
+            raise _Reached
+
+    monkeypatch.setattr(serving, "ShardedCascadeServer", Fleet)
+    with pytest.raises(_Reached):
+        cli.main(base + ["--hosts", "2", "--drift"] + argv)
+    assert seen["n_hosts"] == 2 and seen["device"].type == "cpu"
+    if field == "drift_scales":
+        assert want in capsys.readouterr().out
+    else:
+        assert seen[field] == want
 
 
 def test_cli_plan_cache_cold_then_hit(tmp_path, capsys):
