@@ -82,6 +82,31 @@ Each phase prints one JSON line:
               in f32 the CUDA-core bound), with the route taken
               and the kernel's registers, spills and shared memory a block;
               and profiles of one SSM prefill and one decode step.
+10a. moe_path — the MoE family at qwen3-moe-30b-a3b's published widths
+              (d_model 2048, 32 query and 4 KV heads of 128 with qk-norm,
+              128 experts top-8 of ff 768, vocab 151936), depth cut to 8
+              layers, bf16, seeded random weights: prefill of 4 requests of
+              4,096 tokens (8 ``flash_attention`` launches, each layer's
+              output held against the plain version), 32 greedy decode
+              steps (none), the assignments dropped at capacity 1.25 a
+              layer, the same prompts served again to identical tokens, a
+              warm prefill and its device time split (flash, GEMMs, dispatch,
+              elementwise); then at capacity factor 16 the logits against a
+              plain-attention ``forward`` given the served expert choices,
+              each of its own that differs a near tie (ROUTER_TIE_TOL).
+10b. mla_path — deepseek-v2-lite-16b (MLA, 64 experts top-6 and 2 shared, a
+              dense first layer) at its widths, 4 layers: no
+              ``flash_attention`` launch, each layer's absorbed decode
+              against naive attention over the same latent cache, the
+              logits as in 10a.
+10c. vlm_path — paligemma-3b at its widths and all 18 layers, 256 patches
+              and 3,840 tokens a request: 18 launches at (4, 4096, 8, 1,
+              256), each layer's attention held; the logits held at 18
+              layers in f32 (18 launches on the f32 route) and on the
+              first 4 in bf16 (SSM_LOGIT_LAYERS), and reported at 18 in
+              bf16 beside the witness (the same serving with the plain
+              attention against the same ``forward``); then
+              ``flash_timing`` at that shape.
 11. serving_path — CORE's adaptive serving stack (``CoreSession.serve`` with
               ``ServeConfig(adaptive=True, tile=1024)``, the serve CLI's
               ``--adaptive --drift`` flow) over 1,048,576 records: a 5%
@@ -103,6 +128,13 @@ Each phase prints one JSON line:
               time the kernel at their launch shapes (``serving_timing``):
               the ``score_margins`` tile and the stacked chunk, each beside
               its plain version and its bound.
+12a. autotune — ``calibrate_backend`` on phase 3's two scorers (the fitted
+              rate and launch overhead, reported), the tuned ``block_m`` of
+              phases 11 and 12's launch shapes (each path must have served
+              at it), and ms a tile at the tuned block against 256 at each
+              path's tile, a ragged eighth of it and 100 rows, 8 runs a
+              block in turns, masks, survivor lists and counts identical
+              across the two.
 13. frontend_path — the SLO front end through ``CoreSession.serve(slo=)``:
               phase 3's mixed3 query over 65,536 held-out rows of phase 11's
               dataset as 128-row requests at 1.3x capacity, each due 3x its
@@ -980,9 +1012,9 @@ def ptxas_entry(log: str, fragment: str) -> dict:
     raise SmokeFailure(f"no entry function {fragment} in the compiler's report")
 
 
-def time_flash(dev, dtype: str, iters: int) -> dict:
-    """Kernel, plain version and ``scaled_dot_product_attention`` at the
-    serving shape, in turns (plain, kernel, library, kernel, plain).  The
+def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at ``shape``
+    (default: the dense serving shape), in turns (plain, kernel, library, kernel, plain).  The
     library call gets K and V repeated to every query head beforehand (its
     GQA layout), outside the timed region.  The route taken, its bound and
     (f32) the CUDA-core bound beside it; registers and spills from the
@@ -994,8 +1026,8 @@ def time_flash(dev, dtype: str, iters: int) -> dict:
                                                      resources, route, split_bf16,
                                                      split_bf16_plain)
 
-    B, Sq, Sk, H, K, D = SERVING_SHAPE
-    case = (*SERVING_SHAPE, True, dtype)
+    B, Sq, Sk, H, K, D = shape
+    case = (*shape, True, dtype)
     q, k, v = make_flash_case(case, dev, seed=7)
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(H // K, dim=1)
@@ -1014,7 +1046,7 @@ def time_flash(dev, dtype: str, iters: int) -> dict:
     path = route(q, k, v)
     bound_ms, bound_by, nbytes, flops = flash_bound(*case, route=path)
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SERVING_SHAPE), causal=True, dtype=dtype, route=path, ms=ms,
+    row = dict(shape=list(shape), causal=True, dtype=dtype, route=path, ms=ms,
                ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
                plain_ms_runs=[plain_a, plain_b], library_ms=lib_ms,
                library="scaled_dot_product_attention (K, V repeated to H heads)",
@@ -1515,6 +1547,498 @@ def profile_ssm(ssm: dict, dev) -> None:
     emit("ssm_decode_profile", **prof)
 
 
+# ------------------------------------------------------------- phase 12a
+def scorer_tile_ms(scorer, x: np.ndarray, iters: int) -> float:
+    """Host-clock ms of one ``score_masks`` call on the tile ``x`` (the
+    serving engine's route: a pinned upload, one launch, one fetch, each
+    call ending in the fetch's synchronize), after one warm-up call."""
+    scorer.score_masks(x)
+    sync(scorer.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        scorer.score_masks(x)
+    sync(scorer.device)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+AUTOTUNE_TURNS = 4  # (256, tuned, tuned, 256) pairs a tile: 8 runs a block
+
+
+def run_autotune(dev, plans, cases: dict, serving: dict, smi: str) -> dict:
+    """``autotune.calibrate_backend`` on the card for phase 3's two scorers
+    (not registered: the "cuda" pick does not depend on the constants, so
+    the fitted rate and launch overhead are reported, not tuned with); the
+    tuned ``block_m`` of the serving and multi-query paths' launch shapes
+    (``cases``: path -> (its scorer, one of its tiles)), at which each path
+    must have served; then, at each path's own tile, a ragged eighth of it
+    and a 100-row tile, ms a tile of ``score_masks`` at the tuned block
+    against ``block_m`` = 256 in AUTOTUNE_TURNS turns of (256, tuned,
+    tuned, 256), and masks, survivor lists and counts from
+    ``score_compact`` identical across the two blocks."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import CascadeScorer
+
+    t_phase = time.perf_counter()
+    fitted = {}
+    for name, plan in plans:
+        sc = CascadeScorer.from_plan(plan, device=dev)
+        bc = autotune.calibrate_backend(sc, register=False, repeats=5)
+        fitted[name] = dict(bc._asdict(), block_m=sc.block_m, F=sc.n_features,
+                            HP=int(sc.w1.shape[1]), P=sc.n_proxies)
+    shapes = []
+    for path, (scorer, x_tile) in cases.items():
+        F, HP, P = scorer.n_features, int(scorer.w1.shape[1]), scorer.n_proxies
+        tuned = autotune.choose_block_m(F, HP, P, scorer.dtype, max_tile=scorer.max_tile,
+                                        backend="cuda").block_m
+        check(scorer.block_m == tuned,
+              f"{path}: served at block_m {scorer.block_m}, the tuner picks {tuned}")
+        fixed = CascadeScorer([None] * P, scorer.thr_host, packed=scorer.packed, block_m=256,
+                              max_tile=scorer.max_tile, device=dev)
+        tiles = []
+        for n in (len(x_tile), len(x_tile) // 8 + 1, 100):
+            x = np.ascontiguousarray(x_tile[:n])
+            _, m_a, pk_a, c_a = scorer.score_compact(x)
+            _, m_b, pk_b, c_b = fixed.score_compact(x)
+            same = (np.array_equal(m_a, m_b) and np.array_equal(c_a, c_b)
+                    and all(np.array_equal(a, b) for a, b in zip(pk_a, pk_b)))
+            check(same, f"{path}: {n}-row tile scored differently at block_m "
+                  f"{scorer.block_m} and 256")
+            runs = {"tuned": [], "256": []}
+            for _ in range(AUTOTUNE_TURNS):
+                for key, sc in (("256", fixed), ("tuned", scorer), ("tuned", scorer),
+                                ("256", fixed)):
+                    runs[key].append(scorer_tile_ms(sc, x, 200))
+            tiles.append(dict(rows=n, tuned_bucket=scorer._bucket(n), fixed_bucket=fixed._bucket(n),
+                              tuned_ms=float(np.median(runs["tuned"])),
+                              tuned_ms_min=min(runs["tuned"]), tuned_ms_runs=runs["tuned"],
+                              block_256_ms=float(np.median(runs["256"])),
+                              block_256_ms_min=min(runs["256"]), block_256_ms_runs=runs["256"],
+                              identical=same))
+        shapes.append(dict(path=path, N=len(x_tile), F=F, HP=HP, P=P, max_tile=scorer.max_tile,
+                           tuned_block_m=tuned, buckets=list(scorer.buckets), tiles=tiles))
+    out = dict(nvidia_smi=smi, calibrated=fitted, shapes=shapes,
+               serving_records_per_s=serving["records_per_s"],
+               seconds=time.perf_counter() - t_phase)
+    emit("autotune", **out)
+    return out
+
+
+# ------------------------------------------------------------- phases 10a-10c
+# The MoE, MLA and VLM serving paths: published widths, bf16, seeded random
+# weights, 4 requests of 4,096 processed positions, 32 greedy decode steps;
+# depth cut to what one card's time limit allows (qwen3-moe 48 -> 8 layers,
+# deepseek-v2-lite 27 -> 4: the dense layer 0 and three MoE layers;
+# paligemma keeps all 18).
+MOE = dict(arch="qwen3-moe-30b-a3b", layers=8, batch=4, prompt=4096, new_tokens=32)
+MLA = dict(arch="deepseek-v2-lite-16b", layers=4, batch=4, prompt=4096, new_tokens=32)
+VLM = dict(arch="paligemma-3b", layers=18, batch=4, prompt=4096, new_tokens=32)
+# The logits check serves a second time at capacity factor 16: a batched
+# forward over prompt + decoded tokens has another token count, so another
+# capacity, than the prefill, and would drop other assignments; with no
+# drops both compute the same function (tests/test_models_consistency.py:52-56
+# lifts the JAX package's own check the same way).
+LIFTED_CAPACITY = 16.0
+# In bf16 the served run and ``forward`` compute each hidden state in another
+# order, and a router's top-k flips wherever two experts' probabilities
+# nearly tie (at 128 experts, top-8, many do).  So ``forward`` is given the
+# served run's expert choices, position by position, and every choice its
+# own router would have made otherwise must be such a near tie: the
+# probability of the served expert within ROUTER_TIE_TOL (relative) of its
+# own k-th: 2^-5, the bound tests/test_torch_moe.py holds the port to the
+# JAX package by (on the card the widest of qwen3-moe's 6,902 flips at 8
+# layers is 0.0284, of deepseek-v2-lite's 185 at 4 layers 0.0192).
+ROUTER_TIE_TOL = 2.0 ** -5
+VLM_SHAPE = (4, 4096, 4096, 8, 1, 256)  # (B, Sq, Sk, H, K, D) of paligemma's prefill
+
+
+def pad_cache(cache: dict, new: int) -> dict:
+    """Every (L, B, T, ...) cache entry padded by ``new`` slots along T."""
+    return {k: v if k == "pos" else torch.nn.functional.pad(v, (0, 0) * (v.dim() - 3)
+                                                            + (0, new))
+            for k, v in cache.items()}
+
+
+def serve_batch(fam, model, cfg, batch: dict, new_tokens: int) -> dict:
+    """Prefill ``batch`` and decode ``new_tokens`` greedy tokens through the
+    family API (the cache padded to hold them).  Returns the logits (B,
+    new_tokens + 1, V) for positions prompt-1 ..., the decoded tokens, the
+    host-clock seconds and the ``flash_attention`` launches of each half."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = batch["tokens"].device
+    before = flash_attention.launches
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = fam.prefill(model, cfg, batch)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches - before
+    cache = pad_cache(cache, new_tokens)
+    steps, fed = [logits], []
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        fed.append(steps[-1].argmax(dim=-1))
+        lg, cache = fam.decode_step(model, cfg, cache, fed[-1])
+        steps.append(lg)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    got = torch.stack(steps, dim=1)
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite serving logits")
+    return dict(logits=got, fed=torch.stack(fed, dim=1), prefill_s=prefill_s,
+                decode_s=decode_s, prefill_launches=prefill_launches,
+                decode_launches=flash_attention.launches - before - prefill_launches)
+
+
+class RouteLog:
+    """Records the experts ``moe.route`` picks, call by call (``record``),
+    or hands ``forward`` a served run's picks for one request (``pin``),
+    counting the positions whose own top-k set differs and the largest
+    relative probability gap among them."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_module
+
+        self.moe, self.real = moe_module, moe_module.route
+        self.calls, self.flips, self.max_gap = [], 0, 0.0
+
+    def record(self):
+        def recorded(p, cfg, xt):
+            out = self.real(p, cfg, xt)
+            self.calls.append(out[2])
+            return out
+        return mock.patch.object(self.moe, "route", recorded)
+
+    def pin(self, r: int, batch: int, n_layers: int):
+        """The served picks of request ``r``: call i of ``forward`` (MoE
+        layer i) gets the prefill's rows of r, then each decode step's."""
+        calls, n = self.calls, iter(range(n_layers))
+
+        def pinned(p, cfg, xt):
+            layer = next(n)
+            steps = calls[n_layers + layer::n_layers]
+            want = torch.cat([calls[layer].view(batch, -1, cfg.moe.top_k)[r]]
+                             + [s[r:r + 1] for s in steps])
+            probs, _, own = self.real(p, cfg, xt)
+            differ = (own.sort(1).values != want.sort(1).values).any(1)
+            if bool(differ.any()):
+                kth = probs.gather(1, own)[differ, -1]
+                worst = probs.gather(1, want)[differ].min(1).values
+                self.max_gap = max(self.max_gap, float(((kth - worst) / kth).max()))
+                self.flips += int(differ.sum())
+            top_p = probs.gather(1, want)
+            return probs, top_p / top_p.sum(dim=-1, keepdim=True), want
+        return mock.patch.object(self.moe, "route", pinned)
+
+
+def served_vs_forward(fam, model, cfg, batch: dict, served: dict, routes=None,
+                      gate: bool = True) -> dict:
+    """The served logits against ``forward`` with the kernel's plain version
+    in its place, one request at a time over prompt + decoded tokens: the
+    prefill row within PREFILL_TOL, the decode rows within DECODE_TOL
+    (allclose), or (with ``gate``) the run fails.  With ``routes`` (a
+    ``RouteLog`` of the served run) ``forward`` takes the served expert
+    choices, and each of its own that differs must be a near tie
+    (ROUTER_TIE_TOL)."""
+    from contextlib import nullcontext
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models import layers as model_layers
+
+    got, fed = served["logits"], served["fed"]
+    n_text = batch["tokens"].shape[1]
+    before = flash_attention.launches
+    prefill_err = decode_err = 0.0
+    ok = True
+    n_moe = len(getattr(model, "layers", ())) if routes is not None else 0
+    with mock.patch.object(model_layers, "flash_attention", flash_attention_plain):
+        for r in range(got.shape[0]):
+            one = {k: v[r:r + 1] for k, v in batch.items()}
+            one["tokens"] = torch.cat([one["tokens"], fed[r:r + 1]], dim=1)
+            with routes.pin(r, got.shape[0], n_moe) if routes is not None else nullcontext():
+                ref = fam.forward(model, cfg, one)[0, n_text - 1:]
+            check(bool(torch.isfinite(ref).all()), f"request {r}: non-finite reference")
+            prefill_err = max(prefill_err, float((got[r, 0] - ref[0]).abs().max()))
+            decode_err = max(decode_err, float((got[r, 1:] - ref[1:]).abs().max()))
+            ok &= bool(torch.allclose(got[r, 0], ref[0], rtol=PREFILL_TOL, atol=PREFILL_TOL)
+                       and torch.allclose(got[r, 1:], ref[1:], rtol=DECODE_TOL,
+                                          atol=DECODE_TOL))
+            check(ok or not gate, f"{cfg.name}, {cfg.num_layers} layers, request {r}: logits "
+                  f"differ from forward by {prefill_err} (prefill) / {decode_err} (decode)")
+            del ref
+    check(flash_attention.launches == before, "the reference launched the kernel")
+    out = dict(layers=cfg.num_layers, prefill_max_abs_err=prefill_err,
+               prefill_tol=PREFILL_TOL, decode_max_abs_err=decode_err, decode_tol=DECODE_TOL,
+               within_tol=ok, gated=gate)
+    if routes is not None:
+        check(routes.max_gap <= ROUTER_TIE_TOL, f"{cfg.name}: forward's own top-k differs "
+              f"from the served one by {routes.max_gap} of a probability: not a tie")
+        out.update(forward_routing_flips=routes.flips, forward_flip_max_gap=routes.max_gap,
+                   router_tie_tol=ROUTER_TIE_TOL)
+    return out
+
+
+def attention_errors(seen: list, batch: int) -> tuple:
+    """Each recorded prefill call's kernel output against the plain version
+    on the same inputs, one request at a time (FLASH_TOL, FLASH_ROW_TOL).
+    Returns (max abs error, max row error)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    errs = [check_flash_output(f"layer {layer}, request {r}", o[r:r + 1],
+                               flash_attention_plain(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                                     causal=True))
+            for layer, (q, k, v, o) in enumerate(seen) for r in range(batch)]
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def profile_split(fn, dev) -> dict:
+    """``device_profile`` of ``fn`` with its device time split by kernel
+    name into the flash kernel, GEMMs, dispatch (sort, search, index,
+    gather, scatter) and elementwise or reduction kernels; the expert
+    GEMMs are the device time of ``aten::bmm`` (only the experts use it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split = dict(flash=0.0, gemm=0.0, dispatch=0.0, elementwise=0.0, other=0.0)
+    others: dict = {}
+    dispatch_words = ("sort", "Sort", "search", "index", "gather", "scatter", "bincount")
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name, us = e.name, e.time_range.elapsed_us()
+        if "flash_attention" in name:
+            split["flash"] += us
+        elif any(w in name for w in ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+            split["gemm"] += us
+        elif any(w in name for w in dispatch_words):
+            split["dispatch"] += us
+        elif any(w in name for w in ("elementwise", "vectorized", "reduce", "Reduce", "softmax",
+                                     "unrolled", "CatArray", "fill")):
+            split["elementwise"] += us
+        else:
+            split["other"] += us
+            others[name] = others.get(name, 0.0) + us
+    bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
+    expert_us = sum(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0) for e in bmm)
+    busy = sum(split.values())
+    return dict(wall_us=wall_us, device_busy_us=busy,
+                device_busy_share=busy / wall_us if wall_us else None,
+                split_us=split, expert_gemm_us=expert_us,
+                other_top={k[:60]: v for k, v in sorted(others.items(), key=lambda kv: -kv[1])[:5]},
+                split_share={k: v / busy for k, v in split.items()} if busy else None)
+
+
+def run_model_path(dev, spec: dict, phase: str) -> dict:
+    """One family's serving path at ``spec`` (module constants MOE, MLA,
+    VLM).  The counted run: ``flash_attention`` launches zeroed, a prefill of
+    ``batch`` requests and ``new_tokens`` greedy decode steps; the prefill
+    must launch the kernel once a layer through ``layers.mha`` (GQA: qwen3,
+    paligemma) or never (MLA), decode never.  Then: each layer's kernel
+    output against the plain version on the prefill's own inputs; MoE: the
+    assignments dropped at capacity in each layer, the same prompts served
+    again to identical decoded tokens, and a profile of one prefill; MLA:
+    the absorbed decode of every layer's first step against naive
+    attention over the same latent cache; the logits against ``forward``
+    with the plain attention (MoE families at capacity factor 16 with the
+    served expert choices; deeper than SSM_LOGIT_LAYERS, VLM's are held
+    at full depth in f32 and on its first SSM_LOGIT_LAYERS in bf16, and
+    reported at full depth in bf16 beside a witness: the same serving with
+    the kernel's plain version in its place)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_module
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import mla as mla_module
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models.registry import get_family, make_batch
+
+    t_phase = time.perf_counter()
+    cfg = get_config(spec["arch"]).replace(num_layers=spec["layers"])
+    fam = get_family(cfg)
+    is_moe, is_mla = cfg.moe is not None, cfg.attention.kind == "mla"
+    t0 = time.perf_counter()
+    model = fam.init(0, cfg, device=dev)
+    batch = make_batch(cfg, spec["batch"], spec["prompt"], seed=0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)  # from the weights and the batch on
+    n_params = sum(p.numel() for p in model.parameters())
+    B, new_tokens = spec["batch"], spec["new_tokens"]
+    # layers.mha sends GQA layers to the kernel on the card (none on the CPU)
+    want_launches = cfg.num_layers if dev.type == "cuda" and not is_mla else 0
+
+    seen, drops, absorbed = [], [], []
+
+    def kept(q, k, v, *, causal=True):
+        out = flash_attention(q, k, v, causal=causal)
+        seen.append((q, k, v, out))
+        return out
+
+    real_dispatch, real_decode = moe_module.dispatch, mla_module.mla_decode
+
+    def counted(top_e, cfg_, n_tokens):
+        C, sort_idx, dest = real_dispatch(top_e, cfg_, n_tokens)
+        drops.append((dest == cfg_.moe.num_experts * C).sum())
+        return C, sort_idx, dest
+
+    def recorded(p, cfg_, x, ckv, krope, pos):
+        out = real_decode(p, cfg_, x, ckv, krope, pos)
+        if len(absorbed) < cfg.num_layers:  # the first decode step's layers
+            absorbed.append((p, x, ckv, krope, pos, out[0]))
+        return out
+
+    flash_module.reset_launches()
+    with mock.patch.object(model_layers, "flash_attention", kept), \
+            mock.patch.object(moe_module, "dispatch", counted), \
+            mock.patch.object(mla_module, "mla_decode", recorded):
+        served = serve_batch(fam, model, cfg, batch, new_tokens)
+    launches = flash_attention.launches
+    route_launches = dict(flash_attention.route_launches)
+    check(served["prefill_launches"] == want_launches,
+          f"{phase}: prefill launched flash_attention {served['prefill_launches']} times, "
+          f"not {want_launches}")
+    check(served["decode_launches"] == 0,
+          f"{phase}: decode launched flash_attention {served['decode_launches']} times")
+    if dev.type == "cuda" and launches:
+        check(route_launches["tensor_cores"] == launches, f"not every launch took the "
+              f"tensor cores: {route_launches}")
+    out = dict(arch=cfg.name, source=cfg.source, layers=cfg.num_layers,
+               published_layers=get_config(spec["arch"]).num_layers, d_model=cfg.d_model,
+               heads=cfg.attention.num_heads, kv_heads=cfg.attention.num_kv_heads,
+               head_dim=cfg.attention.head_dim, vocab=cfg.vocab_size, dtype=cfg.dtype,
+               params=n_params, requests=B, positions=spec["prompt"],
+               prompt_tokens=batch["tokens"].shape[1], new_tokens=new_tokens,
+               launches=launches, prefill_launches=served["prefill_launches"],
+               route_launches=route_launches, init_s=init_s, prefill_s=served["prefill_s"],
+               prefill_tokens_per_s=B * spec["prompt"] / served["prefill_s"],
+               decode_s=served["decode_s"],
+               decode_ms_per_step=served["decode_s"] / new_tokens * 1e3,
+               decode_tokens_per_s=B * new_tokens / served["decode_s"])
+    sync(dev)
+    t0 = time.perf_counter()
+    fam.prefill(model, cfg, batch)  # a warm prefill: the counted one paid first-use costs
+    sync(dev)
+    out["warm_prefill_tokens_per_s"] = B * spec["prompt"] / (time.perf_counter() - t0)
+    if seen:
+        check(len(seen) == want_launches, f"{len(seen)} prefill calls reached the wrapper")
+        out["attention_max_abs_err"], out["attention_max_row_err"] = attention_errors(seen, B)
+        seen.clear()
+    if is_moe:
+        m = cfg.moe
+        out.update(experts=m.num_experts, top_k=m.top_k, expert_ff=m.expert_ff,
+                   capacity_factor=m.capacity_factor,
+                   prefill_capacity=moe_module.moe_capacity(cfg, B * spec["prompt"]),
+                   dropped_by_layer=[int(d) for d in drops[:len(model.layers)]],
+                   assignments_per_layer=B * spec["prompt"] * m.top_k)
+        check(all(int(d) == 0 for d in drops[len(model.layers):]), "decode dropped assignments")
+    drops.clear()
+    if absorbed:
+        errs = []
+        for p, x, ckv, krope, pos, got in absorbed:
+            naive = mla_naive_decode(p, cfg, x, ckv[:, :pos + 1], krope[:, :pos + 1], pos)
+            errs.append(float((got - naive).abs().max()))
+            check(torch.allclose(got, naive, rtol=DECODE_TOL, atol=DECODE_TOL),
+                  f"{phase}: absorbed decode differs from naive attention by {errs[-1]}")
+        out["absorbed_vs_naive_max_abs_err"], out["absorbed_tol"] = max(errs), DECODE_TOL
+        absorbed.clear()
+    if is_moe and not is_mla:
+        again = serve_batch(fam, model, cfg, batch, new_tokens)
+        check(torch.equal(again["fed"], served["fed"]),
+              f"{phase}: the same prompts decoded other tokens")
+        out["repeat_identical_tokens"] = True
+        out["warm_decode_ms_per_step"] = again["decode_s"] / new_tokens * 1e3
+        out["repeat_identical_logits"] = bool(torch.equal(again["logits"], served["logits"]))
+        del again
+        if dev.type == "cuda":
+            out["prefill_profile"] = profile_split(lambda: fam.prefill(model, cfg, batch), dev)
+    routes = None
+    if is_moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=LIFTED_CAPACITY))
+        routes = RouteLog()
+        with routes.record():
+            served = serve_batch(fam, model, cfg, batch, new_tokens)
+        out["logits_capacity_factor"] = LIFTED_CAPACITY
+    deep = cfg.num_layers > SSM_LOGIT_LAYERS and not is_moe
+    out["logits"] = served_vs_forward(fam, model, cfg, batch, served, routes, gate=not deep)
+    if deep:
+        # the witness at full depth: the same serving with the kernel's plain
+        # version in its place, against the same forward.  Every layer's
+        # kernel output is inside the flash limits (above); what the kernel's
+        # run adds to this gap is its rounding compounded over the layers
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+
+        with mock.patch.object(model_layers, "flash_attention", flash_attention_plain):
+            plain = serve_batch(fam, model, cfg, batch, new_tokens)
+        check(plain["prefill_launches"] == 0, "the plain serving launched the kernel")
+        out["logits_plain_attention"] = served_vs_forward(fam, model, cfg, batch, plain,
+                                                          gate=False)
+        out["logits_kernel_vs_plain_serving"] = dict(
+            prefill_max_abs_err=float((served["logits"][:, 0] - plain["logits"][:, 0])
+                                      .abs().max()),
+            decode_max_abs_err=float((served["logits"][:, 1:] - plain["logits"][:, 1:])
+                                     .abs().max()),
+            same_tokens=bool(torch.equal(served["fed"], plain["fed"])))
+        del plain
+        # held at full depth in f32, as ssm_path holds its 64 layers: the
+        # prefill launches the kernel once a layer on its f32 route
+        model32, cfg32 = copy.deepcopy(model).float(), cfg.replace(dtype="float32")
+        route32 = flash_module.route_for(cfg.attention.head_dim, torch.float32)
+        flash_module.reset_launches()
+        served32 = serve_batch(fam, model32, cfg32, batch, new_tokens)
+        check(served32["prefill_launches"] == want_launches and served32["decode_launches"] == 0,
+              f"{phase}: the f32 run launched the kernel {served32['prefill_launches']} / "
+              f"{served32['decode_launches']} times (prefill / decode)")
+        check(flash_attention.route_launches[route32] == want_launches,
+              f"{phase}: the f32 prefill's routes {dict(flash_attention.route_launches)}")
+        out["float32_route_launches"] = dict(flash_attention.route_launches)
+        out["logits_float32"] = served_vs_forward(fam, model32, cfg32, batch, served32)
+        del model32, served32
+        # gated at the depth the JAX package's bf16 bounds are set for, on
+        # the model's first layers (reported above at full depth)
+        full = model.layers
+        try:
+            model.layers = torch.nn.ModuleList(full[:SSM_LOGIT_LAYERS])
+            shallow = cfg.replace(num_layers=SSM_LOGIT_LAYERS)
+            out["logits_gated"] = served_vs_forward(
+                fam, model, shallow, batch, serve_batch(fam, model, shallow, batch, new_tokens))
+        finally:
+            model.layers = full
+    out["logits_max_abs"] = float(served["logits"].abs().max())
+    out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(phase, **out)
+    return out
+
+
+def mla_naive_decode(p, cfg, x, ckv, krope, pos: int):
+    """Naive MLA attention of the one token ``x`` at ``pos`` over the latent
+    cache ``ckv`` / ``krope`` (positions 0 .. pos): per-head K and V
+    materialized from the latent, then ``layers.mha``."""
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import mla as mla_module
+
+    a = cfg.attention
+    B, T = ckv.shape[:2]
+    H, nope, vh = a.num_heads, a.qk_nope_head_dim, a.v_head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, _, _ = mla_module._project_common(p, cfg, x, positions)
+    kv = (ckv @ p.wkv_b).reshape(B, T, H, nope + vh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :nope], krope[:, :, None, :].expand(B, T, H, a.qk_rope_head_dim)],
+                  dim=-1)
+    kv_pos = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    out = model_layers.mha(q, k, kv[..., nope:], causal=True, q_positions=positions,
+                           kv_positions=kv_pos)
+    return out.reshape(B, 1, H * vh) @ p.wo
+
+
 # ------------------------------------------------------------- phase 11
 SERVE_CHUNK = 4096  # records a ``run_stream`` submit takes (its default)
 
@@ -1689,6 +2213,7 @@ def run_serving_path(dev, n: int) -> dict:
     check(served_acc >= prof["accuracy"] - 0.05, f"served accuracy {served_acc:.4f}")
     check(launches == tiles, f"{launches} cascade_score launches for {tiles} submitted tiles")
     out["workload"] = (ds, udfs, k)
+    out["autotune_case"] = (srv._states[-1].cascade, stream.x[starts[1]:starts[1] + tile])
     return out
 
 
@@ -1790,6 +2315,7 @@ def run_multiquery_path(dev, workload, n_records: int) -> dict:
         check(row["stacked_differ_off_tie"] == 0,
               f"{row['query']}: {row['stacked_differ_off_tie']} stacked mask rows differ "
               "from the isolated scorer off a tie")
+    out["autotune_case"] = (sc, x[:SERVE_CHUNK])
     return out
 
 
@@ -2498,7 +3024,7 @@ def main(argv=None) -> int:
     profile_main_path(plans, stream, dev)
     main_row = max(timings, key=lambda r: r["flops"])
     artifacts = run_artifact_path(dev, plans, stream, outcomes)
-    del plans, stream, outcomes
+    del stream, outcomes
 
     flash_errs, flash_routes = [], []
     t0 = time.perf_counter()
@@ -2564,9 +3090,22 @@ def main(argv=None) -> int:
     flash32_row = flash_rows["float32"]
     torch.cuda.empty_cache()
 
+    moe = run_model_path(dev, MOE, "moe_path")
+    torch.cuda.empty_cache()
+    mla = run_model_path(dev, MLA, "mla_path")
+    torch.cuda.empty_cache()
+    vlm = run_model_path(dev, VLM, "vlm_path")
+    torch.cuda.empty_cache()
+    vlm_row = time_flash(dev, "bfloat16", iters=3, shape=VLM_SHAPE)
+    torch.cuda.empty_cache()
+
     serving = run_serving_path(dev, args.serving_records)
     workload = serving.pop("workload")
     multiquery = run_multiquery_path(dev, workload, args.multiquery_records)
+    tuned = run_autotune(dev, plans, {"serving_path": serving.pop("autotune_case"),
+                                      "multiquery_path": multiquery.pop("autotune_case")},
+                         serving, smi)
+    del plans
     frontend = run_frontend_path(dev, workload, args.frontend_records)
     plan_cache = run_plan_cache_path(dev, workload, args.plan_cache_records)
     fleet = run_fleet_path(dev, workload, args.fleet_records)
@@ -2589,6 +3128,7 @@ def main(argv=None) -> int:
                              "fleet_thread": fleet_thread["launches"],
                              "fleet_process": fleet_process["launches"],
                              "fleet_faults": fleet_faults["launches"]},
+        "tuned_block_m": {r["path"]: r["tuned_block_m"] for r in tuned["shapes"]},
         "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "max_abs_err")}
                            for r in (serving["timing"], multiquery["timing"])],
@@ -2602,11 +3142,23 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": dense["launches"],
+        "launches_by_path": {"dense_path": dense["launches"], "moe_path": moe["launches"],
+                             "mla_path": mla["launches"], "vlm_path": vlm["launches"]},
         "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
-                            if c[7] == "bfloat16"] + [dense["attention_max_abs_err"]]),
+                            if c[7] == "bfloat16"] + [dense["attention_max_abs_err"],
+                                                      moe["attention_max_abs_err"]]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"]}, {
+        "name": "flash_attention[D256]", "route": "cuda", "kernel_route": "tensor_cores",
+        "dtype": "bfloat16", "shape": list(VLM_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": vlm["launches"],
+        "max_abs_err": vlm["attention_max_abs_err"],
+        "ms": vlm_row["ms"], "plain_ms": vlm_row["plain_ms"],
+        "bound_ms": vlm_row["bound_ms"], "bound_by": vlm_row["bound_by"],
+        "library_ms": vlm_row["library_ms"]}, {
         "name": "flash_attention[float32]", "route": "cuda", "kernel_route": "tensor_cores",
         "dtype": "float32", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",

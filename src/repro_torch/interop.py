@@ -18,6 +18,7 @@ from repro_torch.training.proxy_models import LinearParams, MLPParams, PackedPro
 from repro_torch.util import resolve_device
 
 if TYPE_CHECKING:
+    from repro_torch.models.moe import MoETransformer
     from repro_torch.models.ssm import Mamba2
     from repro_torch.models.transformer import Transformer
 
@@ -74,11 +75,17 @@ def proxy_model(ref, device="cuda") -> ProxyModel:
         cost=float(ref.cost), train_f1=float(ref.train_f1), n_train=int(ref.n_train))
 
 
-def physical_plan(ref_plan, query: Query, device="cuda") -> PhysicalPlan:
+def physical_plan(ref_plan, query: Query, device="cuda", keep_state: bool = False
+                  ) -> PhysicalPlan:
     """The JAX package's ``PhysicalPlan`` over this package's ``query``
     (whose predicates are in the same order): stage order, thresholds,
-    per-stage params and families.  Live optimizer state in the plan's
-    meta (builder, search tree) does not travel."""
+    per-stage params and families.  The live optimizer state in the plan's
+    meta (builder, search tree) travels only with ``keep_state=True``: then
+    ``meta["builder"]`` is this package's ``ProxyBuilder`` over the same
+    sample with the reference's trained classifiers adopted, and
+    ``meta["bnb"]`` a ``BranchAndBound`` seeded with the reference's
+    measured nodes and surviving orders, as ``build_plan(keep_state=True)``
+    leaves them."""
     stages = [
         PlanStage(pred_idx=int(s.pred_idx),
                   proxy=None if s.proxy is None else proxy_model(s.proxy, device),
@@ -88,8 +95,41 @@ def physical_plan(ref_plan, query: Query, device="cuda") -> PhysicalPlan:
         for s in ref_plan.stages
     ]
     meta = {k: v for k, v in ref_plan.meta.items() if k not in ("builder", "bnb")}
+    if keep_state:
+        meta.update(optimizer_state(ref_plan.meta, query, device))
     return PhysicalPlan(query=query, stages=stages,
                         est_total_cost=float(ref_plan.est_total_cost), meta=meta)
+
+
+def optimizer_state(ref_meta: dict, query: Query, device="cuda") -> dict:
+    """{"builder", "bnb"} of this package rebuilt from a reference plan's
+    meta (each only where the reference has one)."""
+    from repro_torch.core.bnb import BranchAndBound
+    from repro_torch.core.builder import ProxyBuilder
+
+    dev = resolve_device(device)
+    ref_bnb = ref_meta.get("bnb")
+    ref_builder = ref_meta.get("builder")
+    if ref_builder is None and ref_bnb is not None:
+        ref_builder = ref_bnb.builder
+    out = {}
+    if ref_builder is None:
+        return out
+    builder = ProxyBuilder(query, np.asarray(ref_builder.x), kind=ref_builder.kind,
+                           eps=ref_builder.eps, seed=ref_builder.seed,
+                           reuse_samples=ref_builder.reuse_samples,
+                           reuse_classifiers=ref_builder.reuse_classifiers, device=dev)
+    builder.adopt_classifiers({key: (proxy_model(proxy, dev), float(phi))
+                               for key, (proxy, phi) in ref_builder.export_classifiers().items()})
+    out["builder"] = builder
+    if ref_bnb is not None:
+        bb = BranchAndBound(builder, ref_bnb.A, step=ref_bnb.step,
+                            fine_grained=ref_bnb.fine_grained, framework=ref_bnb.framework,
+                            stale_slack=ref_bnb.stale_slack)
+        s_stars, orders = ref_bnb.export_state()
+        bb.seed_from(s_stars, orders=orders)
+        out["bnb"] = bb
+    return out
 
 
 def _tensor_as_is(a, dev: torch.device) -> torch.Tensor:
@@ -102,17 +142,20 @@ def _tensor_as_is(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+_STACKS = ("layers", "dense_layers")  # params stacked on a leading layer dim
+
+
 def _load_stacked(model: torch.nn.Module, ref_params, dev: torch.device):
     """Copy the JAX package's nested params dict (layers stacked on a
-    leading L dim) into ``model`` by parameter name: ``layers.<i>.<path>``
-    reads ``ref_params["layers"][<path>][i]``, any other name its last
-    part at the top level.  Every array keeps its own type."""
-    layers = ref_params["layers"]
+    leading L dim) into ``model`` by parameter name: ``<stack>.<i>.<path>``
+    reads ``ref_params[<stack>][<path>][i]`` for the stacks ``layers`` and
+    ``dense_layers``, any other name its last part at the top level.  Every
+    array keeps its own type."""
     with torch.no_grad():
         for name, param in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                src = layers
+            if parts[0] in _STACKS:
+                src = ref_params[parts[0]]
                 for key in parts[2:]:
                     src = src[key]
                 src = np.asarray(src)[int(parts[1])]
@@ -142,3 +185,16 @@ def ssm_params(ref_params, cfg, device="cuda") -> Mamba2:
 
     dev = resolve_device(device)
     return _load_stacked(Mamba2(cfg, device=dev), ref_params, dev)
+
+
+def moe_params(ref_params, cfg, device="cuda") -> MoETransformer:
+    """The JAX package's MoE params (GQA or MLA attention, a leading dense
+    stack where the config has one) as this package's ``MoETransformer``."""
+    from repro_torch.models.moe import MoETransformer
+
+    dev = resolve_device(device)
+    return _load_stacked(MoETransformer(cfg, device=dev), ref_params, dev)
+
+
+# the VLM family's weights are the dense family's
+vlm_params = transformer_params

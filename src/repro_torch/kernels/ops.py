@@ -32,7 +32,7 @@ from repro_torch.core.proxy_family import (
     unpack_cascade,
 )
 from repro_torch.core.query import PhysicalPlan, PlanStage
-from repro_torch.kernels import proxy_score
+from repro_torch.kernels import autotune, proxy_score
 from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.training.proxy_models import PackedProxy
@@ -85,10 +85,6 @@ def proxy_score_batch(params, x, threshold: float, *, device="cuda") -> np.ndarr
     return mask[:, 0].cpu().numpy()
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 class _TileBuffers:
     """One bucket's buffers for one output layout (C compacted columns or
     None for masks only, with or without scores):
@@ -106,10 +102,8 @@ class _TileBuffers:
                  device: torch.device):
         cuda = device.type == "cuda"
         nc = C or 0
-        off_packed = 4 * P
-        off_mask = off_packed + 4 * nc * rows
-        off_scores = _align16(off_mask + rows * P)
-        nbytes = off_scores + (4 * rows * P if with_scores else 0)
+        off_packed, off_mask, off_scores, nbytes = autotune.result_layout(rows, P, C,
+                                                                          with_scores)
         self.rows, self.cuda = rows, cuda
         self.x = torch.zeros((rows, F), dtype=torch.float32, device=device)
         self.x_host = (torch.zeros((rows, F), dtype=torch.float32, pin_memory=True)
@@ -151,12 +145,15 @@ class CascadeScorer:
     A tile is scored at the first size of a geometric ladder of row counts
     starting at ``block_m`` that holds it (so a handful of shapes recur),
     each size with its own input and result buffers; batches larger than
-    ``max_tile`` are chunked.
+    ``max_tile`` are chunked.  ``block_m=None`` tunes it
+    (``autotune.choose_block_m`` on the device's backend, for chunks of
+    ``n_rows_hint`` rows, full tiles when None), as the JAX package's
+    scorer does; results do not depend on it, only the padding does.
     """
 
-    def __init__(self, param_list, thresholds, *, block_m: int = 256,
-                 max_tile: int = 8192, dtype: str = "float32", packed=None,
-                 device="cuda"):
+    def __init__(self, param_list, thresholds, *, block_m: int = None,
+                 max_tile: int = 8192, dtype: str = "float32", n_rows_hint: int = None,
+                 packed=None, device="cuda"):
         if not param_list:
             raise ValueError("CascadeScorer needs at least one proxy")
         self.device = resolve_device(device)
@@ -177,6 +174,11 @@ class CascadeScorer:
         self.families = self.packed.families
         self.n_proxies = len(param_list)
         self.n_features = int(self.w1.shape[0])
+        if block_m is None:
+            block_m = autotune.choose_block_m(
+                self.n_features, int(self.w1.shape[1]), self.n_proxies, self.dtype,
+                n_rows_hint=n_rows_hint, max_tile=max_tile,
+                backend=autotune.backend_of(self.device)).block_m
         self.block_m = min(block_m, max_tile)
         buckets = []
         size = self.block_m

@@ -1,0 +1,337 @@
+"""Mixture-of-Experts decoder family (qwen3-moe, deepseek-v2-lite), the
+serving half of the JAX package's ``models/moe.py``:
+
+    init(seed, cfg, device)              -> MoETransformer (an nn.Module)
+    forward(params, cfg, batch)          -> logits (B,S,V) fp32
+    backbone(params, cfg, x, positions)  -> (activations, aux loss)
+    init_cache(cfg, batch, max_len)      -> cache dict
+    prefill(params, cfg, batch)          -> (last_logits, cache)
+    decode_step(params, cfg, cache, tok) -> (logits, cache)
+
+Token dispatch is the argsort-capacity scheme: assignments sorted by expert
+(a stable sort, as ``jnp.argsort``), each expert runs a fixed (C, D) slice
+of an (E, C, D) buffer, assignments past an expert's capacity go to a trash
+row and contribute nothing.  The router's top-k is a stable descending sort
+cut to k, which breaks ties toward the lower expert as ``lax.top_k`` does.
+The combine gathers each token's k contributions and adds them in the
+reference's order (ascending expert) one at a time, so a token's sum does
+not depend on the card's scheduling: no atomics.
+
+qwen3 layers use GQA (qk-norm) and reach ``flash_attention`` through
+``layers.mha``; deepseek-v2-lite layers use MLA (``models/mla.py``, the
+einsum path), two shared experts beside 64 routed ones, and a dense first
+layer.  The expert-parallel ``moe_apply_ep`` and the training ``loss`` are
+not ported.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.util import resolve_device
+
+
+# ------------------------------------------------------------ expert layer
+class Experts(nn.Module):
+    """Router (d, E) f32; per-expert gated MLPs wg, wi (E, d, f) and wo
+    (E, f, d); ``shared`` experts as one MLP of num_shared * f when the
+    config has them."""
+
+    def __init__(self, cfg, *, device):
+        super().__init__()
+        device = resolve_device(device)
+        m, d, dt = cfg.moe, cfg.d_model, L.param_dtype(cfg)
+        E, f = m.num_experts, m.expert_ff
+        self.router = L._param(torch.empty((d, E), dtype=L.F32, device=device))
+        self.wg = L._param(torch.empty((E, d, f), dtype=dt, device=device))
+        self.wi = L._param(torch.empty((E, d, f), dtype=dt, device=device))
+        self.wo = L._param(torch.empty((E, f, d), dtype=dt, device=device))
+        if m.num_shared:
+            self.shared = L.MLP(cfg, d_ff=m.num_shared * f, device=device)
+
+
+def init_experts(generator: torch.Generator, cfg) -> Experts:
+    p = Experts(cfg, device=generator.device)
+    with torch.no_grad():
+        for w in (p.router, p.wg, p.wi, p.wo):
+            w.copy_(L.dense_init(generator, tuple(w.shape), dtype=w.dtype))
+        if cfg.moe.num_shared:
+            p.shared = L.init_mlp(generator, cfg, d_ff=cfg.moe.num_shared * cfg.moe.expert_ff)
+    return p
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    m = cfg.moe
+    c = int(m.top_k * n_tokens / m.num_experts * m.capacity_factor)
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def route(p: Experts, cfg, xt):
+    """xt (N, D) -> (probs (N, E), top_p (N, k) renormalized, top_e (N, k)):
+    f32 router products of the stored values; top-k by a stable descending
+    sort (ties to the lower expert, as ``lax.top_k``)."""
+    logits = xt.to(L.F32) @ p.router
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+
+def dispatch(top_e, cfg, n_tokens: int):
+    """The argsort-capacity slots: (C, sort_idx, dest).  ``sort_idx`` orders
+    the N*k assignments by expert (stable); ``dest`` is each sorted
+    assignment's row of the (E*C + 1, D) buffer, E*C (the trash row) past
+    its expert's capacity."""
+    m = cfg.moe
+    E = m.num_experts
+    C = moe_capacity(cfg, n_tokens)
+    flat_e = top_e.reshape(-1)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    group_start = torch.searchsorted(sorted_e, torch.arange(E, device=top_e.device))
+    rank = torch.arange(flat_e.numel(), device=top_e.device) - group_start[sorted_e]
+    dest = torch.where(rank < C, sorted_e * C + rank, E * C)
+    return C, sort_idx, dest
+
+
+def _act(cfg, x):
+    if cfg.act == "silu":
+        return nn.functional.silu(x)
+    return nn.functional.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def moe_apply(p: Experts, cfg, x):
+    """x: (B, S, D) -> (out, aux_loss)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N, E, K = B * S, m.num_experts, m.top_k
+    xt = x.reshape(N, D)
+    probs, top_p, top_e = route(p, cfg, xt)
+
+    # load-balancing aux loss (Switch-style)
+    density = torch.bincount(top_e.reshape(-1), minlength=E).to(L.F32) / N
+    aux = torch.sum(density * probs.mean(dim=0)) * E * m.router_aux_weight
+
+    # argsort-capacity dispatch
+    C, sort_idx, dest = dispatch(top_e, cfg, N)
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[dest] = xt[sort_idx // K]  # only the trash row takes several writes
+    buf = buf[:-1].reshape(E, C, D)
+
+    # per-expert gated MLP
+    h = _act(cfg, torch.bmm(buf, p.wg)) * torch.bmm(buf, p.wi)
+    eout = torch.bmm(h, p.wo).reshape(E * C, D)
+    eout = torch.cat([eout, eout.new_zeros((1, D))])
+
+    # combine: each token's k weighted expert rows, added in ascending
+    # expert order (the order the reference's scatter-add meets them)
+    slot = torch.empty_like(dest)
+    slot[sort_idx] = dest  # each assignment's buffer row, in (token, k) order
+    order = torch.argsort(top_e, dim=1)
+    slot = slot.reshape(N, K).gather(1, order)
+    weight = top_p.gather(1, order).to(eout.dtype)
+    out = torch.zeros((N, D), dtype=xt.dtype, device=xt.device)
+    for j in range(K):
+        out = out + eout[slot[:, j]] * weight[:, j, None]
+
+    if m.num_shared:
+        out = out + L.mlp_apply(p.shared, cfg, xt)
+    return out.reshape(B, S, D), aux
+
+
+# --------------------------------------------------------------- families
+def _is_mla(cfg) -> bool:
+    return cfg.attention.kind == "mla"
+
+
+def _init_attn(generator, cfg, device):
+    if _is_mla(cfg):
+        return MLA.init_mla(generator, cfg) if generator is not None else MLA.MLA(
+            cfg, device=device)
+    return L.init_gqa(generator, cfg) if generator is not None else L.GQA(cfg, device=device)
+
+
+class MoELayer(nn.Module):
+    def __init__(self, cfg, generator=None, *, device):
+        super().__init__()
+        device = resolve_device(device)
+        self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
+        self.attn = _init_attn(generator, cfg, device)
+        self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
+        self.experts = (init_experts(generator, cfg) if generator is not None
+                        else Experts(cfg, device=device))
+
+
+class DenseLayer(nn.Module):
+    """A leading dense layer (deepseek-v2-lite's layer 0): its MLP is
+    ``dense_ff`` wide."""
+
+    def __init__(self, cfg, generator=None, *, device):
+        super().__init__()
+        device = resolve_device(device)
+        ff = cfg.moe.dense_ff
+        self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
+        self.attn = _init_attn(generator, cfg, device)
+        self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
+        self.mlp = (L.init_mlp(generator, cfg, d_ff=ff) if generator is not None
+                    else L.MLP(cfg, d_ff=ff, device=device))
+
+
+def init_moe_layer(generator: torch.Generator, cfg) -> MoELayer:
+    return MoELayer(cfg, generator, device=generator.device)
+
+
+def init_dense_layer(generator: torch.Generator, cfg) -> DenseLayer:
+    return DenseLayer(cfg, generator, device=generator.device)
+
+
+class MoETransformer(nn.Module):
+    """The model's weights: ``embed``, ``dense_layers`` (the first
+    ``moe.first_dense``), ``layers`` (the MoE layers) and ``final_norm``.
+    Drawn from ``generator`` when one is given, else left empty for
+    ``interop.moe_params`` to fill."""
+
+    def __init__(self, cfg, generator=None, *, device):
+        super().__init__()
+        device = resolve_device(device)
+        n_dense = cfg.moe.first_dense
+        self.embed = (L.init_embed(generator, cfg) if generator is not None
+                      else L.Embedding(cfg, device=device))
+        self.dense_layers = nn.ModuleList(DenseLayer(cfg, generator, device=device)
+                                          for _ in range(n_dense))
+        self.layers = nn.ModuleList(MoELayer(cfg, generator, device=device)
+                                    for _ in range(cfg.num_layers - n_dense))
+        self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
+
+
+def init(seed: int, cfg, device="cuda") -> MoETransformer:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    dev = resolve_device(device)
+    return MoETransformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _attend(lp, cfg, h, positions):
+    if _is_mla(cfg):
+        return MLA.mla_attend(lp.attn, cfg, h, positions)
+    return L.gqa_attend(lp.attn, cfg, h, positions, causal=True)
+
+
+def backbone(params: MoETransformer, cfg, x, positions):
+    """x: (B,S,d) embeddings -> ((B,S,d) final-normed activations, the
+    summed router aux loss)."""
+    aux_total = torch.zeros((), dtype=L.F32, device=x.device)
+    for lp in params.dense_layers:
+        x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
+        x = x + L.mlp_apply(lp.mlp, cfg, L.apply_norm(cfg, x, lp.ln2))
+    for lp in params.layers:
+        x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
+        mo, aux = moe_apply(lp.experts, cfg, L.apply_norm(cfg, x, lp.ln2))
+        x = x + mo
+        aux_total = aux_total + aux
+    return L.apply_norm(cfg, x, params.final_norm), aux_total
+
+
+@torch.no_grad()
+def forward(params: MoETransformer, cfg, batch):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_tokens(params.embed, cfg, tokens)
+    x, _aux = backbone(params, cfg, x, _positions(B, S, tokens.device))
+    return L.lm_logits(params.embed, cfg, x)
+
+
+# --------------------------------------------------------------- serving
+def _cache_keys(cfg):
+    return ("ckv", "krope") if _is_mla(cfg) else ("k", "v")
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    """{"k", "v": (L_moe, B, T, K, hd)} (GQA) or {"ckv": (L_moe, B, T, rank),
+    "krope": (L_moe, B, T, rope)} (MLA), the same under "dense_" for the
+    leading dense layers, and "pos"."""
+    a, m = cfg.attention, cfg.moe
+    dev = resolve_device(device)
+    dt = L.param_dtype(cfg)
+    if _is_mla(cfg):
+        tails = ((a.kv_lora_rank,), (a.qk_rope_head_dim,))
+    else:
+        tails = ((a.num_kv_heads, a.head_dim),) * 2
+    cache = {}
+    for prefix, n in (("", cfg.num_layers - m.first_dense), ("dense_", m.first_dense)):
+        if n:
+            for key, tail in zip(_cache_keys(cfg), tails):
+                cache[prefix + key] = torch.zeros((n, batch, max_len) + tail, dtype=dt,
+                                                  device=dev)
+    cache["pos"] = 0
+    return cache
+
+
+def _attn_prefill(lp, cfg, h, positions):
+    """(attention output, this layer's cache entries)."""
+    if _is_mla(cfg):
+        out, ckv, krope = MLA.mla_prefill(lp.attn, cfg, h, positions)
+        return out, (ckv, krope)
+    a = cfg.attention
+    B, S = h.shape[:2]
+    q, k, v = L.gqa_project_qkv(lp.attn, cfg, h)
+    q = L.apply_rope(q, positions, a.rope_theta)
+    k = L.apply_rope(k, positions, a.rope_theta)
+    out = L.mha(q, k, v, causal=True, q_positions=positions, kv_positions=positions)
+    return out.reshape(B, S, -1) @ lp.attn.wo, (k, v)
+
+
+@torch.no_grad()
+def prefill(params: MoETransformer, cfg, batch):
+    """Processes the full prompt, returns logits at the last position and a
+    populated cache sized to the prompt (caller may re-pad)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = _positions(B, S, tokens.device)
+    x = L.embed_tokens(params.embed, cfg, tokens)
+    cache = {"pos": S}
+    k1, k2 = _cache_keys(cfg)
+    for prefix, layers in (("dense_", params.dense_layers), ("", params.layers)):
+        entries = []
+        for lp in layers:
+            out, kv = _attn_prefill(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
+            x = x + out
+            hn = L.apply_norm(cfg, x, lp.ln2)
+            x = x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
+                     else moe_apply(lp.experts, cfg, hn)[0])
+            entries.append(kv)
+        if entries:
+            cache[prefix + k1] = torch.stack([e[0] for e in entries])
+            cache[prefix + k2] = torch.stack([e[1] for e in entries])
+    x = L.apply_norm(cfg, x, params.final_norm)
+    return L.lm_logits(params.embed, cfg, x[:, -1:, :])[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(params: MoETransformer, cfg, cache, tokens):
+    """tokens: (B,) int -> (logits (B,V) fp32, cache).  The new entries go
+    into ``cache``'s tensors in place; the returned cache shares them, with
+    ``pos`` advanced by one."""
+    pos = cache["pos"]
+    x = L.embed_tokens(params.embed, cfg, tokens[:, None])
+    k1, k2 = _cache_keys(cfg)
+    for prefix, layers in (("dense_", params.dense_layers), ("", params.layers)):
+        for i, lp in enumerate(layers):
+            hn = L.apply_norm(cfg, x, lp.ln1)
+            c1, c2 = cache[prefix + k1][i], cache[prefix + k2][i]
+            if _is_mla(cfg):
+                out, _, _ = MLA.mla_decode(lp.attn, cfg, hn, c1, c2, pos)
+            else:
+                out, _, _ = L.gqa_decode(lp.attn, cfg, hn, c1, c2, pos)
+            x = x + out
+            hn = L.apply_norm(cfg, x, lp.ln2)
+            x = x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
+                     else moe_apply(lp.experts, cfg, hn)[0])
+    x = L.apply_norm(cfg, x, params.final_norm)
+    return L.lm_logits(params.embed, cfg, x)[:, 0], {**cache, "pos": pos + 1}

@@ -99,8 +99,14 @@ def prefill(params: Transformer, cfg, batch):
     populated cache sized to the prompt (caller may re-pad)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
     x = L.embed_tokens(params.embed, cfg, tokens)
+    return prefill_embedded(params, cfg, x, _positions(B, S, tokens.device))
+
+
+@torch.no_grad()
+def prefill_embedded(params: Transformer, cfg, x, positions):
+    """``prefill`` from (B, S, d) input embeddings at ``positions``."""
+    B, S = x.shape[:2]
     a = cfg.attention
     window = a.window if a.kind == "local" else 0
     ks, vs = [], []

@@ -53,14 +53,10 @@ def packages():
                                     n_classes=p.udf.n_classes), values=p.values)
                 for p in jq.predicates], accuracy_target=jq.accuracy_target)
     tplan = interop.physical_plan(jplan, tq, "cpu")
-    # the two packages write the same artifact at equal block_m: the JAX
-    # coordinator's serializer takes its scorer from the package's scorer
-    # cache, primed here at the port's block_m (the JAX default is tuned)
-    key = jops._plan_scorer_key(jplan, 8192)
-    jops._SCORER_CACHE[key] = jops.CascadeScorer.from_plan(jplan, block_m=256, max_tile=8192)
+    # both packages tune the scorer's block_m to the same value on the CPU,
+    # so the two coordinators write the same artifact
     assert jops.serialize_scorer(jplan, max_tile=8192) == tops.serialize_scorer(tplan)
-    yield (Pkg("jax", jcons, jstats, jops, jplan), Pkg("torch", tcons, tstats, tops, tplan))
-    jops._SCORER_CACHE.pop(key, None)
+    return (Pkg("jax", jcons, jstats, jops, jplan), Pkg("torch", tcons, tstats, tops, tplan))
 
 
 def norm(o):

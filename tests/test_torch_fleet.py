@@ -3,17 +3,18 @@ of ``CascadeServer``) against the JAX package's, on the JAX package's own
 sharded-serving workload (tests/test_sharded_serving.py: K = 4 skewed
 drifting shards of 3,200 records, tile 256, chunks of 400), on which the
 reference commits quorum swaps on this CPU.  The reference's UDF weights
-are carried across (``make_udfs(weights=...)``) and so is its plan
-(``interop.physical_plan``), as tests/test_torch_serve_cli.py carries them.
+are carried across (``make_udfs(weights=...)``) and so is its plan with
+its live optimizer state (``interop.physical_plan(keep_state=True)``: the
+builder's trained classifiers and the B&B tree's measured nodes and
+surviving orders), as tests/test_torch_serve_cli.py carries them.
 
-Up to the first committed swap both fleets see the same votes and reach
-quorum at the same record with the same voters, signals, mode and merged
-rows; after it each package re-optimizes in its own numerics (the port's
-carried plan has no live builder), so the runs are held to exact
-conservation, equal epochs and served accuracy within 0.01 of the
-reference's.  The failure injections give the reference's resolution,
-failover, fence and re-sync counts and its decisions through the first
-committed swap.  The thread transport equals the
+Both fleets see the same votes and reach quorum at the same record with
+the same voters, signals, mode and merged rows, through every swap of the
+run; each package re-optimizes in its own numerics, so the runs are held
+to exact conservation, equal epochs and served accuracy within 0.01 of
+the reference's.  The failure injections give the reference's
+resolution, failover, fence and re-sync counts, its decisions and its
+swap log.  The thread transport equals the
 inline one exactly, and a two-worker process fleet on the CPU commits a
 swap and equals an inline run on the same streams."""
 import jax.numpy as jnp
@@ -136,7 +137,8 @@ def _reference(ref, **kw):
 
 
 def _port(ref, plan=None, **kw):
-    plan = plan if plan is not None else interop.physical_plan(_jplan(ref), ref["tq"], "cpu")
+    plan = plan if plan is not None else interop.physical_plan(_jplan(ref), ref["tq"], "cpu",
+                                                               keep_state=True)
     return _run(ShardedCascadeServer, plan, ref["xs"], ref["t_orig"],
                 policy=AdaptivePolicy(**POLICY), device="cpu", **kw)
 
@@ -178,6 +180,10 @@ def test_fleet_matches_reference_up_to_first_swap(base):
     assert tev == jev
     assert tswap == jswap
     assert jev[-1][0] == "quorum" and jev[-1][2] == jswap[1]
+    # past the first commit too: the carried builder and B&B tree resume
+    # as the reference's own do
+    assert trun["events"] == jrun["events"]
+    assert trun["log"] == jrun["log"]
 
 
 def test_fleet_conserves_and_serves_the_reference_accuracy(base):
@@ -215,13 +221,16 @@ def test_failure_injection_matches_reference(ref, kw):
         assert counts[0][2] == 1 and counts[0][3] >= 1
         fenced = [r for r in trun["log"] if r[5] and r[7]]
         assert fenced and fenced[0][7] == [2]
-    # the same decisions through the first committed swap; then each
-    # package's own re-search (the port's carried plan has no live B&B
-    # tree to resume) serves a plan of its own, above the query's floor
+    # the same decisions through the first committed swap and after it:
+    # the carried builder and B&B tree resume as the reference's own do
     assert _until_first_commit(trun) == _until_first_commit(jrun)
+    assert trun["events"] == jrun["events"]
+    assert trun["log"] == jrun["log"]
     for run in (jrun, trun):
         _assert_conserved(run)
         assert run["accuracy"] >= ref["jq"].accuracy_target - 0.05
+    assert abs(trun["accuracy"] - jrun["accuracy"]) <= ACC_TOL, (trun["accuracy"],
+                                                                 jrun["accuracy"])
 
 
 def test_thread_transport_equals_inline(ref, base):
@@ -318,3 +327,23 @@ def test_engine_fleet_hooks_match_reference(ref):
         assert tsrv.kappa_export() == jsrv.kappa_export()
     assert any(d is not None for d in drifts)  # the shard's detector fired
     assert tsrv.take_drift() is None
+
+
+def test_carried_optimizer_state_matches_reference(ref):
+    """``physical_plan(keep_state=True)``: the port's builder holds the
+    reference's classifiers under the same keys (same F1 at insert), and its
+    B&B tree the reference's measured nodes and surviving orders."""
+    jplan = _jplan(ref)
+    tplan = interop.physical_plan(jplan, ref["tq"], "cpu", keep_state=True)
+    jb, tb = jplan.meta["builder"], tplan.meta["builder"]
+    jcls, tcls = jb.export_classifiers(), tb.export_classifiers()
+    assert tcls.keys() == jcls.keys() and len(tcls) > 0
+    for key, (proxy, phi) in tcls.items():
+        assert phi == float(jcls[key][1]) and proxy.family == jcls[key][0].family
+    assert (tb.kind, tb.eps, tb.seed, tb.device.type) == (jb.kind, jb.eps, jb.seed, "cpu")
+    np.testing.assert_array_equal(tb.x, np.asarray(jb.x))
+    assert tplan.meta["bnb"].builder is tb
+    js, jq = jplan.meta["bnb"].export_state()
+    ts, tq = tplan.meta["bnb"].export_state()
+    assert ts == {k: float(v) for k, v in js.items()} and tq == [tuple(o) for o in jq]
+    assert "builder" not in interop.physical_plan(jplan, ref["tq"], "cpu").meta

@@ -5,8 +5,9 @@ tolerances, their launch counters (``flash_attention``'s and ``ssd_chunk``'s
 per route, with the route each dtype, shape and layout takes), the f32
 tensor-core routes and ``split_bf16`` bit for bit, the optimize-and-execute
 path on a short stream, the dense serving path at deepseek-67b's width and
-the SSM serving path at mamba2-2.7b's, each with two layers and a short
-prompt.  On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``
+the SSM serving path at mamba2-2.7b's, and the MoE, MLA and VLM paths at
+qwen3-moe's, deepseek-v2-lite's and paligemma's, each with two layers and a
+short prompt; the tuned scorer and the MoE combine's determinism.  On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``
 (``-k f32`` for the f32 routes)."""
 import sys
 from pathlib import Path
@@ -530,3 +531,60 @@ def test_fleet_paths_short(cuda):
     assert all(w["device"].startswith("cuda") for w in proc["workers"])
     faults = chip_smoke.run_fleet_faults(cuda, workload, fleet["fleet"], 131_072)
     assert all(c["resolution_ok"] for c in faults["cases"].values())
+
+
+@pytest.mark.parametrize("spec,phase,want", [(chip_smoke.MOE, "moe_path", 2),
+                                             (chip_smoke.MLA, "mla_path", 0),
+                                             (chip_smoke.VLM, "vlm_path", 2)])
+def test_model_paths_short_prompt(cuda, spec, phase, want):
+    """qwen3-moe, deepseek-v2-lite and paligemma at their published widths,
+    two layers and a short prompt: flash_attention once a GQA layer in the
+    prefill, never for MLA, never in decode; the attention, MLA and logits
+    checks of ``chip_smoke.run_model_path``."""
+    out = chip_smoke.run_model_path(cuda, dict(spec, layers=2, batch=2, prompt=512,
+                                               new_tokens=4), phase)
+    assert out["launches"] == out["prefill_launches"] == want
+
+
+def test_moe_decode_is_deterministic_on_the_card(cuda):
+    """The same MoE input twice through ``moe_apply`` on the card: bit-equal
+    outputs (the combine adds each token's rows in a fixed order; no
+    atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    p = moe.init_experts(torch.Generator(device=cuda).manual_seed(0), cfg)
+    x = torch.randn(4, 512, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    a, aux_a = moe.moe_apply(p, cfg, x)
+    b, aux_b = moe.moe_apply(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_scorer_tunes_block_m_on_the_card(cuda):
+    """A scorer on the card tunes ``block_m`` on the "cuda" model (the
+    smallest block: it pads no tile more), and scores as a block_m = 256
+    scorer does."""
+    import types
+
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import CascadeScorer
+
+    rng = np.random.RandomState(0)
+    params = [interop.proxy_params(types.SimpleNamespace(
+        w=rng.randn(64).astype(np.float32), b=np.float32(0.1),
+        mean=np.zeros(64, np.float32), scale=np.ones(64, np.float32)), cuda) for _ in range(2)]
+    tuned = CascadeScorer(params, [0.0, 0.2], device=cuda)
+    fixed = CascadeScorer(params, [0.0, 0.2], block_m=256, device=cuda)
+    assert tuned.block_m == autotune.choose_block_m(64, int(tuned.w1.shape[1]), 2,
+                                                    backend="cuda").block_m == 128
+    for n in (3000, 100):
+        xs = rng.randn(n, 64).astype(np.float32)
+        _, m_a, pk_a, c_a = tuned.score_compact(xs)
+        _, m_b, pk_b, c_b = fixed.score_compact(xs)
+        assert np.array_equal(m_a, m_b) and np.array_equal(c_a, c_b)
+        assert all(np.array_equal(u, v) for u, v in zip(pk_a, pk_b))

@@ -171,7 +171,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.core.plan_cache", "repro_torch.kernels.ops",
                  "repro_torch.distributed.serving", "repro_torch.distributed.consensus",
                  "repro_torch.distributed.procworker",
-                 "repro_torch.distributed.fault_tolerance"):
+                 "repro_torch.distributed.fault_tolerance", "repro_torch.models.moe",
+                 "repro_torch.models.mla", "repro_torch.models.vlm",
+                 "repro_torch.kernels.autotune"):
         assert name in proc.stdout
 
 
@@ -184,12 +186,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.data.synthetic import make_dataset, make_query, make_udfs
     from repro_torch.kernels.ops import CascadeScorer
     from repro_torch.configs import reduced_config
-    from repro_torch.interop import ssm_params, transformer_params
+    from repro_torch.interop import moe_params, ssm_params, transformer_params, vlm_params
     from repro_torch.kernels.flash_attention import _lib as flash_attention_lib
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import _lib as ssd_chunk_lib
     from repro_torch.kernels.ssd_scan import ssd_chunk
-    from repro_torch.models import ssm, transformer
+    from repro_torch.models import moe, ssm, transformer, vlm
     from repro_torch.models.registry import make_batch
     from repro_torch.training.proxy_models import train_linear_svm
     from repro_torch.core import CoreSession, PlanCache
@@ -212,7 +214,17 @@ def test_cuda_default_entry_points_raise_without_a_card():
     hit_cache.optimize_query(query, x, device="cpu")
     cfg = reduced_config("deepseek-67b")
     ssm_cfg = reduced_config("mamba2-2.7b")
+    moe_cfg, mla_cfg = reduced_config("qwen3-moe-30b-a3b"), reduced_config("deepseek-v2-lite-16b")
+    vlm_cfg = reduced_config("paligemma-3b")
     calls = {
+        "moe.init": lambda: moe.init(0, moe_cfg),
+        "moe.init (MLA)": lambda: moe.init(0, mla_cfg),
+        "moe.init_cache": lambda: moe.init_cache(mla_cfg, 1, 8),
+        "moe_params": lambda: moe_params({}, moe_cfg),
+        "vlm.init": lambda: vlm.init(0, vlm_cfg),
+        "vlm.init_cache": lambda: vlm.init_cache(vlm_cfg, 1, 8),
+        "vlm_params": lambda: vlm_params({}, vlm_cfg),
+        "make_batch (vlm)": lambda: make_batch(vlm_cfg, 1, 16),
         "transformer.init": lambda: transformer.init(0, cfg),
         "transformer.init_cache": lambda: transformer.init_cache(cfg, 1, 8),
         "make_batch": lambda: make_batch(cfg, 1, 8),

@@ -126,17 +126,21 @@ def test_port_blob_round_trips_through_the_reference(workload, dtype):
     blob = serialize_scorer(_at(workload["tplan"], dtype))
     jplan2, jsc2 = jops.deserialize_scorer(blob, workload["jq"])
     assert jops.serialize_scorer(jplan2, jsc2) == blob
-    assert jsc2.dtype == dtype and jsc2.block_m == 256
+    # the port's tuned block_m travels, and is the reference's own choice
+    want = jops.CascadeScorer.from_plan(_at(workload["jplan"], dtype), max_tile=8192).block_m
+    assert jsc2.dtype == dtype and jsc2.block_m == _header(blob)["scorer"]["block_m"] == want
     plan2, sc2 = deserialize_scorer(blob, workload["tq"], device="cpu")
     assert serialize_scorer(plan2, sc2) == blob
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_equal_block_m_writes_identical_bytes(workload, dtype):
-    """On equal block_m / max_tile the two packages write the same artifact
-    for the same plan (the JAX-trained proxy params carried across)."""
+    """Both packages' scorers tune block_m to the same value on the CPU, so
+    at their defaults they write the same artifact for the same plan (the
+    JAX-trained proxy params carried across)."""
     jplan, tplan = _at(workload["jplan"], dtype), _at(workload["tplan"], dtype)
-    jsc = jops.CascadeScorer.from_plan(jplan, block_m=256, max_tile=8192)
+    jsc = jops.CascadeScorer.from_plan(jplan, max_tile=8192)
+    assert CascadeScorer.from_plan(tplan, device="cpu").block_m == jsc.block_m
     want = jops.serialize_scorer(jplan, jsc)
     assert serialize_scorer(tplan, CascadeScorer.from_plan(tplan, device="cpu")) == want
     assert serialize_scorer(tplan) == want  # no scorer: packed on the host
