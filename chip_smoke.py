@@ -107,6 +107,33 @@ Each phase prints one JSON line:
               bf16 beside the witness (the same serving with the plain
               attention against the same ``forward``); then
               ``flash_timing`` at that shape.
+10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a stats
+              pass, then dK/dV a KV tile a block over its query-head group,
+              then dQ; f32 sums on the CUDA cores) against its plain PyTorch
+              version, bf16 and f32, causal and full: the JAX package's test
+              shapes, D 256, ragged lengths, a GQA group of 7 and D 16, each
+              gradient within 2^-6 (bf16) or 1e-4 (f32) of its largest
+              value; a planted fault (one KV tile's dk and dv rows zeroed)
+              rejected in both types; then ``flash_bwd_timing`` at (1, 4096,
+              64, 8, 128) in bf16 and f32 and at paligemma's (4, 4096, 8, 1,
+              256) in bf16: the kernel, its plain version and
+              ``torch.autograd.grad`` through ``scaled_dot_product_attention``
+              beside its bound (2.5 forwards' flops at the bf16 peak).
+10e. train_path — ``launch.train.run`` at deepseek-67b's published widths,
+              depth cut to 3 layers, bf16 weights, accum 4, remat, AdamW
+              with f32 accumulation and moments: 4 steps on one fixed batch
+              of 4 x 4,096 tokens with the counts zeroed just before (6
+              forward and 3 backward ``flash_attention`` launches a
+              micro-batch), the loss falling; each layer's backward launch of
+              the first micro-batch against the plain backward on its own
+              q, k, v and dO; step ms, tokens/s, peak memory and a profile
+              of one step; one f32 step at 1 layer against the same step
+              with the plain attention under autograd (loss 1e-5, gradients
+              1e-4 of their largest, updated parameters 1e-4 where AdamW's
+              update is well conditioned); a restart through
+              ``ResilientRunner`` from a checkpoint at the reduced config,
+              equal bit for bit to a run without one; and one step each of
+              qwen3-moe and paligemma at their widths and 2 layers.
 11. serving_path — CORE's adaptive serving stack (``CoreSession.serve`` with
               ``ServeConfig(adaptive=True, tile=1024)``, the serve CLI's
               ``--adaptive --drift`` flow) over 1,048,576 records: a 5%
@@ -204,6 +231,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -1792,7 +1820,7 @@ def attention_errors(seen: list, batch: int) -> tuple:
 
 def profile_split(fn, dev) -> dict:
     """``device_profile`` of ``fn`` with its device time split by kernel
-    name into the flash kernel, GEMMs, dispatch (sort, search, index,
+    name into the flash kernel, its backward kernels, GEMMs, dispatch (sort, search, index,
     gather, scatter) and elementwise or reduction kernels; the expert
     GEMMs are the device time of ``aten::bmm`` (only the experts use it)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1803,7 +1831,7 @@ def profile_split(fn, dev) -> dict:
         fn()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    split = dict(flash=0.0, gemm=0.0, dispatch=0.0, elementwise=0.0, other=0.0)
+    split = dict(flash=0.0, flash_bwd=0.0, gemm=0.0, dispatch=0.0, elementwise=0.0, other=0.0)
     others: dict = {}
     dispatch_words = ("sort", "Sort", "search", "index", "gather", "scatter", "bincount")
     for e in prof.events():
@@ -1812,6 +1840,8 @@ def profile_split(fn, dev) -> dict:
         name, us = e.name, e.time_range.elapsed_us()
         if "flash_attention" in name:
             split["flash"] += us
+        elif any(w in name for w in ("bwd_stats", "bwd_dkdv", "bwd_dq")):
+            split["flash_bwd"] += us
         elif any(w in name for w in ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")):
             split["gemm"] += us
         elif any(w in name for w in dispatch_words):
@@ -2037,6 +2067,439 @@ def mla_naive_decode(p, cfg, x, ckv, krope, pos: int):
     out = model_layers.mha(q, k, kv[..., nope:], causal=True, q_positions=positions,
                            kv_positions=kv_pos)
     return out.reshape(B, 1, H * vh) @ p.wo
+
+
+# ------------------------------------------------------------- phase 10d
+# The backward kernel against its plain version: within 2^-6 (bf16) and 1e-4
+# (f32) of each gradient's largest value.  Both sum in f32 in different
+# orders; in bf16 each gradient then rounds once to bf16 (an ulp is 2^-8 of
+# the value), and the rows of a KV tile that a faulty kernel skipped differ
+# by their whole size.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's test shapes,
+    (*shape, causal, dtype)  # D 256, ragged lengths, a GQA group of 7 and D 16
+    for dtype in ("bfloat16", "float32") for causal in (True, False)
+    for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),
+                  (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16)))
+BWD_SERVING_SHAPE = (1, 4096, 4096, 64, 8, 128)  # deepseek-67b's micro-batch, one per launch
+BWD_FAULT_KEYS = (2048, 2112)  # a KV tile in the middle of the serving shape
+BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
+
+
+def bwd_errors(got, want) -> list:
+    """Each of (dq, dk, dv): the largest difference over the largest
+    |plain| value."""
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(torch.finfo(torch.float32).tiny))
+            for a, b in zip(got, want)]
+
+
+def check_bwd_output(what: str, got, want) -> list:
+    """(dq, dk, dv) of the kernel within BWD_TOL of the plain version's;
+    returns their errors."""
+    dtype = str(want[0].dtype).removeprefix("torch.")
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: bad gradient")
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite gradient")
+    errs = bwd_errors(got, want)
+    check(max(errs) <= BWD_TOL[dtype], f"{what}: (dq, dk, dv) differ from the plain version by "
+          f"{errs} of their largest values (tol {BWD_TOL[dtype]})")
+    return errs
+
+
+def make_bwd_case(case, dev, seed):
+    """q, k, v of ``make_flash_case`` and an output gradient dO, standard
+    normals in the case's type."""
+    B, Sq, _Sk, H, _K, D, _causal, dtype = case
+    q, k, v = make_flash_case(case, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    dout = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(getattr(torch, dtype))
+    return q, k, v, dout
+
+
+def check_bwd_case(case, dev, seed=0) -> list:
+    """The backward kernel against its plain version on the card, on the
+    forward kernel's output."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+
+    causal = case[6]
+    q, k, v, dout = make_bwd_case(case, dev, seed)
+    out = flash_attention(q, k, v, causal=causal)
+    got = flash_attention_backward(q, k, v, out, dout, causal=causal)
+    want = flash_attention_backward_plain(q, k, v, out, dout, causal=causal)
+    sync(dev)
+    return check_bwd_output(str(case), got, want)
+
+
+def bwd_planted_fault(dev, dtype: str) -> dict:
+    """The serving-shape check against the kernel's gradients with one KV
+    tile's rows of dk and dv zeroed, which is what a dK/dV kernel that
+    skipped that tile's block would return (and a dQ kernel that skipped the
+    tile misses the same terms in dq): the check must reject it."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
+                                                     flash_attention_backward_plain)
+
+    case = (*BWD_SERVING_SHAPE, True, dtype)
+    q, k, v, dout = make_bwd_case(case, dev, seed=3)
+    out = flash_attention(q, k, v, causal=True)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=True)
+    want = flash_attention_backward_plain(q, k, v, out, dout, causal=True)
+    errs = check_bwd_output(f"{case}, before the fault", (dq, dk, dv), want)
+    dk[:, BWD_FAULT_KEYS[0]:BWD_FAULT_KEYS[1]] = 0
+    dv[:, BWD_FAULT_KEYS[0]:BWD_FAULT_KEYS[1]] = 0
+    bad = bwd_errors((dq, dk, dv), want)
+    caught = max(bad) > BWD_TOL[dtype]
+    check(caught, f"{dtype}: a skipped KV tile passes the backward check ({bad})")
+    return dict(dtype=dtype, keys=list(BWD_FAULT_KEYS), clean_errors=errs, faulty_errors=bad,
+                caught=caught)
+
+
+def bwd_bound(B, Sq, Sk, H, K, D, causal) -> tuple:
+    """(ms, flops): BWD_FLOPS_FACTOR forwards' products (the causal pairs
+    only) at the bf16 tensor-core peak; each input (q, k, v, o, dO) read and
+    each gradient written once over HBM is far less at these shapes."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    flops = BWD_FLOPS_FACTOR * 4 * B * H * D * pairs
+    return flops / BF16_FLOPS * 1e3, flops
+
+
+def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
+    """The backward kernel, its plain version and ``torch.autograd.grad``
+    through ``scaled_dot_product_attention`` (K and V repeated to every
+    query head inside the graph, so its gradient sums over the group as the
+    kernel's does) at ``shape``, causal, in turns (plain, kernel, library,
+    kernel, plain), beside the bound; the three kernels' registers, spills
+    and shared memory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (backward_resources, flash_attention,
+                                                     flash_attention_backward,
+                                                     flash_attention_backward_plain)
+
+    B, Sq, Sk, H, K, D = shape
+    case = (*shape, True, dtype)
+    q, k, v, dout = make_bwd_case(case, dev, seed=7)
+    out = flash_attention(q, k, v, causal=True)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        ql.transpose(1, 2), kl.transpose(1, 2).repeat_interleave(H // K, dim=1),
+        vl.transpose(1, 2).repeat_interleave(H // K, dim=1), is_causal=True).transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True)
+
+    def kernel():
+        return flash_attention_backward(q, k, v, out, dout, causal=True)
+
+    def plain():
+        return flash_attention_backward_plain(q, k, v, out, dout, causal=True)
+
+    lib_err = max(bwd_errors(library(), kernel()))
+    err = max(check_bwd_output(f"{case}, timed", kernel(), plain()))
+    plain_a = cuda_ms(plain, dev, 1, warmup=1)
+    kern_a = cuda_ms(kernel, dev, iters, warmup=1)
+    lib_ms = cuda_ms(library, dev, 2 * iters, warmup=2)
+    kern_b = cuda_ms(kernel, dev, iters, warmup=0)
+    plain_b = cuda_ms(plain, dev, 1, warmup=0)
+    del lib_out
+    bound_ms, flops = bwd_bound(*case[:7])
+    ms = min(kern_a, kern_b)
+    log = _build.library_path("flash_attention_bwd").with_suffix(".log").read_text()
+    tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
+    row = dict(shape=list(shape), causal=True, dtype=dtype, max_err=err, ms=ms,
+               ms_runs=[kern_a, kern_b],
+               plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
+               library_ms=lib_ms,
+               library="torch.autograd.grad through scaled_dot_product_attention "
+                       "(K, V repeated to H heads in the graph)",
+               library_max_rel_diff=lib_err, bound_ms=bound_ms, bound_by="operations",
+               flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
+               share_of_bound=bound_ms / ms,
+               ptxas={name: ptxas_entry(log, f"{name}I{tname}Li{D}E")
+                      for name in ("bwd_stats", "bwd_dkdv", "bwd_dq")},
+               resources=backward_resources(D, q.dtype))
+    emit("flash_bwd_timing", **row)
+    return row
+
+
+def run_flash_bwd_kernels(dev) -> dict:
+    """Phase 10d: every BWD_CASES case, the planted faults, and the
+    kernel's time at deepseek-67b's and paligemma's training shapes in
+    bf16 (and deepseek-67b's in f32)."""
+    t0 = time.perf_counter()
+    errs = [check_bwd_case(case, dev, seed=i) for i, case in enumerate(BWD_CASES)]
+    faults = [bwd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
+    emit("flash_bwd_kernels", cases=len(BWD_CASES), seconds=time.perf_counter() - t0,
+         max_err={dt: max(max(e) for c, e in zip(BWD_CASES, errs) if c[7] == dt)
+                  for dt in BWD_TOL}, tol=BWD_TOL, planted_faults=faults,
+         shapes=[list(c) + [e] for c, e in zip(BWD_CASES, errs)])
+    torch.cuda.empty_cache()
+    rows = {"bfloat16": time_flash_bwd(dev, "bfloat16", BWD_SERVING_SHAPE, iters=3),
+            "float32": time_flash_bwd(dev, "float32", BWD_SERVING_SHAPE, iters=3)}
+    torch.cuda.empty_cache()
+    rows["D256"] = time_flash_bwd(dev, "bfloat16", VLM_SHAPE, iters=3)
+    torch.cuda.empty_cache()
+    return {"max_err": max(max(e) for e in errs), "rows": rows}
+
+
+# ------------------------------------------------------------- phase 10e
+# deepseek-67b at its published widths; depth 95 -> 3.  At 16 bytes a
+# parameter (bf16 weights and micro-batch gradient, f32 accumulator and two
+# f32 moments), 2 layers and the untied embedding and head (3.06 G
+# parameters) are 49 GB before activations, 3 layers 60 GB, 4 layers 71 GB.
+# On an H100 80GB HBM3 2 layers peaked at 53.4 GiB (25.8 GiB free), so the
+# phase takes 3; 4 would leave no room for activations.
+TRAIN = dict(arch="deepseek-67b", layers=3, batch=4, seq=4096, steps=4, lr=1e-4)
+TRAIN_SIDE = dict(archs=("qwen3-moe-30b-a3b", "paligemma-3b"), layers=2, batch=1, seq=4096)
+# The restart check runs the launcher at the reduced config (d_model 64, 4
+# query and 2 KV heads of 16, on the same kernels): a full-width checkpoint
+# of the 2-layer state is 30 GB.
+RESTART = dict(arch="deepseek-67b", steps=6, batch=4, seq=256, ckpt_every=2, fail_at=5)
+# AdamW's first update is g / (|g| + eps) a parameter: where |g| is within a
+# few hundred eps (1e-8) its direction turns on the gradient's last bits, and
+# a gradient equal to f32 rounding moves it anywhere in [-lr, lr].  Updated
+# parameters are held to 1e-4 of their largest value where the reference
+# gradient is at least ADAM_COND * eps, and to 2 * lr elsewhere.
+ADAM_EPS = 1e-8
+ADAM_COND = 100
+TRAIN_F32_TOL = 1e-4
+
+
+class BackwardLog:
+    """Records the first ``n`` ``flash_attention_backward`` calls of a run
+    (operands, output gradient and the kernel's gradients), passing every
+    call through unchanged."""
+
+    def __init__(self, n: int):
+        from repro_torch.kernels import flash_attention as flash_module
+
+        self.n, self.module, self.seen = n, flash_module, []
+        self.real = flash_module.flash_attention_backward
+
+    def __call__(self, q, k, v, out, dout, **kw):
+        grads = self.real(q, k, v, out, dout, **kw)
+        if len(self.seen) < self.n:
+            self.seen.append((tuple(t.detach() for t in (q, k, v, out, dout)), kw, grads))
+        return grads
+
+    def __enter__(self):
+        self.patch = mock.patch.object(self.module, "flash_attention_backward", self)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def plain_attention():
+    """A context in which ``flash_attention``'s autograd Function runs the
+    plain forward and the plain backward formulas on the card (the kernels'
+    reference under autograd: ``flash_attention_plain`` itself works in
+    place and cannot be differentiated)."""
+    from contextlib import ExitStack
+
+    from repro_torch.kernels import flash_attention as fm
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        fm, "_attend", lambda q, k, v, causal, scale: fm.flash_attention_plain(
+            q, k, v, causal=causal, scale=scale)))
+    stack.enter_context(mock.patch.object(fm, "flash_attention_backward",
+                                          fm.flash_attention_backward_plain))
+    return stack
+
+
+def adam_param_errors(new: dict, ref: dict, ref_mu: dict, lr: float) -> dict:
+    """Updated parameters ``new`` against ``ref`` after one AdamW step from
+    the same start: the largest difference over each parameter's largest
+    |ref| where the reference gradient (mu / (1 - b1)) is well conditioned,
+    and the largest absolute difference elsewhere."""
+    cond = ill = 0.0
+    for n, r in ref.items():
+        d = (new[n].float() - r.float()).abs()
+        good = (ref_mu[n] / 0.1).abs() >= ADAM_COND * ADAM_EPS
+        if bool(good.any()):
+            cond = max(cond, float(d[good].max() / r.float().abs().max()))
+        if bool((~good).any()):
+            ill = max(ill, float(d[~good].max()))
+    return {"conditioned_rel": cond, "ill_conditioned_abs": ill, "lr": lr}
+
+
+def host_copy(named: dict) -> dict:
+    return {n: t.detach().to("cpu", copy=True) for n, t in named.items()}
+
+
+def train_f32_check(dev) -> dict:
+    """One f32 AdamW step at 1 layer (deepseek-67b widths, one 4,096-token
+    sequence) with the kernels, against the same step from the same start
+    with ``plain_attention``: the loss within 1e-5, each first moment (0.1
+    times the gradient) within TRAIN_F32_TOL of its largest value, each
+    updated parameter by ``adam_param_errors``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"]).replace(num_layers=1, dtype="float32", accum_steps=1)
+    seqs = make_data(cfg, TRAIN["seq"], rows=1, seed=1)
+    runs = {}
+    for name in ("kernel", "plain"):
+        params, opt = init_train_state(cfg, 0, dev)
+        batch = make_batch(cfg, seqs, 0, dev)
+        fm.reset_launches()
+        if name == "plain":
+            with plain_attention():
+                _, opt, m = make_train_step(cfg, lr=TRAIN["lr"])(params, opt, batch)
+        else:
+            _, opt, m = make_train_step(cfg, lr=TRAIN["lr"])(params, opt, batch)
+        sync(dev)
+        runs[name] = dict(loss=float(m["loss"]), launches=fm.flash_attention.launches,
+                          backward_launches=fm.flash_attention.backward_launches,
+                          params=host_copy(dict(params.named_parameters())),
+                          mu=host_copy(opt.mu))
+        del params, opt, batch, m
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    check(k["launches"] == 2 and k["backward_launches"] == 1,
+          f"f32 step: {k['launches']} forward and {k['backward_launches']} backward launches, "
+          "not 2 and 1 (one layer, remat)")
+    check(p["launches"] == 0 and p["backward_launches"] == 0, "the plain step launched a kernel")
+    loss_err = abs(k["loss"] - p["loss"])
+    mu_err = max(float((k["mu"][n] - p["mu"][n]).abs().max()
+                       / p["mu"][n].abs().max().clamp_min(1e-30)) for n in p["mu"])
+    perr = adam_param_errors(k["params"], p["params"], p["mu"], TRAIN["lr"])
+    check(loss_err <= 1e-5, f"f32 step: loss {k['loss']} against {p['loss']} with the plain "
+          "attention")
+    check(mu_err <= TRAIN_F32_TOL, f"f32 step: gradients differ by {mu_err} of their largest")
+    check(perr["conditioned_rel"] <= TRAIN_F32_TOL and perr["ill_conditioned_abs"]
+          <= 2 * TRAIN["lr"], f"f32 step: updated parameters differ: {perr}")
+    return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
+                params=perr, launches=k["launches"], backward_launches=k["backward_launches"])
+
+
+def restart_check(dev, tmp: Path) -> dict:
+    """``launch.train.run`` at the reduced deepseek-67b config on the card
+    (accum 2, remat): RESTART["steps"] steps straight, then the same with a
+    simulated preemption before step ``fail_at``, which ``ResilientRunner``
+    answers by restoring the last checkpoint (step ``fail_at`` - 1 rounded
+    down to ``ckpt_every``) and the data cursor: the two runs' parameters
+    and moments must be equal bit for bit."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.train import run
+
+    cfg = reduced_config(RESTART["arch"]).replace(accum_steps=2, remat=True)
+    kw = dict(steps=RESTART["steps"], batch=RESTART["batch"], seq=RESTART["seq"], lr=1e-3,
+              device=dev, ckpt_every=RESTART["ckpt_every"], log=lambda _msg: None)
+    straight = run(cfg, ckpt_dir=tmp / "straight", **kw)
+    again = run(cfg, ckpt_dir=tmp / "restarted", fail_at=RESTART["fail_at"], **kw)
+    check(again["report"].restarts == 1, f"{again['report'].restarts} restarts, not 1")
+    same = [torch.equal(a, b) for a, b in zip(straight["params"].parameters(),
+                                              again["params"].parameters())]
+    same += [torch.equal(straight["opt"].mu[n], again["opt"].mu[n])
+             and torch.equal(straight["opt"].nu[n], again["opt"].nu[n])
+             for n in straight["opt"].mu]
+    check(all(same), f"{same.count(False)} of {len(same)} tensors differ after the restart")
+    check(again["losses"] == straight["losses"], "the losses differ after the restart")
+    steps = sorted(p.name for p in (tmp / "restarted" / cfg.name).glob("step_*"))
+    return dict(config=cfg.name, steps=RESTART["steps"], fail_at=RESTART["fail_at"],
+                restarts=again["report"].restarts, checkpoints=steps,
+                tensors_equal=len(same), losses=straight["losses"])
+
+
+def side_step(dev, arch: str) -> dict:
+    """One launcher step of ``arch`` at its widths, depth cut to
+    TRAIN_SIDE["layers"], one sequence: a finite loss and moments, and the
+    counted launches (2 forward and 1 backward a layer a micro-batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.launch.train import run
+
+    cfg = get_config(arch).replace(num_layers=TRAIN_SIDE["layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    fm.reset_launches()
+    res = run(cfg, steps=1, batch=TRAIN_SIDE["batch"], seq=TRAIN_SIDE["seq"], lr=TRAIN["lr"],
+              device=dev, ckpt_every=0, log=lambda _msg: None)
+    sync(dev)
+    fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+    micro = max(1, cfg.accum_steps)
+    layers = cfg.num_layers
+    check(fwd == 2 * layers * micro and bwd == layers * micro,
+          f"{arch}: {fwd} forward and {bwd} backward launches, not {2 * layers * micro} and "
+          f"{layers * micro}")
+    finite = all(bool(torch.isfinite(m).all()) for m in res["opt"].mu.values())
+    check(finite and math.isfinite(res["losses"][0]), f"{arch}: non-finite loss or gradients")
+    out = dict(arch=arch, layers=layers, accum_steps=micro, loss=res["losses"][0],
+               launches=fwd, backward_launches=bwd, gradients_finite=finite,
+               step_s=res["step_s"][0], peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_path(dev, tmp: Path) -> dict:
+    """Phase 10e: the training path at deepseek-67b's widths through
+    ``launch.train.run`` (bf16 weights, accum 4, remat, AdamW with f32
+    accumulation and moments): TRAIN["steps"] steps on one fixed batch of 4
+    x 4,096 tokens (a stream of that one batch) with the launch counts
+    zeroed just before, the loss falling; each layer's backward launch of
+    the first micro-batch against the plain backward on its own q, k, v and
+    dO; a profile of one more step; then ``train_f32_check``,
+    ``restart_check`` and ``side_step`` for qwen3-moe and paligemma."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels.flash_attention import flash_attention_backward_plain
+    from repro_torch.launch.train import make_batch, make_data, run
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"]).replace(num_layers=TRAIN["layers"])
+    micro = cfg.accum_steps
+    data = make_data(cfg, TRAIN["seq"], rows=TRAIN["batch"], seed=1)  # one global batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fm.reset_launches()
+    with BackwardLog(cfg.num_layers) as seen:
+        res = run(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+                  lr=TRAIN["lr"], device=dev, ckpt_every=0, data=data, log=lambda _msg: None)
+        sync(dev)
+    fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = TRAIN["steps"]
+    check(fwd == steps * 2 * cfg.num_layers * micro,
+          f"{fwd} forward launches in {steps} steps, not {steps * 2 * cfg.num_layers * micro}")
+    check(bwd == steps * cfg.num_layers * micro,
+          f"{bwd} backward launches in {steps} steps, not {steps * cfg.num_layers * micro}")
+    losses = [res["losses"][s] for s in range(steps)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"the loss on a fixed batch did not fall: {losses}")
+    params, opt, step_s = res["params"], res["opt"], res["step_s"]
+    step_fn = make_train_step(cfg, lr=TRAIN["lr"])
+    batch = make_batch(cfg, data, 0, dev)
+    prof = profile_split(lambda: step_fn(params, opt, batch), dev)
+    del res, params, opt, batch, step_fn
+    torch.cuda.empty_cache()
+    layer_errs = []
+    with torch.no_grad():
+        for i, (args, kw, got) in enumerate(seen.seen):
+            layer_errs.append(check_bwd_output(f"train layer {cfg.num_layers - 1 - i} backward",
+                                               got, flash_attention_backward_plain(*args, **kw)))
+    del seen
+    torch.cuda.empty_cache()
+    warm_s = sorted(step_s[1:])[(len(step_s) - 1) // 2]  # the median after the first step
+    f32 = train_f32_check(dev)
+    restart = restart_check(dev, tmp)
+    side = {arch: side_step(dev, arch) for arch in TRAIN_SIDE["archs"]}
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, batch=TRAIN["batch"], seq=TRAIN["seq"], accum_steps=micro,
+               remat=cfg.remat, dtype=cfg.dtype, lr=TRAIN["lr"], step_ms=[s * 1e3 for s in step_s],
+               warm_step_ms=warm_s * 1e3,
+               tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / warm_s, launches=fwd,
+               backward_launches=bwd, losses=losses, layer_bwd_errors=layer_errs,
+               peak_gib=peak / 2**30, peak_free_gib=(torch.cuda.get_device_properties(
+                   dev).total_memory - peak) / 2**30, step_profile=prof, float32=f32,
+               restart=restart, side_steps=side, seconds=time.perf_counter() - t_phase)
+    emit("train_path", **out)
+    return out
 
 
 # ------------------------------------------------------------- phase 11
@@ -3003,9 +3466,11 @@ def main(argv=None) -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["cascade_score", "flash_attention", "ssd_chunk"])
+    libs = _build.build_all(["cascade_score", "flash_attention", "flash_attention_bwd",
+                             "ssd_chunk"])
     proxy_score._lib()
     flash_attention._lib()
+    flash_attention._bwd_lib()
     ssd_scan._lib()
     for lib_path in libs.values():
         log = lib_path.with_suffix(".log").read_text().splitlines()
@@ -3098,6 +3563,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     vlm_row = time_flash(dev, "bfloat16", iters=3, shape=VLM_SHAPE)
     torch.cuda.empty_cache()
+    bwd = run_flash_bwd_kernels(dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        train = run_train_path(dev, Path(tmp))
+    torch.cuda.empty_cache()
 
     serving = run_serving_path(dev, args.serving_records)
     workload = serving.pop("workload")
@@ -3143,7 +3612,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": dense["launches"],
         "launches_by_path": {"dense_path": dense["launches"], "moe_path": moe["launches"],
-                             "mla_path": mla["launches"], "vlm_path": vlm["launches"]},
+                             "mla_path": mla["launches"], "vlm_path": vlm["launches"],
+                             "train_path": train["launches"]},
         "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
                             if c[7] == "bfloat16"] + [dense["attention_max_abs_err"],
                                                       moe["attention_max_abs_err"]]),
@@ -3195,7 +3665,32 @@ def main(argv=None) -> int:
         "ms": ssd32_row["ms"], "plain_ms": ssd32_row["plain_ms"],
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention_bwd", "route": "cuda", "kernel_route": "cuda_cores",
+        "dtype": "bfloat16", "shape": list(BWD_SERVING_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "the gradient of that kernel; the JAX package has no backward kernel",
+        "launches": train["backward_launches"],
+        "launches_by_path": {"train_path": train["backward_launches"],
+                             **{a: s["backward_launches"]
+                                for a, s in train["side_steps"].items()}},
+        "max_abs_err": max([bwd["max_err"]] + [max(e) for e in train["layer_bwd_errors"]]),
+        "max_err_is": "of each gradient's largest value",
+        "ms": bwd["rows"]["bfloat16"]["ms"], "plain_ms": bwd["rows"]["bfloat16"]["plain_ms"],
+        "bound_ms": bwd["rows"]["bfloat16"]["bound_ms"], "bound_by": "operations",
+        "library_ms": bwd["rows"]["bfloat16"]["library_ms"]}, {
+        "name": "flash_attention_bwd[D256]", "route": "cuda", "kernel_route": "cuda_cores",
+        "dtype": "bfloat16", "shape": list(VLM_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "the gradient of that kernel at paligemma's shape",
+        "launches": train["side_steps"]["paligemma-3b"]["backward_launches"],
+        "max_abs_err": bwd["rows"]["D256"]["max_err"],
+        "max_err_is": "of each gradient's largest value",
+        "ms": bwd["rows"]["D256"]["ms"], "plain_ms": bwd["rows"]["D256"]["plain_ms"],
+        "bound_ms": bwd["rows"]["D256"]["bound_ms"], "bound_by": "operations",
+        "library_ms": bwd["rows"]["D256"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -198,3 +198,52 @@ def moe_params(ref_params, cfg, device="cuda") -> MoETransformer:
 
 # the VLM family's weights are the dense family's
 vlm_params = transformer_params
+
+
+def _ref_leaf(ref_tree, path) -> np.ndarray:
+    for key in path:
+        ref_tree = ref_tree[key]
+    return np.asarray(ref_tree)
+
+
+def adamw_state(ref_state, params: torch.nn.Module, device="cuda"):
+    """The JAX package's ``AdamWState`` (step, and mu / nu as pytrees like
+    its params: layer stacks on a leading dim) as this package's
+    ``optim.AdamWState`` for ``params``: one f32 moment a parameter."""
+    from repro_torch.models.leaves import leaf_of
+    from repro_torch.training.optim import AdamWState
+
+    dev = resolve_device(device)
+
+    def per_param(ref_tree):
+        out = {}
+        for name, _ in params.named_parameters():
+            path, layer = leaf_of(name)
+            arr = _ref_leaf(ref_tree, path)
+            out[name] = _t(arr if layer is None else arr[layer], dev)
+        return out
+
+    return AdamWState(step=int(np.asarray(ref_state.step)), mu=per_param(ref_state.mu),
+                      nu=per_param(ref_state.nu))
+
+
+def adafactor_state(ref_state, params: torch.nn.Module, device="cuda"):
+    """The JAX package's ``AdafactorState`` as this package's: row and
+    column factors a JAX leaf (layer stacks whole), keyed by leaf path."""
+    from repro_torch.models.leaves import groups
+    from repro_torch.training.optim import AdafactorState
+
+    dev = resolve_device(device)
+    paths = list(groups(n for n, _ in params.named_parameters()))
+    return AdafactorState(step=int(np.asarray(ref_state.step)),
+                          vr={p: _t(_ref_leaf(ref_state.vr, p), dev) for p in paths},
+                          vc={p: _t(_ref_leaf(ref_state.vc, p), dev) for p in paths})
+
+
+def cursor(ref_cursor):
+    """The JAX package's data ``Cursor`` (or its ``as_dict()``) as this
+    package's."""
+    from repro_torch.data.pipeline import Cursor
+
+    d = ref_cursor if isinstance(ref_cursor, dict) else ref_cursor.as_dict()
+    return Cursor.from_dict({k: int(np.asarray(v)) for k, v in d.items()})

@@ -35,6 +35,19 @@ against different running maxima, so they agree to about 1e-6 in f32 and to
 bf16's precision in bf16.  The tensor-core kernels read their operands with
 TMA, which needs 16-byte aligned data pointers; the wrapper refuses others
 on every device and every route.
+
+Gradients: whenever grad is enabled and q, k or v requires it,
+``flash_attention`` goes through ``FlashAttention`` (a
+``torch.autograd.Function``).  Its forward is the route above; its backward
+is ``flash_attention_backward``: on the card the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` (a stats pass for the row log-sum-exp and
+Di = rowsum(dO * O), then dK/dV a KV tile a block across its query-head
+group, then dQ; f32 sums on the CUDA cores, no atomics), on the CPU
+``flash_attention_backward_plain``, the same formulas in plain PyTorch.
+``flash_attention.backward_launches`` counts the backward's CUDA calls (one
+a call, three kernels each).  ``flash_attention_plain`` itself cannot be
+differentiated (it works on its scores in place): it stays the forward's
+oracle.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ _KERNEL_CODE = {("cuda_cores", torch.float32): 0, ("tensor_cores", torch.bfloat1
                 ("tensor_cores", torch.float32): 2}  # the C entry's resource selector
 
 _LIB = None
+_BWD_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -78,6 +92,22 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = ctypes.CDLL(str(_build.build("flash_attention_bwd")))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_launch.argtypes = [vp] * 10 + [i] * 8 + [ctypes.c_float, vp]
+        lib.flash_attention_bwd_launch.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.flash_attention_bwd_resources.argtypes = [i, i, i, ip, ip, ip]
+        lib.flash_attention_bwd_resources.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check_operands(q, k, v):
@@ -199,7 +229,17 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     (B, Sq, H, D) in q's type.  ``scale`` defaults to 1/sqrt(D).  The
     causal mask aligns both sequences at position 0.  All tensors share one
     device, which picks the route: CUDA launches the kernel, CPU runs
-    ``flash_attention_plain``."""
+    ``flash_attention_plain``.  With grad enabled and an operand that
+    requires it, the call goes through ``FlashAttention``, whose backward
+    is ``flash_attention_backward``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _attend(q, k, v, causal, scale)
+
+
+def _attend(q, k, v, causal: bool, scale: float | None):
+    """The forward on q's device: the kernel on CUDA, the plain version on
+    the CPU."""
     B, Sq, Sk, H, K, D = _check_operands(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
@@ -232,11 +272,109 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward saves q, k, v and
+    the output; the backward runs ``flash_attention_backward`` on them and
+    the output's gradient (the kernel on the card, the plain formulas on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _attend(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(),
+                                              causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
+                                   scale: float | None = None):
+    """The backward's formulas in plain PyTorch (the CPU route and the
+    on-card reference), one batch row and KV head at a time, all in f32:
+    s = (q * scale) @ k^T masked as the forward masks it, p = exp(s -
+    logsumexp(s)), Di = rowsum(dO * O), dP = dO @ v^T, dS = p * (dP - Di),
+    dV = p^T @ dO with p rounded to v's type (as the forward rounds it
+    before P.V), dK = dS^T @ (q * scale), dQ = scale * dS @ k.  Returns
+    (dq, dk, dv) in the operands' type."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    keep = None
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+    for b in range(B):
+        for kh in range(K):
+            heads = slice(kh * G, (kh + 1) * G)
+            qs = q[b, :, heads].to(f32).permute(1, 0, 2) * scale  # (G, Sq, D)
+            g = dout[b, :, heads].to(f32).permute(1, 0, 2)
+            o = out[b, :, heads].to(f32).permute(1, 0, 2)
+            kf, vf = k[b, :, kh].to(f32), v[b, :, kh].to(f32)  # (Sk, D)
+            s = qs @ kf.T
+            if keep is not None:
+                s = s.masked_fill(~keep, NEG_INF)
+            p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+            di = (g * o).sum(dim=-1, keepdim=True)
+            ds = p * (g @ vf.T - di)
+            pv = p.to(v.dtype).to(f32)
+            dv[b, :, kh] = torch.einsum("gqs,gqd->sd", pv, g).to(v.dtype)
+            dk[b, :, kh] = torch.einsum("gqs,gqd->sd", ds, qs).to(k.dtype)
+            dq[b, :, heads] = ((ds @ kf) * scale).permute(1, 0, 2).to(q.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             scale: float | None = None):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` = ``out``
+    for the output gradient ``dout``.  Operands as ``flash_attention``
+    takes them; ``out`` and ``dout`` (B, Sq, H, D) contiguous, of q's type.
+    A CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (or raises); a
+    CPU tensor runs ``flash_attention_backward_plain``."""
+    B, Sq, Sk, H, K, D = _check_operands(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(q.shape)} {q.dtype} on {q.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, dout, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on CUDA or the CPU, not {q.device}")
+    lib = _bwd_lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)  # lse, Di
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Sq, Sk, H, K, D, int(causal), int(q.dtype == torch.bfloat16),
+            scale, stream)
+    if rc != 0:
+        msg = lib.flash_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_backward launch failed: CUDA error {rc} ({msg})")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
 def reset_launches() -> None:
-    """Set ``flash_attention.launches``, its per-route counts and
-    ``split_bf16.launches`` to 0."""
+    """Set ``flash_attention.launches``, its per-route counts,
+    ``flash_attention.backward_launches`` and ``split_bf16.launches`` to
+    0."""
     flash_attention.launches = 0
     flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+    flash_attention.backward_launches = 0
     split_bf16.launches = 0
 
 
@@ -256,3 +394,22 @@ def resources(D: int, dtype: torch.dtype) -> dict:
     if rc != 0:
         raise RuntimeError(f"flash_attention_resources: CUDA error {rc}")
     return {"route": path, "registers_at_launch": regs.value, "smem_bytes": smem.value}
+
+
+BWD_KERNELS = ("stats", "dkdv", "dq")
+
+
+def backward_resources(D: int, dtype: torch.dtype) -> dict:
+    """{kernel: registers a thread, shared memory a block, local memory a
+    thread} of the backward's three kernels at head dim ``D``."""
+    lib = _bwd_lib()
+    out = {}
+    for which, name in enumerate(BWD_KERNELS):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16), which,
+                                               *(ctypes.byref(x) for x in vals))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_bwd_resources: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "smem_bytes", "local_bytes"),
+                             (x.value for x in vals)))
+    return out

@@ -13,6 +13,10 @@ the same numbers):
 * Initialisation draws from an explicit ``torch.Generator`` on the weights'
   device; it cannot reproduce ``jax.random``'s numbers, so tests carry the
   JAX package's weights across with ``interop.transformer_params``.
+* Parameters are created with ``requires_grad=False`` (the serving paths
+  never build a graph); ``trainable`` turns gradients on for training, and
+  ``remat`` runs a layer under ``torch.utils.checkpoint`` where the JAX
+  package's ``scan_layers`` takes ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.util import resolve_device
@@ -42,6 +47,22 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = -2, dtype=torch
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """Turn gradients on for every parameter of ``model``."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    activations when ``cfg.remat`` is set and a graph is being built (the
+    JAX package's ``jax.checkpoint`` around each scanned layer)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ----------------------------------------------------------------- RMSNorm
@@ -285,7 +306,9 @@ def init_embed(generator: torch.Generator, cfg) -> Embedding:
 
 
 def embed_tokens(p: Embedding, cfg, tokens):
-    x = p.embed[tokens]
+    # a gather whose backward sums rows in a fixed order on the card
+    # (indexing's backward accumulates with atomics)
+    x = nn.functional.embedding(tokens, p.embed)
     if cfg.gemma_scaling:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
@@ -296,3 +319,14 @@ def lm_logits(p: Embedding, cfg, x):
     values (JAX's preferred_element_type=f32)."""
     w = p.embed.T if cfg.tie_embeddings else p.lm_head
     return x.to(F32) @ w.to(F32)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V), labels (B,S) int; mask optional (B,S).  The mean
+    negative log-likelihood in f32 (over the mask's positions)."""
+    logits = logits.to(F32)
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(F32)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,9 +1,10 @@
-"""Mixture-of-Experts decoder family (qwen3-moe, deepseek-v2-lite), the
-serving half of the JAX package's ``models/moe.py``:
+"""Mixture-of-Experts decoder family (qwen3-moe, deepseek-v2-lite): the
+family API of the JAX package's ``models/moe.py``:
 
     init(seed, cfg, device)              -> MoETransformer (an nn.Module)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
     backbone(params, cfg, x, positions)  -> (activations, aux loss)
+    loss(params, cfg, batch)             -> (ce + aux, {"aux", "ce"})
     init_cache(cfg, batch, max_len)      -> cache dict
     prefill(params, cfg, batch)          -> (last_logits, cache)
     decode_step(params, cfg, cache, tok) -> (logits, cache)
@@ -20,8 +21,7 @@ not depend on the card's scheduling: no atomics.
 qwen3 layers use GQA (qk-norm) and reach ``flash_attention`` through
 ``layers.mha``; deepseek-v2-lite layers use MLA (``models/mla.py``, the
 einsum path), two shared experts beside 64 routed ones, and a dense first
-layer.  The expert-parallel ``moe_apply_ep`` and the training ``loss`` are
-not ported.
+layer.  The expert-parallel ``moe_apply_ep`` is not ported.
 """
 from __future__ import annotations
 
@@ -223,17 +223,26 @@ def _attend(lp, cfg, h, positions):
     return L.gqa_attend(lp.attn, cfg, h, positions, causal=True)
 
 
+def _dense_layer(cfg, x, lp, positions):
+    x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
+    return x + L.mlp_apply(lp.mlp, cfg, L.apply_norm(cfg, x, lp.ln2))
+
+
+def _moe_layer(cfg, x, lp, positions):
+    x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
+    mo, aux = moe_apply(lp.experts, cfg, L.apply_norm(cfg, x, lp.ln2))
+    return x + mo, aux
+
+
 def backbone(params: MoETransformer, cfg, x, positions):
     """x: (B,S,d) embeddings -> ((B,S,d) final-normed activations, the
-    summed router aux loss)."""
+    summed router aux loss); each layer recomputed in the backward under
+    ``cfg.remat``."""
     aux_total = torch.zeros((), dtype=L.F32, device=x.device)
     for lp in params.dense_layers:
-        x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
-        x = x + L.mlp_apply(lp.mlp, cfg, L.apply_norm(cfg, x, lp.ln2))
+        x = L.remat(cfg, _dense_layer, cfg, x, lp, positions)
     for lp in params.layers:
-        x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
-        mo, aux = moe_apply(lp.experts, cfg, L.apply_norm(cfg, x, lp.ln2))
-        x = x + mo
+        x, aux = L.remat(cfg, _moe_layer, cfg, x, lp, positions)
         aux_total = aux_total + aux
     return L.apply_norm(cfg, x, params.final_norm), aux_total
 
@@ -245,6 +254,17 @@ def forward(params: MoETransformer, cfg, batch):
     x = L.embed_tokens(params.embed, cfg, tokens)
     x, _aux = backbone(params, cfg, x, _positions(B, S, tokens.device))
     return L.lm_logits(params.embed, cfg, x)
+
+
+def loss(params: MoETransformer, cfg, batch):
+    """(cross-entropy + the router aux loss, {"aux", "ce"})."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_tokens(params.embed, cfg, tokens)
+    x, aux = backbone(params, cfg, x, _positions(B, S, tokens.device))
+    logits = L.lm_logits(params.embed, cfg, x)
+    ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return ce + aux, {"aux": aux, "ce": ce}
 
 
 # --------------------------------------------------------------- serving

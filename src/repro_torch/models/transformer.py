@@ -1,9 +1,10 @@
 """Dense decoder-only transformer (llama/qwen/deepseek-dense style).
 
-The family API of the JAX package's ``models/transformer.py``, serving half:
+The family API of the JAX package's ``models/transformer.py``:
 
     init(seed, cfg, device)              -> Transformer (an nn.Module)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
+    loss(params, cfg, batch)             -> (scalar, aux)
     init_cache(cfg, batch, max_len)      -> cache dict
     prefill(params, cfg, batch)          -> (last_logits, cache)
     decode_step(params, cfg, cache, tok) -> (logits, cache)
@@ -66,19 +67,29 @@ def _layer_fwd(cfg, x, lp: Layer, positions):
 
 
 def backbone(params: Transformer, cfg, x, positions):
-    """x: (B,S,d) embeddings -> (B,S,d) final-normed activations."""
+    """x: (B,S,d) embeddings -> (B,S,d) final-normed activations; each
+    layer recomputed in the backward under ``cfg.remat``."""
     for lp in params.layers:
-        x = _layer_fwd(cfg, x, lp, positions)
+        x = L.remat(cfg, _layer_fwd, cfg, x, lp, positions)
     return L.apply_norm(cfg, x, params.final_norm)
 
 
-@torch.no_grad()
-def forward(params: Transformer, cfg, batch):
+def _logits(params: Transformer, cfg, batch):
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_tokens(params.embed, cfg, tokens)
     x = backbone(params, cfg, x, _positions(B, S, tokens.device))
     return L.lm_logits(params.embed, cfg, x)
+
+
+forward = torch.no_grad()(_logits)
+
+
+def loss(params: Transformer, cfg, batch):
+    """(mean cross-entropy of the next-token ``labels``, {}), differentiable
+    in the parameters (``layers.trainable``)."""
+    logits = _logits(params, cfg, batch)
+    return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask")), {}
 
 
 # -------------------------------------------------------------- serving

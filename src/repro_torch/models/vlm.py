@@ -3,8 +3,8 @@ dense (gemma) backbone with a vision-patch prefix.  The vision tower is a
 stub: a batch carries precomputed patch embeddings ``patches`` (B, P,
 d_model), prepended to the token embeddings.  ``forward`` returns logits at
 the text positions only; ``prefill`` runs over [patches ; prompt] and its
-cache covers the whole prefix.  The weights, the cache and decode are the
-dense family's.
+cache covers the whole prefix; ``loss`` is the cross-entropy on the text
+positions only.  The weights, the cache and decode are the dense family's.
 """
 from __future__ import annotations
 
@@ -29,12 +29,19 @@ def _prefixed_embeddings(params: T.Transformer, cfg, batch):
     return x, positions, P
 
 
-@torch.no_grad()
-def forward(params: T.Transformer, cfg, batch):
+def _logits(params: T.Transformer, cfg, batch):
     """Logits for the TEXT positions only: (B, S, V) f32."""
     x, positions, P = _prefixed_embeddings(params, cfg, batch)
     x = T.backbone(params, cfg, x, positions)
     return L.lm_logits(params.embed, cfg, x[:, P:, :])
+
+
+forward = torch.no_grad()(_logits)
+
+
+def loss(params: T.Transformer, cfg, batch):
+    logits = _logits(params, cfg, batch)
+    return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask")), {}
 
 
 @torch.no_grad()

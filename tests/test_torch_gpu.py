@@ -7,8 +7,12 @@ tensor-core routes and ``split_bf16`` bit for bit, the optimize-and-execute
 path on a short stream, the dense serving path at deepseek-67b's width and
 the SSM serving path at mamba2-2.7b's, and the MoE, MLA and VLM paths at
 qwen3-moe's, deepseek-v2-lite's and paligemma's, each with two layers and a
-short prompt; the tuned scorer and the MoE combine's determinism.  On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``
-(``-k f32`` for the f32 routes)."""
+short prompt; the tuned scorer and the MoE combine's determinism; the
+``flash_attention`` backward kernel against its plain version, its counter,
+the autograd Function on the card, and a train step at deepseek-67b's width
+(one layer, two micro-batches) with its launches counted.  On the card:
+``python -m pytest -m gpu tests/test_torch_gpu.py`` (``-k f32`` for the f32
+routes, ``-k "bwd or train"`` for the backward and training)."""
 import sys
 from pathlib import Path
 
@@ -588,3 +592,57 @@ def test_scorer_tunes_block_m_on_the_card(cuda):
         _, m_b, pk_b, c_b = fixed.score_compact(xs)
         assert np.array_equal(m_a, m_b) and np.array_equal(c_a, c_b)
         assert all(np.array_equal(u, v) for u, v in zip(pk_a, pk_b))
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.BWD_CASES],
+                         ids=[str(c) for c in chip_smoke.BWD_CASES])
+def test_bwd_kernel_matches_plain_version(cuda, case):
+    chip_smoke.check_bwd_case(case, cuda, seed=sum(case[:6]))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bwd_planted_fault_is_caught(cuda, dtype):
+    assert chip_smoke.bwd_planted_fault(cuda, dtype)["caught"]
+
+
+def test_bwd_launch_counter_function_and_no_fallback(cuda):
+    """One ``flash_attention_backward`` launch a backward through the
+    autograd Function, its gradients those of the direct call; an operand
+    the kernel does not take raises before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    case = (1, 256, 256, 8, 2, 64, True, "bfloat16")
+    q, k, v, dout = chip_smoke.make_bwd_case(case, cuda, seed=1)
+    fa.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    out.backward(dout)
+    assert (fa.flash_attention.launches, fa.flash_attention.backward_launches) == (1, 1)
+    want = fa.flash_attention_backward(q, k, v, out.detach(), dout, causal=True)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, out.detach(), dout.float(), causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, k, v, out.detach(), dout.transpose(1, 2), causal=True)
+    assert fa.flash_attention.backward_launches == 2
+
+
+def test_train_step_short(cuda):
+    """One AdamW step of deepseek-67b's widths at one layer, two
+    micro-batches of one 256-token sequence, remat: 2 forward and 1
+    backward launches a layer a micro-batch, and the f32 step against the
+    plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    cfg = get_config("deepseek-67b").replace(num_layers=1, accum_steps=2)
+    params, opt = init_train_state(cfg, 0, cuda)
+    batch = make_batch(cfg, make_data(cfg, 256, rows=2), 0, cuda)
+    fa.reset_launches()
+    _, opt, m = make_train_step(cfg)(params, opt, batch)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.backward_launches) == (4, 2)
+    assert torch.isfinite(m["loss"]) and all(bool(torch.isfinite(t).all())
+                                             for t in opt.mu.values())

@@ -81,6 +81,11 @@ _BLOCKED_FLEET = _BLOCK + textwrap.dedent("""
     from repro_torch.data.synthetic import (make_dataset, make_query,
                                             make_sharded_drifting_streams, make_udfs)
     from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.interop import adafactor_state, adamw_state
+    from repro_torch.kernels.flash_attention import _bwd_lib as flash_attention_bwd_lib
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import init_train_state
     from repro_torch.serving.stats import AdaptivePolicy
 
     torch.set_num_threads(1)  # many small products; the workers take this count too
@@ -173,7 +178,10 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.distributed.procworker",
                  "repro_torch.distributed.fault_tolerance", "repro_torch.models.moe",
                  "repro_torch.models.mla", "repro_torch.models.vlm",
-                 "repro_torch.kernels.autotune"):
+                 "repro_torch.kernels.autotune", "repro_torch.models.leaves",
+                 "repro_torch.training.optim", "repro_torch.training.train_loop",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpointer",
+                 "repro_torch.launch.train"):
         assert name in proc.stdout
 
 
@@ -200,6 +208,11 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.serving.engine import CascadeServer
     from repro_torch.serving.multiquery import MultiQueryEngine
     from repro_torch.distributed.serving import ShardedCascadeServer
+    from repro_torch.interop import adafactor_state, adamw_state
+    from repro_torch.kernels.flash_attention import _bwd_lib as flash_attention_bwd_lib
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import init_train_state
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
     udfs = make_udfs(ds, hidden=8, depth=1, train_rows=200, seed=0, declared_cost_ms=1.0,
@@ -216,7 +229,15 @@ def test_cuda_default_entry_points_raise_without_a_card():
     ssm_cfg = reduced_config("mamba2-2.7b")
     moe_cfg, mla_cfg = reduced_config("qwen3-moe-30b-a3b"), reduced_config("deepseek-v2-lite-16b")
     vlm_cfg = reduced_config("paligemma-3b")
+    cpu_model = transformer.init(0, cfg, device="cpu")
+    jax_like_opt = type("S", (), {"step": 0, "mu": {}, "nu": {}, "vr": {}, "vc": {}})()
     calls = {
+        "init_train_state": lambda: init_train_state(cfg),
+        "init_train_state (vlm)": lambda: init_train_state(vlm_cfg),
+        "train.run": lambda: train.run(cfg, steps=1, batch=2, seq=8, ckpt_every=0),
+        "train.main": lambda: train.main(["--steps", "1", "--ckpt-every", "0"]),
+        "adamw_state": lambda: adamw_state(jax_like_opt, cpu_model),
+        "adafactor_state": lambda: adafactor_state(jax_like_opt, cpu_model),
         "moe.init": lambda: moe.init(0, moe_cfg),
         "moe.init (MLA)": lambda: moe.init(0, mla_cfg),
         "moe.init_cache": lambda: moe.init_cache(mla_cfg, 1, 8),
@@ -257,12 +278,14 @@ def test_cuda_default_entry_points_raise_without_a_card():
     q = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        flash_attention_backward(q, q, q, q, q)
     x = torch.zeros(1, 16, 2, 8, device="meta")
     dA = torch.zeros(1, 16, 2, device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ssd_chunk(x, dA, x, x)
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
-        for lib in (flash_attention_lib, ssd_chunk_lib):
+        for lib in (flash_attention_lib, flash_attention_bwd_lib, ssd_chunk_lib):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 lib()
     assert isinstance(query, Query)
