@@ -47,9 +47,10 @@ Each phase prints one JSON line:
               ``scaled_dot_product_attention`` at the serving shape in bf16
               and f32, beside the route's bound (and in f32 the CUDA-core
               bound), with the route, the kernel's registers and spills from
-              the compiler's report and its shared memory a block, and in
-              f32 ``split_bf16`` alone; and profiles of one prefill and one
-              decode step.
+              the compiler's report and its shared memory a block, the time
+              with the row lse written beside the time without it (serving's
+              call), and in f32 ``split_bf16`` alone; and profiles of one
+              prefill and one decode step.
 8. ssd_kernels — the CUDA ``ssd_chunk`` (wgmma on the tensor cores where
               shape and layout allow, f32 as two bf16 pieces; otherwise CUDA
               cores)
@@ -107,18 +108,24 @@ Each phase prints one JSON line:
               bf16 beside the witness (the same serving with the plain
               attention against the same ``forward``); then
               ``flash_timing`` at that shape.
-10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a stats
-              pass, then dK/dV a KV tile a block over its query-head group,
-              then dQ; f32 sums on the CUDA cores) against its plain PyTorch
-              version, bf16 and f32, causal and full: the JAX package's test
-              shapes, D 256, ragged lengths, a GQA group of 7 and D 16, each
-              gradient within 2^-6 (bf16) or 1e-4 (f32) of its largest
-              value; a planted fault (one KV tile's dk and dv rows zeroed)
-              rejected in both types; then ``flash_bwd_timing`` at (1, 4096,
-              64, 8, 128) in bf16 and f32 and at paligemma's (4, 4096, 8, 1,
-              256) in bf16: the kernel, its plain version and
+10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
+              pre-pass reading the forward's lse, then dK/dV a KV tile a
+              block over its query-head group, then dQ: bf16 at D 64, 128
+              and 256 on the tensor cores, the rest on the CUDA cores)
+              against its plain PyTorch version, bf16 and f32, causal and
+              full: the JAX package's test shapes, D 256, ragged lengths, a
+              GQA group of 7 and D 16, each gradient within 2^-6 (bf16) or
+              1e-4 (f32) of its largest value, each on ``backward_route``'s
+              kernels (launches counted by route), each forward's lse within
+              LSE_TOL of the plain one; a planted fault (one KV tile's dk and
+              dv rows zeroed) rejected in both types; two calls at (1, 4096,
+              64, 8, 128) equal bit for bit; then ``flash_bwd_timing`` at
+              (1, 4096, 64, 8, 128) in bf16 and f32 and at paligemma's (4,
+              4096, 8, 1, 256) in bf16: the kernel, its plain version and
               ``torch.autograd.grad`` through ``scaled_dot_product_attention``
-              beside its bound (2.5 forwards' flops at the bf16 peak).
+              beside its bound (2.5 forwards' flops at the type's peak), the
+              route's kernels by name with their registers, spills, shared
+              memory and device time.
 10e. train_path — ``launch.train.run`` at deepseek-67b's published widths,
               depth cut to 3 layers, bf16 weights, accum 4, remat, AdamW
               with f32 accumulation and moments: 4 steps on one fixed batch
@@ -1068,14 +1075,19 @@ def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
     lib_err = float((library().transpose(1, 2).float() - out.float()).abs().max())
     plain_a = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), dev, 1, warmup=1)
     kern_a = cuda_ms(lambda: flash_attention(q, k, v, causal=True), dev, iters, warmup=1)
+    lse_a = cuda_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), dev, iters,
+                    warmup=1)
     lib_ms = cuda_ms(library, dev, 10 * iters, warmup=2)
+    lse_b = cuda_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), dev, iters,
+                    warmup=0)
     kern_b = cuda_ms(lambda: flash_attention(q, k, v, causal=True), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), dev, 1, warmup=0)
     path = route(q, k, v)
     bound_ms, bound_by, nbytes, flops = flash_bound(*case, route=path)
     ms = min(kern_a, kern_b)
     row = dict(shape=list(shape), causal=True, dtype=dtype, route=path, ms=ms,
-               ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
+               ms_runs=[kern_a, kern_b], with_lse_ms=min(lse_a, lse_b),
+               with_lse_ms_runs=[lse_a, lse_b], plain_ms=min(plain_a, plain_b),
                plain_ms_runs=[plain_a, plain_b], library_ms=lib_ms,
                library="scaled_dot_product_attention (K, V repeated to H heads)",
                library_max_abs_diff=lib_err, bound_ms=bound_ms, bound_by=bound_by,
@@ -1086,11 +1098,12 @@ def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
         row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] / ms
     split = path == "tensor_cores" and dtype == "float32"
     if path == "tensor_cores":
-        entry, fragment = "flash_attention_wgmma", f"flash_attention_wgmmaILi{D}ELb{int(split)}E"
+        entry = "flash_attention_wgmma"  # serving's instantiation: no lse
+        fragment = f"flash_attention_wgmmaILi{D}ELb{int(split)}ELb0E"
     else:
         entry, fragment = "flash_attention_kernel", f"flash_attention_kernelILi{D}E"
     log = _build.library_path("flash_attention").with_suffix(".log").read_text()
-    row["ptxas"] = {"entry": f"{entry}<{D}{', true' if split else ''}>",
+    row["ptxas"] = {"entry": f"{entry}<{D}, {str(split).lower()}, false>",
                     **ptxas_entry(log, fragment)}
     row.update(resources(D, q.dtype))
     if split:
@@ -1840,7 +1853,7 @@ def profile_split(fn, dev) -> dict:
         name, us = e.name, e.time_range.elapsed_us()
         if "flash_attention" in name:
             split["flash"] += us
-        elif any(w in name for w in ("bwd_stats", "bwd_dkdv", "bwd_dq")):
+        elif any(w in name for w in ("bwd_prep", "bwd_dkdv", "bwd_dq", "dkdv_wgmma", "dq_wgmma")):
             split["flash_bwd"] += us
         elif any(w in name for w in ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")):
             split["gemm"] += us
@@ -2076,6 +2089,10 @@ def mla_naive_decode(p, cfg, x, ckv, krope, pos: int):
 # the value), and the rows of a KV tile that a faulty kernel skipped differ
 # by their whole size.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# The forward's row log-sum-exp (which the backward reads) against the plain
+# version's: both are f32 sums of the same scores in different orders, of
+# values near log(Sk) (4 to 9 here), where an f32 step is 5e-7.
+LSE_TOL = 1e-5
 BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's test shapes,
     (*shape, causal, dtype)  # D 256, ragged lengths, a GQA group of 7 and D 16
     for dtype in ("bfloat16", "float32") for causal in (True, False)
@@ -2084,6 +2101,13 @@ BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's tes
 BWD_SERVING_SHAPE = (1, 4096, 4096, 64, 8, 128)  # deepseek-67b's micro-batch, one per launch
 BWD_FAULT_KEYS = (2048, 2112)  # a KV tile in the middle of the serving shape
 BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
+BWD_PROFILE_CALLS = 5  # calls under the profiler for each kernel's device time
+
+
+def fragment_name(kernel: str) -> str:
+    """A kernel's name as the profiler prints it, without namespace and
+    template arguments: ``tc::dkdv_wgmma<128>`` -> ``dkdv_wgmma<``."""
+    return kernel.split("::")[-1].split("<")[0] + "<"
 
 
 def bwd_errors(got, want) -> list:
@@ -2117,19 +2141,41 @@ def make_bwd_case(case, dev, seed):
     return q, k, v, dout
 
 
-def check_bwd_case(case, dev, seed=0) -> list:
-    """The backward kernel against its plain version on the card, on the
-    forward kernel's output."""
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
-                                                     flash_attention_backward_plain)
+def check_lse(what: str, lse, ref) -> float:
+    """A forward's row log-sum-exp within LSE_TOL of the plain version's;
+    returns the largest difference."""
+    check(lse.shape == ref.shape and lse.dtype == torch.float32, f"{what}: bad lse")
+    check(bool(torch.isfinite(lse).all()), f"{what}: non-finite lse")
+    err = float((lse - ref).abs().max())
+    check(err <= LSE_TOL, f"{what}: the forward's lse differs from the plain one by {err} "
+          f"(tol {LSE_TOL})")
+    return err
 
-    causal = case[6]
+
+def check_bwd_case(case, dev, seed=0) -> dict:
+    """The backward kernel against its plain version on the card, on the
+    forward kernel's output and lse: the gradients' errors, the route the
+    backward took (it must be ``backward_route``'s), and the forward's lse
+    against the plain one (its output must not change when it writes the
+    lse)."""
+    from repro_torch.kernels import flash_attention as fm
+
+    causal, dtype = case[6], getattr(torch, case[7])
     q, k, v, dout = make_bwd_case(case, dev, seed)
-    out = flash_attention(q, k, v, causal=causal)
-    got = flash_attention_backward(q, k, v, out, dout, causal=causal)
-    want = flash_attention_backward_plain(q, k, v, out, dout, causal=causal)
+    out, lse = fm.flash_attention(q, k, v, causal=causal, return_lse=True)
+    check(torch.equal(out, fm.flash_attention(q, k, v, causal=causal)),
+          f"{case}: the forward's output changes when it writes the lse")
+    _, ref_lse = fm.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    before = dict(fm.flash_attention.backward_route_launches)
+    got = fm.flash_attention_backward(q, k, v, out, dout, lse, causal=causal)
+    want = fm.flash_attention_backward_plain(q, k, v, out, dout, causal=causal)
     sync(dev)
-    return check_bwd_output(str(case), got, want)
+    path = [r for r, n in fm.flash_attention.backward_route_launches.items() if n > before[r]]
+    want_path = fm.backward_route(case[5], dtype)
+    check(path == [want_path] or dev.type == "cpu",
+          f"{case}: the backward launched on {path}, not {want_path}")
+    return dict(errs=check_bwd_output(str(case), got, want), route=want_path,
+                lse_err=check_lse(str(case), lse, ref_lse))
 
 
 def bwd_planted_fault(dev, dtype: str) -> dict:
@@ -2142,8 +2188,8 @@ def bwd_planted_fault(dev, dtype: str) -> dict:
 
     case = (*BWD_SERVING_SHAPE, True, dtype)
     q, k, v, dout = make_bwd_case(case, dev, seed=3)
-    out = flash_attention(q, k, v, causal=True)
-    dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=True)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
     want = flash_attention_backward_plain(q, k, v, out, dout, causal=True)
     errs = check_bwd_output(f"{case}, before the fault", (dq, dk, dv), want)
     dk[:, BWD_FAULT_KEYS[0]:BWD_FAULT_KEYS[1]] = 0
@@ -2155,13 +2201,32 @@ def bwd_planted_fault(dev, dtype: str) -> dict:
                 caught=caught)
 
 
-def bwd_bound(B, Sq, Sk, H, K, D, causal) -> tuple:
+def bwd_repeat(dev, shape=BWD_SERVING_SHAPE, dtype: str = "bfloat16") -> dict:
+    """Two backward calls on the same inputs at ``shape`` (causal): dq, dk
+    and dv must be equal bit for bit (no atomics; a restart that replays a
+    step depends on it)."""
+    from repro_torch.kernels.flash_attention import (backward_route, flash_attention,
+                                                     flash_attention_backward)
+
+    q, k, v, dout = make_bwd_case((*shape, True, dtype), dev, seed=11)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    a = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    b = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    sync(dev)
+    equal = [torch.equal(x, y) for x, y in zip(a, b)]
+    check(all(equal), f"two backward calls at {shape} differ in (dq, dk, dv): {equal}")
+    return dict(shape=list(shape), dtype=dtype, route=backward_route(shape[5], q.dtype),
+                bitwise_equal=equal)
+
+
+def bwd_bound(B, Sq, Sk, H, K, D, causal, dtype="bfloat16") -> tuple:
     """(ms, flops): BWD_FLOPS_FACTOR forwards' products (the causal pairs
-    only) at the bf16 tensor-core peak; each input (q, k, v, o, dO) read and
-    each gradient written once over HBM is far less at these shapes."""
+    only) at the peak for the type (bf16 tensor cores; f32 CUDA cores, no
+    TF32); each input (q, k, v, o, dO) read and each gradient written once
+    over HBM is far less at these shapes."""
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     flops = BWD_FLOPS_FACTOR * 4 * B * H * D * pairs
-    return flops / BF16_FLOPS * 1e3, flops
+    return flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS) * 1e3, flops
 
 
 def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
@@ -2169,17 +2234,19 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     through ``scaled_dot_product_attention`` (K and V repeated to every
     query head inside the graph, so its gradient sums over the group as the
     kernel's does) at ``shape``, causal, in turns (plain, kernel, library,
-    kernel, plain), beside the bound; the three kernels' registers, spills
-    and shared memory."""
+    kernel, plain), beside the bound; the route and its three kernels'
+    registers, spills and shared memory, and each kernel's device time from
+    a profile of BWD_PROFILE_CALLS more calls."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (backward_resources, flash_attention,
+    from repro_torch.kernels.flash_attention import (backward_kernels, backward_resources,
+                                                     backward_route, flash_attention,
                                                      flash_attention_backward,
                                                      flash_attention_backward_plain)
 
     B, Sq, Sk, H, K, D = shape
     case = (*shape, True, dtype)
     q, k, v, dout = make_bwd_case(case, dev, seed=7)
-    out = flash_attention(q, k, v, causal=True)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         ql.transpose(1, 2), kl.transpose(1, 2).repeat_interleave(H // K, dim=1),
@@ -2189,7 +2256,7 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
         return torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True)
 
     def kernel():
-        return flash_attention_backward(q, k, v, out, dout, causal=True)
+        return flash_attention_backward(q, k, v, out, dout, lse, causal=True)
 
     def plain():
         return flash_attention_backward_plain(q, k, v, out, dout, causal=True)
@@ -2202,11 +2269,18 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     kern_b = cuda_ms(kernel, dev, iters, warmup=0)
     plain_b = cuda_ms(plain, dev, 1, warmup=0)
     del lib_out
-    bound_ms, flops = bwd_bound(*case[:7])
+    bound_ms, flops = bwd_bound(*case)
     ms = min(kern_a, kern_b)
     log = _build.library_path("flash_attention_bwd").with_suffix(".log").read_text()
-    tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
-    row = dict(shape=list(shape), causal=True, dtype=dtype, max_err=err, ms=ms,
+    kernels = backward_kernels(D, q.dtype)
+    prof = device_profile(lambda: [kernel() for _ in range(BWD_PROFILE_CALLS)], dev)
+    per_kernel = {}  # us a launch over the launches the profiler kept (it may drop some)
+    for role, (name, _) in kernels.items():
+        hits = [t for t in prof["top"] if fragment_name(name) in t["name"]]
+        n = sum(t["count"] for t in hits)
+        per_kernel[role] = sum(t["us"] for t in hits) / n if n else "not measured"
+    row = dict(shape=list(shape), causal=True, dtype=dtype,
+               route=backward_route(D, q.dtype), max_err=err, ms=ms,
                ms_runs=[kern_a, kern_b],
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=lib_ms,
@@ -2215,24 +2289,40 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
                library_max_rel_diff=lib_err, bound_ms=bound_ms, bound_by="operations",
                flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
                share_of_bound=bound_ms / ms,
-               ptxas={name: ptxas_entry(log, f"{name}I{tname}Li{D}E")
-                      for name in ("bwd_stats", "bwd_dkdv", "bwd_dq")},
-               resources=backward_resources(D, q.dtype))
+               ptxas={role: dict(kernel=name, **ptxas_entry(log, fragment))
+                      for role, (name, fragment) in kernels.items()},
+               resources=backward_resources(D, q.dtype),
+               kernel_us=per_kernel,
+               profile=prof)
     emit("flash_bwd_timing", **row)
     return row
 
 
 def run_flash_bwd_kernels(dev) -> dict:
-    """Phase 10d: every BWD_CASES case, the planted faults, and the
-    kernel's time at deepseek-67b's and paligemma's training shapes in
-    bf16 (and deepseek-67b's in f32)."""
+    """Phase 10d: every BWD_CASES case (each on its ``backward_route``, the
+    forward's lse held too), the planted faults, two calls bit for bit at
+    the serving shape, and the kernel's time at deepseek-67b's and
+    paligemma's training shapes in bf16 (and deepseek-67b's in f32)."""
+    from repro_torch.kernels import flash_attention as fm
+
     t0 = time.perf_counter()
-    errs = [check_bwd_case(case, dev, seed=i) for i, case in enumerate(BWD_CASES)]
+    fm.reset_launches()
+    res = [check_bwd_case(case, dev, seed=i) for i, case in enumerate(BWD_CASES)]
+    routes = dict(fm.flash_attention.backward_route_launches)
+    errs = [r["errs"] for r in res]
     faults = [bwd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
+    repeat = bwd_repeat(dev)
     emit("flash_bwd_kernels", cases=len(BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: max(max(e) for c, e in zip(BWD_CASES, errs) if c[7] == dt)
-                  for dt in BWD_TOL}, tol=BWD_TOL, planted_faults=faults,
-         shapes=[list(c) + [e] for c, e in zip(BWD_CASES, errs)])
+                  for dt in BWD_TOL}, tol=BWD_TOL,
+         max_lse_err=max(r["lse_err"] for r in res), lse_tol=LSE_TOL,
+         launches_by_route=routes,
+         cases_by_route={dt: {rt: sum(c[7] == dt and r["route"] == rt
+                                      for c, r in zip(BWD_CASES, res)) for rt in fm.ROUTES}
+                         for dt in BWD_TOL},
+         planted_faults=faults, repeat=repeat,
+         shapes=[list(c) + [r["route"], r["errs"], r["lse_err"]]
+                 for c, r in zip(BWD_CASES, res)])
     torch.cuda.empty_cache()
     rows = {"bfloat16": time_flash_bwd(dev, "bfloat16", BWD_SERVING_SHAPE, iters=3),
             "float32": time_flash_bwd(dev, "float32", BWD_SERVING_SHAPE, iters=3)}
@@ -2276,8 +2366,8 @@ class BackwardLog:
         self.n, self.module, self.seen = n, flash_module, []
         self.real = flash_module.flash_attention_backward
 
-    def __call__(self, q, k, v, out, dout, **kw):
-        grads = self.real(q, k, v, out, dout, **kw)
+    def __call__(self, q, k, v, out, dout, lse=None, **kw):
+        grads = self.real(q, k, v, out, dout, lse, **kw)
         if len(self.seen) < self.n:
             self.seen.append((tuple(t.detach() for t in (q, k, v, out, dout)), kw, grads))
         return grads
@@ -2302,10 +2392,11 @@ def plain_attention():
 
     stack = ExitStack()
     stack.enter_context(mock.patch.object(
-        fm, "_attend", lambda q, k, v, causal, scale: fm.flash_attention_plain(
-            q, k, v, causal=causal, scale=scale)))
-    stack.enter_context(mock.patch.object(fm, "flash_attention_backward",
-                                          fm.flash_attention_backward_plain))
+        fm, "_attend", lambda q, k, v, causal, scale, want_lse=False: fm.flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, return_lse=want_lse)))
+    stack.enter_context(mock.patch.object(
+        fm, "flash_attention_backward", lambda q, k, v, out, dout, lse=None, **kw:
+        fm.flash_attention_backward_plain(q, k, v, out, dout, **kw)))
     return stack
 
 
@@ -2355,6 +2446,7 @@ def train_f32_check(dev) -> dict:
         sync(dev)
         runs[name] = dict(loss=float(m["loss"]), launches=fm.flash_attention.launches,
                           backward_launches=fm.flash_attention.backward_launches,
+                          backward_route_launches=dict(fm.flash_attention.backward_route_launches),
                           params=host_copy(dict(params.named_parameters())),
                           mu=host_copy(opt.mu))
         del params, opt, batch, m
@@ -2374,7 +2466,8 @@ def train_f32_check(dev) -> dict:
     check(perr["conditioned_rel"] <= TRAIN_F32_TOL and perr["ill_conditioned_abs"]
           <= 2 * TRAIN["lr"], f"f32 step: updated parameters differ: {perr}")
     return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
-                params=perr, launches=k["launches"], backward_launches=k["backward_launches"])
+                params=perr, launches=k["launches"], backward_launches=k["backward_launches"],
+                backward_route_launches=k["backward_route_launches"])
 
 
 def restart_check(dev, tmp: Path) -> dict:
@@ -2421,6 +2514,7 @@ def side_step(dev, arch: str) -> dict:
               device=dev, ckpt_every=0, log=lambda _msg: None)
     sync(dev)
     fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+    bwd_routes = dict(fm.flash_attention.backward_route_launches)
     micro = max(1, cfg.accum_steps)
     layers = cfg.num_layers
     check(fwd == 2 * layers * micro and bwd == layers * micro,
@@ -2429,7 +2523,8 @@ def side_step(dev, arch: str) -> dict:
     finite = all(bool(torch.isfinite(m).all()) for m in res["opt"].mu.values())
     check(finite and math.isfinite(res["losses"][0]), f"{arch}: non-finite loss or gradients")
     out = dict(arch=arch, layers=layers, accum_steps=micro, loss=res["losses"][0],
-               launches=fwd, backward_launches=bwd, gradients_finite=finite,
+               launches=fwd, backward_launches=bwd, backward_route_launches=bwd_routes,
+               gradients_finite=finite,
                step_s=res["step_s"][0], peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
     del res
     torch.cuda.empty_cache()
@@ -2463,12 +2558,16 @@ def run_train_path(dev, tmp: Path) -> dict:
                   lr=TRAIN["lr"], device=dev, ckpt_every=0, data=data, log=lambda _msg: None)
         sync(dev)
     fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+    bwd_routes = dict(fm.flash_attention.backward_route_launches)
     peak = torch.cuda.max_memory_allocated(dev)
     steps = TRAIN["steps"]
     check(fwd == steps * 2 * cfg.num_layers * micro,
           f"{fwd} forward launches in {steps} steps, not {steps * 2 * cfg.num_layers * micro}")
     check(bwd == steps * cfg.num_layers * micro,
           f"{bwd} backward launches in {steps} steps, not {steps * cfg.num_layers * micro}")
+    want_route = fm.backward_route(cfg.attention.head_dim, getattr(torch, cfg.dtype))
+    check(bwd_routes[want_route] == bwd, f"backward launches by route {bwd_routes}: not all on "
+          f"{want_route}")
     losses = [res["losses"][s] for s in range(steps)]
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"the loss on a fixed batch did not fall: {losses}")
@@ -2494,7 +2593,8 @@ def run_train_path(dev, tmp: Path) -> dict:
                remat=cfg.remat, dtype=cfg.dtype, lr=TRAIN["lr"], step_ms=[s * 1e3 for s in step_s],
                warm_step_ms=warm_s * 1e3,
                tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / warm_s, launches=fwd,
-               backward_launches=bwd, losses=losses, layer_bwd_errors=layer_errs,
+               backward_launches=bwd, backward_route_launches=bwd_routes, losses=losses,
+               layer_bwd_errors=layer_errs,
                peak_gib=peak / 2**30, peak_free_gib=(torch.cuda.get_device_properties(
                    dev).total_memory - peak) / 2**30, step_profile=prof, float32=f32,
                restart=restart, side_steps=side, seconds=time.perf_counter() - t_phase)
@@ -3666,21 +3766,29 @@ def main(argv=None) -> int:
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
         "library_ms": None}, {
-        "name": "flash_attention_bwd", "route": "cuda", "kernel_route": "cuda_cores",
+        "name": "flash_attention_bwd", "route": "cuda",
+        "kernel_route": bwd["rows"]["bfloat16"]["route"],
         "dtype": "bfloat16", "shape": list(BWD_SERVING_SHAPE),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "note": "the gradient of that kernel; the JAX package has no backward kernel",
         "launches": train["backward_launches"],
+        "launches_by_route": {r: train["backward_route_launches"][r]
+                              + sum(s["backward_route_launches"][r]
+                                    for s in train["side_steps"].values())
+                              + train["float32"]["backward_route_launches"][r]
+                              for r in train["backward_route_launches"]},
         "launches_by_path": {"train_path": train["backward_launches"],
                              **{a: s["backward_launches"]
-                                for a, s in train["side_steps"].items()}},
+                                for a, s in train["side_steps"].items()},
+                             "train_f32_check": train["float32"]["backward_launches"]},
         "max_abs_err": max([bwd["max_err"]] + [max(e) for e in train["layer_bwd_errors"]]),
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["bfloat16"]["ms"], "plain_ms": bwd["rows"]["bfloat16"]["plain_ms"],
         "bound_ms": bwd["rows"]["bfloat16"]["bound_ms"], "bound_by": "operations",
         "library_ms": bwd["rows"]["bfloat16"]["library_ms"]}, {
-        "name": "flash_attention_bwd[D256]", "route": "cuda", "kernel_route": "cuda_cores",
+        "name": "flash_attention_bwd[D256]", "route": "cuda",
+        "kernel_route": bwd["rows"]["D256"]["route"],
         "dtype": "bfloat16", "shape": list(VLM_SHAPE),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
@@ -3690,7 +3798,19 @@ def main(argv=None) -> int:
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["D256"]["ms"], "plain_ms": bwd["rows"]["D256"]["plain_ms"],
         "bound_ms": bwd["rows"]["D256"]["bound_ms"], "bound_by": "operations",
-        "library_ms": bwd["rows"]["D256"]["library_ms"]}]}), flush=True)
+        "library_ms": bwd["rows"]["D256"]["library_ms"]}, {
+        "name": "flash_attention_bwd[float32]", "route": "cuda",
+        "kernel_route": bwd["rows"]["float32"]["route"],
+        "dtype": "float32", "shape": list(BWD_SERVING_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "the gradient of that kernel in f32",
+        "launches": train["float32"]["backward_launches"],
+        "max_abs_err": bwd["rows"]["float32"]["max_err"],
+        "max_err_is": "of each gradient's largest value",
+        "ms": bwd["rows"]["float32"]["ms"], "plain_ms": bwd["rows"]["float32"]["plain_ms"],
+        "bound_ms": bwd["rows"]["float32"]["bound_ms"], "bound_by": "operations",
+        "library_ms": bwd["rows"]["float32"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,105 @@
+"""Time one tree's bf16 ``flash_attention`` kernels on the card, for A/B runs.
+
+    python3 scripts/flash_ab.py [--root TREE] [--iters 10]
+
+Imports ``repro_torch`` from ``TREE/src`` (default: this checkout), builds
+its kernels, and times with CUDA events, causal, on one seeded input each:
+
+* the forward at the dense serving shape (4, 4096, 4096, 64, 8, 128)
+  without the row lse (the serving path), and with it where the tree's
+  ``flash_attention`` takes ``return_lse``;
+* the backward at deepseek-67b's (1, 4096, 4096, 64, 8, 128) and
+  paligemma's (4, 4096, 4096, 8, 1, 256) training shapes (with the
+  forward's lse where the tree's backward reads it).
+
+Prints one line ``AB {...}`` with the tree, the card (name and power limit
+from ``nvidia-smi``) and each time in ms (the least of ``--turns`` runs of
+``--iters`` calls, every run listed).  To compare two trees, unpack the
+parent into a directory git ignores (``git archive HEAD | tar -x -C
+build/parent``) and run parent, change, change, parent in one card call.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+FWD_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D)
+BWD_SHAPES = ((1, 4096, 4096, 64, 8, 128), (4, 4096, 4096, 8, 1, 256))
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def inputs(shape, seed: int):
+    B, Sq, Sk, H, K, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+            for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D), (B, Sq, H, D))]
+
+
+def timed(fn, iters: int, turns: int) -> dict:
+    runs = [cuda_ms(fn, iters) for _ in range(turns)]
+    return {"ms": min(runs), "runs": runs}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--turns", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.root.resolve() / "src"))
+    from repro_torch.kernels import flash_attention as fm
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    with_lse = "return_lse" in inspect.signature(fm.flash_attention).parameters
+    out = {"root": str(args.root), "card": smi, "iters": args.iters}
+
+    q, k, v, _ = inputs(FWD_SHAPE, seed=7)
+    calls = {"forward": lambda: fm.flash_attention(q, k, v, causal=True)}
+    if with_lse:
+        calls["forward_with_lse"] = lambda: fm.flash_attention(q, k, v, causal=True,
+                                                                return_lse=True)
+    runs = {name: [] for name in calls}
+    for _ in range(args.turns):  # in turns: the card warms over a run
+        for name, fn in calls.items():
+            runs[name].append(cuda_ms(fn, args.iters))
+    out.update({name: {"ms": min(r), "runs": r} for name, r in runs.items()})
+    del q, k, v
+    for shape in BWD_SHAPES:
+        q, k, v, dout = inputs(shape, seed=8)
+        if with_lse:
+            o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
+            extra = (lse,)
+        else:
+            o, extra = fm.flash_attention(q, k, v, causal=True), ()
+        out[f"backward_{'x'.join(map(str, shape))}"] = timed(
+            lambda: fm.flash_attention_backward(q, k, v, o, dout, *extra, causal=True),
+            max(1, args.iters // 2), args.turns)
+        del q, k, v, dout, o, extra
+        torch.cuda.empty_cache()
+    print("AB " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,12 @@
 //
 // where round_v rounds p to v's type (bf16 or f32), as the reference casts p
 // to v.dtype before its PV product.  Positions start at 0 for both q and k.
+// Given a non-null `lse` pointer, each kernel also writes every row's
+// log-sum-exp, lse = log sum_j exp(s_j) over the unmasked keys (the natural
+// log of the scaled scores; (B, H, Sq) f32), from its running max and sum:
+// the backward (flash_attention_bwd.cu) reads it instead of recomputing S.
+// Serving passes null; the tensor-core kernel then runs its instantiation
+// without that code (kLse false), so serving's kernel is the one it was.
 //
 // Bound on an H100 SXM: operations.  The two products are 2*B*H*Sq*Sk*D
 // multiply-adds (4*B*H*Sq*Sk*D flops), halved when causal; at the serving
@@ -26,7 +32,7 @@
 // Three kernels; the wrapper picks one by dtype and head dim before the
 // launch (`flash_attention.route`).
 //
-// bf16: `flash_attention_wgmma<D, false>`, on the tensor cores.  A bf16 x
+// bf16: `flash_attention_wgmma<D, false, kLse>`, on the tensor cores.  A bf16 x
 // bf16 product is exact in f32, so wgmma with f32 accumulation gives the
 // reference's f32 scores up to the order of summation, provided the scale
 // is applied to the f32 accumulator and never to a bf16 operand: q is not
@@ -61,7 +67,7 @@
 // next S product for the P.V product (FA3's ping-pong between the two
 // warpgroups and its intra-warpgroup overlap are later work).
 //
-// f32, D in {16, 32, 64, 128}: `flash_attention_wgmma<D, true>`, the same
+// f32, D in {16, 32, 64, 128}: `flash_attention_wgmma<D, true, kLse>`, the same
 // kernel on split-bf16 operands.  Each f32 operand v enters as three bf16
 // pieces, hi = bf16(v), mid = bf16(v - hi) and lo = bf16(v - hi - mid),
 // with |v - hi - mid - lo| <= 2^-25 |v| (derived in hopper.cuh), and each
@@ -140,6 +146,7 @@ constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // The split route's six products of pieces (0 hi, 1 mid, 2 lo): product t
 // multiplies piece term_a(t) of A by piece term_b(t) of B, smallest first
 // (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi); mid.lo, lo.mid and lo.lo
@@ -171,14 +178,7 @@ struct Cfg {
       1024 + kQBytes + 2 * kParts * kStages * kTileBytes + kBarBytes;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
-}
+using hopper::pack_bf16;
 
 // The tensor maps of a launch: q (bf16 only) and each piece of K and V.
 struct Maps {
@@ -187,11 +187,13 @@ struct Maps {
 
 // kSplit: maps.q is unused and q is the f32 queries; maps.k and maps.v hold
 // the bf16 hi, mid and lo pieces of K and V; o is f32.  Otherwise q is
-// unused, maps.k[0] and maps.v[0] are K and V, and o is bf16.
-template <int D, bool kSplit>
+// unused, maps.k[0] and maps.v[0] are K and V, and o is bf16.  kLse: also
+// write each row's log-sum-exp to lse (otherwise lse is unused, and the
+// kernel is the one serving launches, compiled without that code).
+template <int D, bool kSplit, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
     const __grid_constant__ Maps maps, const float* __restrict__ q, void* __restrict__ o,
-    int Sq, int Sk, int H, int K, int causal, float c) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal, float c) {
   using C = Cfg<D, kSplit>;
   constexpr int BK = C::BK, SW = C::SW, CW = C::CW, NC = C::NC;
   constexpr uint32_t kPiece = kStages * C::kTileBytes;  // a piece's ring; the next follows
@@ -303,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         }
       }
       hopper::fence_proxy_async();
-      named_sync(1 + wg);
+      hopper::named_sync<128>(1 + wg);
     } else {
       hopper::mbar_wait(q_bar, 0);
     }
@@ -449,6 +451,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
       const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
+      if (kLse && lane % 4 == 0) {  // m is in log2 units of s * scale
+        float* const row = lse + ((size_t)b * H + h) * Sq;
+        if (r0 < Sq) row[r0] = (m0 + log2f(l0)) * kLn2;
+        if (r0 + 8 < Sq) row[r0 + 8] = (m1 + log2f(l1)) * kLn2;
+      }
       if constexpr (kSplit) {
         // f32 straight from the accumulator: 8 bytes a thread, a quad
         // covering 32 contiguous bytes of a row, rows < Sq only.
@@ -471,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
       constexpr int NCH = D / 8;
       constexpr int kSwz = NCH >= 8 ? 7 : NCH - 1;
       uint8_t* const ost = gbase + wg * C::kWGQBytes;
-      named_sync(1 + wg);  // every warp's last Q.K^T has read q
+      hopper::named_sync<128>(1 + wg);  // every warp's last Q.K^T has read q
       const int lr = 16 * warp + lane / 4;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
@@ -482,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
                                      4 * (lane % 4)) =
             pack_bf16(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
       }
-      named_sync(1 + wg);
+      hopper::named_sync<128>(1 + wg);
       for (int idx = tid; idx < kRowsPerWG * NCH; idx += 128) {
         const int row = idx / NCH, ch = idx - row * NCH;
         const int qpos = qw0 + row;
@@ -509,11 +516,28 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, 
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+template <int D, bool kSplit, bool kLse>
+cudaError_t run(const Maps& maps, const void* q, void* o, float* lse, int B, int Sq, int Sk, int H,
+                int K, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D, kSplit>;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma<D, kSplit, kLse>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_attention_wgmma<D, kSplit, kLse><<<grid, kThreads, C::kSmem, stream>>>(
+      maps, kSplit ? static_cast<const float*>(q) : nullptr, o, lse, Sq, Sk, H, K, causal,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 // kSplit: q is f32 and k[0..2], v[0..2] the bf16 hi, mid and lo pieces of K
-// and V; otherwise q, k[0] and v[0] are bf16.
+// and V; otherwise q, k[0] and v[0] are bf16.  lse: null, or where the rows'
+// log-sum-exp go (the kLse kernel).
 template <int D, bool kSplit>
-cudaError_t launch(const void* q, const void* const* k, const void* const* v, void* o, int B,
-                   int Sq, int Sk, int H, int K, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* const* k, const void* const* v, void* o,
+                   float* lse, int B, int Sq, int Sk, int H, int K, int causal, float scale,
+                   cudaStream_t stream) {
   using C = Cfg<D, kSplit>;
   const CUtensorMapSwizzle sw = C::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -525,21 +549,15 @@ cudaError_t launch(const void* q, const void* const* k, const void* const* v, vo
     if (encode_map(&maps.k[piece], k[piece], D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS ||
         encode_map(&maps.v[piece], v[piece], D, K, Sk, B, C::BK, C::CW, sw) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma<D, kSplit>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_wgmma<D, kSplit><<<grid, kThreads, C::kSmem, stream>>>(
-      maps, kSplit ? static_cast<const float*>(q) : nullptr, o, Sq, Sk, H, K, causal,
-      scale * kLog2e);
-  return cudaGetLastError();
+  return lse != nullptr
+             ? run<D, kSplit, true>(maps, q, o, lse, B, Sq, Sk, H, K, causal, scale, stream)
+             : run<D, kSplit, false>(maps, q, o, lse, B, Sq, Sk, H, K, causal, scale, stream);
 }
 
 template <int D, bool kSplit>
 cudaError_t resources(int* regs, int* smem) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma<D, kSplit>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma<D, kSplit, false>);
   *regs = attr.numRegs;
   *smem = (int)(attr.sharedSizeBytes + Cfg<D, kSplit>::kSmem);
   return err;
@@ -608,7 +626,8 @@ __device__ inline float row_sum16(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int Sq, int Sk, int H, int K, int causal, float scale) {
+    float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
+    float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int CJ = BK / 16;  // score columns per thread
   constexpr int DJ = D / 16;   // accumulator columns per thread
@@ -722,6 +741,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * Sq + r] = m[i] + logf(l[i]);
     float* orow = o + ((size_t)b * Sq + r) * q_row + (size_t)h * D;
 #pragma unroll
     for (int dj = 0; dj < DJ; ++dj) orow[tx + 16 * dj] = acc[i][dj] / den;
@@ -729,8 +749,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int K, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int H, int K, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -738,7 +758,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Sk, H, K, causal, scale);
+      static_cast<float*>(o), lse, Sq, Sk, H, K, causal, scale);
   return cudaGetLastError();
 }
 
@@ -776,14 +796,14 @@ cudaError_t resources(int* regs, int* smem) {
   }
 
 cudaError_t dispatch(int D, int is_bf16, const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int K, int causal, float scale,
+                     float* lse, int B, int Sq, int Sk, int H, int K, int causal, float scale,
                      cudaStream_t st) {
   if (is_bf16) {
     const void* const kp[1] = {k};
     const void* const vp[1] = {v};
-    FLASH_DISPATCH(tc::launch, FLASH_BF16, q, kp, vp, o, B, Sq, Sk, H, K, causal, scale, st)
+    FLASH_DISPATCH(tc::launch, FLASH_BF16, q, kp, vp, o, lse, B, Sq, Sk, H, K, causal, scale, st)
   }
-  FLASH_DISPATCH(cc::launch, FLASH_CC, q, k, v, o, B, Sq, Sk, H, K, causal, scale, st)
+  FLASH_DISPATCH(cc::launch, FLASH_CC, q, k, v, o, lse, B, Sq, Sk, H, K, causal, scale, st)
 }
 
 // kernel: 0 the f32 CUDA-core kernel, 1 the bf16 tensor-core kernel, 2 the
@@ -800,30 +820,36 @@ extern "C" {
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, K, D); all contiguous, of one type
 // (bf16 when is_bf16: the tensor-core kernel; else f32: the CUDA-core
-// kernel); bf16 pointers 16-byte aligned (TMA).  Returns the launch's
-// cudaError_t.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                           int Sk, int H, int K, int D, int causal, int is_bf16, float scale,
-                           void* stream) {
+// kernel); bf16 pointers 16-byte aligned (TMA).  lse: null, or (B, H, Sq)
+// f32 for each row's log-sum-exp (natural log, of the scaled scores
+// s = scale * q.k over the unmasked keys), which the backward reads.
+// Returns the launch's cudaError_t.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int Sq, int Sk, int H, int K, int D, int causal, int is_bf16,
+                           float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(D, is_bf16, q, k, v, o, B, Sq, Sk, H, K, causal, scale,
-                       static_cast<cudaStream_t>(stream));
+  return (int)dispatch(D, is_bf16, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, K,
+                       causal, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The split route: q, o (B, Sq, H, D) f32; k_pieces and v_pieces, 3
 // pointers each, to the bf16 hi, mid and lo pieces (B, Sk, K, D) of K and V
 // (split_bf16_launch); D in {16, 32, 64, 128}; all contiguous and 16-byte
-// aligned.  Returns the launch's cudaError_t; any other D returns
-// cudaErrorInvalidValue and launches nothing.
+// aligned; lse as flash_attention_launch takes it.  Returns the launch's
+// cudaError_t; any other D returns cudaErrorInvalidValue and launches
+// nothing.
 int flash_attention_split_launch(const void* q, const void* const* k_pieces,
-                                 const void* const* v_pieces, void* o, int B, int Sq, int Sk,
-                                 int H, int K, int D, int causal, float scale, void* stream) {
+                                 const void* const* v_pieces, void* o, void* lse, int B, int Sq,
+                                 int Sk, int H, int K, int D, int causal, float scale,
+                                 void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535 ||
       ((uintptr_t)q | (uintptr_t)o) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_SPLIT_DISPATCH(tc::launch, q, k_pieces, v_pieces, o, B, Sq, Sk, H, K, causal, scale, st)
+  float* l = static_cast<float*>(lse);
+  FLASH_SPLIT_DISPATCH(tc::launch, q, k_pieces, v_pieces, o, l, B, Sq, Sk, H, K, causal, scale,
+                       st)
 }
 
 // src (n f32) -> hi, mid, lo (n bf16 each): hi = bf16(src), mid = bf16(src -

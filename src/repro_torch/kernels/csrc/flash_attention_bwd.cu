@@ -10,7 +10,7 @@
 // causal (positions aligned at 0) or full, bf16 or f32, D in {16, ..., 256}.
 // With s = (f32(q) * scale) @ f32(k)^T masked as the forward masks it:
 //
-//   lse = logsumexp(s)                   (row, f32)
+//   lse = logsumexp(s)                   (row, f32: the forward's, read here)
 //   p   = exp(s - lse)                   (f32)
 //   Di  = rowsum(f32(dO) * f32(O))       (row, f32)
 //   dP  = f32(dO) @ f32(v)^T
@@ -20,47 +20,88 @@
 //   dK  = dS^T @ (f32(q) * scale)
 //   dQ  = scale * dS @ f32(k)
 //
-// all sums in f32 (IEEE FMAs on the CUDA cores: no TF32, no bf16 products),
-// each gradient rounded once to the operand type at the end.
+// all sums in f32, each gradient rounded once to the operand type at the
+// end.  lse is the forward's row log-sum-exp (flash_attention.cu writes it:
+// natural log, of the scaled scores, over the unmasked keys), so no pass
+// here recomputes it.
 //
 // Bound on an H100 SXM: operations.  FlashAttention-2 counts the backward
 // as 2.5 times the forward's 4*B*H*Sq*Sk*D flops (halved when causal): five
 // products of the forward's two.  At (B 1, S 4096, H 64, K 8, D 128) that
-// is 6.9e11 flops, 0.69 ms at the 989 TFLOP/s bf16 tensor-core peak.  This
-// kernel runs eight products' worth on the CUDA cores (the stats pass
-// recomputes S once more, and dK/dV and dQ each recompute S and dP), so it
-// is far from that bound: a simple right kernel first; wgmma and TMA are
-// later work.
+// is 6.9e11 flops, 0.69 ms at the 989 TFLOP/s bf16 tensor-core peak.
 //
-// Three kernels, launched in order on one stream by one C call:
+// Every launch first runs `bwd_prep` (one warp a row): Di from O and dO,
+// and a copy of the forward's lse (times log2(e) on the tensor-core route),
+// into (2, B, H, Sqp) f32 scratch the wrapper allocates; rows Sq .. Sqp
+// (padding to a multiple of 64 on the tensor-core route, so a stage's rows
+// arrive by one bulk copy) hold 0.  It reads O and dO once: memory-bound,
+// 134 MB at the shape above, 0.04 ms at 3.35 TB/s.  Then two kernels, on
+// one of two routes the wrapper picks before the launch
+// (`flash_attention.backward_route`):
 //
-// `bwd_stats`: one block per (batch * head, 64-row q tile).  Di from O and
-//   dO; lse by an online max and sum over the KV tiles up to the causal
-//   frontier (the forward kernel keeps neither, so the forward stays as it
-//   is).  Writes lse and Di, (B, H, Sq) f32 scratch the wrapper allocates.
-// `bwd_dkdv`: one block per (batch * kv head, BK-row KV tile), K and V tiles
-//   held in shared memory.  It loops over the G = H / K query heads of its
-//   group and over the q tiles at or past the causal frontier, recomputes S
-//   and dP for each, and accumulates dV and dK in registers.  One block owns
-//   its KV tile across the whole group, so no atomics are needed and the
-//   sums run in a fixed order: the result does not depend on scheduling.
-// `bwd_dq`: one block per (batch * head, 64-row q tile), over the KV tiles
-//   up to the frontier; dQ accumulates in registers.
+// bf16, D in {64, 128, 256}: `tc::dkdv_wgmma<D>` then `tc::dq_wgmma<D>`, on
+// the tensor cores.  A bf16 x bf16 product is exact in f32, so wgmma with
+// f32 accumulation gives the plain version's f32 S and dP up to the order of
+// summation; the scale is applied in f32 (folded into exp2 for S, to dK and
+// dQ at the end), never to a bf16 operand.  P = exp2(S*c - lse*log2(e))
+// with c = scale*log2(e).  New rounding against the plain formulas: dS is
+// rounded to bf16 as the A operand of the dK and dQ products (P's rounding
+// for dV is the plain version's own); the CPU emulation in
+// tests/test_torch_flash_backward.py holds that arithmetic to jax.grad.
+// Both kernels have the forward's shape: 384 threads, warpgroup 2 the
+// producer (one thread issues every TMA load through full/empty mbarriers;
+// `setmaxnreg` 24), warpgroups 0 and 1 consume (240).  Tiles are 128-byte
+// swizzled, 64 columns a chunk, loaded by rank-4 tensor maps over
+// (D, heads, S, B), so GQA is a coordinate and rows past Sq or Sk arrive as
+// zeros; only the causal diagonal and the ragged edge are masked (p = 0).
+//   dK/dV: one block per (KV tile, KV head, batch), issued longest first
+// (the grid's slow axis is the KV tile, from the first).  The block's K and
+// V tiles are loaded once; the producer streams the group's (G = H / K
+// query heads) Q and dO tiles of 64 rows with their lse and Di rows through
+// a two-stage ring, from the causal frontier on.  At D <= 128 each consumer
+// owns 64 KV rows (128 a block) and per stage computes S^T = K.Q^T and
+// dP^T = V.dO^T (wgmma from shared memory, all K-major), P^T and
+// dS^T = P^T * (dP^T - Di) in registers (the accumulator's layout is the A
+// operand's, hence the transposed products), then dV += bf16(P^T).dO and
+// dK += bf16(dS^T).Q with A from registers and dO and Q read MN-major
+// through the transpose bit, as the forward reads V.  Each product is its
+// own commit group, so P^T is computed while dP^T's product runs and dS^T
+// while dV's does.  At D = 256 one
+// warpgroup's f32 dK and dV alone would be 256 registers a thread, so the
+// block owns 64 KV rows and the two consumers split the work: each computes
+// S^T and dP^T for half of the stage's 64 q columns, writes its half of
+// bf16 P^T and dS^T into shared memory (swizzled as TMA would, then
+// fenced for the async proxy), and after a barrier of both accumulates dV
+// and dK for half of the 256 head-dim columns from shared memory (216,104 B
+// a block).  A block owns its KV tile across the whole query-head group, so
+// the sums over the group run in a fixed order and no atomics are needed:
+// two calls give the same bits.  dK is scaled in f32 at the end; both are
+// staged through shared memory and written with 16-byte stores.
+//   dQ: one block per (batch * head, 128-row q tile), issued longest first;
+// Q and dO are loaded once, K and V tiles (128 rows, 32 at D = 256) stream
+// through a two-stage ring.  A consumer owns 64 q rows: S = Q.K^T and
+// dP = dO.V^T from shared memory, P and dS in registers (lse and Di of its
+// two rows a thread; P while dP's product runs), then dQ += bf16(dS).K, K
+// read MN-major.  dQ is scaled in f32 at the end.
 //
-// 256 threads a block as 16 x 16: for S and dP a thread holds rows
-// ty + 16 i and columns tx + 16 c; for an accumulated gradient rows
-// ty + 16 i and head-dim columns tx + 16 j.  Operands are converted to f32
-// as they are staged into shared memory (rows padded by one float, so a
-// column walk hits 16 banks); BK is 64 rows, 32 at D = 256, where the dK/dV
-// block's tiles take 214,784 bytes of shared memory.
+// Otherwise (bf16 at D 16 and 32, f32 at every D): `bwd_dkdv` then `bwd_dq`
+// on the CUDA cores (IEEE f32 FMAs, no TF32, no bf16 products), the same
+// block ownership: dK/dV one block per (batch * kv head, BK-row KV tile)
+// looping over the group's query heads and the q tiles at or past the
+// causal frontier; dQ one block per (batch * head, 64-row q tile).  256
+// threads as 16 x 16; operands converted to f32 as they are staged into
+// shared memory (rows padded by one float); BK 64 rows, 32 at D = 256.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ inline float ld(const float* p) { return *p; }
 __device__ inline float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -71,6 +112,49 @@ __device__ inline float round_to(float x, const float*) { return x; }
 __device__ inline float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+// ------------------------------------------------------------ both routes
+// One warp a row of the (B, H, Sqp) scratch: Di = rowsum(dO * O) (lanes
+// stride the head dim, then a fixed shuffle tree) and the forward's lse
+// times `mul`; 0 for the padding rows s >= Sq.
+template <typename T>
+__global__ void __launch_bounds__(256) bwd_prep(
+    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ lse_out, float* __restrict__ di, int rows, int Sq, int Sqp, int H, int D,
+    float mul) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;  // (b * H + h) * Sqp + s
+  if (row >= rows) return;
+  const int bh = row / Sqp, s = row - bh * Sqp;
+  float acc = 0.f, l = 0.f;
+  if (s < Sq) {
+    const int b = bh / H, h = bh - b * H;
+    const size_t off = (((size_t)b * Sq + s) * H + h) * D;
+    for (int d = lane; d < D; d += 32) acc = fmaf(ld(dout + off + d), ld(o + off + d), acc);
+    l = lse[(size_t)bh * Sq + s] * mul;
+  }
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  if (lane == 0) {
+    di[row] = acc;
+    lse_out[row] = l;
+  }
+}
+
+template <typename T>
+cudaError_t launch_prep(const void* o, const void* dout, const float* lse, float* lse_out,
+                        float* di, int rows, int Sq, int Sqp, int H, int D, float mul,
+                        cudaStream_t st) {
+  bwd_prep<T><<<(rows + 7) / 8, 256, 0, st>>>(static_cast<const T*>(o),
+                                              static_cast<const T*>(dout), lse, lse_out, di,
+                                              rows, Sq, Sqp, H, D, mul);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- f32 and small D: CUDA cores
+namespace cc {
+
+constexpr int kThreads = 256;
 
 template <int D>
 struct Tile {
@@ -85,12 +169,6 @@ struct Tile {
 };
 
 template <int D>
-size_t stats_smem() {
-  using T = Tile<D>;
-  return sizeof(float) * (size_t)(T::BQ + T::BK) * T::DS;
-}
-
-template <int D>
 size_t dkdv_smem() {
   using T = Tile<D>;
   return sizeof(float) * ((size_t)(2 * T::BK + 2 * T::BQ) * T::DS + 2 * T::BQ * T::PS + 2 * T::BQ);
@@ -100,18 +178,6 @@ template <int D>
 size_t dq_smem() {
   using T = Tile<D>;
   return sizeof(float) * ((size_t)(2 * T::BK + 2 * T::BQ) * T::DS + T::BQ * T::PS + 2 * T::BQ);
-}
-
-__device__ inline float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ inline float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // rows [row0, row0 + rows) of one head of a (S, heads, D) slab into dst
@@ -156,92 +222,6 @@ __device__ inline void scores(const float* qs, const float* gs, const float* ks,
         s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
         dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
       }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) bwd_stats(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
-    const T* __restrict__ dout, float* __restrict__ lse, float* __restrict__ di, int Sq, int Sk,
-    int H, int K, int causal, float scale) {
-  using Tl = Tile<D>;
-  constexpr int BQ = Tl::BQ, BK = Tl::BK, DS = Tl::DS, R = Tl::R, C = Tl::C;
-  extern __shared__ float smem[];
-  float* qs = smem;          // BQ x DS  scaled queries
-  float* ks = qs + BQ * DS;  // BK x DS  keys
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kvh = h / (H / K);
-  const int q0 = blockIdx.x * BQ;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
-  const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * D;
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {  // Di: 16 threads a row
-    const int qpos = q0 + ty + 16 * i;
-    float acc = 0.f;
-    if (qpos < Sq)
-      for (int d = tx; d < D; d += 16) {
-        const size_t off = q_off + (size_t)qpos * q_row + d;
-        acc = fmaf(ld(dout + off), ld(o + off), acc);
-      }
-    acc = row_sum16(acc);
-    if (tx == 0 && qpos < Sq) di[(size_t)bh * Sq + qpos] = acc;
-  }
-
-  stage<D>(qs, q + q_off, q0, BQ, Sq, q_row, scale);
-  float m[R], l[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  int n_kv = (Sk + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + BQ + BK - 1) / BK);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // qs staged (first tile); the last tile's ks read
-    stage<D>(ks, kb, k0, BK, Sk, kv_row, 1.f);
-    __syncthreads();
-    float s[R][C];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], kv[C];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = qs[(ty + 16 * i) * DS + d];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kv[c] = ks[(tx + 16 * c) * DS + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        if (kpos >= Sk || (causal && kpos > qpos)) s[i][c] = kNegInf;
-        mx = fmaxf(mx, s[i][c]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) sum += s[i][c] == kNegInf ? 0.f : expf(s[i][c] - m_new);
-      l[i] = (m[i] == kNegInf ? 0.f : expf(m[i] - m_new) * l[i]) + row_sum16(sum);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (tx == 0 && qpos < Sq) lse[(size_t)bh * Sq + qpos] = m[i] + logf(l[i]);
   }
 }
 
@@ -427,16 +407,15 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(
   }
 }
 
+// lse, di: the (B, H, Sq) f32 rows `bwd_prep` wrote.
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   float* lse, float* di, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                   int H, int K, int causal, float scale, cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* di, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int K, int causal, float scale, cudaStream_t st) {
   using Tl = Tile<D>;
-  const size_t s1 = stats_smem<D>(), s2 = dkdv_smem<D>(), s3 = dq_smem<D>();
+  const size_t s2 = dkdv_smem<D>(), s3 = dq_smem<D>();
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(bwd_stats<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)s1)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((e = cudaFuncSetAttribute(bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)s2)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)s3)) != cudaSuccess)
@@ -446,9 +425,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const int nq = (Sq + Tl::BQ - 1) / Tl::BQ, nk = (Sk + Tl::BK - 1) / Tl::BK;
-  bwd_stats<T, D><<<dim3(nq, B * H), kThreads, s1, st>>>(
-      qt, kt, static_cast<const T*>(o), gt, lse, di, Sq, Sk, H, K, causal, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   bwd_dkdv<T, D><<<dim3(nk, B * K), kThreads, s2, st>>>(
       qt, kt, vt, gt, lse, di, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, K, causal,
       scale);
@@ -459,27 +435,533 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   return cudaGetLastError();
 }
 
+// which: 1 dK/dV, 2 dQ.
 template <typename T, int D>
-cudaError_t resources(int which, int* regs, int* smem, int* local) {
-  cudaFuncAttributes a;
-  cudaError_t e;
-  size_t dyn;
-  if (which == 0) {
-    e = cudaFuncGetAttributes(&a, bwd_stats<T, D>);
-    dyn = stats_smem<D>();
-  } else if (which == 1) {
-    e = cudaFuncGetAttributes(&a, bwd_dkdv<T, D>);
-    dyn = dkdv_smem<D>();
-  } else {
-    e = cudaFuncGetAttributes(&a, bwd_dq<T, D>);
-    dyn = dq_smem<D>();
+cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
+  if (which == 1) {
+    *dyn = dkdv_smem<D>();
+    return cudaFuncGetAttributes(a, bwd_dkdv<T, D>);
   }
-  if (e != cudaSuccess) return e;
-  *regs = a.numRegs;
-  *smem = (int)(a.sharedSizeBytes + dyn);
-  *local = (int)a.localSizeBytes;
-  return cudaSuccess;
+  *dyn = dq_smem<D>();
+  return cudaFuncGetAttributes(a, bwd_dq<T, D>);
 }
+
+}  // namespace cc
+
+// ------------------------------------------- bf16, D in {64, 128, 256}: wgmma
+namespace tc {
+
+constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kRows = 64;       // rows a consumer warpgroup owns, and every TMA box's rows
+constexpr int kStages = 2;      // ring depth
+constexpr int SW = 128;         // bytes of a swizzled chunk row
+constexpr int CW = 64;          // bf16 columns a chunk
+constexpr uint32_t kMode = 1;   // descriptor swizzle: 128 B
+constexpr int kPairBar = 3;     // named barrier of both consumers (1 + wg: one consumer's)
+
+// The tensor maps of a launch; g is dO.
+struct Maps {
+  CUtensorMap q, k, v, g;
+};
+
+using hopper::pack_bf16;
+
+// K-major operand: rows from row0 of a [chunk][ROWS][CW] tile, k16 step kk
+// (32 bytes along a chunk row).
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return hopper::make_desc(tile + (kk * 16 / CW) * ROWS * SW + row0 * SW + (kk * 16 % CW) * 2, 16,
+                           8 * SW, kMode);
+}
+
+// MN-major B operand of a [chunk][ROWS][CW] tile: K rows [16 kk, 16 kk + 16),
+// N columns from chunk c0 on.
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int c0 = 0) {
+  return hopper::make_desc(tile + c0 * ROWS * SW + kk * 16 * SW, ROWS * SW, 8 * SW, kMode);
+}
+
+// A consumer's 64 x W accumulator times `mul`, rounded to bf16, staged in `sm`
+// ([64][W], 16-byte units swizzled by row) and written rows < `rows` to
+// `out` (row stride `ld` elements) with 16-byte stores.
+template <int W>
+__device__ __forceinline__ void store_tile(const float (&acc)[W / 2], float mul, uint8_t* sm,
+                                           __nv_bfloat16* out, size_t ld, int rows, int bar) {
+  constexpr int NCH = W / 8;
+  constexpr int kSwz = NCH >= 8 ? 7 : NCH - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int lr = 16 * warp + lane / 4;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    *reinterpret_cast<uint32_t*>(sm + lr * W * 2 + ((i ^ (lr & kSwz)) * 16) + 4 * (lane % 4)) =
+        pack_bf16(acc[4 * i] * mul, acc[4 * i + 1] * mul);
+    *reinterpret_cast<uint32_t*>(sm + (lr + 8) * W * 2 + ((i ^ ((lr + 8) & kSwz)) * 16) +
+                                 4 * (lane % 4)) =
+        pack_bf16(acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
+  }
+  hopper::named_sync<128>(bar);
+  for (int idx = tid; idx < kRows * NCH; idx += 128) {
+    const int row = idx / NCH, ch = idx - row * NCH;
+    if (row >= rows) break;  // rows only grow with idx
+    *reinterpret_cast<uint4*>(out + row * ld + ch * 8) =
+        *reinterpret_cast<const uint4*>(sm + row * W * 2 + ((ch ^ (row & kSwz)) * 16));
+  }
+}
+
+template <int D>
+struct DkdvCfg {
+  static constexpr bool kSplitD = D >= 256;  // the consumers split dK/dV's columns
+  static constexpr int BKV = kSplitD ? 64 : 2 * kRows;  // KV rows a block
+  static constexpr int BQ = 64;                          // q rows a stage
+  static constexpr int NQ = kSplitD ? BQ / 2 : BQ;       // S^T columns a consumer computes
+  static constexpr int DW = kSplitD ? D / 2 : D;         // dK/dV columns a consumer sums
+  static constexpr int NC = D / CW;
+  static constexpr int kKVBytes = BKV * D * 2;           // the K tile; the V tile
+  static constexpr int kQBytes = BQ * D * 2;             // a stage's Q tile; its dO tile
+  static constexpr int kStageBytes = 2 * kQBytes + 1024;  // then lse2 and Di rows, 1 KB aligned
+  static constexpr int kPBytes = kSplitD ? 2 * BKV * BQ * 2 : 0;  // bf16 P^T, dS^T
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem =
+      1024 + 2 * kKVBytes + kStages * kStageBytes + kPBytes + kBarBytes;
+};
+
+// lse2 (the forward's lse times log2 e) and di: (B, H, Sqp) f32 from bwd_prep.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
+    const __grid_constant__ Maps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int Sq, int Sqp, int Sk, int H, int K, int causal, float c, float scale) {
+  using C = DkdvCfg<D>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, DW = C::DW, NC = C::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base;                             // [NC][BKV][CW]
+  const uint32_t v_s = k_s + C::kKVBytes;                // [NC][BKV][CW]
+  const uint32_t st_s = v_s + C::kKVBytes;               // stages: Q, dO [NC][BQ][CW]; lse2, Di
+  const uint32_t p_s = st_s + kStages * C::kStageBytes;  // (split D) P^T, dS^T [BKV][BQ]
+  const uint32_t bars = p_s + C::kPBytes;                // kv, full[stages], empty[stages]
+  const uint32_t kv_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / K, kvh = blockIdx.x - b * K, G = H / K;
+  const int k0 = blockIdx.y * BKV;  // the first KV tiles, the longest under causal, first
+  const int n_q = (Sq + BQ - 1) / BQ;
+  const int first_q = causal ? min(k0 / BQ, n_q) : 0;  // q tiles holding a row >= k0
+  const int n_qt = n_q - first_q, n_it = G * n_qt;     // stages: (head of the group, q tile)
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      const int halves = min(BKV / kRows, (Sk - k0 + kRows - 1) / kRows);  // no box past Sk
+      hopper::mbar_expect_tx(kv_bar, 2 * halves * kRows * D * 2);
+      for (int w = 0; w < halves; ++w)
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = cc * BKV * SW + w * kRows * SW;
+          hopper::tma_load_4d(k_s + off, &maps.k, kv_bar, cc * CW, kvh, k0 + w * kRows, b);
+          hopper::tma_load_4d(v_s + off, &maps.v, kv_bar, cc * CW, kvh, k0 + w * kRows, b);
+        }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ, h = kvh * G + g;
+        const uint32_t st = st_s + s * C::kStageBytes;
+        hopper::mbar_wait(empty_bar(s), ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), 2 * C::kQBytes + 2 * BQ * 4);
+        for (int cc = 0; cc < NC; ++cc) {
+          hopper::tma_load_4d(st + cc * BQ * SW, &maps.q, full_bar(s), cc * CW, h, q0, b);
+          hopper::tma_load_4d(st + C::kQBytes + cc * BQ * SW, &maps.g, full_bar(s), cc * CW, h,
+                              q0, b);
+        }
+        const size_t row = ((size_t)b * H + h) * Sqp + q0;
+        hopper::bulk_load(st + 2 * C::kQBytes, lse2 + row, BQ * 4, full_bar(s));
+        hopper::bulk_load(st + 2 * C::kQBytes + BQ * 4, di + row, BQ * 4, full_bar(s));
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int kr = C::kSplitD ? 0 : kRows * wg;  // this consumer's first KV row of the tile
+    const int qc = C::kSplitD ? NQ * wg : 0;     // its first column of a stage's q rows
+    const int kw0 = k0 + kr;
+    const int kr0 = kw0 + 16 * warp + lane / 4;  // this thread's KV rows: kr0 and kr0 + 8
+    float acc_k[DW / 2], acc_v[DW / 2], s[NQ / 2], dp[NQ / 2];
+#pragma unroll
+    for (int i = 0; i < DW / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
+
+    hopper::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ;
+      const uint32_t qt = st_s + st * C::kStageBytes, gt = qt + C::kQBytes;
+      const float* const l2s = reinterpret_cast<const float*>(gbase + (qt + 2 * C::kQBytes - base));
+      const float* const dis = l2s + BQ;
+      const int qa = q0 + qc;  // the q position of this consumer's first column
+      hopper::mbar_wait(full_bar(st), (it / kStages) & 1);
+      // split D: both consumers always take part (they share P^T and dS^T);
+      // otherwise skip a stage wholly before this consumer's rows, or past Sk
+      if (C::kSplitD || (kw0 < Sk && !(causal && qa + NQ - 1 < kw0))) {
+        // S^T = K.Q^T and dP^T = V.dO^T, all K-major, one commit group each:
+        // P^T is computed while dP^T runs
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(s, kmajor<BKV>(k_s, kr, kk), kmajor<BQ>(qt, qc, kk), kk > 0);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(dp, kmajor<BKV>(v_s, kr, kk), kmajor<BQ>(gt, qc, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::fence_regs(dp);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+
+        // P^T = exp2(S^T c - lse2), masked entries 0
+        const bool edge = (causal && kw0 + kRows - 1 > qa) || qa + NQ > Sq || kw0 + kRows > Sk;
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const int col = qc + 8 * j + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(l2s + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = exp2f(fmaf(s[i], c, -((e & 1) ? l2.y : l2.x)));
+            if (edge) {
+              const int qpos = q0 + col + (e & 1), kpos = kr0 + 8 * (e >> 1);
+              if (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+            }
+            s[i] = p;
+          }
+        }
+        // dS^T = P^T (dP^T - Di), once dP^T is done
+        auto grad_scores = [&]() {
+#pragma unroll
+          for (int j = 0; j < NQ / 8; ++j) {
+            const float2 dd =
+                *reinterpret_cast<const float2*>(dis + qc + 8 * j + 2 * (lane % 4));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+          }
+        };
+
+        if constexpr (C::kSplitD) {
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dp);
+          grad_scores();
+          // Each consumer's half of bf16 P^T and dS^T into shared memory
+          // ([BKV][BQ] rows of 128 bytes, swizzled as TMA writes), then dV
+          // and dK for this consumer's DW head-dim columns from there.
+          uint8_t* const pg = gbase + (p_s - base);
+          hopper::named_sync<256>(kPairBar);  // both consumers' last dK/dV products read them
+#pragma unroll
+          for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int row = 16 * warp + lane / 4 + 8 * hr;
+              const int col = qc + 8 * j + 2 * (lane % 4);
+              const uint32_t off = hopper::swz(row * (BQ * 2) + col * 2, SW);
+              *reinterpret_cast<uint32_t*>(pg + off) =
+                  pack_bf16(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]);
+              *reinterpret_cast<uint32_t*>(pg + BKV * BQ * 2 + off) =
+                  pack_bf16(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
+            }
+          hopper::fence_proxy_async();
+          hopper::named_sync<256>(kPairBar);
+          const int c0 = (DW / CW) * wg;  // this consumer's first chunk of dO and Q
+          hopper::fence_regs(acc_v);
+          hopper::fence_regs(acc_k);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            hopper::wgmma_ss_tb(acc_v, hopper::make_desc(p_s + kk * 32, 16, 8 * SW, kMode),
+                                mnmajor<BQ>(gt, kk, c0), 1);
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            hopper::wgmma_ss_tb(acc_k,
+                                hopper::make_desc(p_s + BKV * BQ * 2 + kk * 32, 16, 8 * SW, kMode),
+                                mnmajor<BQ>(qt, kk, c0), 1);
+        } else {
+          // bf16 P^T and dS^T as A operands from registers: the k16 slice kk
+          // of the accumulator is A fragment kk.  dV's product runs while
+          // dS^T is computed.
+          uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          hopper::fence_regs(acc_v);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+            hopper::wgmma_rs(acc_v, pa[kk], mnmajor<BQ>(gt, kk), 1);
+          hopper::wgmma_commit();
+          hopper::fence_regs(acc_v);
+          hopper::wgmma_wait<1>();  // dP^T done; dV may still run
+          hopper::fence_regs(dp);
+          grad_scores();
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+          hopper::fence_regs(acc_k);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+            hopper::wgmma_rs(acc_k, da[kk], mnmajor<BQ>(qt, kk), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc_v);
+        hopper::fence_regs(acc_k);
+      }
+      hopper::mbar_arrive(empty_bar(st));
+    }
+
+    // Both consumers are done with K and V: their tiles become the staging.
+    hopper::named_sync<256>(kPairBar);
+    if (kw0 < Sk) {
+      const int dc = C::kSplitD ? DW * wg : 0;
+      const size_t ld = (size_t)K * D;
+      const size_t at = (((size_t)b * Sk + kw0) * K + kvh) * D + dc;
+      const int rows = min(kRows, Sk - kw0);
+      store_tile<DW>(acc_k, scale, gbase + (k_s - base) + wg * kRows * DW * 2, dk + at, ld, rows,
+                     1 + wg);
+      store_tile<DW>(acc_v, 1.f, gbase + (v_s - base) + wg * kRows * DW * 2, dv + at, ld, rows,
+                     1 + wg);
+    }
+  }
+}
+
+template <int D>
+struct DqCfg {
+  static constexpr int BK = D >= 256 ? 32 : 128;  // KV rows a stage
+  static constexpr int NC = D / CW;
+  static constexpr int kWGBytes = kRows * D * 2;  // a consumer's Q rows; its dO rows
+  static constexpr int kTileBytes = BK * D * 2;   // a stage's K tile; its V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + 4 * kWGBytes + 2 * kStages * kTileBytes + kBarBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dq_wgmma(
+    const __grid_constant__ Maps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int Sq, int Sqp, int Sk, int H,
+    int K, int causal, float c, float scale) {
+  using C = DqCfg<D>;
+  constexpr int BK = C::BK, NC = C::NC, BQ = 2 * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;                          // [2 WG][NC][64][CW]
+  const uint32_t g_s = q_s + 2 * C::kWGBytes;         // [2 WG][NC][64][CW]
+  const uint32_t k_s = g_s + 2 * C::kWGBytes;         // [stage][NC][BK][CW]
+  const uint32_t v_s = k_s + kStages * C::kTileBytes;  // [stage][NC][BK][CW]
+  const uint32_t bars = v_s + kStages * C::kTileBytes;  // q, full[stages], empty[stages]
+  const uint32_t q_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  int n_kv = (Sk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);  // tiles at or before the last row
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      const int halves = Sq - q0 > kRows ? 2 : 1;  // no box wholly past Sq
+      hopper::mbar_expect_tx(q_bar, 2 * halves * C::kWGBytes);
+      for (int w = 0; w < halves; ++w)
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = w * C::kWGBytes + cc * kRows * SW;
+          hopper::tma_load_4d(q_s + off, &maps.q, q_bar, cc * CW, h, q0 + w * kRows, b);
+          hopper::tma_load_4d(g_s + off, &maps.g, q_bar, cc * CW, h, q0 + w * kRows, b);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        hopper::mbar_wait(empty_bar(s), ((j / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), 2 * C::kTileBytes);
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = s * C::kTileBytes + cc * BK * SW;
+          hopper::tma_load_4d(k_s + off, &maps.k, full_bar(s), cc * CW, kvh, j * BK, b);
+          hopper::tma_load_4d(v_s + off, &maps.v, full_bar(s), cc * CW, kvh, j * BK, b);
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int qw0 = q0 + wg * kRows;            // this consumer's first row
+    const int r0 = qw0 + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    int n_w = qw0 < Sq ? n_kv : 0;              // tiles this consumer computes
+    if (causal) n_w = min(n_w, (qw0 + kRows - 1) / BK + 1);
+    const uint32_t qw = q_s + wg * C::kWGBytes, gw = g_s + wg * C::kWGBytes;
+    const size_t row = ((size_t)b * H + h) * Sqp;
+    const float l2_0 = r0 < Sq ? lse2[row + r0] : 0.f, l2_1 = r0 + 8 < Sq ? lse2[row + r0 + 8] : 0.f;
+    const float di_0 = r0 < Sq ? di[row + r0] : 0.f, di_1 = r0 + 8 < Sq ? di[row + r0 + 8] : 0.f;
+
+    float acc[D / 2], s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+
+    hopper::mbar_wait(q_bar, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kStages;
+      hopper::mbar_wait(full_bar(st), (j / kStages) & 1);
+      if (j < n_w) {
+        const int k0 = j * BK;
+        const uint32_t kt = k_s + st * C::kTileBytes, vt = v_s + st * C::kTileBytes;
+        // S = Q.K^T and dP = dO.V^T, all K-major, one commit group each: P is
+        // computed while dP runs
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(s, kmajor<kRows>(qw, 0, kk), kmajor<BK>(kt, 0, kk), kk > 0);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(dp, kmajor<kRows>(gw, 0, kk), kmajor<BK>(vt, 0, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::fence_regs(dp);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+
+        const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qw0);
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * i + e, hr = e >> 1;
+            float p = exp2f(fmaf(s[x], c, -(hr ? l2_1 : l2_0)));
+            if (edge) {
+              const int kpos = k0 + 8 * i + 2 * (lane % 4) + (e & 1), qpos = r0 + 8 * hr;
+              if (kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+            }
+            s[x] = p;
+          }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) dp[x] = s[x] * (dp[x] - ((x & 2) ? di_1 : di_0));
+        // dQ += bf16(dS).K, K MN-major: a k16 step is 16 key rows
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) hopper::wgmma_rs(acc, da[kk], mnmajor<BK>(kt, kk), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+      hopper::mbar_arrive(empty_bar(st));
+    }
+
+    if (n_w > 0) {
+      hopper::named_sync<128>(1 + wg);  // every warp's last product has read this consumer's Q
+      store_tile<D>(acc, scale, gbase + (qw - base),
+                    dq + (((size_t)b * Sq + qw0) * H + h) * D, (size_t)H * D,
+                    min(kRows, Sq - qw0), 1 + wg);
+    }
+  }
+}
+
+CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
+                    int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CW, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// lse2, di: the (B, H, Sqp) f32 rows `bwd_prep` wrote.
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse2, const float* di, void* dq, void* dk, void* dv, int B,
+                   int Sq, int Sqp, int Sk, int H, int K, int causal, float scale,
+                   cudaStream_t st) {
+  using CK = DkdvCfg<D>;
+  using CQ = DqCfg<D>;
+  Maps mk{}, mq{};
+  if (encode_map(&mk.q, q, D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+      encode_map(&mk.g, dout, D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+      encode_map(&mk.k, k, D, K, Sk, B, kRows) != CUDA_SUCCESS ||
+      encode_map(&mk.v, v, D, K, Sk, B, kRows) != CUDA_SUCCESS ||
+      encode_map(&mq.k, k, D, K, Sk, B, CQ::BK) != CUDA_SUCCESS ||
+      encode_map(&mq.v, v, D, K, Sk, B, CQ::BK) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  mq.q = mk.q;
+  mq.g = mk.g;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CK::kSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CQ::kSmem)) != cudaSuccess)
+    return e;
+  const float c = scale * kLog2e;
+  dkdv_wgmma<D><<<dim3(B * K, (Sk + CK::BKV - 1) / CK::BKV), kThreads, CK::kSmem, st>>>(
+      mk, lse2, di, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sqp, Sk,
+      H, K, causal, c, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dq_wgmma<D><<<dim3(B * H, (Sq + 2 * kRows - 1) / (2 * kRows)), kThreads, CQ::kSmem, st>>>(
+      mq, lse2, di, static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Sk, H, K, causal, c, scale);
+  return cudaGetLastError();
+}
+
+// which: 1 dK/dV, 2 dQ.
+template <int D>
+cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
+  if (which == 1) {
+    *dyn = DkdvCfg<D>::kSmem;
+    return cudaFuncGetAttributes(a, dkdv_wgmma<D>);
+  }
+  *dyn = DqCfg<D>::kSmem;
+  return cudaFuncGetAttributes(a, dq_wgmma<D>);
+}
+
+}  // namespace tc
 
 #define BWD_DISPATCH(FN, T, ...)                 \
   switch (D) {                                   \
@@ -490,39 +972,125 @@ cudaError_t resources(int which, int* regs, int* smem, int* local) {
     case 256: return FN<T, 256>(__VA_ARGS__);    \
     default: return cudaErrorInvalidValue;       \
   }
+// The tensor-core route's head dims.
+#define BWD_TC_DISPATCH(FN, ...)                 \
+  switch (D) {                                   \
+    case 64: return FN<64>(__VA_ARGS__);         \
+    case 128: return FN<128>(__VA_ARGS__);       \
+    case 256: return FN<256>(__VA_ARGS__);       \
+    default: return cudaErrorInvalidValue;       \
+  }
+
+bool bad_shape(int B, int Sq, int Sk, int H, int K) {
+  return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535;
+}
+
+cudaError_t dispatch_cc(int D, int is_bf16, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse, float* stats,
+                        void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
+                        int causal, float scale, cudaStream_t st) {
+  if ((long long)B * H * Sq > INT_MAX) return cudaErrorInvalidValue;
+  const int rows = B * H * Sq;
+  float* const di = stats + rows;
+  cudaError_t e = is_bf16 ? launch_prep<__nv_bfloat16>(o, dout, lse, stats, di, rows, Sq, Sq, H,
+                                                       D, 1.f, st)
+                          : launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sq, H, D, 1.f,
+                                               st);
+  if (e != cudaSuccess) return e;
+  if (is_bf16) {
+    BWD_DISPATCH(cc::launch, __nv_bfloat16, q, k, v, dout, stats, di, dq, dk, dv, B, Sq, Sk, H,
+                 K, causal, scale, st)
+  }
+  BWD_DISPATCH(cc::launch, float, q, k, v, dout, stats, di, dq, dk, dv, B, Sq, Sk, H, K, causal,
+               scale, st)
+}
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* stats, void* dq, void* dk,
+                        void* dv, int B, int Sq, int Sk, int H, int K, int causal, float scale,
+                        cudaStream_t st) {
+  const int Sqp = (Sq + tc::kRows - 1) / tc::kRows * tc::kRows;
+  if ((long long)B * H * Sqp > INT_MAX) return cudaErrorInvalidValue;
+  const int rows = B * H * Sqp;
+  float* const di = stats + rows;
+  cudaError_t e = launch_prep<__nv_bfloat16>(o, dout, lse, stats, di, rows, Sq, Sqp, H, D,
+                                             kLog2e, st);
+  if (e != cudaSuccess) return e;
+  BWD_TC_DISPATCH(tc::launch, q, k, v, dout, stats, di, dq, dk, dv, B, Sq, Sqp, Sk, H, K, causal,
+                  scale, st)
+}
+
+template <typename T, int D>
+cudaError_t cc_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
+  return cc::resources<T, D>(which, a, dyn);
+}
+
+cudaError_t dispatch_resources(int D, int is_bf16, int tensor_cores, int which,
+                               cudaFuncAttributes* a, size_t* dyn) {
+  if (which == 0) {
+    *dyn = 0;
+    return is_bf16 ? cudaFuncGetAttributes(a, bwd_prep<__nv_bfloat16>)
+                   : cudaFuncGetAttributes(a, bwd_prep<float>);
+  }
+  if (tensor_cores) {
+    if (!is_bf16) return cudaErrorInvalidValue;
+    BWD_TC_DISPATCH(tc::resources, which, a, dyn)
+  }
+  if (is_bf16) BWD_DISPATCH(cc_resources, __nv_bfloat16, which, a, dyn)
+  BWD_DISPATCH(cc_resources, float, which, a, dyn)
+}
 
 }  // namespace
 
 extern "C" {
 
-// q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Sk, K, D); all contiguous
-// and of one type (bf16 when is_bf16, else f32); lse, di: (B, H, Sq) f32
-// scratch.  Launches the three kernels on `stream`; returns the first
-// launch's cudaError_t that is not cudaSuccess, else cudaSuccess.
+// The CUDA-core route.  q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv:
+// (B, Sk, K, D); all contiguous and of one type (bf16 when is_bf16, else
+// f32); lse: (B, H, Sq) f32, the forward's; stats: (2, B, H, Sq) f32
+// scratch.  Launches bwd_prep, bwd_dkdv and bwd_dq on `stream`; returns the
+// first launch's cudaError_t that is not cudaSuccess, else cudaSuccess.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, void* lse, void* di, void* dq, void* dk,
-                               void* dv, int B, int Sq, int Sk, int H, int K, int D, int causal,
-                               int is_bf16, float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  float* d = static_cast<float*>(di);
-  if (is_bf16) {
-    BWD_DISPATCH(launch, __nv_bfloat16, q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Sk, H, K,
-                 causal, scale, st)
-  }
-  BWD_DISPATCH(launch, float, q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
-               st)
+                               const void* dout, const void* lse, void* stats, void* dq,
+                               void* dk, void* dv, int B, int Sq, int Sk, int H, int K, int D,
+                               int causal, int is_bf16, float scale, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, K)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_cc(D, is_bf16, q, k, v, o, dout, static_cast<const float*>(lse),
+                          static_cast<float*>(stats), dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// Registers a thread, shared memory a block (static plus dynamic) and local
-// memory a thread (spills) of kernel `which` (0 stats, 1 dK/dV, 2 dQ) at
-// head dim D.
-int flash_attention_bwd_resources(int D, int is_bf16, int which, int* regs, int* smem,
-                                  int* local) {
-  if (is_bf16) BWD_DISPATCH(resources, __nv_bfloat16, which, regs, smem, local)
-  BWD_DISPATCH(resources, float, which, regs, smem, local)
+// The tensor-core route: bf16, D in {64, 128, 256}, operands as above with
+// q, k, v and dout 16-byte aligned (TMA); stats: (2, B, H, Sqp) f32 scratch,
+// Sqp = Sq rounded up to a multiple of 64, 16-byte aligned.  Launches
+// bwd_prep, tc::dkdv_wgmma and tc::dq_wgmma on `stream`; any other D or a
+// misaligned pointer returns cudaErrorInvalidValue and launches nothing.
+int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, const void* lse, void* stats, void* dq,
+                                  void* dk, void* dv, int B, int Sq, int Sk, int H, int K, int D,
+                                  int causal, float scale, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, K) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)stats |
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_tc(D, q, k, v, o, dout, static_cast<const float*>(lse),
+                          static_cast<float*>(stats), dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Registers a thread (at launch), shared memory a block (static plus
+// dynamic) and local memory a thread (spills) of kernel `which` (0 prep, 1
+// dK/dV, 2 dQ) of the route (tensor_cores 1, else the CUDA cores) at head
+// dim D.
+int flash_attention_bwd_resources(int D, int is_bf16, int tensor_cores, int which, int* regs,
+                                  int* smem, int* local) {
+  cudaFuncAttributes a;
+  size_t dyn = 0;
+  const cudaError_t e = dispatch_resources(D, is_bf16, tensor_cores, which, &a, &dyn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *smem = (int)(a.sharedSizeBytes + dyn);
+  *local = (int)a.localSizeBytes;
+  return 0;
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -7,7 +7,8 @@
 // m64nNk16: d is the 64 x N accumulator spread over the warpgroup's 128
 // threads as PTX lays it out (thread t of warp w holds rows 16w + t/4 and
 // 16w + t/4 + 8, columns 8j + 2(t%4) and +1, in d[4j .. 4j+3]).  wgmma_ss
-// reads A and B from shared memory, both K-major; wgmma_rs reads A from
+// reads A and B from shared memory, both K-major (wgmma_ss_tb: B MN-major,
+// its transpose bit set); wgmma_rs reads A from
 // registers (the bf16 pairs of the same row/column layout) and B from
 // shared memory MN-major (its transpose bit set); wgmma_rs_kmajor reads B
 // K-major.  scale_d = 0 overwrites d, 1 accumulates into it.
@@ -122,6 +123,27 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes of device memory into shared memory, counted on
+// `bar` as a TMA box is; src and dst 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over kThreads threads, whole warps.
+template <int kThreads>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kThreads) : "memory");
+}
+
+// (lo, hi) rounded to a bf16 pair (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B, 3: 32 B).
@@ -207,6 +229,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+
+// m64n128k16, bf16 x bf16 -> f32; A K-major and B MN-major (its transpose
+// bit set), both in shared memory.
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // m64nNk16, bf16 x bf16 -> f32; A in registers, B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
   asm volatile(

@@ -36,16 +36,29 @@ bf16's precision in bf16.  The tensor-core kernels read their operands with
 TMA, which needs 16-byte aligned data pointers; the wrapper refuses others
 on every device and every route.
 
+The row log-sum-exp (``return_lse=True``): lse[b, h, i] = log sum_j
+exp(s[i, j]) over the unmasked keys j, the natural log of the scaled scores
+s above, f32, shape (B, H, Sq).  Every forward route writes it when asked
+(the kernels from their running max and sum; serving does not ask, and its
+kernels then take the same path as before), and ``flash_attention_plain``
+returns the same.
+
 Gradients: whenever grad is enabled and q, k or v requires it,
 ``flash_attention`` goes through ``FlashAttention`` (a
-``torch.autograd.Function``).  Its forward is the route above; its backward
-is ``flash_attention_backward``: on the card the hand-written kernels of
-``csrc/flash_attention_bwd.cu`` (a stats pass for the row log-sum-exp and
-Di = rowsum(dO * O), then dK/dV a KV tile a block across its query-head
-group, then dQ; f32 sums on the CUDA cores, no atomics), on the CPU
+``torch.autograd.Function``).  Its forward is the route above and keeps
+the lse; its backward is ``flash_attention_backward``: on the card the
+hand-written kernels of ``csrc/flash_attention_bwd.cu``, on the CPU
 ``flash_attention_backward_plain``, the same formulas in plain PyTorch.
+``backward_route`` picks the card's kernels from dtype and head dim before
+the launch: bf16 at D in ``TC_BWD_HEAD_DIMS`` takes the tensor cores
+(``"tensor_cores"``: wgmma, bf16 P and dS as operands, f32 sums), every
+other call the CUDA cores (``"cuda_cores"``, IEEE f32).  Both read the
+forward's lse, compute Di = rowsum(dO * O) in a pre-pass, then dK/dV with
+one block owning a KV tile across its query-head group and dQ with one
+block a q tile: no atomics, so two calls give the same bits.
 ``flash_attention.backward_launches`` counts the backward's CUDA calls (one
-a call, three kernels each).  ``flash_attention_plain`` itself cannot be
+a call, three kernels each), ``flash_attention.backward_route_launches``
+the same per route.  ``flash_attention_plain`` itself cannot be
 differentiated (it works on its scores in place): it stays the forward's
 oracle.
 """
@@ -65,6 +78,8 @@ MAX_BATCH_HEADS = 65535  # the f32 kernel's grid puts batch * heads on its y axi
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores")
 SPLIT_HEAD_DIMS = (16, 32, 64, 128)  # f32 head dims the tensor-core (split) route takes
+TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
+TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
 _KERNEL_CODE = {("cuda_cores", torch.float32): 0, ("tensor_cores", torch.bfloat16): 1,
                 ("tensor_cores", torch.float32): 2}  # the C entry's resource selector
 
@@ -77,10 +92,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build("flash_attention")))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 8 + [ctypes.c_float, vp]
+        lib.flash_attention_launch.argtypes = [vp] * 5 + [i] * 8 + [ctypes.c_float, vp]
         lib.flash_attention_launch.restype = i
         pieces = ctypes.c_void_p * 3
-        lib.flash_attention_split_launch.argtypes = [vp, pieces, pieces, vp] + [i] * 7 + [
+        lib.flash_attention_split_launch.argtypes = [vp, pieces, pieces, vp, vp] + [i] * 7 + [
             ctypes.c_float, vp]
         lib.flash_attention_split_launch.restype = i
         lib.split_bf16_launch.argtypes = [vp] * 4 + [ctypes.c_longlong, vp]
@@ -101,8 +116,10 @@ def _bwd_lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [vp] * 10 + [i] * 8 + [ctypes.c_float, vp]
         lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_bwd_tc_launch.argtypes = [vp] * 10 + [i] * 7 + [ctypes.c_float, vp]
+        lib.flash_attention_bwd_tc_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.flash_attention_bwd_resources.argtypes = [i, i, i, ip, ip, ip]
+        lib.flash_attention_bwd_resources.argtypes = [i, i, i, i, ip, ip, ip]
         lib.flash_attention_bwd_resources.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -196,15 +213,19 @@ def split_bf16(t):
 split_bf16.launches = 0
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None,
+                          return_lse: bool = False):
     """The same function as the kernel in plain PyTorch (the CPU route and
     the on-card reference).  One batch row at a time, so that the f32
-    (H, Sq, Sk) scores of only one row are held at once."""
+    (H, Sq, Sk) scores of only one row are held at once.  With
+    ``return_lse`` also each row's log-sum-exp (the module's convention):
+    (out, lse)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     keep = None
     if causal:
         keep = (torch.arange(Sq, device=q.device)[:, None]
@@ -214,16 +235,20 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
         s = torch.einsum("qkgd,skd->kgqs", qg, k[b].to(torch.float32))
         if keep is not None:
             s.masked_fill_(~keep, NEG_INF)
-        p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+        m = s.amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_()
         l = p.sum(dim=-1)  # (K, G, Sq)
+        if lse is not None:
+            lse[b] = (m[..., 0] + torch.log(l)).reshape(H, Sq)
         o = torch.einsum("kgqs,skd->qkgd", p.to(v.dtype).to(torch.float32),
                          v[b].to(torch.float32))
         o = o / l.clamp_min(1e-20).permute(2, 0, 1)[..., None]
         out[b] = o.reshape(Sq, H, D).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
+                    return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D), H % K == 0, one type of
     float32 or bfloat16, D in ``HEAD_DIMS``, contiguous.  Returns
     (B, Sq, H, D) in q's type.  ``scale`` defaults to 1/sqrt(D).  The
@@ -231,19 +256,22 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     device, which picks the route: CUDA launches the kernel, CPU runs
     ``flash_attention_plain``.  With grad enabled and an operand that
     requires it, the call goes through ``FlashAttention``, whose backward
-    is ``flash_attention_backward``."""
+    is ``flash_attention_backward``.  ``return_lse``: also return each
+    row's log-sum-exp, (B, H, Sq) f32 (the module's convention), as
+    (out, lse)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, scale)
-    return _attend(q, k, v, causal, scale)
+        out, lse = FlashAttention.apply(q, k, v, causal, scale)
+        return (out, lse) if return_lse else out
+    return _attend(q, k, v, causal, scale, want_lse=return_lse)
 
 
-def _attend(q, k, v, causal: bool, scale: float | None):
+def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
     """The forward on q's device: the kernel on CUDA, the plain version on
-    the CPU."""
+    the CPU.  Returns out, or (out, lse) when ``want_lse``."""
     B, Sq, Sk, H, K, D = _check_operands(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, return_lse=want_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     path = route(q, k, v)
@@ -252,43 +280,46 @@ def _attend(q, k, v, causal: bool, scale: float | None):
     if split:
         kp, vp = split_bf16(k), split_bf16(v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if want_lse else None
+    lse_ptr = lse.data_ptr() if want_lse else None  # null: the kernel writes no lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if split:
             ptrs = ctypes.c_void_p * 3
             rc = lib.flash_attention_split_launch(
                 q.data_ptr(), ptrs(*(t.data_ptr() for t in kp)),
-                ptrs(*(t.data_ptr() for t in vp)), out.data_ptr(), B, Sq, Sk, H, K, D,
+                ptrs(*(t.data_ptr() for t in vp)), out.data_ptr(), lse_ptr, B, Sq, Sk, H, K, D,
                 int(causal), scale, stream)
         else:
             rc = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-                int(causal), int(q.dtype == torch.bfloat16), scale, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, B, Sq, Sk, H,
+                K, D, int(causal), int(q.dtype == torch.bfloat16), scale, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed ({path}): CUDA error {rc} ({msg})")
     flash_attention.launches += 1
     flash_attention.route_launches[path] += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
 class FlashAttention(torch.autograd.Function):
-    """``flash_attention`` with a gradient: the forward saves q, k, v and
-    the output; the backward runs ``flash_attention_backward`` on them and
-    the output's gradient (the kernel on the card, the plain formulas on
-    the CPU)."""
+    """``flash_attention`` with a gradient: the forward returns and saves
+    the output and its row lse (not differentiable) with q, k and v; the
+    backward runs ``flash_attention_backward`` on them and the output's
+    gradient (the kernel on the card, the plain formulas on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = _attend(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _attend(q, k, v, causal, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.scale = causal, scale
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(),
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(), lse,
                                               causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
@@ -301,7 +332,8 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
     logsumexp(s)), Di = rowsum(dO * O), dP = dO @ v^T, dS = p * (dP - Di),
     dV = p^T @ dO with p rounded to v's type (as the forward rounds it
     before P.V), dK = dS^T @ (q * scale), dQ = scale * dS @ k.  Returns
-    (dq, dk, dv) in the operands' type."""
+    (dq, dk, dv) in the operands' type.  The log-sum-exp is recomputed
+    from the scores, so the reference does not depend on the forward's."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -332,13 +364,24 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
     return dq, dk, dv
 
 
-def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+def backward_route(D: int, dtype: torch.dtype) -> str:
+    """The backward kernels a CUDA call of head dim ``D`` and ``dtype``
+    takes."""
+    if dtype == torch.bfloat16 and D in TC_BWD_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = True,
                              scale: float | None = None):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` = ``out``
     for the output gradient ``dout``.  Operands as ``flash_attention``
-    takes them; ``out`` and ``dout`` (B, Sq, H, D) contiguous, of q's type.
-    A CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (or raises); a
-    CPU tensor runs ``flash_attention_backward_plain``."""
+    takes them; ``out`` and ``dout`` (B, Sq, H, D) contiguous, of q's type;
+    ``lse`` the forward's row log-sum-exp, (B, H, Sq) f32 contiguous
+    (``flash_attention(..., return_lse=True)``).  A CUDA tensor launches
+    the ``backward_route`` kernels of ``csrc/flash_attention_bwd.cu``, which
+    need ``lse`` (or raises); a CPU tensor runs
+    ``flash_attention_backward_plain``, which recomputes it."""
     B, Sq, Sk, H, K, D = _check_operands(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -346,35 +389,51 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if lse is not None and (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be ({B}, {H}, {Sq}) float32 contiguous on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on CUDA or the CPU, not {q.device}")
+    if lse is None:
+        raise ValueError("flash_attention_backward on CUDA needs the forward's lse")
+    path = backward_route(D, q.dtype)
+    if path == "tensor_cores" and dout.data_ptr() % ALIGN:
+        raise ValueError(f"dout's data pointer is not {ALIGN}-byte aligned")
     lib = _bwd_lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)  # lse, Di
+    rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN if path == "tensor_cores" else Sq
+    stats = torch.empty((2, B, H, rows), dtype=torch.float32, device=q.device)  # lse, Di
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Sk, H, K, D, int(causal))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, Sq, Sk, H, K, D, int(causal), int(q.dtype == torch.bfloat16),
-            scale, stream)
+        if path == "tensor_cores":
+            rc = lib.flash_attention_bwd_tc_launch(*args, scale, stream)
+        else:
+            rc = lib.flash_attention_bwd_launch(*args, int(q.dtype == torch.bfloat16), scale,
+                                                stream)
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_backward launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"flash_attention_backward launch failed ({path}): CUDA error {rc} "
+                           f"({msg})")
     flash_attention.backward_launches += 1
+    flash_attention.backward_route_launches[path] += 1
     return dq, dk, dv
 
 
 def reset_launches() -> None:
     """Set ``flash_attention.launches``, its per-route counts,
-    ``flash_attention.backward_launches`` and ``split_bf16.launches`` to
-    0."""
+    ``flash_attention.backward_launches``, its per-route counts and
+    ``split_bf16.launches`` to 0."""
     flash_attention.launches = 0
     flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
     flash_attention.backward_launches = 0
+    flash_attention.backward_route_launches = dict.fromkeys(ROUTES, 0)
     split_bf16.launches = 0
 
 
@@ -396,20 +455,39 @@ def resources(D: int, dtype: torch.dtype) -> dict:
     return {"route": path, "registers_at_launch": regs.value, "smem_bytes": smem.value}
 
 
-BWD_KERNELS = ("stats", "dkdv", "dq")
+def backward_kernels(D: int, dtype: torch.dtype) -> dict:
+    """{role: (kernel, a fragment of its mangled name)} of the three
+    kernels a backward call of head dim ``D`` and ``dtype`` launches, in
+    order (roles "prep", "dkdv", "dq"): the names the compiler's report
+    (``-Xptxas -v``) gives them."""
+    t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    tname = "bf16" if dtype == torch.bfloat16 else "float"
+    kernels = {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E")}
+    if backward_route(D, dtype) == "tensor_cores":
+        kernels["dkdv"] = (f"tc::dkdv_wgmma<{D}>", f"dkdv_wgmmaILi{D}E")
+        kernels["dq"] = (f"tc::dq_wgmma<{D}>", f"dq_wgmmaILi{D}E")
+    else:
+        kernels["dkdv"] = (f"cc::bwd_dkdv<{tname}, {D}>", f"bwd_dkdvI{t}Li{D}E")
+        kernels["dq"] = (f"cc::bwd_dq<{tname}, {D}>", f"bwd_dqI{t}Li{D}E")
+    return kernels
 
 
 def backward_resources(D: int, dtype: torch.dtype) -> dict:
-    """{kernel: registers a thread, shared memory a block, local memory a
-    thread} of the backward's three kernels at head dim ``D``."""
+    """{role: kernel, registers a thread at launch, shared memory a block,
+    local memory a thread} of the three kernels of ``backward_kernels``,
+    with the route.  The tensor-core kernels then move registers between
+    their warpgroups with ``setmaxnreg``: 240 a consumer thread, 24 a
+    producer thread."""
     lib = _bwd_lib()
-    out = {}
-    for which, name in enumerate(BWD_KERNELS):
+    path = backward_route(D, dtype)
+    out = {"route": path}
+    for which, (role, (name, _)) in enumerate(backward_kernels(D, dtype).items()):
         vals = [ctypes.c_int(0) for _ in range(3)]
-        rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16), which,
+        rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16),
+                                               int(path == "tensor_cores"), which,
                                                *(ctypes.byref(x) for x in vals))
         if rc != 0:
             raise RuntimeError(f"flash_attention_bwd_resources: CUDA error {rc}")
-        out[name] = dict(zip(("registers", "smem_bytes", "local_bytes"),
-                             (x.value for x in vals)))
+        out[role] = dict(kernel=name, **dict(zip(("registers", "smem_bytes", "local_bytes"),
+                                                 (x.value for x in vals))))
     return out

@@ -160,3 +160,130 @@ def test_backward_rejects_what_the_kernel_cannot_take(what, change):
     args = change(q, k, v, flash_attention_plain(q, k, v), g)
     with pytest.raises(ValueError):
         flash_attention_backward(*args)
+
+
+# ---------------------------------------------------------------- the lse
+@pytest.mark.parametrize("shape", CASES[:4] + [(1, 48, 80, 4, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_lse_is_the_logsumexp_of_the_scaled_scores(shape, causal):
+    """``flash_attention_plain(..., return_lse=True)``'s lse (the one
+    convention: natural log of the scaled scores over the unmasked keys)
+    against ``jax.nn.logsumexp`` of the JAX package's scaled einsum scores,
+    and the same output as without it."""
+    q, k, v, _ = _inputs(shape, seed=sum(shape) + 2 * causal)
+    B, Sq, Sk, H, K, D = shape
+    scores = jnp.einsum("bskgh,btkh->bkgst", jnp.asarray(q).reshape(B, Sq, K, H // K, D),
+                        jnp.asarray(k)) / np.sqrt(D)
+    if causal:
+        keep = np.arange(Sq)[:, None] >= np.arange(Sk)[None, :]
+        scores = jnp.where(keep, scores, -jnp.inf)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1)).reshape(B, H, Sq)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
+    assert torch.equal(out, flash_attention_plain(tq, tk, tv, causal=causal))
+    got_out, got_lse = flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    assert torch.equal(got_out, out) and torch.equal(got_lse, lse)
+
+
+# ------------------------------------------- the tensor-core route's arithmetic
+def _tc_backward_emulation(q, k, v, out, dout, lse, causal, scale=None,
+                           operand=torch.bfloat16):
+    """The backward's tensor-core route (csrc/flash_attention_bwd.cu,
+    ``tc::``) as arithmetic on the CPU: bf16 operands, f32 sums of their
+    exact products, P = exp2(S c - lse log2 e) from the forward's lse,
+    Di = rowsum(dO * O), dS = P (dP - Di), P and dS rounded to bf16 as the
+    A operands of dV = P^T dO, dK = dS^T Q and dQ = dS K, the scale applied
+    to the f32 dK and dQ last.  ``operand``: the type P and dS are rounded
+    to (f32: none)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    f32 = torch.float32
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    c = torch.tensor(scale, dtype=f32) * log2e
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    keep = torch.arange(Sq)[:, None] >= torch.arange(Sk)[None, :]
+    for b in range(B):
+        for kh in range(K):
+            heads = slice(kh * G, (kh + 1) * G)
+            qf = q[b, :, heads].to(f32).permute(1, 0, 2)  # (G, Sq, D)
+            gf = dout[b, :, heads].to(f32).permute(1, 0, 2)
+            of = out[b, :, heads].to(f32).permute(1, 0, 2)
+            kf, vf = k[b, :, kh].to(f32), v[b, :, kh].to(f32)
+            lse2 = lse[b, heads].to(f32) * log2e  # (G, Sq)
+            p = torch.exp2(qf @ kf.T * c - lse2[..., None])
+            if causal:
+                p = p.masked_fill(~keep, 0.0)
+            di = (gf * of).sum(dim=-1, keepdim=True)
+            ds = p * (gf @ vf.T - di)
+            pb, dsb = p.to(operand).to(f32), ds.to(operand).to(f32)
+            dv[b, :, kh] = torch.einsum("gqs,gqd->sd", pb, gf).to(v.dtype)
+            dk[b, :, kh] = (torch.einsum("gqs,gqd->sd", dsb, qf) * scale).to(k.dtype)
+            dq[b, :, heads] = ((dsb @ kf) * scale).permute(1, 0, 2).to(q.dtype)
+    return dq, dk, dv
+
+
+def _limit_ratio(got, ref, tol):
+    """The largest |got - ref| / (tol + tol |ref|): at most 1 is within
+    ``assert_allclose(rtol=tol, atol=tol)``."""
+    return float(np.max(np.abs(got - ref) / (tol + tol * np.abs(ref))))
+
+
+@pytest.mark.parametrize("shape", CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_arithmetic_matches_jax_grad_of_mha(shape, causal):
+    """The tensor-core route's rounding (P and dS to bf16 as operands, the
+    scale last, the forward's lse) held to ``jax.grad`` of ``layers.mha``
+    in bf16 within the bf16 limit, as the plain formulas are."""
+    q, k, v, g = _inputs(shape, seed=sum(shape) + causal)
+    bf16 = torch.bfloat16
+    tq, tk, tv = (torch.from_numpy(x).to(bf16) for x in (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = _tc_backward_emulation(tq, tk, tv, out, torch.from_numpy(g).to(bf16), lse, causal)
+    want = _jax_grads(q, k, v, g.astype(jnp.bfloat16).astype(np.float32), causal, "bfloat16")
+    for name, a, ref in zip("qkv", got, want):
+        ratio = _limit_ratio(a.float().numpy(), ref, TOL["bfloat16"])
+        assert ratio <= 1.0, f"d{name}: {ratio} of the bf16 limit"
+
+
+def test_tensor_core_emulation_is_the_plain_formulas_up_to_its_rounding():
+    """In f32 operands and without the bf16 rounding of P and dS, the
+    emulation's arithmetic is the plain backward's: a fault in the
+    emulation itself (a wrong lse, a dropped Di) would show here."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs((1, 64, 64, 4, 2, 32), seed=6))
+    out, lse = flash_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention_backward_plain(q, k, v, out, g)
+    got = _tc_backward_emulation(q, k, v, out, g, lse, True, operand=torch.float32)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- routing
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_route_for_every_head_dim_and_type(D, dtype):
+    want = "tensor_cores" if dtype == torch.bfloat16 and D in (64, 128, 256) else "cuda_cores"
+    assert fa.backward_route(D, dtype) == want
+    kernels = fa.backward_kernels(D, dtype)
+    assert list(kernels) == ["prep", "dkdv", "dq"]
+    assert ("wgmma" in kernels["dkdv"][0]) == (want == "tensor_cores")
+
+
+def test_cpu_route_launches_nothing():
+    """A backward on CPU tensors, through the Function and directly, runs
+    the plain formulas: no launch is counted on either route."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16) for x in
+                  _inputs((1, 64, 64, 4, 2, 64), seed=7))
+    fa.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = flash_attention(*leaves, return_lse=True)
+    assert not lse.requires_grad
+    out.backward(g)
+    flash_attention_backward(q, k, v, out.detach(), g, lse)
+    assert fa.flash_attention.launches == 0 and fa.flash_attention.backward_launches == 0
+    assert fa.flash_attention.backward_route_launches == {"tensor_cores": 0, "cuda_cores": 0}
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward(q, k, v, out.detach(), g, lse[:, :-1].contiguous())

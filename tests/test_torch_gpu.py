@@ -8,11 +8,13 @@ path on a short stream, the dense serving path at deepseek-67b's width and
 the SSM serving path at mamba2-2.7b's, and the MoE, MLA and VLM paths at
 qwen3-moe's, deepseek-v2-lite's and paligemma's, each with two layers and a
 short prompt; the tuned scorer and the MoE combine's determinism; the
-``flash_attention`` backward kernel against its plain version, its counter,
-the autograd Function on the card, and a train step at deepseek-67b's width
-(one layer, two micro-batches) with its launches counted.  On the card:
-``python -m pytest -m gpu tests/test_torch_gpu.py`` (``-k f32`` for the f32
-routes, ``-k "bwd or train"`` for the backward and training)."""
+``flash_attention`` backward kernel against its plain version on both
+routes, its counters (per route), two calls bit for bit, every forward
+route's lse against the plain one, the autograd Function on the card, and a
+train step at deepseek-67b's width (one layer, two micro-batches) with its
+launches counted.  On the card: ``python -m pytest -m gpu
+tests/test_torch_gpu.py`` (``-k f32`` for the f32 routes, ``-k "bwd or
+train or lse"`` for the backward and training)."""
 import sys
 from pathlib import Path
 
@@ -618,13 +620,62 @@ def test_bwd_launch_counter_function_and_no_fallback(cuda):
     out = fa.flash_attention(*leaves, causal=True)
     out.backward(dout)
     assert (fa.flash_attention.launches, fa.flash_attention.backward_launches) == (1, 1)
-    want = fa.flash_attention_backward(q, k, v, out.detach(), dout, causal=True)
+    _, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    want = fa.flash_attention_backward(q, k, v, out.detach(), dout, lse, causal=True)
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
     with pytest.raises(ValueError):
-        fa.flash_attention_backward(q, k, v, out.detach(), dout.float(), causal=True)
+        fa.flash_attention_backward(q, k, v, out.detach(), dout.float(), lse, causal=True)
     with pytest.raises(ValueError):
-        fa.flash_attention_backward(q, k, v, out.detach(), dout.transpose(1, 2), causal=True)
+        fa.flash_attention_backward(q, k, v, out.detach(), dout.transpose(1, 2), lse,
+                                    causal=True)
+    with pytest.raises(ValueError, match="lse"):  # the card's kernels need the forward's lse
+        fa.flash_attention_backward(q, k, v, out.detach(), dout, causal=True)
     assert fa.flash_attention.backward_launches == 2
+
+
+@pytest.mark.parametrize("D,dtype,want", [(64, "bfloat16", "tensor_cores"),
+                                           (128, "bfloat16", "tensor_cores"),
+                                           (256, "bfloat16", "tensor_cores"),
+                                           (32, "bfloat16", "cuda_cores"),
+                                           (128, "float32", "cuda_cores"),
+                                           (256, "float32", "cuda_cores")])
+def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
+    """Each (D, dtype) takes ``backward_route``'s kernels: one launch a
+    backward through the autograd Function, counted on that route alone."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, dout = chip_smoke.make_bwd_case((1, 192, 192, 4, 2, D, True, dtype), cuda, seed=2)
+    assert fa.backward_route(D, q.dtype) == want
+    fa.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    other = "cuda_cores" if want == "tensor_cores" else "tensor_cores"
+    assert fa.flash_attention.backward_route_launches == {want: 1, other: 0}
+
+
+def test_bwd_two_calls_are_equal_bit_for_bit(cuda):
+    """The backward at deepseek-67b's training shape, twice on the same
+    inputs: no atomics, the same bits."""
+    assert all(chip_smoke.bwd_repeat(cuda)["bitwise_equal"])
+
+
+@pytest.mark.parametrize("D,dtype", [(16, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),
+                                     (256, "bfloat16"), (64, "float32"), (128, "float32"),
+                                     (256, "float32")])
+def test_forward_lse_matches_plain_on_every_route(cuda, D, dtype):
+    """The forward's lse (bf16 and the split f32 tensor-core kernels, the
+    f32 CUDA-core kernel at D 256) against ``flash_attention_plain``'s
+    within LSE_TOL, ragged and causal, with its output unchanged."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for causal in (True, False):
+        case = (2, 200, 136, 4, 2, D, causal, dtype)
+        q, k, v = chip_smoke.make_flash_case(case, cuda, seed=D)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, ref = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        chip_smoke.check_lse(str(case), lse, ref)
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
 
 
 def test_train_step_short(cuda):
