@@ -111,7 +111,10 @@ Each phase prints one JSON line:
 10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
               pre-pass reading the forward's lse, then dK/dV a KV tile a
               block over its query-head group, then dQ: bf16 at D 64, 128
-              and 256 on the tensor cores, the rest on the CUDA cores)
+              and 256 on the tensor cores, f32 at D 64 and 128 there too
+              on three bf16 pieces of every operand (the split route,
+              after four ``split_bf16`` launches), the rest on the CUDA
+              cores)
               against its plain PyTorch version, bf16 and f32, causal and
               full: the JAX package's test shapes, D 256, ragged lengths, a
               GQA group of 7 and D 16, each gradient within 2^-6 (bf16) or
@@ -119,13 +122,17 @@ Each phase prints one JSON line:
               kernels (launches counted by route), each forward's lse within
               LSE_TOL of the plain one; a planted fault (one KV tile's dk and
               dv rows zeroed) rejected in both types; two calls at (1, 4096,
-              64, 8, 128) equal bit for bit; then ``flash_bwd_timing`` at
-              (1, 4096, 64, 8, 128) in bf16 and f32 and at paligemma's (4,
-              4096, 8, 1, 256) in bf16: the kernel, its plain version and
+              64, 8, 128) equal bit for bit in both types; then
+              ``flash_bwd_timing`` at (1, 4096, 64, 8, 128) in bf16 and f32,
+              at paligemma's (4, 4096, 8, 1, 256) in bf16 and at the
+              restart check's reduced (2, 256, 256, 4, 2, 16) in both types
+              (the CUDA cores): the kernel, its plain version and
               ``torch.autograd.grad`` through ``scaled_dot_product_attention``
-              beside its bound (2.5 forwards' flops at the type's peak), the
-              route's kernels by name with their registers, spills, shared
-              memory and device time.
+              beside its bound (2.5 forwards' flops at the type's peak; on
+              the split route six bf16 products of them and the pre-pass's
+              bytes, the CUDA-core figure beside it), the route's kernels by
+              name with their registers, spills, shared memory and device
+              time.
 10e. train_path — ``launch.train.run`` at deepseek-67b's published widths,
               depth cut to 3 layers, bf16 weights, accum 4, remat, AdamW
               with f32 accumulation and moments: 4 steps on one fixed batch
@@ -137,7 +144,8 @@ Each phase prints one JSON line:
               of one step; one f32 step at 1 layer against the same step
               with the plain attention under autograd (loss 1e-5, gradients
               1e-4 of their largest, updated parameters 1e-4 where AdamW's
-              update is well conditioned); a restart through
+              update is well conditioned), its backward on
+              ``backward_route``'s kernels (the split route); a restart through
               ``ResilientRunner`` from a checkpoint at the reduced config,
               equal bit for bit to a run without one; and one step each of
               qwen3-moe and paligemma at their widths and 2 layers.
@@ -2099,6 +2107,7 @@ BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's tes
     for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),
                   (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16)))
 BWD_SERVING_SHAPE = (1, 4096, 4096, 64, 8, 128)  # deepseek-67b's micro-batch, one per launch
+BWD_REDUCED_SHAPE = (2, 256, 256, 4, 2, 16)  # the restart check's micro-batch (RESTART below)
 BWD_FAULT_KEYS = (2048, 2112)  # a KV tile in the middle of the serving shape
 BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
 BWD_PROFILE_CALLS = 5  # calls under the profiler for each kernel's device time
@@ -2219,13 +2228,20 @@ def bwd_repeat(dev, shape=BWD_SERVING_SHAPE, dtype: str = "bfloat16") -> dict:
                 bitwise_equal=equal)
 
 
-def bwd_bound(B, Sq, Sk, H, K, D, causal, dtype="bfloat16") -> tuple:
+def bwd_bound(B, Sq, Sk, H, K, D, causal, dtype="bfloat16", route="cuda_cores") -> tuple:
     """(ms, flops): BWD_FLOPS_FACTOR forwards' products (the causal pairs
     only) at the peak for the type (bf16 tensor cores; f32 CUDA cores, no
     TF32); each input (q, k, v, o, dO) read and each gradient written once
-    over HBM is far less at these shapes."""
+    over HBM is far less at these shapes.  The f32 tensor-core (split)
+    route's own bound counts its six bf16 products of pieces at the bf16
+    peak, plus the pre-pass over q, k, v and dO (f32 read once, three bf16
+    pieces written) over HBM."""
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     flops = BWD_FLOPS_FACTOR * 4 * B * H * D * pairs
+    if dtype == "float32" and route == "tensor_cores":
+        t_ops = SPLIT_PRODUCTS["flash_attention"] * flops / BF16_FLOPS
+        t_pre = 2 * (B * Sq * H * D + B * Sk * K * D) * (4 + 3 * 2) / HBM_BYTES_PER_S
+        return (t_ops + t_pre) * 1e3, flops
     return flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS) * 1e3, flops
 
 
@@ -2236,8 +2252,10 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     kernel's does) at ``shape``, causal, in turns (plain, kernel, library,
     kernel, plain), beside the bound; the route and its three kernels'
     registers, spills and shared memory, and each kernel's device time from
-    a profile of BWD_PROFILE_CALLS more calls."""
+    a profile of BWD_PROFILE_CALLS more calls (on the split route also the
+    ``split_bf16`` pre-pass's, and the CUDA-core bound beside the route's)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fm
     from repro_torch.kernels.flash_attention import (backward_kernels, backward_resources,
                                                      backward_route, flash_attention,
                                                      flash_attention_backward,
@@ -2269,18 +2287,22 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     kern_b = cuda_ms(kernel, dev, iters, warmup=0)
     plain_b = cuda_ms(plain, dev, 1, warmup=0)
     del lib_out
-    bound_ms, flops = bwd_bound(*case)
+    path = backward_route(D, q.dtype)
+    bound_ms, flops = bwd_bound(*case, route=path)
     ms = min(kern_a, kern_b)
     log = _build.library_path("flash_attention_bwd").with_suffix(".log").read_text()
     kernels = backward_kernels(D, q.dtype)
+    split_before = fm.split_bf16.launches
     prof = device_profile(lambda: [kernel() for _ in range(BWD_PROFILE_CALLS)], dev)
     per_kernel = {}  # us a launch over the launches the profiler kept (it may drop some)
-    for role, (name, _) in kernels.items():
-        hits = [t for t in prof["top"] if fragment_name(name) in t["name"]]
+    names = {role: fragment_name(name) for role, (name, _) in kernels.items()}
+    if fm.split_bf16.launches > split_before:  # the split route's pre-pass
+        names["split_bf16"] = "split_bf16_kernel"
+    for role, frag in names.items():
+        hits = [t for t in prof["top"] if frag in t["name"]]
         n = sum(t["count"] for t in hits)
         per_kernel[role] = sum(t["us"] for t in hits) / n if n else "not measured"
-    row = dict(shape=list(shape), causal=True, dtype=dtype,
-               route=backward_route(D, q.dtype), max_err=err, ms=ms,
+    row = dict(shape=list(shape), causal=True, dtype=dtype, route=path, max_err=err, ms=ms,
                ms_runs=[kern_a, kern_b],
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=lib_ms,
@@ -2293,7 +2315,12 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
                       for role, (name, fragment) in kernels.items()},
                resources=backward_resources(D, q.dtype),
                kernel_us=per_kernel,
+               split_bf16_launches_a_call=(fm.split_bf16.launches - split_before)
+               // BWD_PROFILE_CALLS,
                profile=prof)
+    if dtype == "float32":
+        row["cuda_core_bound_ms"] = bwd_bound(*case)[0]
+        row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] / ms
     emit("flash_bwd_timing", **row)
     return row
 
@@ -2301,8 +2328,9 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
 def run_flash_bwd_kernels(dev) -> dict:
     """Phase 10d: every BWD_CASES case (each on its ``backward_route``, the
     forward's lse held too), the planted faults, two calls bit for bit at
-    the serving shape, and the kernel's time at deepseek-67b's and
-    paligemma's training shapes in bf16 (and deepseek-67b's in f32)."""
+    the serving shape in both types, and the kernel's time at deepseek-67b's
+    and paligemma's training shapes in bf16 (and deepseek-67b's in f32), and
+    at the restart check's reduced shape in both types."""
     from repro_torch.kernels import flash_attention as fm
 
     t0 = time.perf_counter()
@@ -2311,7 +2339,7 @@ def run_flash_bwd_kernels(dev) -> dict:
     routes = dict(fm.flash_attention.backward_route_launches)
     errs = [r["errs"] for r in res]
     faults = [bwd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
-    repeat = bwd_repeat(dev)
+    repeat = [bwd_repeat(dev, dtype=dt) for dt in ("bfloat16", "float32")]
     emit("flash_bwd_kernels", cases=len(BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: max(max(e) for c, e in zip(BWD_CASES, errs) if c[7] == dt)
                   for dt in BWD_TOL}, tol=BWD_TOL,
@@ -2329,6 +2357,8 @@ def run_flash_bwd_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     rows["D256"] = time_flash_bwd(dev, "bfloat16", VLM_SHAPE, iters=3)
     torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        rows[f"reduced_{dt}"] = time_flash_bwd(dev, dt, BWD_REDUCED_SHAPE, iters=20)
     return {"max_err": max(max(e) for e in errs), "rows": rows}
 
 
@@ -2425,7 +2455,9 @@ def train_f32_check(dev) -> dict:
     sequence) with the kernels, against the same step from the same start
     with ``plain_attention``: the loss within 1e-5, each first moment (0.1
     times the gradient) within TRAIN_F32_TOL of its largest value, each
-    updated parameter by ``adam_param_errors``."""
+    updated parameter by ``adam_param_errors``; the backward on
+    ``backward_route``'s kernels (f32 at D 128: the split route, with its
+    ``split_bf16`` launches counted)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.launch.train import make_batch, make_data
@@ -2445,6 +2477,7 @@ def train_f32_check(dev) -> dict:
             _, opt, m = make_train_step(cfg, lr=TRAIN["lr"])(params, opt, batch)
         sync(dev)
         runs[name] = dict(loss=float(m["loss"]), launches=fm.flash_attention.launches,
+                          split_bf16_launches=fm.split_bf16.launches,
                           backward_launches=fm.flash_attention.backward_launches,
                           backward_route_launches=dict(fm.flash_attention.backward_route_launches),
                           params=host_copy(dict(params.named_parameters())),
@@ -2456,6 +2489,10 @@ def train_f32_check(dev) -> dict:
           f"f32 step: {k['launches']} forward and {k['backward_launches']} backward launches, "
           "not 2 and 1 (one layer, remat)")
     check(p["launches"] == 0 and p["backward_launches"] == 0, "the plain step launched a kernel")
+    want_route = fm.backward_route(cfg.attention.head_dim, torch.float32)
+    check(k["backward_route_launches"][want_route] == 1,
+          f"f32 step: backward launches by route {k['backward_route_launches']}, not on "
+          f"{want_route}")
     loss_err = abs(k["loss"] - p["loss"])
     mu_err = max(float((k["mu"][n] - p["mu"][n]).abs().max()
                        / p["mu"][n].abs().max().clamp_min(1e-30)) for n in p["mu"])
@@ -2467,7 +2504,8 @@ def train_f32_check(dev) -> dict:
           <= 2 * TRAIN["lr"], f"f32 step: updated parameters differ: {perr}")
     return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
                 params=perr, launches=k["launches"], backward_launches=k["backward_launches"],
-                backward_route_launches=k["backward_route_launches"])
+                backward_route=want_route, backward_route_launches=k["backward_route_launches"],
+                split_bf16_launches=k["split_bf16_launches"])
 
 
 def restart_check(dev, tmp: Path) -> dict:
@@ -2476,14 +2514,19 @@ def restart_check(dev, tmp: Path) -> dict:
     simulated preemption before step ``fail_at``, which ``ResilientRunner``
     answers by restoring the last checkpoint (step ``fail_at`` - 1 rounded
     down to ``ckpt_every``) and the data cursor: the two runs' parameters
-    and moments must be equal bit for bit."""
+    and moments must be equal bit for bit.  The straight run's backward
+    launches are counted by route."""
     from repro_torch.configs import reduced_config
+    from repro_torch.kernels import flash_attention as fm
     from repro_torch.launch.train import run
 
     cfg = reduced_config(RESTART["arch"]).replace(accum_steps=2, remat=True)
     kw = dict(steps=RESTART["steps"], batch=RESTART["batch"], seq=RESTART["seq"], lr=1e-3,
               device=dev, ckpt_every=RESTART["ckpt_every"], log=lambda _msg: None)
+    fm.reset_launches()
     straight = run(cfg, ckpt_dir=tmp / "straight", **kw)
+    sync(dev)
+    bwd_routes = dict(fm.flash_attention.backward_route_launches)
     again = run(cfg, ckpt_dir=tmp / "restarted", fail_at=RESTART["fail_at"], **kw)
     check(again["report"].restarts == 1, f"{again['report'].restarts} restarts, not 1")
     same = [torch.equal(a, b) for a, b in zip(straight["params"].parameters(),
@@ -2496,7 +2539,8 @@ def restart_check(dev, tmp: Path) -> dict:
     steps = sorted(p.name for p in (tmp / "restarted" / cfg.name).glob("step_*"))
     return dict(config=cfg.name, steps=RESTART["steps"], fail_at=RESTART["fail_at"],
                 restarts=again["report"].restarts, checkpoints=steps,
-                tensors_equal=len(same), losses=straight["losses"])
+                tensors_equal=len(same), losses=straight["losses"],
+                backward_route_launches=bwd_routes)
 
 
 def side_step(dev, arch: str) -> dict:
@@ -3806,11 +3850,28 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "note": "the gradient of that kernel in f32",
         "launches": train["float32"]["backward_launches"],
+        "launches_by_route": train["float32"]["backward_route_launches"],
+        "split_bf16_launches": train["float32"]["split_bf16_launches"],
         "max_abs_err": bwd["rows"]["float32"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["float32"]["ms"], "plain_ms": bwd["rows"]["float32"]["plain_ms"],
         "bound_ms": bwd["rows"]["float32"]["bound_ms"], "bound_by": "operations",
-        "library_ms": bwd["rows"]["float32"]["library_ms"]}]}), flush=True)
+        "cuda_core_bound_ms": bwd["rows"]["float32"]["cuda_core_bound_ms"],
+        "library_ms": bwd["rows"]["float32"]["library_ms"]}, {
+        "name": "flash_attention_bwd[D16]", "route": "cuda",
+        "kernel_route": bwd["rows"]["reduced_bfloat16"]["route"],
+        "dtype": "bfloat16", "shape": list(BWD_REDUCED_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "the gradient of that kernel at the restart check's reduced config",
+        "launches": train["restart"]["backward_route_launches"]["cuda_cores"],
+        "launches_by_route": train["restart"]["backward_route_launches"],
+        "max_abs_err": bwd["rows"]["reduced_bfloat16"]["max_err"],
+        "max_err_is": "of each gradient's largest value",
+        "ms": bwd["rows"]["reduced_bfloat16"]["ms"],
+        "plain_ms": bwd["rows"]["reduced_bfloat16"]["plain_ms"],
+        "bound_ms": bwd["rows"]["reduced_bfloat16"]["bound_ms"], "bound_by": "operations",
+        "library_ms": bwd["rows"]["reduced_bfloat16"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

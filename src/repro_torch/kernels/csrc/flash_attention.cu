@@ -147,16 +147,9 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// The split route's six products of pieces (0 hi, 1 mid, 2 lo): product t
-// multiplies piece term_a(t) of A by piece term_b(t) of B, smallest first
-// (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi); mid.lo, lo.mid and lo.lo
-// (each at most 2^-25 of |a||b|) drop.
-__device__ __forceinline__ constexpr int term_a(int t) {
-  return t == 0 ? 1 : t == 1 ? 2 : t == 3 ? 1 : 0;
-}
-__device__ __forceinline__ constexpr int term_b(int t) {
-  return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
-}
+// The split route's six products of pieces, smallest first (hopper.cuh).
+using hopper::term_a;
+using hopper::term_b;
 
 // kSplit: f32 operands as bf16 hi, mid and lo pieces (q split by the
 // consumers, K and V by `split_bf16_kernel` beforehand); otherwise bf16.

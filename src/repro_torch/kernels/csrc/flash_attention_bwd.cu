@@ -84,7 +84,54 @@
 // two rows a thread; P while dP's product runs), then dQ += bf16(dS).K, K
 // read MN-major.  dQ is scaled in f32 at the end.
 //
-// Otherwise (bf16 at D 16 and 32, f32 at every D): `bwd_dkdv` then `bwd_dq`
+// f32, D in {64, 128}: `tc::dkdv_split<D>` then `tc::dq_split<D>`, the
+// split route, on the tensor cores as the forward's f32 route is
+// (flash_attention.cu): every f32 operand enters as three bf16 pieces, hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), within 2^-25 |v|
+// (hopper.cuh), and every product as six wgmma products of pieces, smallest
+// first (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi; each bf16 x bf16
+// term exact in f32).  q, k, v and dO are split beforehand by the forward
+// library's `split_bf16_kernel` into bf16 pieces in device memory (the
+// dK/dV kernel reads every Q and dO tile again for each KV tile), loaded by
+// TMA as in bf16; P^T / P and dS^T / dS are split in registers, never
+// rounded, so dV's product sees p in v's type (f32) as the plain formulas
+// do.  The scale stays in f32 (folded into exp2, applied to dK and dQ
+// last).  The tensor cores' f32 accumulation truncates: the forward's f32
+// route drifted by 5.5e-5 of outputs near 3 at 4,096 keys when every tile's
+// products summed into O, so each stage's six-product sum here goes to a
+// fresh accumulator and is added to the running dK, dV or dQ with f32 adds
+// (dK and dV sum up to G * Sq / BQ stages, 1,024 at the training shape).
+//   dK/dV: one block per (64-row KV tile, KV head, batch), longest first.
+// Three pieces of K and V take 96 KB at D = 128, so a stage holds 32 q rows
+// (64 at D = 64): three pieces each of Q and dO, 48 KB, then lse2 and Di.
+// Consumer 0 computes S^T = K.Q^T (m64n32, six products over D), P^T in
+// f32, hands P^T to consumer 1 through shared memory (in the accumulator's
+// own order, 8 KB: one f32 a thread a register, no bank conflicts) and
+// accumulates dV += P^T.dO; consumer 1 computes dP^T = V.dO^T, dS^T = P^T
+// (dP^T - Di) and dK += dS^T.Q.  Each owns one 64 x D f32 sum (64 + 64
+// fresh registers at D = 128), its A pieces in registers (24), so neither
+// splits the head dim.  Two named barriers hand P^T over, each with one
+// side arriving without waiting: consumer 1 waits until P^T is written,
+// consumer 0 (from the second stage on) until the last one was read, so
+// consumer 0 computes the next S^T and P^T while consumer 1 is still on
+// its dS^T and dK (4% faster than both waiting at both, same bits; NVIDIA
+// H100).  Shared memory: 98,304 B of K and V pieces, two stages
+// of 50,176 B, 8,192 B of P^T: 207,912 B a block at D = 128 (166,952 at
+// D = 64).
+//   dQ: one block per (batch * head, 64-row q tile), longest first: three
+// pieces of Q and dO for 64 rows take 96 KB at D = 128, so K and V stream
+// in 32-row tiles (64 at D = 64), 48 KB a stage.  The consumers take
+// alternate KV tiles, each its own ring stage (S and dP m64n32 over D, dS
+// split in registers, dQ += dS.K), and consumer 1's f32 partial sum is added
+// to consumer 0's once at the end, in a fixed order: 197,672 B (148,520 at
+// D = 64).  Bound at (1, 4096, 64, 8, 128) causal: six products of pieces
+// of FA2's 6.87e11 flops at the bf16 peak, 4.17 ms, plus the pre-pass over
+// q, k, v and dO (f32 read, three bf16 pieces written: 0.75 GB, 0.23 ms);
+// the f32 CUDA-core peak gives 10.26 ms.  At D = 256 three pieces of a
+// 64-row Q tile alone would take 96 KB beside K and V's 192 KB, so f32 at D
+// 256 (and at D 16 and 32) stays on the CUDA cores.
+//
+// Otherwise (bf16 at D 16 and 32, f32 at D 16, 32 and 256): `bwd_dkdv` then `bwd_dq`
 // on the CUDA cores (IEEE f32 FMAs, no TF32, no bf16 products), the same
 // block ownership: dK/dV one block per (batch * kv head, BK-row KV tile)
 // looping over the group's query heads and the q tiles at or past the
@@ -151,7 +198,7 @@ cudaError_t launch_prep(const void* o, const void* dout, const float* lse, float
   return cudaGetLastError();
 }
 
-// ------------------------------------------------- f32 and small D: CUDA cores
+// --------------------------------------- f32 at D 16, 32, 256, small D: CUDA cores
 namespace cc {
 
 constexpr int kThreads = 256;
@@ -448,7 +495,7 @@ cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
 
 }  // namespace cc
 
-// ------------------------------------------- bf16, D in {64, 128, 256}: wgmma
+// -------------- bf16, D in {64, 128, 256}, and split f32, D in {64, 128}: wgmma
 namespace tc {
 
 constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
@@ -903,6 +950,406 @@ __global__ void __launch_bounds__(kThreads, 1) dq_wgmma(
   }
 }
 
+// ------------------------------------- f32, D in {64, 128}: split-bf16 wgmma
+// The six products of pieces (hopper.cuh), smallest first.
+using hopper::term_a;
+using hopper::term_b;
+
+// The tensor maps of a split launch: each bf16 piece (hi, mid, lo) of q, dO,
+// k and v.
+struct SplitMaps {
+  CUtensorMap q[3], g[3], k[3], v[3];
+};
+
+template <int D>
+struct DkdvSplitCfg {
+  static constexpr int BKV = kRows;               // KV rows a block
+  static constexpr int BQ = D >= 128 ? 32 : 64;   // q rows a stage
+  static constexpr int NC = D / CW;
+  static constexpr int kKVBytes = BKV * D * 2;    // one piece of the K tile; of the V tile
+  static constexpr int kQBytes = BQ * D * 2;      // one piece of a stage's Q tile; of its dO tile
+  static constexpr int kStageBytes = 6 * kQBytes + 1024;  // then lse2 and Di rows, 1 KB aligned
+  static constexpr int kPBytes = BKV * BQ * 4;    // f32 P^T, consumer 0 to consumer 1
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem =
+      1024 + 6 * kKVBytes + kStages * kStageBytes + kPBytes + kBarBytes;
+};
+
+// dK/dV on split-bf16 operands.  lse2 (the forward's lse times log2 e) and
+// di: (B, H, Sqp) f32 from bwd_prep; dk, dv f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_split(
+    const __grid_constant__ SplitMaps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+    int Sqp, int Sk, int H, int K, int causal, float c, float scale) {
+  using C = DkdvSplitCfg<D>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NC = C::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base;                             // [piece][NC][BKV][CW]
+  const uint32_t v_s = k_s + 3 * C::kKVBytes;            // [piece][NC][BKV][CW]
+  const uint32_t st_s = v_s + 3 * C::kKVBytes;           // stages: Q, dO [piece][NC][BQ][CW]; lse2, Di
+  const uint32_t p_s = st_s + kStages * C::kStageBytes;  // f32 P^T in accumulator order
+  const uint32_t bars = p_s + C::kPBytes;                // kv, full[stages], empty[stages]
+  const uint32_t kv_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / K, kvh = blockIdx.x - b * K, G = H / K;
+  const int k0 = blockIdx.y * BKV;  // the first KV tiles, the longest under causal, first
+  const int n_q = (Sq + BQ - 1) / BQ;
+  const int first_q = causal ? min(k0 / BQ, n_q) : 0;  // q tiles holding a row >= k0
+  const int n_qt = n_q - first_q, n_it = G * n_qt;     // stages: (head of the group, q tile)
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(kv_bar, 6 * C::kKVBytes);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = piece * C::kKVBytes + cc * BKV * SW;
+          hopper::tma_load_4d(k_s + off, &maps.k[piece], kv_bar, cc * CW, kvh, k0, b);
+          hopper::tma_load_4d(v_s + off, &maps.v[piece], kv_bar, cc * CW, kvh, k0, b);
+        }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ, h = kvh * G + g;
+        const uint32_t st = st_s + s * C::kStageBytes;
+        hopper::mbar_wait(empty_bar(s), ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), 6 * C::kQBytes + 2 * BQ * 4);
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece)
+          for (int cc = 0; cc < NC; ++cc) {
+            const uint32_t off = piece * C::kQBytes + cc * BQ * SW;
+            hopper::tma_load_4d(st + off, &maps.q[piece], full_bar(s), cc * CW, h, q0, b);
+            hopper::tma_load_4d(st + 3 * C::kQBytes + off, &maps.g[piece], full_bar(s), cc * CW,
+                                h, q0, b);
+          }
+        const size_t row = ((size_t)b * H + h) * Sqp + q0;
+        hopper::bulk_load(st + 6 * C::kQBytes, lse2 + row, BQ * 4, full_bar(s));
+        hopper::bulk_load(st + 6 * C::kQBytes + BQ * 4, di + row, BQ * 4, full_bar(s));
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int kr0 = k0 + 16 * warp + lane / 4;  // this thread's KV rows: kr0 and kr0 + 8
+    // Consumer 0 computes S^T = K.Q^T, P^T and dV; consumer 1 dP^T = V.dO^T,
+    // dS^T (reading consumer 0's f32 P^T) and dK.
+    const uint32_t a_s = wg == 0 ? k_s : v_s;
+    float* const pbuf = reinterpret_cast<float*>(gbase + (p_s - base));
+    float acc[D / 2], x[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) x[i] = 0.f;
+
+    hopper::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ;
+      const uint32_t qt = st_s + st * C::kStageBytes, gt = qt + 3 * C::kQBytes;
+      const float* const l2s = reinterpret_cast<const float*>(gbase + (qt + 6 * C::kQBytes - base));
+      const float* const dis = l2s + BQ;
+      hopper::mbar_wait(full_bar(st), (it / kStages) & 1);
+
+      // S^T (or dP^T): six products of pieces, smallest first, all K-major
+      const uint32_t b_s = wg == 0 ? qt : gt;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(x, kmajor<BKV>(a_s + term_a(t) * C::kKVBytes, 0, kk),
+                           kmajor<BQ>(b_s + term_b(t) * C::kQBytes, 0, kk), t > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(x);
+
+      if (wg == 0) {
+        if (it > 0) hopper::named_sync<256>(kPairBar);  // consumer 1 has read the last P^T
+        // P^T = exp2(S^T c - lse2), masked entries 0, to consumer 1 in the
+        // accumulator's order (thread-contiguous: no bank conflicts)
+        const bool edge = (causal && k0 + BKV - 1 > q0) || q0 + BQ > Sq || k0 + BKV > Sk;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(l2s + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = exp2f(fmaf(x[i], c, -((e & 1) ? l2.y : l2.x)));
+            if (edge) {
+              const int qpos = q0 + col + (e & 1), kpos = kr0 + 8 * (e >> 1);
+              if (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+            }
+            x[i] = p;
+            pbuf[i * 128 + tid] = p;
+          }
+        }
+        hopper::named_arrive<256>(kPairBar + 1);  // P^T written
+      } else {  // dS^T = P^T (dP^T - Di)
+        hopper::named_sync<256>(kPairBar + 1);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dd = *reinterpret_cast<const float2*>(dis + 8 * j + 2 * (lane % 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            x[i] = pbuf[i * 128 + tid] * (x[i] - ((e & 1) ? dd.y : dd.x));
+          }
+        }
+        hopper::named_arrive<256>(kPairBar);  // P^T read
+      }
+
+      // P^T (or dS^T) split into bf16 hi, mid and lo as A operands from
+      // registers (the k16 slice kk of the accumulator is A fragment kk);
+      // the stage's dV = P^T.dO (or dK = dS^T.Q), six products of pieces
+      // with dO (Q) read MN-major, goes to a fresh accumulator and is added
+      // to the running sum in f32: the tensor cores' f32 accumulation
+      // truncates, and summed over every stage that bias would grow with
+      // the group's q rows.
+      uint32_t xa[3][BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hopper::split3_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], xa[0][kk][e],
+                              xa[1][kk][e], xa[2][kk][e]);
+      const uint32_t c_s = wg == 0 ? gt : qt;
+      float tile[D / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          hopper::wgmma_rs(tile, xa[term_a(t)][kk], mnmajor<BQ>(c_s + term_b(t) * C::kQBytes, kk),
+                           t > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+      hopper::mbar_arrive(empty_bar(st));
+    }
+
+    if (wg == 0 && n_it > 0) hopper::named_sync<256>(kPairBar);  // the last P^T read
+    // dV (consumer 0) or dK times the scale (consumer 1), f32, 8 bytes a
+    // thread, rows < Sk
+    float* const out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kpos = kr0 + 8 * hr;
+      if (kpos >= Sk) continue;
+      float* const row = out + (((size_t)b * Sk + kpos) * K + kvh) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j) =
+            make_float2(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+    }
+  }
+}
+
+template <int D>
+struct DqSplitCfg {
+  static constexpr int BK = D >= 128 ? 32 : 64;  // KV rows a stage
+  static constexpr int NC = D / CW;
+  static constexpr int kQBytes = kRows * D * 2;  // one piece of the block's Q rows; of its dO rows
+  static constexpr int kTileBytes = BK * D * 2;  // one piece of a stage's K tile; of its V tile
+  static constexpr int kStageBytes = 6 * kTileBytes;
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + 6 * kQBytes + kStages * kStageBytes + kBarBytes;
+};
+
+// dQ on split-bf16 operands; dq f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dq_split(
+    const __grid_constant__ SplitMaps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, float* __restrict__ dq, int Sq, int Sqp, int Sk, int H, int K,
+    int causal, float c, float scale) {
+  using C = DqSplitCfg<D>;
+  constexpr int BK = C::BK, NC = C::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;                           // [piece][NC][64][CW]
+  const uint32_t g_s = q_s + 3 * C::kQBytes;           // [piece][NC][64][CW]
+  const uint32_t st_s = g_s + 3 * C::kQBytes;          // stages: K, V [piece][NC][BK][CW]
+  const uint32_t bars = st_s + kStages * C::kStageBytes;  // q, full[stages], empty[stages]
+  const uint32_t q_bar = bars;
+  auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest causal rows first
+  int n_kv = (Sk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + kRows - 1) / BK + 1);  // tiles at or before the last row
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 128);  // stage s is consumer s's alone
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      hopper::mbar_expect_tx(q_bar, 6 * C::kQBytes);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+        for (int cc = 0; cc < NC; ++cc) {
+          const uint32_t off = piece * C::kQBytes + cc * kRows * SW;
+          hopper::tma_load_4d(q_s + off, &maps.q[piece], q_bar, cc * CW, h, q0, b);
+          hopper::tma_load_4d(g_s + off, &maps.g[piece], q_bar, cc * CW, h, q0, b);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        const uint32_t st = st_s + s * C::kStageBytes;
+        hopper::mbar_wait(empty_bar(s), ((j / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), C::kStageBytes);
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece)
+          for (int cc = 0; cc < NC; ++cc) {
+            const uint32_t off = piece * C::kTileBytes + cc * BK * SW;
+            hopper::tma_load_4d(st + off, &maps.k[piece], full_bar(s), cc * CW, kvh, j * BK, b);
+            hopper::tma_load_4d(st + 3 * C::kTileBytes + off, &maps.v[piece], full_bar(s),
+                                cc * CW, kvh, j * BK, b);
+          }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const size_t row = ((size_t)b * H + h) * Sqp;
+    const float l2_0 = r0 < Sq ? lse2[row + r0] : 0.f, l2_1 = r0 + 8 < Sq ? lse2[row + r0 + 8] : 0.f;
+    const float di_0 = r0 < Sq ? di[row + r0] : 0.f, di_1 = r0 + 8 < Sq ? di[row + r0 + 8] : 0.f;
+
+    float acc[D / 2], s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+
+    hopper::mbar_wait(q_bar, 0);
+    // Consumer wg takes KV tiles wg, wg + 2, ...: ring stage wg is its own.
+    for (int j = wg; j < n_kv; j += kStages) {
+      const int k0 = j * BK;
+      const uint32_t kt = st_s + wg * C::kStageBytes, vt = kt + 3 * C::kTileBytes;
+      hopper::mbar_wait(full_bar(wg), (j / kStages) & 1);
+      // S = Q.K^T and dP = dO.V^T, six products of pieces each, smallest
+      // first, all K-major, one commit group each: P is computed while dP runs
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(s, kmajor<kRows>(q_s + term_a(t) * C::kQBytes, 0, kk),
+                           kmajor<BK>(kt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss(dp, kmajor<kRows>(g_s + term_a(t) * C::kQBytes, 0, kk),
+                           kmajor<BK>(vt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::fence_regs(dp);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * i + e, hr = e >> 1;
+          float p = exp2f(fmaf(s[x], c, -(hr ? l2_1 : l2_0)));
+          if (edge) {
+            const int kpos = k0 + 8 * i + 2 * (lane % 4) + (e & 1), qpos = r0 + 8 * hr;
+            if (kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+          }
+          s[x] = p;
+        }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) dp[x] = s[x] * (dp[x] - ((x & 2) ? di_1 : di_0));
+      // dS split into bf16 hi, mid and lo as A operands from registers; the
+      // tile's dS.K (K MN-major: a k16 step is 16 key rows), six products of
+      // pieces, goes to a fresh accumulator added to the running dQ in f32
+      uint32_t da[3][BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hopper::split3_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1], da[0][kk][e],
+                              da[1][kk][e], da[2][kk][e]);
+      float tile[D / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 6; ++t)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_rs(tile, da[term_a(t)][kk], mnmajor<BK>(kt + term_b(t) * C::kTileBytes, kk),
+                           t > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+      hopper::mbar_arrive(empty_bar(wg));
+    }
+
+    // dQ = (consumer 0's sum + consumer 1's) * scale: consumer 1's partial
+    // sum passes through the ring (every stage consumed), in accumulator order
+    float* const red = reinterpret_cast<float*>(gbase + (st_s - base));
+    hopper::named_sync<256>(kPairBar);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) red[i * 128 + tid] = acc[i];
+    }
+    hopper::named_sync<256>(kPairBar);
+    if (wg == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qpos = r0 + 8 * hr;
+        if (qpos >= Sq) continue;
+        float* const out = dq + (((size_t)b * Sq + qpos) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * hr;
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2((acc[i] + red[i * 128 + tid]) * scale,
+                          (acc[i + 1] + red[(i + 1) * 128 + tid]) * scale);
+        }
+      }
+    }
+  }
+}
+
 CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
                     int box_rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
@@ -961,6 +1408,52 @@ cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
   return cudaFuncGetAttributes(a, dq_wgmma<D>);
 }
 
+// The split route: qp, kp, vp, gp are the bf16 (hi, mid, lo) pieces of q,
+// k, v and dO (split_bf16_kernel's output, 16-byte aligned); dq, dk, dv f32.
+template <int D>
+cudaError_t launch_split(const void* const* qp, const void* const* kp, const void* const* vp,
+                         const void* const* gp, const float* lse2, const float* di, void* dq,
+                         void* dk, void* dv, int B, int Sq, int Sqp, int Sk, int H, int K,
+                         int causal, float scale, cudaStream_t st) {
+  using CK = DkdvSplitCfg<D>;
+  using CQ = DqSplitCfg<D>;
+  SplitMaps mk{}, mq{};
+  for (int i = 0; i < 3; ++i)
+    if (encode_map(&mk.q[i], qp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
+        encode_map(&mk.g[i], gp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
+        encode_map(&mk.k[i], kp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
+        encode_map(&mk.v[i], vp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
+        encode_map(&mq.q[i], qp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+        encode_map(&mq.g[i], gp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+        encode_map(&mq.k[i], kp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS ||
+        encode_map(&mq.v[i], vp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(dkdv_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CK::kSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(dq_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CQ::kSmem)) != cudaSuccess)
+    return e;
+  const float c = scale * kLog2e;
+  dkdv_split<D><<<dim3(B * K, (Sk + CK::BKV - 1) / CK::BKV), kThreads, CK::kSmem, st>>>(
+      mk, lse2, di, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sqp, Sk, H, K, causal,
+      c, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dq_split<D><<<dim3(B * H, (Sq + kRows - 1) / kRows), kThreads, CQ::kSmem, st>>>(
+      mq, lse2, di, static_cast<float*>(dq), Sq, Sqp, Sk, H, K, causal, c, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t split_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
+  if (which == 1) {
+    *dyn = DkdvSplitCfg<D>::kSmem;
+    return cudaFuncGetAttributes(a, dkdv_split<D>);
+  }
+  *dyn = DqSplitCfg<D>::kSmem;
+  return cudaFuncGetAttributes(a, dq_split<D>);
+}
+
 }  // namespace tc
 
 #define BWD_DISPATCH(FN, T, ...)                 \
@@ -978,6 +1471,14 @@ cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
     case 64: return FN<64>(__VA_ARGS__);         \
     case 128: return FN<128>(__VA_ARGS__);       \
     case 256: return FN<256>(__VA_ARGS__);       \
+    default: return cudaErrorInvalidValue;       \
+  }
+
+// The split route's head dims.
+#define BWD_SPLIT_DISPATCH(FN, ...)              \
+  switch (D) {                                   \
+    case 64: return FN<64>(__VA_ARGS__);         \
+    case 128: return FN<128>(__VA_ARGS__);       \
     default: return cudaErrorInvalidValue;       \
   }
 
@@ -1020,6 +1521,20 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, cons
                   scale, st)
 }
 
+cudaError_t dispatch_split(int D, const void* o, const void* dout, const float* lse, float* stats,
+                           const void* const* qp, const void* const* kp, const void* const* vp,
+                           const void* const* gp, void* dq, void* dk, void* dv, int B, int Sq,
+                           int Sk, int H, int K, int causal, float scale, cudaStream_t st) {
+  const int Sqp = (Sq + tc::kRows - 1) / tc::kRows * tc::kRows;
+  if ((long long)B * H * Sqp > INT_MAX) return cudaErrorInvalidValue;
+  const int rows = B * H * Sqp;
+  float* const di = stats + rows;
+  cudaError_t e = launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sqp, H, D, kLog2e, st);
+  if (e != cudaSuccess) return e;
+  BWD_SPLIT_DISPATCH(tc::launch_split, qp, kp, vp, gp, stats, di, dq, dk, dv, B, Sq, Sqp, Sk, H,
+                     K, causal, scale, st)
+}
+
 template <typename T, int D>
 cudaError_t cc_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
   return cc::resources<T, D>(which, a, dyn);
@@ -1033,7 +1548,7 @@ cudaError_t dispatch_resources(int D, int is_bf16, int tensor_cores, int which,
                    : cudaFuncGetAttributes(a, bwd_prep<float>);
   }
   if (tensor_cores) {
-    if (!is_bf16) return cudaErrorInvalidValue;
+    if (!is_bf16) BWD_SPLIT_DISPATCH(tc::split_resources, which, a, dyn)
     BWD_TC_DISPATCH(tc::resources, which, a, dyn)
   }
   if (is_bf16) BWD_DISPATCH(cc_resources, __nv_bfloat16, which, a, dyn)
@@ -1075,6 +1590,26 @@ int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v, c
   return (int)dispatch_tc(D, q, k, v, o, dout, static_cast<const float*>(lse),
                           static_cast<float*>(stats), dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The split route: f32, D in {64, 128}.  o, dout: (B, Sq, H, D) f32
+// contiguous; lse, stats as on the tensor-core route; qp, kp, vp, gp: the
+// three bf16 pieces (hi, mid, lo) of q, k, v and dout, each contiguous in
+// its operand's shape and 16-byte aligned; dq, dk, dv f32.  Launches
+// bwd_prep, tc::dkdv_split and tc::dq_split on `stream`; any other D or a
+// misaligned pointer returns cudaErrorInvalidValue and launches nothing.
+int flash_attention_bwd_split_launch(const void* o, const void* dout, const void* lse,
+                                     void* stats, const void* const* qp, const void* const* kp,
+                                     const void* const* vp, const void* const* gp, void* dq,
+                                     void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
+                                     int D, int causal, float scale, void* stream) {
+  uintptr_t bits = (uintptr_t)stats | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
+  for (int i = 0; i < 3; ++i)
+    bits |= (uintptr_t)qp[i] | (uintptr_t)kp[i] | (uintptr_t)vp[i] | (uintptr_t)gp[i];
+  if (bad_shape(B, Sq, Sk, H, K) || bits % 16 != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_split(D, o, dout, static_cast<const float*>(lse),
+                             static_cast<float*>(stats), qp, kp, vp, gp, dq, dk, dv, B, Sq, Sk, H,
+                             K, causal, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Registers a thread (at launch), shared memory a block (static plus

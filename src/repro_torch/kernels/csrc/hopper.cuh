@@ -61,6 +61,17 @@ __device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi, uint
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// The f32 routes' six products of pieces (0 hi, 1 mid, 2 lo): product t
+// multiplies piece term_a(t) of A by piece term_b(t) of B, smallest first
+// (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi); mid.lo, lo.mid and lo.lo
+// (each at most 2^-25 of |a||b|) drop.
+__device__ __forceinline__ constexpr int term_a(int t) {
+  return t == 0 ? 1 : t == 1 ? 2 : t == 3 ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int term_b(int t) {
+  return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
+}
+
 // Byte offset of (row, byte) in a tile whose rows are `sw` bytes, swizzled
 // as TMA writes it (16-byte unit u of a row XOR bits 7.. of the offset);
 // `off` is relative to a 1 KB aligned base.
@@ -136,6 +147,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 template <int kThreads>
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kThreads) : "memory");
+}
+
+// Arrive at barrier `id` without waiting (the threads that bar.sync on it
+// wait for these); orders this thread's earlier shared-memory accesses
+// before the waiters' later ones.
+template <int kThreads>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(kThreads) : "memory");
 }
 
 // (lo, hi) rounded to a bf16 pair (nearest even), lo in the low half.

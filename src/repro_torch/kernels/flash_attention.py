@@ -51,16 +51,20 @@ hand-written kernels of ``csrc/flash_attention_bwd.cu``, on the CPU
 ``flash_attention_backward_plain``, the same formulas in plain PyTorch.
 ``backward_route`` picks the card's kernels from dtype and head dim before
 the launch: bf16 at D in ``TC_BWD_HEAD_DIMS`` takes the tensor cores
-(``"tensor_cores"``: wgmma, bf16 P and dS as operands, f32 sums), every
-other call the CUDA cores (``"cuda_cores"``, IEEE f32).  Both read the
-forward's lse, compute Di = rowsum(dO * O) in a pre-pass, then dK/dV with
-one block owning a KV tile across its query-head group and dQ with one
-block a q tile: no atomics, so two calls give the same bits.
-``flash_attention.backward_launches`` counts the backward's CUDA calls (one
-a call, three kernels each), ``flash_attention.backward_route_launches``
-the same per route.  ``flash_attention_plain`` itself cannot be
-differentiated (it works on its scores in place): it stays the forward's
-oracle.
+(``"tensor_cores"``: wgmma, bf16 P and dS as operands, f32 sums), and so
+does f32 at D in ``SPLIT_BWD_HEAD_DIMS`` (the split route: ``split_bf16``
+cuts q, k, v and dO into bf16 hi, mid and lo pieces first, P and dS are
+split in registers, and each product runs as six products of pieces, as
+the forward's f32 route does); every other call takes the CUDA cores
+(``"cuda_cores"``, IEEE f32).  All read the forward's lse, compute Di =
+rowsum(dO * O) in a pre-pass, then dK/dV with one block owning a KV tile
+across its query-head group and dQ with one block a q tile: no atomics, so
+two calls give the same bits.  ``flash_attention.backward_launches`` counts
+the backward's CUDA calls (one a call, three kernels each, after the split
+route's four ``split_bf16`` launches, which ``split_bf16.launches``
+counts), ``flash_attention.backward_route_launches`` the same per route.
+``flash_attention_plain`` itself cannot be differentiated (it works on its
+scores in place): it stays the forward's oracle.
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores")
 SPLIT_HEAD_DIMS = (16, 32, 64, 128)  # f32 head dims the tensor-core (split) route takes
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
+SPLIT_BWD_HEAD_DIMS = (64, 128)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
 _KERNEL_CODE = {("cuda_cores", torch.float32): 0, ("tensor_cores", torch.bfloat16): 1,
                 ("tensor_cores", torch.float32): 2}  # the C entry's resource selector
@@ -118,6 +123,10 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_tc_launch.argtypes = [vp] * 10 + [i] * 7 + [ctypes.c_float, vp]
         lib.flash_attention_bwd_tc_launch.restype = i
+        pieces = ctypes.c_void_p * 3
+        lib.flash_attention_bwd_split_launch.argtypes = [vp] * 4 + [pieces] * 4 + [vp] * 3 + [
+            i] * 7 + [ctypes.c_float, vp]
+        lib.flash_attention_bwd_split_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
         lib.flash_attention_bwd_resources.argtypes = [i, i, i, i, ip, ip, ip]
         lib.flash_attention_bwd_resources.restype = i
@@ -367,7 +376,7 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
 def backward_route(D: int, dtype: torch.dtype) -> str:
     """The backward kernels a CUDA call of head dim ``D`` and ``dtype``
     takes."""
-    if dtype == torch.bfloat16 and D in TC_BWD_HEAD_DIMS:
+    if D in (TC_BWD_HEAD_DIMS if dtype == torch.bfloat16 else SPLIT_BWD_HEAD_DIMS):
         return "tensor_cores"
     return "cuda_cores"
 
@@ -381,7 +390,9 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     (``flash_attention(..., return_lse=True)``).  A CUDA tensor launches
     the ``backward_route`` kernels of ``csrc/flash_attention_bwd.cu``, which
     need ``lse`` (or raises); a CPU tensor runs
-    ``flash_attention_backward_plain``, which recomputes it."""
+    ``flash_attention_backward_plain``, which recomputes it.  On the split
+    route (f32 on the tensor cores) ``split_bf16`` first cuts q, k, v and
+    dout into their bf16 pieces."""
     B, Sq, Sk, H, K, D = _check_operands(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -404,6 +415,8 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     if path == "tensor_cores" and dout.data_ptr() % ALIGN:
         raise ValueError(f"dout's data pointer is not {ALIGN}-byte aligned")
     lib = _bwd_lib()
+    split = path == "tensor_cores" and q.dtype == torch.float32
+    pieces = [split_bf16(t) for t in (q, k, v, dout)] if split else None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN if path == "tensor_cores" else Sq
     stats = torch.empty((2, B, H, rows), dtype=torch.float32, device=q.device)  # lse, Di
@@ -412,7 +425,13 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
             B, Sq, Sk, H, K, D, int(causal))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if path == "tensor_cores":
+        if split:
+            ptrs = ctypes.c_void_p * 3
+            rc = lib.flash_attention_bwd_split_launch(
+                out.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                *(ptrs(*(t.data_ptr() for t in p)) for p in pieces), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, D, int(causal), scale, stream)
+        elif path == "tensor_cores":
             rc = lib.flash_attention_bwd_tc_launch(*args, scale, stream)
         else:
             rc = lib.flash_attention_bwd_launch(*args, int(q.dtype == torch.bfloat16), scale,
@@ -459,13 +478,15 @@ def backward_kernels(D: int, dtype: torch.dtype) -> dict:
     """{role: (kernel, a fragment of its mangled name)} of the three
     kernels a backward call of head dim ``D`` and ``dtype`` launches, in
     order (roles "prep", "dkdv", "dq"): the names the compiler's report
-    (``-Xptxas -v``) gives them."""
+    (``-Xptxas -v``) gives them.  The split route's ``split_bf16``
+    pre-pass is the forward library's kernel and not listed here."""
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
     tname = "bf16" if dtype == torch.bfloat16 else "float"
     kernels = {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E")}
     if backward_route(D, dtype) == "tensor_cores":
-        kernels["dkdv"] = (f"tc::dkdv_wgmma<{D}>", f"dkdv_wgmmaILi{D}E")
-        kernels["dq"] = (f"tc::dq_wgmma<{D}>", f"dq_wgmmaILi{D}E")
+        kind = "split" if dtype == torch.float32 else "wgmma"
+        kernels["dkdv"] = (f"tc::dkdv_{kind}<{D}>", f"dkdv_{kind}ILi{D}E")
+        kernels["dq"] = (f"tc::dq_{kind}<{D}>", f"dq_{kind}ILi{D}E")
     else:
         kernels["dkdv"] = (f"cc::bwd_dkdv<{tname}, {D}>", f"bwd_dkdvI{t}Li{D}E")
         kernels["dq"] = (f"cc::bwd_dq<{tname}, {D}>", f"bwd_dqI{t}Li{D}E")

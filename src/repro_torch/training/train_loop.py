@@ -27,7 +27,7 @@ from repro_torch.training import optim
 from repro_torch.util import resolve_device
 
 _NO_LOSS = {  # family -> where ROADMAP.md queues its loss
-    "ssm": "Queue 1 item 4, slice N (the SSM loss and the ssd_chunk backward kernel)",
+    "ssm": "Queue 1 item 4, slice O (the SSM loss and the ssd_chunk backward kernel)",
 }
 
 

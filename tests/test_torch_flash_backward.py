@@ -261,15 +261,174 @@ def test_tensor_core_emulation_is_the_plain_formulas_up_to_its_rounding():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------------------------ the split route's arithmetic
+# The f32 route's six products of pieces (0 hi, 1 mid, 2 lo) of A and B, in
+# the kernels' order (smallest first); mid.lo, lo.mid and lo.lo drop.
+SPLIT_TERMS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+PIECE = ("hi", "mid", "lo")
+
+
+def _split_mm(pa, pb, drop=None):
+    """a @ b from the pieces of a and b (f32-widened bf16 hi, mid, lo) as
+    six products of pieces summed in f32 smallest first, less the one term
+    ``drop`` names ("hi.mid", ...)."""
+    out = torch.zeros((*pa[0].shape[:-1], pb[0].shape[-1]))
+    for i, j in SPLIT_TERMS:
+        if drop != f"{PIECE[i]}.{PIECE[j]}":
+            out = out + pa[i] @ pb[j]
+    return out
+
+
+def _split(t):
+    return [x.float() for x in fa.split_bf16_plain(t.contiguous())]
+
+
+def _split_backward_emulation(q, k, v, out, dout, lse, causal, drop=None):
+    """The backward's split route (csrc/flash_attention_bwd.cu,
+    ``tc::dkdv_split`` and ``tc::dq_split``) as arithmetic on the CPU: q, k,
+    v and dO as three bf16 pieces (``split_bf16_plain``), P and dS split the
+    same way, every product six products of pieces smallest first, P =
+    exp2(S c - lse log2 e) from the forward's lse, Di = rowsum(dO * O), each
+    stage's dV, dK (q stages of 32 rows at D >= 128, else 64, head by head)
+    or dQ (KV tiles of as many rows, alternate tiles summed apart and added
+    at the end) summed apart and added to the running sum in f32, the scale
+    applied to dK and dQ last.  Its sums round to nearest; the tensor cores'
+    truncation only the card shows.  ``drop``: "S:hi.mid" leaves that term
+    out of a product (S, dP, dV, dK or dQ), "q:mid" the mid piece of an
+    operand (q, k, v or dout)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, rows = H // K, 32 if D >= 128 else 64
+    scale = 1.0 / np.sqrt(D)
+    f32 = torch.float32
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    c = torch.tensor(scale, dtype=f32) * log2e
+    term = {}
+    if drop and ":" in drop:
+        what, name = drop.split(":")
+        term[what] = name
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    keep = torch.arange(Sq)[:, None] >= torch.arange(Sk)[None, :]
+
+    def pieces(name, t):
+        ps = _split(t)
+        if term.get(name) == "mid":
+            ps[1] = torch.zeros_like(ps[1])
+        return ps
+
+    def t_(ps):
+        return [x.transpose(-1, -2) for x in ps]
+
+    for b in range(B):
+        for kh in range(K):
+            heads = slice(kh * G, (kh + 1) * G)
+            qp = pieces("q", q[b, :, heads].permute(1, 0, 2))  # (G, Sq, D)
+            gp = pieces("dout", dout[b, :, heads].permute(1, 0, 2))
+            kp, vp = pieces("k", k[b, :, kh]), pieces("v", v[b, :, kh])  # (Sk, D)
+            of = out[b, :, heads].to(f32).permute(1, 0, 2)
+            gf = dout[b, :, heads].to(f32).permute(1, 0, 2)
+            lse2 = lse[b, heads] * log2e  # (G, Sq)
+            di = (gf * of).sum(dim=-1)  # (G, Sq)
+
+            def probs(s, d, hs, q0, k0):
+                """P and dS of the scores s and dP d (heads hs, rows q0..,
+                keys k0..)."""
+                qs = slice(q0, q0 + s.shape[1])
+                p = torch.exp2(s * c - lse2[hs, qs, None])
+                if causal:
+                    p = p.masked_fill(~keep[qs, k0:k0 + s.shape[2]], 0.0)
+                return p, p * (d - di[hs, qs, None])
+
+            # dK / dV: every KV row at once (rows are independent), stage by
+            # stage of `rows` q rows, head by head of the group
+            acc_k = torch.zeros((Sk, D))
+            acc_v = torch.zeros((Sk, D))
+            for g in range(G):
+                for q0 in range(0, Sq, rows):
+                    qs = [x[g, q0:q0 + rows] for x in qp]
+                    gs = [x[g, q0:q0 + rows] for x in gp]
+                    st = _split_mm(kp, t_(qs), term.get("S"))  # S^T (Sk, rows)
+                    dpt = _split_mm(vp, t_(gs), term.get("dP"))
+                    p, ds = probs(st.T[None], dpt.T[None], slice(g, g + 1), q0, 0)
+                    p, ds = p[0].T, ds[0].T  # P^T, dS^T (Sk, rows)
+                    acc_v = acc_v + _split_mm(_split(p), gs, term.get("dV"))
+                    acc_k = acc_k + _split_mm(_split(ds), qs, term.get("dK"))
+            dv[b, :, kh] = acc_v.to(v.dtype)
+            dk[b, :, kh] = (acc_k * scale).to(k.dtype)
+            # dQ: every q row and head at once, KV tile by tile, alternate
+            # tiles summed apart (the two consumers)
+            acc = [torch.zeros((G, Sq, D)), torch.zeros((G, Sq, D))]
+            for j, k0 in enumerate(range(0, Sk, rows)):
+                ks = [x[k0:k0 + rows] for x in kp]
+                vs = [x[k0:k0 + rows] for x in vp]
+                s = _split_mm(qp, t_(ks), term.get("S"))  # (G, Sq, rows)
+                d = _split_mm(gp, t_(vs), term.get("dP"))
+                _, ds = probs(s, d, slice(None), 0, k0)
+                acc[j % 2] = acc[j % 2] + _split_mm(_split(ds), ks, term.get("dQ"))
+            dq[b, :, heads] = ((acc[0] + acc[1]) * scale).permute(1, 0, 2).to(q.dtype)
+    return dq, dk, dv
+
+
+def _split_ratio(shape, causal, drop=None):
+    """The split emulation's largest error against ``jax.grad`` of
+    ``layers.mha`` in f32, as a share of the f32 limit (dq, dk, dv)."""
+    q, k, v, g = _inputs(shape, seed=sum(shape) + causal)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = _split_backward_emulation(tq, tk, tv, out, tg, lse, causal, drop=drop)
+    want = _jax_grads(q, k, v, g, causal, "float32")
+    return [_limit_ratio(a.numpy(), ref, TOL["float32"]) for a, ref in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_arithmetic_matches_jax_grad_of_mha(shape, causal):
+    """The split route's arithmetic (three bf16 pieces of every operand, P
+    and dS included, six products each, per-stage sums, the scale last, the
+    forward's lse) held to ``jax.grad`` of ``layers.mha`` in f32 within the
+    f32 limit, as the plain formulas are."""
+    ratios = _split_ratio(shape, causal)
+    assert max(ratios) <= 1.0, f"(dq, dk, dv): {ratios} of the f32 limit"
+
+
+@pytest.mark.parametrize("drop", ["S:hi.mid", "dP:mid.hi", "dV:hi.mid", "dK:mid.hi",
+                                  "dQ:hi.mid", "q:mid", "k:mid", "v:mid", "dout:mid"])
+def test_one_piece_fewer_misses_the_f32_limit(drop):
+    """A dropped first-order term (hi.mid or mid.hi) of any of the five
+    products, or an operand without its mid piece, moves a gradient past
+    the f32 limit: three pieces and all six products are needed."""
+    assert max(_split_ratio((1, 128, 128, 4, 1, 128), True, drop=drop)) > 1.0
+
+
+def test_split_emulation_without_rounding_is_the_plain_formulas():
+    """On operands that are bf16 values already (exact in their hi piece;
+    P and dS within 2^-25 in their three), the emulation is the plain
+    backward up to the order of its sums: a fault in the emulation itself
+    (a wrong lse, a dropped Di, a stage summed twice) would show here."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16).float()
+                  for x in _inputs((1, 96, 96, 4, 2, 64), seed=8))
+    out, lse = flash_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention_backward_plain(q, k, v, out, g)
+    got = _split_backward_emulation(q, k, v, out, g, lse, True)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------- routing
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_route_for_every_head_dim_and_type(D, dtype):
-    want = "tensor_cores" if dtype == torch.bfloat16 and D in (64, 128, 256) else "cuda_cores"
+    """bf16 at D 64 / 128 / 256 and f32 at D 64 / 128 (split-bf16 operands)
+    on the tensor cores, every other (D, dtype) on the CUDA cores."""
+    tc_dims = (64, 128, 256) if dtype == torch.bfloat16 else (64, 128)
+    want = "tensor_cores" if D in tc_dims else "cuda_cores"
     assert fa.backward_route(D, dtype) == want
     kernels = fa.backward_kernels(D, dtype)
     assert list(kernels) == ["prep", "dkdv", "dq"]
-    assert ("wgmma" in kernels["dkdv"][0]) == (want == "tensor_cores")
+    assert kernels["dkdv"][0].startswith("tc::") == (want == "tensor_cores")
+    split = want == "tensor_cores" and dtype == torch.float32
+    assert all(("split" in kernels[r][0]) == split for r in ("dkdv", "dq"))
+    assert ("wgmma" in kernels["dkdv"][0]) == (want == "tensor_cores" and not split)
 
 
 def test_cpu_route_launches_nothing():

@@ -9,7 +9,7 @@ the SSM serving path at mamba2-2.7b's, and the MoE, MLA and VLM paths at
 qwen3-moe's, deepseek-v2-lite's and paligemma's, each with two layers and a
 short prompt; the tuned scorer and the MoE combine's determinism; the
 ``flash_attention`` backward kernel against its plain version on both
-routes, its counters (per route), two calls bit for bit, every forward
+routes, its counters (per route), two calls bit for bit in each type, every forward
 route's lse against the plain one, the autograd Function on the card, and a
 train step at deepseek-67b's width (one layer, two micro-batches) with its
 launches counted.  On the card: ``python -m pytest -m gpu
@@ -637,7 +637,8 @@ def test_bwd_launch_counter_function_and_no_fallback(cuda):
                                            (128, "bfloat16", "tensor_cores"),
                                            (256, "bfloat16", "tensor_cores"),
                                            (32, "bfloat16", "cuda_cores"),
-                                           (128, "float32", "cuda_cores"),
+                                           (64, "float32", "tensor_cores"),
+                                           (128, "float32", "tensor_cores"),
                                            (256, "float32", "cuda_cores")])
 def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
     """Each (D, dtype) takes ``backward_route``'s kernels: one launch a
@@ -658,6 +659,13 @@ def test_bwd_two_calls_are_equal_bit_for_bit(cuda):
     """The backward at deepseek-67b's training shape, twice on the same
     inputs: no atomics, the same bits."""
     assert all(chip_smoke.bwd_repeat(cuda)["bitwise_equal"])
+
+
+def test_bwd_two_f32_calls_are_equal_bit_for_bit(cuda):
+    """The same in f32, on the split route: per-stage sums and the dQ
+    consumers' partial sums added in a fixed order, no atomics."""
+    rep = chip_smoke.bwd_repeat(cuda, dtype="float32")
+    assert rep["route"] == "tensor_cores" and all(rep["bitwise_equal"])
 
 
 @pytest.mark.parametrize("D,dtype", [(16, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),

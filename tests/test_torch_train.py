@@ -185,7 +185,7 @@ def test_train_step_matches_jax(arch, accum):
 
 
 def test_families_without_a_loss_raise():
-    with pytest.raises(NotImplementedError, match="slice N"):
+    with pytest.raises(NotImplementedError, match="slice O"):
         make_train_step(reduced_config("mamba2-2.7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_train_state(reduced_config("recurrentgemma-2b"), device="cpu")
