@@ -107,7 +107,8 @@ Each phase prints one JSON line:
               first 4 in bf16 (SSM_LOGIT_LAYERS), and reported at 18 in
               bf16 beside the witness (the same serving with the plain
               attention against the same ``forward``); then
-              ``flash_timing`` at that shape.
+              ``flash_timing`` at that shape in bf16 and in f32 (the f32
+              route at D 256: the CUDA cores, beside SDPA f32).
 10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
               pre-pass reading the forward's lse, then dK/dV a KV tile a
               block over its query-head group, then dQ: bf16 at D 64, 128
@@ -148,7 +149,39 @@ Each phase prints one JSON line:
               ``backward_route``'s kernels (the split route); a restart through
               ``ResilientRunner`` from a checkpoint at the reduced config,
               equal bit for bit to a run without one; and one step each of
-              qwen3-moe and paligemma at their widths and 2 layers.
+              qwen3-moe, paligemma, seamless-m4t-medium (2 + 2 layers: 2
+              flash backward launches on the tensor cores) and
+              recurrentgemma-2b (3 layers: none) at their widths.
+10f. ssd_bwd_kernels — the CUDA ``ssd_chunk`` backward (five CUDA-core
+              kernels: S = C B^T once per chunk and group, dx and ddA per
+              chunk and head, the group sums of dS in 64 x 64 tiles, then dC
+              and dB; no atomics) against its plain formulas: Q 64 / 128 /
+              256, P 64, N 64 and 128, G 1 and 2, both types, B and C sliced
+              from one projection, a ragged Q and P; 1e-4 (f32) or one bf16 step of
+              each gradient's largest value, ddA 1e-4; planted faults (dx's
+              state term dropped, one head left out of the group sums)
+              rejected in both types; two calls at the training shape bit for
+              bit; then ``ssd_bwd_timing`` at (64, 256, 80, 1, 64, 128) bf16:
+              the kernel and its plain formulas beside the bound, each
+              kernel's registers, spills, shared memory and device time.
+10g. ssm_train_path — ``launch.train.run`` at mamba2-2.7b's widths and all 64
+              layers (bf16 weights, accum 1 and remat as ``configs/archs.py``
+              sets them, AdamW with f32 moments): 4 steps on one fixed batch of
+              4 x 4,096 tokens, 2 ``ssd_chunk`` forward launches (remat) and 1
+              backward launch a layer a step, the loss falling, each layer's
+              backward of the first step against the plain formulas on its
+              own inputs; warm step ms, tokens/s and peak memory; one f32
+              step at 1 layer against ``ops.ssd`` on the plain route under
+              autograd.
+10h. encdec_path — seamless-m4t-medium at its widths and depth (12 + 12
+              layers), 4 requests of 4,096 tokens and 1,024 stand-in frames,
+              32 decode steps: 12 launches a prefill (the decoder's causal
+              self-attention; the encoder's and the cross attention stay on
+              the einsum path), 0 in decode, each layer's attention held, the
+              logits as in 10c.
+10i. hybrid_path — recurrentgemma-2b at its widths and all 26 layers, the
+              same batch: 0 launches (local attention, window 2,048 < S), the
+              logits as in 10c.
 11. serving_path — CORE's adaptive serving stack (``CoreSession.serve`` with
               ``ServeConfig(adaptive=True, tile=1024)``, the serve CLI's
               ``--adaptive --drift`` flow) over 1,048,576 records: a 5%
@@ -239,6 +272,7 @@ Weights are random (seeded); nothing is read from disk but the sources.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1596,6 +1630,223 @@ def profile_ssm(ssm: dict, dev) -> None:
     emit("ssm_decode_profile", **prof)
 
 
+# ------------------------------------------------------------- phase 10f
+# The ssd_chunk backward against its plain formulas: (nc, Q, H, G, P, N,
+# log-decays, dtype[, "sliced"]) as SSD_CASES; Q 64 / 128 / 256, P 64, N 64
+# and 128, G 1 and 2, both types, B and C sliced from one wider projection
+# as ops.ssd passes them; a ragged Q and P (48, 24: the kernel's padding)
+# and the training shape itself.
+SSD_BWD_CASES = tuple(
+    (nc, Q, H, G, 64, N, kind, dtype, "sliced")
+    for dtype in ("bfloat16", "float32")
+    for nc, Q, H, G, N, kind in ((4, 64, 4, 1, 64, "jax_test"), (3, 128, 8, 2, 128, "published"),
+                                 (2, 256, 8, 1, 128, "published"), (2, 256, 6, 2, 64, "jax_test"),
+                                 (2, 256, 4, 1, 128, "jax_init"))
+) + ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), (2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"))
+SSD_TRAIN_SHAPE = (64, 256, 80, 1, 64, 128)  # mamba2-2.7b, 4 x 4,096 tokens in chunks of 256
+# Each gradient's largest difference over its largest plain value.  Both
+# sum f32 products of the same values in different orders (the kernel's
+# cum in a warp scan, the card's torch.cumsum in another): against an f64
+# evaluation the plain f32 formulas miss by at most 6.4e-6 at Q 256 with
+# these log-decays (the largest of dx, ddA, dB, dC; ddA, a difference of
+# G's row and column sums, is not worse than the others there), so 1e-4.
+# In bf16 dx, dB and dC are rounded once on each side: one bf16 step at
+# the largest value, at most 2^-7 of it (a step is 2^-8 to 2^-7 of the
+# value it rounds); ddA stays f32 in both.
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+SSD_BWD_DDA_TOL = 1e-4
+SSD_BWD_NAMES = ("dx", "ddA", "dB", "dC")
+SSD_BWD_SLICE = 8  # chunks a plain call takes on the card (its (nc, H, Q, Q) f32 temporaries)
+
+
+def ssd_bwd_inputs(case, dev, seed):
+    """``ssd_inputs`` plus output gradients dy (nc, Q, H, P), dstates (nc,
+    H, P, N) and ddecay (nc, H): standard normals, f32."""
+    nc, Q, H, _G, P, N = case[:6]
+    x, dA, B, C = ssd_inputs(case, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 500)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return x, dA, B, C, randn(nc, Q, H, P), randn(nc, H, P, N), randn(nc, H)
+
+
+def ssd_bwd_plain_sliced(x, dA, B, C, dy, dst, ddec):
+    """``ssd_chunk_backward_plain`` a SSD_BWD_SLICE chunks at a time (the
+    chunks are independent), to bound its temporaries at training shapes."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward_plain
+
+    parts = [ssd_chunk_backward_plain(*(t[i:i + SSD_BWD_SLICE] for t in
+                                        (x, dA, B, C, dy, dst, ddec)))
+             for i in range(0, x.shape[0], SSD_BWD_SLICE)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def ssd_bwd_errors(got, want) -> dict:
+    """{name: largest difference over the largest |plain| value}."""
+    tiny = torch.finfo(torch.float32).tiny
+    return {n: float((a.float() - b.float()).abs().max() / max(float(b.float().abs().max()), tiny))
+            for n, a, b in zip(SSD_BWD_NAMES, got, want)}
+
+
+def ssd_bwd_within(errs: dict, dtype: str) -> bool:
+    return all(e <= (SSD_BWD_DDA_TOL if n == "ddA" else SSD_BWD_TOL[dtype])
+               for n, e in errs.items())
+
+
+def check_ssd_bwd_output(what: str, got, want, dtype: str) -> dict:
+    """The kernel's (dx, ddA, dB, dC) within SSD_BWD_TOL (ddA:
+    SSD_BWD_DDA_TOL) of the plain ones; returns the errors."""
+    for n, a, b in zip(SSD_BWD_NAMES, got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: bad {n}")
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite {n}")
+    errs = ssd_bwd_errors(got, want)
+    check(ssd_bwd_within(errs, dtype), f"{what}: gradients differ from the plain version by "
+          f"{errs} of their largest values (tol {SSD_BWD_TOL[dtype]}, ddA {SSD_BWD_DDA_TOL})")
+    return errs
+
+
+def check_ssd_bwd_case(case, dev, seed=0) -> dict:
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+
+    args = ssd_bwd_inputs(case, dev, seed)
+    got = ssd_chunk_backward(*args)
+    want = ssd_bwd_plain_sliced(*args)
+    sync(dev)
+    return check_ssd_bwd_output(str(case), got, want, case[7])
+
+
+def ssd_bwd_planted_faults(dev, dtype: str) -> dict:
+    """At (8, 256, 16, 1, 64, 128) with the JAX test's log-decays: the
+    kernel run with dstates zeroed (its dx without the state term w * B
+    dst^T) and with one head's dy and dstates zeroed (its dB and dC without
+    that head's share of the group sums), each held against the plain
+    gradients of the true inputs: the check must reject both."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+
+    case = (8, 256, 16, 1, 64, 128, "jax_test", dtype)
+    x, dA, B, C, dy, dst, ddec = ssd_bwd_inputs(case, dev, seed=3)
+    want = ssd_bwd_plain_sliced(x, dA, B, C, dy, dst, ddec)
+    clean = check_ssd_bwd_output(f"{case}, before the faults", ssd_chunk_backward(
+        x, dA, B, C, dy, dst, ddec), want, dtype)
+    no_state = ssd_bwd_errors(ssd_chunk_backward(x, dA, B, C, dy, torch.zeros_like(dst), ddec),
+                              want)
+    dy1, dst1 = dy.clone(), dst.clone()
+    dy1[:, :, 5] = 0
+    dst1[:, 5] = 0
+    no_head = ssd_bwd_errors(ssd_chunk_backward(x, dA, B, C, dy1, dst1, ddec), want)
+    caught = {"dx_state_term_dropped": not ssd_bwd_within({"dx": no_state["dx"]}, dtype),
+              "head_left_out_of_group_sum": not ssd_bwd_within(
+                  {"dB": no_head["dB"], "dC": no_head["dC"]}, dtype)}
+    check(all(caught.values()), f"{dtype}: a planted backward fault passes the check: "
+          f"{caught} ({no_state}, {no_head})")
+    return dict(dtype=dtype, shape=list(case[:6]), clean=clean, dx_state_term_dropped=no_state,
+                head_left_out_of_group_sum=no_head, caught=caught)
+
+
+def ssd_bwd_repeat(dev, dtype: str = "bfloat16") -> dict:
+    """Two backward calls on the same inputs at the training shape: equal
+    bit for bit (no atomics; a restart that replays a step relies on it)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+
+    args = ssd_bwd_inputs((*SSD_TRAIN_SHAPE, "published", dtype, "sliced"), dev, seed=11)
+    a = ssd_chunk_backward(*args)
+    b = ssd_chunk_backward(*args)
+    sync(dev)
+    equal = {n: torch.equal(u, v) for n, u, v in zip(SSD_BWD_NAMES, a, b)}
+    check(all(equal.values()), f"two ssd_chunk backward calls differ: {equal}")
+    return dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, bitwise_equal=equal)
+
+
+def ssd_bwd_bound(nc, Q, H, G, P, N, dtype) -> tuple:
+    """(ms, bound_by, bytes, flops, CUDA-core ms): x, B, C, dA, dy, dstates
+    and ddecay read once and dx, ddA, dB, dC written once over HBM; the
+    multiply-adds on the causal pairs (dM = dy x^T and M^T dy over P, and
+    the two state products v = B dst^T and (w x) dst over Q P N, per head;
+    S = C B^T, dC and dB over N, per chunk and group) at the peak for the
+    input type, and beside it at the f32 CUDA-core peak the kernel runs at."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * (2 * nc * Q * H * P + 4 * nc * Q * G * N) + 4 * (
+        2 * nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * nc * (H * (2 * pairs * P + 2 * Q * P * N) + G * 3 * pairs * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            flops, max(t_bytes, flops / FP32_FLOPS) * 1e3)
+
+
+def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
+    """The backward kernel and its plain formulas at the training shape, in
+    turns (plain, kernel, kernel, plain), beside the bound; each of its four
+    kernels' registers, spills (the compiler's report), shared memory and
+    device time from a profile of 3 calls.  No single PyTorch call computes
+    this gradient, so there is no library time."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import (BWD_KERNELS, backward_resources,
+                                              ssd_chunk_backward)
+
+    case = (*SSD_TRAIN_SHAPE, "published", dtype, "sliced")
+    args = ssd_bwd_inputs(case, dev, seed=7)
+    errs = check_ssd_bwd_output(f"{case}, timed", ssd_chunk_backward(*args),
+                                ssd_bwd_plain_sliced(*args), dtype)
+    plain_a = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=1)
+    kern_a = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=2)
+    kern_b = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=0)
+    plain_b = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=0)
+    bound_ms, bound_by, nbytes, flops, cc_ms = ssd_bwd_bound(*SSD_TRAIN_SHAPE, dtype)
+    P = SSD_TRAIN_SHAPE[4]
+    tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
+    pb = {k: f"{k}I{tname}" + ("Li64E" if k == "bwd_head" else "E") for k in BWD_KERNELS}
+    log = _build.library_path("ssd_chunk_bwd").with_suffix(".log").read_text()
+    res = backward_resources(P, args[0].dtype)
+    prof = device_profile(lambda: [ssd_chunk_backward(*args) for _ in range(3)], dev)
+    kernel_us = {}
+    for k in BWD_KERNELS:
+        hits = [t for t in prof["top"] if k + "<" in t["name"] or f"::{k}" in t["name"]]
+        n = sum(t["count"] for t in hits)
+        kernel_us[k] = sum(t["us"] for t in hits) / n if n else "not measured"
+    ms = min(kern_a, kern_b)
+    row = dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, route="cuda_cores", ms=ms,
+               ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
+               plain_ms_runs=[plain_a, plain_b], plain="ssd_chunk_backward_plain, "
+               f"{SSD_BWD_SLICE} chunks a call", library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, cuda_core_bound_ms=cc_ms, bytes=nbytes, flops=flops,
+               tflops_per_s=flops / (ms * 1e-3) / 1e12, share_of_bound=bound_ms / ms,
+               share_of_cuda_core_bound=cc_ms / ms, max_err=errs,
+               kernels={k: dict(ptxas=ptxas_entry(log, pb[k]), **res[k],
+                                device_us_a_call=kernel_us[k]) for k in BWD_KERNELS},
+               profile=prof)
+    emit("ssd_bwd_timing", **row)
+    return row
+
+
+def run_ssd_bwd_kernels(dev) -> dict:
+    """Phase 10f: every SSD_BWD_CASES case against the plain formulas, the
+    planted faults in both types, two calls bit for bit at the training
+    shape, then ``ssd_bwd_timing`` there in bf16."""
+    from repro_torch.kernels import ssd_scan
+
+    t0 = time.perf_counter()
+    ssd_scan.reset_launches()
+    errs = [check_ssd_bwd_case(case, dev, seed=i) for i, case in enumerate(SSD_BWD_CASES)]
+    launches = ssd_scan.ssd_chunk_backward.launches
+    check(launches == len(SSD_BWD_CASES) or dev.type == "cpu",
+          f"{launches} backward launches for {len(SSD_BWD_CASES)} cases")
+    faults = [ssd_bwd_planted_faults(dev, dt) for dt in ("bfloat16", "float32")]
+    repeat = ssd_bwd_repeat(dev)
+    emit("ssd_bwd_kernels", cases=len(SSD_BWD_CASES), seconds=time.perf_counter() - t0,
+         max_err={dt: {n: max(e[n] for c, e in zip(SSD_BWD_CASES, errs) if c[7] == dt)
+                       for n in SSD_BWD_NAMES} for dt in SSD_BWD_TOL},
+         tol=SSD_BWD_TOL, ddA_tol=SSD_BWD_DDA_TOL, launches=launches, planted_faults=faults,
+         repeat=repeat, shapes=[list(c) + [e] for c, e in zip(SSD_BWD_CASES, errs)])
+    torch.cuda.empty_cache()
+    row = time_ssd_bwd(dev, "bfloat16", iters=5)
+    torch.cuda.empty_cache()
+    return {"max_err": max(max(e.values()) for e in errs), "row": row}
+
+
 # ------------------------------------------------------------- phase 12a
 def scorer_tile_ms(scorer, x: np.ndarray, iters: int) -> float:
     """Host-clock ms of one ``score_masks`` call on the tile ``x`` (the
@@ -1681,6 +1932,8 @@ def run_autotune(dev, plans, cases: dict, serving: dict, smi: str) -> dict:
 MOE = dict(arch="qwen3-moe-30b-a3b", layers=8, batch=4, prompt=4096, new_tokens=32)
 MLA = dict(arch="deepseek-v2-lite-16b", layers=4, batch=4, prompt=4096, new_tokens=32)
 VLM = dict(arch="paligemma-3b", layers=18, batch=4, prompt=4096, new_tokens=32)
+ENCDEC = dict(arch="seamless-m4t-medium", layers=12, batch=4, prompt=4096, new_tokens=32)
+HYBRID = dict(arch="recurrentgemma-2b", layers=26, batch=4, prompt=4096, new_tokens=32)
 # The logits check serves a second time at capacity factor 16: a batched
 # forward over prompt + decoded tokens has another token count, so another
 # capacity, than the prefill, and would drop other assignments; with no
@@ -1707,6 +1960,27 @@ def pad_cache(cache: dict, new: int) -> dict:
             for k, v in cache.items()}
 
 
+def pad_family_cache(cfg, cache: dict, new: int) -> dict:
+    """A prefill's cache made room for ``new`` decode steps: the self K/V
+    (an encoder-decoder's cross K/V stay the memory's length); a hybrid's
+    window caches up to min(window, pos + new) slots (a prefill shorter
+    than the window holds positions 0..pos-1 in slots 0..pos-1, as the
+    ring buffer places them; a full window is already the ring)."""
+    if cfg.family == "encdec":
+        return {**cache, **pad_cache({k: cache[k] for k in ("k", "v", "pos")}, new)}
+    if cfg.family == "hybrid":
+        want = min(cfg.attention.window, cache["pos"] + new)
+
+        def grown(c):
+            if "k" not in c or c["k"].shape[1] >= want:
+                return c
+            grow = (0, 0, 0, 0, 0, want - c["k"].shape[1])
+            return {k: torch.nn.functional.pad(v, grow) for k, v in c.items()}
+
+        return {"blocks": tuple(grown(c) for c in cache["blocks"]), "pos": cache["pos"]}
+    return pad_cache(cache, new)
+
+
 def serve_batch(fam, model, cfg, batch: dict, new_tokens: int) -> dict:
     """Prefill ``batch`` and decode ``new_tokens`` greedy tokens through the
     family API (the cache padded to hold them).  Returns the logits (B,
@@ -1722,7 +1996,7 @@ def serve_batch(fam, model, cfg, batch: dict, new_tokens: int) -> dict:
     sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_launches = flash_attention.launches - before
-    cache = pad_cache(cache, new_tokens)
+    cache = pad_family_cache(cfg, cache, new_tokens)
     steps, fed = [logits], []
     t0 = time.perf_counter()
     for _ in range(new_tokens):
@@ -1841,7 +2115,8 @@ def attention_errors(seen: list, batch: int) -> tuple:
 
 def profile_split(fn, dev) -> dict:
     """``device_profile`` of ``fn`` with its device time split by kernel
-    name into the flash kernel, its backward kernels, GEMMs, dispatch (sort, search, index,
+    name into the flash kernel, its backward kernels, the ``ssd_chunk``
+    kernels and its backward's, GEMMs, dispatch (sort, search, index,
     gather, scatter) and elementwise or reduction kernels; the expert
     GEMMs are the device time of ``aten::bmm`` (only the experts use it)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1852,7 +2127,8 @@ def profile_split(fn, dev) -> dict:
         fn()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    split = dict(flash=0.0, flash_bwd=0.0, gemm=0.0, dispatch=0.0, elementwise=0.0, other=0.0)
+    split = dict(flash=0.0, flash_bwd=0.0, ssd=0.0, ssd_bwd=0.0, gemm=0.0, dispatch=0.0,
+                 elementwise=0.0, other=0.0)
     others: dict = {}
     dispatch_words = ("sort", "Sort", "search", "index", "gather", "scatter", "bincount")
     for e in prof.events():
@@ -1861,8 +2137,14 @@ def profile_split(fn, dev) -> dict:
         name, us = e.name, e.time_range.elapsed_us()
         if "flash_attention" in name:
             split["flash"] += us
-        elif any(w in name for w in ("bwd_prep", "bwd_dkdv", "bwd_dq", "dkdv_wgmma", "dq_wgmma")):
+        elif any(w in name for w in ("bwd_prep", "bwd_dkdv", "bwd_dq", "dkdv_wgmma", "dq_wgmma",
+                                     "dkdv_split", "dq_split")):
             split["flash_bwd"] += us
+        elif "ssd_chunk" in name:
+            split["ssd"] += us
+        elif any(w in name for w in ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc<",
+                                     "bwd_db<")):
+            split["ssd_bwd"] += us
         elif any(w in name for w in ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")):
             split["gemm"] += us
         elif any(w in name for w in dispatch_words):
@@ -1884,20 +2166,42 @@ def profile_split(fn, dev) -> dict:
                 split_share={k: v / busy for k, v in split.items()} if busy else None)
 
 
+@contextlib.contextmanager
+def first_layers(model, cfg, n: int):
+    """``model`` cut to its first ``n`` layers (an encoder-decoder's
+    encoder too; a hybrid's first n blocks, whose kinds are the cut
+    config's) for the ``with`` body, which gets the cut config."""
+    from repro_torch.launch.train import with_depth
+
+    stacks = [name for name in ("layers", "enc_layers", "dec_layers", "blocks")
+              if hasattr(model, name)]
+    full = {name: getattr(model, name) for name in stacks}
+    try:
+        for name in stacks:
+            setattr(model, name, torch.nn.ModuleList(full[name][:n]))
+        yield with_depth(cfg, n)
+    finally:
+        for name in stacks:
+            setattr(model, name, full[name])
+
+
 def run_model_path(dev, spec: dict, phase: str) -> dict:
     """One family's serving path at ``spec`` (module constants MOE, MLA,
-    VLM).  The counted run: ``flash_attention`` launches zeroed, a prefill of
-    ``batch`` requests and ``new_tokens`` greedy decode steps; the prefill
-    must launch the kernel once a layer through ``layers.mha`` (GQA: qwen3,
-    paligemma) or never (MLA), decode never.  Then: each layer's kernel
+    VLM, ENCDEC, HYBRID).  The counted run: ``flash_attention`` launches
+    zeroed, a prefill of ``batch`` requests (an encoder-decoder's with its
+    frames) and ``new_tokens`` greedy decode steps; the prefill must launch
+    the kernel once a ``flash_layers`` layer through ``layers.mha`` (GQA:
+    qwen3, paligemma; seamless's decoder self-attention) and never
+    otherwise (MLA; the hybrid's local attention), decode never.  Then: each layer's kernel
     output against the plain version on the prefill's own inputs; MoE: the
     assignments dropped at capacity in each layer, the same prompts served
     again to identical decoded tokens, and a profile of one prefill; MLA:
     the absorbed decode of every layer's first step against naive
     attention over the same latent cache; the logits against ``forward``
     with the plain attention (MoE families at capacity factor 16 with the
-    served expert choices; deeper than SSM_LOGIT_LAYERS, VLM's are held
-    at full depth in f32 and on its first SSM_LOGIT_LAYERS in bf16, and
+    served expert choices; deeper than SSM_LOGIT_LAYERS, the other
+    families' are held at full depth in f32 and on their first
+    SSM_LOGIT_LAYERS in bf16 (``first_layers``), and
     reported at full depth in bf16 beside a witness: the same serving with
     the kernel's plain version in its place)."""
     from repro_torch.configs import get_config
@@ -1921,8 +2225,9 @@ def run_model_path(dev, spec: dict, phase: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)  # from the weights and the batch on
     n_params = sum(p.numel() for p in model.parameters())
     B, new_tokens = spec["batch"], spec["new_tokens"]
-    # layers.mha sends GQA layers to the kernel on the card (none on the CPU)
-    want_launches = cfg.num_layers if dev.type == "cuda" and not is_mla else 0
+    # layers.mha sends full causal attention to the kernel on the card (none
+    # on the CPU)
+    want_launches = flash_layers(cfg) if dev.type == "cuda" else 0
 
     seen, drops, absorbed = [], [], []
 
@@ -2052,14 +2357,9 @@ def run_model_path(dev, spec: dict, phase: str) -> dict:
         del model32, served32
         # gated at the depth the JAX package's bf16 bounds are set for, on
         # the model's first layers (reported above at full depth)
-        full = model.layers
-        try:
-            model.layers = torch.nn.ModuleList(full[:SSM_LOGIT_LAYERS])
-            shallow = cfg.replace(num_layers=SSM_LOGIT_LAYERS)
+        with first_layers(model, cfg, SSM_LOGIT_LAYERS) as shallow:
             out["logits_gated"] = served_vs_forward(
                 fam, model, shallow, batch, serve_batch(fam, model, shallow, batch, new_tokens))
-        finally:
-            model.layers = full
     out["logits_max_abs"] = float(served["logits"].abs().max())
     out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                               if dev.type == "cuda" else None)
@@ -2370,7 +2670,11 @@ def run_flash_bwd_kernels(dev) -> dict:
 # On an H100 80GB HBM3 2 layers peaked at 53.4 GiB (25.8 GiB free), so the
 # phase takes 3; 4 would leave no room for activations.
 TRAIN = dict(arch="deepseek-67b", layers=3, batch=4, seq=4096, steps=4, lr=1e-4)
-TRAIN_SIDE = dict(archs=("qwen3-moe-30b-a3b", "paligemma-3b"), layers=2, batch=1, seq=4096)
+# one step each at published widths, the depth cut (an encoder-decoder's
+# encoder too) to {arch: layers}: recurrentgemma's 3 are one (rec, rec,
+# attn) group
+TRAIN_SIDE = dict(archs={"qwen3-moe-30b-a3b": 2, "paligemma-3b": 2, "seamless-m4t-medium": 2,
+                         "recurrentgemma-2b": 3}, batch=1, seq=4096)
 # The restart check runs the launcher at the reduced config (d_model 64, 4
 # query and 2 KV heads of 16, on the same kernels): a full-width checkpoint
 # of the 2-layer state is 30 GB.
@@ -2543,15 +2847,28 @@ def restart_check(dev, tmp: Path) -> dict:
                 backward_route_launches=bwd_routes)
 
 
+def flash_layers(cfg) -> int:
+    """Layers whose attention ``layers.mha`` sends to ``flash_attention``
+    on the card: every GQA layer of the dense, MoE and VLM families, an
+    encoder-decoder's decoder self-attention (its encoder and cross
+    attention are not causal), none of the hybrid's (local attention) or
+    of MLA."""
+    if cfg.family == "hybrid" or cfg.attention.kind in ("mla", "none"):
+        return 0
+    return cfg.num_layers
+
+
 def side_step(dev, arch: str) -> dict:
     """One launcher step of ``arch`` at its widths, depth cut to
-    TRAIN_SIDE["layers"], one sequence: a finite loss and moments, and the
-    counted launches (2 forward and 1 backward a layer a micro-batch)."""
+    TRAIN_SIDE["archs"][arch] (``launch.train.with_depth``), one sequence:
+    a finite loss and moments, and the counted launches (2 forward and 1
+    backward a ``flash_layers`` layer a micro-batch, the backward on the
+    route ``backward_route`` picks)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fm
-    from repro_torch.launch.train import run
+    from repro_torch.launch.train import run, with_depth
 
-    cfg = get_config(arch).replace(num_layers=TRAIN_SIDE["layers"])
+    cfg = with_depth(get_config(arch), TRAIN_SIDE["archs"][arch])
     torch.cuda.reset_peak_memory_stats(dev)
     fm.reset_launches()
     res = run(cfg, steps=1, batch=TRAIN_SIDE["batch"], seq=TRAIN_SIDE["seq"], lr=TRAIN["lr"],
@@ -2561,12 +2878,19 @@ def side_step(dev, arch: str) -> dict:
     bwd_routes = dict(fm.flash_attention.backward_route_launches)
     micro = max(1, cfg.accum_steps)
     layers = cfg.num_layers
-    check(fwd == 2 * layers * micro and bwd == layers * micro,
-          f"{arch}: {fwd} forward and {bwd} backward launches, not {2 * layers * micro} and "
-          f"{layers * micro}")
+    attn = flash_layers(cfg)
+    check(fwd == 2 * attn * micro and bwd == attn * micro,
+          f"{arch}: {fwd} forward and {bwd} backward launches, not {2 * attn * micro} and "
+          f"{attn * micro}")
+    if attn:
+        want = fm.backward_route(cfg.attention.head_dim, getattr(torch, cfg.dtype))
+        check(bwd_routes[want] == bwd, f"{arch}: backward launches by route {bwd_routes}, not "
+              f"all on {want}")
     finite = all(bool(torch.isfinite(m).all()) for m in res["opt"].mu.values())
     check(finite and math.isfinite(res["losses"][0]), f"{arch}: non-finite loss or gradients")
-    out = dict(arch=arch, layers=layers, accum_steps=micro, loss=res["losses"][0],
+    out = dict(arch=arch, layers=layers,
+               encoder_layers=cfg.encoder.num_layers if cfg.encoder is not None else 0,
+               accum_steps=micro, loss=res["losses"][0],
                launches=fwd, backward_launches=bwd, backward_route_launches=bwd_routes,
                gradients_finite=finite,
                step_s=res["step_s"][0], peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
@@ -2583,7 +2907,7 @@ def run_train_path(dev, tmp: Path) -> dict:
     zeroed just before, the loss falling; each layer's backward launch of
     the first micro-batch against the plain backward on its own q, k, v and
     dO; a profile of one more step; then ``train_f32_check``,
-    ``restart_check`` and ``side_step`` for qwen3-moe and paligemma."""
+    ``restart_check`` and ``side_step`` for each TRAIN_SIDE architecture."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.kernels.flash_attention import flash_attention_backward_plain
@@ -2643,6 +2967,191 @@ def run_train_path(dev, tmp: Path) -> dict:
                    dev).total_memory - peak) / 2**30, step_profile=prof, float32=f32,
                restart=restart, side_steps=side, seconds=time.perf_counter() - t_phase)
     emit("train_path", **out)
+    return out
+
+
+# ------------------------------------------------------------- phase 10g
+# mamba2-2.7b at its published widths and full depth.  At 16 bytes a
+# parameter (bf16 weights and gradient, two f32 moments, the f32 update's
+# temporaries) its 2.7 G parameters are about 43 GB, plus 64 remat
+# boundaries (5.4 GB), the f32 logits and their gradient (about 10 GB) and
+# one layer's recomputed activations.
+SSM_TRAIN = dict(arch="mamba2-2.7b", layers=64, batch=4, seq=4096, steps=4, lr=1e-4)
+
+
+class SSDBackwardCheck:
+    """Holds the first ``n`` ``ssd_chunk_backward`` calls of a run against
+    the plain formulas on the call's own inputs (``ssd_bwd_plain_sliced``),
+    keeping only the errors, and passes every call through unchanged.
+    After the n-th check the peak memory statistics restart, so that the
+    run's peak is the training's own."""
+
+    def __init__(self, n: int, dev):
+        from repro_torch.kernels import ssd_scan
+
+        self.n, self.dev, self.module, self.errors = n, dev, ssd_scan, []
+        self.real = ssd_scan.ssd_chunk_backward
+
+    @property
+    def launches(self) -> int:  # the wrapper counts on the real function
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
+
+    def __call__(self, x, dA, B, C, dy, dstates, ddecay):
+        grads = self.real(x, dA, B, C, dy, dstates, ddecay)
+        if len(self.errors) < self.n:
+            with torch.no_grad():
+                want = ssd_bwd_plain_sliced(x, dA, B, C, dy, dstates, ddecay)
+                dtype = str(x.dtype).removeprefix("torch.")
+                self.errors.append(check_ssd_bwd_output(
+                    f"train layer {self.n - 1 - len(self.errors)} backward", grads, want, dtype))
+            del want
+            if len(self.errors) == self.n and self.dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(self.dev)
+        return grads
+
+    def __enter__(self):
+        self.patch = mock.patch.object(self.module, "ssd_chunk_backward", self)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def plain_ssd():
+    """A context in which ``ops.ssd`` differentiates ``ssd_chunk_plain``
+    with autograd (no kernel, no Function): the reference of the SSM's f32
+    step."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_chunk_plain
+
+    return mock.patch.object(ops, "ssd_chunk", ssd_chunk_plain)
+
+
+def ssm_train_f32_check(dev) -> dict:
+    """One f32 AdamW step of mamba2-2.7b at 1 layer, one 4,096-token
+    sequence, through the kernels (``ssd_chunk``'s f32 route forward, twice
+    under remat, and the backward kernel) against the same step from the
+    same start with ``plain_ssd``: the loss within 1e-5, each first moment
+    (0.1 times the gradient) within TRAIN_F32_TOL of its largest value,
+    each updated parameter by ``adam_param_errors``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    cfg = get_config(SSM_TRAIN["arch"]).replace(num_layers=1, dtype="float32", accum_steps=1)
+    seqs = make_data(cfg, SSM_TRAIN["seq"], rows=1, seed=1)
+    runs = {}
+    for name in ("kernel", "plain"):
+        params, opt = init_train_state(cfg, 0, dev)
+        batch = make_batch(cfg, seqs, 0, dev)
+        ssd_scan.reset_launches()
+        if name == "plain":
+            with plain_ssd():
+                _, opt, m = make_train_step(cfg, lr=SSM_TRAIN["lr"])(params, opt, batch)
+        else:
+            _, opt, m = make_train_step(cfg, lr=SSM_TRAIN["lr"])(params, opt, batch)
+        sync(dev)
+        runs[name] = dict(loss=float(m["loss"]), launches=ssd_scan.ssd_chunk.launches,
+                          route_launches=dict(ssd_scan.ssd_chunk.route_launches),
+                          backward_launches=ssd_scan.ssd_chunk_backward.launches,
+                          params=host_copy(dict(params.named_parameters())),
+                          mu=host_copy(opt.mu))
+        del params, opt, batch, m
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    on_card = dev.type == "cuda"
+    check(not on_card or (k["launches"], k["backward_launches"]) == (2, 1),
+          f"SSM f32 step: {k['launches']} forward and {k['backward_launches']} backward "
+          "launches, not 2 and 1 (one layer, remat)")
+    check(p["launches"] == 0 and p["backward_launches"] == 0, "the plain step launched a kernel")
+    loss_err = abs(k["loss"] - p["loss"])
+    mu_err = max(float((k["mu"][n] - p["mu"][n]).abs().max()
+                       / p["mu"][n].abs().max().clamp_min(1e-30)) for n in p["mu"])
+    perr = adam_param_errors(k["params"], p["params"], p["mu"], SSM_TRAIN["lr"])
+    check(loss_err <= 1e-5, f"SSM f32 step: loss {k['loss']} against {p['loss']} on the plain "
+          "route")
+    check(mu_err <= TRAIN_F32_TOL, f"SSM f32 step: gradients differ by {mu_err} of their "
+          "largest")
+    check(perr["conditioned_rel"] <= TRAIN_F32_TOL and perr["ill_conditioned_abs"]
+          <= 2 * SSM_TRAIN["lr"], f"SSM f32 step: updated parameters differ: {perr}")
+    return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
+                params=perr, launches=k["launches"], route_launches=k["route_launches"],
+                backward_launches=k["backward_launches"])
+
+
+def run_ssm_train_path(dev, layers: int = SSM_TRAIN["layers"]) -> dict:
+    """Phase 10g: the SSM family's training at mamba2-2.7b's widths
+    through ``launch.train.run`` (bf16 weights, accum and remat as
+    ``configs/archs.py`` sets them, AdamW with f32 moments): SSM_TRAIN
+    steps on one fixed batch of 4 x 4,096 tokens with the counts zeroed
+    just before: one ``ssd_chunk`` forward launch a layer a forward pass
+    (two a micro-batch under remat) and one backward launch a layer a
+    micro-batch; the loss falling; each layer's backward launch of the
+    first step held against the plain formulas on its own inputs; warm step
+    ms, tokens/s and peak memory (after those checks); a profile of one
+    more step (``profile_split``); then ``ssm_train_f32_check``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.train import make_batch, make_data, run
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SSM_TRAIN["arch"]).replace(num_layers=layers)
+    micro, steps = max(1, cfg.accum_steps), SSM_TRAIN["steps"]
+    passes = 2 if cfg.remat else 1
+    data = make_data(cfg, SSM_TRAIN["seq"], rows=SSM_TRAIN["batch"], seed=1)
+    torch.cuda.empty_cache()
+    ssd_scan.reset_launches()
+    with SSDBackwardCheck(cfg.num_layers, dev) as seen:
+        res = run(cfg, steps=steps, batch=SSM_TRAIN["batch"], seq=SSM_TRAIN["seq"],
+                  lr=SSM_TRAIN["lr"], device=dev, ckpt_every=0, data=data,
+                  log=lambda _msg: None)
+        sync(dev)
+    fwd, bwd = ssd_scan.ssd_chunk.launches, ssd_scan.ssd_chunk_backward.launches
+    routes = dict(ssd_scan.ssd_chunk.route_launches)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    on_card = dev.type == "cuda"
+    want_fwd, want_bwd = steps * passes * cfg.num_layers * micro, steps * cfg.num_layers * micro
+    check(not on_card or fwd == want_fwd,
+          f"{fwd} ssd_chunk forward launches in {steps} steps, not {want_fwd}")
+    check(not on_card or bwd == want_bwd,
+          f"{bwd} ssd_chunk backward launches in {steps} steps, not {want_bwd}")
+    check(len(seen.errors) == cfg.num_layers, f"{len(seen.errors)} backward calls checked")
+    losses = [res["losses"][s] for s in range(steps)]
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"the SSM loss on a fixed batch did not fall: {losses}")
+    step_s = res["step_s"]
+    warm_s = sorted(step_s[1:])[(len(step_s) - 1) // 2]  # the median after the first step
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    step_fn = make_train_step(cfg, lr=SSM_TRAIN["lr"])
+    batch = make_batch(cfg, data, 0, dev)
+    prof = (profile_split(lambda: step_fn(res["params"], res["opt"], batch), dev) if on_card
+            else None)
+    del res, batch, step_fn
+    torch.cuda.empty_cache()
+    f32 = ssm_train_f32_check(dev)
+    out = dict(arch=cfg.name, source=cfg.source, layers=cfg.num_layers,
+               published_layers=get_config(SSM_TRAIN["arch"]).num_layers, d_model=cfg.d_model,
+               heads=cfg.ssm_heads, d_state=cfg.ssm.d_state, vocab=cfg.vocab_size,
+               params=n_params, batch=SSM_TRAIN["batch"], seq=SSM_TRAIN["seq"],
+               accum_steps=micro, remat=cfg.remat, dtype=cfg.dtype, lr=SSM_TRAIN["lr"],
+               step_ms=[s * 1e3 for s in step_s], warm_step_ms=warm_s * 1e3,
+               tokens_per_s=SSM_TRAIN["batch"] * SSM_TRAIN["seq"] / warm_s, launches=fwd,
+               route_launches=routes, backward_launches=bwd, losses=losses,
+               layer_bwd_errors=seen.errors,
+               layer_bwd_max_err={n: max(e[n] for e in seen.errors) for n in SSD_BWD_NAMES},
+               peak_gib=peak / 2**30,
+               peak_free_gib=(torch.cuda.get_device_properties(dev).total_memory - peak) / 2**30
+               if on_card else None, step_profile=prof, float32=f32,
+               seconds=time.perf_counter() - t_phase)
+    emit("ssm_train_path", **out)
     return out
 
 
@@ -3611,11 +4120,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = _build.build_all(["cascade_score", "flash_attention", "flash_attention_bwd",
-                             "ssd_chunk"])
+                             "ssd_chunk", "ssd_chunk_bwd"])
     proxy_score._lib()
     flash_attention._lib()
     flash_attention._bwd_lib()
     ssd_scan._lib()
+    ssd_scan._bwd_lib()
     for lib_path in libs.values():
         log = lib_path.with_suffix(".log").read_text().splitlines()
         emit("build", seconds=time.perf_counter() - t0, library=lib_path.name,
@@ -3698,6 +4208,7 @@ def main(argv=None) -> int:
     ssd_row, ssd32_row = ssd_rows["bfloat16"], ssd_rows["float32"]
     flash32_row = flash_rows["float32"]
     torch.cuda.empty_cache()
+    ssd_bwd = run_ssd_bwd_kernels(dev)
 
     moe = run_model_path(dev, MOE, "moe_path")
     torch.cuda.empty_cache()
@@ -3706,10 +4217,17 @@ def main(argv=None) -> int:
     vlm = run_model_path(dev, VLM, "vlm_path")
     torch.cuda.empty_cache()
     vlm_row = time_flash(dev, "bfloat16", iters=3, shape=VLM_SHAPE)
+    vlm32_row = time_flash(dev, "float32", iters=2, shape=VLM_SHAPE)
     torch.cuda.empty_cache()
     bwd = run_flash_bwd_kernels(dev)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = run_train_path(dev, Path(tmp))
+    torch.cuda.empty_cache()
+    ssm_train = run_ssm_train_path(dev)
+    torch.cuda.empty_cache()
+    encdec = run_model_path(dev, ENCDEC, "encdec_path")
+    torch.cuda.empty_cache()
+    hybrid = run_model_path(dev, HYBRID, "hybrid_path")
     torch.cuda.empty_cache()
 
     serving = run_serving_path(dev, args.serving_records)
@@ -3757,7 +4275,9 @@ def main(argv=None) -> int:
         "launches": dense["launches"],
         "launches_by_path": {"dense_path": dense["launches"], "moe_path": moe["launches"],
                              "mla_path": mla["launches"], "vlm_path": vlm["launches"],
-                             "train_path": train["launches"]},
+                             "train_path": train["launches"],
+                             "encdec_path": encdec["launches"],
+                             "hybrid_path": hybrid["launches"]},
         "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
                             if c[7] == "bfloat16"] + [dense["attention_max_abs_err"],
                                                       moe["attention_max_abs_err"]]),
@@ -3773,6 +4293,16 @@ def main(argv=None) -> int:
         "ms": vlm_row["ms"], "plain_ms": vlm_row["plain_ms"],
         "bound_ms": vlm_row["bound_ms"], "bound_by": vlm_row["bound_by"],
         "library_ms": vlm_row["library_ms"]}, {
+        "name": "flash_attention[float32,D256]", "route": "cuda",
+        "kernel_route": vlm32_row["route"], "dtype": "float32", "shape": list(VLM_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": vlm["float32_route_launches"][vlm32_row["route"]],
+        "max_abs_err": max(e for (e, _), c in zip(flash_errs, FLASH_CASES)
+                           if c[7] == "float32" and c[5] == 256),
+        "ms": vlm32_row["ms"], "plain_ms": vlm32_row["plain_ms"],
+        "bound_ms": vlm32_row["bound_ms"], "bound_by": vlm32_row["bound_by"],
+        "library_ms": vlm32_row["library_ms"]}, {
         "name": "flash_attention[float32]", "route": "cuda", "kernel_route": "tensor_cores",
         "dtype": "float32", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
@@ -3795,6 +4325,8 @@ def main(argv=None) -> int:
         "dtype": "bfloat16", "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "launches": ssm["launches"],
+        "launches_by_path": {"ssm_path": ssm["launches"],
+                             "ssm_train_path": ssm_train["launches"]},
         "max_abs_err": max([max(e["y_diag"], e["states"]) for c, e in zip(SSD_CASES, ssd_errs)
                             if c[7] == "bfloat16"] + [ssd_row["max_abs_err"]]),
         "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
@@ -3809,6 +4341,21 @@ def main(argv=None) -> int:
         "ms": ssd32_row["ms"], "plain_ms": ssd32_row["plain_ms"],
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
+        "library_ms": None}, {
+        "name": "ssd_chunk_backward", "route": "cuda", "kernel_route": "cuda_cores",
+        "dtype": "bfloat16", "shape": list(SSD_TRAIN_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "note": "the gradient of that kernel; the JAX package has no backward kernel",
+        "launches": ssm_train["backward_launches"],
+        "launches_by_path": {"ssm_train_path": ssm_train["backward_launches"],
+                             "ssm_train_f32_check": ssm_train["float32"]["backward_launches"]},
+        "max_abs_err": max([ssd_bwd["max_err"]] + [max(e.values())
+                                                   for e in ssm_train["layer_bwd_errors"]]),
+        "max_err_is": "of each gradient's largest value",
+        "ms": ssd_bwd["row"]["ms"], "plain_ms": ssd_bwd["row"]["plain_ms"],
+        "bound_ms": ssd_bwd["row"]["bound_ms"], "bound_by": ssd_bwd["row"]["bound_by"],
+        "cuda_core_bound_ms": ssd_bwd["row"]["cuda_core_bound_ms"],
         "library_ms": None}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "kernel_route": bwd["rows"]["bfloat16"]["route"],

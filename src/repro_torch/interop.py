@@ -18,7 +18,9 @@ from repro_torch.training.proxy_models import LinearParams, MLPParams, PackedPro
 from repro_torch.util import resolve_device
 
 if TYPE_CHECKING:
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.moe import MoETransformer
+    from repro_torch.models.rglru import Griffin
     from repro_torch.models.ssm import Mamba2
     from repro_torch.models.transformer import Transformer
 
@@ -142,26 +144,20 @@ def _tensor_as_is(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-_STACKS = ("layers", "dense_layers")  # params stacked on a leading layer dim
+def _load_jax_params(model: torch.nn.Module, ref_params, dev: torch.device):
+    """Copy the JAX package's nested params into ``model`` by parameter
+    name, through ``models.leaves.leaf_of``: a layer of a stack
+    (``<stack>.<i>.<path>``) reads ``ref_params[<stack>][<path>][i]``, an
+    entry of the hybrid family's block tuple (``blocks.<i>.<path>``)
+    ``ref_params["blocks"][i][<path>]``, any other name its last part at
+    the top level.  Every array keeps its own type."""
+    from repro_torch.models.leaves import leaf_of
 
-
-def _load_stacked(model: torch.nn.Module, ref_params, dev: torch.device):
-    """Copy the JAX package's nested params dict (layers stacked on a
-    leading L dim) into ``model`` by parameter name: ``<stack>.<i>.<path>``
-    reads ``ref_params[<stack>][<path>][i]`` for the stacks ``layers`` and
-    ``dense_layers``, any other name its last part at the top level.  Every
-    array keeps its own type."""
     with torch.no_grad():
         for name, param in model.named_parameters():
-            parts = name.split(".")
-            if parts[0] in _STACKS:
-                src = ref_params[parts[0]]
-                for key in parts[2:]:
-                    src = src[key]
-                src = np.asarray(src)[int(parts[1])]
-            else:
-                src = ref_params[parts[-1]]
-            t = _tensor_as_is(src, dev)
+            path, layer = leaf_of(name)
+            src = _ref_leaf(ref_params, path)
+            t = _tensor_as_is(src if layer is None else src[layer], dev)
             if t.shape != param.shape or t.dtype != param.dtype:
                 raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
                                  f"model {tuple(param.shape)} {param.dtype}")
@@ -175,7 +171,7 @@ def transformer_params(ref_params, cfg, device="cuda") -> Transformer:
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
-    return _load_stacked(Transformer(cfg, device=dev), ref_params, dev)
+    return _load_jax_params(Transformer(cfg, device=dev), ref_params, dev)
 
 
 def ssm_params(ref_params, cfg, device="cuda") -> Mamba2:
@@ -184,7 +180,7 @@ def ssm_params(ref_params, cfg, device="cuda") -> Mamba2:
     from repro_torch.models.ssm import Mamba2
 
     dev = resolve_device(device)
-    return _load_stacked(Mamba2(cfg, device=dev), ref_params, dev)
+    return _load_jax_params(Mamba2(cfg, device=dev), ref_params, dev)
 
 
 def moe_params(ref_params, cfg, device="cuda") -> MoETransformer:
@@ -193,11 +189,29 @@ def moe_params(ref_params, cfg, device="cuda") -> MoETransformer:
     from repro_torch.models.moe import MoETransformer
 
     dev = resolve_device(device)
-    return _load_stacked(MoETransformer(cfg, device=dev), ref_params, dev)
+    return _load_jax_params(MoETransformer(cfg, device=dev), ref_params, dev)
 
 
 # the VLM family's weights are the dense family's
 vlm_params = transformer_params
+
+
+def encdec_params(ref_params, cfg, device="cuda") -> EncDec:
+    """The JAX package's encoder-decoder params (``enc_layers`` and
+    ``dec_layers`` stacked) as this package's ``EncDec`` on ``device``."""
+    from repro_torch.models.encdec import EncDec
+
+    dev = resolve_device(device)
+    return _load_jax_params(EncDec(cfg, device=dev), ref_params, dev)
+
+
+def rglru_params(ref_params, cfg, device="cuda") -> Griffin:
+    """The JAX package's hybrid params (``blocks`` a tuple of unstacked
+    block dicts) as this package's ``Griffin`` on ``device``."""
+    from repro_torch.models.rglru import Griffin
+
+    dev = resolve_device(device)
+    return _load_jax_params(Griffin(cfg, device=dev), ref_params, dev)
 
 
 def _ref_leaf(ref_tree, path) -> np.ndarray:

@@ -801,6 +801,8 @@ def quant_parity_report(plan, x, *, dtype: str = "int8",
 def ssd(x, dt, A_log, B, C, D, chunk: int):
     """Full SSD forward: the ``ssd_chunk`` kernel for the intra-chunk block,
     then the inter-chunk recurrence and its output term in PyTorch.
+    Differentiable: under grad ``ssd_chunk`` goes through its autograd
+    Function (the backward kernel on the card), the rest through autograd.
 
     x: (b, s, h, p); dt: (b, s, h) softplus'd timesteps; A_log, D: (h,);
     B, C: (b, s, g, n), h % g == 0 (groups are indexed, never repeated).
@@ -819,14 +821,16 @@ def ssd(x, dt, A_log, B, C, D, chunk: int):
         xdt.reshape(b * nc, chunk, h, p), dA.reshape(b * nc, chunk, h),
         B.reshape(b * nc, chunk, g, n), C.reshape(b * nc, chunk, g, n))
     # inter-chunk recurrence over the nc chunks, in f32 (the JAX package's
-    # lax.scan): prev[:, c] is the state entering chunk c
+    # lax.scan): prev[:, c] is the state entering chunk c, stacked (not
+    # written in place) so that autograd differentiates the loop
     states = states.view(b, nc, h, p, n)
     chunk_decay = chunk_decay.view(b, nc, h)
-    prev = torch.empty_like(states)
+    entering = []
     carry = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
     for c in range(nc):
-        prev[:, c] = carry
+        entering.append(carry)
         carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(entering, dim=1)
     cum = torch.cumsum(dA.view(b, nc, chunk, h), dim=2)  # (b, nc, Q, h)
     y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", C.to(f32).reshape(b, nc, chunk, g, n),
                          prev.view(b, nc, g, rep, p, n)).reshape(b, nc, chunk, h, p)

@@ -26,6 +26,13 @@ Nothing retries on another route: a failed build or launch raises.
 ``ssd_chunk.launches`` counts the CUDA launches, ``ssd_chunk.route_launches``
 the same per route.
 
+Under grad ``ssd_chunk`` goes through the autograd Function ``SSDChunk``,
+whose backward ``ssd_chunk_backward`` launches ``csrc/ssd_chunk_bwd.cu``
+on the card (CUDA cores, f32 sums in a fixed order, no atomics; the JAX
+package differentiates its plain ``ssd_chunked`` instead) and runs
+``ssd_chunk_backward_plain`` on the CPU; ``ssd_chunk_backward.launches``
+counts its launches.  Serving, under ``no_grad``, takes the bare forward.
+
 All take cum in the cumsum-difference form of the JAX package's kernel
 and reference, so they round alike; L is selected to 0 above the diagonal
 before anything multiplies it (exp overflows there).  The CUDA-core kernel
@@ -156,7 +163,32 @@ def ssd_chunk(x, dA, B, C):
     one wider projection pass without a copy.  Returns (y_diag
     (nc, Q, H, P), states (nc, H, P, N), chunk_decay (nc, H)), all float32.
     All tensors share one device, which picks the route: CUDA launches the
-    kernel, CPU runs ``ssd_chunk_plain``."""
+    kernel, CPU runs ``ssd_chunk_plain``.  When a graph is being built and
+    an operand needs a gradient, the call goes through ``SSDChunk``, whose
+    backward is ``ssd_chunk_backward``; otherwise (serving) it is the bare
+    forward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dA, B, C)):
+        return SSDChunk.apply(x, dA, B, C)
+    return _forward(x, dA, B, C)
+
+
+class SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` with ``ssd_chunk_backward`` as its gradient (the JAX
+    package differentiates its plain ``ssd_chunked`` instead).  Saves the
+    four operands (B and C as the strided views they came as); the
+    gradients of unused outputs arrive as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dA, B, C):
+        ctx.save_for_backward(x, dA, B, C)
+        return _forward(x, dA, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dstates, ddecay):
+        return ssd_chunk_backward(*ctx.saved_tensors, dy, dstates, ddecay)
+
+
+def _forward(x, dA, B, C):
     nc, Q, H, G, P, N = _check_operands(x, dA, B, C)
     strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
     if x.device.type == "cpu":
@@ -194,10 +226,140 @@ def ssd_chunk(x, dA, B, C):
     return y, states, decay
 
 
+def ssd_chunk_backward_plain(x, dA, B, C, dy, dstates, ddecay):
+    """The gradient of ``ssd_chunk_plain`` written out step by step in plain
+    PyTorch (not autograd; the CPU route and the on-card reference).  Per
+    chunk and head, with M = (C B^T) * L and w_j = exp(cum[-1] - cum[j]):
+    v = B dst^T, dx = M^T dy + w * v; dM = dy x^T, dS = dM * L summed over
+    the group's heads, dC = dS B, dB = dS^T C + sum_h (w * x) dst; with G =
+    dM * M, dcum_i = sum_j G_ij - sum_k G_ki - u_i (u_j = w_j x_j . v_j),
+    dcum[-1] += sum_j u_j + ddecay * chunk_decay; ddA the reverse cumsum of
+    dcum.  Returns (dx, ddA, dB, dC): dx, dB and dC in their inputs' types,
+    ddA float32; every sum in f32."""
+    f32 = torch.float32
+    nc, Q, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    xf = x.to(f32).reshape(nc, Q, G, rep, P)
+    Bf, Cf = B.to(f32), C.to(f32)
+    dyf = dy.to(f32).reshape(nc, Q, G, rep, P)
+    dst = dstates.to(f32).reshape(nc, G, rep, P, N)
+    cum = torch.cumsum(dA.to(f32).transpose(1, 2), dim=-1).reshape(nc, G, rep, Q)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), dtype=f32, device=x.device))  # (nc, G, rep, Q, Q)
+    M = torch.einsum("cqgn,csgn->cgqs", Cf, Bf)[:, :, None] * L
+    w = torch.exp(cum[..., -1:] - cum)  # (nc, G, rep, Q)
+    w_tok = w.permute(0, 3, 1, 2)[..., None]  # (nc, Q, G, rep, 1)
+    v = torch.einsum("csgn,cgrpn->csgrp", Bf, dst)  # B dst^T per head
+    dx = torch.einsum("cgrqs,cqgrp->csgrp", M, dyf) + w_tok * v
+    dM = torch.einsum("cqgrp,csgrp->cgrqs", dyf, xf)
+    dS = (dM * L).sum(dim=2)  # (nc, G, Q, Q): summed over the group's heads
+    dC = torch.einsum("cgqs,csgn->cqgn", dS, Bf)
+    dB = (torch.einsum("cgqs,cqgn->csgn", dS, Cf)
+          + torch.einsum("csgrp,cgrpn->csgn", xf * w_tok, dst))
+    Gm = dM * M  # 0 above the diagonal, where M is
+    u = w * (xf * v).sum(dim=-1).permute(0, 2, 3, 1)  # (nc, G, rep, Q)
+    dcum = Gm.sum(dim=-1) - Gm.sum(dim=-2) - u
+    last = u.sum(dim=-1) + ddecay.to(f32).reshape(nc, G, rep) * torch.exp(cum[..., -1])
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], dim=-1)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    ddA = ddA.reshape(nc, H, Q).transpose(1, 2).contiguous()
+    return dx.reshape(nc, Q, H, P).to(x.dtype), ddA, dB.to(B.dtype), dC.to(C.dtype)
+
+
+_BWD_LIB = None
+MAX_GRID_Y = 65535  # the group kernels put chunks * groups on their y axis
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = ctypes.CDLL(str(_build.build("ssd_chunk_bwd")))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ssd_chunk_bwd_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [i, vp]
+        lib.ssd_chunk_bwd_launch.restype = i
+        lib.ssd_chunk_bwd_scratch_floats.argtypes = [i] * 4
+        lib.ssd_chunk_bwd_scratch_floats.restype = ll
+        lib.ssd_chunk_bwd_resources.argtypes = [i, i, i, ip, ip]
+        lib.ssd_chunk_bwd_resources.restype = i
+        lib.ssd_chunk_bwd_error_string.argtypes = [i]
+        lib.ssd_chunk_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
+    """The gradient of ``ssd_chunk`` at (x, dA, B, C) (operands as
+    ``ssd_chunk`` takes them) given the output gradients dy (nc, Q, H, P),
+    dstates (nc, H, P, N) and ddecay (nc, H).  Returns (dx, ddA, dB, dC):
+    dx, dB and dC in their inputs' types (contiguous), ddA float32.  A CUDA
+    tensor launches ``csrc/ssd_chunk_bwd.cu`` (or raises), a CPU tensor runs
+    ``ssd_chunk_backward_plain``.  ``ssd_chunk_backward.launches`` counts the
+    CUDA launches."""
+    nc, Q, H, G, P, N = _check_operands(x, dA, B, C)
+    strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
+    f32 = torch.float32
+    grads = []
+    for t, name, shape in ((dy, "dy", (nc, Q, H, P)), (dstates, "dstates", (nc, H, P, N)),
+                           (ddecay, "ddecay", (nc, H))):
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, need {shape} on {x.device}")
+        grads.append(t.to(f32).contiguous())
+    dy, dstates, ddecay = grads
+    if x.device.type == "cpu":
+        return ssd_chunk_backward_plain(x, dA, B, C, dy, dstates, ddecay)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_backward runs on CUDA or the CPU, not {x.device}")
+    if nc * G > MAX_GRID_Y:
+        raise ValueError(f"chunks * groups = {nc * G} exceeds {MAX_GRID_Y}")
+    lib = _bwd_lib()
+    dev = x.device
+    dx = torch.empty((nc, Q, H, P), dtype=x.dtype, device=dev)
+    ddA = torch.empty((nc, Q, H), dtype=f32, device=dev)
+    dB = torch.empty((nc, Q, G, N), dtype=B.dtype, device=dev)
+    dC = torch.empty((nc, Q, G, N), dtype=C.dtype, device=dev)
+    n = lib.ssd_chunk_bwd_scratch_floats(nc, Q, H, G)
+    scratch = torch.empty(n, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_chunk_bwd_launch(
+            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch.data_ptr(), n, nc, Q, H, G, P, N, *strides,
+            int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        msg = lib.ssd_chunk_bwd_error_string(rc).decode()
+        raise RuntimeError(f"ssd_chunk_backward launch failed: CUDA error {rc} ({msg})")
+    ssd_chunk_backward.launches += 1
+    return dx, ddA, dB, dC
+
+
+BWD_KERNELS = ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc", "bwd_db")
+
+
+def backward_resources(P: int, dtype: torch.dtype) -> dict:
+    """Registers a thread and shared memory a block (static plus dynamic)
+    of each of the backward's kernels (``BWD_KERNELS``) at head dim P and
+    input ``dtype``."""
+    out = {}
+    for which, name in enumerate(BWD_KERNELS):
+        regs, smem = ctypes.c_int(0), ctypes.c_int(0)
+        rc = _bwd_lib().ssd_chunk_bwd_resources(which, int(dtype == torch.bfloat16), P,
+                                                ctypes.byref(regs), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"ssd_chunk_bwd_resources: CUDA error {rc}")
+        out[name] = {"registers_at_launch": regs.value, "smem_bytes": smem.value}
+    return out
+
+
 def reset_launches() -> None:
-    """Set ``ssd_chunk.launches`` and every per-route count to 0."""
+    """Set ``ssd_chunk.launches``, every per-route count and
+    ``ssd_chunk_backward.launches`` to 0."""
     ssd_chunk.launches = 0
     ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
+    ssd_chunk_backward.launches = 0
 
 
 reset_launches()

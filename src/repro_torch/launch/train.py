@@ -1,32 +1,35 @@
-"""Training launcher on the card: a dense, MoE / MLA or VLM architecture,
-reduced or at full width, with the JAX package's resilience substrate
-(checkpoint and restart through ``ResilientRunner``, straggler detection).
+"""Training launcher on the card: any architecture of ``configs/archs.py``
+(dense, MoE / MLA, SSM, hybrid, encoder-decoder, VLM), reduced or at full
+width, with the JAX package's resilience substrate (checkpoint and restart
+through ``ResilientRunner``, straggler detection).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-67b --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-67b --full \\
         --layers 2 --batch 4 --seq 4096 --steps 4 --ckpt-every 0
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 [--resume]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --device cpu \\
+        --layers 2 --steps 3 --ckpt-every 0
 
 The JAX package's flags (``repro/launch/train.py``), plus ``--device``
 (CUDA by default: raises without a card; ``cpu`` runs every kernel's plain
-version), ``--layers`` (cut the depth, so that a full-width config fits one
-card), ``--ckpt-every 0`` (no checkpoints) and ``--fail-at STEP`` (a
+version), ``--layers`` (cut the depth, an encoder-decoder's encoder too, so that a
+full-width config fits one card), ``--ckpt-every 0`` (no checkpoints) and ``--fail-at STEP`` (a
 simulated preemption before that step, once: the runner restores the last
 checkpoint, rewinds the data cursor and goes on).  The default ``--arch``
-is deepseek-67b: the SSM (``mamba2-2.7b``, the JAX launcher's default),
-encdec and hybrid families raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports their training.
+is deepseek-67b (the JAX launcher's default is mamba2-2.7b).
 
 The batch is ``--batch`` sequences of ``--seq`` tokens (a VLM's text
 shortened by its patch prefix) from a seeded stream of 8,192 random
 sequences (``data/pipeline.py``), cut into ``cfg.accum_steps``
-micro-batches; a VLM's patches are drawn by ``np.random.RandomState(step)``.
+micro-batches; a VLM's patches and an encoder-decoder's frames are drawn
+by ``np.random.RandomState(step)``.
 The checkpointed state is (params, optimizer state, cursor) in the JAX
 package's layout (``models/leaves.py``), so each package reads the other's.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -39,9 +42,9 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Cursor, ShardedStream
 from repro_torch.distributed.fault_tolerance import ResilientRunner, StragglerDetector
 from repro_torch.models import leaves
-from repro_torch.models.registry import _token_len
+from repro_torch.models.registry import _token_len, stub_embeddings
 from repro_torch.training import optim
-from repro_torch.training.train_loop import init_train_state, make_loss_fn, make_train_step
+from repro_torch.training.train_loop import init_train_state, make_train_step
 from repro_torch.util import resolve_device
 
 DATA_ROWS = 8192
@@ -97,14 +100,22 @@ def make_data(cfg, seq: int, rows: int = DATA_ROWS, seed: int = 0) -> np.ndarray
 
 
 def make_batch(cfg, seqs: np.ndarray, step: int, device) -> dict:
+    """Tokens and next-token labels of ``seqs``; a VLM's ``patches`` or an
+    encoder-decoder's ``frames`` drawn by ``np.random.RandomState(step)``
+    (``registry.stub_embeddings``)."""
     tokens = torch.from_numpy(seqs.astype(np.int64))
     batch = {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
-    if cfg.family == "vlm":
-        patches = np.random.RandomState(step).standard_normal(
-            (seqs.shape[0], cfg.encoder.num_prefix, cfg.d_model))
-        batch["patches"] = torch.from_numpy(patches.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
+    stubs = stub_embeddings(cfg, seqs.shape[0], seqs.shape[1] - 1, np.random.RandomState(step))
+    batch.update({k: v.to(device) for k, v in stubs.items()})
     return batch
+
+
+def with_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers; an encoder-decoder's encoder stack
+    to the same count."""
+    if cfg.encoder is not None and cfg.encoder.num_layers:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, num_layers=layers))
+    return cfg.replace(num_layers=layers)
 
 
 def run(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3, device="cuda",
@@ -115,7 +126,6 @@ def run(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3, device="cuda
     ``data`` replaces the seeded stream's sequences.  Returns {"params",
     "opt", "report", "losses" ({step: loss}), "step_s" (host seconds of each
     step, the loss read included), "start", "seconds"}."""
-    make_loss_fn(cfg)  # refuse a family without a loss before allocating
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, lr=lr)
     params, opt = init_train_state(cfg, 0, dev)
@@ -162,6 +172,8 @@ def run(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3, device="cuda
             ck.save(step, state_tree(*state))
 
     def restore_fn():
+        if ck is None:  # no checkpoints: the failed step's own error stands
+            raise
         step = restore()
         log(f"restarted from step {step}")
         return step, (params, live["opt"], stream.cursor.as_dict())
@@ -199,7 +211,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     if args.layers is not None:
-        cfg = cfg.replace(num_layers=args.layers)
+        cfg = with_depth(cfg, args.layers)
     return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                device=args.device, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                resume=args.resume, fail_at=args.fail_at)

@@ -2,25 +2,31 @@
 that both packages read.
 
 The JAX package keeps a model's parameters as a nested dict whose layer
-stacks (``layers``, ``dense_layers``) carry a leading layer dim, and
-flattens it with dict keys sorted.  This package keeps one tensor a layer
-under ``nn.Module`` names.  A name maps to a leaf path and a layer:
+stacks (``layers``, ``dense_layers``, ``enc_layers``, ``dec_layers``)
+carry a leading layer dim, and flattens it with dict keys sorted; the
+hybrid family's heterogeneous ``blocks`` are a tuple of unstacked dicts.
+This package keeps one tensor a layer under ``nn.Module`` names.  A name
+maps to a leaf path and a layer:
 
     "layers.3.attn.wq"  -> (("layers", "attn", "wq"), 3)
+    "blocks.3.rec.wx"   -> (("blocks", 3, "rec", "wx"), None)  # a tuple entry
     "embed.lm_head"     -> (("lm_head",), None)      # top level: last part
 
 and ``stacked`` / ``unstack_into`` move between the two.  Paths sort as
 the JAX package's flatten order does (tuple order is the nested sorted
-order).
+order; a tuple's index sorts as an int, as the tuple flattens in order).
+``nest`` makes a block tuple a dict keyed by the int index, which flattens
+in the same order.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-STACKS = ("layers", "dense_layers")  # params stacked on a leading layer dim
-Path = Tuple[str, ...]
+STACKS = ("layers", "dense_layers", "enc_layers", "dec_layers")  # stacked on a leading dim
+TUPLES = ("blocks",)  # a tuple of unstacked per-layer dicts
+Path = Tuple[Union[str, int], ...]
 
 
 def leaf_of(name: str) -> Tuple[Path, Optional[int]]:
@@ -29,6 +35,8 @@ def leaf_of(name: str) -> Tuple[Path, Optional[int]]:
     parts = name.split(".")
     if parts[0] in STACKS:
         return (parts[0], *parts[2:]), int(parts[1])
+    if parts[0] in TUPLES:
+        return (parts[0], int(parts[1]), *parts[2:]), None
     return (parts[-1],), None
 
 

@@ -1,29 +1,22 @@
-"""Family registry and concrete batches.
-
-The port has the dense, MoE, SSM and VLM families; the others raise and
-name the ``ROADMAP.md`` item that ports them.
-"""
+"""Family registry and concrete batches: every family of
+``configs/archs.py`` (dense, MoE, SSM, hybrid, encdec, VLM)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import moe, ssm, transformer, vlm
+from repro_torch.models import encdec, moe, rglru, ssm, transformer, vlm
 from repro_torch.util import resolve_device
 
-FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm, "vlm": vlm}
-_TO_PORT = {  # family -> where ROADMAP.md queues its port
-    "encdec": "Queue 1 item 3.3 (models/encdec.py)",
-    "hybrid": "Queue 1 item 3.4 (models/rglru.py)",
-}
+FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm, "hybrid": rglru, "encdec": encdec,
+            "vlm": vlm}
 
 
 def get_family(cfg):
     """The module implementing ``cfg.family``'s API."""
-    if cfg.family in FAMILIES:
-        return FAMILIES[cfg.family]
-    where = _TO_PORT.get(cfg.family, "no ROADMAP.md item")
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md {where}")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"no family {cfg.family!r}: the port has {sorted(FAMILIES)}")
+    return FAMILIES[cfg.family]
 
 
 def _token_len(cfg, seq_len: int) -> int:
@@ -34,19 +27,32 @@ def _token_len(cfg, seq_len: int) -> int:
     return seq_len
 
 
+def stub_embeddings(cfg, batch: int, seq_len: int, rng: np.random.RandomState) -> dict:
+    """The stub frontends' inputs, standard normals drawn by ``rng`` in bf16
+    on the CPU: a VLM's ``patches`` (batch, num_prefix, d_model), an
+    encoder-decoder's ``frames`` (batch, enc_len_for(seq_len), d_model);
+    {} for the other families."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.encoder.num_prefix, cfg.d_model)
+    elif cfg.family == "encdec":
+        shape = (batch, encdec.enc_len_for(cfg, seq_len), cfg.d_model)
+    else:
+        return {}
+    name = "patches" if cfg.family == "vlm" else "frames"
+    return {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        torch.bfloat16)}
+
+
 def make_batch(cfg, batch: int, seq_len: int, seed: int = 0, device="cuda"):
     """{"tokens": (batch, S) int64} drawn uniformly from the vocabulary by
     ``np.random.RandomState(seed)``, so a test can hand the same inputs to
-    the JAX package; S is ``seq_len`` less a VLM's patch prefix, and a VLM
-    batch also carries ``patches`` (batch, num_prefix, d_model) bf16,
-    standard normals drawn next from the same generator."""
+    the JAX package; S is ``seq_len`` less a VLM's patch prefix.  A VLM
+    batch also carries ``patches`` and an encoder-decoder batch ``frames``
+    (``stub_embeddings``), drawn next from the same generator."""
     get_family(cfg)
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     tokens = rng.randint(0, cfg.vocab_size, (batch, _token_len(cfg, seq_len)))
     out = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
-    if cfg.family == "vlm":
-        patches = rng.standard_normal((batch, cfg.encoder.num_prefix, cfg.d_model))
-        out["patches"] = torch.from_numpy(patches.astype(np.float32)).to(
-            device=dev, dtype=torch.bfloat16)
+    out.update({k: v.to(dev) for k, v in stub_embeddings(cfg, batch, seq_len, rng).items()})
     return out

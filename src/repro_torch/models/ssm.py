@@ -1,19 +1,22 @@
 """Mamba-2 (SSD — state-space duality) family.
 
-The family API of the JAX package's ``models/ssm.py``, serving half:
+The family API of the JAX package's ``models/ssm.py``:
 
     init(seed, cfg, device)              -> Mamba2 (an nn.Module)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
+    loss(params, cfg, batch)             -> (scalar, aux)
     init_cache(cfg, batch, max_len)      -> cache dict
     prefill(params, cfg, batch)          -> (last_logits, cache)
     decode_step(params, cfg, cache, tok) -> (logits, cache)
 
-Prefill and forward run the chunked SSD through ``kernels/ops.py::ssd``,
+Prefill, forward and loss run the chunked SSD through ``kernels/ops.py::ssd``,
 whose intra-chunk block is the ``ssd_chunk`` kernel on the card (the JAX
 model runs its plain ``ssd_chunked`` instead; both compute the same
-function).  Decode is the O(1) recurrent step in plain PyTorch.  The JAX
-package stacks the layers' params on a leading L dim and scans them; here
-they are an ``nn.ModuleList`` walked in a loop.  A cache is {"conv":
+function); ``loss`` differentiates it with the ``ssd_chunk`` backward
+kernel (the JAX package differentiates ``ssd_chunked``).  Decode is the
+O(1) recurrent step in plain PyTorch.  The JAX package stacks the layers'
+params on a leading L dim and scans them; here they are an
+``nn.ModuleList`` walked in a loop.  A cache is {"conv":
 (L, B, d_conv-1, conv_dim) in the param type, "ssm": (L, B, h, p, n)
 float32, "pos": int}; ``decode_step`` writes into its tensors in place.
 """
@@ -183,13 +186,24 @@ def layer_decode(lp: Layer, cfg, x, conv_state, ssm_state):
 
 
 # ------------------------------------------------------------- family API
-@torch.no_grad()
-def forward(params: Mamba2, cfg, batch):
+def _logits(params: Mamba2, cfg, batch):
     x = L.embed_tokens(params.embed, cfg, batch["tokens"])
     for lp in params.layers:
-        x = layer_fwd(lp, cfg, x)
+        x = L.remat(cfg, layer_fwd, lp, cfg, x)
     x = L.apply_norm(cfg, x, params.final_norm)
     return L.lm_logits(params.embed, cfg, x)
+
+
+forward = torch.no_grad()(_logits)
+
+
+def loss(params: Mamba2, cfg, batch):
+    """(mean cross-entropy of the next-token ``labels``, {}), differentiable
+    in the parameters (``layers.trainable``): each layer recomputed in the
+    backward under ``cfg.remat``, its ``ssd_chunk`` through the autograd
+    Function (the backward kernel on the card)."""
+    logits = _logits(params, cfg, batch)
+    return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask")), {}
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):

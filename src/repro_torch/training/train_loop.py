@@ -9,7 +9,8 @@ one AdamW (or Adafactor) update.  ``params`` is the family's ``nn.Module``
 with gradients on (``init_train_state``); the update writes the new
 parameters and moments in place (the JAX package returns new pytrees).
 
-On the card attention goes through ``flash_attention``'s autograd Function
+On the card full causal attention goes through ``flash_attention``'s
+autograd Function and the SSM's intra-chunk block through ``ssd_chunk``'s
 (forward and backward kernels; under ``cfg.remat`` each layer's forward
 runs twice, once more in the backward).  Adafactor's factored statistics
 are taken over the JAX package's leaves, whose layer stacks carry a leading
@@ -26,18 +27,9 @@ from repro_torch.models.registry import get_family
 from repro_torch.training import optim
 from repro_torch.util import resolve_device
 
-_NO_LOSS = {  # family -> where ROADMAP.md queues its loss
-    "ssm": "Queue 1 item 4, slice O (the SSM loss and the ssd_chunk backward kernel)",
-}
-
-
 def make_loss_fn(cfg):
-    """``loss_fn(params, batch) -> (loss, aux)`` of ``cfg``'s family;
-    raises ``NotImplementedError`` for a family without a ported loss."""
+    """``loss_fn(params, batch) -> (loss, aux)`` of ``cfg``'s family."""
     fam = get_family(cfg)
-    if cfg.family in _NO_LOSS:
-        raise NotImplementedError(f"training the {cfg.family!r} family is not ported yet: "
-                                  f"ROADMAP.md {_NO_LOSS[cfg.family]}")
 
     def loss_fn(params, batch):
         return fam.loss(params, cfg, batch)
@@ -122,6 +114,5 @@ def init_opt_state(cfg, params):
 def init_train_state(cfg, seed: int = 0, device="cuda"):
     """(params with gradients on, optimizer state): the family's weights
     from ``torch.Generator(device).manual_seed(seed)``."""
-    make_loss_fn(cfg)  # refuse a family without a loss before allocating
     params = L.trainable(get_family(cfg).init(seed, cfg, resolve_device(device)))
     return params, init_opt_state(cfg, params)

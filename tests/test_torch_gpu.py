@@ -12,9 +12,14 @@ short prompt; the tuned scorer and the MoE combine's determinism; the
 routes, its counters (per route), two calls bit for bit in each type, every forward
 route's lse against the plain one, the autograd Function on the card, and a
 train step at deepseek-67b's width (one layer, two micro-batches) with its
-launches counted.  On the card: ``python -m pytest -m gpu
+launches counted; the ``ssd_chunk`` backward kernel against its plain
+formulas, its planted faults, two calls bit for bit, its counter through
+``SSDChunk``, a two-layer SSM train path, and the encoder-decoder (flash
+launches where ``layers.mha`` routes them) and hybrid (none) paths and
+training steps.  On the card: ``python -m pytest -m gpu
 tests/test_torch_gpu.py`` (``-k f32`` for the f32 routes, ``-k "bwd or
-train or lse"`` for the backward and training)."""
+train or lse"`` for the backward and training, ``-k "ssd_bwd or ssm_train
+or encdec or side_steps"`` for slice O's)."""
 import sys
 from pathlib import Path
 
@@ -705,3 +710,79 @@ def test_train_step_short(cuda):
     assert (fa.flash_attention.launches, fa.flash_attention.backward_launches) == (4, 2)
     assert torch.isfinite(m["loss"]) and all(bool(torch.isfinite(t).all())
                                              for t in opt.mu.values())
+
+
+# ------------------------------------------------------------ slice O
+@pytest.mark.parametrize("case", chip_smoke.SSD_BWD_CASES, ids=[str(c) for c in
+                                                                 chip_smoke.SSD_BWD_CASES])
+def test_ssd_bwd_kernel_matches_plain_version(cuda, case):
+    chip_smoke.check_ssd_bwd_case(case, cuda, seed=sum(case[:6]))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_bwd_planted_faults_are_caught(cuda, dtype):
+    out = chip_smoke.ssd_bwd_planted_faults(cuda, dtype)
+    assert all(out["caught"].values())
+
+
+def test_ssd_bwd_two_calls_are_equal_bit_for_bit(cuda):
+    assert all(chip_smoke.ssd_bwd_repeat(cuda)["bitwise_equal"].values())
+
+
+def test_ssd_bwd_launch_counter_function_and_no_fallback(cuda):
+    """One ``ssd_chunk_backward`` launch a backward through ``SSDChunk``, its
+    gradients those of the direct call; serving (no graph) launches the
+    forward only; an operand the kernel does not take raises before any
+    launch."""
+    from repro_torch.kernels import ssd_scan
+
+    case = (2, 128, 4, 2, 64, 64, "jax_test", "bfloat16", "sliced")
+    x, dA, B, C, dy, dst, ddec = chip_smoke.ssd_bwd_inputs(case, cuda, seed=1)
+    ssd_scan.reset_launches()
+    with torch.no_grad():
+        ssd_scan.ssd_chunk(x, dA, B, C)
+    assert (ssd_scan.ssd_chunk.launches, ssd_scan.ssd_chunk_backward.launches) == (1, 0)
+    leaves = [t.clone().requires_grad_() for t in (x, dA)]
+    out = ssd_scan.ssd_chunk(*leaves, B, C)
+    torch.autograd.backward(out, (dy, dst, ddec))
+    assert (ssd_scan.ssd_chunk.launches, ssd_scan.ssd_chunk_backward.launches) == (2, 1)
+    want = ssd_scan.ssd_chunk_backward(x, dA, B, C, dy, dst, ddec)
+    assert torch.equal(leaves[0].grad, want[0]) and torch.equal(leaves[1].grad, want[1])
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_chunk_backward(x, dA, B, C, dy[:, :, :2], dst, ddec)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_chunk_backward(x.double(), dA, B.double(), C.double(), dy, dst, ddec)
+    assert ssd_scan.ssd_chunk_backward.launches == 2
+
+
+def test_ssm_train_path_short(cuda):
+    """``chip_smoke.run_ssm_train_path`` at two layers: 2 forward and 1
+    backward ``ssd_chunk`` launch a layer a step, each layer's backward
+    against the plain formulas, the loss falling, the f32 step against the
+    plain route."""
+    out = chip_smoke.run_ssm_train_path(cuda, layers=2)
+    steps = chip_smoke.SSM_TRAIN["steps"]
+    assert (out["launches"], out["backward_launches"]) == (4 * steps, 2 * steps)
+    assert out["float32"]["backward_launches"] == 1
+
+
+@pytest.mark.parametrize("spec,phase,want", [(chip_smoke.ENCDEC, "encdec_path", 2),
+                                             (chip_smoke.HYBRID, "hybrid_path", 0)])
+def test_encdec_and_hybrid_paths_short_prompt(cuda, spec, phase, want):
+    """seamless-m4t-medium and recurrentgemma-2b at their widths, two
+    layers (encdec: two each side) or three (hybrid: one (rec, rec, attn)
+    group) and a short prompt: flash_attention once a decoder layer in the
+    encdec prefill (its encoder and cross attention stay on the einsum
+    path), never for the hybrid's local attention, never in decode; the
+    attention and logits checks of ``chip_smoke.run_model_path``."""
+    layers = 2 if spec is chip_smoke.ENCDEC else 3
+    out = chip_smoke.run_model_path(cuda, dict(spec, layers=layers, batch=2, prompt=512,
+                                               new_tokens=4), phase)
+    assert out["launches"] == out["prefill_launches"] == want
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "recurrentgemma-2b"])
+def test_train_side_steps_of_the_new_families(cuda, arch):
+    out = chip_smoke.side_step(cuda, arch)
+    assert out["backward_launches"] == (2 if arch == "seamless-m4t-medium" else 0)
+    assert out["gradients_finite"]

@@ -86,6 +86,10 @@ _BLOCKED_FLEET = _BLOCK + textwrap.dedent("""
     from repro_torch.kernels.flash_attention import flash_attention_backward
     from repro_torch.launch import train
     from repro_torch.training.train_loop import init_train_state
+    from repro_torch.interop import encdec_params, rglru_params
+    from repro_torch.kernels.ssd_scan import _bwd_lib as ssd_chunk_bwd_lib
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+    from repro_torch.models import encdec, rglru
     from repro_torch.serving.stats import AdaptivePolicy
 
     torch.set_num_threads(1)  # many small products; the workers take this count too
@@ -181,7 +185,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.kernels.autotune", "repro_torch.models.leaves",
                  "repro_torch.training.optim", "repro_torch.training.train_loop",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpointer",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.models.encdec",
+                 "repro_torch.models.rglru", "repro_torch.models.registry",
+                 "repro_torch.interop"):
         assert name in proc.stdout
 
 
@@ -213,6 +219,10 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.kernels.flash_attention import flash_attention_backward
     from repro_torch.launch import train
     from repro_torch.training.train_loop import init_train_state
+    from repro_torch.interop import encdec_params, rglru_params
+    from repro_torch.kernels.ssd_scan import _bwd_lib as ssd_chunk_bwd_lib
+    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+    from repro_torch.models import encdec, rglru
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
     udfs = make_udfs(ds, hidden=8, depth=1, train_rows=200, seed=0, declared_cost_ms=1.0,
@@ -229,6 +239,7 @@ def test_cuda_default_entry_points_raise_without_a_card():
     ssm_cfg = reduced_config("mamba2-2.7b")
     moe_cfg, mla_cfg = reduced_config("qwen3-moe-30b-a3b"), reduced_config("deepseek-v2-lite-16b")
     vlm_cfg = reduced_config("paligemma-3b")
+    ed_cfg, rg_cfg = reduced_config("seamless-m4t-medium"), reduced_config("recurrentgemma-2b")
     cpu_model = transformer.init(0, cfg, device="cpu")
     jax_like_opt = type("S", (), {"step": 0, "mu": {}, "nu": {}, "vr": {}, "vc": {}})()
     calls = {
@@ -253,6 +264,16 @@ def test_cuda_default_entry_points_raise_without_a_card():
         "ssm.init": lambda: ssm.init(0, ssm_cfg),
         "ssm.init_cache": lambda: ssm.init_cache(ssm_cfg, 1, 16),
         "ssm_params": lambda: ssm_params({}, ssm_cfg),
+        "init_train_state (ssm)": lambda: init_train_state(ssm_cfg),
+        "train.main (ssm)": lambda: train.main(["--arch", "mamba2-2.7b", "--steps", "1"]),
+        "encdec.init": lambda: encdec.init(0, ed_cfg),
+        "encdec.init_cache": lambda: encdec.init_cache(ed_cfg, 1, 8),
+        "encdec_params": lambda: encdec_params({}, ed_cfg),
+        "make_batch (encdec)": lambda: make_batch(ed_cfg, 1, 16),
+        "rglru.init": lambda: rglru.init(0, rg_cfg),
+        "rglru.init_cache": lambda: rglru.init_cache(rg_cfg, 1, 8),
+        "rglru_params": lambda: rglru_params({}, rg_cfg),
+        "train.main (hybrid)": lambda: train.main(["--arch", "recurrentgemma-2b", "--steps", "1"]),
         "make_udfs": lambda: make_udfs(ds, hidden=8, depth=1, train_rows=200),
         "build_plan": lambda: build_plan(query, x),
         "ProxyBuilder": lambda: ProxyBuilder(query, x),
@@ -284,8 +305,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
     dA = torch.zeros(1, 16, 2, device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ssd_chunk(x, dA, x, x)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ssd_chunk_backward(x, dA, x, x, x, torch.zeros(1, 2, 8, 8, device="meta"),
+                           torch.zeros(1, 2, device="meta"))
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
-        for lib in (flash_attention_lib, flash_attention_bwd_lib, ssd_chunk_lib):
+        for lib in (flash_attention_lib, flash_attention_bwd_lib, ssd_chunk_lib,
+                    ssd_chunk_bwd_lib):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 lib()
     assert isinstance(query, Query)

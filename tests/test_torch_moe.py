@@ -27,7 +27,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import mla as TMLA
 from repro_torch.models import moe as TM
-from repro_torch.models import transformer, vlm
+from repro_torch.models import encdec, rglru, transformer, vlm
 from repro_torch.models.registry import get_family, make_batch
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
@@ -360,9 +360,8 @@ def test_registry_and_batches():
     assert get_family(reduced_config("deepseek-v2-lite-16b")) is TM
     assert get_family(reduced_config("paligemma-3b")) is vlm
     assert vlm.init is transformer.init and vlm.decode_step is transformer.decode_step
-    for arch in ("recurrentgemma-2b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 3\.[34]"):
-            get_family(reduced_config(arch))
+    assert get_family(reduced_config("recurrentgemma-2b")) is rglru
+    assert get_family(reduced_config("seamless-m4t-medium")) is encdec
     cfg = reduced_config("paligemma-3b")
     b = make_batch(cfg, 2, 20, seed=5, device="cpu")
     P = cfg.encoder.num_prefix
