@@ -21,18 +21,21 @@ Each phase prints one JSON line:
               main path's shapes, beside the card's bound for that work;
               the kernel's device µs and device events a call, host µs a
               call, and the scorer's whole route on warm and cold tiles.
-5. flash_kernels — the CUDA ``flash_attention`` (bf16, and f32 up to
-              D = 128: wgmma on the tensor cores, f32 as three bf16 pieces
-              after the ``split_bf16`` pre-pass; f32 at D = 256: CUDA cores)
+5. flash_kernels — the CUDA ``flash_attention`` (wgmma on the tensor cores:
+              bf16, and f32 at every head dim as three bf16 pieces after the
+              ``split_bf16`` pre-pass, two launches a call, counted; at
+              D = 256 one consumer warpgroup a block)
               against its plain PyTorch version on the card, by absolute and
-              per-row limits, each case on the route ``route`` picks (counted
+              per-row limits, each case on the tensor cores (counted
               per route): the JAX package's test shapes, GQA groups 1, 7 and
               8, D = 256, ragged lengths on either side of a 128-row tile,
               D = 16 and 32 over several KV tiles, and the serving shape
               (B 4, S 4096, H 64, K 8, D 128) in f32 and bf16; ``split_bf16``
               against its plain version bit for bit; and planted faults in
               both types (64 keys' P.V skipped, which the per-row limit must
-              reject; in f32 also inputs without their mid and lo pieces).
+              reject; in f32 also inputs without their mid and lo pieces),
+              and the f32 ones again at paligemma's (4, 4096, 8, 1, 256),
+              where two f32 calls must also be equal bit for bit.
 6. dense_path — the dense family's serving path at deepseek-67b's full
               width (d_model 8192, 64 query and 8 KV heads of 128, d_ff
               22016, vocab 102400), depth cut to 4 layers, bf16, seeded
@@ -103,12 +106,13 @@ Each phase prints one JSON line:
 10c. vlm_path — paligemma-3b at its widths and all 18 layers, 256 patches
               and 3,840 tokens a request: 18 launches at (4, 4096, 8, 1,
               256), each layer's attention held; the logits held at 18
-              layers in f32 (18 launches on the f32 route) and on the
+              layers in f32 (18 launches, all on the tensor cores, and 36
+              ``split_bf16`` launches) and on the
               first 4 in bf16 (SSM_LOGIT_LAYERS), and reported at 18 in
               bf16 beside the witness (the same serving with the plain
               attention against the same ``forward``); then
-              ``flash_timing`` at that shape in bf16 and in f32 (the f32
-              route at D 256: the CUDA cores, beside SDPA f32).
+              ``flash_timing`` at that shape in bf16 and in f32 (the split
+              route's bound beside SDPA f32).
 10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
               pre-pass reading the forward's lse, then dK/dV a KV tile a
               block over its query-head group, then dQ: bf16 at D 64, 128
@@ -152,10 +156,13 @@ Each phase prints one JSON line:
               qwen3-moe, paligemma, seamless-m4t-medium (2 + 2 layers: 2
               flash backward launches on the tensor cores) and
               recurrentgemma-2b (3 layers: none) at their widths.
-10f. ssd_bwd_kernels — the CUDA ``ssd_chunk`` backward (five CUDA-core
-              kernels: S = C B^T once per chunk and group, dx and ddA per
-              chunk and head, the group sums of dS in 64 x 64 tiles, then dC
-              and dB; no atomics) against its plain formulas: Q 64 / 128 /
+10f. ssd_bwd_kernels — the CUDA ``ssd_chunk`` backward (bf16 at the forward's
+              tensor-core shapes: S = C B^T once per chunk and group, then
+              dx and ddA per chunk and head on wgmma, then dB and the group
+              sums of dS per chunk and 64-row band on wgmma, then dC; other
+              calls on five CUDA-core kernels; no atomics; each case on
+              ``backward_route``'s kernels, counted by route) against its
+              plain formulas: Q 64 / 128 /
               256, P 64, N 64 and 128, G 1 and 2, both types, B and C sliced
               from one projection, a ragged Q and P; 1e-4 (f32) or one bf16 step of
               each gradient's largest value, ddA 1e-4; planted faults (dx's
@@ -168,7 +175,8 @@ Each phase prints one JSON line:
               layers (bf16 weights, accum 1 and remat as ``configs/archs.py``
               sets them, AdamW with f32 moments): 4 steps on one fixed batch of
               4 x 4,096 tokens, 2 ``ssd_chunk`` forward launches (remat) and 1
-              backward launch a layer a step, the loss falling, each layer's
+              backward launch a layer a step, every backward launch on the
+              tensor cores, the loss falling, each layer's
               backward of the first step against the plain formulas on its
               own inputs; warm step ms, tokens/s and peak memory; one f32
               step at 1 layer against ``ops.ssd`` on the plain route under
@@ -896,7 +904,7 @@ def check_flash_case(case, dev, seed=0) -> tuple:
     return check_flash_output(str(case), out, ref)
 
 
-def planted_fault(dev, dtype: str = "bfloat16") -> dict:
+def planted_fault(dev, dtype: str = "bfloat16", shape=SERVING_SHAPE) -> dict:
     """The serving-shape check against kernel outputs with faults planted.
     Skipped tile: the kernel run with the values of FAULT_KEYS zeroed, which
     is what a kernel that skipped that tile's P.V product would return; the
@@ -907,7 +915,7 @@ def planted_fault(dev, dtype: str = "bfloat16") -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
                                                      route)
 
-    case = (*SERVING_SHAPE, True, dtype)
+    case = (*shape, True, dtype)
     q, k, v = make_flash_case(case, dev, seed=0)
     want = flash_attention_plain(q, k, v, causal=True)
     bad_v = v.clone()
@@ -916,7 +924,8 @@ def planted_fault(dev, dtype: str = "bfloat16") -> dict:
     del bad_v
     caught = row_err > FLASH_ROW_TOL[dtype]
     check(caught, f"{dtype}: a skipped KV tile passes the row check ({row_err})")
-    out = dict(dtype=dtype, route=route(q, k, v), keys=list(FAULT_KEYS), max_abs_err=err,
+    out = dict(dtype=dtype, shape=list(shape), route=route(q, k, v), keys=list(FAULT_KEYS),
+               max_abs_err=err,
                max_row_err=row_err, caught_by_abs_tol=not close, caught_by_row_tol=caught)
     if dtype == "float32":
         hi = [t.to(torch.bfloat16).float() for t in (q, k, v)]
@@ -926,6 +935,22 @@ def planted_fault(dev, dtype: str = "bfloat16") -> dict:
               f"{row_err})")
         out["lost_pieces"] = dict(max_abs_err=err, max_row_err=row_err, caught=lost)
     return out
+
+
+def flash_repeat(dev, shape=None, dtype: str = "float32") -> dict:
+    """Two forward calls with the lse on the same inputs at ``shape``
+    (default ``VLM_SHAPE``, paligemma's; in f32 the split route at D 256):
+    output and lse equal bit for bit (no atomics)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    shape = shape or VLM_SHAPE
+    q, k, v = make_flash_case((*shape, True, dtype), dev, seed=9)
+    a, la = flash_attention(q, k, v, causal=True, return_lse=True)
+    b, lb = flash_attention(q, k, v, causal=True, return_lse=True)
+    sync(dev)
+    equal = {"out": torch.equal(a, b), "lse": torch.equal(la, lb)}
+    check(all(equal.values()), f"two flash_attention calls at {shape} {dtype} differ: {equal}")
+    return dict(shape=list(shape), dtype=dtype, bitwise_equal=equal)
 
 
 # ------------------------------------------------------------- phase 6
@@ -1138,14 +1163,10 @@ def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
     if dtype == "float32":
         row["cuda_core_bound_ms"] = flash_bound(*case)[0]
         row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] / ms
-    split = path == "tensor_cores" and dtype == "float32"
-    if path == "tensor_cores":
-        entry = "flash_attention_wgmma"  # serving's instantiation: no lse
-        fragment = f"flash_attention_wgmmaILi{D}ELb{int(split)}ELb0E"
-    else:
-        entry, fragment = "flash_attention_kernel", f"flash_attention_kernelILi{D}E"
+    split = dtype == "float32"  # serving's instantiation (no lse) of the route's kernel
+    fragment = f"flash_attention_wgmmaILi{D}ELb{int(split)}ELb0E"
     log = _build.library_path("flash_attention").with_suffix(".log").read_text()
-    row["ptxas"] = {"entry": f"{entry}<{D}, {str(split).lower()}, false>",
+    row["ptxas"] = {"entry": f"flash_attention_wgmma<{D}, {str(split).lower()}, false>",
                     **ptxas_entry(log, fragment)}
     row.update(resources(D, q.dtype))
     if split:
@@ -1642,7 +1663,11 @@ SSD_BWD_CASES = tuple(
     for nc, Q, H, G, N, kind in ((4, 64, 4, 1, 64, "jax_test"), (3, 128, 8, 2, 128, "published"),
                                  (2, 256, 8, 1, 128, "published"), (2, 256, 6, 2, 64, "jax_test"),
                                  (2, 256, 4, 1, 128, "jax_init"))
-) + ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), (2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"))
+) + ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), (2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"),
+     # the tensor-core route's edges: ragged Q (80, 208), G 3 < H, P 16 and
+     # 32, N 16 to 64
+     (3, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), (2, 208, 4, 1, 32, 64, "published", "bfloat16"),
+     (4, 64, 4, 2, 16, 32, "jax_test", "bfloat16"))
 SSD_TRAIN_SHAPE = (64, 256, 80, 1, 64, 128)  # mamba2-2.7b, 4 x 4,096 tokens in chunks of 256
 # Each gradient's largest difference over its largest plain value.  Both
 # sum f32 products of the same values in different orders (the kernel's
@@ -1759,64 +1784,87 @@ def ssd_bwd_repeat(dev, dtype: str = "bfloat16") -> dict:
     return dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, bitwise_equal=equal)
 
 
-def ssd_bwd_bound(nc, Q, H, G, P, N, dtype) -> tuple:
+def ssd_bwd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores") -> tuple:
     """(ms, bound_by, bytes, flops, CUDA-core ms): x, B, C, dA, dy, dstates
     and ddecay read once and dx, ddA, dB, dC written once over HBM; the
     multiply-adds on the causal pairs (dM = dy x^T and M^T dy over P, and
     the two state products v = B dst^T and (w x) dst over Q P N, per head;
     S = C B^T, dC and dB over N, per chunk and group) at the peak for the
-    input type, and beside it at the f32 CUDA-core peak the kernel runs at."""
+    input type, and beside it at the f32 CUDA-core peak.  The tensor-core
+    route's own bound counts its bf16 products of pieces at the bf16 peak
+    instead: per head two for dM (dy in two pieces), three for M^T dy,
+    two for v (dst in two pieces), three for the state term; per chunk and
+    group one for S, one for dC, two for dB's (sum dS)^T C."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * nc * Q * H * P + 4 * nc * Q * G * N) + 4 * (
         2 * nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
     pairs = Q * (Q + 1) // 2
     flops = 2 * nc * (H * (2 * pairs * P + 2 * Q * P * N) + G * 3 * pairs * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    if route == "tensor_cores":
+        t_ops = 2 * nc * (H * 5 * (pairs * P + Q * P * N) + G * 4 * pairs * N) / BF16_FLOPS
+    else:
+        t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
             flops, max(t_bytes, flops / FP32_FLOPS) * 1e3)
 
 
+def ssd_bwd_fragments(path: str, P: int, N: int, dtype: str) -> dict:
+    """{kernel: a fragment of its mangled name in the compiler's report}
+    of a backward route's kernels (``ssd_scan.BWD_KERNELS[path]``)."""
+    from repro_torch.kernels.ssd_scan import BWD_KERNELS
+
+    tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
+    out = {}
+    for k in BWD_KERNELS[path]:
+        if k.startswith("tc::"):
+            out[k] = f"{k[4:]}ILi{P}ELi{N}E"
+        else:
+            out[k] = f"{k}I{tname}" + ("Li64E" if k == "bwd_head" else "E")
+    return out
+
+
 def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
     """The backward kernel and its plain formulas at the training shape, in
-    turns (plain, kernel, kernel, plain), beside the bound; each of its four
-    kernels' registers, spills (the compiler's report), shared memory and
-    device time from a profile of 3 calls.  No single PyTorch call computes
-    this gradient, so there is no library time."""
+    turns (plain, kernel, kernel, plain), beside the bound of the route it
+    takes; each of the route's kernels' registers, spills (the compiler's
+    report), shared memory and device time from a profile of 3 calls.  No
+    single PyTorch call computes this gradient, so there is no library
+    time."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import (BWD_KERNELS, backward_resources,
+    from repro_torch.kernels.ssd_scan import (BWD_KERNELS, backward_resources, backward_route,
                                               ssd_chunk_backward)
 
     case = (*SSD_TRAIN_SHAPE, "published", dtype, "sliced")
     args = ssd_bwd_inputs(case, dev, seed=7)
+    path = backward_route(args[0], args[2], args[3])
     errs = check_ssd_bwd_output(f"{case}, timed", ssd_chunk_backward(*args),
                                 ssd_bwd_plain_sliced(*args), dtype)
     plain_a = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=1)
     kern_a = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=0)
-    bound_ms, bound_by, nbytes, flops, cc_ms = ssd_bwd_bound(*SSD_TRAIN_SHAPE, dtype)
-    P = SSD_TRAIN_SHAPE[4]
-    tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
-    pb = {k: f"{k}I{tname}" + ("Li64E" if k == "bwd_head" else "E") for k in BWD_KERNELS}
+    bound_ms, bound_by, nbytes, flops, cc_ms = ssd_bwd_bound(*SSD_TRAIN_SHAPE, dtype, route=path)
+    P, N = SSD_TRAIN_SHAPE[4], SSD_TRAIN_SHAPE[5]
+    frag = ssd_bwd_fragments(path, P, N, dtype)
     log = _build.library_path("ssd_chunk_bwd").with_suffix(".log").read_text()
-    res = backward_resources(P, args[0].dtype)
+    res = backward_resources(P, args[0].dtype, path, N)
     prof = device_profile(lambda: [ssd_chunk_backward(*args) for _ in range(3)], dev)
     kernel_us = {}
-    for k in BWD_KERNELS:
-        hits = [t for t in prof["top"] if k + "<" in t["name"] or f"::{k}" in t["name"]]
+    for k in BWD_KERNELS[path]:
+        hits = [t for t in prof["top"] if k + "<" in t["name"] or f"::{k}<" in t["name"]]
         n = sum(t["count"] for t in hits)
         kernel_us[k] = sum(t["us"] for t in hits) / n if n else "not measured"
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, route="cuda_cores", ms=ms,
+    row = dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, route=path, ms=ms,
                ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
                plain_ms_runs=[plain_a, plain_b], plain="ssd_chunk_backward_plain, "
                f"{SSD_BWD_SLICE} chunks a call", library_ms=None, bound_ms=bound_ms,
                bound_by=bound_by, cuda_core_bound_ms=cc_ms, bytes=nbytes, flops=flops,
                tflops_per_s=flops / (ms * 1e-3) / 1e12, share_of_bound=bound_ms / ms,
                share_of_cuda_core_bound=cc_ms / ms, max_err=errs,
-               kernels={k: dict(ptxas=ptxas_entry(log, pb[k]), **res[k],
-                                device_us_a_call=kernel_us[k]) for k in BWD_KERNELS},
+               kernels={k: dict(ptxas=ptxas_entry(log, frag[k]), **res[k],
+                                device_us_a_call=kernel_us[k]) for k in BWD_KERNELS[path]},
                profile=prof)
     emit("ssd_bwd_timing", **row)
     return row
@@ -1830,7 +1878,14 @@ def run_ssd_bwd_kernels(dev) -> dict:
 
     t0 = time.perf_counter()
     ssd_scan.reset_launches()
-    errs = [check_ssd_bwd_case(case, dev, seed=i) for i, case in enumerate(SSD_BWD_CASES)]
+    errs, routes = [], []
+    for i, case in enumerate(SSD_BWD_CASES):
+        before = dict(ssd_scan.ssd_chunk_backward.route_launches)
+        errs.append(check_ssd_bwd_case(case, dev, seed=i))
+        routes.append(route_taken(ssd_scan.ssd_chunk_backward, before))
+        want = ("tensor_cores" if case[7] == "bfloat16" and case[4] in ssd_scan.TC_P
+                and case[5] in ssd_scan.TC_N else "cuda_cores")
+        check(routes[-1] in (want, "plain"), f"{case}: took the {routes[-1]} route, not {want}")
     launches = ssd_scan.ssd_chunk_backward.launches
     check(launches == len(SSD_BWD_CASES) or dev.type == "cpu",
           f"{launches} backward launches for {len(SSD_BWD_CASES)} cases")
@@ -1839,8 +1894,12 @@ def run_ssd_bwd_kernels(dev) -> dict:
     emit("ssd_bwd_kernels", cases=len(SSD_BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: {n: max(e[n] for c, e in zip(SSD_BWD_CASES, errs) if c[7] == dt)
                        for n in SSD_BWD_NAMES} for dt in SSD_BWD_TOL},
-         tol=SSD_BWD_TOL, ddA_tol=SSD_BWD_DDA_TOL, launches=launches, planted_faults=faults,
-         repeat=repeat, shapes=[list(c) + [e] for c, e in zip(SSD_BWD_CASES, errs)])
+         tol=SSD_BWD_TOL, ddA_tol=SSD_BWD_DDA_TOL, launches=launches,
+         launches_by_route=dict(ssd_scan.ssd_chunk_backward.route_launches),
+         cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(SSD_BWD_CASES, routes))
+                              for r in ssd_scan.ROUTES} for dt in SSD_BWD_TOL},
+         planted_faults=faults, repeat=repeat,
+         shapes=[list(c) + [t, e] for c, t, e in zip(SSD_BWD_CASES, routes, errs)])
     torch.cuda.empty_cache()
     row = time_ssd_bwd(dev, "bfloat16", iters=5)
     torch.cuda.empty_cache()
@@ -2143,7 +2202,7 @@ def profile_split(fn, dev) -> dict:
         elif "ssd_chunk" in name:
             split["ssd"] += us
         elif any(w in name for w in ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc<",
-                                     "bwd_db<")):
+                                     "bwd_db<", "bwd_dx<", "bwd_group<")):
             split["ssd_bwd"] += us
         elif any(w in name for w in ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")):
             split["gemm"] += us
@@ -2350,9 +2409,14 @@ def run_model_path(dev, spec: dict, phase: str) -> dict:
         check(served32["prefill_launches"] == want_launches and served32["decode_launches"] == 0,
               f"{phase}: the f32 run launched the kernel {served32['prefill_launches']} / "
               f"{served32['decode_launches']} times (prefill / decode)")
-        check(flash_attention.route_launches[route32] == want_launches,
+        check(route32 == "tensor_cores"
+              and flash_attention.route_launches[route32] == want_launches,
               f"{phase}: the f32 prefill's routes {dict(flash_attention.route_launches)}")
+        check(flash_module.split_bf16.launches == 2 * want_launches,
+              f"{phase}: {flash_module.split_bf16.launches} split_bf16 launches in the f32 "
+              f"prefill, not {2 * want_launches} (K and V a layer)")
         out["float32_route_launches"] = dict(flash_attention.route_launches)
+        out["float32_split_bf16_launches"] = flash_module.split_bf16.launches
         out["logits_float32"] = served_vs_forward(fam, model32, cfg32, batch, served32)
         del model32, served32
         # gated at the depth the JAX package's bf16 bounds are set for, on
@@ -3000,6 +3064,10 @@ class SSDBackwardCheck:
     def launches(self, n: int) -> None:
         self.real.launches = n
 
+    @property
+    def route_launches(self) -> dict:
+        return self.real.route_launches
+
     def __call__(self, x, dA, B, C, dy, dstates, ddecay):
         grads = self.real(x, dA, B, C, dy, dstates, ddecay)
         if len(self.errors) < self.n:
@@ -3061,6 +3129,8 @@ def ssm_train_f32_check(dev) -> dict:
         runs[name] = dict(loss=float(m["loss"]), launches=ssd_scan.ssd_chunk.launches,
                           route_launches=dict(ssd_scan.ssd_chunk.route_launches),
                           backward_launches=ssd_scan.ssd_chunk_backward.launches,
+                          backward_route_launches=dict(
+                              ssd_scan.ssd_chunk_backward.route_launches),
                           params=host_copy(dict(params.named_parameters())),
                           mu=host_copy(opt.mu))
         del params, opt, batch, m
@@ -3083,7 +3153,8 @@ def ssm_train_f32_check(dev) -> dict:
           <= 2 * SSM_TRAIN["lr"], f"SSM f32 step: updated parameters differ: {perr}")
     return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
                 params=perr, launches=k["launches"], route_launches=k["route_launches"],
-                backward_launches=k["backward_launches"])
+                backward_launches=k["backward_launches"],
+                backward_route_launches=k["backward_route_launches"])
 
 
 def run_ssm_train_path(dev, layers: int = SSM_TRAIN["layers"]) -> dict:
@@ -3116,6 +3187,7 @@ def run_ssm_train_path(dev, layers: int = SSM_TRAIN["layers"]) -> dict:
         sync(dev)
     fwd, bwd = ssd_scan.ssd_chunk.launches, ssd_scan.ssd_chunk_backward.launches
     routes = dict(ssd_scan.ssd_chunk.route_launches)
+    bwd_routes = dict(ssd_scan.ssd_chunk_backward.route_launches)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     on_card = dev.type == "cuda"
     want_fwd, want_bwd = steps * passes * cfg.num_layers * micro, steps * cfg.num_layers * micro
@@ -3123,6 +3195,8 @@ def run_ssm_train_path(dev, layers: int = SSM_TRAIN["layers"]) -> dict:
           f"{fwd} ssd_chunk forward launches in {steps} steps, not {want_fwd}")
     check(not on_card or bwd == want_bwd,
           f"{bwd} ssd_chunk backward launches in {steps} steps, not {want_bwd}")
+    check(not on_card or bwd_routes["tensor_cores"] == want_bwd,
+          f"the backward's launches by route {bwd_routes}: not all {want_bwd} on the tensor cores")
     check(len(seen.errors) == cfg.num_layers, f"{len(seen.errors)} backward calls checked")
     losses = [res["losses"][s] for s in range(steps)]
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
@@ -3144,7 +3218,8 @@ def run_ssm_train_path(dev, layers: int = SSM_TRAIN["layers"]) -> dict:
                accum_steps=micro, remat=cfg.remat, dtype=cfg.dtype, lr=SSM_TRAIN["lr"],
                step_ms=[s * 1e3 for s in step_s], warm_step_ms=warm_s * 1e3,
                tokens_per_s=SSM_TRAIN["batch"] * SSM_TRAIN["seq"] / warm_s, launches=fwd,
-               route_launches=routes, backward_launches=bwd, losses=losses,
+               route_launches=routes, backward_launches=bwd,
+               backward_route_launches=bwd_routes, losses=losses,
                layer_bwd_errors=seen.errors,
                layer_bwd_max_err={n: max(e[n] for e in seen.errors) for n in SSD_BWD_NAMES},
                peak_gib=peak / 2**30,
@@ -4148,20 +4223,30 @@ def main(argv=None) -> int:
     flash_errs, flash_routes = [], []
     t0 = time.perf_counter()
     split_check = check_split_bf16(dev)
+    splits = 0
     for i, case in enumerate(FLASH_CASES):
         before = dict(flash_attention.flash_attention.route_launches)
+        before_split = flash_attention.split_bf16.launches
         flash_errs.append(check_flash_case(case, dev, seed=i))
         flash_routes.append(route_taken(flash_attention.flash_attention, before))
-        want = flash_attention.route_for(case[5], getattr(torch, case[7]))
-        check(flash_routes[-1] == want, f"{case}: took the {flash_routes[-1]} route, not {want}")
+        check(flash_routes[-1] == "tensor_cores",
+              f"{case}: took the {flash_routes[-1]} route, not tensor_cores")
+        n_split = flash_attention.split_bf16.launches - before_split
+        check(n_split == 2 * (case[7] == "float32"),
+              f"{case}: {n_split} split_bf16 launches (K and V: 2 an f32 call)")
+        splits += n_split
     faults = [planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
+    faults.append(planted_fault(dev, "float32", shape=VLM_SHAPE))
+    repeat = flash_repeat(dev)
+    torch.cuda.empty_cache()
     emit("flash_kernels", cases=len(FLASH_CASES), seconds=time.perf_counter() - t0,
          max_abs_err={dt: max(e[0] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
                       for dt in FLASH_TOL},
          max_row_err={dt: max(e[1] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
                       for dt in FLASH_TOL},
          tol=FLASH_TOL, row_tol=FLASH_ROW_TOL, planted_fault=faults[0],
-         planted_faults_f32=faults[1], split_bf16=split_check,
+         planted_faults_f32=faults[1], planted_faults_f32_d256=faults[2],
+         repeat_f32_d256=repeat, split_bf16=split_check, split_bf16_launches=splits,
          cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(FLASH_CASES,
                                                                              flash_routes))
                               for r in flash_attention.ROUTES} for dt in FLASH_TOL},
@@ -4342,12 +4427,15 @@ def main(argv=None) -> int:
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
         "library_ms": None}, {
-        "name": "ssd_chunk_backward", "route": "cuda", "kernel_route": "cuda_cores",
+        "name": "ssd_chunk_backward", "route": "cuda", "kernel_route": ssd_bwd["row"]["route"],
         "dtype": "bfloat16", "shape": list(SSD_TRAIN_SHAPE),
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "note": "the gradient of that kernel; the JAX package has no backward kernel",
         "launches": ssm_train["backward_launches"],
+        "launches_by_route": {r: ssm_train["backward_route_launches"][r]
+                              + ssm_train["float32"]["backward_route_launches"][r]
+                              for r in ssm_train["backward_route_launches"]},
         "launches_by_path": {"ssm_train_path": ssm_train["backward_launches"],
                              "ssm_train_f32_check": ssm_train["float32"]["backward_launches"]},
         "max_abs_err": max([ssd_bwd["max_err"]] + [max(e.values())

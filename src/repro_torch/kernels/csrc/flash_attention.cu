@@ -29,8 +29,8 @@
 // input read once and the output written once is 0.6 GB, 0.18 ms at
 // 3.35 TB/s.
 //
-// Three kernels; the wrapper picks one by dtype and head dim before the
-// launch (`flash_attention.route`).
+// One kernel in two instantiations; the wrapper picks one by dtype before
+// the launch (`flash_attention.route`: both are "tensor_cores").
 //
 // bf16: `flash_attention_wgmma<D, false, kLse>`, on the tensor cores.  A bf16 x
 // bf16 product is exact in f32, so wgmma with f32 accumulation gives the
@@ -67,7 +67,7 @@
 // next S product for the P.V product (FA3's ping-pong between the two
 // warpgroups and its intra-warpgroup overlap are later work).
 //
-// f32, D in {16, 32, 64, 128}: `flash_attention_wgmma<D, true, kLse>`, the same
+// f32, every head dim: `flash_attention_wgmma<D, true, kLse>`, the same
 // kernel on split-bf16 operands.  Each f32 operand v enters as three bf16
 // pieces, hi = bf16(v), mid = bf16(v - hi) and lo = bf16(v - hi - mid),
 // with |v - hi - mid - lo| <= 2^-25 |v| (derived in hopper.cuh), and each
@@ -109,22 +109,20 @@
 // shape: six products of each of the two, 6 x 1.1e12 flops at the 989
 // TFLOP/s bf16 peak, 6.67 ms, and the pre-pass (read K and V, write three
 // pieces of each: 0.34 GB, 0.10 ms); the f32 CUDA-core peak gives the
-// function 16.41 ms.  At D = 256 the q pieces alone take 192 KB, so f32 at
-// D = 256 stays on the CUDA-core kernel.
-//
-// f32, D = 256: `flash_attention_kernel`, IEEE f32 FMAs on CUDA cores (no
-// TF32), whose 67 TFLOP/s peak makes 16 ms its floor at the serving shape.
-// One block of 256 threads per (batch*head, 64-row query tile).  The block
-// keeps its scaled queries, one KV tile (64 rows, or 32 at D = 256) of K
-// and V, and the tile's probabilities in shared memory (115 KB at D = 128,
-// 137 KB at D = 256).  Each thread owns four query rows and a 4 x (BK / 16)
-// register tile of scores, then a 4 x (D / 16) register tile of the
-// accumulator; a row's running max and sum are reduced across the 16
-// threads that share it with warp shuffles.  Row strides are padded by one
-// float against bank conflicts.  Under causal masking the KV loop stops at
-// the tile that holds the block's last query position, and blocks are
-// issued longest-first.  K and V are read through their (B, S, K, D)
-// strides; the ragged edge is masked.
+// function 16.41 ms.
+//   At D = 256 the q pieces of one 64-row warpgroup take 96 KB, so the block
+// has one consumer warpgroup (64 query rows) and the producer, 256 threads
+// with no register transfer, and KV tiles of 32 rows in two rings of one
+// stage each, K's three 16 KB pieces and V's (96 KB; 197,672 B of shared
+// memory in all): the producer loads tile j + 1's K once S of tile j has
+// read K, and its V once P.V of tile j has read V, so each load runs while
+// the consumer works on the other operand.  O at m64n256 holds 128 f32
+// registers a thread, so a tile's P.V runs in two column halves of 128,
+// each into a fresh 64-register accumulator added to its half of O.  Bound
+// at paligemma's prefill (B 4, S 4096, H 8, K 1, causal): six products of
+// 2.75e11 flops at the bf16 peak, 1.67 ms, plus the pre-pass, 0.02 ms.
+// What that bound leaves out: the S product reads its A operand (q's
+// pieces, 2 KB a k16 step) from shared memory again for every 32 keys.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,9 +137,7 @@ constexpr float kNegInf = -1e30f;  // the reference's masked score
 // ------------------------------------------ bf16 and split f32: tensor cores
 namespace tc {
 
-constexpr int kBQ = 128;        // query rows per block
 constexpr int kRowsPerWG = 64;  // query rows per consumer warpgroup
-constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
@@ -153,22 +149,32 @@ using hopper::term_b;
 
 // kSplit: f32 operands as bf16 hi, mid and lo pieces (q split by the
 // consumers, K and V by `split_bf16_kernel` beforehand); otherwise bf16.
+// Split at D = 256: one consumer warpgroup (its q pieces alone take 96 KB),
+// 32-row KV tiles in separate K and V rings of one stage each (kSepKV: the
+// next tile's K loads while this tile's V is in use, and its V while the
+// next S product runs), and P.V in two column halves of 128.
 template <int D, bool kSplit>
 struct Cfg {
+  static constexpr bool kWide = kSplit && D == 256;
+  static constexpr int kCons = kWide ? 1 : 2;                 // consumer warpgroups
+  static constexpr int kBQ = kCons * kRowsPerWG;              // query rows per block
+  static constexpr int kThreads = 128 * (kCons + 1);         // the last warpgroup produces
+  static constexpr bool kSepKV = kWide;                       // K and V rings apart
+  static constexpr int kStg = kWide ? 1 : kStages;            // stages a ring
   static constexpr int BK = kSplit ? (D >= 128 ? 32 : D >= 64 ? 64 : 128)  // KV rows a tile
                                    : (D >= 256 ? 64 : 128);
+  static constexpr int NH = kWide ? 2 : 1;          // P.V's column halves (fresh accumulators)
   static constexpr int SW = D >= 64 ? 128 : 2 * D;  // swizzle span: bytes of one chunk row
   static constexpr int CW = SW / 2;                // bf16 columns per chunk
   static constexpr int NC = D / CW;                // chunks across D
   static constexpr uint32_t kMode = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // descriptor swizzle
   static constexpr int kParts = kSplit ? 3 : 1;    // pieces of each operand: hi (, mid, lo)
   static constexpr int kWGQBytes = kRowsPerWG * D * 2;  // one piece of a warpgroup's q rows
-  static constexpr int kQBytes = 2 * kParts * kWGQBytes;
+  static constexpr int kQBytes = kCons * kParts * kWGQBytes;
   static constexpr int kTileBytes = BK * D * 2;  // one piece of one K or V tile
-  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStg + (kSepKV ? 2 : 0));
   // 1 KB of slack to align the swizzled tiles to 1 KB
-  static constexpr size_t kSmem =
-      1024 + kQBytes + 2 * kParts * kStages * kTileBytes + kBarBytes;
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kParts * kStg * kTileBytes + kBarBytes;
 };
 
 using hopper::pack_bf16;
@@ -184,12 +190,13 @@ struct Maps {
 // write each row's log-sum-exp to lse (otherwise lse is unused, and the
 // kernel is the one serving launches, compiled without that code).
 template <int D, bool kSplit, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
+__global__ void __launch_bounds__(Cfg<D, kSplit>::kThreads, 1) flash_attention_wgmma(
     const __grid_constant__ Maps maps, const float* __restrict__ q, void* __restrict__ o,
     float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal, float c) {
   using C = Cfg<D, kSplit>;
   constexpr int BK = C::BK, SW = C::SW, CW = C::CW, NC = C::NC;
-  constexpr uint32_t kPiece = kStages * C::kTileBytes;  // a piece's ring; the next follows
+  constexpr int kStg = C::kStg;
+  constexpr uint32_t kPiece = kStg * C::kTileBytes;  // a piece's ring; the next follows
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -197,30 +204,37 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
   const uint32_t q_s = base;                     // [2 WG][piece][NC][64][CW]
   const uint32_t k_s = q_s + C::kQBytes;          // [piece][stage][NC][BK][CW]
   const uint32_t v_s = k_s + C::kParts * kPiece;  // [piece][stage][NC][BK][CW]
-  const uint32_t bars = v_s + C::kParts * kPiece; // q, full[stages], empty[stages]
+  const uint32_t bars = v_s + C::kParts * kPiece; // q, full[stages], empty[stages] (, V's)
   const uint32_t q_bar = bars;
+  // kSepKV: full and empty are K's ring, vfull and vempty V's
   auto full_bar = [&](int s) { return bars + 8u * (1 + s); };
-  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto empty_bar = [&](int s) { return bars + 8u * (1 + kStg + s); };
+  const uint32_t vfull_bar = bars + 8u * (1 + 2 * kStg), vempty_bar = vfull_bar + 8u;
 
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const int kvh = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal rows first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;  // longest causal rows first
   int n_kv = (Sk + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / BK + 1);  // tiles at or before the last row
+  if (causal) n_kv = min(n_kv, (q0 + C::kBQ - 1) / BK + 1);  // tiles at or before the last row
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_bar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStg; ++s) {
       hopper::mbar_init(full_bar(s), 1);
-      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+      hopper::mbar_init(empty_bar(s), C::kCons * 128);  // every consumer thread arrives
+    }
+    if constexpr (C::kSepKV) {
+      hopper::mbar_init(vfull_bar, 1);
+      hopper::mbar_init(vempty_bar, C::kCons * 128);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {  // ------------------------------------------ producer
-    hopper::setmaxnreg_dec<kProducerRegs>();
+  if (wg == C::kCons) {  // ------------------------------------ producer
+    // (with one consumer the block has 256 threads and needs no transfer)
+    if constexpr (C::kCons == 2) hopper::setmaxnreg_dec<kProducerRegs>();
     if (tid == 0) {
       if constexpr (!kSplit) {  // split: the consumers build their q pieces
         const int halves = Sq - q0 > kRowsPerWG ? 2 : 1;  // no box wholly past Sq
@@ -231,8 +245,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
                                 cc * CW, h, q0 + w * kRowsPerWG, b);
       }
       for (int j = 0; j < n_kv; ++j) {
-        const int s = j % kStages;
-        hopper::mbar_wait(empty_bar(s), ((j / kStages) & 1) ^ 1);
+        const int s = j % kStg;
+        hopper::mbar_wait(empty_bar(s), ((j / kStg) & 1) ^ 1);
+        if constexpr (C::kSepKV) {  // K of tile j once S of tile j - 1 is done, then its V
+          hopper::mbar_expect_tx(full_bar(s), C::kParts * C::kTileBytes);
+          for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+            for (int piece = 0; piece < C::kParts; ++piece)
+              hopper::tma_load_4d(k_s + piece * kPiece + s * C::kTileBytes + cc * BK * SW,
+                                  &maps.k[piece], full_bar(s), cc * CW, kvh, j * BK, b);
+          hopper::mbar_wait(vempty_bar, (j & 1) ^ 1);
+          hopper::mbar_expect_tx(vfull_bar, C::kParts * C::kTileBytes);
+          for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+            for (int piece = 0; piece < C::kParts; ++piece)
+              hopper::tma_load_4d(v_s + piece * kPiece + cc * BK * SW, &maps.v[piece], vfull_bar,
+                                  cc * CW, kvh, j * BK, b);
+          continue;
+        }
         hopper::mbar_expect_tx(full_bar(s), 2 * C::kParts * C::kTileBytes);
         for (int cc = 0; cc < NC; ++cc) {
           const uint32_t off = s * C::kTileBytes + cc * BK * SW;
@@ -246,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
       }
     }
   } else {  // ----------------------------------------------- consumers
-    hopper::setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (C::kCons == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
     const int warp = tid / 32, lane = tid % 32;
     const int qw0 = q0 + wg * kRowsPerWG;          // this warpgroup's first row
     const int r0 = qw0 + 16 * warp + lane / 4;     // this thread's rows: r0 and r0 + 8
@@ -303,8 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
       hopper::mbar_wait(q_bar, 0);
     }
     for (int j = 0; j < n_kv; ++j) {
-      const int st = j % kStages;
-      hopper::mbar_wait(full_bar(st), (j / kStages) & 1);
+      const int st = j % kStg;
+      hopper::mbar_wait(full_bar(st), (j / kStg) & 1);
       if (j < n_w) {
         const int k0 = j * BK;
         const uint32_t kt = k_s + st * C::kTileBytes, vt = v_s + st * C::kTileBytes;
@@ -331,6 +361,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
+        if constexpr (C::kSepKV) hopper::mbar_arrive(empty_bar(st));  // K's tile is read
 
         if (k0 + BK > Sk || (causal && k0 + BK - 1 > qw0)) {  // diagonal or ragged tile
           const int kc = k0 + 2 * (lane % 4);
@@ -385,25 +416,34 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
             for (int e = 0; e < 4; ++e)
               hopper::split3_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], pp[0][kk][e],
                                   pp[1][kk][e], pp[2][kk][e]);
-          float tile[D / 2];
-          hopper::wgmma_fence();
+          if constexpr (C::kSepKV) hopper::mbar_wait(vfull_bar, j & 1);
+          // At D = 256 in two column halves, each with its own fresh accumulator
+          // (two of D / 2 columns would not fit beside O's 128 registers).
+          constexpr int DH = D / C::NH;
 #pragma unroll
-          for (int t = 0; t < 6; ++t)
+          for (int half = 0; half < C::NH; ++half) {
+            float tile[DH / 2];
+            const uint32_t vh = vt + half * (DH / CW) * BK * SW;  // the half's first chunk
+            hopper::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)
-              hopper::wgmma_rs(tile, pp[term_a(t)][kk],
-                               hopper::make_desc(vt + term_b(t) * kPiece + kk * 16 * SW,
-                                                 BK * SW, 8 * SW, C::kMode),
-                               t > 0 || kk > 0);
-          hopper::wgmma_commit();
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(tile);
+            for (int t = 0; t < 6; ++t)
 #pragma unroll
-          for (int i = 0; i < D / 8; ++i) {
-            acc[4 * i] = fmaf(acc[4 * i], corr0, tile[4 * i]);
-            acc[4 * i + 1] = fmaf(acc[4 * i + 1], corr0, tile[4 * i + 1]);
-            acc[4 * i + 2] = fmaf(acc[4 * i + 2], corr1, tile[4 * i + 2]);
-            acc[4 * i + 3] = fmaf(acc[4 * i + 3], corr1, tile[4 * i + 3]);
+              for (int kk = 0; kk < BK / 16; ++kk)
+                hopper::wgmma_rs(tile, pp[term_a(t)][kk],
+                                 hopper::make_desc(vh + term_b(t) * kPiece + kk * 16 * SW,
+                                                   BK * SW, 8 * SW, C::kMode),
+                                 t > 0 || kk > 0);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(tile);
+            float* const ah = acc + half * (DH / 2);
+#pragma unroll
+            for (int i = 0; i < DH / 8; ++i) {
+              ah[4 * i] = fmaf(ah[4 * i], corr0, tile[4 * i]);
+              ah[4 * i + 1] = fmaf(ah[4 * i + 1], corr0, tile[4 * i + 1]);
+              ah[4 * i + 2] = fmaf(ah[4 * i + 2], corr1, tile[4 * i + 2]);
+              ah[4 * i + 3] = fmaf(ah[4 * i + 3], corr1, tile[4 * i + 3]);
+            }
           }
         } else {
 #pragma unroll
@@ -433,8 +473,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma(
           hopper::wgmma_wait<0>();
           hopper::fence_regs(acc);
         }
+        if constexpr (C::kSepKV) hopper::mbar_arrive(vempty_bar);  // V's tile is read
+      } else if constexpr (C::kSepKV) {  // a tile this warpgroup skips: release both
+        hopper::mbar_arrive(empty_bar(st));
+        hopper::mbar_wait(vfull_bar, j & 1);
+        hopper::mbar_arrive(vempty_bar);
       }
-      hopper::mbar_arrive(empty_bar(st));
+      if constexpr (!C::kSepKV) hopper::mbar_arrive(empty_bar(st));
     }
 
     if (n_w > 0) {
@@ -517,8 +562,8 @@ cudaError_t run(const Maps& maps, const void* q, void* o, float* lse, int B, int
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_wgmma<D, kSplit, kLse><<<grid, kThreads, C::kSmem, stream>>>(
+  const dim3 grid(B * H, (Sq + C::kBQ - 1) / C::kBQ);
+  flash_attention_wgmma<D, kSplit, kLse><<<grid, C::kThreads, C::kSmem, stream>>>(
       maps, kSplit ? static_cast<const float*>(q) : nullptr, o, lse, Sq, Sk, H, K, causal,
       scale * kLog2e);
   return cudaGetLastError();
@@ -585,253 +630,51 @@ __global__ void split_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* 
 
 }  // namespace tc
 
-// ------------------------------------------- f32 at D = 256: CUDA cores
-namespace cc {
-
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kThreads = 256;    // 16 x 16: ty picks rows, tx picks columns
-constexpr int kRows = kBQ / 16;  // query rows per thread
-
-template <int D>
-struct Tile {
-  static constexpr int BK = D >= 256 ? 32 : 64;  // KV rows per shared-memory tile
-};
-
-template <int D>
-size_t smem_bytes() {
-  constexpr int BK = Tile<D>::BK;
-  return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-                          (size_t)kBQ * (BK + 1));
-}
-
-__device__ inline float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ inline float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
-    float scale) {
-  constexpr int BK = Tile<D>::BK;
-  constexpr int CJ = BK / 16;  // score columns per thread
-  constexpr int DJ = D / 16;   // accumulator columns per thread
-  constexpr int QS = D + 1;    // padded row stride of qs and ks
-  constexpr int PS = BK + 1;   // padded row stride of ps
-  extern __shared__ float smem[];
-  float* qs = smem;             // kBQ x QS  scaled queries
-  float* ks = qs + kBQ * QS;    // BK x QS   keys
-  float* vs = ks + BK * QS;     // BK x D    values
-  float* ps = vs + BK * D;      // kBQ x PS  probabilities
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.y / H, h = blockIdx.y - b * H;
-  const int kvh = h / (H / K);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest causal rows first
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
-  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const float* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    qs[r * QS + d] = q0 + r < Sq ? qb[(size_t)(q0 + r) * q_row + d] * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][DJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int dj = 0; dj < DJ; ++dj) acc[i][dj] = 0.f;
-  }
-
-  int n_kv = (Sk + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ + BK - 1) / BK);  // tiles at or before the last row
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // qs written (first tile); last tile's ks, vs, ps read
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int c = e / D, d = e - c * D;
-      const bool in = k0 + c < Sk;
-      const size_t off = (size_t)(k0 + c) * kv_row + d;
-      ks[c * QS + d] = in ? kb[off] : 0.f;
-      vs[c * D + d] = in ? vb[off] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows][CJ];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) kv[c] = ks[(tx + 16 * c) * QS + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        if (kpos >= Sk || (causal && kpos > qpos)) s[i][c] = kNegInf;
-        mx = fmaxf(mx, s[i][c]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        sum += p;
-        ps[r * PS + tx + 16 * c] = p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = corr * l[i] + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int dj = 0; dj < DJ; ++dj) acc[i][dj] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[kRows], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int dj = 0; dj < DJ; ++dj) vv[dj] = vs[c * D + tx + 16 * dj];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int dj = 0; dj < DJ; ++dj) acc[i][dj] = fmaf(pv[i], vv[dj], acc[i][dj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-20f);
-    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * Sq + r] = m[i] + logf(l[i]);
-    float* orow = o + ((size_t)b * Sq + r) * q_row + (size_t)h * D;
-#pragma unroll
-    for (int dj = 0; dj < DJ; ++dj) orow[tx + 16 * dj] = acc[i][dj] / den;
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int Sq, int Sk, int H, int K, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Sq, Sk, H, K, causal, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t resources(int* regs, int* smem) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_kernel<D>);
-  *regs = attr.numRegs;
-  *smem = (int)(attr.sharedSizeBytes + smem_bytes<D>());
-  return err;
-}
-
-}  // namespace cc
-
-#define FLASH_SPLIT , true
-#define FLASH_BF16 , false
-#define FLASH_CC
-#define FLASH_DISPATCH(FN, TAIL, ...)                        \
+// Every head dim on both routes (kSplit true: f32 as bf16 pieces).
+#define FLASH_DISPATCH(FN, SPLIT, ...)                       \
   switch (D) {                                               \
-    case 16: return FN<16 TAIL>(__VA_ARGS__);                \
-    case 32: return FN<32 TAIL>(__VA_ARGS__);                \
-    case 64: return FN<64 TAIL>(__VA_ARGS__);                \
-    case 128: return FN<128 TAIL>(__VA_ARGS__);              \
-    case 256: return FN<256 TAIL>(__VA_ARGS__);              \
-    default: return cudaErrorInvalidValue;                   \
-  }
-// The split route's head dims: at D = 256 its q pieces alone take 192 KB.
-#define FLASH_SPLIT_DISPATCH(FN, ...)                        \
-  switch (D) {                                               \
-    case 16: return FN<16, true>(__VA_ARGS__);               \
-    case 32: return FN<32, true>(__VA_ARGS__);               \
-    case 64: return FN<64, true>(__VA_ARGS__);               \
-    case 128: return FN<128, true>(__VA_ARGS__);             \
+    case 16: return FN<16, SPLIT>(__VA_ARGS__);              \
+    case 32: return FN<32, SPLIT>(__VA_ARGS__);              \
+    case 64: return FN<64, SPLIT>(__VA_ARGS__);              \
+    case 128: return FN<128, SPLIT>(__VA_ARGS__);            \
+    case 256: return FN<256, SPLIT>(__VA_ARGS__);            \
     default: return cudaErrorInvalidValue;                   \
   }
 
-cudaError_t dispatch(int D, int is_bf16, const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int Sq, int Sk, int H, int K, int causal, float scale,
-                     cudaStream_t st) {
-  if (is_bf16) {
-    const void* const kp[1] = {k};
-    const void* const vp[1] = {v};
-    FLASH_DISPATCH(tc::launch, FLASH_BF16, q, kp, vp, o, lse, B, Sq, Sk, H, K, causal, scale, st)
-  }
-  FLASH_DISPATCH(cc::launch, FLASH_CC, q, k, v, o, lse, B, Sq, Sk, H, K, causal, scale, st)
-}
-
-// kernel: 0 the f32 CUDA-core kernel, 1 the bf16 tensor-core kernel, 2 the
-// split (f32) tensor-core kernel.
+// kernel: 1 the bf16 kernel, 2 the split (f32) kernel.
 cudaError_t dispatch_resources(int D, int kernel, int* regs, int* smem) {
-  if (kernel == 2) FLASH_SPLIT_DISPATCH(tc::resources, regs, smem)
-  if (kernel == 1) FLASH_DISPATCH(tc::resources, FLASH_BF16, regs, smem)
-  FLASH_DISPATCH(cc::resources, FLASH_CC, regs, smem)
+  if (kernel == 2) FLASH_DISPATCH(tc::resources, true, regs, smem)
+  if (kernel == 1) FLASH_DISPATCH(tc::resources, false, regs, smem)
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, Sq, H, D); k, v: (B, Sk, K, D); all contiguous, of one type
-// (bf16 when is_bf16: the tensor-core kernel; else f32: the CUDA-core
-// kernel); bf16 pointers 16-byte aligned (TMA).  lse: null, or (B, H, Sq)
-// f32 for each row's log-sum-exp (natural log, of the scaled scores
-// s = scale * q.k over the unmasked keys), which the backward reads.
-// Returns the launch's cudaError_t.
+// bf16: q, o (B, Sq, H, D); k, v (B, Sk, K, D); all contiguous and
+// 16-byte aligned (TMA).  lse: null, or (B, H, Sq) f32 for each row's
+// log-sum-exp (natural log, of the scaled scores s = scale * q.k over the
+// unmasked keys), which the backward reads.  Returns the launch's
+// cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int B, int Sq, int Sk, int H, int K, int D, int causal, int is_bf16,
-                           float scale, void* stream) {
+                           int B, int Sq, int Sk, int H, int K, int D, int causal, float scale,
+                           void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(D, is_bf16, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, K,
-                       causal, scale, static_cast<cudaStream_t>(stream));
+  const void* const kp[1] = {k};
+  const void* const vp[1] = {v};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  FLASH_DISPATCH(tc::launch, false, q, kp, vp, o, l, B, Sq, Sk, H, K, causal, scale, st)
 }
 
 // The split route: q, o (B, Sq, H, D) f32; k_pieces and v_pieces, 3
 // pointers each, to the bf16 hi, mid and lo pieces (B, Sk, K, D) of K and V
-// (split_bf16_launch); D in {16, 32, 64, 128}; all contiguous and 16-byte
-// aligned; lse as flash_attention_launch takes it.  Returns the launch's
-// cudaError_t; any other D returns cudaErrorInvalidValue and launches
-// nothing.
+// (split_bf16_launch); D in {16, 32, 64, 128, 256}; all contiguous and
+// 16-byte aligned; lse as flash_attention_launch takes it.  Returns the
+// launch's cudaError_t; any other D returns cudaErrorInvalidValue and
+// launches nothing.
 int flash_attention_split_launch(const void* q, const void* const* k_pieces,
                                  const void* const* v_pieces, void* o, void* lse, int B, int Sq,
                                  int Sk, int H, int K, int D, int causal, float scale,
@@ -841,8 +684,8 @@ int flash_attention_split_launch(const void* q, const void* const* k_pieces,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  FLASH_SPLIT_DISPATCH(tc::launch, q, k_pieces, v_pieces, o, l, B, Sq, Sk, H, K, causal, scale,
-                       st)
+  FLASH_DISPATCH(tc::launch, true, q, k_pieces, v_pieces, o, l, B, Sq, Sk, H, K, causal, scale,
+                 st)
 }
 
 // src (n f32) -> hi, mid, lo (n bf16 each): hi = bf16(src), mid = bf16(src -

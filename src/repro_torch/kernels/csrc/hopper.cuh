@@ -143,6 +143,26 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// 16 bytes of device memory into shared memory without passing through
+// registers (cp.async, cached in L2 only); the first `bytes` (0 or 16) come
+// from src, the rest are zeros.  Complete after cp_async_commit and
+// cp_async_wait<0>; then a barrier makes them visible to the block, and
+// fence_proxy_async to wgmma.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // Barrier `id` (1..15; 0 is __syncthreads) over kThreads threads, whole warps.
 template <int kThreads>
 __device__ __forceinline__ void named_sync(int id) {
@@ -204,6 +224,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // m64nNk16, bf16 x bf16 -> f32; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"

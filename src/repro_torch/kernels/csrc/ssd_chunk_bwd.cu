@@ -38,15 +38,57 @@
 // dB, dC (bf16) and ddA (f32): 0.87 GB, 0.26 ms at 3.35 TB/s.  Its
 // multiply-adds on the causal pairs, dM and M^T dy over P and the two state
 // products per head, S, dC and dB per chunk and group, are 8.8e10 flops
-// (chip_smoke.py `ssd_bwd_bound`): 0.09 ms at the bf16 tensor-core peak,
-// 1.3 ms at the 67 TFLOP/s f32 CUDA-core peak this kernel runs on.
+// (chip_smoke.py `ssd_bwd_bound`): 1.3 ms at the 67 TFLOP/s f32 CUDA-core
+// peak; the tensor-core route's bf16 products of pieces (2.2e11 flops) take
+// 0.22 ms at the 989 TFLOP/s bf16 peak, so there bytes bound it.
 //
-// Design: five kernels on the CUDA cores, IEEE f32, one launch a call from
-// the wrapper's point of view.
-//   1. `bwd_scores`: S = C B^T once per chunk and group (not per head), for
-//      the rows of a 32-row tile and the columns that reach them, written
-//      to a device scratch twice: row-major S and its transpose, so that the
-//      per-head kernel reads both along a warp's 32 consecutive addresses.
+// Two routes; the wrapper picks one before the launch
+// (`ssd_scan.backward_route`).  Both compute S = C B^T once per chunk and
+// group into a device scratch first and end with `bwd_dc` (dC = (sum_h
+// dS_h) B from the scratch's group sums, CUDA cores); cum goes through the
+// scratch too.
+//
+// bf16 x, B and C at the forward's tensor-core shapes (P in {16, 32, 64}, N
+// in {16, 32, 64, 128}, 16-byte alignment): `tc::bwd_scores` (S^T, one
+// wgmma chain a 64 x 64 tile), `tc::bwd_dx` and `tc::bwd_group`, on
+// wgmma.  The bf16 inputs are exact as one bf16 piece; every f32 operand of
+// a product (dy, dst, M = S * L, w * x, sum dS) enters as bf16 hi + lo
+// (hopper::split_bf16, within 2^-17 of the value), and each product runs
+// as the products of pieces, small terms first: a dropped lo
+// piece of dy or dst moves ddA past its 1e-4 limit (CPU emulation,
+// tests/test_torch_ssd_bwd_tc.py).  All work is laid out on the transposed
+// tiles (rows j, columns i >= j): S^T's rows are M^T's, which is the A
+// operand of dx's product straight from the accumulator's registers.
+//   `tc::bwd_dx`: one block of two warpgroups per chunk and head.  x and B
+// arrive by TMA while the threads split dy and dst into swizzled bf16
+// pieces; warpgroup min(b, nt-1-b) % 2 takes row band b (bands 0 and 3, 1
+// and 2 at Q 256: five 64 x 64 tiles each): v_j = B_j dst^T (wgmma, B
+// exact), u_j = w_j x_j . v_j, dx_j = w_j v_j; per column tile i >= j, dM^T
+// = x_j dy_i^T (wgmma), M^T = S^T exp(cum_i - cum_j) selected to 0 for i <
+// j (S^T's tile read from the scratch a tile ahead), G^T = dM^T M^T summed
+// by rows (colG_j) and by columns (the band's share of rowG_i, summed over
+// bands in order through shared memory), dx_j += M^T dy_i (wgmma from
+// registers).  Then dcum and ddA as the CUDA-core route; the head's cum to
+// the scratch.  207,880 B of shared memory at the training shape: one block
+// a SM, so a block's staging is not overlapped with any tile's products.
+//   `tc::bwd_group`: one block of two warpgroups per chunk, group and row
+// band j (bands on the grid's slow axis, the heavy ones first): for each
+// head of the group in head order, its x rows of the band (TMA), dy rows i
+// >= j (TMA), dst and cum (bulk copies) land in shared memory on one
+// mbarrier while the previous head's products run, and the threads split dy
+// and dst into pieces.  Warpgroup k keeps the sum over heads of dS^T = (x_j
+// dy_i^T) L^T for the tiles i = j + k, j + k + 2 in registers (f32, head
+// order), and the warpgroup of the head's parity adds its state term (w
+// x)_j dst to its dB accumulator (wgmma: w x split in registers, dst
+// MN-major).  At the end each adds (sum dS^T)_ji C_i (C by cp.async), writes
+// its sums to the scratch as (sum_h dS_h)[i][j], and warpgroup 0 adds
+// warpgroup 1's accumulator and stores dB_j: no atomics anywhere, so two
+// calls give the same bits.
+//
+// Every other call (f32 inputs, P 8 or 24, N 48, misaligned slices): five
+// kernels on the CUDA cores, IEEE f32.
+//   1. `bwd_scores`: S = C B^T for a 32-row tile and the columns that reach
+//      it, written row-major and transposed.
 //   2. `bwd_head`: one block per chunk and head, 512 threads, a pair of
 //      threads owning row/column j with half the head dim each (their
 //      partial dot products meet by a shuffle).  x and dy of the head sit
@@ -54,9 +96,9 @@
 //      staged 32 state columns at a time; then row j walks i >= j for dx_j
 //      and G's column sum (the warp walks its 16 rows' span together, so
 //      dy's row is a broadcast and S's row a coalesced load, 8 rows of S
-//      loaded a group ahead), and row i walks j < i for G's row sum.  A fixed tree sums u; warp 0 scans cum
-//      forward and dcum backward.  The head's cum goes to the scratch for
-//      kernels 3 and 5.
+//      loaded a group ahead), and row i walks j < i for G's row sum.  A
+//      fixed tree sums u; warp 0 scans cum forward and dcum backward.  The
+//      head's cum goes to the scratch for kernels 3 and 5.
 //   3. `bwd_dssum`: the group reduction.  sum_h dS_h is a (Q, Q) f32 tile,
 //      256 KB at Q 256, more than a block's shared memory, so one block owns
 //      a 64 x 64 tile (I, J <= I) of it (10 blocks a chunk and group at Q
@@ -70,14 +112,12 @@
 // B and C are read as `ssd_chunk` takes them, strided slices of the
 // projection (a token stride each); x likewise; dy, dst, ddec and dA are
 // contiguous and the outputs are written contiguous.
-//
-// Where it is slow: kernel 2 holds 177 KB of shared memory, one block (16
-// warps) a SM, and its two triangular walks leave warps idle (warp 0 walks
-// 256 rows in pass 1, warp 15 16); it takes most of a call.  Moving the
-// products onto the tensor cores with a fixed-order group reduction is the
-// next step (ROADMAP).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -682,6 +722,850 @@ cudaError_t resources_pb(int PB, int which, int* regs, int* smem) {
   }
 }
 
+// --------------------------------------------------- bf16: tensor cores
+namespace tc {
+
+constexpr int kRows = 64;      // rows of a tile (a band): one warpgroup's wgmma M
+constexpr int kTcThreads = 256;  // two warpgroups
+
+using hopper::split_bf16;
+using hopper::swz;
+
+template <int P, int N>
+struct Cfg {
+  static constexpr int SWX = 2 * P;                  // x, dy: one swizzled chunk of P columns
+  static constexpr uint32_t kModeX = SWX == 128 ? 1 : SWX == 64 ? 2 : 3;
+  static constexpr int SWB = N >= 64 ? 128 : 2 * N;  // B, C, dst: chunks of SWB bytes
+  static constexpr int CWB = SWB / 2;                // bf16 columns a chunk
+  static constexpr int NCB = N / CWB;                // chunks across N
+  static constexpr uint32_t kModeB = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
+  static constexpr int LW = P < 32 ? P : 32;         // f32 dy columns a TMA box (128 B at most)
+};
+
+__host__ __device__ constexpr uint32_t kb_up(uint32_t bytes) { return (bytes + 1023u) & ~1023u; }
+
+// Rows [r0, r1) of a (rows, W) bf16 operand whose row t starts at src + t
+// tok into a swizzled tile [W / (SW / 2)][rows_pad][SW] at shared address
+// dst (row t at its own index), as TMA would write it; zeros from row Q on.
+// By cp.async, 16 bytes a thread at a time: complete once the caller has
+// committed and waited.
+template <int W, int SW>
+__device__ __forceinline__ void load_bf16(uint32_t dst, const __nv_bfloat16* src, long long tok,
+                                          int r0, int r1, int Q, int rows_pad) {
+  constexpr int CW = SW / 2, U = W / 8;
+  const int units = (r1 - r0) * U;
+  for (int u = threadIdx.x; u < units; u += kTcThreads) {
+    const int t = r0 + u / U, col = (u % U) * 8;
+    const bool in = t < Q;
+    hopper::cp_async16(dst + (col / CW) * rows_pad * SW + swz(t * SW + (col % CW) * 2, SW),
+                       in ? src + (size_t)t * tok + col : src, in ? 16u : 0u);
+  }
+}
+
+// Eight f32 values as bf16 hi and lo pieces (hopper::split_bf16), stored as
+// one 16-byte unit each at byte offset `off` of hi and lo.
+__device__ __forceinline__ void split_unit(uint8_t* hi, uint8_t* lo, uint32_t off, float4 a,
+                                           float4 b) {
+  uint4 h, l;
+  split_bf16(a.x, a.y, h.x, l.x);
+  split_bf16(a.z, a.w, h.y, l.y);
+  split_bf16(b.x, b.y, h.z, l.z);
+  split_bf16(b.z, b.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
+// Rows [r0, r1) of a (rows, W) f32 operand (row t at src + t tok) as bf16
+// hi and lo pieces in two swizzled tiles laid out as load_bf16's; zeros from
+// row Q on.  Every thread keeps KB 16-byte units' loads in flight before it
+// stores any.
+template <int W, int SW, int KB>
+__device__ __forceinline__ void stage_split(uint8_t* hi, uint8_t* lo, const float* src,
+                                            long long tok, int r0, int r1, int Q, int rows_pad) {
+  constexpr int CW = SW / 2, U = W / 8;
+  const int units = (r1 - r0) * U;
+  for (int u0 = threadIdx.x; u0 < units; u0 += KB * kTcThreads) {
+    float4 v[KB][2];
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int u = u0 + b * kTcThreads, t = r0 + u / U, col = (u % U) * 8;
+      v[b][0] = v[b][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (u < units && t < Q) {
+        const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)t * tok + col);
+        v[b][0] = s4[0];
+        v[b][1] = s4[1];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int u = u0 + b * kTcThreads, t = r0 + u / U, col = (u % U) * 8;
+      if (u >= units) break;
+      split_unit(hi, lo, (col / CW) * rows_pad * SW + swz(t * SW + (col % CW) * 2, SW), v[b][0],
+                 v[b][1]);
+    }
+  }
+}
+
+// Rows [r0, r1) of a (rows, W) f32 tile in shared memory, landed in column
+// pieces of LW floats ([W / LW][rows_pad][LW], as TMA boxes LW wide leave
+// it; LW = W: plain rows), as bf16 hi and lo pieces laid out as
+// stage_split's.  Every thread reads KB units before it splits any.
+template <int W, int SW, int LW, int KB>
+__device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, const float* src, int r0,
+                                           int r1, int rows_pad) {
+  constexpr int CW = SW / 2, U = W / 8;
+  const int units = (r1 - r0) * U;
+  for (int u0 = threadIdx.x; u0 < units; u0 += KB * kTcThreads) {
+    float4 v[KB][2];
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int u = u0 + b * kTcThreads, t = r0 + u / U, col = (u % U) * 8;
+      if (u < units) {
+        const float4* s4 = reinterpret_cast<const float4*>(
+            src + ((size_t)(col / LW) * rows_pad + t) * LW + col % LW);
+        v[b][0] = s4[0];
+        v[b][1] = s4[1];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int u = u0 + b * kTcThreads, t = r0 + u / U, col = (u % U) * 8;
+      if (u >= units) break;
+      split_unit(hi, lo, (col / CW) * rows_pad * SW + swz(t * SW + (col % CW) * 2, SW), v[b][0],
+                 v[b][1]);
+    }
+  }
+}
+
+// Columns i0 .. i0 + 63 of rows r0 and r1 of S^T (bwd_scores' scratch, row
+// j at St + j Q), in the accumulator layout: entries i < j, which bwd_scores
+// never wrote, and those past Q are not read.
+__device__ __forceinline__ void load_st(float (&s)[32], const float* St, int i0, int r0, int r1,
+                                        int Q, int cq) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int col = i0 + 8 * jj + cq;
+    float2 a = make_float2(0.f, 0.f), d = make_float2(0.f, 0.f);
+    if (col < Q && r0 < Q && col + 1 >= r0)
+      a = *reinterpret_cast<const float2*>(St + (size_t)r0 * Q + col);
+    if (col < Q && r1 < Q && col + 1 >= r1)
+      d = *reinterpret_cast<const float2*>(St + (size_t)r1 * Q + col);
+    s[4 * jj] = a.x;
+    s[4 * jj + 1] = a.y;
+    s[4 * jj + 2] = d.x;
+    s[4 * jj + 3] = d.y;
+  }
+}
+
+// exp(x) as the special-function unit gives it (ex2.approx of x log2(e),
+// within a few ulp where |x| is small; results below 2^-126 flush to 0):
+// two instructions and no branch, so the masked loops below interleave.
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// Columns (col, col + 1) of row t of a swizzled one-chunk tile of SW-byte
+// rows, widened to f32.
+template <int SW>
+__device__ __forceinline__ float2 tile_pair(const uint8_t* tile, int t, int col) {
+  const __nv_bfloat162 v =
+      *reinterpret_cast<const __nv_bfloat162*>(tile + swz(t * SW + col * 2, SW));
+  return __bfloat1622float2(v);
+}
+
+// 1, tensor cores.  S^T = B C^T of chunk c and group g for row band j and
+// its column tiles i >= j, to the scratch as S^T[j][i] (row-major: the
+// layout bwd_dx reads).  bf16 x bf16 products are exact in f32, so S^T is
+// the CUDA-core kernel's up to the order of summation.  One block of two
+// warpgroups a band (warpgroup k takes the tiles i = j + k, j + k + 2); B's
+// band rows and C's rows i >= j arrive by cp.async; grid (nc * G, nt).
+template <int P, int N>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_scores(
+    const __nv_bfloat16* __restrict__ B, const __nv_bfloat16* __restrict__ C,
+    float* __restrict__ St, int Q, int G, long long sB, long long sC) {
+  using K = Cfg<P, N>;
+  constexpr int SWB = K::SWB, CWB = K::CWB;
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t b_s = base, c_s = base + kb_up(K::NCB * kRows * SWB);
+  const int cgi = blockIdx.x, c = cgi / G, g = cgi % G, j = blockIdx.y, j0 = j * kRows;
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+  load_bf16<N, SWB>(b_s, B + ((size_t)c * Q + j0) * sB + (size_t)g * N, sB, 0, kRows, Q - j0,
+                    kRows);
+  load_bf16<N, SWB>(c_s, C + (size_t)c * Q * sC + (size_t)g * N, sC, j0, qpad, Q, qpad);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();
+  const int r0 = j0 + 16 * warp + lane / 4, r1 = r0 + 8, cq = 2 * (lane % 4);
+  float* const out = St + (size_t)cgi * Q * Q;
+  for (int i = j + wg; i < nt; i += 2) {
+    const int i0 = i * kRows;
+    float acc[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
+      hopper::wgmma_ss(acc, hopper::make_desc(b_s + ch * kRows * SWB + col, 16, 8 * SWB, K::kModeB),
+                       hopper::make_desc(c_s + ch * qpad * SWB + i0 * SWB + col, 16, 8 * SWB,
+                                         K::kModeB),
+                       kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = i0 + 8 * jj + cq;
+      if (col >= Q) continue;
+      if (r0 < Q)
+        *reinterpret_cast<float2*>(out + (size_t)r0 * Q + col) =
+            make_float2(acc[4 * jj], acc[4 * jj + 1]);
+      if (r1 < Q)
+        *reinterpret_cast<float2*>(out + (size_t)r1 * Q + col) =
+            make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+  }
+}
+
+template <int P, int N>
+__host__ __device__ constexpr uint32_t scores_smem_bytes(int qpad) {
+  using K = Cfg<P, N>;
+  return 1024 + kb_up(K::NCB * kRows * K::SWB) + kb_up(K::NCB * qpad * K::SWB);
+}
+
+// The row (column) band a warpgroup of bwd_dx owns: bands b and nt - 1 - b
+// go together, pairs alternating between the two warpgroups, so that each
+// walks about half of the causal tiles.
+__device__ __forceinline__ int band_owner(int b, int nt) { return min(b, nt - 1 - b) % 2; }
+
+template <int P, int N>
+__host__ __device__ constexpr uint32_t dx_smem_bytes(int qpad) {
+  using K = Cfg<P, N>;
+  return 1024 + 3 * kb_up(qpad * K::SWX) + kb_up(K::NCB * qpad * K::SWB) +
+         2 * kb_up(K::NCB * P * K::SWB) + 4 * (2 * kMaxQ + 4 * kMaxQ + 2 * 4 * kRows + 2 * kMaxQ) +
+         8;
+}
+
+// 2, tensor cores.  dx, ddA (and the head's cum, to `cum_out`) of chunk c
+// and head h: one block of two warpgroups; grid (nc * H).  The head's x,
+// dy (split into hi and lo), its group's B and its dst (split) are staged
+// in shared memory as swizzled wgmma operands.  Warpgroup `band_owner(b)`
+// takes row band b of the transposed tiles (rows j, columns i >= j):
+//   v_j    = B_j dst^T                  wgmma from shared memory (B exact, dst lo then hi)
+//   u_j    = w_j x_j . v_j,   dx_j = w_j v_j
+//   per column tile i:
+//     dM^T = x_j dy_i^T                 wgmma, dy lo then hi
+//     M^T  = S^T exp(cum_i - cum_j)     S^T (bwd_scores' scratch) read while dM^T runs;
+//                                       selected to 0 where i < j or past Q
+//     G^T  = dM^T M^T (i > j): row sums to colG_j, column sums to this
+//            band's share of rowG_i (shared memory, summed over bands in order)
+//     dx_j += M^T dy_i                  M^T split hi + lo in registers (the A operand),
+//                                       dy MN-major: lo.hi, hi.lo, hi.hi
+// Then dcum_i = rowG_i - colG_i - u_i (+ sum u + ddec dec at Q - 1) and
+// ddA its reverse cumsum, as the CUDA-core kernel does.
+template <int P, int N>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const float* __restrict__ dA, const float* __restrict__ dy,
+    const float* __restrict__ dst, const float* __restrict__ ddec, const float* __restrict__ St,
+    __nv_bfloat16* __restrict__ dx, float* __restrict__ ddA, float* __restrict__ cum_out, int Q,
+    int H, int G) {
+  using K = Cfg<P, N>;
+  constexpr int SWX = K::SWX, SWB = K::SWB, CWB = K::CWB;
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t xb = kb_up(qpad * SWX), bb = kb_up(K::NCB * qpad * SWB),
+                 db = kb_up(K::NCB * P * SWB);
+  const uint32_t x_s = base, dyh_s = x_s + xb, dyl_s = dyh_s + xb, b_s = dyl_s + xb,
+                 dh_s = b_s + bb, dl_s = dh_s + db;
+  float* const cum = reinterpret_cast<float*>(gbase + (dl_s + db - base));
+  float* const w = cum + kMaxQ;
+  float* const rowGp = w + kMaxQ;          // [4 bands][kMaxQ]: band b's column sums of G^T
+  float* const red = rowGp + 4 * kMaxQ;    // [2 warpgroups][4 warps][64]
+  float* const colG = red + 2 * 4 * kRows;  // [kMaxQ]
+  float* const uu = colG + kMaxQ;           // [kMaxQ]
+  const uint32_t bar = hopper::smem_addr(uu + kMaxQ);  // x and B arrived
+  uint8_t* const xg = gbase + (x_s - base);
+
+  const int c = blockIdx.x / H, h = blockIdx.x % H, g = h / (H / G);
+  const long long cg = (long long)c * G + g;
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+
+  // x and B by TMA (rows past Q arrive as zeros) while the threads split dy
+  // and dst (all of a thread's loads of each in flight at once)
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(bar, qpad * SWX + K::NCB * qpad * SWB);
+    for (int t = 0; t < nt; ++t) {
+      hopper::tma_load_4d(x_s + t * kRows * SWX, &xmap, bar, 0, h, t * kRows, c);
+      for (int cc = 0; cc < K::NCB; ++cc)
+        hopper::tma_load_4d(b_s + cc * qpad * SWB + t * kRows * SWB, &bmap, bar, cc * CWB, g,
+                            t * kRows, c);
+    }
+  }
+  stage_split<P, SWX, 8>(gbase + (dyh_s - base), gbase + (dyl_s - base),
+                         dy + ((size_t)c * Q * H + h) * P, (long long)H * P, 0, qpad, Q, qpad);
+  stage_split<N, SWB, 4>(gbase + (dh_s - base), gbase + (dl_s - base),
+                         dst + ((size_t)c * H + h) * P * N, N, 0, P, P, P);
+  if (threadIdx.x < 32) {  // cum: each lane sums its 8 steps, then a shuffle scan
+    float part[8], run = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int t = 8 * lane + e;
+      run += t < Q ? dA[((size_t)c * Q + t) * H + h] : 0.f;
+      part[e] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    float before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cum[8 * lane + e] = before + part[e];
+    __syncwarp();
+    const float end = cum[Q - 1];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int t = 8 * lane + e;
+      w[t] = t < Q ? expf(end - cum[t]) : 0.f;
+    }
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();  // the mbarrier's init is visible before any thread waits on it
+  hopper::mbar_wait(bar, 0);
+
+  const int p0 = 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  const float* const Sc = St + cg * Q * Q;
+  for (int b = 0; b < nt; ++b) {
+    if (band_owner(b, nt) != wg) continue;
+    const int j0 = b * kRows, r0 = j0 + p0, r1 = r0 + 8;
+    float s[32];  // S^T's tile (j, i), loaded a tile ahead
+    load_st(s, Sc, j0, r0, r1, Q, cq);
+    // v_j = B_j dst^T: M rows j, N columns p, K the state dim (both K-major)
+    float acc[P / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint32_t dp = t == 0 ? dl_s : dh_s;
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
+        hopper::wgmma_ss(acc, hopper::make_desc(b_s + ch * qpad * SWB + j0 * SWB + col, 16, 8 * SWB,
+                                                K::kModeB),
+                         hopper::make_desc(dp + ch * P * SWB + col, 16, 8 * SWB, K::kModeB),
+                         t > 0 || kk > 0);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    // u_j = w_j x_j . v_j; dx_j starts at w_j v_j
+    const float w0 = w[r0], w1 = w[r1];
+    float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < P / 8; ++jj) {
+      const int col = 8 * jj + cq;
+      const float2 a = tile_pair<SWX>(xg, r0, col), d = tile_pair<SWX>(xg, r1, col);
+      u0 += a.x * acc[4 * jj] + a.y * acc[4 * jj + 1];
+      u1 += d.x * acc[4 * jj + 2] + d.y * acc[4 * jj + 3];
+      acc[4 * jj] *= w0;
+      acc[4 * jj + 1] *= w0;
+      acc[4 * jj + 2] *= w1;
+      acc[4 * jj + 3] *= w1;
+    }
+    u0 += __shfl_xor_sync(0xffffffffu, u0, 1);
+    u0 += __shfl_xor_sync(0xffffffffu, u0, 2);
+    u1 += __shfl_xor_sync(0xffffffffu, u1, 1);
+    u1 += __shfl_xor_sync(0xffffffffu, u1, 2);
+    u0 *= w0;
+    u1 *= w1;
+    const float cj0 = cum[r0], cj1 = cum[r1];
+    float cg0 = 0.f, cg1 = 0.f;  // colG of rows r0, r1: G^T's row sums over i > j
+    for (int i = b; i < nt; ++i) {
+      const int i0 = i * kRows;
+      // dM^T = x_j dy_i^T: M rows j, N columns i, K = P (both K-major)
+      float dm[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t yp = t == 0 ? dyl_s : dyh_s;
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk)
+          hopper::wgmma_ss(dm, hopper::make_desc(x_s + j0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
+                           hopper::make_desc(yp + i0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
+                           t > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dm);
+      float colsum[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ic = i0 + 8 * jj + cq + (e & 1);
+          const int jr = (e >> 1) ? r1 : r0;
+          const float cj = (e >> 1) ? cj1 : cj0;
+          const bool keep = ic >= jr && ic < Q && jr < Q;
+          const float l = fast_exp(cum[ic < Q ? ic : 0] - cj);  // selected, never masked
+          const float m = keep ? s[4 * jj + e] * l : 0.f;
+          const float gv = keep && ic > jr ? dm[4 * jj + e] * m : 0.f;
+          s[4 * jj + e] = m;
+          if (e >> 1) cg1 += gv; else cg0 += gv;
+          if (e < 2) colsum[2 * jj + e] = gv; else colsum[2 * jj + (e & 1)] += gv;
+        }
+      // M^T split in registers (its k16 slice kk is A fragment kk of the dx
+      // product), then the next tile's S^T requested
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        split_bf16(s[4 * jj], s[4 * jj + 1], hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
+        split_bf16(s[4 * jj + 2], s[4 * jj + 3], hi[jj / 2][2 * (jj % 2) + 1],
+                   lo[jj / 2][2 * (jj % 2) + 1]);
+      }
+      if (i + 1 < nt) load_st(s, Sc, i0 + kRows, r0, r1, Q, cq);
+      // this warp's 16 rows summed for each column, then the warps in order
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], 4);
+        colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], 8);
+        colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], 16);
+      }
+      float* const rw = red + (wg * 4 + warp) * kRows;
+      if (lane < 4)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          rw[8 * jj + cq] = colsum[2 * jj];
+          rw[8 * jj + cq + 1] = colsum[2 * jj + 1];
+        }
+      hopper::named_sync<128>(1 + wg);
+      if (wt < kRows) {
+        const float* r = red + wg * 4 * kRows + wt;
+        rowGp[b * kMaxQ + i0 + wt] = ((r[0] + r[kRows]) + r[2 * kRows]) + r[3 * kRows];
+      }
+      // dx_j += M^T dy_i, dy_i MN-major (P contiguous), small terms first
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const uint32_t yp = t == 1 ? dyl_s : dyh_s;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs(acc, t == 0 ? lo[kk] : hi[kk],
+                           hopper::make_desc(yp + (i0 + 16 * kk) * SWX, qpad * SWX, 8 * SWX,
+                                             K::kModeX),
+                           1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::named_sync<128>(1 + wg);  // red is read before the next tile writes it
+    }
+    cg0 += __shfl_xor_sync(0xffffffffu, cg0, 1);
+    cg0 += __shfl_xor_sync(0xffffffffu, cg0, 2);
+    cg1 += __shfl_xor_sync(0xffffffffu, cg1, 1);
+    cg1 += __shfl_xor_sync(0xffffffffu, cg1, 2);
+    if (lane % 4 == 0) {
+      colG[r0] = cg0;
+      colG[r1] = cg1;
+      uu[r0] = r0 < Q ? u0 : 0.f;
+      uu[r1] = r1 < Q ? u1 : 0.f;
+    }
+#pragma unroll
+    for (int jj = 0; jj < P / 8; ++jj) {
+      const int col = 8 * jj + cq;
+      if (r0 < Q)
+        *reinterpret_cast<uint32_t*>(dx + (((size_t)c * Q + r0) * H + h) * P + col) =
+            hopper::pack_bf16(acc[4 * jj], acc[4 * jj + 1]);
+      if (r1 < Q)
+        *reinterpret_cast<uint32_t*>(dx + (((size_t)c * Q + r1) * H + h) * P + col) =
+            hopper::pack_bf16(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+  }
+  __syncthreads();
+  // dcum_i = rowG_i - colG_i - u_i, rowG summed over the bands b <= i's in order
+  float* const dcum = red;  // the tile exchange is done: reuse it (kMaxQ floats)
+  for (int t = threadIdx.x; t < kMaxQ; t += kTcThreads) {
+    float v = 0.f;
+    if (t < Q) {
+      float rg = 0.f;
+      for (int bb = 0; bb <= t / kRows; ++bb) rg += rowGp[bb * kMaxQ + t];
+      v = rg - colG[t] - uu[t];
+    }
+    dcum[t] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float us = 0.f;  // sum u in a fixed order: 8 steps a lane, then a tree
+#pragma unroll
+    for (int e = 0; e < 8; ++e) us += 8 * lane + e < Q ? uu[8 * lane + e] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) us += __shfl_xor_sync(0xffffffffu, us, off);
+    if (lane == 0) dcum[Q - 1] += us + ddec[(size_t)c * H + h] * expf(cum[Q - 1]);
+    __syncwarp();
+    warp_scan(dcum, Q, true);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < Q; t += kTcThreads) {
+    ddA[((size_t)c * Q + t) * H + h] = dcum[t];
+    cum_out[((size_t)c * H + h) * Q + t] = cum[t];
+  }
+}
+
+// bwd_group's shared memory, byte offsets from its 1 KB-aligned base.  A
+// head's buffers: x of the band twice (the next head's lands while this
+// one's products run), dy's and dst's hi and lo pieces, and the landing
+// area where the next head's dy, dst (f32, as they are) and cum arrive by
+// cp.async.  At the end C and the warpgroups' exchange reuse the region.
+template <int P, int N>
+struct GroupSmem {
+  using K = Cfg<P, N>;
+  uint32_t xb, yb, db, x, dyh, dyl, dh, dl, ly, ld, lc, c, comb, cum, total;
+  __host__ __device__ constexpr explicit GroupSmem(int qpad)
+      : xb(kb_up(kRows * K::SWX)), yb(kb_up(qpad * K::SWX)), db(kb_up(K::NCB * P * K::SWB)),
+        x(0), dyh(2 * xb), dyl(dyh + yb), dh(dyl + yb), dl(dh + db), ly(dl + db),
+        ld(ly + kb_up(qpad * P * 4)), lc(ld + kb_up(P * N * 4)), c(0),
+        comb(kb_up(K::NCB * qpad * K::SWB)),
+        cum(lc + 4 * kMaxQ > comb + 4 * kRows * N ? lc + 4 * kMaxQ : comb + 4 * kRows * N),
+        total(1024 + cum + 2 * 4 * kMaxQ + 8) {}
+};
+
+// 3, tensor cores.  dB of row band j (64 rows) of chunk c and group g, and
+// the band's columns of sum_h dS_h to the scratch (for bwd_dc): one block
+// of two warpgroups; grid (nc * G, nt).  For each head of the group, in
+// head order: its x rows of the band (TMA), dy rows i >= j, dst and its
+// cum from bwd_dx's scratch (bulk copies) arrive on one mbarrier (the next
+// head's while this head's products run), and dy and dst are split into hi
+// and lo pieces in shared memory.  Warpgroup k owns the column tiles i = j + k, j + k + 2
+// of the band and keeps their sum over heads of dS^T = (x_j dy_i^T) L^T in
+// registers (f32, in head order); warpgroup (head index) % 2 adds the
+// head's state term (w x)_j dst (A from registers: w x split hi + lo; dst
+// MN-major: lo.hi, hi.lo, hi.hi) to its dB accumulator.  At the end each
+// warpgroup adds (sum dS^T)_ji C_i (sum dS split hi + lo, C exact) for its
+// tiles, and warpgroup 0 adds warpgroup 1's accumulator: no atomics.
+template <int P, int N>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
+    const __nv_bfloat16* __restrict__ C, const float* __restrict__ dst,
+    const float* __restrict__ cum_in, float* __restrict__ dSsum, __nv_bfloat16* __restrict__ dB,
+    int Q, int H, int G, long long sC) {
+  using K = Cfg<P, N>;
+  constexpr int SWX = K::SWX, SWB = K::SWB, kLW = K::LW;
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  const GroupSmem<P, N> L(qpad);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  float* const cum = reinterpret_cast<float*>(gbase + L.cum);
+  float* const w = cum + kMaxQ;
+  const float* const land_dy = reinterpret_cast<const float*>(gbase + L.ly);
+  const float* const land_dst = reinterpret_cast<const float*>(gbase + L.ld);
+  const float* const land_cum = reinterpret_cast<const float*>(gbase + L.lc);
+  const uint32_t bar = hopper::smem_addr(w + kMaxQ);  // a head's landing arrived
+
+  const int j = blockIdx.y, j0 = j * kRows;  // bands on the slow axis: the heavy ones first
+  const int cgi = blockIdx.x, c = cgi / G, g = cgi % G, rep = H / G;
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+  const int p0 = 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  const int r0 = j0 + p0, r1 = r0 + 8;
+
+  // Head k's x rows of the band (TMA, into buffer k % 2), dy rows j0 ..
+  // qpad - 1 (TMA boxes of 64 rows by kLW floats; rows past Q arrive as
+  // zeros), dst and cum (one bulk copy each), all counted on `bar`; issued
+  // by one thread.
+  auto issue = [&](int k) {
+    if (threadIdx.x != 0) return;
+    const int h = g * rep + k;
+    hopper::mbar_expect_tx(bar, kRows * SWX + (qpad - j0) * P * 4 + P * N * 4 + Q * 4);
+    hopper::tma_load_4d(base + L.x + (k & 1) * L.xb, &xmap, bar, 0, h, j0, c);
+    for (int t = j; t < nt; ++t)
+      for (int pc = 0; pc < P / kLW; ++pc)
+        hopper::tma_load_4d(base + L.ly + ((pc * qpad) + t * kRows) * kLW * 4, &dymap, bar,
+                            pc * kLW, h, t * kRows, c);
+    hopper::bulk_load(base + L.ld, dst + ((size_t)c * H + h) * P * N, P * N * 4, bar);
+    hopper::bulk_load(base + L.lc, cum_in + ((size_t)c * H + h) * Q, Q * 4, bar);
+  };
+
+  float dsum[2][32], acc[N / 2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dsum[k][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  issue(0);
+  for (int k = 0; k < rep; ++k) {
+    hopper::mbar_wait(bar, k & 1);
+    __syncthreads();  // head k has landed; head k - 1's products are done
+    split_tile<P, SWX, kLW, 4>(gbase + L.dyh, gbase + L.dyl, land_dy, j0, qpad, qpad);
+    split_tile<N, SWB, N, 4>(gbase + L.dh, gbase + L.dl, land_dst, 0, P, P);
+    for (int t = threadIdx.x; t < kMaxQ; t += kTcThreads) {
+      cum[t] = t < Q ? land_cum[t] : 0.f;
+      w[t] = t < Q ? expf(land_cum[Q - 1] - land_cum[t]) : 0.f;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();  // the pieces are written; the landing area is free
+    if (k + 1 < rep) issue(k + 1);
+    const uint32_t x_s = base + L.x + (k & 1) * L.xb;
+    const uint8_t* const xg = gbase + L.x + (k & 1) * L.xb;
+    const float cj0 = cum[r0], cj1 = cum[r1];
+#pragma unroll
+    for (int slot = 0; slot < 2; ++slot) {
+      const int i = j + wg + 2 * slot;
+      if (i >= nt) break;
+      const int i0 = i * kRows;
+      float dm[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t yp = base + (t == 0 ? L.dyl : L.dyh);
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk)
+          hopper::wgmma_ss(dm, hopper::make_desc(x_s + kk * 32, 16, 8 * SWX, K::kModeX),
+                           hopper::make_desc(yp + i0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
+                           t > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dm);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ic = i0 + 8 * jj + cq + (e & 1);
+          const int jr = (e >> 1) ? r1 : r0;
+          const bool keep = ic >= jr && ic < Q && jr < Q;
+          const float l = fast_exp(cum[ic < Q ? ic : 0] - ((e >> 1) ? cj1 : cj0));
+          dsum[slot][4 * jj + e] += keep ? dm[4 * jj + e] * l : 0.f;
+        }
+    }
+    if (k % 2 == wg) {  // the state term: dB_j += (w x)_j dst_h
+      uint32_t ah[P / 16][4], al[P / 16][4];
+      const float w0 = w[r0], w1 = w[r1];
+#pragma unroll
+      for (int kk = 0; kk < P / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int col = 16 * kk + 8 * hf + cq;
+          const float2 a = tile_pair<SWX>(xg, p0, col), d = tile_pair<SWX>(xg, p0 + 8, col);
+          split_bf16(a.x * w0, a.y * w0, ah[kk][2 * hf], al[kk][2 * hf]);
+          split_bf16(d.x * w1, d.y * w1, ah[kk][2 * hf + 1], al[kk][2 * hf + 1]);
+        }
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const uint32_t dp = base + (t == 1 ? L.dl : L.dh);
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk)
+          hopper::wgmma_rs(acc, t == 0 ? al[kk] : ah[kk],
+                           hopper::make_desc(dp + 16 * kk * SWB, P * SWB, 8 * SWB, K::kModeB), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+  }
+
+  // The band's C rows (the head buffers are free), then dB_j += (sum dS^T)_ji
+  // C_i over this warpgroup's tiles; the sums to the scratch as
+  // (sum_h dS_h)[i][j]
+  __syncthreads();
+  load_bf16<N, SWB>(base + L.c, C + (size_t)c * Q * sC + (size_t)g * N, sC, j0, qpad, Q, qpad);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();
+  float* const out = dSsum + (size_t)cgi * Q * Q;
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int i = j + wg + 2 * slot;
+    if (i >= nt) break;
+    const int i0 = i * kRows;
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int ic = i0 + 8 * jj + cq;
+      const float* d = dsum[slot] + 4 * jj;
+      split_bf16(d[0], d[1], hi[jj / 2][2 * (jj % 2)], lo[jj / 2][2 * (jj % 2)]);
+      split_bf16(d[2], d[3], hi[jj / 2][2 * (jj % 2) + 1], lo[jj / 2][2 * (jj % 2) + 1]);
+      if (ic < Q) {
+        if (r0 < Q) out[(size_t)ic * Q + r0] = d[0];
+        if (r1 < Q) out[(size_t)ic * Q + r1] = d[2];
+      }
+      if (ic + 1 < Q) {
+        if (r0 < Q) out[(size_t)(ic + 1) * Q + r0] = d[1];
+        if (r1 < Q) out[(size_t)(ic + 1) * Q + r1] = d[3];
+      }
+    }
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs(acc, t == 0 ? lo[kk] : hi[kk],
+                         hopper::make_desc(base + L.c + (i0 + 16 * kk) * SWB, qpad * SWB, 8 * SWB,
+                                           K::kModeB),
+                         1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+  // warpgroup 1's accumulator to shared memory (each thread its own
+  // slots), then warpgroup 0 adds it and stores dB
+  float* const comb = reinterpret_cast<float*>(gbase + L.comb);
+  if (wg == 1)
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) comb[e * 128 + wt] = acc[e];
+  __syncthreads();
+  if (wg == 0) {
+    __nv_bfloat16* const ob = dB + (size_t)c * Q * G * N + (size_t)g * N;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const int col = 8 * jj + cq;
+      const float a0 = acc[4 * jj] + comb[(4 * jj) * 128 + wt];
+      const float a1 = acc[4 * jj + 1] + comb[(4 * jj + 1) * 128 + wt];
+      const float b0 = acc[4 * jj + 2] + comb[(4 * jj + 2) * 128 + wt];
+      const float b1 = acc[4 * jj + 3] + comb[(4 * jj + 3) * 128 + wt];
+      if (r0 < Q)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * G * N + col) = hopper::pack_bf16(a0, a1);
+      if (r1 < Q)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * G * N + col) = hopper::pack_bf16(b0, b1);
+    }
+  }
+}
+
+// A rank-4 TMA map over (width, heads or groups, Q, nc) of a bf16 operand
+// whose (heads, width) rows are packed and whose tokens are `tok` elements
+// apart, in boxes of 64 rows by box_cols, swizzled as the operand tiles.
+CUresult encode_map(CUtensorMap* map, const void* ptr, int width, int heads, int Q, int nc,
+                    long long tok, int box_cols, int swizzle_bytes) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)Q,
+                              (cuuint64_t)nc};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)tok * 2,
+                                 (cuuint64_t)Q * tok * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A rank-4 TMA map over (P, H, Q, nc) of the contiguous f32 dy, in boxes of
+// 64 rows by box_cols floats, unswizzled.
+CUresult encode_dy_map(CUtensorMap* map, const float* dy, int P, int H, int Q, int nc,
+                       int box_cols) {
+  const cuuint64_t dims[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)Q, (cuuint64_t)nc};
+  const cuuint64_t strides[3] = {(cuuint64_t)P * 4, (cuuint64_t)H * P * 4,
+                                 (cuuint64_t)Q * H * P * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(dy),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int P, int N>
+cudaError_t run(const void* x, const float* dA, const void* B, const void* C, const float* dy,
+                const float* dst, const float* ddec, void* dx, float* ddA, void* dB, void* dC,
+                float* scratch, int nc, int Q, int H, int G, long long sx, long long sB,
+                long long sC, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const long long qq = (long long)nc * G * Q * Q;
+  float* S = scratch;
+  float* St = S + qq;
+  float* dSsum = St + qq;
+  float* cum = dSsum + qq;
+  const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
+  const dim3 tiles((Q + kTile - 1) / kTile, nc * G);
+  const T* Bt = static_cast<const T*>(B);
+  const T* Ct = static_cast<const T*>(C);
+  const int sm_s = (int)scores_smem_bytes<P, N>(qpad);
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_scores<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_s);
+  if (err != cudaSuccess) return err;
+  bwd_scores<P, N><<<dim3(nc * G, nt), kTcThreads, sm_s, stream>>>(Bt, Ct, St, Q, G, sB, sC);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  using K = Cfg<P, N>;
+  CUtensorMap xm, bm, dym;
+  if (encode_map(&xm, x, P, H, Q, nc, sx, P, K::SWX) != CUDA_SUCCESS ||
+      encode_map(&bm, B, N, G, Q, nc, sB, K::CWB, K::SWB) != CUDA_SUCCESS ||
+      encode_dy_map(&dym, dy, P, H, Q, nc, K::LW) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const int sm_dx = (int)dx_smem_bytes<P, N>(qpad);
+  err = cudaFuncSetAttribute(bwd_dx<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_dx);
+  if (err != cudaSuccess) return err;
+  bwd_dx<P, N><<<nc * H, kTcThreads, sm_dx, stream>>>(xm, bm, dA, dy, dst, ddec, St,
+                                                     static_cast<T*>(dx), ddA, cum, Q, H, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int sm_g = (int)GroupSmem<P, N>(qpad).total;
+  err = cudaFuncSetAttribute(bwd_group<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_g);
+  if (err != cudaSuccess) return err;
+  bwd_group<P, N><<<dim3(nc * G, nt), kTcThreads, sm_g, stream>>>(
+      xm, dym, Ct, dst, cum, dSsum, static_cast<T*>(dB), Q, H, G, sC);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dc<T><<<tiles, kThreads, 0, stream>>>(Bt, dSsum, static_cast<T*>(dC), Q, G, N, sB);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t resources_of(int which, int* regs, int* smem) {
+  using T = __nv_bfloat16;
+  switch (which) {
+    case 0: return attrs(bwd_scores<P, N>, (int)scores_smem_bytes<P, N>(kMaxQ), regs, smem);
+    case 1: return attrs(bwd_dx<P, N>, (int)dx_smem_bytes<P, N>(kMaxQ), regs, smem);
+    case 2: return attrs(bwd_group<P, N>, (int)GroupSmem<P, N>(kMaxQ).total, regs, smem);
+    default: return attrs(bwd_dc<T>, 0, regs, smem);
+  }
+}
+
+#define SSD_BWD_TC_DISPATCH(FN, ...)                                    \
+  switch (P * 1000 + N) {                                               \
+    case 16016: return FN<16, 16>(__VA_ARGS__);                         \
+    case 16032: return FN<16, 32>(__VA_ARGS__);                         \
+    case 16064: return FN<16, 64>(__VA_ARGS__);                         \
+    case 16128: return FN<16, 128>(__VA_ARGS__);                        \
+    case 32016: return FN<32, 16>(__VA_ARGS__);                         \
+    case 32032: return FN<32, 32>(__VA_ARGS__);                         \
+    case 32064: return FN<32, 64>(__VA_ARGS__);                         \
+    case 32128: return FN<32, 128>(__VA_ARGS__);                        \
+    case 64016: return FN<64, 16>(__VA_ARGS__);                         \
+    case 64032: return FN<64, 32>(__VA_ARGS__);                         \
+    case 64064: return FN<64, 64>(__VA_ARGS__);                         \
+    case 64128: return FN<64, 128>(__VA_ARGS__);                        \
+    default: return cudaErrorInvalidValue;                              \
+  }
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -723,6 +1607,30 @@ int ssd_chunk_bwd_resources(int which, int is_bf16, int P, int* regs, int* smem)
   const int PB = pb_for(P);
   if (is_bf16) return (int)resources_pb<__nv_bfloat16>(PB, which, regs, smem);
   return (int)resources_pb<float>(PB, which, regs, smem);
+}
+
+// The tensor-core route: bf16 x, B and C with P in {16, 32, 64} and N in
+// {16, 32, 64, 128}, data 16-byte aligned and token strides a multiple of 8
+// elements; otherwise as ssd_chunk_bwd_launch (the same scratch).  Any other
+// operand returns cudaErrorInvalidValue and launches nothing.
+int ssd_chunk_bwd_tc_launch(const void* x, const float* dA, const void* B, const void* C,
+                            const float* dy, const float* dst, const float* ddec, void* dx,
+                            float* ddA, void* dB, void* dC, float* scratch,
+                            long long scratch_floats, int nc, int Q, int H, int G, int P, int N,
+                            long long sx, long long sB, long long sC, cudaStream_t stream) {
+  if (nc < 1 || Q < 16 || Q > kMaxQ || Q % 16 || G < 1 || H % G ||
+      scratch_floats < ssd_chunk_bwd_scratch_floats(nc, Q, H, G) || sx % 8 || sB % 8 || sC % 8 ||
+      ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)dy | (uintptr_t)dst) % 16)
+    return (int)cudaErrorInvalidValue;
+  SSD_BWD_TC_DISPATCH(tc::run, x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G,
+                      sx, sB, sC, stream)
+}
+
+// Registers a thread and shared memory a block (static plus dynamic, at Q =
+// 256) of the tensor-core route's kernel `which` (0 bwd_scores, 1
+// tc::bwd_dx, 2 tc::bwd_group, 3 bwd_dc) at head dim P and state dim N.
+int ssd_chunk_bwd_tc_resources(int which, int P, int N, int* regs, int* smem) {
+  SSD_BWD_TC_DISPATCH(tc::resources_of, which, regs, smem)
 }
 
 const char* ssd_chunk_bwd_error_string(int err) {

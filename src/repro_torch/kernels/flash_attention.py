@@ -13,12 +13,14 @@ from the tensors' device: a CUDA tensor launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (or raises), a CPU tensor runs
 ``flash_attention_plain``, the same function in plain PyTorch.
 
-On the card ``route`` picks the kernel from dtype and head dim alone,
-before the launch: bf16 at any head dim, and f32 at D in ``SPLIT_HEAD_DIMS``,
-go to the tensor cores (``"tensor_cores"``); f32 at D = 256 to the CUDA-core
-kernel (``"cuda_cores"``, IEEE f32).  Nothing retries on another route: a
-failed build or launch raises.  ``flash_attention.launches`` counts the
-CUDA launches, ``flash_attention.route_launches`` the same per route.
+On the card every forward call takes the tensor cores (``route`` says
+``"tensor_cores"``): bf16 as it is, f32 at every head dim as bf16 pieces
+(the split route; at D = 256 one 64-row consumer warpgroup a block, 32-row
+KV tiles in separate K and V rings, and P.V in two column halves).
+Nothing retries on another route: a failed build or launch raises.
+``flash_attention.launches`` counts the CUDA launches,
+``flash_attention.route_launches`` the same per route (the forward's
+"cuda_cores" count stays 0; the backward still has such a route).
 
 The kernels keep a running row max and sum (an online softmax) and divide
 once at the end, as the Pallas kernel does; the plain version takes the
@@ -29,8 +31,8 @@ into ``exp2``.  In f32 the tensor-core route splits every operand into bf16
 hi, mid and lo pieces (K and V by ``split_bf16`` beforehand, q inside the
 kernel, p in registers), together within 2^-25 of the f32 value, and runs
 each product as six products of pieces (every pair but mid.lo, lo.mid and
-lo.lo); the CUDA-core kernel runs IEEE f32 FMAs.
-All sum in f32 in different orders, and in bf16 they round p to bf16
+lo.lo).
+Both sum in f32 in different orders, and in bf16 they round p to bf16
 against different running maxima, so they agree to about 1e-6 in f32 and to
 bf16's precision in bf16.  The tensor-core kernels read their operands with
 TMA, which needs 16-byte aligned data pointers; the wrapper refuses others
@@ -78,15 +80,13 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
-MAX_BATCH_HEADS = 65535  # the f32 kernel's grid puts batch * heads on its y axis
+MAX_BATCH_HEADS = 65535  # batch * heads the C entries take
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores")
-SPLIT_HEAD_DIMS = (16, 32, 64, 128)  # f32 head dims the tensor-core (split) route takes
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
 SPLIT_BWD_HEAD_DIMS = (64, 128)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
-_KERNEL_CODE = {("cuda_cores", torch.float32): 0, ("tensor_cores", torch.bfloat16): 1,
-                ("tensor_cores", torch.float32): 2}  # the C entry's resource selector
+_KERNEL_CODE = {torch.bfloat16: 1, torch.float32: 2}  # the C entry's resource selector
 
 _LIB = None
 _BWD_LIB = None
@@ -97,7 +97,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build("flash_attention")))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [vp] * 5 + [i] * 8 + [ctypes.c_float, vp]
+        lib.flash_attention_launch.argtypes = [vp] * 5 + [i] * 7 + [ctypes.c_float, vp]
         lib.flash_attention_launch.restype = i
         pieces = ctypes.c_void_p * 3
         lib.flash_attention_split_launch.argtypes = [vp, pieces, pieces, vp, vp] + [i] * 7 + [
@@ -167,10 +167,12 @@ def _check_operands(q, k, v):
 
 
 def route_for(D: int, dtype: torch.dtype) -> str:
-    """The kernel a CUDA call of head dim ``D`` and ``dtype`` takes."""
-    if dtype == torch.bfloat16 or D in SPLIT_HEAD_DIMS:
-        return "tensor_cores"
-    return "cuda_cores"
+    """The kernel a CUDA call of head dim ``D`` and ``dtype`` takes: the
+    tensor cores at every head dim in both types (f32 on the split
+    route)."""
+    if D not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"no forward route for head dim {D} in {dtype}")
+    return "tensor_cores"
 
 
 def route(q, k, v) -> str:
@@ -285,7 +287,7 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     path = route(q, k, v)
     lib = _lib()
-    split = path == "tensor_cores" and q.dtype == torch.float32
+    split = q.dtype == torch.float32
     if split:
         kp, vp = split_bf16(k), split_bf16(v)
     out = torch.empty_like(q)
@@ -302,7 +304,7 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
         else:
             rc = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, B, Sq, Sk, H,
-                K, D, int(causal), int(q.dtype == torch.bfloat16), scale, stream)
+                K, D, int(causal), scale, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed ({path}): CUDA error {rc} ({msg})")
@@ -462,12 +464,12 @@ reset_launches()
 def resources(D: int, dtype: torch.dtype) -> dict:
     """The registers a thread at launch and shared memory a block (static
     plus dynamic) of the kernel that head dim ``D`` and ``dtype`` route to,
-    with that route.  The tensor-core kernel then moves registers between
-    its warpgroups with ``setmaxnreg``: 240 a consumer thread, 24 a
-    producer thread."""
+    with that route.  With two consumer warpgroups (every kernel but f32 at
+    D 256) the kernel then moves registers between its warpgroups with
+    ``setmaxnreg``: 240 a consumer thread, 24 a producer thread."""
     path = route_for(D, dtype)
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _lib().flash_attention_resources(D, _KERNEL_CODE[path, dtype], ctypes.byref(regs),
+    rc = _lib().flash_attention_resources(D, _KERNEL_CODE[dtype], ctypes.byref(regs),
                                           ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"flash_attention_resources: CUDA error {rc}")

@@ -28,10 +28,17 @@ the same per route.
 
 Under grad ``ssd_chunk`` goes through the autograd Function ``SSDChunk``,
 whose backward ``ssd_chunk_backward`` launches ``csrc/ssd_chunk_bwd.cu``
-on the card (CUDA cores, f32 sums in a fixed order, no atomics; the JAX
-package differentiates its plain ``ssd_chunked`` instead) and runs
-``ssd_chunk_backward_plain`` on the CPU; ``ssd_chunk_backward.launches``
-counts its launches.  Serving, under ``no_grad``, takes the bare forward.
+on the card (f32 sums in a fixed order, no atomics; the JAX package
+differentiates its plain ``ssd_chunked`` instead) and runs
+``ssd_chunk_backward_plain`` on the CPU.  ``backward_route`` picks its
+kernels before the launch: bf16 operands that the forward's tensor-core
+route takes (P in ``TC_P``, N in ``TC_N``, 16-byte alignment) go to the
+tensor cores (``"tensor_cores"``: wgmma, with the f32 operands dy, dstates,
+M = S * L, w * x and the group's sum of dS split into bf16 hi + lo); the
+rest, f32 inputs included, to the CUDA cores (``"cuda_cores"``, IEEE f32).
+``ssd_chunk_backward.launches`` counts its launches,
+``ssd_chunk_backward.route_launches`` the same per route.  Serving, under
+``no_grad``, takes the bare forward.
 
 All take cum in the cumsum-difference form of the JAX package's kernel
 and reference, so they round alike; L is selected to 0 above the diagonal
@@ -284,10 +291,25 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.ssd_chunk_bwd_scratch_floats.restype = ll
         lib.ssd_chunk_bwd_resources.argtypes = [i, i, i, ip, ip]
         lib.ssd_chunk_bwd_resources.restype = i
+        lib.ssd_chunk_bwd_tc_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [vp]
+        lib.ssd_chunk_bwd_tc_launch.restype = i
+        lib.ssd_chunk_bwd_tc_resources.argtypes = [i, i, i, ip, ip]
+        lib.ssd_chunk_bwd_tc_resources.restype = i
         lib.ssd_chunk_bwd_error_string.argtypes = [i]
         lib.ssd_chunk_bwd_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
     return _BWD_LIB
+
+
+def backward_route(x, B, C) -> str:
+    """The kernels a CUDA backward call takes, from dtype, shape and layout
+    alone (operands already checked by ``_check_operands``): bf16 where the
+    forward takes the tensor cores, otherwise the CUDA cores (f32 x and B
+    would enter the tensor-core kernels as two pieces each, more shared
+    memory than ``tc::bwd_dx`` has)."""
+    if x.dtype == torch.bfloat16 and route(x, B, C) == "tensor_cores":
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
@@ -295,9 +317,11 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     ``ssd_chunk`` takes them) given the output gradients dy (nc, Q, H, P),
     dstates (nc, H, P, N) and ddecay (nc, H).  Returns (dx, ddA, dB, dC):
     dx, dB and dC in their inputs' types (contiguous), ddA float32.  A CUDA
-    tensor launches ``csrc/ssd_chunk_bwd.cu`` (or raises), a CPU tensor runs
+    tensor launches the ``backward_route`` kernels of
+    ``csrc/ssd_chunk_bwd.cu`` (or raises), a CPU tensor runs
     ``ssd_chunk_backward_plain``.  ``ssd_chunk_backward.launches`` counts the
-    CUDA launches."""
+    CUDA launches, ``ssd_chunk_backward.route_launches`` the same per
+    route."""
     nc, Q, H, G, P, N = _check_operands(x, dA, B, C)
     strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
     f32 = torch.float32
@@ -322,32 +346,46 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     dC = torch.empty((nc, Q, G, N), dtype=C.dtype, device=dev)
     n = lib.ssd_chunk_bwd_scratch_floats(nc, Q, H, G)
     scratch = torch.empty(n, dtype=f32, device=dev)
+    path = backward_route(x, B, C)
+    if path == "tensor_cores":  # the tensor-core kernels read dy and dstates 16 bytes at a time
+        dy, dstates = (t if t.data_ptr() % ALIGN == 0 else t.clone() for t in (dy, dstates))
+    args = (x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch.data_ptr(), n, nc, Q, H, G, P, N, *strides)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ssd_chunk_bwd_launch(
-            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-            dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), scratch.data_ptr(), n, nc, Q, H, G, P, N, *strides,
-            int(x.dtype == torch.bfloat16), stream)
+        if path == "tensor_cores":
+            rc = lib.ssd_chunk_bwd_tc_launch(*args, stream)
+        else:
+            rc = lib.ssd_chunk_bwd_launch(*args, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         msg = lib.ssd_chunk_bwd_error_string(rc).decode()
-        raise RuntimeError(f"ssd_chunk_backward launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"ssd_chunk_backward launch failed ({path}): CUDA error {rc} ({msg})")
     ssd_chunk_backward.launches += 1
+    ssd_chunk_backward.route_launches[path] += 1
     return dx, ddA, dB, dC
 
 
-BWD_KERNELS = ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc", "bwd_db")
+BWD_KERNELS = {"cuda_cores": ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc", "bwd_db"),
+               "tensor_cores": ("tc::bwd_scores", "tc::bwd_dx", "tc::bwd_group", "bwd_dc")}
 
 
-def backward_resources(P: int, dtype: torch.dtype) -> dict:
-    """Registers a thread and shared memory a block (static plus dynamic)
-    of each of the backward's kernels (``BWD_KERNELS``) at head dim P and
-    input ``dtype``."""
+def backward_resources(P: int, dtype: torch.dtype, path: str = "cuda_cores",
+                       N: int = MAX_N) -> dict:
+    """Registers a thread and shared memory a block (static plus dynamic;
+    the tensor-core kernels' at Q 256) of each of a backward route's kernels
+    (``BWD_KERNELS[path]``) at head dim P, state dim N (the tensor-core
+    route's) and input ``dtype``."""
     out = {}
-    for which, name in enumerate(BWD_KERNELS):
+    lib = _bwd_lib()
+    for which, name in enumerate(BWD_KERNELS[path]):
         regs, smem = ctypes.c_int(0), ctypes.c_int(0)
-        rc = _bwd_lib().ssd_chunk_bwd_resources(which, int(dtype == torch.bfloat16), P,
-                                                ctypes.byref(regs), ctypes.byref(smem))
+        if path == "tensor_cores":
+            rc = lib.ssd_chunk_bwd_tc_resources(which, P, N, ctypes.byref(regs),
+                                                ctypes.byref(smem))
+        else:
+            rc = lib.ssd_chunk_bwd_resources(which, int(dtype == torch.bfloat16), P,
+                                             ctypes.byref(regs), ctypes.byref(smem))
         if rc != 0:
             raise RuntimeError(f"ssd_chunk_bwd_resources: CUDA error {rc}")
         out[name] = {"registers_at_launch": regs.value, "smem_bytes": smem.value}
@@ -355,11 +393,12 @@ def backward_resources(P: int, dtype: torch.dtype) -> dict:
 
 
 def reset_launches() -> None:
-    """Set ``ssd_chunk.launches``, every per-route count and
-    ``ssd_chunk_backward.launches`` to 0."""
+    """Set ``ssd_chunk.launches``, ``ssd_chunk_backward.launches`` and
+    their per-route counts to 0."""
     ssd_chunk.launches = 0
     ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
     ssd_chunk_backward.launches = 0
+    ssd_chunk_backward.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 reset_launches()

@@ -143,7 +143,7 @@ def _split_product(a, b, drop=None):
     return out
 
 
-def _tensor_core_emulation(q, k, v, *, causal, bq=128, drop=None):
+def _tensor_core_emulation(q, k, v, *, causal, drop=None):
     """The tensor-core kernel's rounding in plain torch, tile by tile: an
     emulation, not the kernel (its sums round to nearest; the tensor cores'
     f32 accumulation truncates, which the kernel bounds by summing each
@@ -152,14 +152,20 @@ def _tensor_core_emulation(q, k, v, *, causal, bq=128, drop=None):
     them); p is rounded to bf16 against the running max.  f32 (the split
     route): every operand, p included, enters as bf16 hi, mid and lo pieces
     and each product as six products of pieces (``drop``, "S:hi.mid" or
-    "PV:mid.hi" and so on, leaves one out).  Both: scale * log2(e) folded
-    into exp2 on the f32 scores; l summed from the f32 p; 128-row query
-    tiles, KV tiles of 128 rows (bf16: 64 at D = 256; f32: 64 at D = 64, 32
-    at D = 128), tiles past the causal diagonal skipped."""
+    "PV:mid.hi" and so on, leaves one out); each KV tile's P.V summed apart
+    and added to the running output, at D = 256 in two column halves of
+    128, each its own sum.  Both: scale * log2(e) folded into exp2 on the
+    f32 scores; l summed from the f32 p; 128-row query tiles (f32 at
+    D = 256: 64, one consumer warpgroup a block), KV tiles of 128 rows
+    (bf16: 64 at D = 256; f32: 64 at D = 64, 32 at D = 128 and 256),
+    tiles past the causal diagonal skipped."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     split = q.dtype == torch.float32
-    bk = (32 if D >= 128 else 64 if D >= 64 else 128) if split else (64 if D >= 256 else 128)
+    bq = 64 if split and D == 256 else 128
+    halves = 2 if split and D == 256 else 1
+    bk = ((32 if D >= 128 else 64 if D >= 64 else 128) if split
+          else (64 if D >= 256 else 128))
     c = torch.tensor(1.0 / math.sqrt(D) * math.log2(math.e), dtype=torch.float32)
     heads = torch.arange(H) // (H // K)
     out = torch.empty_like(q)
@@ -189,7 +195,8 @@ def _tensor_core_emulation(q, k, v, *, causal, bq=128, drop=None):
                 p = torch.exp2(s * c - m_new[..., None])
                 l = corr * l + p.sum(dim=-1)
                 if split:
-                    pv = _split_product(p, vt, drop and drop.removeprefix("PV:"))
+                    pv = torch.cat([_split_product(p, half, drop and drop.removeprefix("PV:"))
+                                    for half in vt.chunk(halves, dim=-1)], dim=-1)
                 else:
                     pv = p.to(torch.bfloat16).float() @ vt
                 acc = corr[..., None] * acc + pv
@@ -223,15 +230,17 @@ def one_thread():
 
 
 @pytest.mark.usefixtures("one_thread")
-@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("shape", SHAPES[:3] + [(1, 150, 150, 2, 1, 256), (1, 96, 200, 4, 2, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_split_rounding_within_the_card_limits(shape, causal):
     """The f32 tensor-core route's arithmetic (six products of bf16 pieces
     for each of S and P.V, an emulation of its rounding, not the kernel) at
-    the JAX package's test shapes: held to ``flash_attention_plain`` and to
-    the JAX package's oracle under the unchanged f32 limits, ``FLASH_TOL``
-    (2e-5) and ``FLASH_ROW_TOL`` (1e-4), and within a fifth of the absolute
-    limit of the plain version."""
+    the JAX package's test shapes and at D = 256 (64-row query tiles,
+    32-row KV tiles, P.V in two column halves): held to
+    ``flash_attention_plain`` and to the JAX package's oracle under the
+    unchanged f32 limits, ``FLASH_TOL`` (2e-5) and ``FLASH_ROW_TOL``
+    (1e-4), and within a fifth of the absolute limit of the plain
+    version."""
     (q, k, v), (jq, jk, jv) = _qkv(shape, "float32", seed=sum(shape) + causal)
     got = _tensor_core_emulation(q, k, v, causal=causal)
     err, row_err = chip_smoke.check_flash_output(
@@ -243,16 +252,19 @@ def test_split_rounding_within_the_card_limits(shape, causal):
 
 
 @pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("drop", ["S:hi.mid", "S:mid.hi", "PV:hi.mid", "PV:mid.hi"])
-def test_one_piece_fewer_misses_the_limit(drop):
+def test_one_piece_fewer_misses_the_limit(drop, D):
     """Dropping a first-order mid term (hi.mid or mid.hi, in S or in P.V)
     moves the output past the f32 limits, so the card check sees it.  The
     limit does not see the smaller ones: dropping one of hi.lo, lo.hi or
     mid.mid leaves errors of 5e-6 to 1.5e-5 here, and the two-piece scheme
     (hi + lo, three products each) 1.4e-5 to 2.2e-5, at the limit's own
     scale; so the route takes three pieces, whose error (about 1.5e-6) sits
-    an order of magnitude under it."""
-    (q, k, v), _ = _qkv((1, 256, 256, 4, 1, 64), "float32", seed=11)
+    an order of magnitude under it.  The same at D = 256, on its own
+    tiling."""
+    (q, k, v), _ = _qkv((1, 256, 256, 4, 1, D) if D == 64 else (1, 160, 160, 2, 1, D),
+                        "float32", seed=11)
     want = flash_attention_plain(q, k, v, causal=True)
     got = _tensor_core_emulation(q, k, v, causal=True, drop=drop)
     err, row_err, close = chip_smoke.flash_errors(got, want)
@@ -276,12 +288,12 @@ def test_inputs_without_their_lower_pieces_miss_the_limit():
 
 @pytest.mark.parametrize("D,dtype,want", [
     (d, "bfloat16", "tensor_cores") for d in fa.HEAD_DIMS] + [
-    (d, "float32", "tensor_cores") for d in fa.SPLIT_HEAD_DIMS] + [
-    (256, "float32", "cuda_cores")])
+    (d, "float32", "tensor_cores") for d in (16, 32, 64, 128)] + [
+    (256, "float32", "tensor_cores")])
 def test_route_is_decided_by_dtype_and_head_dim(D, dtype, want):
     """The rule the wrapper applies before a CUDA launch, on dtype and head
-    dim alone (the same on any device): every bf16 call and f32 up to
-    D = 128 on the tensor cores, f32 at D = 256 on the CUDA cores."""
+    dim alone (the same on any device): every call on the tensor cores, f32
+    at D = 256 too (its own tiling)."""
     (q, k, v), _ = _qkv((1, 16, 16, 4, 2, D), dtype, seed=D)
     assert fa.route(q, k, v) == fa.route_for(D, getattr(torch, dtype)) == want
 

@@ -241,7 +241,7 @@ def test_dense_path_short_prompt(cuda):
                                           (16, "float32", "tensor_cores"),
                                           (64, "float32", "tensor_cores"),
                                           (128, "float32", "tensor_cores"),
-                                          (256, "float32", "cuda_cores")])
+                                          (256, "float32", "tensor_cores")])
 def test_flash_f32_and_bf16_routes_and_their_launch_counts(cuda, D, dtype, want):
     """Each call launches on the route its dtype and head dim pick, and only
     that route's count moves (``split_bf16`` twice a split call, for K and
@@ -256,6 +256,12 @@ def test_flash_f32_and_bf16_routes_and_their_launch_counts(cuda, D, dtype, want)
     assert {r: n - before[r] for r, n in fa.flash_attention.route_launches.items()} == {
         r: int(r == want) for r in before}
     assert fa.split_bf16.launches - splits == 2 * (dtype == "float32" and want == "tensor_cores")
+
+
+def test_flash_f32_d256_two_calls_are_equal_bit_for_bit(cuda):
+    """The split route at paligemma's shape (one consumer warpgroup, K and V
+    rings apart): output and lse the same bits twice."""
+    assert all(chip_smoke.flash_repeat(cuda)["bitwise_equal"].values())
 
 
 def test_split_bf16_matches_its_plain_version_bit_for_bit_f32(cuda):
@@ -729,6 +735,24 @@ def test_ssd_bwd_two_calls_are_equal_bit_for_bit(cuda):
     assert all(chip_smoke.ssd_bwd_repeat(cuda)["bitwise_equal"].values())
 
 
+@pytest.mark.parametrize("case,want", [
+    ((2, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
+    ((3, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), "tensor_cores"),
+    ((2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"), "cuda_cores"),  # P 24, N 40
+    ((2, 256, 8, 1, 64, 128, "published", "float32", "sliced"), "cuda_cores")])
+def test_ssd_bwd_routes_and_their_launch_counts(cuda, case, want):
+    """Each call takes ``backward_route``'s kernels, counted on that route
+    alone, and matches the plain formulas at the card limits."""
+    from repro_torch.kernels import ssd_scan
+
+    x, _dA, B, C = chip_smoke.ssd_inputs(case, cuda, seed=4)[:4]
+    assert ssd_scan.backward_route(x, B, C) == want
+    ssd_scan.reset_launches()
+    chip_smoke.check_ssd_bwd_case(case, cuda, seed=4)
+    assert ssd_scan.ssd_chunk_backward.route_launches == {r: int(r == want)
+                                                          for r in ssd_scan.ROUTES}
+
+
 def test_ssd_bwd_launch_counter_function_and_no_fallback(cuda):
     """One ``ssd_chunk_backward`` launch a backward through ``SSDChunk``, its
     gradients those of the direct call; serving (no graph) launches the
@@ -763,6 +787,7 @@ def test_ssm_train_path_short(cuda):
     out = chip_smoke.run_ssm_train_path(cuda, layers=2)
     steps = chip_smoke.SSM_TRAIN["steps"]
     assert (out["launches"], out["backward_launches"]) == (4 * steps, 2 * steps)
+    assert out["backward_route_launches"] == {"tensor_cores": 2 * steps, "cuda_cores": 0}
     assert out["float32"]["backward_launches"] == 1
 
 
