@@ -272,6 +272,28 @@ Each phase prints one JSON line:
               host 0 silent through the first barrier under ``fence`` (one
               fence, one re-sync, ``fenced [0]``) and ``nack`` (the swap
               aborts); each conserving exactly with launches == tiles.
+20. udf_path — CORE's query over transformer UDFs
+              (``repro_torch.transformer_udf_serving``) at published widths:
+              llama3-405b (d 16,384, 128 heads, 8 KV heads of 128, d_ff
+              53,248) cut to 1 layer and qwen3-moe-30b-a3b cut to 2 as the
+              two predicates' UDFs, each trained 100 AdamW steps on 2,000
+              records of 8 tokens (``flash_attention`` forward and backward
+              on the tensor cores), ``build_plan`` on the sample, the
+              ``CascadeServer`` over the other 10,000 records
+              (``cascade_score`` a tile), ORIG against CORE: launch counts
+              against the backbone calls, the first step's attention and
+              backward against the plain versions, losses falling, each
+              predicate's selectivity, conservation, accuracy, and every
+              label against the plain attention but at near ties; then
+              ``udf_path_reduced``, the same at the reduced configs (D 16:
+              the backward on the CUDA cores), and ``udf_timing``: both
+              kernels at the training steps' shapes beside SDPA.
+21. video_cascade_path — ``repro_torch.video_cascade`` (core-a, core-h,
+              core) on the card: one launch a tile, accuracy >= A - 0.05.
+22. resilient_path — ``repro_torch.resilient_training`` at the reduced
+              dense and SSM configs: a preemption before step 15, one
+              restart, bit for bit equal to a straight run, the kernels'
+              launches and the straggler events.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}`` last.
@@ -408,6 +430,8 @@ FLASH_CASES = tuple(
         # the narrow-swizzle head dims (32 B at D = 16, 64 B at D = 32) over
         # more than one KV tile
         ((1, 512, 512, 8, 2, 16), True), ((1, 512, 512, 8, 2, 32), True),
+        # batch x heads past 65,535 at a transformer UDF's 8 tokens
+        ((600, 8, 8, 128, 8, 128), True),
         (SERVING_SHAPE, True)))
 # The dense serving path (phase 6) and its logits tolerances against the
 # plain-attention forward: those the JAX package holds its own bf16 serving
@@ -1873,7 +1897,7 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
 def run_ssd_bwd_kernels(dev) -> dict:
     """Phase 10f: every SSD_BWD_CASES case against the plain formulas, the
     planted faults in both types, two calls bit for bit at the training
-    shape, then ``ssd_bwd_timing`` there in bf16."""
+    shape, then ``ssd_bwd_timing`` there in bf16 and in f32."""
     from repro_torch.kernels import ssd_scan
 
     t0 = time.perf_counter()
@@ -1903,7 +1927,9 @@ def run_ssd_bwd_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     row = time_ssd_bwd(dev, "bfloat16", iters=5)
     torch.cuda.empty_cache()
-    return {"max_err": max(max(e.values()) for e in errs), "row": row}
+    row32 = time_ssd_bwd(dev, "float32", iters=3)  # the f32 step's route (CUDA cores)
+    torch.cuda.empty_cache()
+    return {"max_err": max(max(e.values()) for e in errs), "row": row, "row_float32": row32}
 
 
 # ------------------------------------------------------------- phase 12a
@@ -2071,11 +2097,35 @@ def serve_batch(fam, model, cfg, batch: dict, new_tokens: int) -> dict:
                 decode_launches=flash_attention.launches - before - prefill_launches)
 
 
+def pinned_route(real, wanted, counts, tie_tol=None):
+    """``moe.route`` that hands each call the next experts of ``wanted``
+    (an iterator of (tokens, top_k) index tensors) in place of its own,
+    weighted by its own probabilities.  Adds to ``counts.flips`` the
+    positions whose own top-k set differs and keeps in ``counts.max_gap``
+    the largest relative probability gap among them, which must be at most
+    ``tie_tol`` where it is given."""
+    def pinned(p, cfg, xt):
+        want = next(wanted)
+        probs, _, own = real(p, cfg, xt)
+        differ = (own.sort(1).values != want.sort(1).values).any(1)
+        if bool(differ.any()):
+            kth = probs.gather(1, own)[differ, -1]
+            worst = probs.gather(1, want)[differ].min(1).values
+            gap = float(((kth - worst) / kth).max())
+            check(tie_tol is None or gap <= tie_tol,
+                  f"an expert choice differs by {gap}: not a tie")
+            counts.max_gap = max(counts.max_gap, gap)
+            counts.flips += int(differ.sum())
+        top_p = probs.gather(1, want)
+        return probs, top_p / top_p.sum(dim=-1, keepdim=True), want
+    return pinned
+
+
 class RouteLog:
     """Records the experts ``moe.route`` picks, call by call (``record``),
-    or hands ``forward`` a served run's picks for one request (``pin``),
-    counting the positions whose own top-k set differs and the largest
-    relative probability gap among them."""
+    then pins ``forward`` to a served run's picks for one request (``pin``)
+    or every later call to the recorded calls' picks in order (``replay``),
+    through ``pinned_route``."""
 
     def __init__(self):
         from repro_torch.models import moe as moe_module
@@ -2093,23 +2143,21 @@ class RouteLog:
     def pin(self, r: int, batch: int, n_layers: int):
         """The served picks of request ``r``: call i of ``forward`` (MoE
         layer i) gets the prefill's rows of r, then each decode step's."""
-        calls, n = self.calls, iter(range(n_layers))
+        calls = self.calls
 
-        def pinned(p, cfg, xt):
-            layer = next(n)
-            steps = calls[n_layers + layer::n_layers]
-            want = torch.cat([calls[layer].view(batch, -1, cfg.moe.top_k)[r]]
-                             + [s[r:r + 1] for s in steps])
-            probs, _, own = self.real(p, cfg, xt)
-            differ = (own.sort(1).values != want.sort(1).values).any(1)
-            if bool(differ.any()):
-                kth = probs.gather(1, own)[differ, -1]
-                worst = probs.gather(1, want)[differ].min(1).values
-                self.max_gap = max(self.max_gap, float(((kth - worst) / kth).max()))
-                self.flips += int(differ.sum())
-            top_p = probs.gather(1, want)
-            return probs, top_p / top_p.sum(dim=-1, keepdim=True), want
-        return mock.patch.object(self.moe, "route", pinned)
+        def wanted():
+            for layer in range(n_layers):
+                steps = calls[n_layers + layer::n_layers]
+                first = calls[layer]
+                yield torch.cat([first.view(batch, -1, first.shape[-1])[r]]
+                                + [s[r:r + 1] for s in steps])
+        return mock.patch.object(self.moe, "route", pinned_route(self.real, wanted(), self))
+
+    def replay(self):
+        """Each call gets the recorded calls' experts in order; every own
+        choice that differs must be a near tie (ROUTER_TIE_TOL)."""
+        return mock.patch.object(self.moe, "route", pinned_route(
+            self.real, iter(self.calls), self, ROUTER_TIE_TOL))
 
 
 def served_vs_forward(fam, model, cfg, batch: dict, served: dict, routes=None,
@@ -2469,7 +2517,8 @@ BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's tes
     (*shape, causal, dtype)  # D 256, ragged lengths, a GQA group of 7 and D 16
     for dtype in ("bfloat16", "float32") for causal in (True, False)
     for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),
-                  (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16)))
+                  (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16))
+) + ((16400, 8, 8, 4, 2, 16, True, "bfloat16"),)  # batch x heads past 65,535 on the CUDA cores
 BWD_SERVING_SHAPE = (1, 4096, 4096, 64, 8, 128)  # deepseek-67b's micro-batch, one per launch
 BWD_REDUCED_SHAPE = (2, 256, 256, 4, 2, 16)  # the restart check's micro-batch (RESTART below)
 BWD_FAULT_KEYS = (2048, 2112)  # a KV tile in the middle of the serving shape
@@ -2593,20 +2642,27 @@ def bwd_repeat(dev, shape=BWD_SERVING_SHAPE, dtype: str = "bfloat16") -> dict:
 
 
 def bwd_bound(B, Sq, Sk, H, K, D, causal, dtype="bfloat16", route="cuda_cores") -> tuple:
-    """(ms, flops): BWD_FLOPS_FACTOR forwards' products (the causal pairs
-    only) at the peak for the type (bf16 tensor cores; f32 CUDA cores, no
-    TF32); each input (q, k, v, o, dO) read and each gradient written once
-    over HBM is far less at these shapes.  The f32 tensor-core (split)
-    route's own bound counts its six bf16 products of pieces at the bf16
-    peak, plus the pre-pass over q, k, v and dO (f32 read once, three bf16
-    pieces written) over HBM."""
+    """(ms, bound_by, bytes, flops): the larger of two times.  Bytes: each
+    input (q, k, v, o, dO and the f32 row lse) read once and each gradient
+    (dq, dk, dv) written once over HBM.  Operations: BWD_FLOPS_FACTOR
+    forwards' products (the causal pairs only) at the peak for the type
+    (bf16 tensor cores; f32 CUDA cores, no TF32).  The f32 tensor-core
+    (split) route's own bound counts its six bf16 products of pieces at the
+    bf16 peak, plus the pre-pass over q, k, v and dO (f32 read once, three
+    bf16 pieces written) over HBM."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * 4 * (B * Sq * H * D + B * Sk * K * D) + 4 * B * H * Sq
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     flops = BWD_FLOPS_FACTOR * 4 * B * H * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_pre = 0.0
     if dtype == "float32" and route == "tensor_cores":
         t_ops = SPLIT_PRODUCTS["flash_attention"] * flops / BF16_FLOPS
         t_pre = 2 * (B * Sq * H * D + B * Sk * K * D) * (4 + 3 * 2) / HBM_BYTES_PER_S
-        return (t_ops + t_pre) * 1e3, flops
-    return flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS) * 1e3, flops
+    else:
+        t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
+    return ((max(t_bytes, t_ops) + t_pre) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
 
 
 def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
@@ -2652,7 +2708,7 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     plain_b = cuda_ms(plain, dev, 1, warmup=0)
     del lib_out
     path = backward_route(D, q.dtype)
-    bound_ms, flops = bwd_bound(*case, route=path)
+    bound_ms, bound_by, nbytes, flops = bwd_bound(*case, route=path)
     ms = min(kern_a, kern_b)
     log = _build.library_path("flash_attention_bwd").with_suffix(".log").read_text()
     kernels = backward_kernels(D, q.dtype)
@@ -2672,8 +2728,8 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
                library_ms=lib_ms,
                library="torch.autograd.grad through scaled_dot_product_attention "
                        "(K, V repeated to H heads in the graph)",
-               library_max_rel_diff=lib_err, bound_ms=bound_ms, bound_by="operations",
-               flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
+               library_max_rel_diff=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, tflops_per_s=flops / (ms * 1e-3) / 1e12,
                share_of_bound=bound_ms / ms,
                ptxas={role: dict(kernel=name, **ptxas_entry(log, fragment))
                       for role, (name, fragment) in kernels.items()},
@@ -2693,8 +2749,8 @@ def run_flash_bwd_kernels(dev) -> dict:
     """Phase 10d: every BWD_CASES case (each on its ``backward_route``, the
     forward's lse held too), the planted faults, two calls bit for bit at
     the serving shape in both types, and the kernel's time at deepseek-67b's
-    and paligemma's training shapes in bf16 (and deepseek-67b's in f32), and
-    at the restart check's reduced shape in both types."""
+    and paligemma's training shapes in bf16 (and both in f32), and at the
+    restart check's reduced shape in both types."""
     from repro_torch.kernels import flash_attention as fm
 
     t0 = time.perf_counter()
@@ -2720,6 +2776,8 @@ def run_flash_bwd_kernels(dev) -> dict:
             "float32": time_flash_bwd(dev, "float32", BWD_SERVING_SHAPE, iters=3)}
     torch.cuda.empty_cache()
     rows["D256"] = time_flash_bwd(dev, "bfloat16", VLM_SHAPE, iters=3)
+    torch.cuda.empty_cache()
+    rows["float32_D256"] = time_flash_bwd(dev, "float32", VLM_SHAPE, iters=2)
     torch.cuda.empty_cache()
     for dt in ("bfloat16", "float32"):
         rows[f"reduced_{dt}"] = time_flash_bwd(dev, dt, BWD_REDUCED_SHAPE, iters=20)
@@ -3248,10 +3306,10 @@ def serving_workload(dev, n: int):
     return ds, udfs, max(1000, int(prof["k_frac"] * n))
 
 
-def submit_tiles(n: int, max_tile: int) -> int:
-    """Scorer tiles that ``run_stream(x, chunk=SERVE_CHUNK)`` submits for n
+def submit_tiles(n: int, max_tile: int, chunk: int = SERVE_CHUNK) -> int:
+    """Scorer tiles that ``run_stream(x, chunk=chunk)`` submits for n
     records when each submit is cut into tiles of ``max_tile`` rows."""
-    return sum(-(-min(SERVE_CHUNK, n - s) // max_tile) for s in range(0, n, SERVE_CHUNK))
+    return sum(-(-min(chunk, n - s) // max_tile) for s in range(0, n, chunk))
 
 
 def check_margins(scorer, plan, x: np.ndarray, dev) -> dict:
@@ -4160,6 +4218,290 @@ def run_fleet_faults(dev, workload, fleet, n_records: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 20
+# CORE's queries over transformer UDFs (``repro_torch.transformer_udf_serving``):
+# llama3-405b (one layer of 126) and qwen3-moe-30b-a3b (two of 48) at their
+# published widths as the two predicates' UDFs, the example's dataset,
+# query, sample, tile and steps; then the same at the reduced configs (D 16:
+# the backward on the CUDA cores), as the JAX package's example runs it.
+UDF = dict(n=12_000, steps=100, tile=512, chunk=2048, accuracy=0.9)
+UDF_TIE_TOL = 2.0 ** -5  # top two pooled logits within this of the larger's size: a near tie
+UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128))  # the training steps'
+
+
+def udf_labels_vs_plain(udf, x: np.ndarray) -> dict:
+    """The UDF's pooled logits on ``x`` in the batches ``fn`` takes (2048
+    records, padded as ``fn`` pads), with the kernel and with the plain
+    attention in its place (a MoE's expert choices pinned to the kernel
+    run's): every label that differs must sit at a near tie of the top two
+    pooled logits (UDF_TIE_TOL of the larger's size, at least 1)."""
+    pin = RouteLog()
+    with pin.record():
+        got = torch.cat([udf.logits(x[s:s + 2048]) for s in range(0, len(x), 2048)])
+    with pin.replay(), plain_attention():
+        want = torch.cat([udf.logits(x[s:s + 2048]) for s in range(0, len(x), 2048)])
+    differ = got.argmax(-1) != want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= UDF_TIE_TOL * top2[:, 0].abs().clamp_min(1.0)
+    off_tie = int((differ & ~tie).sum())
+    check(off_tie == 0, f"{udf.name}: {off_tie} labels differ between the kernel and the "
+          f"plain attention off a near tie")
+    return dict(records=len(x), labels_differ=int(differ.sum()), near_ties=int(tie.sum()),
+                max_abs_logit_diff=float((got - want).abs().max()),
+                router_flips=pin.flips, router_max_gap=pin.max_gap)
+
+
+def run_udf_path(dev, full: bool, phase: str) -> dict:
+    """Phase 20: ``transformer_udf_serving.run`` on the card, with every
+    kernel count zeroed just before.  Each UDF's first training step is
+    recorded: each layer's attention against ``flash_attention_plain`` and
+    each backward launch against the plain backward on its own q, k, v and
+    dO.  Checks: forward launches == layers x backbone calls (training
+    steps, accuracy and cost probes, every ``fn`` call), backward launches
+    == layers x steps, on the routes the head dim picks; finite, falling
+    losses; no predicate of selectivity 0 or 1 on the sample; one
+    ``cascade_score`` launch a served tile and emitted + rejected == served;
+    CORE's accuracy against ORIG >= A - 0.05; then each UDF's labels
+    against the plain attention (``udf_labels_vs_plain``)."""
+    from repro_torch import transformer_udf_serving as T
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_plain,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.proxy_score import cascade_score
+    from repro_torch.models import layers as model_layers
+
+    t_phase = time.perf_counter()
+    seen, budget, first_step = [], [0], []
+    real_flash, real_train = model_layers.flash_attention, T.train_udf
+
+    def kept(q, k, v, *, causal=True):
+        out = real_flash(q, k, v, causal=causal)
+        if budget[0] > 0:
+            budget[0] -= 1
+            seen.append(tuple(t.detach() for t in (q, k, v, out)))
+        return out
+
+    def train_udf(params, cfg, x, y, *, steps):
+        """The first step's attention and backward launches recorded, then
+        held to the plain versions (each layer, its own inputs)."""
+        seen.clear()
+        budget[0] = cfg.num_layers
+        with BackwardLog(cfg.num_layers) as bwd:
+            losses = real_train(params, cfg, x, y, steps=steps)
+        att = [check_flash_output(f"{cfg.name} layer {i} attention",
+                                  o, flash_attention_plain(q, k, v, causal=True))
+               for i, (q, k, v, o) in enumerate(seen)]
+        grads = [check_bwd_output(f"{cfg.name} backward {i}", got,
+                                  flash_attention_backward_plain(*args, **kw))
+                 for i, (args, kw, got) in enumerate(bwd.seen)]
+        check(len(att) == len(grads) == cfg.num_layers or dev.type == "cpu",
+              f"{cfg.name}: {len(att)} attention and {len(grads)} backward calls recorded in "
+              f"the first step, not {cfg.num_layers}")
+        first_step.append(dict(udf=cfg.name, attention=att, backward=grads))
+        seen.clear()
+        del bwd
+        return losses
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    fm.reset_launches()
+    cascade_score.launches = 0
+    served = {}
+    real_run_stream = T.CascadeServer.run_stream
+
+    def counted_run_stream(self, x, *, chunk=4096):
+        before = cascade_score.launches
+        stats = real_run_stream(self, x, chunk=chunk)
+        served.update(launches=cascade_score.launches - before, records=len(x),
+                      tiles=submit_tiles(len(x), max(self.tile, 1024), chunk))
+        return stats
+
+    with mock.patch.object(model_layers, "flash_attention", kept), \
+            mock.patch.object(T, "train_udf", train_udf), \
+            mock.patch.object(T.CascadeServer, "run_stream", counted_run_stream):
+        res = T.run(UDF["n"], steps=UDF["steps"], full=full, device=dev, log=lambda _m: None)
+    sync(dev)
+    fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+    routes = dict(fm.flash_attention.route_launches)
+    bwd_routes = dict(fm.flash_attention.backward_route_launches)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    udfs, stats, plan = res["udfs"], res["stats"], res["plan"]
+    want_fwd = sum(u.cfg.num_layers * u.calls for u in udfs) if on_card else 0
+    want_bwd = sum(u.cfg.num_layers * len(u.losses) for u in udfs) if on_card else 0
+    check(fwd == want_fwd, f"{phase}: {fwd} forward launches, not {want_fwd} (layers x "
+          f"backbone calls {[u.calls for u in udfs]})")
+    check(bwd == want_bwd, f"{phase}: {bwd} backward launches, not {want_bwd}")
+    check(routes["tensor_cores"] == fwd, f"{phase}: forward launches by route {routes}")
+    for u in udfs:
+        want_route = fm.backward_route(u.cfg.attention.head_dim, torch.bfloat16)
+        check(bwd_routes[want_route] == bwd, f"{phase}: backward launches by route "
+              f"{bwd_routes}, not all on {want_route}")
+        check(all(math.isfinite(v) for v in u.losses) and u.losses[-1] < u.losses[0],
+              f"{u.name}: losses {u.losses[0]} -> {u.losses[-1]} are not finite and falling")
+    check(served["launches"] == served["tiles"] or not on_card, f"{phase}: {served['launches']} "
+          f"cascade_score launches for {served['tiles']} served tiles")
+    check(stats.emitted + stats.rejected == served["records"]
+          and res["server"].in_flight() == 0, f"{phase}: emitted {stats.emitted} + rejected "
+          f"{stats.rejected} != served {served['records']}")
+    check(res["accuracy"] >= UDF["accuracy"] - 0.05,
+          f"{phase}: CORE's accuracy against ORIG {res['accuracy']:.4f}")
+    sample = res["ds"].x[:T.TRAIN_ROWS]
+    selectivity = [float(np.isin(p.udf(sample), list(p.values)).mean())
+                   for p in res["query"].predicates]
+    check(all(0.0 < s < 1.0 for s in selectivity), f"{phase}: predicate selectivities "
+          f"{selectivity} on the sample")
+    labels = [udf_labels_vs_plain(u, res["rest"]) for u in udfs]
+    out = dict(full=full, records=UDF["n"], served_records=served["records"],
+               sample=T.TRAIN_ROWS, steps=UDF["steps"], lr=T.LR,
+               udfs=[dict(name=u.name, config=u.cfg.name, source=u.cfg.source,
+                          layers=u.cfg.num_layers,
+                          published_layers=get_published_layers(u.cfg), d_model=u.cfg.d_model,
+                          heads=u.cfg.attention.num_heads, kv_heads=u.cfg.attention.num_kv_heads,
+                          head_dim=u.cfg.attention.head_dim, d_ff=u.cfg.d_ff,
+                          params=sum(p.numel() for p in u.params["backbone"].parameters()),
+                          loss_first=u.losses[0], loss=u.losses[-1],
+                          train_accuracy=u.train_accuracy, ms_per_record=u.cost,
+                          backbone_calls=u.calls, train_s=s)
+                     for u, s in zip(udfs, res["train_s"])],
+               first_step=first_step, selectivity=selectivity,
+               optimize_s=res["optimize_s"], order=list(plan.order),
+               serve_s=res["serve_s"], records_per_s=served["records"] / res["serve_s"],
+               execute_s=res["execute_s"], emitted=stats.emitted, rejected=stats.rejected,
+               stage_udf_batches=stats.stage_udf_batches, stage_in=stats.stage_in,
+               orig_ms_per_record=res["orig"].cost_per_record(served["records"]),
+               core_ms_per_record=res["res"].cost_per_record(served["records"]),
+               cost_saving=res["saving"], accuracy=res["accuracy"],
+               accuracy_floor=UDF["accuracy"] - 0.05, launches=fwd, route_launches=routes,
+               backward_launches=bwd, backward_route_launches=bwd_routes,
+               cascade_score_launches=served["launches"], served_tiles=served["tiles"],
+               labels_vs_plain=labels, peak_gib=peak / 2**30,
+               seconds=time.perf_counter() - t_phase)
+    emit(phase, **out)
+    del res, udfs
+    torch.cuda.empty_cache()
+    return out
+
+
+def get_published_layers(cfg) -> int:
+    from repro_torch.configs import get_config
+
+    return get_config(cfg.name.removesuffix("-smoke")).num_layers
+
+
+def run_udf_timing(dev) -> dict:
+    """The forward and backward kernels at the UDF training steps' shapes
+    (UDF_SHAPES: 2,000 records of 8 tokens, llama3-405b's and
+    qwen3-moe-30b-a3b's heads) beside SDPA and its backward."""
+    rows = {}
+    for shape in UDF_SHAPES:
+        key = f"H{shape[3]}"
+        rows[key] = dict(forward=time_flash(dev, "bfloat16", iters=20, shape=shape),
+                         backward=time_flash_bwd(dev, "bfloat16", shape, iters=10))
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------- phase 21
+VIDEO = dict(n=10_000, accuracy=0.9)
+
+
+def run_video_cascade_path(dev) -> dict:
+    """Phase 21: ``video_cascade.run`` on the card (its UDFs trained there):
+    each mode's plan executed on ``cascade_score`` (one launch a tile of
+    8,192 records for a plan with a proxied stage), accuracy against ORIG
+    >= A - 0.05 for each."""
+    from repro_torch import video_cascade
+    from repro_torch.kernels.proxy_score import cascade_score
+
+    t0 = time.perf_counter()
+    cascade_score.launches = 0
+    res = video_cascade.run(VIDEO["n"], dev, log=lambda _m: None)
+    sync(dev)
+    launches = cascade_score.launches
+    n = res["records"]
+    tiles = sum(-(-n // 8192) for m in res["modes"].values()
+                if any(st.proxy is not None for st in m["plan"].stages))
+    check(launches == tiles or dev.type == "cpu",
+          f"video_cascade_path: {launches} launches for {tiles} tiles")
+    for mode, m in res["modes"].items():
+        check(m["accuracy"] >= VIDEO["accuracy"] - 0.05,
+              f"video_cascade_path {mode}: accuracy {m['accuracy']:.4f}")
+    out = dict(records=n, launches=launches, tiles=tiles,
+               orig_ms_per_record=res["orig"].cost_per_record(n),
+               modes={mode: dict(order=list(m["plan"].order), accuracy=m["accuracy"],
+                                 exec_ms_per_record=m["exec_ms_per_record"],
+                                 labeling_ms=m["stats"]["labeling_ms"],
+                                 training_ms=m["stats"]["training_ms"],
+                                 search_ms=m["stats"]["search_ms"],
+                                 bnb_nodes_visited=(m["trace"] or {}).get("nodes_visited"),
+                                 bnb_nodes_total=(m["trace"] or {}).get("nodes_total"))
+                      for mode, m in res["modes"].items()},
+               seconds=time.perf_counter() - t0)
+    emit("video_cascade_path", **out)
+    return out
+
+
+# ------------------------------------------------------------- phase 22
+RESILIENT = dict(archs=("deepseek-67b", "mamba2-2.7b"), steps=30)
+
+
+def run_resilient_path(dev) -> dict:
+    """Phase 22: ``resilient_training.run`` on the card at the reduced
+    dense and SSM configs, the example's 30 steps: a straight run, then one
+    preempted before step 15 (restored from step 10), which must end equal
+    bit for bit to it (parameters, moments, every step's loss); the kernel
+    launches of the preempted run (flash forward and backward a layer a
+    step run, or ``ssd_chunk`` and its backward) and its straggler events."""
+    from repro_torch import resilient_training
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import ssd_scan
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in RESILIENT["archs"]:
+        quiet = dict(device=dev, log=lambda _m: None)
+        straight = resilient_training.run(arch, RESILIENT["steps"], preempt=False, **quiet)
+        fm.reset_launches()
+        ssd_scan.reset_launches()
+        again = resilient_training.run(arch, RESILIENT["steps"], **quiet)
+        sync(dev)
+        cfg = again["cfg"]
+        ran = len(again["losses"])
+        if cfg.family == "ssm":
+            launches = {"ssd_chunk": ssd_scan.ssd_chunk.launches,
+                        "ssd_chunk_backward": ssd_scan.ssd_chunk_backward.launches}
+        else:
+            launches = {"flash_attention": fm.flash_attention.launches,
+                        "flash_attention_backward": fm.flash_attention.backward_launches}
+        check(all(n == cfg.num_layers * ran for n in launches.values()) or dev.type == "cpu",
+              f"resilient_path {arch}: launches {launches}, not {cfg.num_layers} a layer for "
+              f"each of {ran} steps")
+        check(again["report"].restarts == 1 and again["restored_from"] == [10],
+              f"resilient_path {arch}: {again['report'].restarts} restarts from "
+              f"{again['restored_from']}")
+        same = [torch.equal(a, b) for a, b in zip(straight["params"].parameters(),
+                                                  again["params"].parameters())]
+        same += [torch.equal(straight["opt"].mu[n], again["opt"].mu[n])
+                 and torch.equal(straight["opt"].nu[n], again["opt"].nu[n])
+                 for n in straight["opt"].mu]
+        check(all(same), f"resilient_path {arch}: {same.count(False)} of {len(same)} tensors "
+              f"differ from the straight run")
+        check(dict(again["losses"]) == dict(straight["losses"]),
+              f"resilient_path {arch}: losses differ from the straight run")
+        out[arch] = dict(config=cfg.name, steps=RESILIENT["steps"], steps_run=ran,
+                         restarts=again["report"].restarts, restored_from=again["restored_from"],
+                         tensors_equal=len(same), loss_first=again["losses"][0][1],
+                         loss_last=again["losses"][-1][1], launches=launches,
+                         straggler_events=again["report"].straggler_events,
+                         straggler_steps=again["straggler_steps"],
+                         step_ewma_ms=again["report"].final_step_time_ewma * 1e3,
+                         seconds=again["seconds"])
+    emit("resilient_path", seconds=time.perf_counter() - t0, **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
@@ -4178,6 +4520,7 @@ def main(argv=None) -> int:
                          "paths (default 1,048,576); the process path takes 1/8 of "
                          "it, each fault injection 1/4")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
@@ -4329,6 +4672,14 @@ def main(argv=None) -> int:
     fleet_process = run_fleet_process(dev, workload, fleet["fleet"], args.fleet_records // 8)
     fleet_faults = run_fleet_faults(dev, workload, fleet["fleet"], args.fleet_records // 4)
     del workload, fleet["fleet"]
+    torch.cuda.empty_cache()
+    udf = run_udf_path(dev, True, "udf_path")
+    udf_reduced = run_udf_path(dev, False, "udf_path_reduced")
+    udf_rows = run_udf_timing(dev)
+    video = run_video_cascade_path(dev)
+    resilient = run_resilient_path(dev)
+    emit("script", seconds=time.perf_counter() - t_script)
+    udf_fwd, udf_bwd = udf_rows["H128"]["forward"], udf_rows["H128"]["backward"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
@@ -4343,7 +4694,10 @@ def main(argv=None) -> int:
                              "fleet_path": fleet["launches"],
                              "fleet_thread": fleet_thread["launches"],
                              "fleet_process": fleet_process["launches"],
-                             "fleet_faults": fleet_faults["launches"]},
+                             "fleet_faults": fleet_faults["launches"],
+                             "udf_path": udf["cascade_score_launches"],
+                             "udf_path_reduced": udf_reduced["cascade_score_launches"],
+                             "video_cascade_path": video["launches"]},
         "tuned_block_m": {r["path"]: r["tuned_block_m"] for r in tuned["shapes"]},
         "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "max_abs_err")}
@@ -4362,13 +4716,29 @@ def main(argv=None) -> int:
                              "mla_path": mla["launches"], "vlm_path": vlm["launches"],
                              "train_path": train["launches"],
                              "encdec_path": encdec["launches"],
-                             "hybrid_path": hybrid["launches"]},
+                             "hybrid_path": hybrid["launches"], "udf_path": udf["launches"],
+                             "udf_path_reduced": udf_reduced["launches"],
+                             "resilient_path": resilient["deepseek-67b"]["launches"][
+                                 "flash_attention"]},
         "max_abs_err": max([e for (e, _), c in zip(flash_errs, FLASH_CASES)
                             if c[7] == "bfloat16"] + [dense["attention_max_abs_err"],
                                                       moe["attention_max_abs_err"]]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"]}, {
+        "name": "flash_attention[udf]", "route": "cuda", "kernel_route": udf_fwd["route"],
+        "dtype": "bfloat16", "shape": list(UDF_SHAPES[0]),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "udf_path: 2,000 records of 8 tokens at llama3-405b's heads",
+        "launches": udf["launches"],
+        "max_abs_err": max(e for st in udf["first_step"] for e, _ in st["attention"]),
+        "ms": udf_fwd["ms"], "plain_ms": udf_fwd["plain_ms"],
+        "bound_ms": udf_fwd["bound_ms"], "bound_by": udf_fwd["bound_by"],
+        "library_ms": udf_fwd["library_ms"],
+        "qwen3_moe_shape": {k: udf_rows["H32"]["forward"][k]
+                            for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}, {
         "name": "flash_attention[D256]", "route": "cuda", "kernel_route": "tensor_cores",
         "dtype": "bfloat16", "shape": list(VLM_SHAPE),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4444,7 +4814,10 @@ def main(argv=None) -> int:
         "ms": ssd_bwd["row"]["ms"], "plain_ms": ssd_bwd["row"]["plain_ms"],
         "bound_ms": ssd_bwd["row"]["bound_ms"], "bound_by": ssd_bwd["row"]["bound_by"],
         "cuda_core_bound_ms": ssd_bwd["row"]["cuda_core_bound_ms"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "float32": {k: ssd_bwd["row_float32"][k]
+                    for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "cuda_core_bound_ms", "library_ms")}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "kernel_route": bwd["rows"]["bfloat16"]["route"],
         "dtype": "bfloat16", "shape": list(BWD_SERVING_SHAPE),
@@ -4464,7 +4837,7 @@ def main(argv=None) -> int:
         "max_abs_err": max([bwd["max_err"]] + [max(e) for e in train["layer_bwd_errors"]]),
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["bfloat16"]["ms"], "plain_ms": bwd["rows"]["bfloat16"]["plain_ms"],
-        "bound_ms": bwd["rows"]["bfloat16"]["bound_ms"], "bound_by": "operations",
+        "bound_ms": bwd["rows"]["bfloat16"]["bound_ms"], "bound_by": bwd["rows"]["bfloat16"]["bound_by"],
         "library_ms": bwd["rows"]["bfloat16"]["library_ms"]}, {
         "name": "flash_attention_bwd[D256]", "route": "cuda",
         "kernel_route": bwd["rows"]["D256"]["route"],
@@ -4476,8 +4849,23 @@ def main(argv=None) -> int:
         "max_abs_err": bwd["rows"]["D256"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["D256"]["ms"], "plain_ms": bwd["rows"]["D256"]["plain_ms"],
-        "bound_ms": bwd["rows"]["D256"]["bound_ms"], "bound_by": "operations",
+        "bound_ms": bwd["rows"]["D256"]["bound_ms"], "bound_by": bwd["rows"]["D256"]["bound_by"],
         "library_ms": bwd["rows"]["D256"]["library_ms"]}, {
+        "name": "flash_attention_bwd[udf]", "route": "cuda", "kernel_route": udf_bwd["route"],
+        "dtype": "bfloat16", "shape": list(UDF_SHAPES[0]),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "udf_path's training steps: 2,000 records of 8 tokens at llama3-405b's heads",
+        "launches": udf["backward_launches"],
+        "launches_by_route": udf["backward_route_launches"],
+        "max_abs_err": max(max(e) for st in udf["first_step"] for e in st["backward"]),
+        "max_err_is": "of each gradient's largest value",
+        "ms": udf_bwd["ms"], "plain_ms": udf_bwd["plain_ms"],
+        "bound_ms": udf_bwd["bound_ms"], "bound_by": udf_bwd["bound_by"],
+        "library_ms": udf_bwd["library_ms"],
+        "qwen3_moe_shape": {k: udf_rows["H32"]["backward"][k]
+                            for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}, {
         "name": "flash_attention_bwd[float32]", "route": "cuda",
         "kernel_route": bwd["rows"]["float32"]["route"],
         "dtype": "float32", "shape": list(BWD_SERVING_SHAPE),
@@ -4490,9 +4878,12 @@ def main(argv=None) -> int:
         "max_abs_err": bwd["rows"]["float32"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["float32"]["ms"], "plain_ms": bwd["rows"]["float32"]["plain_ms"],
-        "bound_ms": bwd["rows"]["float32"]["bound_ms"], "bound_by": "operations",
+        "bound_ms": bwd["rows"]["float32"]["bound_ms"], "bound_by": bwd["rows"]["float32"]["bound_by"],
         "cuda_core_bound_ms": bwd["rows"]["float32"]["cuda_core_bound_ms"],
-        "library_ms": bwd["rows"]["float32"]["library_ms"]}, {
+        "library_ms": bwd["rows"]["float32"]["library_ms"],
+        "d256": {k: bwd["rows"]["float32_D256"][k]
+                 for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "cuda_core_bound_ms", "library_ms")}}, {
         "name": "flash_attention_bwd[D16]", "route": "cuda",
         "kernel_route": bwd["rows"]["reduced_bfloat16"]["route"],
         "dtype": "bfloat16", "shape": list(BWD_REDUCED_SHAPE),
@@ -4501,11 +4892,15 @@ def main(argv=None) -> int:
         "note": "the gradient of that kernel at the restart check's reduced config",
         "launches": train["restart"]["backward_route_launches"]["cuda_cores"],
         "launches_by_route": train["restart"]["backward_route_launches"],
+        "launches_by_path": {
+            "train_path_restart": train["restart"]["backward_route_launches"]["cuda_cores"],
+            "udf_path_reduced": udf_reduced["backward_launches"],
+            "resilient_path": resilient["deepseek-67b"]["launches"]["flash_attention_backward"]},
         "max_abs_err": bwd["rows"]["reduced_bfloat16"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["reduced_bfloat16"]["ms"],
         "plain_ms": bwd["rows"]["reduced_bfloat16"]["plain_ms"],
-        "bound_ms": bwd["rows"]["reduced_bfloat16"]["bound_ms"], "bound_by": "operations",
+        "bound_ms": bwd["rows"]["reduced_bfloat16"]["bound_ms"], "bound_by": bwd["rows"]["reduced_bfloat16"]["bound_by"],
         "library_ms": bwd["rows"]["reduced_bfloat16"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

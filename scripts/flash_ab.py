@@ -12,6 +12,12 @@ its kernels, and times with CUDA events, causal, on one seeded input each:
   paligemma's (4, 4096, 4096, 8, 1, 256) training shapes (with the
   forward's lse where the tree's backward reads it).
 
+With ``--cuda-core-bwd`` it times instead only the backward's CUDA-core
+route, at the shapes that take it: the reduced configs' restart-check
+micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32, the reduced UDF's
+training batch (2000, 8, 8, 4, 2, 16) in bf16, and paligemma's
+(4, 4096, 4096, 8, 1, 256) in f32.
+
 Prints one line ``AB {...}`` with the tree, the card (name and power limit
 from ``nvidia-smi``) and each time in ms (the least of ``--turns`` runs of
 ``--iters`` calls, every run listed).  To compare two trees, unpack the
@@ -31,6 +37,10 @@ import torch
 
 FWD_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D)
 BWD_SHAPES = ((1, 4096, 4096, 64, 8, 128), (4, 4096, 4096, 8, 1, 256))
+CUDA_CORE_BWD = (((2, 256, 256, 4, 2, 16), torch.bfloat16),
+                 ((2, 256, 256, 4, 2, 16), torch.float32),
+                 ((2000, 8, 8, 4, 2, 16), torch.bfloat16),
+                 ((4, 4096, 4096, 8, 1, 256), torch.float32))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -45,10 +55,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def inputs(shape, seed: int):
+def inputs(shape, seed: int, dtype=torch.bfloat16):
     B, Sq, Sk, H, K, D = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
             for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D), (B, Sq, H, D))]
 
 
@@ -62,6 +72,8 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--cuda-core-bwd", action="store_true",
+                    help="time only the backward's CUDA-core route (CUDA_CORE_BWD)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA card", file=sys.stderr)
@@ -73,6 +85,20 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     with_lse = "return_lse" in inspect.signature(fm.flash_attention).parameters
     out = {"root": str(args.root), "card": smi, "iters": args.iters}
+    if args.cuda_core_bwd:
+        for shape, dtype in CUDA_CORE_BWD:
+            if fm.backward_route(shape[5], dtype) != "cuda_cores":
+                raise SystemExit(f"flash_ab: {shape} {dtype} does not take the CUDA cores")
+            q, k, v, dout = inputs(shape, seed=8, dtype=dtype)
+            o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
+            iters = args.iters if shape[1] > 256 else 20 * args.iters
+            out[f"cuda_core_backward_{'x'.join(map(str, shape))}_{str(dtype)[6:]}"] = timed(
+                lambda: fm.flash_attention_backward(q, k, v, o, dout, lse, causal=True),
+                iters, args.turns)
+            del q, k, v, dout, o, lse
+            torch.cuda.empty_cache()
+        print("AB " + json.dumps(out), flush=True)
+        return 0
 
     q, k, v, _ = inputs(FWD_SHAPE, seed=7)
     calls = {"forward": lambda: fm.flash_attention(q, k, v, causal=True)}

@@ -196,6 +196,19 @@ def moe_params(ref_params, cfg, device="cuda") -> MoETransformer:
 vlm_params = transformer_params
 
 
+def backbone_udf_params(ref_params, cfg, device="cuda") -> dict:
+    """A backbone UDF's parameter tree ``{"backbone", "proj", "head"}`` (the
+    JAX package's ``examples/transformer_udf_serving.py`` draws it) as
+    ``transformer_udf_serving``'s: the backbone through ``moe_params`` or
+    ``transformer_params`` by ``cfg.family``, ``proj`` and ``head`` as
+    tensors of their own type on ``device``."""
+    dev = resolve_device(device)
+    load = moe_params if cfg.family == "moe" else transformer_params
+    return {"backbone": load(ref_params["backbone"], cfg, dev),
+            "proj": _tensor_as_is(ref_params["proj"], dev),
+            "head": _tensor_as_is(ref_params["head"], dev)}
+
+
 def encdec_params(ref_params, cfg, device="cuda") -> EncDec:
     """The JAX package's encoder-decoder params (``enc_layers`` and
     ``dec_layers`` stacked) as this package's ``EncDec`` on ``device``."""

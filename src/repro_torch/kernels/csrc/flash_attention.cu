@@ -660,7 +660,7 @@ extern "C" {
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                            int B, int Sq, int Sk, int H, int K, int D, int causal, float scale,
                            void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535)
+  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || (long long)B * H > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const void* const kp[1] = {k};
   const void* const vp[1] = {v};
@@ -679,7 +679,7 @@ int flash_attention_split_launch(const void* q, const void* const* k_pieces,
                                  const void* const* v_pieces, void* o, void* lse, int B, int Sq,
                                  int Sk, int H, int K, int D, int causal, float scale,
                                  void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535 ||
+  if (B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || (long long)B * H > 2147483647LL ||
       ((uintptr_t)q | (uintptr_t)o) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

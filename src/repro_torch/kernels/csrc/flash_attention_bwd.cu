@@ -291,8 +291,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(
   float* ls = dss + BQ * PS;  // BQ       lse
   float* dis = ls + BQ;       // BQ       Di
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bk = blockIdx.y, b = bk / K, kvh = bk - b * K, G = H / K;
-  const int k0 = blockIdx.x * BK;  // blocks of the first KV tiles, the longest, first
+  const int bk = blockIdx.x, b = bk / K, kvh = bk - b * K, G = H / K;
+  const int k0 = blockIdx.y * BK;  // blocks of the first KV tiles, the longest, first
   const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
   const size_t kv_off = (size_t)b * Sk * kv_row + (size_t)kvh * D;
   stage<D>(ks, k + kv_off, k0, BK, Sk, kv_row, 1.f);
@@ -389,8 +389,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(
   float* ls = dss + BQ * PS;  // BQ       lse
   float* dis = ls + BQ;       // BQ       Di
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kvh = h / (H / K);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
   const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
   const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * D;
   const size_t kv_off = (size_t)b * Sk * kv_row + (size_t)kvh * D;
@@ -472,11 +472,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const int nq = (Sq + Tl::BQ - 1) / Tl::BQ, nk = (Sk + Tl::BK - 1) / Tl::BK;
-  bwd_dkdv<T, D><<<dim3(nk, B * K), kThreads, s2, st>>>(
+  // batch x heads on x (up to 2^31 - 1 blocks), the tiles on y
+  bwd_dkdv<T, D><<<dim3(B * K, nk), kThreads, s2, st>>>(
       qt, kt, vt, gt, lse, di, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, K, causal,
       scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq<T, D><<<dim3(nq, B * H), kThreads, s3, st>>>(qt, kt, vt, gt, lse, di,
+  bwd_dq<T, D><<<dim3(B * H, nq), kThreads, s3, st>>>(qt, kt, vt, gt, lse, di,
                                                       static_cast<T*>(dq), Sq, Sk, H, K, causal,
                                                       scale);
   return cudaGetLastError();
@@ -1483,7 +1484,7 @@ cudaError_t split_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
   }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int K) {
-  return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || B * H > 65535;
+  return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || (long long)B * H > 2147483647LL;
 }
 
 cudaError_t dispatch_cc(int D, int is_bf16, const void* q, const void* k, const void* v,

@@ -80,7 +80,7 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
-MAX_BATCH_HEADS = 65535  # batch * heads the C entries take
+MAX_BATCH_HEADS = 2**31 - 1  # batch * heads the C entries take: every grid's x dim
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores")
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
@@ -421,6 +421,8 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     pieces = [split_bf16(t) for t in (q, k, v, dout)] if split else None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN if path == "tensor_cores" else Sq
+    if B * H * rows > MAX_BATCH_HEADS:  # the scratch's rows are counted in an int
+        raise ValueError(f"batch * heads * rows = {B * H * rows} exceeds {MAX_BATCH_HEADS}")
     stats = torch.empty((2, B, H, rows), dtype=torch.float32, device=q.device)  # lse, Di
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -16,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import OptimizeOptions as JOptions, build_plan as j_build_plan
 from repro.data import synthetic as jsyn
@@ -27,6 +28,8 @@ from repro_torch.core.query import MLUDF, Predicate, Query
 from repro_torch.kernels import autotune as tat
 from repro_torch.kernels import proxy_score
 from repro_torch.kernels.ops import CascadeScorer, _TileBuffers, serialize_scorer
+from _one_thread import one_thread  # noqa: F401
+
 
 PKGS = pytest.mark.parametrize("pkg", [jat, tat], ids=["jax", "torch"])
 

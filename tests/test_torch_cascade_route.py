@@ -37,6 +37,8 @@ from repro_torch.core.proxy_family import (PackedCascade, cascade_kernel_operand
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import CascadeScorer
 from repro_torch.kernels.proxy_score import ROWS_PER_BLOCK, cascade_score_plain
+from _one_thread import one_thread  # noqa: F401
+
 
 FMAX = float(np.finfo(np.float32).max)
 TOL = 1e-5

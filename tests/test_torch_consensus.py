@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import OptimizeOptions as JOptions, build_plan as j_build_plan
 from repro.core.correlation import StreamingKappa2 as JKappa
@@ -29,6 +30,7 @@ from repro_torch.core.query import MLUDF, Predicate, Query
 from repro_torch.distributed import consensus as tcons
 from repro_torch.kernels import ops as tops
 from repro_torch.serving import stats as tstats
+from _one_thread import one_thread  # noqa: F401
 
 
 class Pkg:

@@ -12,6 +12,8 @@ import torch
 from repro.distributed import fault_tolerance as jft
 
 from repro_torch.distributed import fault_tolerance as tft
+from _one_thread import one_thread  # noqa: F401
+
 
 PACKAGES = {"jax": jft, "torch": tft}
 

@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 SHAPES = [  # (b, sq, sk, h, kv, d)
     (1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),  # test_kernels
@@ -108,7 +109,8 @@ def _bad_inputs():
     yield "k/v shapes", (q, k, v[:, :8].contiguous())
     yield "rank", (q[0], k[0], v[0])
     yield "contiguity", (q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    yield "grid", (torch.zeros(1, 1, 65536, 16), torch.zeros(1, 1, 1, 16),
+    # batch x heads past a grid's x dim (2^31 - 1), as a stride-0 view
+    yield "grid", (torch.zeros(1, 1, 1, 16).expand(1, 1, 2**31, 16), torch.zeros(1, 1, 1, 16),
                    torch.zeros(1, 1, 1, 16))
     # contiguous, but 4 bytes past a 16-byte boundary: TMA cannot read it
     yield "alignment", (torch.zeros(q.numel() + 1)[1:].view(q.shape), k, v)
@@ -218,18 +220,6 @@ def test_tensor_core_rounding_within_the_card_limits(shape, causal):
     assert 0 < row_err <= chip_smoke.FLASH_ROW_TOL["bfloat16"] and err > 0
 
 
-@pytest.fixture
-def one_thread():
-    """The emulations run many small products, fastest on one CPU thread
-    (about six times faster than on eight for these shapes, and far more
-    when other test processes share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("shape", SHAPES[:3] + [(1, 150, 150, 2, 1, 256), (1, 96, 200, 4, 2, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_split_rounding_within_the_card_limits(shape, causal):
@@ -251,7 +241,6 @@ def test_split_rounding_within_the_card_limits(shape, causal):
     chip_smoke.check_flash_output("split emulation vs JAX", got, oref)
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("drop", ["S:hi.mid", "S:mid.hi", "PV:hi.mid", "PV:mid.hi"])
 def test_one_piece_fewer_misses_the_limit(drop, D):
@@ -273,7 +262,6 @@ def test_one_piece_fewer_misses_the_limit(drop, D):
         chip_smoke.check_flash_output(drop, got, want)
 
 
-@pytest.mark.usefixtures("one_thread")
 def test_inputs_without_their_lower_pieces_miss_the_limit():
     """The card's planted fault in plain torch: the route run on q, k and v
     rounded to bf16 (their mid and lo pieces 0) against the plain version on

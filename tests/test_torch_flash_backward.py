@@ -24,22 +24,13 @@ from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention
                                                  flash_attention_backward_plain,
                                                  flash_attention_plain)
 from repro_torch.models import layers as TL
+from _one_thread import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 CASES = [  # (B, Sq, Sk, H, K, D)
     (2, 64, 64, 4, 2, 16), (1, 128, 128, 4, 2, 64), (1, 64, 64, 4, 2, 128), (1, 64, 64, 4, 2, 256),
     (2, 64, 64, 4, 1, 16), (1, 96, 96, 4, 1, 64), (1, 128, 128, 4, 1, 128), (1, 64, 64, 4, 1, 256),
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Many small products: one torch thread is fastest, and keeps the
-    module fast when other test processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

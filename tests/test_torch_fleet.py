@@ -20,7 +20,6 @@ swap and equals an inline run on the same streams."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.core import OptimizeOptions as JOptions, build_plan as j_build_plan
 from repro.core import execute_plan as j_execute, orig_plan as j_orig
@@ -36,6 +35,7 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.distributed.serving import ShardedCascadeServer
 from repro_torch.serving.engine import CascadeServer
 from repro_torch.serving.stats import AdaptivePolicy
+from _one_thread import one_thread  # noqa: F401
 
 DATA = dict(n=9000, n_features=64, n_columns=3, correlation=0.9, feature_noise=0.9,
             label_noise=0.2, seed=41)
@@ -43,17 +43,6 @@ POLICY = dict(cooldown_records=1024, min_reservoir=128, threshold=50.0, audit_ra
               reservoir_capacity=512)
 STREAMS = dict(shift_targets={0: 2.8, 1: -2.6, 2: 2.8}, corr_gain=2.5, drift_skew=0.3, seed=41)
 ACC_TOL = 0.01
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The fleets run many small products on the CPU: one torch thread is
-    fastest, and keeps the module fast when other test processes share the
-    cores (worker processes take the parent's count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

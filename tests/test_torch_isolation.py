@@ -73,6 +73,24 @@ _BLOCKED_ARTIFACTS = _BLOCK + textwrap.dedent("""
 """)
 
 
+# the three examples end to end on the CPU, at small sizes
+_BLOCKED_EXAMPLES = _BLOCK + textwrap.dedent("""
+    import torch
+    from repro_torch import resilient_training, transformer_udf_serving, video_cascade
+
+    torch.set_num_threads(1)
+    quiet = lambda *a, **kw: None
+    v = video_cascade.run(3000, "cpu", log=quiet)
+    assert sorted(v["modes"]) == sorted(video_cascade.MODES)
+    r = resilient_training.run("deepseek-67b", 4, device="cpu", ckpt_every=1, log=quiet)
+    assert r["report"].restarts == 1 and r["restored_from"] == [2]
+    u = transformer_udf_serving.run(2600, steps=1, device="cpu", log=quiet)
+    assert u["stats"].emitted + u["stats"].rejected == len(u["rest"])
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "repro"))
+    assert not leaked, leaked
+    print("examples ok")
+""")
+
 # the fleet end to end on the CPU: two inline hosts, then two worker
 # processes (each importing the port afresh) on the same plan and streams
 _BLOCKED_FLEET = _BLOCK + textwrap.dedent("""
@@ -168,6 +186,12 @@ def test_fleet_runs_without_jax_or_repro(tmp_path):
     assert len(list(tmp_path.glob("blocked.*"))) == 3  # the parent and both workers
 
 
+def test_examples_run_without_jax_or_repro():
+    proc = _run_blocked(_BLOCKED_EXAMPLES)
+    assert proc.returncode == 0, proc.stderr
+    assert "examples ok" in proc.stdout
+
+
 def test_port_imports_without_jax_or_repro():
     proc = _run_blocked(_BLOCKED_IMPORT)
     assert proc.returncode == 0, proc.stderr
@@ -187,7 +211,8 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpointer",
                  "repro_torch.launch.train", "repro_torch.models.encdec",
                  "repro_torch.models.rglru", "repro_torch.models.registry",
-                 "repro_torch.interop"):
+                 "repro_torch.interop", "repro_torch.video_cascade",
+                 "repro_torch.resilient_training", "repro_torch.transformer_udf_serving"):
         assert name in proc.stdout
 
 
@@ -223,6 +248,8 @@ def test_cuda_default_entry_points_raise_without_a_card():
     from repro_torch.kernels.ssd_scan import _bwd_lib as ssd_chunk_bwd_lib
     from repro_torch.kernels.ssd_scan import ssd_chunk_backward
     from repro_torch.models import encdec, rglru
+    from repro_torch import resilient_training, transformer_udf_serving, video_cascade
+    from repro_torch.interop import backbone_udf_params
 
     ds = make_dataset(n=400, n_columns=1, seed=0)
     udfs = make_udfs(ds, hidden=8, depth=1, train_rows=200, seed=0, declared_cost_ms=1.0,
@@ -290,6 +317,12 @@ def test_cuda_default_entry_points_raise_without_a_card():
         "quant_parity_report": lambda: quant_parity_report(plan, x),
         "PlanCache.optimize_query": lambda: PlanCache().optimize_query(query, x),
         "PlanCache.optimize_query (hit)": lambda: hit_cache.optimize_query(query, x),
+        "video_cascade.main": lambda: video_cascade.main(["--n", "2000"]),
+        "resilient_training.main": lambda: resilient_training.main(["--steps", "2"]),
+        "transformer_udf_serving.main": lambda: transformer_udf_serving.main(["--n", "2600"]),
+        "backbone_udf_params": lambda: backbone_udf_params({}, cfg),
+        "make_backbone_udf": lambda: transformer_udf_serving.make_backbone_udf(
+            "llama3-405b", ds, 0, steps=1),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

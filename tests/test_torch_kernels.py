@@ -22,6 +22,8 @@ from repro_torch import interop
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ops import CascadeScorer
 from repro_torch.kernels.proxy_score import cascade_score, proxy_score
+from _one_thread import one_thread  # noqa: F401
+
 
 TOL = 1e-5
 

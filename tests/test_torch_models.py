@@ -25,6 +25,8 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm, transformer
 from repro_torch.models.registry import get_family, make_batch
+from _one_thread import one_thread  # noqa: F401
+
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 ARCHS = ("deepseek-67b", "qwen1.5-110b")  # the latter for its qkv bias

@@ -29,21 +29,12 @@ from repro_torch.models import mla as TMLA
 from repro_torch.models import moe as TM
 from repro_torch.models import encdec, rglru, transformer, vlm
 from repro_torch.models.registry import get_family, make_batch
+from _one_thread import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DECODE_TOL = {"float32": 1e-5, "bfloat16": 8e-2}
 ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "paligemma-3b")
 TOTAL, NEW, BATCH = 36, 8, 2  # processed positions, decoded tokens, requests
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Many small products: one torch thread is fastest, and keeps the
-    module fast when other test processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

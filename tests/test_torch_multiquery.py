@@ -31,6 +31,7 @@ from repro_torch.launch import serve as cli
 from repro_torch.serving.engine import CascadeServer
 from repro_torch.serving.frontend import ServingFrontEnd
 from repro_torch.serving.multiquery import FairScheduler, MultiQueryEngine, eq31_benefit
+from _one_thread import one_thread  # noqa: F401
 
 DATA = dict(n=4000, correlation=0.9, seed=17)
 OPTS = dict(mode="core-a", step=0.05, seed=17)
@@ -323,24 +324,12 @@ class _Reached(Exception):
     pass
 
 
-@pytest.fixture
-def one_thread():
-    """The CLI trains its UDFs and proxies with many small products: one
-    torch thread is fastest, and stays fast when other test processes share
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("argv,field,want", [
     (["--hosts", "2"], None, None),
     (["--transport", "thread"], "transport", "thread"),
     (["--drift-skew", "0.4"], "drift_scales", "drift scales [0.6, 1.4]"),
     (["--kill-coordinator-at", "prepare"], "kill_coordinator_at", "prepare"),
     (["--straggler-host", "1"], "straggler_host", 1)])
-@pytest.mark.usefixtures("one_thread")
 def test_cli_fleet_flags_reach_the_fleet(argv, field, want, monkeypatch, capsys):
     """``--hosts 2`` serves across two hosts on the CPU; each fleet flag's
     value reaches ``ShardedCascadeServer`` (``--drift-skew`` the shards'

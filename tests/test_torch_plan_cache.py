@@ -16,6 +16,7 @@ import warnings
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import OptimizeOptions as JOptions, PlanCache as JPlanCache
 from repro.core import build_plan as j_build_plan, fingerprint_query as j_fingerprint
@@ -31,6 +32,8 @@ from repro_torch.core.builder import ProxyBuilder
 from repro_torch.core.plan_cache import PLANCACHE_MAGIC, PlanCacheEntry
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.ops import deserialize_scorer, serialize_scorer
+from _one_thread import one_thread  # noqa: F401
+
 
 DATA = dict(n=6000, correlation=0.9, feature_noise=1.0, seed=21)
 K = 1200  # the optimization sample

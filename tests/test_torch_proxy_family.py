@@ -16,6 +16,7 @@ from repro_torch import interop
 from repro_torch.core import proxy_family as tpf
 from repro_torch.kernels import ops as tops
 from repro_torch.training import proxy_models as tpm
+from _one_thread import one_thread  # noqa: F401
 
 
 def _linear(rng, F):

@@ -35,18 +35,11 @@ from repro_torch.models.registry import get_family, make_batch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 ARCH, PROMPT, NEW, BATCH = "recurrentgemma-2b", 48, 4, 2
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DECODE_TOL = {"float32": 1e-5, "bfloat16": 8e-2}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -15,6 +15,7 @@ swaps no plan.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import build_plan as j_build_plan
 from repro.core import execute_plan as j_execute, orig_plan as j_orig
@@ -28,6 +29,8 @@ from repro_torch.core import execute_plan, orig_plan
 from repro_torch.data import synthetic as tsyn
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.engine import CascadeServer
+from _one_thread import one_thread  # noqa: F401
+
 
 ARGV = ["--n", "12000", "--preds", "3", "--mode", "core", "--tile", "257",
         "--adaptive", "--drift"]

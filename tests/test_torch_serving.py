@@ -16,6 +16,7 @@ import types
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import OptimizeOptions as JOptions, build_plan as j_build_plan
 from repro.core import execute_plan as j_execute, orig_plan as j_orig
@@ -31,6 +32,8 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.serving import stats as tstats
 from repro_torch.serving.engine import CascadeServer
 from repro_torch.serving.frontend import ServingFrontEnd, SLOPolicy
+from _one_thread import one_thread  # noqa: F401
+
 
 N, K = 6000, 1200  # dataset rows; the first K are the optimization sample
 DATA = dict(n=N, n_features=64, n_columns=3, correlation=0.9, feature_noise=0.9,

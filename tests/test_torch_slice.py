@@ -14,6 +14,7 @@ carried across (torch cannot reproduce ``jax.random``).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import (OptimizeOptions as JOptions, build_plan as j_build_plan,
                         execute_plan as j_execute, ns_plan as j_ns_plan,
@@ -27,6 +28,8 @@ from repro_torch.core import (OptimizeOptions, execute_plan, ns_plan, orig_plan,
                               rebuild_plan)
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.ops import CascadeScorer, cascade_scorer_for_plan
+from _one_thread import one_thread  # noqa: F401
+
 
 N, K = 7000, 1500  # quickstart: n=20,000 and k=1500; the dataset is cut to 7000
 FOLD_TOL = 1e-4

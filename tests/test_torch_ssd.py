@@ -20,6 +20,8 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 
 from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+from _one_thread import one_thread  # noqa: F401
+
 
 CHUNK_TOL, DECAY_TOL, OPS_TOL = 1e-4, 1e-5, 2e-4
 

@@ -32,16 +32,9 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ops, ssd_scan
 from repro_torch.kernels.ssd_scan import (SSDChunk, ssd_chunk, ssd_chunk_backward,
                                           ssd_chunk_backward_plain, ssd_chunk_plain)
+from _one_thread import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want) -> float:

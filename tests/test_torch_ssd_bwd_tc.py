@@ -42,17 +42,10 @@ from repro_torch.kernels.ssd_scan import ssd_chunk_backward_plain
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from test_torch_ssd_tc import _route_case, _warp_scan_cumsum  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 F32, BF16 = torch.float32, torch.bfloat16
 NAMES = chip_smoke.SSD_BWD_NAMES
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

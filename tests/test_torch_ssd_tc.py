@@ -33,6 +33,7 @@ from repro_torch.kernels.ssd_scan import ssd_chunk_plain
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 F32, BF16 = torch.float32, torch.bfloat16
 TILE = 64  # rows of the kernel's (i, j) tiles
@@ -182,23 +183,11 @@ def test_one_term_split_misses_the_tolerance():
     assert errs["chunk_decay_ok"]
 
 
-@pytest.fixture
-def one_thread():
-    """The emulations run many small products, fastest on one CPU thread
-    (about six times faster than on eight for these shapes, and far more
-    when other test processes share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 SPLIT_CASES = [  # the JAX package's f32 test shape the route takes, G < H, ragged Q, Q = 256
     (4, 64, 2, 2, 16, 32, "jax_test"), (2, 80, 6, 3, 16, 16, "jax_test"),
     (1, 256, 4, 1, 64, 128, "published")]
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=[f"Q{c[1]}-P{c[4]}-N{c[5]}"
                                                    for c in SPLIT_CASES])
 def test_split_rounding_within_the_card_limits(case):
@@ -214,7 +203,6 @@ def test_split_rounding_within_the_card_limits(case):
     chip_smoke.check_ssd_output("split emulation vs JAX", got, _jax_reference(x, dA, B, C), dA)
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("drop", SPLIT_TERMS)
 def test_one_piece_fewer_misses_the_tolerance(drop):
     """At the serving chunk in f32, dropping any one of the six lo terms

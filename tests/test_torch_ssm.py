@@ -28,8 +28,10 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import ssm
 from repro_torch.models.registry import get_family, make_batch
 
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 DECODE_TOL = {"float32": 1e-5, "bfloat16": 8e-2}

@@ -46,20 +46,13 @@ from repro_torch.training.train_loop import make_train_step
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _one_thread import one_thread  # noqa: F401
 
 ARCHS = ("mamba2-2.7b", "seamless-m4t-medium", "recurrentgemma-2b")
 CONVERT = {"ssm": interop.ssm_params, "encdec": interop.encdec_params,
            "hybrid": interop.rglru_params}
 LR = 1e-3
 ADAM_EPS, ADAM_COND = 1e-8, 100
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

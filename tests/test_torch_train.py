@@ -43,20 +43,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import leaves
 from repro_torch.training import optim
 from repro_torch.training.train_loop import init_train_state, make_train_step
+from _one_thread import one_thread  # noqa: F401
 
 ARCHS = ("deepseek-67b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "paligemma-3b")
 CONVERT = {"dense": interop.transformer_params, "moe": interop.moe_params,
            "vlm": interop.vlm_params}
 LR = 1e-3
 ADAM_EPS, ADAM_COND = 1e-8, 100
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

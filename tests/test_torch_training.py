@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.data import synthetic as jsyn
 from repro.training import proxy_models as jpm
@@ -20,6 +21,7 @@ from repro.training import proxy_models as jpm
 from repro_torch.data import synthetic as tsyn
 from repro_torch import interop
 from repro_torch.training import proxy_models as tpm
+from _one_thread import one_thread  # noqa: F401
 
 
 def _data(seed, n=600, F=16):

@@ -44,6 +44,8 @@ from repro_torch.kernels.ops import (
     serialize_frame,
     serialize_scorer,
 )
+from _one_thread import one_thread  # noqa: F401
+
 
 DATA = dict(n=6000, n_features=64, n_columns=3, correlation=0.9, feature_noise=0.9,
             label_noise=0.2, seed=41)
