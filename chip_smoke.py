@@ -4502,6 +4502,304 @@ def run_resilient_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------- distribution
+# mesh_path: the sharded step on a (1, 1) ("data", "model") mesh of an NCCL
+# world of one, at train_path's cell; dryrun_cells: the port's dry run of
+# two production cells and of mesh_path's own; cascade_dryrun: the fused
+# scorer's dry run on the card.
+MESH_TRAIN_STEPS = 2
+DRYRUN_CELLS = (  # (arch, shape, variant, mesh, layers, batch, extrapolate)
+    ("llama3-405b", "train_4k", "baseline", (16, 16), None, None, None),
+    ("qwen3-moe-30b-a3b", "prefill_32k", "opt", (16, 16), None, None, None),
+    # mesh_path's own cell, traced in full and then extrapolated
+    (TRAIN["arch"], "train_4k", "baseline", (1, 1), TRAIN["layers"], TRAIN["batch"], False),
+    (TRAIN["arch"], "train_4k", "baseline", (1, 1), TRAIN["layers"], TRAIN["batch"], True),
+)
+# the dry run's cells in one process of their own (its fake worlds its
+# own; a process start costs 10-20 s on the card's host)
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, variant, mesh, layers, batch, extrapolate in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, variant=variant, mesh_shape=tuple(mesh), layers=layers,
+                          batch=batch, force=True, results_dir=sys.argv[2],
+                          extrapolate=extrapolate)
+    print("RECORD " + json.dumps(rec), flush=True)
+"""
+
+
+def nccl_world(dev) -> None:
+    """A default process group of one rank on ``dev`` (NCCL), its
+    rendezvous on a free localhost port."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=dev)
+
+
+def leaf_errors(got: dict, want_host: dict) -> dict:
+    """Per leaf of the JAX layout: bit-equal, and the largest difference
+    over the leaf's largest value."""
+    from torch.distributed.tensor import DTensor
+
+    equal, worst, where = True, 0.0, None
+    for k, want in want_host.items():
+        g = got[k].to_local() if isinstance(got[k], DTensor) else got[k]
+        w = want.to(g.device)
+        equal &= bool(torch.equal(g.detach(), w))
+        rel = float((g.detach().float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, k))
+        del w
+    return {"bit_equal": equal, "max_rel": worst, "worst_leaf": where}
+
+
+def run_mesh_path(dev, train: dict) -> dict:
+    """Phase mesh_path: ``train_path``'s cell (deepseek-67b, 3 layers, 4 x
+    4,096 tokens, accum 4, remat, AdamW) through ``build_cell``'s layouts
+    on a (1, 1) mesh of an NCCL world of one: the params, optimizer state
+    and batch DTensors, MESH_TRAIN_STEPS steps of ``make_sharded_train_step``
+    under ``ctx.use_mesh`` held to the same steps of the unsharded
+    ``make_train_step`` from the same seed (bit for bit, or else within the
+    bf16 train limits), with ``flash_attention``'s launches by route equal
+    to ``train_path``'s a step; a qwen3-moe prefill at moe_path's depth
+    with ``ep`` on (``moe_apply_ep`` at tp 1 against ``moe_apply``); and a
+    dense decode step over a cache laid out by ``cache_sharding``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import (batch_sharding, cache_sharding, distribute,
+                                                  local_bytes, opt_shardings, params_shardings,
+                                                  serve_mode_for)
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.models import moe, transformer
+    from repro_torch.training.train_loop import (apply_with_leaves, init_leaf_opt_state,
+                                                 init_train_state, leaf_params,
+                                                 make_sharded_train_step, make_train_step)
+
+    t_phase = time.perf_counter()
+    nccl_world(dev)
+    try:
+        mesh = make_dev_mesh(1, 1, device_type="cuda")
+        cfg = get_config(TRAIN["arch"]).replace(num_layers=TRAIN["layers"])
+        data = make_data(cfg, TRAIN["seq"], rows=TRAIN["batch"], seed=1)
+        # int32 tokens: the dry run's input specs (the values are train_path's)
+        batch = {k: v.to(torch.int32) for k, v in make_batch(cfg, data, 0, dev).items()}
+
+        # the unsharded steps from seed 0
+        params, opt = init_train_state(cfg, 0, dev)
+        start = {k: v.cpu() for k, v in leaf_params(params).items()}
+        step = make_train_step(cfg, lr=TRAIN["lr"])
+        fm.reset_launches()
+        ref_losses = []
+        for _ in range(MESH_TRAIN_STEPS):
+            _, opt, m = step(params, opt, batch)
+            ref_losses.append(float(m["loss"]))
+        ref_launch = (fm.flash_attention.launches, fm.flash_attention.backward_launches)
+        final = {k: v.cpu() for k, v in leaf_params(params).items()}
+        del params, opt, step, m
+        torch.cuda.empty_cache()
+
+        # the same steps on the mesh
+        plain = {k: v.to(dev) for k, v in start.items()}
+        sparams = distribute(plain, params_shardings(plain, mesh, "train"), requires_grad=True)
+        opt_plain = init_leaf_opt_state(cfg, plain)
+        sopt = distribute(opt_plain, opt_shardings(opt_plain, mesh))
+        sbatch = distribute(batch, batch_sharding(batch, mesh))
+        del plain, opt_plain
+        arg_bytes = local_bytes([sparams, sopt, sbatch])
+        sstep = make_sharded_train_step(cfg, lr=TRAIN["lr"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fm.reset_launches()
+        losses, step_ms = [], []
+        with ctx.use_mesh(mesh):
+            for _ in range(MESH_TRAIN_STEPS):
+                sync(dev)
+                t0 = time.perf_counter()
+                _, sopt, m = sstep(sparams, sopt, sbatch)
+                sync(dev)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"].full_tensor()))
+        peak = torch.cuda.max_memory_allocated(dev)
+        fwd, bwd = fm.flash_attention.launches, fm.flash_attention.backward_launches
+        fwd_routes = dict(fm.flash_attention.route_launches)
+        bwd_routes = dict(fm.flash_attention.backward_route_launches)
+        per_step = (train["launches"] // TRAIN["steps"], train["backward_launches"] // TRAIN["steps"])
+        check((fwd, bwd) == ref_launch == (MESH_TRAIN_STEPS * per_step[0],
+                                           MESH_TRAIN_STEPS * per_step[1]),
+              f"mesh_path: {fwd} / {bwd} flash launches, unsharded {ref_launch}, train_path "
+              f"{per_step} a step")
+        check(fwd_routes["tensor_cores"] == fwd and bwd_routes["tensor_cores"] == bwd,
+              f"mesh_path: flash launches off the tensor cores: {fwd_routes} {bwd_routes}")
+        params_err = leaf_errors(sparams, final)
+        loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        check(all(math.isfinite(x) for x in losses), f"mesh_path: losses {losses}")
+        check(params_err["bit_equal"] and loss_err == 0.0
+              or (params_err["max_rel"] <= PREFILL_TOL and loss_err <= PREFILL_TOL),
+              f"mesh_path: the sharded steps differ from the unsharded: loss {loss_err}, "
+              f"params {params_err}")
+        check(isinstance(sparams[("layers", "attn", "wq")], torch.distributed.tensor.DTensor),
+              "mesh_path: the params are not DTensors")
+        del sparams, sopt, sbatch, sstep, m, final, start
+        torch.cuda.empty_cache()
+
+        # a qwen3-moe prefill with expert parallelism on
+        mcfg = get_config(MOE["arch"]).replace(num_layers=MOE["layers"])
+        model = moe.init(0, mcfg, dev)
+        tokens = torch.from_numpy(np.random.RandomState(7).randint(
+            0, mcfg.vocab_size, (MOE["batch"], MOE["prompt"])).astype(np.int32)).to(dev)
+        fm.reset_launches()
+        ref_logits, _ = moe.prefill(model, mcfg, {"tokens": tokens})
+        moe_ref_launches = fm.flash_attention.launches
+        leaves = leaf_params(model)
+        del model
+        mode = serve_mode_for(mcfg, mesh)
+        mp = distribute(leaves, params_shardings(leaves, mesh, mode))
+        mb = distribute({"tokens": tokens}, batch_sharding({"tokens": tokens}, mesh))
+        fm.reset_launches()
+        with ctx.use_mesh(mesh, ep=True), mock.patch.object(
+                moe, "_routed_ep", wraps=moe._routed_ep) as ep_calls:
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, _ = apply_with_leaves(mcfg, "prefill", mp, mb)
+            sync(dev)
+            moe_ms = (time.perf_counter() - t0) * 1e3
+        moe_launches = fm.flash_attention.launches
+        logits = logits.full_tensor()
+        moe_err = float((logits - ref_logits).abs().max())
+        check(ep_calls.call_count == mcfg.num_layers,
+              f"mesh_path: moe_apply_ep ran {ep_calls.call_count} times in "
+              f"{mcfg.num_layers} layers")
+        check(moe_launches == moe_ref_launches == mcfg.num_layers,
+              f"mesh_path: {moe_launches} flash launches in the sharded prefill, "
+              f"{moe_ref_launches} unsharded")
+        check(moe_err <= PREFILL_TOL, f"mesh_path: the ep prefill's logits differ by {moe_err}")
+        del mp, mb, leaves, logits, ref_logits
+        torch.cuda.empty_cache()
+
+        # a dense decode step over a cache laid out by cache_sharding
+        model = transformer.init(0, cfg, dev)
+        prompt = batch["tokens"]
+        _, cache = transformer.prefill(model, cfg, {"tokens": prompt})
+        cache = pad_cache(cache, 1)
+        nxt = prompt[:, -1]
+        ref_cache = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in cache.items()}
+        ref_dec, _ = transformer.decode_step(model, cfg, ref_cache, nxt)
+        leaves = leaf_params(model)
+        del model, ref_cache
+        dp = distribute(leaves, params_shardings(leaves, mesh, serve_mode_for(cfg, mesh)))
+        dc = distribute(cache, cache_sharding(cache, mesh))
+        dt = distribute({"tokens": nxt}, batch_sharding({"tokens": nxt}, mesh))["tokens"]
+        with ctx.use_mesh(mesh):
+            sync(dev)
+            t0 = time.perf_counter()
+            dec, dc = apply_with_leaves(cfg, "decode_step", dp, dc, dt)
+            sync(dev)
+            dec_ms = (time.perf_counter() - t0) * 1e3
+        dec_err = float((dec.full_tensor() - ref_dec).abs().max())
+        check(dec_err <= DECODE_TOL, f"mesh_path: the sharded decode's logits differ by {dec_err}")
+        check(dc["pos"] == TRAIN["seq"] + 1, f"mesh_path: decode position {dc['pos']}")
+        del dp, dc, dt, dec, cache, leaves
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out = dict(mesh=[1, 1], arch=cfg.name, layers=cfg.num_layers, batch=TRAIN["batch"],
+               seq=TRAIN["seq"], accum_steps=cfg.accum_steps, steps=MESH_TRAIN_STEPS,
+               losses=losses, unsharded_losses=ref_losses, loss_max_abs_diff=loss_err,
+               params=params_err, step_ms=step_ms, train_path_warm_step_ms=train["warm_step_ms"],
+               peak_bytes=peak, peak_gib=peak / 2**30, argument_bytes=arg_bytes,
+               launches=fwd, backward_launches=bwd, route_launches=fwd_routes,
+               backward_route_launches=bwd_routes, train_path_launches_a_step=list(per_step),
+               moe=dict(arch=mcfg.name, layers=mcfg.num_layers, ep_calls=ep_calls.call_count,
+                        logits_max_abs_diff=moe_err, ms=moe_ms, launches=moe_launches),
+               decode=dict(logits_max_abs_diff=dec_err, ms=dec_ms),
+               seconds=time.perf_counter() - t_phase)
+    emit("mesh_path", **out)
+    return out
+
+
+def run_dryrun_cells(mesh: dict) -> dict:
+    """Phase dryrun_cells: the port's dry run (``launch.dryrun.run_cell``, as
+    ``python -m repro_torch.launch.dryrun`` runs it) in a subprocess, its
+    fake worlds its own: the two production cells of DRYRUN_CELLS on (16,
+    16), then mesh_path's own cell on (1, 1), traced in full and
+    extrapolated from shorter traces: its argument bytes equal to
+    mesh_path's params, optimizer state and batch, and its peak estimate
+    beside mesh_path's measured peak."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        proc = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS),
+                               tmp], capture_output=True, text=True, cwd=ROOT, timeout=600,
+                              env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src"),
+                                   "CUDA_VISIBLE_DEVICES": ""})
+    check(proc.returncode == 0, f"dryrun_cells: the dry run failed: {proc.stderr[-2000:]}")
+    recs = [json.loads(ln[7:]) for ln in proc.stdout.splitlines() if ln.startswith("RECORD ")]
+    check(len(recs) == len(DRYRUN_CELLS),
+          f"dryrun_cells: {len(recs)} records for {len(DRYRUN_CELLS)} cells")
+    rows = []
+    for rec in recs:
+        check(rec["status"] == "ok", f"dryrun_cells: {rec['arch']} x {rec['shape']}: "
+              f"{rec.get('error')} {rec.get('trace', '')[-800:]}")
+        m, c, r = rec["memory"], rec["costs"], rec["roofline"]
+        check(c["flops_per_device"] > 0 and 0 < r["useful_flops_ratio"] <= 1.5,
+              f"dryrun_cells: {rec['arch']} x {rec['shape']}: {r}")
+        rows.append(dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+                         traced=rec["traced"], argument_bytes=m["argument_bytes_per_device"],
+                         high_water_bytes=m["high_water_bytes_per_device"],
+                         peak_estimate_bytes=m["peak_estimate_bytes_per_device"],
+                         flops=c["flops_per_device"], hbm_bytes=c["hbm_bytes_per_device"],
+                         collective_bytes=c["collective_bytes_per_device"],
+                         kernel_calls=c["kernel_calls"],
+                         t_compute_s=r["t_compute_s"], t_memory_s=r["t_memory_s"],
+                         t_collective_s=r["t_collective_s"], dominant=r["dominant"],
+                         useful_flops_ratio=r["useful_flops_ratio"],
+                         roofline_fraction=r["roofline_fraction"], seconds=rec["seconds"]))
+    full, extra = rows[-2], rows[-1]
+    check(full["argument_bytes"] == mesh["argument_bytes"],
+          f"dryrun_cells: the (1, 1) cell's argument bytes {full['argument_bytes']} are not "
+          f"mesh_path's {mesh['argument_bytes']}")
+    check(full["kernel_calls"].get("flash_attention") == mesh["launches"] // MESH_TRAIN_STEPS,
+          f"dryrun_cells: the (1, 1) cell calls flash {full['kernel_calls']}, mesh_path "
+          f"launches {mesh['launches'] // MESH_TRAIN_STEPS} a step")
+    out = dict(cells=rows[:-2], own_cell=full, own_cell_extrapolated=extra,
+               extrapolation_rel_err={k: abs(extra[k] - full[k]) / max(full[k], 1.0)
+                                      for k in ("flops", "hbm_bytes", "high_water_bytes")},
+               peak_estimate_over_measured=full["peak_estimate_bytes"] / mesh["peak_bytes"],
+               measured_peak_bytes=mesh["peak_bytes"], seconds=time.perf_counter() - t_phase)
+    emit("dryrun_cells", **out)
+    return out
+
+
+def run_cascade_dryrun(dev) -> dict:
+    """Phase cascade_dryrun: ``dryrun --proxy-kind mixed`` on the card: every
+    stage on ``cascade_score``, at most 3 disagreements with the reference
+    executor, and its launches counted."""
+    from repro_torch.kernels import proxy_score
+    from repro_torch.launch.dryrun import cascade_report
+
+    t_phase = time.perf_counter()
+    proxy_score.cascade_score.launches = 0
+    with contextlib.redirect_stdout(__import__("io").StringIO()):
+        rep = cascade_report("mixed", device=dev)
+    sync(dev)
+    launches = proxy_score.cascade_score.launches
+    check(rep["ok"], f"cascade_dryrun: {rep}")
+    check(launches > 0, "cascade_dryrun: no cascade_score launch")
+    out = dict(rep, launches=launches, seconds=time.perf_counter() - t_phase)
+    emit("cascade_dryrun", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     ap.add_argument("--stream-records", type=int, default=1_048_576,
@@ -4678,6 +4976,11 @@ def main(argv=None) -> int:
     udf_rows = run_udf_timing(dev)
     video = run_video_cascade_path(dev)
     resilient = run_resilient_path(dev)
+    torch.cuda.empty_cache()
+    mesh = run_mesh_path(dev, train)
+    torch.cuda.empty_cache()
+    dryrun_cells = run_dryrun_cells(mesh)
+    cascade_dry = run_cascade_dryrun(dev)
     emit("script", seconds=time.perf_counter() - t_script)
     udf_fwd, udf_bwd = udf_rows["H128"]["forward"], udf_rows["H128"]["backward"]
     print(smi, flush=True)
@@ -4697,7 +5000,8 @@ def main(argv=None) -> int:
                              "fleet_faults": fleet_faults["launches"],
                              "udf_path": udf["cascade_score_launches"],
                              "udf_path_reduced": udf_reduced["cascade_score_launches"],
-                             "video_cascade_path": video["launches"]},
+                             "video_cascade_path": video["launches"],
+                             "cascade_dryrun": cascade_dry["launches"]},
         "tuned_block_m": {r["path"]: r["tuned_block_m"] for r in tuned["shapes"]},
         "serving_shapes": [{k: r[k] for k in ("shape", "N", "F", "HP", "P", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "max_abs_err")}
@@ -4715,6 +5019,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"dense_path": dense["launches"], "moe_path": moe["launches"],
                              "mla_path": mla["launches"], "vlm_path": vlm["launches"],
                              "train_path": train["launches"],
+                             "mesh_path": mesh["launches"],
+                             "mesh_path_moe": mesh["moe"]["launches"],
                              "encdec_path": encdec["launches"],
                              "hybrid_path": hybrid["launches"], "udf_path": udf["launches"],
                              "udf_path_reduced": udf_reduced["launches"],
@@ -4831,6 +5137,7 @@ def main(argv=None) -> int:
                               + train["float32"]["backward_route_launches"][r]
                               for r in train["backward_route_launches"]},
         "launches_by_path": {"train_path": train["backward_launches"],
+                             "mesh_path": mesh["backward_launches"],
                              **{a: s["backward_launches"]
                                 for a, s in train["side_steps"].items()},
                              "train_f32_check": train["float32"]["backward_launches"]},

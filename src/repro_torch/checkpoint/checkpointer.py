@@ -39,14 +39,17 @@ def _key(i: int) -> str:
     return f"leaf_{i:05d}"
 
 
-def flatten(tree: Any) -> List[Any]:
-    """The leaves of ``tree`` in the JAX package's flatten order."""
+def flatten(tree: Any, is_leaf=lambda _node: False) -> List[Any]:
+    """The leaves of ``tree`` in the JAX package's flatten order (a node
+    for which ``is_leaf`` holds is a leaf too)."""
     if tree is None:
         return []
+    if is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in flatten(tree[k], is_leaf)]
     if isinstance(tree, (tuple, list)):
-        return [leaf for sub in tree for leaf in flatten(sub)]
+        return [leaf for sub in tree for leaf in flatten(sub, is_leaf)]
     if isinstance(tree, LEAF_TYPES):
         return [tree]
     raise TypeError(f"not a tree node or leaf: {type(tree).__name__}")
@@ -179,11 +182,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None, *, shardings=None) -> Any:
         """A tree of ``like``'s structure from checkpoint ``step`` (the
         latest by default), each leaf in the type of ``like``'s, a tensor
         leaf on ``like``'s device (the CPU for a "meta" tensor).  Raises
-        ``IOError`` when the sha256 disagrees."""
+        ``IOError`` when the sha256 disagrees.  ``shardings``: a tree of
+        ``distributed.sharding.NamedSharding``s of ``like``'s structure;
+        each tensor leaf is then laid out on its mesh as a DTensor (on the
+        mesh's device), resharding a checkpoint for a new mesh."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -201,5 +207,13 @@ class Checkpointer:
         leaves = flatten(like)
         if len(leaves) != len(arrays):
             raise ValueError(f"checkpoint has {len(arrays)} leaves; target needs {len(leaves)}")
-        return unflatten(like, [_restored(a, dt, tgt)
-                                for a, dt, tgt in zip(arrays, meta["dtypes"], leaves)])
+        out = [_restored(a, dt, tgt) for a, dt, tgt in zip(arrays, meta["dtypes"], leaves)]
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            shs = flatten(shardings, is_leaf=lambda n: hasattr(n, "placements"))
+            if len(shs) != len(out):
+                raise ValueError(f"{len(shs)} shardings for {len(out)} leaves")
+            out = [distribute_tensor(t.to(sh.mesh.device_type), sh.mesh, sh.placements)
+                   if isinstance(t, torch.Tensor) else t for t, sh in zip(out, shs)]
+        return unflatten(like, out)

@@ -172,3 +172,26 @@ def compress_int8(x: torch.Tensor, *, axis: int = -1):
 
 def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def compressed_psum(x: torch.Tensor, axis_name: str, mesh=None):
+    """int8 quantize -> all-reduce -> (summed, residual): each rank's
+    ``x`` quantized by ``compress_int8`` and dequantized, the dequantized
+    values summed over the ``axis_name`` axis of ``mesh`` (the ambient
+    mesh of ``distributed/ctx.py`` by default) with one all-reduce on that
+    axis's process group, and ``x`` less its dequantized value (the
+    residual, for error feedback by the caller).  Every rank of the axis
+    gets the same sum."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ctx
+
+    mesh = mesh if mesh is not None else ctx.get_mesh()
+    if mesh is None:
+        raise RuntimeError("compressed_psum needs a device mesh")
+    q, scale = compress_int8(x)
+    deq = decompress_int8(q, scale)
+    residual = x - deq
+    summed = deq.clone()
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=mesh.get_group(axis_name))
+    return summed, residual

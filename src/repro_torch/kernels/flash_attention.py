@@ -75,7 +75,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mesh
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -83,6 +83,7 @@ NEG_INF = -1e30
 MAX_BATCH_HEADS = 2**31 - 1  # batch * heads the C entries take: every grid's x dim
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores")
+BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
 SPLIT_BWD_HEAD_DIMS = (64, 128)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
@@ -269,7 +270,11 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     requires it, the call goes through ``FlashAttention``, whose backward
     is ``flash_attention_backward``.  ``return_lse``: also return each
     row's log-sum-exp, (B, H, Sq) f32 (the module's convention), as
-    (out, lse)."""
+    (out, lse).  DTensor operands (under a device mesh) run the call on
+    each device's shard (``kernels/_mesh.py``); "meta" ones give the
+    outputs' shapes and run nothing."""
+    if _mesh.is_dtensor(q):
+        return _on_mesh(q, k, v, causal, scale, return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         out, lse = FlashAttention.apply(q, k, v, causal, scale)
         return (out, lse) if return_lse else out
@@ -283,6 +288,12 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale, return_lse=want_lse)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        _mesh.note("flash_attention", _flops(B, Sq, Sk, H, D, causal),
+                   _mesh.nbytes(q, k, v, out, lse if want_lse else None))
+        return (out, lse) if want_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not {q.device}")
     path = route(q, k, v)
@@ -311,6 +322,37 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
     flash_attention.launches += 1
     flash_attention.route_launches[path] += 1
     return (out, lse) if want_lse else out
+
+
+def _flops(B, Sq, Sk, H, D, causal: bool) -> float:
+    """The forward's products: 2 flops a multiply-add, two products (S and
+    P.V) over the (q, k) pairs it computes (the causal kernel skips the
+    masked half)."""
+    pairs = Sq * (Sq + 1) // 2 if causal and Sq == Sk else Sq * Sk
+    return 4.0 * B * H * D * pairs
+
+
+def _on_mesh(q, k, v, causal: bool, scale, return_lse: bool):
+    """``flash_attention`` on each device's shard of DTensor q, k, v:
+    batch over the batch axes, heads over "model" (KV heads replicated and
+    selected per rank where they do not divide it; ``kernels/_mesh.py``)."""
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    K = k.shape[2]
+    q_spec, kv_spec, select = _mesh.head_layout(mesh, B, H, K)
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+
+    def local(ql, kl, vl):
+        if select:
+            idx, _ = _mesh.local_groups(H, K, tp, mesh.get_local_rank("model"))
+            kl, vl = kl.index_select(2, idx.to(kl.device)), vl.index_select(2, idx.to(kl.device))
+        return flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(), causal=causal,
+                               scale=scale, return_lse=return_lse)
+
+    grad = "partial" if select else None
+    outs = (q_spec, (q_spec[0], q_spec[2], None)) if return_lse else (q_spec,)
+    return _mesh.local_call(local, mesh, (q, k, v), (q_spec, kv_spec, kv_spec),
+                            (None, grad, grad), outs)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -409,6 +451,12 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _mesh.note("flash_attention_backward",
+                   BWD_FLOPS_FACTOR * _flops(B, Sq, Sk, H, D, causal),
+                   _mesh.nbytes(q, k, v, out, dout, lse, *grads))
+        return grads
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on CUDA or the CPU, not {q.device}")
     if lse is None:

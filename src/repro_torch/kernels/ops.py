@@ -32,7 +32,7 @@ from repro_torch.core.proxy_family import (
     unpack_cascade,
 )
 from repro_torch.core.query import PhysicalPlan, PlanStage
-from repro_torch.kernels import autotune, proxy_score
+from repro_torch.kernels import _mesh, autotune, proxy_score
 from repro_torch.kernels.proxy_score import cascade_score, cascade_score_plain
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.training.proxy_models import PackedProxy
@@ -807,7 +807,12 @@ def ssd(x, dt, A_log, B, C, D, chunk: int):
     x: (b, s, h, p); dt: (b, s, h) softplus'd timesteps; A_log, D: (h,);
     B, C: (b, s, g, n), h % g == 0 (groups are indexed, never repeated).
     ``s`` must be a multiple of ``chunk``.  Returns (y (b, s, h, p) in x's
-    type, final state (b, h, p, n) float32)."""
+    type, final state (b, h, p, n) float32).  A DTensor x (under a device
+    mesh) runs the whole function on each device's shard: batch over the
+    batch axes, heads over "model", the B/C groups replicated and selected
+    per rank where they do not divide it (``kernels/_mesh.py``)."""
+    if _mesh.is_dtensor(x):
+        return _ssd_on_mesh(x, dt, A_log, B, C, D, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if s % chunk:
@@ -838,3 +843,25 @@ def ssd(x, dt, A_log, B, C, D, chunk: int):
     y = (y_diag.view(b, nc, chunk, h, p) + y_off).reshape(b, s, h, p)
     y = y + x.to(f32) * D.to(f32)[None, None, :, None]
     return y.to(x.dtype), carry
+
+
+def _ssd_on_mesh(x, dt, A_log, B, C, D, chunk: int):
+    mesh = x.device_mesh
+    b, _, h, _ = x.shape
+    g = B.shape[2]
+    x_spec, g_spec, select = _mesh.head_layout(mesh, b, h, g)
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    heads = (x_spec[2],)
+
+    def local(xl, dtl, al, Bl, Cl, Dl):
+        if select:
+            idx, _ = _mesh.local_groups(h, g, tp, mesh.get_local_rank("model"))
+            Bl, Cl = Bl.index_select(2, idx.to(Bl.device)), Cl.index_select(2, idx.to(Bl.device))
+        return ssd(xl, dtl, al, Bl, Cl, Dl, chunk)
+
+    grad = "partial" if select else None
+    operands = [t if _mesh.is_dtensor(t) else _mesh.replicated(t, mesh)
+                for t in (x, dt, A_log, B, C, D)]
+    return _mesh.local_call(local, mesh, operands, (x_spec, x_spec, heads, g_spec, g_spec, heads),
+                            (None, None, None, grad, grad, None),
+                            (x_spec, (x_spec[0], x_spec[2])))

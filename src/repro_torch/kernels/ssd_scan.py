@@ -53,7 +53,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mesh
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q, MAX_P, MAX_N = 256, 64, 128
@@ -200,6 +200,14 @@ def _forward(x, dA, B, C):
     strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dA, B, C)
+    if x.device.type == "meta":
+        f32 = torch.float32
+        outs = (torch.empty((nc, Q, H, P), dtype=f32, device=x.device),
+                torch.empty((nc, H, P, N), dtype=f32, device=x.device),
+                torch.empty((nc, H), dtype=f32, device=x.device))
+        _mesh.note("ssd_chunk", 2.0 * nc * H * (Q * Q * (N + P) + Q * P * N),
+                   _mesh.nbytes(x, dA, B, C, *outs))
+        return outs
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on CUDA or the CPU, not {x.device}")
     path = route(x, B, C)
@@ -334,6 +342,14 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     dy, dstates, ddecay = grads
     if x.device.type == "cpu":
         return ssd_chunk_backward_plain(x, dA, B, C, dy, dstates, ddecay)
+    if x.device.type == "meta":
+        grads = (torch.empty_like(x), torch.empty((nc, Q, H), dtype=f32, device=x.device),
+                 torch.empty_like(B), torch.empty_like(C))
+        # the plain formulas' products: S again, dx (two), dM, dC, dB (two)
+        _mesh.note("ssd_chunk_backward", 2.0 * nc * H * (2 * Q * Q * P + 3 * Q * Q * N
+                                                         + 2 * Q * P * N),
+                   _mesh.nbytes(x, dA, B, C, dy, dstates, ddecay, *grads))
+        return grads
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_backward runs on CUDA or the CPU, not {x.device}")
     if nc * G > MAX_GRID_Y:

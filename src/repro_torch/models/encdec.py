@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.util import resolve_device
 
@@ -80,9 +81,10 @@ class EncDec(nn.Module):
 
 
 def init(seed: int, cfg, device="cuda") -> EncDec:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
+    "meta" the shapes and types alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return EncDec(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return EncDec(cfg, L.seeded(seed, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -93,7 +95,7 @@ def _enc_layer(cfg, h, lp: EncLayer, positions):
     hn = L.apply_norm(cfg, h, lp.ln1)
     h = h + L.gqa_attend(lp.attn, cfg, hn, positions, causal=False)
     hn = L.apply_norm(cfg, h, lp.ln2)
-    return h + L.mlp_apply(lp.mlp, cfg, hn)
+    return ctx.constrain_tokens(h + L.mlp_apply(lp.mlp, cfg, hn))
 
 
 def encode(params: EncDec, cfg, frames):
@@ -110,12 +112,11 @@ def encode(params: EncDec, cfg, frames):
 def _cross_kv(p: L.GQA, cfg, memory):
     """The encoder memory projected to one layer's cross K/V."""
     a = cfg.attention
-    B, E, _ = memory.shape
-    k = (memory @ p.wk).reshape(B, E, a.num_kv_heads, a.head_dim)
-    v = (memory @ p.wv).reshape(B, E, a.num_kv_heads, a.head_dim)
+    k, v = memory @ p.wk, memory @ p.wv
     if a.qkv_bias:
-        k = k + p.bk.reshape(1, 1, a.num_kv_heads, a.head_dim)
-        v = v + p.bv.reshape(1, 1, a.num_kv_heads, a.head_dim)
+        k, v = k + p.bk, v + p.bv
+    k = L.split_heads(k, a.num_kv_heads, a.head_dim)
+    v = L.split_heads(v, a.num_kv_heads, a.head_dim)
     return k, v
 
 
@@ -130,7 +131,7 @@ def _dec_layer(cfg, x, lp: DecLayer, positions, memory, mem_positions):
     h = L.apply_norm(cfg, x, lp.ln_x)
     x = x + _cross(lp, cfg, h, positions, _cross_kv(lp.cross_attn, cfg, memory), mem_positions)
     h = L.apply_norm(cfg, x, lp.ln2)
-    return x + L.mlp_apply(lp.mlp, cfg, h)
+    return ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, h))
 
 
 def _logits(params: EncDec, cfg, batch):
@@ -195,7 +196,7 @@ def prefill(params: EncDec, cfg, batch):
         xk, xv = _cross_kv(lp.cross_attn, cfg, memory)
         x = x + _cross(lp, cfg, hn, positions, (xk, xv), mem_positions)
         hn = L.apply_norm(cfg, x, lp.ln2)
-        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+        x = ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, hn))
         ks.append(k)
         vs.append(v)
         xks.append(xk)
@@ -224,7 +225,7 @@ def decode_step(params: EncDec, cfg, cache, tokens):
         hn = L.apply_norm(cfg, x, lp.ln_x)
         x = x + _cross(lp, cfg, hn, positions, (cache["xk"][i], cache["xv"][i]), mem_positions)
         hn = L.apply_norm(cfg, x, lp.ln2)
-        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+        x = ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, hn))
     x = L.apply_norm(cfg, x, params.final_norm)
     logits = L.lm_logits(params.embed, cfg, x)
     return logits[:, 0], {"k": cache["k"], "v": cache["v"], "xk": cache["xk"],

@@ -27,6 +27,8 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
+from repro_torch.distributed import ctx
+from repro_torch.kernels import _mesh
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.util import resolve_device
 
@@ -43,6 +45,15 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = -2, dtype=torch
     w = torch.empty(shape, dtype=F32, device=generator.device)
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
     return w.to(dtype)
+
+
+def seeded(seed: int, device: torch.device) -> Optional[torch.Generator]:
+    """``torch.Generator(device).manual_seed(seed)``, or None on "meta",
+    where a family's ``init`` then builds its weights' shapes and types
+    without drawing them (``registry.params_spec``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -115,12 +126,18 @@ def mha(q, k, v, *, causal: bool, q_positions, kv_positions, kv_valid=None, wind
 
     On the card, plain-causal full-length attention (no window, no
     ``kv_valid``, S == T, equal q and v head dims) goes to the
-    ``flash_attention`` kernel, which takes positions to be 0..S-1;
-    everything else, and everything on the CPU, takes the einsum path below.
+    ``flash_attention`` kernel, which takes positions to be 0..S-1, and so
+    does it on "meta" (the dry run, where the kernel's wrapper gives the
+    output's shape and runs nothing); everything else, and everything on
+    the CPU, takes the einsum path below.  Under a mesh the kernel runs on
+    each device's shard of DTensor operands (``flash_attention``), and so
+    does the einsum path (``_mha_on_mesh``).
     """
-    if (q.is_cuda and causal and window == 0 and kv_valid is None
+    if ((q.is_cuda or q.is_meta) and causal and window == 0 and kv_valid is None
             and q.shape[1] == k.shape[1] and q.shape[-1] == v.shape[-1]):
         return flash_attention(q, k, v, causal=True)
+    if ctx.get_mesh() is not None and _mesh.is_dtensor(q):
+        return _mha_on_mesh(q, k, v, causal, q_positions, kv_positions, kv_valid, window)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -139,6 +156,37 @@ def mha(q, k, v, *, causal: bool, q_positions, kv_positions, kv_valid=None, wind
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
     return out.reshape(B, S, H, v.shape[-1])
+
+
+def _mha_on_mesh(q, k, v, causal, q_positions, kv_positions, kv_valid, window):
+    """The einsum attention on each device's shard (``local_map``): batch
+    over the batch axes, heads over "model" where the KV heads divide it,
+    else replicated; the key sequence whole (a decode cache laid out by
+    ``cache_sharding`` is gathered on it).  With ``attn_seq`` on and heads
+    that do not divide "model", q's sequence is split over it instead (the
+    JAX package's rule), and K/V's gradients are then partial sums."""
+    mesh = ctx.get_mesh()
+    B, S, H, _ = q.shape
+    q_spec, kv_spec, select = _mesh.head_layout(mesh, B, H, k.shape[2])
+    grad = None
+    if select or q_spec[2] is None:
+        q_spec = kv_spec = (q_spec[0], None, None)
+        if ctx.attn_seq_enabled() and ctx.spec_for(mesh, (S,), "model") == ("model",):
+            q_spec, grad = (q_spec[0], "model", None), "partial"
+    pos_q, pos_kv = q_spec[:2], (kv_spec[0], None)
+    operands = [q, k, v, q_positions, kv_positions]
+    specs = [q_spec, kv_spec, kv_spec, pos_q, pos_kv]
+    if kv_valid is not None:
+        operands.append(kv_valid)
+        specs.append(pos_kv)
+    operands = [t if _mesh.is_dtensor(t) else _mesh.replicated(t, mesh) for t in operands]
+
+    def local(ql, kl, vl, qp, kp, valid=None):
+        return mha(ql, kl, vl, causal=causal, q_positions=qp, kv_positions=kp, kv_valid=valid,
+                   window=window)
+
+    return _mesh.local_call(local, mesh, operands, specs,
+                            [None, grad, grad] + [None] * (len(specs) - 3), [q_spec])
 
 
 # ------------------------------------------------------------ GQA block
@@ -174,6 +222,15 @@ def init_gqa(generator: torch.Generator, cfg, d_model: Optional[int] = None) -> 
     return p
 
 
+def split_heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd).  Under a mesh, a projection whose n
+    heads do not divide the model axis is gathered on its last dim first:
+    DTensor splits a sharded dim only along whole shards."""
+    if ctx.get_mesh() is not None and ctx.spec_for(ctx.get_mesh(), (n,), "model") == (None,):
+        t = ctx.constrain(t, "batch", None, None)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def gqa_project_qkv(p: GQA, cfg, x):
     a = cfg.attention
     B, S, _ = x.shape
@@ -182,9 +239,9 @@ def gqa_project_qkv(p: GQA, cfg, x):
     v = x @ p.wv
     if a.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, a.num_heads, a.head_dim)
-    k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
-    v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    q = split_heads(q, a.num_heads, a.head_dim)
+    k = split_heads(k, a.num_kv_heads, a.head_dim)
+    v = split_heads(v, a.num_kv_heads, a.head_dim)
     if a.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -308,23 +365,65 @@ def init_embed(generator: torch.Generator, cfg) -> Embedding:
 def embed_tokens(p: Embedding, cfg, tokens):
     # a gather whose backward sums rows in a fixed order on the card
     # (indexing's backward accumulates with atomics)
-    x = nn.functional.embedding(tokens, p.embed)
+    if ctx.get_mesh() is not None and _mesh.is_dtensor(p.embed):
+        x = _embed_on_mesh(p.embed, tokens)
+    else:
+        x = nn.functional.embedding(tokens, p.embed)
     if cfg.gemma_scaling:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    return x
+    return ctx.constrain_tokens(x)
+
+
+def _embed_on_mesh(table, tokens):
+    """The vocab-parallel lookup (``local_map``): each "model" rank holds
+    rows [r * V / tp, (r + 1) * V / tp) of the table (gathered on any other
+    axis), looks up the tokens of its batch shard that fall there (zeros
+    for the rest), and the partial rows are summed over "model" when the
+    residual stream is laid out.  DTensor's own sharded embedding cannot
+    take a gradient back into its masked partial layout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import placements
+
+    mesh = ctx.get_mesh()
+    names = mesh.mesh_dim_names
+    if "model" not in names or table.shape[0] % mesh["model"].size():
+        return nn.functional.embedding(tokens, table)
+    if not _mesh.is_dtensor(tokens):
+        tokens = _mesh.replicated(tokens, mesh)
+    tok = placements(ctx.spec_for(mesh, tokens.shape, "batch", *([None] * (tokens.dim() - 1))),
+                     mesh)
+    w = [Shard(0) if a == "model" else Replicate() for a in names]
+    w_grad = [Shard(0) if a == "model" else (Partial() if t.is_shard() else Replicate())
+              for a, t in zip(names, tok)]
+    out = [Partial() if a == "model" else t for a, t in zip(names, tok)]
+
+    def local(tl, wl):
+        n = wl.shape[0]
+        ids = tl.long() - mesh.get_local_rank("model") * n
+        mine = (ids >= 0) & (ids < n)
+        rows = nn.functional.embedding(ids.clamp(0, n - 1), wl)
+        return rows * mine[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out, in_placements=(tok, w),
+                     in_grad_placements=(tok, w_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
 
 
 def lm_logits(p: Embedding, cfg, x):
     """(B, S, d) -> (B, S, V) f32 logits, f32 products of the stored
     values (JAX's preferred_element_type=f32)."""
     w = p.embed.T if cfg.tie_embeddings else p.lm_head
-    return x.to(F32) @ w.to(F32)
+    return ctx.constrain_logits(x.to(F32) @ w.to(F32))
 
 
 def cross_entropy(logits, labels, mask=None):
     """logits (B,S,V), labels (B,S) int; mask optional (B,S).  The mean
-    negative log-likelihood in f32 (over the mask's positions)."""
-    logits = logits.to(F32)
+    negative log-likelihood in f32 (over the mask's positions).  Under a
+    mesh the vocab dim is gathered first: DTensor's gather along a sharded
+    dim is not supported."""
+    logits = ctx.constrain(logits.to(F32), "batch", None, None)
     nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
     if mask is None:
         return nll.mean()

@@ -21,13 +21,23 @@ not depend on the card's scheduling: no atomics.
 qwen3 layers use GQA (qk-norm) and reach ``flash_attention`` through
 ``layers.mha``; deepseek-v2-lite layers use MLA (``models/mla.py``, the
 einsum path), two shared experts beside 64 routed ones, and a dense first
-layer.  The expert-parallel ``moe_apply_ep`` is not ported.
+layer.
+
+Under a mesh (``distributed/ctx.py``) the dispatch runs on each device's
+tokens through ``local_map``: ``moe_apply_ep`` (with ``ep`` on) keeps each
+"model" rank's E / tp experts where they lie and sums the partial outputs
+with one all-reduce over "model", as the JAX package's ``shard_map`` does;
+``moe_apply`` gathers the experts and routes each batch shard's tokens.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.util import resolve_device
@@ -80,6 +90,17 @@ def route(p: Experts, cfg, xt):
     return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
 
 
+def _aux(cfg, probs, top_e, n_tokens: int):
+    """The load-balancing aux loss (Switch-style)."""
+    m = cfg.moe
+    flat = top_e.reshape(-1)
+    # a count an expert (exact in f32), of a static shape that "meta" can trace
+    counts = torch.zeros(m.num_experts, dtype=L.F32, device=flat.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=L.F32, device=flat.device))
+    density = counts / n_tokens
+    return torch.sum(density * probs.mean(dim=0)) * m.num_experts * m.router_aux_weight
+
+
 def dispatch(top_e, cfg, n_tokens: int):
     """The argsort-capacity slots: (C, sort_idx, dest).  ``sort_idx`` orders
     the N*k assignments by expert (stable); ``dest`` is each sorted
@@ -103,31 +124,20 @@ def _act(cfg, x):
     return nn.functional.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def moe_apply(p: Experts, cfg, x):
-    """x: (B, S, D) -> (out, aux_loss)."""
-    m = cfg.moe
-    B, S, D = x.shape
-    N, E, K = B * S, m.num_experts, m.top_k
-    xt = x.reshape(N, D)
-    probs, top_p, top_e = route(p, cfg, xt)
-
-    # load-balancing aux loss (Switch-style)
-    density = torch.bincount(top_e.reshape(-1), minlength=E).to(L.F32) / N
-    aux = torch.sum(density * probs.mean(dim=0)) * E * m.router_aux_weight
-
-    # argsort-capacity dispatch
-    C, sort_idx, dest = dispatch(top_e, cfg, N)
-    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+def _experts_and_combine(cfg, xt, p, sort_idx, dest, top_p, top_e, n_slots: int, C: int):
+    """Run the (n_slots, C, D) buffer's gated MLPs and combine: each token's
+    k weighted expert rows, added in ascending expert order (the order the
+    reference's scatter-add meets them).  ``dest`` is a sorted
+    assignment's buffer row, n_slots * C (the trash row, which outputs
+    zeros) for one that is dropped or not this buffer's."""
+    N, D = xt.shape
+    K = top_e.shape[1]
+    buf = torch.zeros((n_slots * C + 1, D), dtype=xt.dtype, device=xt.device)
     buf[dest] = xt[sort_idx // K]  # only the trash row takes several writes
-    buf = buf[:-1].reshape(E, C, D)
-
-    # per-expert gated MLP
+    buf = buf[:-1].reshape(n_slots, C, D)
     h = _act(cfg, torch.bmm(buf, p.wg)) * torch.bmm(buf, p.wi)
-    eout = torch.bmm(h, p.wo).reshape(E * C, D)
+    eout = torch.bmm(h, p.wo).reshape(n_slots * C, D)
     eout = torch.cat([eout, eout.new_zeros((1, D))])
-
-    # combine: each token's k weighted expert rows, added in ascending
-    # expert order (the order the reference's scatter-add meets them)
     slot = torch.empty_like(dest)
     slot[sort_idx] = dest  # each assignment's buffer row, in (token, k) order
     order = torch.argsort(top_e, dim=1)
@@ -136,10 +146,125 @@ def moe_apply(p: Experts, cfg, x):
     out = torch.zeros((N, D), dtype=xt.dtype, device=xt.device)
     for j in range(K):
         out = out + eout[slot[:, j]] * weight[:, j, None]
+    return out
 
-    if m.num_shared:
-        out = out + L.mlp_apply(p.shared, cfg, xt)
+
+def _routed(cfg, x, p):
+    """The routed experts of ``moe_apply`` on one device: (out, aux).  ``p``
+    holds ``router``, ``wg``, ``wi`` and ``wo``."""
+    B, S, D = x.shape
+    N = B * S
+    xt = x.reshape(N, D)
+    probs, top_p, top_e = route(p, cfg, xt)
+    aux = _aux(cfg, probs, top_e, N)
+    C, sort_idx, dest = dispatch(top_e, cfg, N)
+    out = _experts_and_combine(cfg, xt, p, sort_idx, dest, top_p, top_e, cfg.moe.num_experts, C)
     return out.reshape(B, S, D), aux
+
+
+def _routed_ep(cfg, x, p, rank: int):
+    """The routed experts of ``moe_apply_ep`` on "model" rank ``rank``,
+    which holds experts [rank * e_local, (rank + 1) * e_local): every token
+    is routed, the assignments to the local experts are kept (the others
+    go to the trash slot e_local), each local expert takes up to C of them
+    in token order, and the partial output and the aux come back."""
+    B, S, D = x.shape
+    N, K = B * S, cfg.moe.top_k
+    e_local = p.wg.shape[0]
+    xt = x.reshape(N, D)
+    probs, top_p, top_e = route(p, cfg, xt)
+    aux = _aux(cfg, probs, top_e, N)
+    flat_e = top_e.reshape(-1)
+    mine = (flat_e // e_local) == rank
+    local_e = torch.where(mine, flat_e - rank * e_local, e_local)
+    C = moe_capacity(cfg, N)
+    sort_idx = torch.argsort(local_e, stable=True)
+    sorted_e = local_e[sort_idx]
+    group_start = torch.searchsorted(sorted_e, torch.arange(e_local, device=x.device))
+    rank_in = (torch.arange(N * K, device=x.device)
+               - group_start[torch.clamp_max(sorted_e, e_local - 1)])
+    valid = (sorted_e < e_local) & (rank_in < C)
+    dest = torch.where(valid, sorted_e * C + rank_in, e_local * C)
+    out = _experts_and_combine(cfg, xt, p, sort_idx, dest, top_p, top_e, e_local, C)
+    return out.reshape(B, S, D), aux
+
+
+def moe_apply(p: Experts, cfg, x):
+    """x: (B, S, D) -> (out, aux_loss).  On a DTensor under a mesh, each
+    batch shard routes its own tokens (its capacity from its own count,
+    where the JAX package's GSPMD routes the global batch) against the
+    gathered experts, and the aux loss is the shards' mean."""
+    if ctx.get_mesh() is not None and isinstance(x, DTensor):
+        out, aux = _on_mesh(cfg, p, x, ep=False)
+    else:
+        out, aux = _routed(cfg, x, p)
+    if cfg.moe.num_shared:
+        out = out + L.mlp_apply(p.shared, cfg, x)
+    return out, aux
+
+
+def moe_apply_ep(p: Experts, cfg, x):
+    """Expert-parallel MoE (the JAX package's ``shard_map`` version).
+
+    Under TP the token activations are replicated across "model", so the
+    dispatch needs no collective: through ``local_map`` each "model" rank
+    routes all of its batch shard's tokens, keeps the assignments to its
+    E / tp experts, runs them, and returns a partial output; one all-reduce
+    over "model" sums the top-k contributions, and the aux loss is
+    averaged (over every mesh axis: the shards' mean, where the JAX package
+    declares each batch shard's own replicated).  Without a mesh, or when
+    E does not divide the model axis, it is ``moe_apply``.  At tp 1 it
+    equals ``moe_apply``: the same slots, the same order of sums."""
+    mesh = ctx.get_mesh()
+    E = cfg.moe.num_experts
+    if mesh is None or "model" not in mesh.mesh_dim_names or E % mesh["model"].size():
+        return moe_apply(p, cfg, x)
+    out, aux = _on_mesh(cfg, p, x, ep=True)
+    if cfg.moe.num_shared:
+        out = out + L.mlp_apply(p.shared, cfg, x)
+    return out, aux
+
+
+def _on_mesh(cfg, p: Experts, x, *, ep: bool):
+    """The routed experts through ``local_map``: x over the batch axes (a
+    plain tensor is taken as replicated), the router replicated, the
+    experts over "model" with ``ep`` (else replicated); the output's
+    partial sums reduced over the mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.kernels import _mesh
+
+    mesh = ctx.get_mesh()
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else _mesh.replicated(t, mesh)
+
+    x = dt(x)
+    x_pl = placements(ctx.spec_for(mesh, x.shape, "batch", None, None), mesh)
+    e_pl = [Shard(0) if a == "model" else Replicate() for a in mesh.mesh_dim_names] if ep else rep
+    def local(xl, router, wg, wi, wo):
+        lp = SimpleNamespace(router=router, wg=wg, wi=wi, wo=wo)
+        if ep:
+            return _routed_ep(cfg, xl, lp, mesh.get_local_rank("model"))
+        return _routed(cfg, xl, lp)
+
+    out_pl = ([Partial() if a == "model" else pl for a, pl in zip(mesh.mesh_dim_names, x_pl)]
+              if ep else x_pl)
+    out, aux = local_map(local, out_placements=(out_pl, [Partial("avg")] * mesh.ndim),
+                         in_placements=(x_pl, rep, e_pl, e_pl, e_pl), device_mesh=mesh,
+                         redistribute_inputs=True)(
+        x, *(dt(w) for w in (p.router, p.wg, p.wi, p.wo)))
+    # the one all-reduce over "model" (a no-op without ep)
+    return out.redistribute(mesh, x_pl), aux.redistribute(mesh, rep)
+
+
+def _moe_dispatch(p: Experts, cfg, x):
+    if ctx.ep_enabled():
+        return moe_apply_ep(p, cfg, x)
+    return moe_apply(p, cfg, x)
 
 
 # --------------------------------------------------------------- families
@@ -208,9 +333,10 @@ class MoETransformer(nn.Module):
 
 
 def init(seed: int, cfg, device="cuda") -> MoETransformer:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
+    "meta" the shapes and types alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return MoETransformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return MoETransformer(cfg, L.seeded(seed, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -225,13 +351,13 @@ def _attend(lp, cfg, h, positions):
 
 def _dense_layer(cfg, x, lp, positions):
     x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
-    return x + L.mlp_apply(lp.mlp, cfg, L.apply_norm(cfg, x, lp.ln2))
+    return ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, L.apply_norm(cfg, x, lp.ln2)))
 
 
 def _moe_layer(cfg, x, lp, positions):
     x = x + _attend(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
-    mo, aux = moe_apply(lp.experts, cfg, L.apply_norm(cfg, x, lp.ln2))
-    return x + mo, aux
+    mo, aux = _moe_dispatch(lp.experts, cfg, L.apply_norm(cfg, x, lp.ln2))
+    return ctx.constrain_tokens(x + mo), aux
 
 
 def backbone(params: MoETransformer, cfg, x, positions):
@@ -323,8 +449,8 @@ def prefill(params: MoETransformer, cfg, batch):
             out, kv = _attn_prefill(lp, cfg, L.apply_norm(cfg, x, lp.ln1), positions)
             x = x + out
             hn = L.apply_norm(cfg, x, lp.ln2)
-            x = x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
-                     else moe_apply(lp.experts, cfg, hn)[0])
+            x = ctx.constrain_tokens(x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
+                                          else _moe_dispatch(lp.experts, cfg, hn)[0]))
             entries.append(kv)
         if entries:
             cache[prefix + k1] = torch.stack([e[0] for e in entries])
@@ -351,7 +477,7 @@ def decode_step(params: MoETransformer, cfg, cache, tokens):
                 out, _, _ = L.gqa_decode(lp.attn, cfg, hn, c1, c2, pos)
             x = x + out
             hn = L.apply_norm(cfg, x, lp.ln2)
-            x = x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
-                     else moe_apply(lp.experts, cfg, hn)[0])
+            x = ctx.constrain_tokens(x + (L.mlp_apply(lp.mlp, cfg, hn) if prefix
+                                          else _moe_dispatch(lp.experts, cfg, hn)[0]))
     x = L.apply_norm(cfg, x, params.final_norm)
     return L.lm_logits(params.embed, cfg, x)[:, 0], {**cache, "pos": pos + 1}

@@ -56,3 +56,39 @@ def make_batch(cfg, batch: int, seq_len: int, seed: int = 0, device="cuda"):
     out = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
     out.update({k: v.to(dev) for k, v in stub_embeddings(cfg, batch, seq_len, rng).items()})
     return out
+
+
+def input_specs(cfg, shape):
+    """Meta-device stand-ins for a workload shape's inputs, with the JAX
+    package's shapes and dtypes (its ``ShapeDtypeStruct``s): nothing is
+    allocated.  Train and prefill: ``tokens`` (and for train ``labels``)
+    (B, S) int32, an encoder-decoder's ``frames`` and a VLM's ``patches``
+    in bf16; decode: ``tokens`` (B,) int32 and the family's ``init_cache``
+    on meta."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    if shape.kind in ("train", "prefill"):
+        St = _token_len(cfg, S)
+        specs = {"tokens": torch.empty((B, St), dtype=torch.int32, device=meta)}
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((B, St), dtype=torch.int32, device=meta)
+        if cfg.family == "encdec":
+            specs["frames"] = torch.empty((B, encdec.enc_len_for(cfg, S), cfg.d_model),
+                                          dtype=torch.bfloat16, device=meta)
+        if cfg.family == "vlm":
+            specs["patches"] = torch.empty((B, cfg.encoder.num_prefix, cfg.d_model),
+                                           dtype=torch.bfloat16, device=meta)
+        return specs
+    # decode: one new token against a seq_len-sized cache
+    cache = get_family(cfg).init_cache(cfg, B, S, device=meta)
+    return {"tokens": torch.empty((B,), dtype=torch.int32, device=meta), "cache": cache}
+
+
+def params_spec(cfg):
+    """The family's parameters on meta, in the JAX package's layout: a
+    nested dict whose layer stacks carry a leading layer dim
+    (``models/leaves.py``), each leaf of the JAX leaf's shape and dtype."""
+    from repro_torch.models import leaves
+
+    model = get_family(cfg).init(0, cfg, "meta")
+    return leaves.nest(leaves.stacked(dict(model.named_parameters())))

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.util import resolve_device
 
@@ -178,9 +179,10 @@ class Griffin(nn.Module):
 
 
 def init(seed: int, cfg, device="cuda") -> Griffin:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
+    "meta" the shapes and types alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Griffin(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return Griffin(cfg, L.seeded(seed, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -194,7 +196,7 @@ def _block_fwd(cfg, kind: str, x, bp: Block, positions):
     else:
         x = x + L.gqa_attend(bp.attn, cfg, h, positions, causal=True)
     h = L.apply_norm(cfg, x, bp.ln2)
-    return x + L.mlp_apply(bp.mlp, cfg, h)
+    return ctx.constrain_tokens(x + L.mlp_apply(bp.mlp, cfg, h))
 
 
 def _logits(params: Griffin, cfg, batch):
@@ -256,9 +258,10 @@ def prefill(params: Griffin, cfg, batch):
         if kind == "rec":
             out, xi_raw, hs = _rglru_scan(bp.rec, h)
             x = x + out
-            conv = torch.zeros((B, keep, xi_raw.shape[-1]), dtype=xi_raw.dtype, device=x.device)
             tail = xi_raw[:, S - min(S, keep):]
-            conv[:, keep - tail.shape[1]:] = tail
+            pad = torch.zeros((B, keep - tail.shape[1], xi_raw.shape[-1]), dtype=xi_raw.dtype,
+                              device=x.device)
+            conv = torch.cat([pad, tail], dim=1)  # a DTensor under a mesh: not written in place
             blocks.append({"conv": conv, "h": hs[:, -1]})
         else:
             q, k, v = L.gqa_project_qkv(bp.attn, cfg, h)
@@ -273,7 +276,7 @@ def prefill(params: Griffin, cfg, batch):
                 kW, vW = kW[:, idx], vW[:, idx]
             blocks.append({"k": kW.contiguous(), "v": vW.contiguous()})
         h = L.apply_norm(cfg, x, bp.ln2)
-        x = x + L.mlp_apply(bp.mlp, cfg, h)
+        x = ctx.constrain_tokens(x + L.mlp_apply(bp.mlp, cfg, h))
     x = L.apply_norm(cfg, x, params.final_norm)
     logits = L.lm_logits(params.embed, cfg, x[:, -1:, :])
     return logits[:, 0], {"blocks": tuple(blocks), "pos": S}
@@ -297,7 +300,7 @@ def decode_step(params: Griffin, cfg, cache, tokens):
             out, _, _ = L.gqa_decode(bp.attn, cfg, h, c["k"], c["v"], pos, window=a.window)
         x = x + out
         h = L.apply_norm(cfg, x, bp.ln2)
-        x = x + L.mlp_apply(bp.mlp, cfg, h)
+        x = ctx.constrain_tokens(x + L.mlp_apply(bp.mlp, cfg, h))
     x = L.apply_norm(cfg, x, params.final_norm)
     logits = L.lm_logits(params.embed, cfg, x)
     return logits[:, 0], {"blocks": cache["blocks"], "pos": pos + 1}

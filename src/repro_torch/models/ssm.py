@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.util import resolve_device
 
@@ -92,9 +93,10 @@ class Mamba2(nn.Module):
 
 
 def init(seed: int, cfg, device="cuda") -> Mamba2:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
+    "meta" the shapes and types alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Mamba2(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return Mamba2(cfg, L.seeded(seed, dev), device=dev)
 
 
 def _split_proj(cfg, proj):
@@ -144,7 +146,7 @@ def _block(lp: Layer, cfg, x):
     # the JAX package's bf16 expression
     gated = y.to(F32) * _silu(z.to(F32)).to(y.dtype)
     y = L.rms_norm(gated, lp.gate_norm, cfg.norm_eps).to(y.dtype)
-    return x + y @ lp.out_proj, xBC, final
+    return ctx.constrain_tokens(x + y @ lp.out_proj), xBC, final
 
 
 def layer_fwd(lp: Layer, cfg, x):
@@ -182,7 +184,7 @@ def layer_decode(lp: Layer, cfg, x, conv_state, ssm_state):
     y = y.reshape(Bsz, 1, di)
     gated = y.to(x.dtype).to(F32) * _silu(z[:, None].to(F32)).to(x.dtype)  # as in _block
     y = L.rms_norm(gated, lp.gate_norm, cfg.norm_eps).to(x.dtype)
-    return x + y @ lp.out_proj, new_conv_state, new_state
+    return ctx.constrain_tokens(x + y @ lp.out_proj), new_conv_state, new_state
 
 
 # ------------------------------------------------------------- family API
@@ -230,17 +232,20 @@ def prefill(params: Mamba2, cfg, batch):
     tokens = batch["tokens"]
     Bsz, S = tokens.shape
     keep = cfg.ssm.d_conv - 1
-    cache = init_cache(cfg, Bsz, S, device=tokens.device)
     x = L.embed_tokens(params.embed, cfg, tokens)
-    for i, lp in enumerate(params.layers):
+    convs, finals = [], []
+    for lp in params.layers:
         x, xBC, final = _block(lp, cfg, x)
-        tail = xBC[:, S - min(S, keep):]
-        cache["conv"][i, :, keep - tail.shape[1]:] = tail
-        cache["ssm"][i] = final
+        tail = xBC[:, S - min(S, keep):].to(L.param_dtype(cfg))
+        # stacked, not written into a zeroed cache: a DTensor under a mesh
+        # does not copy into a plain tensor
+        pad = torch.zeros((Bsz, keep - tail.shape[1], tail.shape[2]), dtype=tail.dtype,
+                          device=x.device)
+        convs.append(torch.cat([pad, tail], dim=1))
+        finals.append(final.to(F32))
     x = L.apply_norm(cfg, x, params.final_norm)
     logits = L.lm_logits(params.embed, cfg, x[:, -1:, :])
-    cache["pos"] = S
-    return logits[:, 0], cache
+    return logits[:, 0], {"conv": torch.stack(convs), "ssm": torch.stack(finals), "pos": S}
 
 
 @torch.no_grad()

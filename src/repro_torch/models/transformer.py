@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.util import resolve_device
 
@@ -50,9 +51,10 @@ class Transformer(nn.Module):
 
 
 def init(seed: int, cfg, device="cuda") -> Transformer:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
+    "meta" the shapes and types alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return Transformer(cfg, L.seeded(seed, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -61,9 +63,9 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def _layer_fwd(cfg, x, lp: Layer, positions):
     h = L.apply_norm(cfg, x, lp.ln1)
-    x = x + L.gqa_attend(lp.attn, cfg, h, positions, causal=True)
+    x = ctx.constrain_mid(x + L.gqa_attend(lp.attn, cfg, h, positions, causal=True))
     h = L.apply_norm(cfg, x, lp.ln2)
-    return x + L.mlp_apply(lp.mlp, cfg, h)
+    return ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, h))
 
 
 def backbone(params: Transformer, cfg, x, positions):
@@ -130,7 +132,7 @@ def prefill_embedded(params: Transformer, cfg, x, positions):
                     window=window)
         x = x + out.reshape(B, S, -1) @ lp.attn.wo
         hn = L.apply_norm(cfg, x, lp.ln2)
-        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+        x = ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, hn))
         ks.append(k)
         vs.append(v)
     x = L.apply_norm(cfg, x, params.final_norm)
@@ -154,7 +156,7 @@ def decode_step(params: Transformer, cfg, cache, tokens):
                                  window=window)
         x = x + out
         hn = L.apply_norm(cfg, x, lp.ln2)
-        x = x + L.mlp_apply(lp.mlp, cfg, hn)
+        x = ctx.constrain_tokens(x + L.mlp_apply(lp.mlp, cfg, hn))
     x = L.apply_norm(cfg, x, params.final_norm)
     logits = L.lm_logits(params.embed, cfg, x)
     return logits[:, 0], {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

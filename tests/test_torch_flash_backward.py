@@ -144,13 +144,35 @@ def test_remat_gives_the_same_gradients():
     ("dout shape", lambda q, k, v, o, g: (q, k, v, o, g[:, :-1].contiguous())),
     ("out type", lambda q, k, v, o, g: (q, k, v, o.double(), g)),
     ("dout layout", lambda q, k, v, o, g: (q, k, v, o, g.transpose(1, 2).contiguous().transpose(1, 2))),
-    ("meta device", lambda q, k, v, o, g: tuple(t.to("meta") for t in (q, k, v, o, g))),
+    # a device other than q's: "meta" alone is the dry run's (next test)
+    ("meta device", lambda q, k, v, o, g: (q, k, v, o, g.to("meta"))),
 ])
 def test_backward_rejects_what_the_kernel_cannot_take(what, change):
     q, k, v, g = (torch.from_numpy(x) for x in _inputs((1, 32, 32, 2, 1, 16), seed=4))
     args = change(q, k, v, flash_attention_plain(q, k, v), g)
     with pytest.raises(ValueError):
         flash_attention_backward(*args)
+
+
+def test_backward_on_meta_gives_the_shapes_and_runs_nothing():
+    """On "meta" (the dry run) the backward returns gradients of the
+    operands' shapes and types, launches nothing, runs no plain formula, and
+    reports its work to an observer (``kernels/_mesh.py``)."""
+    from unittest import mock
+
+    from repro_torch.kernels import _mesh
+    from repro_torch.kernels import flash_attention as fm
+
+    q, k, v, g = (torch.from_numpy(x).to("meta") for x in _inputs((1, 32, 32, 2, 1, 16), seed=4))
+    seen = []
+    fm.reset_launches()
+    with mock.patch.object(fm, "flash_attention_backward_plain", side_effect=AssertionError), \
+            _mesh.observe(lambda *a: seen.append(a)):
+        grads = flash_attention_backward(q, k, v, q, g)
+    assert [(t.device.type, t.shape, t.dtype) for t in grads] == \
+        [(t.device.type, t.shape, t.dtype) for t in (q, k, v)]
+    assert fm.flash_attention.backward_launches == 0
+    assert seen and seen[0][0] == "flash_attention_backward" and seen[0][1] > 0
 
 
 # ---------------------------------------------------------------- the lse

@@ -811,3 +811,50 @@ def test_train_side_steps_of_the_new_families(cuda, arch):
     out = chip_smoke.side_step(cuda, arch)
     assert out["backward_launches"] == (2 if arch == "seamless-m4t-medium" else 0)
     assert out["gradients_finite"]
+
+
+def test_mesh_train_step_on_one_card_matches_the_unsharded_step(cuda):
+    """The sharded train step on a (1, 1) ("data", "model") mesh of an NCCL
+    world of one (params, optimizer state and batch DTensors laid out by
+    ``sharding.py``) against ``make_train_step`` from the same start: one
+    step at deepseek-67b's width (one layer, two micro-batches), the loss
+    and every updated leaf bit for bit, with the same flash launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import (batch_sharding, distribute, opt_shardings,
+                                                  params_shardings)
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.training.train_loop import (init_leaf_opt_state, init_train_state,
+                                                 leaf_params, make_sharded_train_step,
+                                                 make_train_step)
+
+    cfg = get_config("deepseek-67b").replace(num_layers=1, accum_steps=2)
+    batch = make_batch(cfg, make_data(cfg, 512, rows=2, seed=1), 0, cuda)
+    params, opt = init_train_state(cfg, 0, cuda)
+    start = leaf_params(params)
+    fm.reset_launches()
+    _, opt, m = make_train_step(cfg, lr=1e-4)(params, opt, batch)
+    want, want_loss = leaf_params(params), float(m["loss"])
+    want_launches = (fm.flash_attention.launches, fm.flash_attention.backward_launches)
+    del params, opt
+    chip_smoke.nccl_world(cuda)
+    try:
+        mesh = make_dev_mesh(1, 1, device_type="cuda")
+        sp = distribute(start, params_shardings(start, mesh, "train"), requires_grad=True)
+        o = init_leaf_opt_state(cfg, start)
+        so = distribute(o, opt_shardings(o, mesh))
+        sb = distribute(batch, batch_sharding(batch, mesh))
+        fm.reset_launches()
+        with ctx.use_mesh(mesh):
+            _, so, sm = make_sharded_train_step(cfg, lr=1e-4)(sp, so, sb)
+        assert (fm.flash_attention.launches, fm.flash_attention.backward_launches) == \
+            want_launches
+        assert float(sm["loss"].full_tensor()) == want_loss
+        for k, w in want.items():
+            assert torch.equal(sp[k].to_local().detach(), w), k
+    finally:
+        dist.destroy_process_group()

@@ -133,6 +133,34 @@ _BLOCKED_FLEET = _BLOCK + textwrap.dedent("""
     assert not leaked, leaked
 """)
 
+# the distribution layer and the dry run: a reduced cell in a fake world of
+# 4, and the cascade dry run, which raises without a card unless asked for
+# the CPU
+_BLOCKED_DRYRUN = _BLOCK + textwrap.dedent("""
+    import tempfile
+    import torch
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.distributed.fault_tolerance import compressed_psum
+    from repro_torch.launch import cost_analysis, dryrun, inspect_cell, mesh
+    from repro_torch.models.moe import moe_apply_ep
+    from repro_torch.models.registry import input_specs, params_spec
+
+    torch.set_num_threads(1)
+    rec = dryrun.run_cell("llama3-405b", "train_4k", reduced=True, mesh_shape=(2, 2),
+                          force=True, results_dir=tempfile.mkdtemp())
+    print("cell", rec["status"], rec.get("error", ""))
+    try:
+        dryrun.main(["--proxy-kind", "mixed"])
+    except RuntimeError as e:
+        print("raised without a card:", e)
+    try:
+        dryrun.main(["--proxy-kind", "mixed", "--device", "cpu"])
+    except SystemExit as e:
+        print("cpu exit", e.code)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ml_dtypes", "repro"))
+    assert not leaked, leaked
+""")
+
 
 def _run_blocked(code: str, pythonpath=None) -> subprocess.CompletedProcess:
     path = [str(p) for p in (pythonpath or [])] + [str(ROOT / "src")]
@@ -184,6 +212,16 @@ def test_fleet_runs_without_jax_or_repro(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "fleet ok inline" in proc.stdout and "fleet ok process" in proc.stdout
     assert len(list(tmp_path.glob("blocked.*"))) == 3  # the parent and both workers
+
+
+def test_dryrun_and_distribution_run_without_jax_or_repro():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    proc = _run_blocked(_BLOCKED_DRYRUN)
+    assert proc.returncode == 0, proc.stderr
+    assert "cell ok" in proc.stdout
+    assert "raised without a card:" in proc.stdout
+    assert "cascade dry-run: OK" in proc.stdout and "cpu exit 0" in proc.stdout
 
 
 def test_examples_run_without_jax_or_repro():
@@ -327,20 +365,31 @@ def test_cuda_default_entry_points_raise_without_a_card():
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    # the kernel's route never lands on the plain version for a non-CPU tensor,
-    # and without the toolkit its build raises
+    # the kernel's route never lands on the plain version for a non-CPU
+    # tensor: on "meta" (the dry run) a wrapper gives its outputs' shapes and
+    # runs neither the kernel nor the plain version; without the toolkit
+    # its build raises
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import ssd_scan
+
     q = torch.zeros(1, 4, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        flash_attention_backward(q, q, q, q, q)
     x = torch.zeros(1, 16, 2, 8, device="meta")
     dA = torch.zeros(1, 16, 2, device="meta")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ssd_chunk(x, dA, x, x)
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ssd_chunk_backward(x, dA, x, x, x, torch.zeros(1, 2, 8, 8, device="meta"),
-                           torch.zeros(1, 2, device="meta"))
+    plain = AssertionError("a plain version ran on meta")
+    with mock.patch.object(fm, "flash_attention_plain", side_effect=plain), \
+            mock.patch.object(fm, "flash_attention_backward_plain", side_effect=plain), \
+            mock.patch.object(ssd_scan, "ssd_chunk_plain", side_effect=plain), \
+            mock.patch.object(ssd_scan, "ssd_chunk_backward_plain", side_effect=plain):
+        outs = [flash_attention(q, q, q), *flash_attention_backward(q, q, q, q, q),
+                *ssd_chunk(x, dA, x, x),
+                *ssd_chunk_backward(x, dA, x, x, torch.zeros(1, 16, 2, 8, device="meta"),
+                                    torch.zeros(1, 2, 8, 8, device="meta"),
+                                    torch.zeros(1, 2, device="meta"))]
+    assert all(t.is_meta for t in outs)
+    assert fm.flash_attention.launches == fm.flash_attention.backward_launches == 0
+    assert ssd_chunk.launches == ssd_chunk_backward.launches == 0
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         for lib in (flash_attention_lib, flash_attention_bwd_lib, ssd_chunk_lib,
                     ssd_chunk_bwd_lib):

@@ -161,9 +161,12 @@ def test_backward_refuses(bad):
     x, dA, B, C, dy, dst, ddec = (torch.from_numpy(a) for a in
                                   _chunk_case(2, 16, 4, 2, 8, 16, seed=3))
     grads = {"dy": dy, "dstates": dst, "ddecay": ddec}
-    if bad == "device":
-        with pytest.raises(ValueError, match="CUDA or the CPU"):
-            ssd_chunk_backward(*(t.to("meta") for t in (x, dA, B, C, dy, dst, ddec)))
+    if bad == "device":  # a gradient on another device than x ("meta" alone is the dry run's)
+        with pytest.raises(ValueError, match="on meta"):
+            ssd_chunk_backward(x, dA, B, C, dy.to("meta"), dst, ddec)
+        out = ssd_chunk_backward(*(t.to("meta") for t in (x, dA, B, C, dy, dst, ddec)))
+        assert [t.shape for t in out] == [x.shape, dA.shape, B.shape, C.shape]
+        assert all(t.is_meta for t in out)
         return
     grads[bad] = grads[bad][..., :1]
     with pytest.raises(ValueError, match=bad):
