@@ -35,7 +35,14 @@ Each phase prints one JSON line:
               both types (64 keys' P.V skipped, which the per-row limit must
               reject; in f32 also inputs without their mid and lo pieces),
               and the f32 ones again at paligemma's (4, 4096, 8, 1, 256),
-              where two f32 calls must also be equal bit for bit.
+              where two f32 calls must also be equal bit for bit.  Short bf16
+              sequences take the packed route (``packed_fwd``: a KV group's
+              heads and several records in one 128-row tile, masked block-
+              diagonally): its cases (PACKED_SHAPES: the UDF shapes at a cut
+              batch, G 1 / 7 / 16, Sq 1 / 5 / 8 / 64, D 16-256, causal and
+              not) each on that route, two calls at llama3-405b's UDF shape
+              bit for bit, and unit isolation (each record's V constant and
+              its own: every output row its own unit's constant).
 6. dense_path — the dense family's serving path at deepseek-67b's full
               width (d_model 8192, 64 query and 8 KV heads of 128, d_ff
               22016, vocab 102400), depth cut to 4 layers, bf16, seeded
@@ -122,12 +129,14 @@ Each phase prints one JSON line:
               cores)
               against its plain PyTorch version, bf16 and f32, causal and
               full: the JAX package's test shapes, D 256, ragged lengths, a
-              GQA group of 7 and D 16, each gradient within 2^-6 (bf16) or
+              GQA group of 7, D 16 and the packed route's shapes (one pass,
+              ``packed_bwd``), each gradient within 2^-6 (bf16) or
               1e-4 (f32) of its largest value, each on ``backward_route``'s
               kernels (launches counted by route), each forward's lse within
               LSE_TOL of the plain one; a planted fault (one KV tile's dk and
               dv rows zeroed) rejected in both types; two calls at (1, 4096,
-              64, 8, 128) equal bit for bit in both types; then
+              64, 8, 128) equal bit for bit in both types, and at the packed
+              (2000, 8, 8, 128, 8, 128); then
               ``flash_bwd_timing`` at (1, 4096, 64, 8, 128) in bf16 and f32,
               at paligemma's (4, 4096, 8, 1, 256) in bf16 and at the
               restart check's reduced (2, 256, 256, 4, 2, 16) in both types
@@ -278,16 +287,16 @@ Each phase prints one JSON line:
               53,248) cut to 1 layer and qwen3-moe-30b-a3b cut to 2 as the
               two predicates' UDFs, each trained 100 AdamW steps on 2,000
               records of 8 tokens (``flash_attention`` forward and backward
-              on the tensor cores), ``build_plan`` on the sample, the
+              on the packed route), ``build_plan`` on the sample, the
               ``CascadeServer`` over the other 10,000 records
               (``cascade_score`` a tile), ORIG against CORE: launch counts
               against the backbone calls, the first step's attention and
               backward against the plain versions, losses falling, each
               predicate's selectivity, conservation, accuracy, and every
               label against the plain attention but at near ties; then
-              ``udf_path_reduced``, the same at the reduced configs (D 16:
-              the backward on the CUDA cores), and ``udf_timing``: both
-              kernels at the training steps' shapes beside SDPA.
+              ``udf_path_reduced``, the same at the reduced configs (D 16),
+              and ``udf_timing``: both kernels at the training steps' three
+              shapes beside SDPA and the times of the route before.
 21. video_cascade_path — ``repro_torch.video_cascade`` (core-a, core-h,
               core) on the card: one launch a tile, accuracy >= A - 0.05.
 22. resilient_path — ``repro_torch.resilient_training`` at the reduced
@@ -412,6 +421,15 @@ SERVING_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D) of the prefi
 # product of the last 64-key tile skipped (its values zeroed in the kernel's
 # input), which only the rows that attend the most keys see.
 FAULT_KEYS = (4032, 4096)
+# The packed route's shapes (bf16, short sequences; ``flash_attention.packed_plan``),
+# (B, Sq, Sk, H, K, D): the UDF training shapes at a cut batch, the last
+# tile part past B; G 1, 7 and 16; Sq 1, 5, 8 and 64 (a unit over 8 tiles);
+# Sq < Sk; D 16, 32, 64, 128 and 256.
+PACKED_SHAPES = (
+    (250, 8, 8, 128, 8, 128), (251, 8, 8, 32, 4, 128), (333, 8, 8, 4, 2, 16),
+    (13, 8, 8, 8, 8, 64), (9, 8, 8, 14, 2, 128), (5, 8, 8, 16, 1, 256),
+    (40, 1, 8, 16, 2, 64), (7, 5, 5, 16, 2, 32), (2, 64, 64, 16, 1, 16),
+    (3, 64, 64, 8, 8, 128), (6, 8, 16, 4, 2, 64))
 # (B, Sq, Sk, H, K, D, causal, dtype)
 FLASH_CASES = tuple(
     (*shape, causal, dtype) for dtype in ("float32", "bfloat16") for shape, causal in (
@@ -432,7 +450,8 @@ FLASH_CASES = tuple(
         ((1, 512, 512, 8, 2, 16), True), ((1, 512, 512, 8, 2, 32), True),
         # batch x heads past 65,535 at a transformer UDF's 8 tokens
         ((600, 8, 8, 128, 8, 128), True),
-        (SERVING_SHAPE, True)))
+        (SERVING_SHAPE, True))) + tuple(
+    (*shape, causal, "bfloat16") for shape in PACKED_SHAPES for causal in (True, False))
 # The dense serving path (phase 6) and its logits tolerances against the
 # plain-attention forward: those the JAX package holds its own bf16 serving
 # path to (tests/test_models_consistency.py:38 for prefill vs forward, :88
@@ -887,6 +906,12 @@ def check_flash_output(what: str, out, ref) -> tuple:
     return err, row_err
 
 
+def route_shape(case) -> tuple:
+    """(B, Sq, Sk, H, K) of a (B, Sq, Sk, H, K, D, ...) case: what
+    ``route_for`` and ``backward_route`` read besides D and the type."""
+    return tuple(case[:5])
+
+
 def route_taken(counter, before: dict) -> str:
     """The route whose launch count in ``counter.route_launches`` rose since
     ``before`` (a copy of it): "plain" when none did (a CPU run)."""
@@ -965,7 +990,7 @@ def flash_repeat(dev, shape=None, dtype: str = "float32") -> dict:
     """Two forward calls with the lse on the same inputs at ``shape``
     (default ``VLM_SHAPE``, paligemma's; in f32 the split route at D 256):
     output and lse equal bit for bit (no atomics)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route
 
     shape = shape or VLM_SHAPE
     q, k, v = make_flash_case((*shape, True, dtype), dev, seed=9)
@@ -974,7 +999,53 @@ def flash_repeat(dev, shape=None, dtype: str = "float32") -> dict:
     sync(dev)
     equal = {"out": torch.equal(a, b), "lse": torch.equal(la, lb)}
     check(all(equal.values()), f"two flash_attention calls at {shape} {dtype} differ: {equal}")
-    return dict(shape=list(shape), dtype=dtype, bitwise_equal=equal)
+    return dict(shape=list(shape), dtype=dtype, route=route(q, k, v), bitwise_equal=equal)
+
+
+# The packed route's own checks: two calls at llama3-405b's UDF shape bit for
+# bit (forward here, backward in ``run_flash_bwd_kernels``), and unit
+# isolation at the UDF shapes (cut batch, the last tile part past B).
+PACKED_REPEAT_SHAPE = (2000, 8, 8, 128, 8, 128)
+ISOLATION_SHAPES = ((61, 8, 8, 32, 4, 128), (37, 8, 8, 4, 2, 16), (16, 8, 8, 128, 8, 128))
+
+
+def packed_isolation(dev, shape) -> dict:
+    """A leak across the units that share a packed tile shows.  Forward:
+    each (record, KV head) gets a V constant over its keys and its own
+    (integers 1..127, exact in bf16), so each output row must equal its
+    own unit's constant within one bf16 step of it (p is rounded to bf16
+    for P.V, l summed from the f32 p); a row that attends another unit's
+    keys moves by a whole integer times that key's weight.  Backward (on
+    the random V: over a constant one dS = P (dP - Di) vanishes and dq, dk
+    with it): dO zero on every other record, whose dq, dk and dv must then
+    be exactly 0 (dS = 0 on its rows; its keys see only its rows), the
+    other records' gradients within BWD_TOL of the plain backward."""
+    from repro_torch.kernels import flash_attention as fm
+
+    B, Sq, Sk, H, K, D = shape
+    case = (*shape, True, "bfloat16")
+    q, k, v, dout = make_bwd_case(case, dev, seed=13)
+    check(fm.route(q, k, v) == "packed", f"{shape}: not on the packed route")
+    const = (1 + (torch.arange(B, device=dev)[:, None] * K
+                  + torch.arange(K, device=dev)[None]) % 127).to(torch.bfloat16)  # (B, K)
+    flat = const[:, None, :, None].expand(B, Sk, K, D).contiguous()
+    out = fm.flash_attention(q, k, flat, causal=True)
+    want = const.float().repeat_interleave(H // K, dim=1)[:, None, :, None]  # (B, 1, H, 1)
+    step = torch.exp2(torch.floor(torch.log2(want)) - 7)
+    fwd_err = float(((out.float() - want).abs() / step).max())
+    check(fwd_err <= 1.0, f"{shape}: an output row is {fwd_err} bf16 steps from its unit's "
+          f"constant")
+    out, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
+    dout[1::2] = 0
+    got = fm.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    ref = fm.flash_attention_backward_plain(q, k, v, out, dout, causal=True)
+    sync(dev)
+    zero = [int(t[1::2].count_nonzero()) for t in got]
+    check(zero == [0, 0, 0], f"{shape}: records with dO = 0 got nonzero (dq, dk, dv) "
+          f"elements {zero}")
+    errs = check_bwd_output(f"{shape}, half of dO zero", got, ref)
+    return dict(shape=list(shape), forward_max_steps=fwd_err, zero_records_nonzero=zero,
+                backward_errors=errs)
 
 
 # ------------------------------------------------------------- phase 6
@@ -1188,11 +1259,16 @@ def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
         row["cuda_core_bound_ms"] = flash_bound(*case)[0]
         row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] / ms
     split = dtype == "float32"  # serving's instantiation (no lse) of the route's kernel
-    fragment = f"flash_attention_wgmmaILi{D}ELb{int(split)}ELb0E"
     log = _build.library_path("flash_attention").with_suffix(".log").read_text()
-    row["ptxas"] = {"entry": f"flash_attention_wgmma<{D}, {str(split).lower()}, false>",
-                    **ptxas_entry(log, fragment)}
-    row.update(resources(D, q.dtype))
+    res = resources(D, q.dtype, route_shape(shape))
+    if path == "packed":
+        N = res["kernel"].split(", ")[1]
+        entry, fragment = res["kernel"], f"packed_fwdILi{D}ELi{N}ELb0E"
+    else:
+        entry = f"flash_attention_wgmma<{D}, {str(split).lower()}, false>"
+        fragment = f"flash_attention_wgmmaILi{D}ELb{int(split)}ELb0E"
+    row["ptxas"] = {"entry": entry, **ptxas_entry(log, fragment)}
+    row.update(res)
     if split:
         n = k.numel()
         pre_a = cuda_ms(lambda: split_bf16(k), dev, 10 * iters, warmup=2)
@@ -2518,7 +2594,12 @@ BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's tes
     for dtype in ("bfloat16", "float32") for causal in (True, False)
     for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),
                   (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16))
-) + ((16400, 8, 8, 4, 2, 16, True, "bfloat16"),)  # batch x heads past 65,535 on the CUDA cores
+) + ((16400, 8, 8, 4, 2, 16, True, "float32"),) + tuple(  # batch x heads past 65,535
+    # on the CUDA cores (in bf16 that shape takes the packed route); then the
+    # packed route (Sq 1 full only: a causal row over one key has dq = dk = 0
+    # exactly, and the relative limit would hold rounding noise)
+    (*shape, causal, "bfloat16") for shape in PACKED_SHAPES for causal in (True, False)
+    if shape[1] > 1 or not causal)
 BWD_SERVING_SHAPE = (1, 4096, 4096, 64, 8, 128)  # deepseek-67b's micro-batch, one per launch
 BWD_REDUCED_SHAPE = (2, 256, 256, 4, 2, 16)  # the restart check's micro-batch (RESTART below)
 BWD_FAULT_KEYS = (2048, 2112)  # a KV tile in the middle of the serving shape
@@ -2593,7 +2674,7 @@ def check_bwd_case(case, dev, seed=0) -> dict:
     want = fm.flash_attention_backward_plain(q, k, v, out, dout, causal=causal)
     sync(dev)
     path = [r for r, n in fm.flash_attention.backward_route_launches.items() if n > before[r]]
-    want_path = fm.backward_route(case[5], dtype)
+    want_path = fm.backward_route(case[5], dtype, route_shape(case))
     check(path == [want_path] or dev.type == "cpu",
           f"{case}: the backward launched on {path}, not {want_path}")
     return dict(errs=check_bwd_output(str(case), got, want), route=want_path,
@@ -2637,8 +2718,8 @@ def bwd_repeat(dev, shape=BWD_SERVING_SHAPE, dtype: str = "bfloat16") -> dict:
     sync(dev)
     equal = [torch.equal(x, y) for x, y in zip(a, b)]
     check(all(equal), f"two backward calls at {shape} differ in (dq, dk, dv): {equal}")
-    return dict(shape=list(shape), dtype=dtype, route=backward_route(shape[5], q.dtype),
-                bitwise_equal=equal)
+    return dict(shape=list(shape), dtype=dtype,
+                route=backward_route(shape[5], q.dtype, route_shape(shape)), bitwise_equal=equal)
 
 
 def bwd_bound(B, Sq, Sk, H, K, D, causal, dtype="bfloat16", route="cuda_cores") -> tuple:
@@ -2707,11 +2788,11 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     kern_b = cuda_ms(kernel, dev, iters, warmup=0)
     plain_b = cuda_ms(plain, dev, 1, warmup=0)
     del lib_out
-    path = backward_route(D, q.dtype)
+    path = backward_route(D, q.dtype, route_shape(shape))
     bound_ms, bound_by, nbytes, flops = bwd_bound(*case, route=path)
     ms = min(kern_a, kern_b)
     log = _build.library_path("flash_attention_bwd").with_suffix(".log").read_text()
-    kernels = backward_kernels(D, q.dtype)
+    kernels = backward_kernels(D, q.dtype, route_shape(shape))
     split_before = fm.split_bf16.launches
     prof = device_profile(lambda: [kernel() for _ in range(BWD_PROFILE_CALLS)], dev)
     per_kernel = {}  # us a launch over the launches the profiler kept (it may drop some)
@@ -2733,7 +2814,7 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
                share_of_bound=bound_ms / ms,
                ptxas={role: dict(kernel=name, **ptxas_entry(log, fragment))
                       for role, (name, fragment) in kernels.items()},
-               resources=backward_resources(D, q.dtype),
+               resources=backward_resources(D, q.dtype, route_shape(shape)),
                kernel_us=per_kernel,
                split_bf16_launches_a_call=(fm.split_bf16.launches - split_before)
                // BWD_PROFILE_CALLS,
@@ -2760,6 +2841,7 @@ def run_flash_bwd_kernels(dev) -> dict:
     errs = [r["errs"] for r in res]
     faults = [bwd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
     repeat = [bwd_repeat(dev, dtype=dt) for dt in ("bfloat16", "float32")]
+    repeat.append(bwd_repeat(dev, shape=PACKED_REPEAT_SHAPE))
     emit("flash_bwd_kernels", cases=len(BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: max(max(e) for c, e in zip(BWD_CASES, errs) if c[7] == dt)
                   for dt in BWD_TOL}, tol=BWD_TOL,
@@ -4222,11 +4304,17 @@ def run_fleet_faults(dev, workload, fleet, n_records: int) -> dict:
 # CORE's queries over transformer UDFs (``repro_torch.transformer_udf_serving``):
 # llama3-405b (one layer of 126) and qwen3-moe-30b-a3b (two of 48) at their
 # published widths as the two predicates' UDFs, the example's dataset,
-# query, sample, tile and steps; then the same at the reduced configs (D 16:
-# the backward on the CUDA cores), as the JAX package's example runs it.
+# query, sample, tile and steps; then the same at the reduced configs (D 16),
+# as the JAX package's example runs it.
 UDF = dict(n=12_000, steps=100, tile=512, chunk=2048, accuracy=0.9)
 UDF_TIE_TOL = 2.0 ** -5  # top two pooled logits within this of the larger's size: a near tie
-UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128))  # the training steps'
+UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128),  # the training steps'
+              (2000, 8, 8, 4, 2, 16))  # (the reduced configs' last)
+# ms of the forward and backward at UDF_SHAPES on the routes they took before
+# the packed one (128-row tensor-core tiles; the D 16 backward on the CUDA
+# cores), as this script's udf_timing measured them on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (D 16's forward: scripts/flash_ab.py --udf on that tree).
+UDF_BEFORE = {"H128": (10.12, 12.03), "H32": (2.561, 3.190), "D16": (0.1470, 0.4813)}
 
 
 def udf_labels_vs_plain(udf, x: np.ndarray) -> dict:
@@ -4258,7 +4346,7 @@ def run_udf_path(dev, full: bool, phase: str) -> dict:
     each backward launch against the plain backward on its own q, k, v and
     dO.  Checks: forward launches == layers x backbone calls (training
     steps, accuracy and cost probes, every ``fn`` call), backward launches
-    == layers x steps, on the routes the head dim picks; finite, falling
+    == layers x steps, all on the packed route (8 tokens); finite, falling
     losses; no predicate of selectivity 0 or 1 on the sample; one
     ``cascade_score`` launch a served tile and emitted + rejected == served;
     CORE's accuracy against ORIG >= A - 0.05; then each UDF's labels
@@ -4333,11 +4421,11 @@ def run_udf_path(dev, full: bool, phase: str) -> dict:
     check(fwd == want_fwd, f"{phase}: {fwd} forward launches, not {want_fwd} (layers x "
           f"backbone calls {[u.calls for u in udfs]})")
     check(bwd == want_bwd, f"{phase}: {bwd} backward launches, not {want_bwd}")
-    check(routes["tensor_cores"] == fwd, f"{phase}: forward launches by route {routes}")
+    # every call is 8 tokens of at most 2,048 records in bf16: the packed route
+    check(routes["packed"] == fwd, f"{phase}: forward launches by route {routes}")
+    check(bwd_routes["packed"] == bwd, f"{phase}: backward launches by route {bwd_routes}, "
+          f"not all on packed")
     for u in udfs:
-        want_route = fm.backward_route(u.cfg.attention.head_dim, torch.bfloat16)
-        check(bwd_routes[want_route] == bwd, f"{phase}: backward launches by route "
-              f"{bwd_routes}, not all on {want_route}")
         check(all(math.isfinite(v) for v in u.losses) and u.losses[-1] < u.losses[0],
               f"{u.name}: losses {u.losses[0]} -> {u.losses[-1]} are not finite and falling")
     check(served["launches"] == served["tiles"] or not on_card, f"{phase}: {served['launches']} "
@@ -4393,13 +4481,34 @@ def get_published_layers(cfg) -> int:
 def run_udf_timing(dev) -> dict:
     """The forward and backward kernels at the UDF training steps' shapes
     (UDF_SHAPES: 2,000 records of 8 tokens, llama3-405b's and
-    qwen3-moe-30b-a3b's heads) beside SDPA and its backward."""
+    qwen3-moe-30b-a3b's heads, and the reduced configs' D 16) beside SDPA
+    and its backward in the same run, and the earlier times of the routes
+    these shapes took before the packed one (UDF_BEFORE; same card model
+    and power limit).  One ``udf_timing`` line with each shape's route, ms, the
+    bound and its share, SDPA's, registers, spills and shared memory."""
     rows = {}
     for shape in UDF_SHAPES:
-        key = f"H{shape[3]}"
+        key = f"H{shape[3]}" if shape[5] == 128 else f"D{shape[5]}"
         rows[key] = dict(forward=time_flash(dev, "bfloat16", iters=20, shape=shape),
                          backward=time_flash_bwd(dev, "bfloat16", shape, iters=10))
         torch.cuda.empty_cache()
+    summary = {}
+    for key, r in rows.items():
+        f, b = r["forward"], r["backward"]
+        summary[key] = dict(
+            shape=f["shape"],
+            forward=dict(route=f["route"], ms=f["ms"], with_lse_ms=f["with_lse_ms"],
+                         bound_ms=f["bound_ms"], share_of_bound=f["share_of_bound"],
+                         sdpa_ms=f["library_ms"], registers=f["ptxas"]["registers"],
+                         spill_store_bytes=f["ptxas"]["spill_store_bytes"],
+                         smem_bytes=f["smem_bytes"], before_ms=UDF_BEFORE[key][0]),
+            backward=dict(route=b["route"], ms=b["ms"], bound_ms=b["bound_ms"],
+                          share_of_bound=b["share_of_bound"], sdpa_ms=b["library_ms"],
+                          kernel_us=b["kernel_us"], resources=b["resources"],
+                          spill_store_bytes={k: e["spill_store_bytes"]
+                                             for k, e in b["ptxas"].items()},
+                          before_ms=UDF_BEFORE[key][1]))
+    emit("udf_timing", card=nvidia_smi_line(), shapes=summary)
     return rows
 
 
@@ -4870,8 +4979,8 @@ def main(argv=None) -> int:
         before_split = flash_attention.split_bf16.launches
         flash_errs.append(check_flash_case(case, dev, seed=i))
         flash_routes.append(route_taken(flash_attention.flash_attention, before))
-        check(flash_routes[-1] == "tensor_cores",
-              f"{case}: took the {flash_routes[-1]} route, not tensor_cores")
+        want = flash_attention.route_for(case[5], getattr(torch, case[7]), route_shape(case))
+        check(flash_routes[-1] == want, f"{case}: took the {flash_routes[-1]} route, not {want}")
         n_split = flash_attention.split_bf16.launches - before_split
         check(n_split == 2 * (case[7] == "float32"),
               f"{case}: {n_split} split_bf16 launches (K and V: 2 an f32 call)")
@@ -4879,6 +4988,8 @@ def main(argv=None) -> int:
     faults = [planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
     faults.append(planted_fault(dev, "float32", shape=VLM_SHAPE))
     repeat = flash_repeat(dev)
+    packed_repeat = flash_repeat(dev, PACKED_REPEAT_SHAPE, "bfloat16")
+    isolation = [packed_isolation(dev, shape) for shape in ISOLATION_SHAPES]
     torch.cuda.empty_cache()
     emit("flash_kernels", cases=len(FLASH_CASES), seconds=time.perf_counter() - t0,
          max_abs_err={dt: max(e[0] for c, e in zip(FLASH_CASES, flash_errs) if c[7] == dt)
@@ -4887,7 +4998,8 @@ def main(argv=None) -> int:
                       for dt in FLASH_TOL},
          tol=FLASH_TOL, row_tol=FLASH_ROW_TOL, planted_fault=faults[0],
          planted_faults_f32=faults[1], planted_faults_f32_d256=faults[2],
-         repeat_f32_d256=repeat, split_bf16=split_check, split_bf16_launches=splits,
+         repeat_f32_d256=repeat, repeat_packed=packed_repeat, packed_isolation=isolation,
+         split_bf16=split_check, split_bf16_launches=splits,
          cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(FLASH_CASES,
                                                                              flash_routes))
                               for r in flash_attention.ROUTES} for dt in FLASH_TOL},
@@ -5032,19 +5144,25 @@ def main(argv=None) -> int:
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"]}, {
-        "name": "flash_attention[udf]", "route": "cuda", "kernel_route": udf_fwd["route"],
-        "dtype": "bfloat16", "shape": list(UDF_SHAPES[0]),
+        "name": "flash_attention[packed]", "route": "cuda", "kernel_route": udf_fwd["route"],
+        "kernel": udf_fwd["kernel"], "dtype": "bfloat16", "shape": list(UDF_SHAPES[0]),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "note": "udf_path: 2,000 records of 8 tokens at llama3-405b's heads",
-        "launches": udf["launches"],
-        "max_abs_err": max(e for st in udf["first_step"] for e, _ in st["attention"]),
+        "note": "short sequences: udf_path's 2,000 records of 8 tokens at llama3-405b's heads",
+        "launches": udf["route_launches"]["packed"],
+        "launches_by_path": {"udf_path": udf["route_launches"]["packed"],
+                             "udf_path_reduced": udf_reduced["route_launches"]["packed"],
+                             "resilient_path": resilient["deepseek-67b"]["launches"][
+                                 "flash_attention"]},
+        "max_abs_err": max([e for st in udf["first_step"] for e, _ in st["attention"]]
+                           + [e for (e, _), c in zip(flash_errs, FLASH_CASES)
+                              if c[:6] in PACKED_SHAPES]),
         "ms": udf_fwd["ms"], "plain_ms": udf_fwd["plain_ms"],
         "bound_ms": udf_fwd["bound_ms"], "bound_by": udf_fwd["bound_by"],
         "library_ms": udf_fwd["library_ms"],
-        "qwen3_moe_shape": {k: udf_rows["H32"]["forward"][k]
-                            for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}}, {
+        **{name: {k: udf_rows[key]["forward"][k]
+                  for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+           for name, key in (("qwen3_moe_shape", "H32"), ("reduced_shape", "D16"))}}, {
         "name": "flash_attention[D256]", "route": "cuda", "kernel_route": "tensor_cores",
         "dtype": "bfloat16", "shape": list(VLM_SHAPE),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5158,21 +5276,27 @@ def main(argv=None) -> int:
         "ms": bwd["rows"]["D256"]["ms"], "plain_ms": bwd["rows"]["D256"]["plain_ms"],
         "bound_ms": bwd["rows"]["D256"]["bound_ms"], "bound_by": bwd["rows"]["D256"]["bound_by"],
         "library_ms": bwd["rows"]["D256"]["library_ms"]}, {
-        "name": "flash_attention_bwd[udf]", "route": "cuda", "kernel_route": udf_bwd["route"],
+        "name": "flash_attention_bwd[packed]", "route": "cuda",
+        "kernel_route": udf_bwd["route"], "kernel": udf_bwd["resources"]["packed"]["kernel"],
         "dtype": "bfloat16", "shape": list(UDF_SHAPES[0]),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "note": "udf_path's training steps: 2,000 records of 8 tokens at llama3-405b's heads",
-        "launches": udf["backward_launches"],
-        "launches_by_route": udf["backward_route_launches"],
-        "max_abs_err": max(max(e) for st in udf["first_step"] for e in st["backward"]),
+        "note": "one pass for short sequences: udf_path's training steps, 2,000 records of "
+                "8 tokens at llama3-405b's heads",
+        "launches": udf["backward_route_launches"]["packed"],
+        "launches_by_path": {
+            "udf_path": udf["backward_route_launches"]["packed"],
+            "udf_path_reduced": udf_reduced["backward_route_launches"]["packed"],
+            "resilient_path": resilient["deepseek-67b"]["launches"]["flash_attention_backward"]},
+        "max_abs_err": max([max(e) for st in udf["first_step"] for e in st["backward"]]
+                           + [max(r["backward_errors"]) for r in isolation]),
         "max_err_is": "of each gradient's largest value",
         "ms": udf_bwd["ms"], "plain_ms": udf_bwd["plain_ms"],
         "bound_ms": udf_bwd["bound_ms"], "bound_by": udf_bwd["bound_by"],
         "library_ms": udf_bwd["library_ms"],
-        "qwen3_moe_shape": {k: udf_rows["H32"]["backward"][k]
-                            for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}}, {
+        **{name: {k: udf_rows[key]["backward"][k]
+                  for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+           for name, key in (("qwen3_moe_shape", "H32"), ("reduced_shape", "D16"))}}, {
         "name": "flash_attention_bwd[float32]", "route": "cuda",
         "kernel_route": bwd["rows"]["float32"]["route"],
         "dtype": "float32", "shape": list(BWD_SERVING_SHAPE),
@@ -5200,9 +5324,7 @@ def main(argv=None) -> int:
         "launches": train["restart"]["backward_route_launches"]["cuda_cores"],
         "launches_by_route": train["restart"]["backward_route_launches"],
         "launches_by_path": {
-            "train_path_restart": train["restart"]["backward_route_launches"]["cuda_cores"],
-            "udf_path_reduced": udf_reduced["backward_launches"],
-            "resilient_path": resilient["deepseek-67b"]["launches"]["flash_attention_backward"]},
+            "train_path_restart": train["restart"]["backward_route_launches"]["cuda_cores"]},
         "max_abs_err": bwd["rows"]["reduced_bfloat16"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["reduced_bfloat16"]["ms"],

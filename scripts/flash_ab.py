@@ -14,9 +14,13 @@ its kernels, and times with CUDA events, causal, on one seeded input each:
 
 With ``--cuda-core-bwd`` it times instead only the backward's CUDA-core
 route, at the shapes that take it: the reduced configs' restart-check
-micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32, the reduced UDF's
-training batch (2000, 8, 8, 4, 2, 16) in bf16, and paligemma's
+micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32 and paligemma's
 (4, 4096, 4096, 8, 1, 256) in f32.
+
+With ``--udf`` it times instead the forward (with and without the lse) and
+the backward at a transformer UDF's training shapes (2,000 records of 8
+tokens: llama3-405b's heads, qwen3-moe's, and the reduced configs' D 16),
+with the route each takes in that tree.
 
 Prints one line ``AB {...}`` with the tree, the card (name and power limit
 from ``nvidia-smi``) and each time in ms (the least of ``--turns`` runs of
@@ -39,8 +43,8 @@ FWD_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D)
 BWD_SHAPES = ((1, 4096, 4096, 64, 8, 128), (4, 4096, 4096, 8, 1, 256))
 CUDA_CORE_BWD = (((2, 256, 256, 4, 2, 16), torch.bfloat16),
                  ((2, 256, 256, 4, 2, 16), torch.float32),
-                 ((2000, 8, 8, 4, 2, 16), torch.bfloat16),
                  ((4, 4096, 4096, 8, 1, 256), torch.float32))
+UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128), (2000, 8, 8, 4, 2, 16))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -74,6 +78,8 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--cuda-core-bwd", action="store_true",
                     help="time only the backward's CUDA-core route (CUDA_CORE_BWD)")
+    ap.add_argument("--udf", action="store_true",
+                    help="time only the UDF training shapes (UDF_SHAPES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA card", file=sys.stderr)
@@ -95,6 +101,24 @@ def main() -> int:
             out[f"cuda_core_backward_{'x'.join(map(str, shape))}_{str(dtype)[6:]}"] = timed(
                 lambda: fm.flash_attention_backward(q, k, v, o, dout, lse, causal=True),
                 iters, args.turns)
+            del q, k, v, dout, o, lse
+            torch.cuda.empty_cache()
+        print("AB " + json.dumps(out), flush=True)
+        return 0
+
+    if args.udf:
+        for shape in UDF_SHAPES:
+            q, k, v, dout = inputs(shape, seed=8)
+            o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
+            tag = "x".join(map(str, shape))
+            out[f"route_{tag}"] = fm.route(q, k, v)
+            calls = {"forward": lambda: fm.flash_attention(q, k, v, causal=True),
+                     "forward_with_lse": lambda: fm.flash_attention(q, k, v, causal=True,
+                                                                     return_lse=True),
+                     "backward": lambda: fm.flash_attention_backward(q, k, v, o, dout, lse,
+                                                                     causal=True)}
+            for name, fn in calls.items():
+                out[f"{name}_{tag}"] = timed(fn, args.iters, args.turns)
             del q, k, v, dout, o, lse
             torch.cuda.empty_cache()
         print("AB " + json.dumps(out), flush=True)

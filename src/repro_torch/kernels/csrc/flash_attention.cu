@@ -29,8 +29,34 @@
 // input read once and the output written once is 0.6 GB, 0.18 ms at
 // 3.35 TB/s.
 //
-// One kernel in two instantiations; the wrapper picks one by dtype before
-// the launch (`flash_attention.route`: both are "tensor_cores").
+// Two kernels; the wrapper picks one before the launch (`flash_attention.route`):
+// the packed one for short bf16 sequences (`packed_plan`; "packed", below),
+// else one kernel in two instantiations by dtype ("tensor_cores").
+//
+// bf16, short sequences: `pk::packed_fwd<D, N, kLse>`, the packed route.  At
+// a transformer UDF's 8 tokens a (batch, head) fills 8 rows of the 128-row
+// tile below, so that kernel ran 256,000 blocks for 8 rows of work each at
+// (B 2000, S 8, H 128, K 8, D 128).  Here a unit is one (record, KV head):
+// the G = H / K heads of the group at every position, row (s, g) as
+// q.reshape(B, Sq, K, G, D) orders them, and a 128-row tile holds U whole
+// units (U = 128 / (G Sq), at most 64 keys' worth; a unit longer than 128
+// rows spans tiles of P = 128 / G positions).  One rank-5 TMA box (a chunk of
+// D, G, 1, P, U) over q as (D, G, K, Sq, B) loads a tile, one rank-4 box
+// (D, 1, Sk, U) over K or V the U units' keys; the output goes back by a TMA
+// store of the same box from the tile's own rows of shared memory.  All of
+// a tile's keys (U Sk <= N of 16, 32 or 64 columns) fit one S tile, so the
+// softmax is one pass with no rescaling: S = Q.K^T, masked to the row's own
+// unit (block-diagonal) and causally within it, p = exp2(s c - m c), l from
+// the f32 p, P.V with p rounded to bf16, out = acc / l.  Products are
+// `mma.sync` m16n8k16 (8 warps of 16 rows, operands by `ldmatrix` from the
+// swizzled tiles, P from the score registers): the work is tiny (4.7
+// GFLOP at the shape above), so the tile shape, not wgmma's 64-row
+// granularity, decides.  Bound: bytes.  q read and out written once are
+// 1.05 GB at that shape, 0.33 ms at 3.35 TB/s, against 0.005 ms of bf16
+// tensor-core work; the design moves those bytes with TMA and keeps three
+// blocks an SM (72 registers, 42.5 KB of shared memory), so one block's
+// loads run while another computes.  The lse (kLse) is staged in shared
+// memory and written as one run of G P floats a unit.
 //
 // bf16: `flash_attention_wgmma<D, false, kLse>`, on the tensor cores.  A bf16 x
 // bf16 product is exact in f32, so wgmma with f32 accumulation gives the
@@ -630,6 +656,239 @@ __global__ void split_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* 
 
 }  // namespace tc
 
+// ------------------------------------------- bf16, short sequences: packed
+namespace pk {
+
+using packed::at;
+using packed::Geo;
+using packed::kRows;
+using packed::kThreads;
+using hopper::pack_bf16;
+using tc::kLn2;
+using tc::kLog2e;
+
+// N: key columns a tile (U * Sk rounded up to 16, 32 or 64).
+template <int D, int N>
+struct FwdCfg {
+  static constexpr int kQBytes = kRows * D * 2;                     // q, then the output
+  static constexpr int kKVBytes = (N * D * 2 + 1023) / 1024 * 1024;  // K; V
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kKVBytes + 16 + kRows * 4;  // bar, lse
+};
+
+struct FwdMaps {
+  CUtensorMap q, o, k, v;
+};
+
+// One block a tile: U records' units of one KV head (or P positions of one
+// unit).  Rows past the box and keys past U * Sk are never stored; the
+// keys' padding rows are zeroed, since P.V reads them (times p = 0).
+template <int D, int N, bool kLse>
+__global__ void __launch_bounds__(kThreads, 2) packed_fwd(
+    const __grid_constant__ FwdMaps maps, float* __restrict__ lse, const Geo g, int causal,
+    float c) {
+  using C = FwdCfg<D, N>;
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW, NC = packed::Sw<D>::NC;
+  constexpr int DC = D < 64 ? D : 64;  // output columns a pass (a fresh accumulator)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base, k_s = q_s + C::kQBytes, v_s = k_s + C::kKVBytes;
+  const uint32_t bar = v_s + C::kKVBytes;
+  float* const lse_s = reinterpret_cast<float*>(gbase + (bar + 16 - base));  // a row's lse
+
+  const int t = blockIdx.x % g.T, rest = blockIdx.x / g.T;
+  const int kv = rest % g.K, b0 = (rest / g.K) * g.U, p0 = t * g.P;
+  const int unit_rows = g.G * g.P, box_rows = unit_rows * g.U, keys = g.U * g.Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int i = threadIdx.x; i < (N - keys) * (D / 8); i += kThreads) {
+    const int row = keys + i / (D / 8), col = (i % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(gbase + (at<D>(k_s, N, row, col) - base)) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(gbase + (at<D>(v_s, N, row, col) - base)) = make_uint4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, (box_rows + 2 * keys) * D * 2);
+    for (int cc = 0; cc < NC; ++cc) {
+      hopper::tma_load_5d(q_s + cc * kRows * SW, &maps.q, bar, cc * CW, 0, kv, p0, b0);
+      hopper::tma_load_4d(k_s + cc * N * SW, &maps.k, bar, cc * CW, kv, 0, b0);
+      hopper::tma_load_4d(v_s + cc * N * SW, &maps.v, bar, cc * CW, kv, 0, b0);
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+
+  const int r0 = 16 * warp;
+  if (r0 < box_rows) {
+    // S = Q.K^T: A (16 q rows) and B (16 keys a load) by ldmatrix
+    float s[N / 8][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      hopper::ldsm_x4(a, at<D>(q_s, kRows, r0 + lane % 8 + 8 * (lane / 8 % 2),
+                               kk * 16 + 8 * (lane / 16)));
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        uint32_t b[4];
+        hopper::ldsm_x4(b, at<D>(k_s, N, nb * 16 + lane % 8 + 8 * (lane / 16),
+                                 kk * 16 + 8 * (lane / 8 % 2)));
+        hopper::mma_bf16(s[2 * nb], a, b[0], b[1]);
+        hopper::mma_bf16(s[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+    // Each of this thread's rows (r, r + 8) attends key columns [lo, hi):
+    // its own unit's keys, up to its position when causal; none past the box.
+    int lo[2], hi[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + lane / 4 + 8 * hr;
+      const int u = r / unit_rows, pos = p0 + (r - u * unit_rows) / g.G;
+      lo[hr] = u * g.Sk;
+      hi[hr] = r >= box_rows ? lo[hr] : lo[hr] + (causal ? min(g.Sk, pos + 1) : g.Sk);
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * (lane % 4) + (e & 1), hr = e >> 1;
+        if (col < lo[hr] || col >= hi[hr]) s[j][e] = kNegInf;
+        mx[hr] = fmaxf(mx[hr], s[j][e]);
+      }
+    float mc[2], l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      mc[hr] = mx[hr] * c;
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(fmaf(s[j][e], c, -mc[e >> 1]));
+        l[e >> 1] += s[j][e];  // from the f32 p, as the reference sums it
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    }
+    // p rounded to bf16: score tiles 2kk and 2kk + 1 are A fragment kk
+    uint32_t pa[N / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    const float den0 = fmaxf(l[0], 1e-20f), den1 = fmaxf(l[1], 1e-20f);
+    __syncwarp();
+    // O = P.V, DC columns a pass, V read transposed; each pass's rows go to
+    // this warp's own q rows (no other warp reads them)
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      float o[DC / 8][4];
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+        for (int nd = 0; nd < DC / 16; ++nd) {
+          uint32_t b[4];
+          hopper::ldsm_x4_trans(b, at<D>(v_s, N, kk * 16 + lane % 8 + 8 * (lane / 8 % 2),
+                                         d0 + nd * 16 + 8 * (lane / 16)));
+          hopper::mma_bf16(o[2 * nd], pa[kk], b[0], b[1]);
+          hopper::mma_bf16(o[2 * nd + 1], pa[kk], b[2], b[3]);
+        }
+      const int row = r0 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        const int col = d0 + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(gbase + (at<D>(q_s, kRows, row, col) - base)) =
+            pack_bf16(o[j][0] / den0, o[j][1] / den0);
+        *reinterpret_cast<uint32_t*>(gbase + (at<D>(q_s, kRows, row + 8, col) - base)) =
+            pack_bf16(o[j][2] / den1, o[j][3] / den1);
+      }
+    }
+    if (kLse && lane % 4 == 0) {  // m is in log2 units of s * scale
+      lse_s[r0 + lane / 4] = (mc[0] + log2f(l[0])) * kLn2;
+      lse_s[r0 + lane / 4 + 8] = (mc[1] + log2f(l[1])) * kLn2;
+    }
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int cc = 0; cc < NC; ++cc)
+      hopper::tma_store_5d(&maps.o, q_s + cc * kRows * SW, cc * CW, 0, kv, p0, b0);
+    hopper::bulk_commit();
+  }
+  // The tile's lse in the module's (B, H, Sq) order: (g, s) of a unit, s
+  // fastest, is one run of G * P floats (all of a unit's when P = Sq), so
+  // consecutive threads write consecutive floats.
+  if (kLse && threadIdx.x < box_rows) {
+    const int u = threadIdx.x / unit_rows, j = threadIdx.x - u * unit_rows;
+    const int gi = j / g.P, sl = j - gi * g.P, b = b0 + u, pos = p0 + sl;
+    if (b < g.B && pos < g.Sq)
+      lse[((size_t)b * g.H + kv * g.G + gi) * g.Sq + pos] = lse_s[u * unit_rows + sl * g.G + gi];
+  }
+  if (threadIdx.x == 0) hopper::bulk_wait_read<0>();
+}
+
+template <int D, int N, bool kLse>
+cudaError_t run(const FwdMaps& maps, float* lse, const Geo& g, int causal, float scale,
+                cudaStream_t stream) {
+  using C = FwdCfg<D, N>;
+  cudaError_t err = cudaFuncSetAttribute(packed_fwd<D, N, kLse>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((g.B + g.U - 1) / g.U) * g.K * g.T;
+  packed_fwd<D, N, kLse><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(maps, lse, g, causal,
+                                                                          scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D, int N>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const Geo& g, int causal, float scale, cudaStream_t stream) {
+  FwdMaps maps{};
+  if (packed::q_map(&maps.q, q, g, D) != CUDA_SUCCESS ||
+      packed::q_map(&maps.o, o, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.k, k, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.v, v, g, D) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return lse != nullptr ? run<D, N, true>(maps, lse, g, causal, scale, stream)
+                        : run<D, N, false>(maps, lse, g, causal, scale, stream);
+}
+
+template <int D, int N>
+cudaError_t resources(int with_lse, cudaFuncAttributes* a, size_t* dyn) {
+  *dyn = FwdCfg<D, N>::kSmem;
+  return with_lse ? cudaFuncGetAttributes(a, packed_fwd<D, N, true>)
+                  : cudaFuncGetAttributes(a, packed_fwd<D, N, false>);
+}
+
+}  // namespace pk
+
+cudaError_t dispatch_packed(int D, int N, const void* q, const void* k, const void* v, void* o,
+                            float* lse, const packed::Geo& g, int causal, float scale,
+                            cudaStream_t st) {
+  PACKED_DISPATCH(pk::launch, q, k, v, o, lse, g, causal, scale, st)
+}
+
+cudaError_t dispatch_packed_resources(int D, int N, int with_lse, cudaFuncAttributes* a,
+                                      size_t* dyn) {
+  PACKED_DISPATCH(pk::resources, with_lse, a, dyn)
+}
+
 // Every head dim on both routes (kSplit true: f32 as bf16 pieces).
 #define FLASH_DISPATCH(FN, SPLIT, ...)                       \
   switch (D) {                                               \
@@ -710,6 +969,37 @@ int split_bf16_launch(const void* src, void* hi, void* mid, void* lo, long long 
 // dispatch_resources.
 int flash_attention_resources(int D, int kernel, int* regs, int* smem_bytes) {
   return (int)dispatch_resources(D, kernel, regs, smem_bytes);
+}
+
+// The packed route: bf16 q, o (B, Sq, H, D) and k, v (B, Sk, K, D), all
+// contiguous and 16-byte aligned (TMA); lse as flash_attention_launch takes
+// it; U records a tile, P positions a tile, T tiles a unit and N key columns
+// a tile as the wrapper's packed_plan gives them.  A plan or a head dim the
+// kernels do not take returns cudaErrorInvalidValue and launches nothing.
+int flash_attention_packed_launch(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int B, int Sq, int Sk, int H, int K, int D, int U,
+                                  int P, int T, int N, int causal, float scale, void* stream) {
+  if (K < 1 || H % K != 0) return (int)cudaErrorInvalidValue;
+  const packed::Geo g{B, Sq, Sk, H, K, H / K, U, P, T};
+  if (packed::bad_geo(g, N) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_packed(D, N, q, k, v, o, static_cast<float*>(lse), g, causal, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The packed kernel's registers a thread, shared memory a block (static plus
+// dynamic) and local memory a thread at (D, N), with or without the lse.
+int flash_attention_packed_resources(int D, int N, int with_lse, int* regs, int* smem,
+                                     int* local) {
+  cudaFuncAttributes a;
+  size_t dyn = 0;
+  const cudaError_t e = dispatch_packed_resources(D, N, with_lse, &a, &dyn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *smem = (int)(a.sharedSizeBytes + dyn);
+  *local = (int)a.localSizeBytes;
+  return 0;
 }
 
 const char* flash_attention_error_string(int err) {

@@ -30,7 +30,27 @@
 // products of the forward's two.  At (B 1, S 4096, H 64, K 8, D 128) that
 // is 6.9e11 flops, 0.69 ms at the 989 TFLOP/s bf16 tensor-core peak.
 //
-// Every launch first runs `bwd_prep` (one warp a row): Di from O and dO,
+// bf16, short sequences (`flash_attention.packed_plan`, the forward's packed
+// route): `pk::packed_bwd<D, N>`, one kernel in one pass.  A block holds the
+// U units of one KV head that a forward tile holds (all of a unit's rows:
+// where a unit spans several 128-row tiles the block walks them as bands, in
+// order) and their U Sk keys.  Every q row that attends those keys is in the
+// block, so it computes everything itself and no atomics are needed (two
+// calls are equal bit for bit): per band Di = rowsum(dO O) (O read from
+// device memory while the band's q and dO land by TMA), S = Q.K^T and dP =
+// dO.V^T, P = exp2(S c - lse2) from the forward's lse (masked to the row's
+// own unit and causally), dS = P (dP - Di), dQ = scale dS.K written
+// straight from registers; then P and dS go to shared memory in bf16 and
+// the block's warps sum dV += P^T.dO and dK += dS^T.Q over the band's rows,
+// each warp its own m16n8 tiles of them (ldmatrix.trans of P, dS, dO and Q),
+// 16 rows a step in order.  At the end dK (scaled) and dV leave by TMA
+// stores.  Five products where the tensor-core route below runs seven, no
+// pre-pass and no (2, B, H, Sqp) scratch.  Bound: bytes.  q, k, v, o, dO
+// and the lse read once and dq, dk, dv written once are 2.24 GB at (B 2000,
+// S 8, H 128, K 8, D 128), 0.67 ms, against 0.012 ms of bf16 tensor-core
+// work.
+//
+// Every other launch first runs `bwd_prep` (one warp a row): Di from O and dO,
 // and a copy of the forward's lse (times log2(e) on the tensor-core route),
 // into (2, B, H, Sqp) f32 scratch the wrapper allocates; rows Sq .. Sqp
 // (padding to a multiple of 64 on the tensor-core route, so a stage's rows
@@ -1457,6 +1477,346 @@ cudaError_t split_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
 
 }  // namespace tc
 
+// ------------------------------------------- bf16, short sequences: packed
+// One pass, one block a (U records, KV head): it holds the U units' keys and
+// every q row that attends them, so it sums dK and dV over its rows in a
+// fixed order and writes dq, dk and dv once each.
+namespace pk {
+
+using hopper::pack_bf16;
+using packed::at;
+using packed::Geo;
+using packed::kRows;
+using packed::kThreads;
+
+// dK and dV as m16n8 tiles (16 keys x 8 head-dim columns), kPerWarp a warp.
+template <int D, int N>
+struct BwdCfg {
+  static constexpr int kQBytes = kRows * D * 2;                     // a band of q; of dO
+  static constexpr int kKVBytes = (N * D * 2 + 1023) / 1024 * 1024;  // K, V (then dK, dV)
+  static constexpr int PS = (N + 8) * 2;  // bytes of a row of P or dS (padded: no bank conflicts)
+  static constexpr int kPBytes = (kRows * PS + 1023) / 1024 * 1024;
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kKVBytes + 2 * kPBytes + 8;
+  static constexpr int kTiles = (N / 16) * (D / 8);
+  static constexpr int kPerWarp = (kTiles + 7) / 8;
+  // Two blocks an SM (at most 128 registers a thread) where the live f32
+  // values (dK and dV tiles, S and dP, dS's fragments, a dQ pass) leave room.
+  static constexpr int kMinBlocks = 8 * kPerWarp + N + N / 4 + (D < 64 ? D : 64) / 2 <= 120 ? 2 : 1;
+};
+
+struct BwdMaps {
+  CUtensorMap q, g, k, v, dk, dv;
+};
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[i]));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
+// o: the forward's output (Di's other factor, read straight from device
+// memory); lse: the forward's (B, H, Sq) row lse.  A band is one tile of
+// rows (all of them when the U units fit kRows; else P positions of the
+// one unit, T bands in order).
+template <int D, int N>
+__global__ void __launch_bounds__(kThreads, BwdCfg<D, N>::kMinBlocks) packed_bwd(
+    const __grid_constant__ BwdMaps maps, const __nv_bfloat16* __restrict__ o,
+    const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq, const Geo g, int causal,
+    float c, float scale) {
+  using C = BwdCfg<D, N>;
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW, NC = packed::Sw<D>::NC;
+  constexpr int DC = D < 64 ? D : 64;  // dQ columns a pass
+  constexpr int PS = C::PS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base, g_s = q_s + C::kQBytes, k_s = g_s + C::kQBytes;
+  const uint32_t v_s = k_s + C::kKVBytes, p_s = v_s + C::kKVBytes, ds_s = p_s + C::kPBytes;
+  const uint32_t bar = ds_s + C::kPBytes;
+  auto sm = [&](uint32_t addr) { return gbase + (addr - base); };
+
+  const int kv = blockIdx.x % g.K, b0 = (blockIdx.x / g.K) * g.U;
+  const int unit_rows = g.G * g.P, box_rows = unit_rows * g.U, keys = g.U * g.Sk;
+  const int n_ks = (box_rows + 15) / 16;  // 16-row steps of the dK / dV sums
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Zero what no box writes and a product reads: K and V rows past U * Sk
+  // (times p = 0), q and dO rows past the box (times P = dS = 0).
+  for (int i = threadIdx.x; i < (N - keys) * (D / 8); i += kThreads) {
+    const int row = keys + i / (D / 8), col = (i % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(sm(at<D>(k_s, N, row, col))) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(sm(at<D>(v_s, N, row, col))) = make_uint4(0, 0, 0, 0);
+  }
+  for (int i = threadIdx.x; i < (kRows - box_rows) * (D / 8); i += kThreads) {
+    const int row = box_rows + i / (D / 8), col = (i % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(sm(at<D>(q_s, kRows, row, col))) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(sm(at<D>(g_s, kRows, row, col))) = make_uint4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc_v[C::kPerWarp][4], acc_k[C::kPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < C::kPerWarp; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_v[i][e] = acc_k[i][e] = 0.f;
+
+  const int r0 = 16 * warp;
+  for (int t = 0; t < g.T; ++t) {
+    const int p0 = t * g.P;
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar, (2 * box_rows + (t == 0 ? 2 * keys : 0)) * D * 2);
+      for (int cc = 0; cc < NC; ++cc) {
+        hopper::tma_load_5d(q_s + cc * kRows * SW, &maps.q, bar, cc * CW, 0, kv, p0, b0);
+        hopper::tma_load_5d(g_s + cc * kRows * SW, &maps.g, bar, cc * CW, 0, kv, p0, b0);
+        if (t == 0) {
+          hopper::tma_load_4d(k_s + cc * N * SW, &maps.k, bar, cc * CW, kv, 0, b0);
+          hopper::tma_load_4d(v_s + cc * N * SW, &maps.v, bar, cc * CW, kv, 0, b0);
+        }
+      }
+    }
+    // This thread's rows (r, r + 8): the keys they attend [lo, hi), their
+    // place in dq (or -1 past the tensor) and the lse in log2 units; and
+    // their O (Di's other factor: 16-byte units lane % 4, + 4, ...), read
+    // while the band's loads land (at D 256 after, for registers).
+    constexpr int kOU = D < 32 ? 1 : D / 32;                // O's units a row a thread
+    constexpr int kPre = D <= 128 ? kOU : 0;                // of them read early
+    int lo[2], hi[2];
+    long long row_off[2];
+    float lse2[2];
+    uint4 ov[2][kPre > 0 ? kPre : 1];
+    if (r0 < box_rows) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = r0 + lane / 4 + 8 * hr;
+        const int u = r / unit_rows, rr = r - u * unit_rows;
+        const int pos = p0 + rr / g.G, b = b0 + u, h = kv * g.G + rr % g.G;
+        const bool valid = r < box_rows && b < g.B && pos < g.Sq;
+        lo[hr] = u * g.Sk;
+        hi[hr] = !valid ? lo[hr] : lo[hr] + (causal ? min(g.Sk, pos + 1) : g.Sk);
+        row_off[hr] = valid ? (((long long)b * g.Sq + pos) * g.H + h) * D : -1;
+        lse2[hr] = valid ? lse[((size_t)b * g.H + h) * g.Sq + pos] * kLog2e : 0.f;
+#pragma unroll
+        for (int i = 0; i < kPre; ++i) {
+          const int u8 = lane % 4 + 4 * i;
+          ov[hr][i] = valid && u8 < D / 8
+                          ? *reinterpret_cast<const uint4*>(o + row_off[hr] + 8 * u8)
+                          : make_uint4(0, 0, 0, 0);
+        }
+      }
+    }
+    hopper::mbar_wait(bar, t & 1);
+
+    if (r0 < box_rows) {
+      float di[2];  // Di = rowsum(dO * O), a fixed order
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = r0 + lane / 4 + 8 * hr;
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < kOU; ++i) {
+          const int u8 = lane % 4 + 4 * i;
+          if (u8 < D / 8) {
+            const uint4 og = i < kPre ? ov[hr][i < kPre ? i : 0]
+                             : row_off[hr] >= 0
+                                 ? *reinterpret_cast<const uint4*>(o + row_off[hr] + 8 * u8)
+                                 : make_uint4(0, 0, 0, 0);
+            acc += dot8(og, *reinterpret_cast<const uint4*>(sm(at<D>(g_s, kRows, r, 8 * u8))));
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        di[hr] = acc;
+      }
+
+      // S = Q.K^T and dP = dO.V^T
+      float s[N / 8][4], dp[N / 8][4];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int arow = r0 + lane % 8 + 8 * (lane / 8 % 2), acol = kk * 16 + 8 * (lane / 16);
+        uint32_t aq[4], ag[4];
+        hopper::ldsm_x4(aq, at<D>(q_s, kRows, arow, acol));
+        hopper::ldsm_x4(ag, at<D>(g_s, kRows, arow, acol));
+#pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+          const int brow = nb * 16 + lane % 8 + 8 * (lane / 16);
+          const int bcol = kk * 16 + 8 * (lane / 8 % 2);
+          uint32_t bk[4], bv[4];
+          hopper::ldsm_x4(bk, at<D>(k_s, N, brow, bcol));
+          hopper::ldsm_x4(bv, at<D>(v_s, N, brow, bcol));
+          hopper::mma_bf16(s[2 * nb], aq, bk[0], bk[1]);
+          hopper::mma_bf16(s[2 * nb + 1], aq, bk[2], bk[3]);
+          hopper::mma_bf16(dp[2 * nb], ag, bv[0], bv[1]);
+          hopper::mma_bf16(dp[2 * nb + 1], ag, bv[2], bv[3]);
+        }
+      }
+      // P = exp2(S c - lse2) (0 where masked), dS = P (dP - Di); both to
+      // shared memory as bf16 rows for the dV and dK sums
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * (lane % 4) + (e & 1), hr = e >> 1;
+          const float p =
+              col >= lo[hr] && col < hi[hr] ? exp2f(fmaf(s[j][e], c, -lse2[hr])) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - di[hr]);
+        }
+      const int row = r0 + lane / 4;
+      uint32_t da[N / 16][4];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const uint32_t off = row * PS + (8 * j + 2 * (lane % 4)) * 2;
+        *reinterpret_cast<uint32_t*>(sm(p_s + off)) = pack_bf16(s[j][0], s[j][1]);
+        *reinterpret_cast<uint32_t*>(sm(p_s + off + 8 * PS)) = pack_bf16(s[j][2], s[j][3]);
+        const uint32_t d01 = pack_bf16(dp[j][0], dp[j][1]), d23 = pack_bf16(dp[j][2], dp[j][3]);
+        *reinterpret_cast<uint32_t*>(sm(ds_s + off)) = d01;
+        *reinterpret_cast<uint32_t*>(sm(ds_s + off + 8 * PS)) = d23;
+        da[j / 2][(j % 2) * 2] = d01;  // score tiles 2kk and 2kk + 1 are A fragment kk
+        da[j / 2][(j % 2) * 2 + 1] = d23;
+      }
+      // dQ = scale dS.K, DC columns a pass, K read transposed, straight out
+#pragma unroll
+      for (int d0 = 0; d0 < D; d0 += DC) {
+        float aq[DC / 8][4];
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) aq[j][0] = aq[j][1] = aq[j][2] = aq[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+          for (int nd = 0; nd < DC / 16; ++nd) {
+            uint32_t b[4];
+            hopper::ldsm_x4_trans(b, at<D>(k_s, N, kk * 16 + lane % 8 + 8 * (lane / 8 % 2),
+                                           d0 + nd * 16 + 8 * (lane / 16)));
+            hopper::mma_bf16(aq[2 * nd], da[kk], b[0], b[1]);
+            hopper::mma_bf16(aq[2 * nd + 1], da[kk], b[2], b[3]);
+          }
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          const int col = d0 + 8 * j + 2 * (lane % 4);
+          if (row_off[0] >= 0)
+            *reinterpret_cast<uint32_t*>(dq + row_off[0] + col) =
+                pack_bf16(aq[j][0] * scale, aq[j][1] * scale);
+          if (row_off[1] >= 0)
+            *reinterpret_cast<uint32_t*>(dq + row_off[1] + col) =
+                pack_bf16(aq[j][2] * scale, aq[j][3] * scale);
+        }
+      }
+    }
+    __syncthreads();  // every row of P and dS is in shared memory
+
+    // dV += P^T.dO and dK += dS^T.Q over the band's rows, 16 a step, in
+    // order: P^T and dS^T by ldmatrix.trans of the row-major P and dS, dO and
+    // Q transposed as the B operand
+#pragma unroll
+    for (int i = 0; i < C::kPerWarp; ++i) {
+      const int tile = warp * C::kPerWarp + i;
+      if (tile < C::kTiles) {
+        const int m0 = tile / (D / 8) * 16, d0 = tile % (D / 8) * 8;
+        for (int ks = 0; ks < n_ks; ++ks) {
+          const int k0 = 16 * ks, j = lane / 8;
+          const uint32_t aoff = (k0 + lane % 8 + 8 * (j / 2)) * PS + (m0 + 8 * (j % 2)) * 2;
+          const int brow = k0 + lane % 8 + 8 * (lane / 8 % 2);
+          uint32_t ap[4], ad[4], bg0, bg1, bq0, bq1;
+          hopper::ldsm_x4_trans(ap, p_s + aoff);
+          hopper::ldsm_x4_trans(ad, ds_s + aoff);
+          hopper::ldsm_x2_trans(bg0, bg1, at<D>(g_s, kRows, brow, d0));
+          hopper::ldsm_x2_trans(bq0, bq1, at<D>(q_s, kRows, brow, d0));
+          hopper::mma_bf16(acc_v[i], ap, bg0, bg1);
+          hopper::mma_bf16(acc_k[i], ad, bq0, bq1);
+        }
+      }
+    }
+    __syncthreads();  // before the next band's loads and P, dS
+  }
+
+  // dK (scaled) and dV, bf16, staged in the K and V tiles (no longer read)
+  // and written by TMA: rows past U * Sk stay out of the box, records past B
+  // out of the tensor.
+#pragma unroll
+  for (int i = 0; i < C::kPerWarp; ++i) {
+    const int tile = warp * C::kPerWarp + i;
+    if (tile < C::kTiles) {
+      const int row = tile / (D / 8) * 16 + lane / 4, col = tile % (D / 8) * 8 + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(sm(at<D>(k_s, N, row, col))) =
+          pack_bf16(acc_k[i][0] * scale, acc_k[i][1] * scale);
+      *reinterpret_cast<uint32_t*>(sm(at<D>(k_s, N, row + 8, col))) =
+          pack_bf16(acc_k[i][2] * scale, acc_k[i][3] * scale);
+      *reinterpret_cast<uint32_t*>(sm(at<D>(v_s, N, row, col))) =
+          pack_bf16(acc_v[i][0], acc_v[i][1]);
+      *reinterpret_cast<uint32_t*>(sm(at<D>(v_s, N, row + 8, col))) =
+          pack_bf16(acc_v[i][2], acc_v[i][3]);
+    }
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int cc = 0; cc < NC; ++cc) {
+      hopper::tma_store_4d(&maps.dk, k_s + cc * N * SW, cc * CW, kv, 0, b0);
+      hopper::tma_store_4d(&maps.dv, v_s + cc * N * SW, cc * CW, kv, 0, b0);
+    }
+    hopper::bulk_commit();
+    hopper::bulk_wait_read<0>();
+  }
+}
+
+template <int D, int N>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, void* dq, void* dk, void* dv, const Geo& g, int causal,
+                   float scale, cudaStream_t st) {
+  using C = BwdCfg<D, N>;
+  BwdMaps maps{};
+  if (packed::q_map(&maps.q, q, g, D) != CUDA_SUCCESS ||
+      packed::q_map(&maps.g, dout, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.k, k, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.v, v, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.dk, dk, g, D) != CUDA_SUCCESS ||
+      packed::kv_map(&maps.dv, dv, g, D) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(packed_bwd<D, N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((g.B + g.U - 1) / g.U) * g.K;
+  packed_bwd<D, N><<<(unsigned)blocks, kThreads, C::kSmem, st>>>(
+      maps, static_cast<const __nv_bfloat16*>(o), lse, static_cast<__nv_bfloat16*>(dq), g,
+      causal, scale * kLog2e, scale);
+  return cudaGetLastError();
+}
+
+template <int D, int N>
+cudaError_t resources(cudaFuncAttributes* a, size_t* dyn) {
+  *dyn = BwdCfg<D, N>::kSmem;
+  return cudaFuncGetAttributes(a, packed_bwd<D, N>);
+}
+
+}  // namespace pk
+
+cudaError_t dispatch_packed(int D, int N, const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const float* lse, void* dq,
+                            void* dk, void* dv, const packed::Geo& g, int causal, float scale,
+                            cudaStream_t st) {
+  PACKED_DISPATCH(pk::launch, q, k, v, o, dout, lse, dq, dk, dv, g, causal, scale, st)
+}
+
+cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_t* dyn) {
+  PACKED_DISPATCH(pk::resources, a, dyn)
+}
+
 #define BWD_DISPATCH(FN, T, ...)                 \
   switch (D) {                                   \
     case 16: return FN<T, 16>(__VA_ARGS__);      \
@@ -1622,6 +1982,40 @@ int flash_attention_bwd_resources(int D, int is_bf16, int tensor_cores, int whic
   cudaFuncAttributes a;
   size_t dyn = 0;
   const cudaError_t e = dispatch_resources(D, is_bf16, tensor_cores, which, &a, &dyn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *smem = (int)(a.sharedSizeBytes + dyn);
+  *local = (int)a.localSizeBytes;
+  return 0;
+}
+
+// The packed route (bf16, short sequences), one kernel in one pass: q, o,
+// dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, K, D); all contiguous, q, k,
+// v, dout, dk and dv 16-byte aligned (TMA), o and dq 4-byte aligned; lse
+// (B, H, Sq) f32, the forward's; U, P, T and N the wrapper's packed_plan.  A
+// plan or a head dim the kernel does not take returns cudaErrorInvalidValue
+// and launches nothing.
+int flash_attention_bwd_packed_launch(const void* q, const void* k, const void* v, const void* o,
+                                      const void* dout, const void* lse, void* dq, void* dk,
+                                      void* dv, int B, int Sq, int Sk, int H, int K, int D,
+                                      int U, int P, int T, int N, int causal, float scale,
+                                      void* stream) {
+  if (K < 1 || H % K != 0) return (int)cudaErrorInvalidValue;
+  const packed::Geo g{B, Sq, Sk, H, K, H / K, U, P, T};
+  if (packed::bad_geo(g, N) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dk |
+       (uintptr_t)dv | (uintptr_t)o % 4 | (uintptr_t)dq % 4) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_packed(D, N, q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
+                              g, causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The packed kernel's registers a thread, shared memory a block (static plus
+// dynamic) and local memory a thread at (D, N).
+int flash_attention_bwd_packed_resources(int D, int N, int* regs, int* smem, int* local) {
+  cudaFuncAttributes a;
+  size_t dyn = 0;
+  const cudaError_t e = dispatch_packed_resources(D, N, &a, &dyn);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *smem = (int)(a.sharedSizeBytes + dyn);

@@ -134,6 +134,49 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a rank-5 tensor map into shared memory (as tma_load_4d).
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// One box of shared memory out to a rank-4 / rank-5 tensor map (elements past
+// the tensor's bounds are not written), in this thread's bulk group: the
+// threads that wrote `src` fence_proxy_async and meet at a barrier first;
+// bulk_commit then bulk_wait_read before `src` is written again or the
+// block exits.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4, %5}], [%6];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+         "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
 // `bytes` contiguous bytes of device memory into shared memory, counted on
 // `bar` as a TMA box is; src and dst 16-byte aligned, bytes a multiple of 16.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -405,4 +448,153 @@ __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// ---------------------------------------------------- mma.sync (one warp)
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes), and register j of lane t holds
+// matrix j's (row t / 4, columns 2 (t % 4) and + 1); with .trans, its
+// (rows 2 (t % 4) and + 1, column t / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// Two matrices, .trans; lanes 0-15 give the addresses.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr) : "memory");
+}
+
+// d += a.b, m16n8k16, bf16 x bf16 -> f32.  a: the 16 x 16 A fragment (a[0]
+// rows t/4, columns 2(t%4) and +1; a[1] rows + 8; a[2] columns + 8; a[3]
+// both); b0, b1: the 16 x 8 B fragment (rows 2(t%4) and +1, column t/4;
+// rows + 8); d: rows t/4 (d[0], d[1]) and t/4 + 8 (d[2], d[3]), columns
+// 2(t%4) and +1 -- the layout of a[0] / a[1] over 8 columns, so two
+// neighbouring accumulators of scores are one A fragment.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace hopper
+
+// ------------------------------------------------------------------------
+// The packed route of flash_attention (csrc/flash_attention.cu, forward;
+// csrc/flash_attention_bwd.cu, backward): what both kernels and their
+// wrapper (`flash_attention.packed_plan`) share.  A unit is one (record b,
+// KV head kv): its q rows are the G = H / K heads of the group at every
+// position, row (s, g) in the order of q.reshape(B, Sq, K, G, D).  A tile
+// holds U whole units (G * Sq * U <= kRows rows) or, where one unit is
+// longer than kRows, P positions of one unit; its keys are the U units' Sk
+// keys each, U * Sk <= N rows.
+namespace packed {
+
+constexpr int kRows = 128;     // q rows a tile: 8 warps of 16 (PACKED_ROWS in the wrapper)
+constexpr int kThreads = 256;
+
+// bf16 tiles as TMA writes them: rows of SW bytes (one chunk of CW
+// columns), NC chunks across D, each chunk's 16-byte units swizzled by row.
+template <int D>
+struct Sw {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int CW = SW / 2;
+  static constexpr int NC = D / CW;
+};
+
+// Address of element (row, col) of a bf16 tile of `rows` rows at `tile` (1 KB
+// aligned).
+template <int D>
+__device__ __forceinline__ uint32_t at(uint32_t tile, int rows, int row, int col) {
+  constexpr int SW = Sw<D>::SW, CW = Sw<D>::CW;
+  return tile + (col / CW) * rows * SW + hopper::swz(row * SW + (col % CW) * 2, SW);
+}
+
+// A launch's packing (the wrapper's `packed_plan`).
+struct Geo {
+  int B, Sq, Sk, H, K, G;
+  int U;  // records a tile
+  int P;  // positions a tile
+  int T;  // tiles a unit
+};
+
+inline CUtensorMapSwizzle swizzle_of(int D) {
+  return D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// q, out, dO or dq (B, Sq, H, D) bf16 as (D, G, K, Sq, B): a box (one chunk
+// of D, G, 1, P, U) is one tile of rows (g, s, u), fastest first.
+inline CUresult q_map(CUtensorMap* map, const void* ptr, const Geo& g, int D) {
+  const int CW = (D >= 64 ? 128 : 2 * D) / 2;
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)g.G, (cuuint64_t)g.K, (cuuint64_t)g.Sq,
+                              (cuuint64_t)g.B};
+  const cuuint64_t strides[4] = {(cuuint64_t)D * 2, (cuuint64_t)g.G * D * 2,
+                                 (cuuint64_t)g.H * D * 2, (cuuint64_t)g.Sq * g.H * D * 2};
+  const cuuint32_t box[5] = {(cuuint32_t)CW, (cuuint32_t)g.G, 1, (cuuint32_t)g.P,
+                             (cuuint32_t)g.U};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                swizzle_of(D), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// k, v, dk or dv (B, Sk, K, D) bf16 as (D, K, Sk, B): a box (one chunk of
+// D, 1, Sk, U) is the U units' keys, U * Sk rows.
+inline CUresult kv_map(CUtensorMap* map, const void* ptr, const Geo& g, int D) {
+  const int CW = (D >= 64 ? 128 : 2 * D) / 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)g.K, (cuuint64_t)g.Sk, (cuuint64_t)g.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)g.K * D * 2,
+                                 (cuuint64_t)g.Sk * g.K * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CW, 1, (cuuint32_t)g.Sk, (cuuint32_t)g.U};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                swizzle_of(D), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The plan's limits (packed_plan checks the same): G * P * U rows fit a
+// tile, P * T covers Sq with no tile wholly past it, U * Sk keys fit N, every
+// box dimension at most 256, the grid's blocks an int.
+inline bool bad_geo(const Geo& g, int N) {
+  return g.B < 1 || g.Sq < 1 || g.Sk < 1 || g.K < 1 || g.H != g.G * g.K || g.U < 1 || g.P < 1 ||
+         g.T < 1 || g.G > 256 || g.P > 256 || g.U > 256 || g.Sk > 256 ||
+         g.G * g.P * g.U > kRows || g.P * g.T < g.Sq || (g.T - 1) * g.P >= g.Sq ||
+         (g.T > 1 && g.U != 1) || (g.T == 1 && g.P != g.Sq) || g.U * g.Sk > N ||
+         (long long)((g.B + g.U - 1) / g.U) * g.K * g.T > 2147483647LL;
+}
+
+}  // namespace packed
+
+// The packed kernels' (D, N) instantiations, FN<D, N>(...) for runtime D
+// and N: N in {16, 32, 64}, at most 32 at D = 256 (PACKED_KEYS and
+// PACKED_MAX_KEYS in the wrapper); any other pair returns
+// cudaErrorInvalidValue.
+#define PACKED_DISPATCH(FN, ...)                                        \
+  switch (D * 1000 + N) {                                                \
+    case 16016: return FN<16, 16>(__VA_ARGS__);                          \
+    case 16032: return FN<16, 32>(__VA_ARGS__);                          \
+    case 16064: return FN<16, 64>(__VA_ARGS__);                          \
+    case 32016: return FN<32, 16>(__VA_ARGS__);                          \
+    case 32032: return FN<32, 32>(__VA_ARGS__);                          \
+    case 32064: return FN<32, 64>(__VA_ARGS__);                          \
+    case 64016: return FN<64, 16>(__VA_ARGS__);                          \
+    case 64032: return FN<64, 32>(__VA_ARGS__);                          \
+    case 64064: return FN<64, 64>(__VA_ARGS__);                          \
+    case 128016: return FN<128, 16>(__VA_ARGS__);                        \
+    case 128032: return FN<128, 32>(__VA_ARGS__);                        \
+    case 128064: return FN<128, 64>(__VA_ARGS__);                        \
+    case 256016: return FN<256, 16>(__VA_ARGS__);                        \
+    case 256032: return FN<256, 32>(__VA_ARGS__);                        \
+    default: return cudaErrorInvalidValue;                               \
+  }
+

@@ -22,6 +22,18 @@ Nothing retries on another route: a failed build or launch raises.
 ``flash_attention.route_launches`` the same per route (the forward's
 "cuda_cores" count stays 0; the backward still has such a route).
 
+Short sequences in bf16 (a transformer UDF's 8 tokens; ``packed_plan``
+says which) take the packed route (``"packed"``) forward and backward
+instead: a 128-row tile there would hold 8 rows of one (batch, head).  A
+unit is one (record b, KV head kv), its q rows the G = H / K heads of the
+group at every position in the order of ``q.reshape(B, Sq, K, G, D)`` (row
+(s, g)); a tile holds U whole units (or, where a unit is longer than a
+tile, P positions of one), and its keys are the U units' keys, masked
+block-diagonally (and causally within a unit).  All of a tile's keys fit
+one key tile, so the forward needs no online softmax; the backward's block
+holds U units' keys and every row that attends them, so one pass computes
+Di, P, dS, dQ, and dK and dV summed over its rows in a fixed order.
+
 The kernels keep a running row max and sum (an online softmax) and divide
 once at the end, as the Pallas kernel does; the plain version takes the
 whole row at once.  In bf16 the kernel runs both products on the tensor
@@ -71,6 +83,8 @@ scores in place): it stays the forward's oracle.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -82,12 +96,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 MAX_BATCH_HEADS = 2**31 - 1  # batch * heads the C entries take: every grid's x dim
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
-ROUTES = ("tensor_cores", "cuda_cores")
+ROUTES = ("tensor_cores", "cuda_cores", "packed")
 BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
 SPLIT_BWD_HEAD_DIMS = (64, 128)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
 _KERNEL_CODE = {torch.bfloat16: 1, torch.float32: 2}  # the C entry's resource selector
+PACKED_ROWS = 128  # q rows a packed tile (packed::kRows in csrc/hopper.cuh)
+PACKED_MAX_SEQ = 64  # the longest Sq and Sk the packed route takes
+PACKED_KEYS = (16, 32, 64)  # key columns a packed tile: the kernels' N instantiations
+PACKED_MAX_KEYS = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}  # N's largest at each head dim
 
 _LIB = None
 _BWD_LIB = None
@@ -111,6 +129,10 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_resources.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_packed_launch.argtypes = [vp] * 5 + [i] * 11 + [ctypes.c_float, vp]
+        lib.flash_attention_packed_launch.restype = i
+        lib.flash_attention_packed_resources.argtypes = [i, i, i, ip, ip, ip]
+        lib.flash_attention_packed_resources.restype = i
         _LIB = lib
     return _LIB
 
@@ -133,6 +155,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_resources.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_bwd_packed_launch.argtypes = [vp] * 9 + [i] * 11 + [ctypes.c_float,
+                                                                                vp]
+        lib.flash_attention_bwd_packed_launch.restype = i
+        lib.flash_attention_bwd_packed_resources.argtypes = [i, i, ip, ip, ip]
+        lib.flash_attention_bwd_packed_resources.restype = i
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -167,20 +194,67 @@ def _check_operands(q, k, v):
     return B, Sq, Sk, H, K, D
 
 
-def route_for(D: int, dtype: torch.dtype) -> str:
+@dataclasses.dataclass(frozen=True)
+class PackedPlan:
+    """How the packed route lays a call out (``packed_plan``)."""
+    U: int  # records a tile: U whole units (1 where a unit spans tiles)
+    P: int  # positions a tile: Sq, or a unit's share of a tile where it spans several
+    tiles: int  # tiles a unit (the backward's bands, in order)
+    rows: int  # q rows a tile holds: G * P * U
+    keys: int  # key rows a tile holds: U * Sk
+    N: int  # key columns of a tile: keys rounded up to one of PACKED_KEYS
+    groups: int  # tiles across the batch: ceil(B / U)
+    blocks: int  # the forward's grid: groups * K * tiles
+    bwd_blocks: int  # the backward's grid: groups * K
+
+
+@functools.lru_cache(maxsize=256)
+def packed_plan(B: int, Sq: int, Sk: int, H: int, K: int, D: int,
+                dtype: torch.dtype) -> PackedPlan | None:
+    """The packed route's layout of a call, or None where the call does not
+    take that route.  It takes bf16 with Sq and Sk at most PACKED_MAX_SEQ
+    and Sk at most PACKED_MAX_KEYS[D] (a group of at most PACKED_ROWS
+    heads): a unit (one record's KV head: G = H / K heads at Sq positions,
+    G * Sq rows) is short, so a tile holds U = PACKED_ROWS // (G * Sq) of
+    them, no more than PACKED_MAX_KEYS[D] keys and no more than B records;
+    a unit longer than a tile spans ceil(Sq / P) tiles of P =
+    PACKED_ROWS // G positions.  The kernels take exactly this plan
+    (``packed::bad_geo`` in csrc/hopper.cuh refuses any other)."""
+    if (dtype != torch.bfloat16 or D not in PACKED_MAX_KEYS or K < 1 or H % K
+            or min(B, Sq, Sk) < 1):
+        return None
+    G, max_keys = H // K, PACKED_MAX_KEYS[D]
+    if Sq > PACKED_MAX_SEQ or Sk > min(PACKED_MAX_SEQ, max_keys) or G > PACKED_ROWS:
+        return None
+    if G * Sq <= PACKED_ROWS:
+        U, P, tiles = min(PACKED_ROWS // (G * Sq), max_keys // Sk, B), Sq, 1
+    else:
+        U, P = 1, PACKED_ROWS // G
+        tiles = -(-Sq // P)
+    N = next(n for n in PACKED_KEYS if n >= U * Sk)
+    groups = -(-B // U)
+    return PackedPlan(U=U, P=P, tiles=tiles, rows=G * P * U, keys=U * Sk, N=N, groups=groups,
+                      blocks=groups * K * tiles, bwd_blocks=groups * K)
+
+
+def route_for(D: int, dtype: torch.dtype, shape: tuple | None = None) -> str:
     """The kernel a CUDA call of head dim ``D`` and ``dtype`` takes: the
-    tensor cores at every head dim in both types (f32 on the split
-    route)."""
+    packed route where ``shape`` (B, Sq, Sk, H, K) is short enough for
+    ``packed_plan``, else the tensor cores at every head dim in both types
+    (f32 on the split route)."""
     if D not in HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"no forward route for head dim {D} in {dtype}")
+    if shape is not None and packed_plan(*shape, D, dtype) is not None:
+        return "packed"
     return "tensor_cores"
 
 
 def route(q, k, v) -> str:
-    """The kernel a CUDA call takes, from dtype and head dim alone (operands
-    already checked by ``_check_operands``, which refuses a layout or an
-    alignment that no route takes)."""
-    return route_for(q.shape[3], q.dtype)
+    """The kernel a CUDA call takes, from dtype, head dim and the lengths
+    (operands already checked by ``_check_operands``, which refuses a layout
+    or an alignment that no route takes)."""
+    B, Sq, H, D = q.shape
+    return route_for(D, q.dtype, (B, Sq, k.shape[1], H, k.shape[2]))
 
 
 def split_bf16_plain(t):
@@ -225,13 +299,23 @@ def split_bf16(t):
 split_bf16.launches = 0
 
 
+PLAIN_SCORES = 2**24  # f32 scores the plain versions hold at once (at least one row's)
+
+
+def _row_chunks(B: int, per_row: int):
+    """Batch slices of the plain versions: as many rows a step as keep
+    their ``per_row`` f32 scores within PLAIN_SCORES, at least one."""
+    rows = max(1, PLAIN_SCORES // max(per_row, 1))
+    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None,
                           return_lse: bool = False):
     """The same function as the kernel in plain PyTorch (the CPU route and
-    the on-card reference).  One batch row at a time, so that the f32
-    (H, Sq, Sk) scores of only one row are held at once.  With
-    ``return_lse`` also each row's log-sum-exp (the module's convention):
-    (out, lse)."""
+    the on-card reference).  A few batch rows at a time (``_row_chunks``),
+    so that at most PLAIN_SCORES f32 scores, or one row's (H, Sq, Sk), are
+    held at once.  With ``return_lse`` also each row's log-sum-exp (the
+    module's convention): (out, lse)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -242,20 +326,21 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
     if causal:
         keep = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
-    for b in range(B):
-        qg = (q[b].to(torch.float32) * scale).reshape(Sq, K, G, D)
-        s = torch.einsum("qkgd,skd->kgqs", qg, k[b].to(torch.float32))
+    for rows in _row_chunks(B, H * Sq * Sk):
+        n = rows.stop - rows.start
+        qg = (q[rows].to(torch.float32) * scale).reshape(n, Sq, K, G, D)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k[rows].to(torch.float32))
         if keep is not None:
             s.masked_fill_(~keep, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = s.sub_(m).exp_()
-        l = p.sum(dim=-1)  # (K, G, Sq)
+        l = p.sum(dim=-1)  # (n, K, G, Sq)
         if lse is not None:
-            lse[b] = (m[..., 0] + torch.log(l)).reshape(H, Sq)
-        o = torch.einsum("kgqs,skd->qkgd", p.to(v.dtype).to(torch.float32),
-                         v[b].to(torch.float32))
-        o = o / l.clamp_min(1e-20).permute(2, 0, 1)[..., None]
-        out[b] = o.reshape(Sq, H, D).to(q.dtype)
+            lse[rows] = (m[..., 0] + torch.log(l)).reshape(n, H, Sq)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(torch.float32),
+                         v[rows].to(torch.float32))
+        o = o / l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
+        out[rows] = o.reshape(n, Sq, H, D).to(q.dtype)
     return (out, lse) if return_lse else out
 
 
@@ -306,7 +391,12 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
     lse_ptr = lse.data_ptr() if want_lse else None  # null: the kernel writes no lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if split:
+        if path == "packed":
+            plan = packed_plan(B, Sq, Sk, H, K, D, q.dtype)
+            rc = lib.flash_attention_packed_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, B, Sq, Sk, H,
+                K, D, plan.U, plan.P, plan.tiles, plan.N, int(causal), scale, stream)
+        elif split:
             ptrs = ctypes.c_void_p * 3
             rc = lib.flash_attention_split_launch(
                 q.data_ptr(), ptrs(*(t.data_ptr() for t in kp)),
@@ -380,7 +470,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
                                    scale: float | None = None):
     """The backward's formulas in plain PyTorch (the CPU route and the
-    on-card reference), one batch row and KV head at a time, all in f32:
+    on-card reference), one KV head and a few batch rows at a time
+    (``_row_chunks``: at most PLAIN_SCORES f32 scores of the group, or one
+    row's (G, Sq, Sk), a step), all in f32:
     s = (q * scale) @ k^T masked as the forward masks it, p = exp(s -
     logsumexp(s)), Di = rowsum(dO * O), dP = dO @ v^T, dS = p * (dP - Di),
     dV = p^T @ dO with p rounded to v's type (as the forward rounds it
@@ -397,29 +489,34 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
     if causal:
         keep = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
-    for b in range(B):
-        for kh in range(K):
-            heads = slice(kh * G, (kh + 1) * G)
-            qs = q[b, :, heads].to(f32).permute(1, 0, 2) * scale  # (G, Sq, D)
-            g = dout[b, :, heads].to(f32).permute(1, 0, 2)
-            o = out[b, :, heads].to(f32).permute(1, 0, 2)
-            kf, vf = k[b, :, kh].to(f32), v[b, :, kh].to(f32)  # (Sk, D)
-            s = qs @ kf.T
+    for kh in range(K):
+        heads = slice(kh * G, (kh + 1) * G)
+        for rows in _row_chunks(B, G * Sq * Sk):
+            qs = q[rows, :, heads].to(f32).permute(0, 2, 1, 3) * scale  # (n, G, Sq, D)
+            g = dout[rows, :, heads].to(f32).permute(0, 2, 1, 3)
+            o = out[rows, :, heads].to(f32).permute(0, 2, 1, 3)
+            kf, vf = k[rows, :, kh, None].to(f32), v[rows, :, kh, None].to(f32)  # (n, Sk, 1, D)
+            kf, vf = kf.permute(0, 2, 1, 3), vf.permute(0, 2, 1, 3)  # (n, 1, Sk, D)
+            s = qs @ kf.transpose(-1, -2)
             if keep is not None:
                 s = s.masked_fill(~keep, NEG_INF)
             p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
             di = (g * o).sum(dim=-1, keepdim=True)
-            ds = p * (g @ vf.T - di)
+            ds = p * (g @ vf.transpose(-1, -2) - di)
             pv = p.to(v.dtype).to(f32)
-            dv[b, :, kh] = torch.einsum("gqs,gqd->sd", pv, g).to(v.dtype)
-            dk[b, :, kh] = torch.einsum("gqs,gqd->sd", ds, qs).to(k.dtype)
-            dq[b, :, heads] = ((ds @ kf) * scale).permute(1, 0, 2).to(q.dtype)
+            dv[rows, :, kh] = torch.einsum("ngqs,ngqd->nsd", pv, g).to(v.dtype)
+            dk[rows, :, kh] = torch.einsum("ngqs,ngqd->nsd", ds, qs).to(k.dtype)
+            dq[rows, :, heads] = ((ds @ kf) * scale).permute(0, 2, 1, 3).to(q.dtype)
     return dq, dk, dv
 
 
-def backward_route(D: int, dtype: torch.dtype) -> str:
+def backward_route(D: int, dtype: torch.dtype, shape: tuple | None = None) -> str:
     """The backward kernels a CUDA call of head dim ``D`` and ``dtype``
-    takes."""
+    takes: the packed kernel where ``shape`` (B, Sq, Sk, H, K) is short
+    enough for ``packed_plan`` (the forward's rule), else by head dim and
+    type."""
+    if shape is not None and packed_plan(*shape, D, dtype) is not None:
+        return "packed"
     if D in (TC_BWD_HEAD_DIMS if dtype == torch.bfloat16 else SPLIT_BWD_HEAD_DIMS):
         return "tensor_cores"
     return "cuda_cores"
@@ -461,13 +558,26 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
         raise ValueError(f"flash_attention_backward runs on CUDA or the CPU, not {q.device}")
     if lse is None:
         raise ValueError("flash_attention_backward on CUDA needs the forward's lse")
-    path = backward_route(D, q.dtype)
-    if path == "tensor_cores" and dout.data_ptr() % ALIGN:
-        raise ValueError(f"dout's data pointer is not {ALIGN}-byte aligned")
+    path = backward_route(D, q.dtype, (B, Sq, Sk, H, K))
+    # dout goes through TMA on both routes; the packed kernel reads out 16 bytes a load
+    aligned = {"tensor_cores": {"dout": dout}, "packed": {"dout": dout, "out": out}}
+    for name, t in aligned.get(path, {}).items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}'s data pointer is not {ALIGN}-byte aligned")
     lib = _bwd_lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if path == "packed":  # one kernel, one pass: no scratch
+        plan = packed_plan(B, Sq, Sk, H, K, D, q.dtype)
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attention_bwd_packed_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, D,
+                plan.U, plan.P, plan.tiles, plan.N, int(causal), scale,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _count_backward(lib, rc, path)
+        return dq, dk, dv
     split = path == "tensor_cores" and q.dtype == torch.float32
     pieces = [split_bf16(t) for t in (q, k, v, dout)] if split else None
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN if path == "tensor_cores" else Sq
     if B * H * rows > MAX_BATCH_HEADS:  # the scratch's rows are counted in an int
         raise ValueError(f"batch * heads * rows = {B * H * rows} exceeds {MAX_BATCH_HEADS}")
@@ -488,13 +598,18 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
         else:
             rc = lib.flash_attention_bwd_launch(*args, int(q.dtype == torch.bfloat16), scale,
                                                 stream)
+    _count_backward(lib, rc, path)
+    return dq, dk, dv
+
+
+def _count_backward(lib, rc: int, path: str) -> None:
+    """Raise on a failed backward launch, else count it on ``path``."""
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_backward launch failed ({path}): CUDA error {rc} "
                            f"({msg})")
     flash_attention.backward_launches += 1
     flash_attention.backward_route_launches[path] += 1
-    return dq, dk, dv
 
 
 def reset_launches() -> None:
@@ -511,13 +626,24 @@ def reset_launches() -> None:
 reset_launches()
 
 
-def resources(D: int, dtype: torch.dtype) -> dict:
+def resources(D: int, dtype: torch.dtype, shape: tuple | None = None) -> dict:
     """The registers a thread at launch and shared memory a block (static
-    plus dynamic) of the kernel that head dim ``D`` and ``dtype`` route to,
-    with that route.  With two consumer warpgroups (every kernel but f32 at
-    D 256) the kernel then moves registers between its warpgroups with
-    ``setmaxnreg``: 240 a consumer thread, 24 a producer thread."""
-    path = route_for(D, dtype)
+    plus dynamic) of the kernel that head dim ``D``, ``dtype`` and ``shape``
+    (B, Sq, Sk, H, K; see ``route_for``) route to, with that route.  With
+    two consumer warpgroups (every tensor-core kernel but f32 at D 256) the
+    kernel then moves registers between its warpgroups with ``setmaxnreg``:
+    240 a consumer thread, 24 a producer thread.  The packed kernel (256
+    threads, no transfer) also gives its local memory a thread (spills)."""
+    path = route_for(D, dtype, shape)
+    if path == "packed":
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        N = packed_plan(*shape, D, dtype).N
+        rc = _lib().flash_attention_packed_resources(D, N, 0, *(ctypes.byref(x) for x in vals))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_packed_resources: CUDA error {rc}")
+        return dict(route=path, kernel=f"pk::packed_fwd<{D}, {N}, false>",
+                    **dict(zip(("registers_at_launch", "smem_bytes", "local_bytes"),
+                               (x.value for x in vals))))
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib().flash_attention_resources(D, _KERNEL_CODE[dtype], ctypes.byref(regs),
                                           ctypes.byref(smem))
@@ -526,12 +652,17 @@ def resources(D: int, dtype: torch.dtype) -> dict:
     return {"route": path, "registers_at_launch": regs.value, "smem_bytes": smem.value}
 
 
-def backward_kernels(D: int, dtype: torch.dtype) -> dict:
-    """{role: (kernel, a fragment of its mangled name)} of the three
-    kernels a backward call of head dim ``D`` and ``dtype`` launches, in
-    order (roles "prep", "dkdv", "dq"): the names the compiler's report
-    (``-Xptxas -v``) gives them.  The split route's ``split_bf16``
-    pre-pass is the forward library's kernel and not listed here."""
+def backward_kernels(D: int, dtype: torch.dtype, shape: tuple | None = None) -> dict:
+    """{role: (kernel, a fragment of its mangled name)} of the kernels a
+    backward call of head dim ``D``, ``dtype`` and ``shape`` (B, Sq, Sk, H,
+    K; see ``backward_route``) launches, in order: the names the compiler's
+    report (``-Xptxas -v``) gives them.  Roles "prep", "dkdv", "dq", or on
+    the packed route its one kernel, "packed".  The split route's
+    ``split_bf16`` pre-pass is the forward library's kernel and not listed
+    here."""
+    if backward_route(D, dtype, shape) == "packed":
+        N = packed_plan(*shape, D, dtype).N
+        return {"packed": (f"pk::packed_bwd<{D}, {N}>", f"packed_bwdILi{D}ELi{N}E")}
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
     tname = "bf16" if dtype == torch.bfloat16 else "float"
     kernels = {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E")}
@@ -545,20 +676,24 @@ def backward_kernels(D: int, dtype: torch.dtype) -> dict:
     return kernels
 
 
-def backward_resources(D: int, dtype: torch.dtype) -> dict:
+def backward_resources(D: int, dtype: torch.dtype, shape: tuple | None = None) -> dict:
     """{role: kernel, registers a thread at launch, shared memory a block,
-    local memory a thread} of the three kernels of ``backward_kernels``,
-    with the route.  The tensor-core kernels then move registers between
-    their warpgroups with ``setmaxnreg``: 240 a consumer thread, 24 a
-    producer thread."""
+    local memory a thread} of the kernels of ``backward_kernels``, with the
+    route.  The tensor-core kernels then move registers between their
+    warpgroups with ``setmaxnreg``: 240 a consumer thread, 24 a producer
+    thread."""
     lib = _bwd_lib()
-    path = backward_route(D, dtype)
+    path = backward_route(D, dtype, shape)
     out = {"route": path}
-    for which, (role, (name, _)) in enumerate(backward_kernels(D, dtype).items()):
+    for which, (role, (name, _)) in enumerate(backward_kernels(D, dtype, shape).items()):
         vals = [ctypes.c_int(0) for _ in range(3)]
-        rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16),
-                                               int(path == "tensor_cores"), which,
-                                               *(ctypes.byref(x) for x in vals))
+        if path == "packed":
+            rc = lib.flash_attention_bwd_packed_resources(
+                D, packed_plan(*shape, D, dtype).N, *(ctypes.byref(x) for x in vals))
+        else:
+            rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16),
+                                                   int(path == "tensor_cores"), which,
+                                                   *(ctypes.byref(x) for x in vals))
         if rc != 0:
             raise RuntimeError(f"flash_attention_bwd_resources: CUDA error {rc}")
         out[role] = dict(kernel=name, **dict(zip(("registers", "smem_bytes", "local_bytes"),

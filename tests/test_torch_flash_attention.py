@@ -279,10 +279,11 @@ def test_inputs_without_their_lower_pieces_miss_the_limit():
     (d, "float32", "tensor_cores") for d in (16, 32, 64, 128)] + [
     (256, "float32", "tensor_cores")])
 def test_route_is_decided_by_dtype_and_head_dim(D, dtype, want):
-    """The rule the wrapper applies before a CUDA launch, on dtype and head
-    dim alone (the same on any device): every call on the tensor cores, f32
-    at D = 256 too (its own tiling)."""
-    (q, k, v), _ = _qkv((1, 16, 16, 4, 2, D), dtype, seed=D)
+    """The rule the wrapper applies before a CUDA launch (the same on any
+    device): past the packed route's lengths (``packed_plan``;
+    tests/test_torch_flash_packed.py), on dtype and head dim alone: every
+    call on the tensor cores, f32 at D = 256 too (its own tiling)."""
+    (q, k, v), _ = _qkv((1, 80, 80, 4, 2, D), dtype, seed=D)
     assert fa.route(q, k, v) == fa.route_for(D, getattr(torch, dtype)) == want
 
 

@@ -662,8 +662,7 @@ def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.flash_attention(*leaves, causal=True).backward(dout)
     torch.cuda.synchronize()
-    other = "cuda_cores" if want == "tensor_cores" else "tensor_cores"
-    assert fa.flash_attention.backward_route_launches == {want: 1, other: 0}
+    assert fa.flash_attention.backward_route_launches == {**dict.fromkeys(fa.ROUTES, 0), want: 1}
 
 
 def test_bwd_two_calls_are_equal_bit_for_bit(cuda):
@@ -695,6 +694,43 @@ def test_forward_lse_matches_plain_on_every_route(cuda, D, dtype):
         _, ref = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
         chip_smoke.check_lse(str(case), lse, ref)
         assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("shape", chip_smoke.ISOLATION_SHAPES)
+def test_packed_units_are_isolated(cuda, shape):
+    """Records that share a packed tile do not leak into each other: each
+    output row is its own unit's constant V, and records with dO = 0 get
+    gradients exactly 0 (``chip_smoke.packed_isolation``)."""
+    out = chip_smoke.packed_isolation(cuda, shape)
+    assert out["forward_max_steps"] <= 1.0 and out["zero_records_nonzero"] == [0, 0, 0]
+
+
+def test_packed_route_counts_repeat_and_refusals(cuda):
+    """At a UDF shape the forward and the backward (through the autograd
+    Function) launch once each on the packed route alone; two backward
+    calls are equal bit for bit; an ``out`` the kernel cannot read by
+    16-byte loads raises before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    case = (300, 8, 8, 32, 4, 128, True, "bfloat16")
+    q, k, v, dout = chip_smoke.make_bwd_case(case, cuda, seed=4)
+    assert fa.route(q, k, v) == fa.backward_route(128, q.dtype, case[:5]) == "packed"
+    fa.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(fa.ROUTES, 0), "packed": 1}
+    assert fa.flash_attention.route_launches == fa.flash_attention.backward_route_launches == want
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    a = fa.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    b = fa.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y.grad) for x, y in zip(a, leaves))
+    shifted = torch.empty(out.numel() + 1, dtype=out.dtype, device=cuda)[1:].view(out.shape)
+    shifted.copy_(out)
+    with pytest.raises(ValueError, match="out"):
+        fa.flash_attention_backward(q, k, v, shifted, dout, lse, causal=True)
+    assert fa.flash_attention.backward_route_launches["packed"] == 3
 
 
 def test_train_step_short(cuda):
