@@ -123,9 +123,10 @@ Each phase prints one JSON line:
 10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
               pre-pass reading the forward's lse, then dK/dV a KV tile a
               block over its query-head group, then dQ: bf16 at D 64, 128
-              and 256 on the tensor cores, f32 at D 64 and 128 there too
-              on three bf16 pieces of every operand (the split route,
-              after four ``split_bf16`` launches), the rest on the CUDA
+              and 256 on the tensor cores, f32 at the same head dims there
+              too on three bf16 pieces of every operand (the split route,
+              after four ``split_bf16`` launches; at D 256 the pieces
+              stream in 64-column chunks), D 16 and 32 on the CUDA
               cores)
               against its plain PyTorch version, bf16 and f32, causal and
               full: the JAX package's test shapes, D 256, ragged lengths, a
@@ -134,11 +135,12 @@ Each phase prints one JSON line:
               1e-4 (f32) of its largest value, each on ``backward_route``'s
               kernels (launches counted by route), each forward's lse within
               LSE_TOL of the plain one; a planted fault (one KV tile's dk and
-              dv rows zeroed) rejected in both types; two calls at (1, 4096,
-              64, 8, 128) equal bit for bit in both types, and at the packed
-              (2000, 8, 8, 128, 8, 128); then
+              dv rows zeroed) rejected in both types and at paligemma's
+              shape in f32; two calls at (1, 4096, 64, 8, 128) equal bit for
+              bit in both types, at paligemma's (4, 4096, 8, 1, 256) in f32
+              and at the packed (2000, 8, 8, 128, 8, 128); then
               ``flash_bwd_timing`` at (1, 4096, 64, 8, 128) in bf16 and f32,
-              at paligemma's (4, 4096, 8, 1, 256) in bf16 and at the
+              at paligemma's (4, 4096, 8, 1, 256) in bf16 and f32 and at the
               restart check's reduced (2, 256, 256, 4, 2, 16) in both types
               (the CUDA cores): the kernel, its plain version and
               ``torch.autograd.grad`` through ``scaled_dot_product_attention``
@@ -155,21 +157,26 @@ Each phase prints one JSON line:
               micro-batch), the loss falling; each layer's backward launch of
               the first micro-batch against the plain backward on its own
               q, k, v and dO; step ms, tokens/s, peak memory and a profile
-              of one step; one f32 step at 1 layer against the same step
-              with the plain attention under autograd (loss 1e-5, gradients
-              1e-4 of their largest, updated parameters 1e-4 where AdamW's
-              update is well conditioned), its backward on
-              ``backward_route``'s kernels (the split route); a restart through
+              of one step; one f32 step at 1 layer of deepseek-67b (D 128)
+              and one of paligemma-3b (D 256, one 4,096-token sequence
+              after the stand-in patch prefix), each against the same step
+              with the plain attention under autograd (loss 1e-5,
+              gradients 1e-4 of their largest, updated parameters 1e-4
+              where AdamW's update is well conditioned), its backward on
+              ``backward_route``'s kernels (the split route, 1 launch and
+              its ``split_bf16`` launches counted); a restart through
               ``ResilientRunner`` from a checkpoint at the reduced config,
               equal bit for bit to a run without one; and one step each of
               qwen3-moe, paligemma, seamless-m4t-medium (2 + 2 layers: 2
               flash backward launches on the tensor cores) and
               recurrentgemma-2b (3 layers: none) at their widths.
-10f. ssd_bwd_kernels — the CUDA ``ssd_chunk`` backward (bf16 at the forward's
-              tensor-core shapes: S = C B^T once per chunk and group, then
-              dx and ddA per chunk and head on wgmma, then dB and the group
-              sums of dS per chunk and 64-row band on wgmma, then dC; other
-              calls on five CUDA-core kernels; no atomics; each case on
+10f. ssd_bwd_kernels — the CUDA ``ssd_chunk`` backward (bf16 and f32 at the
+              forward's tensor-core shapes: S = C B^T once per chunk and
+              group, then (f32) v = B dst^T a kernel of its own, then dx
+              and ddA per chunk and head on wgmma, then dB and the group
+              sums of dS per chunk and 64-row band on wgmma, then dC; f32
+              x, B and C in two bf16 pieces; other calls on five CUDA-core
+              kernels; no atomics; each case on
               ``backward_route``'s kernels, counted by route) against its
               plain formulas: Q 64 / 128 /
               256, P 64, N 64 and 128, G 1 and 2, both types, B and C sliced
@@ -177,7 +184,8 @@ Each phase prints one JSON line:
               each gradient's largest value, ddA 1e-4; planted faults (dx's
               state term dropped, one head left out of the group sums)
               rejected in both types; two calls at the training shape bit for
-              bit; then ``ssd_bwd_timing`` at (64, 256, 80, 1, 64, 128) bf16:
+              bit in both types; then ``ssd_bwd_timing`` at (64, 256, 80,
+              1, 64, 128) in bf16 and f32:
               the kernel and its plain formulas beside the bound, each
               kernel's registers, spills, shared memory and device time.
 10g. ssm_train_path — ``launch.train.run`` at mamba2-2.7b's widths and all 64
@@ -189,7 +197,7 @@ Each phase prints one JSON line:
               backward of the first step against the plain formulas on its
               own inputs; warm step ms, tokens/s and peak memory; one f32
               step at 1 layer against ``ops.ssd`` on the plain route under
-              autograd.
+              autograd, its one backward launch on the tensor cores.
 10h. encdec_path — seamless-m4t-medium at its widths and depth (12 + 12
               layers), 4 requests of 4,096 tokens and 1,024 stand-in frames,
               32 decode steps: 12 launches a prefill (the decoder's causal
@@ -314,6 +322,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -535,6 +544,14 @@ def sync(dev) -> None:
 
 
 def emit(phase: str, **fields) -> None:
+    """Print a phase's JSON line.  On the card it first collects the
+    garbage in reference cycles and says how much of the card's memory only
+    that freed (``gc_freed_gib``): a phase whose tensors outlive it in a
+    cycle shows there, and leaves no later phase short of memory."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        before = torch.cuda.memory_allocated()
+        gc.collect()
+        fields["gc_freed_gib"] = (before - torch.cuda.memory_allocated()) / 2**30
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
 
 
@@ -1892,17 +1909,21 @@ def ssd_bwd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores") -> tuple:
     S = C B^T, dC and dB over N, per chunk and group) at the peak for the
     input type, and beside it at the f32 CUDA-core peak.  The tensor-core
     route's own bound counts its bf16 products of pieces at the bf16 peak
-    instead: per head two for dM (dy in two pieces), three for M^T dy,
-    two for v (dst in two pieces), three for the state term; per chunk and
-    group one for S, one for dC, two for dB's (sum dS)^T C."""
+    instead: in bf16 per head two for dM (dy in two pieces), three for M^T
+    dy, two for v (dst in two pieces), three for the state term; per chunk
+    and group one for S, one for dC, two for dB's (sum dS)^T C; in f32 (x,
+    B and C in two pieces too) three for each of dM, M^T dy, v and the
+    state term, and three for S, one for dC, three for dB."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * nc * Q * H * P + 4 * nc * Q * G * N) + 4 * (
         2 * nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
     pairs = Q * (Q + 1) // 2
     flops = 2 * nc * (H * (2 * pairs * P + 2 * Q * P * N) + G * 3 * pairs * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if route == "tensor_cores":
+    if route == "tensor_cores" and dtype == "bfloat16":
         t_ops = 2 * nc * (H * 5 * (pairs * P + Q * P * N) + G * 4 * pairs * N) / BF16_FLOPS
+    elif route == "tensor_cores":
+        t_ops = 2 * nc * (H * 6 * (pairs * P + Q * P * N) + G * 7 * pairs * N) / BF16_FLOPS
     else:
         t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
@@ -1911,14 +1932,16 @@ def ssd_bwd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores") -> tuple:
 
 def ssd_bwd_fragments(path: str, P: int, N: int, dtype: str) -> dict:
     """{kernel: a fragment of its mangled name in the compiler's report}
-    of a backward route's kernels (``ssd_scan.BWD_KERNELS[path]``)."""
-    from repro_torch.kernels.ssd_scan import BWD_KERNELS
+    of a backward route's kernels (``ssd_scan.backward_kernels``)."""
+    from repro_torch.kernels.ssd_scan import backward_kernels
 
     tname = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
     out = {}
-    for k in BWD_KERNELS[path]:
-        if k.startswith("tc::"):
-            out[k] = f"{k[4:]}ILi{P}ELi{N}E"
+    for k in backward_kernels(path, getattr(torch, dtype)):
+        if k == "tc::bwd_v":  # f32 only: not templated on the type
+            out[k] = f"bwd_vILi{P}ELi{N}E"
+        elif k.startswith("tc::"):
+            out[k] = f"{k[4:]}I{tname}Li{P}ELi{N}E"
         else:
             out[k] = f"{k}I{tname}" + ("Li64E" if k == "bwd_head" else "E")
     return out
@@ -1932,8 +1955,8 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
     single PyTorch call computes this gradient, so there is no library
     time."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import (BWD_KERNELS, backward_resources, backward_route,
-                                              ssd_chunk_backward)
+    from repro_torch.kernels.ssd_scan import (backward_kernels, backward_resources,
+                                              backward_route, ssd_chunk_backward)
 
     case = (*SSD_TRAIN_SHAPE, "published", dtype, "sliced")
     args = ssd_bwd_inputs(case, dev, seed=7)
@@ -1951,7 +1974,8 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
     res = backward_resources(P, args[0].dtype, path, N)
     prof = device_profile(lambda: [ssd_chunk_backward(*args) for _ in range(3)], dev)
     kernel_us = {}
-    for k in BWD_KERNELS[path]:
+    names = backward_kernels(path, args[0].dtype)
+    for k in names:
         hits = [t for t in prof["top"] if k + "<" in t["name"] or f"::{k}<" in t["name"]]
         n = sum(t["count"] for t in hits)
         kernel_us[k] = sum(t["us"] for t in hits) / n if n else "not measured"
@@ -1964,7 +1988,7 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
                tflops_per_s=flops / (ms * 1e-3) / 1e12, share_of_bound=bound_ms / ms,
                share_of_cuda_core_bound=cc_ms / ms, max_err=errs,
                kernels={k: dict(ptxas=ptxas_entry(log, frag[k]), **res[k],
-                                device_us_a_call=kernel_us[k]) for k in BWD_KERNELS[path]},
+                                device_us_a_call=kernel_us[k]) for k in names},
                profile=prof)
     emit("ssd_bwd_timing", **row)
     return row
@@ -1983,14 +2007,16 @@ def run_ssd_bwd_kernels(dev) -> dict:
         before = dict(ssd_scan.ssd_chunk_backward.route_launches)
         errs.append(check_ssd_bwd_case(case, dev, seed=i))
         routes.append(route_taken(ssd_scan.ssd_chunk_backward, before))
-        want = ("tensor_cores" if case[7] == "bfloat16" and case[4] in ssd_scan.TC_P
-                and case[5] in ssd_scan.TC_N else "cuda_cores")
+        want = ("tensor_cores" if case[4] in ssd_scan.TC_P and case[5] in ssd_scan.TC_N
+                else "cuda_cores")
         check(routes[-1] in (want, "plain"), f"{case}: took the {routes[-1]} route, not {want}")
     launches = ssd_scan.ssd_chunk_backward.launches
     check(launches == len(SSD_BWD_CASES) or dev.type == "cpu",
           f"{launches} backward launches for {len(SSD_BWD_CASES)} cases")
     faults = [ssd_bwd_planted_faults(dev, dt) for dt in ("bfloat16", "float32")]
     repeat = ssd_bwd_repeat(dev)
+    torch.cuda.empty_cache()
+    repeat32 = ssd_bwd_repeat(dev, "float32")
     emit("ssd_bwd_kernels", cases=len(SSD_BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: {n: max(e[n] for c, e in zip(SSD_BWD_CASES, errs) if c[7] == dt)
                        for n in SSD_BWD_NAMES} for dt in SSD_BWD_TOL},
@@ -1998,14 +2024,16 @@ def run_ssd_bwd_kernels(dev) -> dict:
          launches_by_route=dict(ssd_scan.ssd_chunk_backward.route_launches),
          cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(SSD_BWD_CASES, routes))
                               for r in ssd_scan.ROUTES} for dt in SSD_BWD_TOL},
-         planted_faults=faults, repeat=repeat,
+         planted_faults=faults, repeat=repeat, repeat_float32=repeat32,
          shapes=[list(c) + [t, e] for c, t, e in zip(SSD_BWD_CASES, routes, errs)])
     torch.cuda.empty_cache()
     row = time_ssd_bwd(dev, "bfloat16", iters=5)
     torch.cuda.empty_cache()
-    row32 = time_ssd_bwd(dev, "float32", iters=3)  # the f32 step's route (CUDA cores)
+    row32 = time_ssd_bwd(dev, "float32", iters=3)  # the f32 step's route (tensor cores)
     torch.cuda.empty_cache()
-    return {"max_err": max(max(e.values()) for e in errs), "row": row, "row_float32": row32}
+    return {"max_err": max(max(e.values()) for e in errs), "row": row, "row_float32": row32,
+            "max_err_float32": max(max(e.values()) for c, e in zip(SSD_BWD_CASES, errs)
+                                   if c[7] == "float32")}
 
 
 # ------------------------------------------------------------- phase 12a
@@ -2681,15 +2709,17 @@ def check_bwd_case(case, dev, seed=0) -> dict:
                 lse_err=check_lse(str(case), lse, ref_lse))
 
 
-def bwd_planted_fault(dev, dtype: str) -> dict:
-    """The serving-shape check against the kernel's gradients with one KV
-    tile's rows of dk and dv zeroed, which is what a dK/dV kernel that
-    skipped that tile's block would return (and a dQ kernel that skipped the
-    tile misses the same terms in dq): the check must reject it."""
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
+def bwd_planted_fault(dev, dtype: str, shape=BWD_SERVING_SHAPE) -> dict:
+    """The check at ``shape`` (the serving shape, or paligemma's) against
+    the kernel's gradients with one KV tile's rows of dk and dv zeroed,
+    which is what a dK/dV kernel that skipped that tile's block would
+    return (and a dQ kernel that skipped the tile misses the same terms in
+    dq): the check must reject it."""
+    from repro_torch.kernels.flash_attention import (backward_route, flash_attention,
+                                                     flash_attention_backward,
                                                      flash_attention_backward_plain)
 
-    case = (*BWD_SERVING_SHAPE, True, dtype)
+    case = (*shape, True, dtype)
     q, k, v, dout = make_bwd_case(case, dev, seed=3)
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
@@ -2699,9 +2729,10 @@ def bwd_planted_fault(dev, dtype: str) -> dict:
     dv[:, BWD_FAULT_KEYS[0]:BWD_FAULT_KEYS[1]] = 0
     bad = bwd_errors((dq, dk, dv), want)
     caught = max(bad) > BWD_TOL[dtype]
-    check(caught, f"{dtype}: a skipped KV tile passes the backward check ({bad})")
-    return dict(dtype=dtype, keys=list(BWD_FAULT_KEYS), clean_errors=errs, faulty_errors=bad,
-                caught=caught)
+    check(caught, f"{dtype} at {shape}: a skipped KV tile passes the backward check ({bad})")
+    return dict(dtype=dtype, shape=list(shape),
+                route=backward_route(shape[5], q.dtype, route_shape(shape)),
+                keys=list(BWD_FAULT_KEYS), clean_errors=errs, faulty_errors=bad, caught=caught)
 
 
 def bwd_repeat(dev, shape=BWD_SERVING_SHAPE, dtype: str = "bfloat16") -> dict:
@@ -2828,10 +2859,12 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
 
 def run_flash_bwd_kernels(dev) -> dict:
     """Phase 10d: every BWD_CASES case (each on its ``backward_route``, the
-    forward's lse held too), the planted faults, two calls bit for bit at
-    the serving shape in both types, and the kernel's time at deepseek-67b's
-    and paligemma's training shapes in bf16 (and both in f32), and at the
-    restart check's reduced shape in both types."""
+    forward's lse held too), the planted faults (and one at paligemma's
+    shape in f32: the split route at D 256), two calls bit for bit at the
+    serving shape in both types and at paligemma's in f32, and the
+    kernel's time at deepseek-67b's and paligemma's training shapes in bf16
+    (and both in f32), and at the restart check's reduced shape in both
+    types."""
     from repro_torch.kernels import flash_attention as fm
 
     t0 = time.perf_counter()
@@ -2840,7 +2873,11 @@ def run_flash_bwd_kernels(dev) -> dict:
     routes = dict(fm.flash_attention.backward_route_launches)
     errs = [r["errs"] for r in res]
     faults = [bwd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
+    torch.cuda.empty_cache()
+    faults.append(bwd_planted_fault(dev, "float32", VLM_SHAPE))  # the split route at D 256
+    torch.cuda.empty_cache()
     repeat = [bwd_repeat(dev, dtype=dt) for dt in ("bfloat16", "float32")]
+    repeat.append(bwd_repeat(dev, shape=VLM_SHAPE, dtype="float32"))
     repeat.append(bwd_repeat(dev, shape=PACKED_REPEAT_SHAPE))
     emit("flash_bwd_kernels", cases=len(BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: max(max(e) for c, e in zip(BWD_CASES, errs) if c[7] == dt)
@@ -2863,7 +2900,9 @@ def run_flash_bwd_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     for dt in ("bfloat16", "float32"):
         rows[f"reduced_{dt}"] = time_flash_bwd(dev, dt, BWD_REDUCED_SHAPE, iters=20)
-    return {"max_err": max(max(e) for e in errs), "rows": rows}
+    return {"max_err": max(max(e) for e in errs), "rows": rows,
+            "max_err_float32_D256": [max(e) for c, e in zip(BWD_CASES, errs)
+                                     if c[7] == "float32" and c[5] == 256]}
 
 
 # ------------------------------------------------------------- phase 10e
@@ -2917,6 +2956,7 @@ class BackwardLog:
 
     def __exit__(self, *exc):
         self.patch.stop()
+        del self.patch  # it holds self: no cycle keeps the recorded tensors
 
 
 def plain_attention():
@@ -2958,20 +2998,27 @@ def host_copy(named: dict) -> dict:
     return {n: t.detach().to("cpu", copy=True) for n, t in named.items()}
 
 
-def train_f32_check(dev) -> dict:
-    """One f32 AdamW step at 1 layer (deepseek-67b widths, one 4,096-token
-    sequence) with the kernels, against the same step from the same start
-    with ``plain_attention``: the loss within 1e-5, each first moment (0.1
-    times the gradient) within TRAIN_F32_TOL of its largest value, each
-    updated parameter by ``adam_param_errors``; the backward on
-    ``backward_route``'s kernels (f32 at D 128: the split route, with its
-    ``split_bf16`` launches counted)."""
+F32_STEPS = ("deepseek-67b", "paligemma-3b")  # the archs of train_f32_check, in order
+
+
+def f32_step_check(dev, arch: str) -> dict:
+    """One f32 AdamW step of ``arch`` at its widths and one layer,
+    one 4,096-token sequence (a VLM's stand-in patch prefix from
+    ``launch.train.make_batch`` before it), with the kernels, against the
+    same step from the same start with ``plain_attention``: the loss
+    within 1e-5, each first moment (0.1 times the gradient) within
+    TRAIN_F32_TOL of its largest value, each updated parameter by
+    ``adam_param_errors``; two forward launches a layer (remat) and one
+    backward launch a layer, all on ``backward_route``'s kernels (f32 at D
+    64, 128 and 256: the split route), with the split route's
+    ``split_bf16`` launches counted (two a forward launch, four a
+    backward)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fm
-    from repro_torch.launch.train import make_batch, make_data
+    from repro_torch.launch.train import make_batch, make_data, with_depth
     from repro_torch.training.train_loop import init_train_state, make_train_step
 
-    cfg = get_config(TRAIN["arch"]).replace(num_layers=1, dtype="float32", accum_steps=1)
+    cfg = with_depth(get_config(arch), 1).replace(dtype="float32", accum_steps=1)
     seqs = make_data(cfg, TRAIN["seq"], rows=1, seed=1)
     runs = {}
     for name in ("kernel", "plain"):
@@ -2993,27 +3040,41 @@ def train_f32_check(dev) -> dict:
         del params, opt, batch, m
         torch.cuda.empty_cache()
     k, p = runs["kernel"], runs["plain"]
-    check(k["launches"] == 2 and k["backward_launches"] == 1,
-          f"f32 step: {k['launches']} forward and {k['backward_launches']} backward launches, "
-          "not 2 and 1 (one layer, remat)")
+    attn = flash_layers(cfg)
+    fwd_want = (2 if cfg.remat else 1) * attn
+    check(k["launches"] == fwd_want and k["backward_launches"] == attn,
+          f"{arch} f32 step: {k['launches']} forward and {k['backward_launches']} backward "
+          f"launches, not {fwd_want} and {attn}")
     check(p["launches"] == 0 and p["backward_launches"] == 0, "the plain step launched a kernel")
     want_route = fm.backward_route(cfg.attention.head_dim, torch.float32)
-    check(k["backward_route_launches"][want_route] == 1,
-          f"f32 step: backward launches by route {k['backward_route_launches']}, not on "
+    check(k["backward_route_launches"][want_route] == attn,
+          f"{arch} f32 step: backward launches by route {k['backward_route_launches']}, not on "
           f"{want_route}")
+    split_want = 2 * k["launches"] + 4 * k["backward_launches"]
+    check(want_route != "tensor_cores" or k["split_bf16_launches"] == split_want,
+          f"{arch} f32 step: {k['split_bf16_launches']} split_bf16 launches, not {split_want}")
     loss_err = abs(k["loss"] - p["loss"])
     mu_err = max(float((k["mu"][n] - p["mu"][n]).abs().max()
                        / p["mu"][n].abs().max().clamp_min(1e-30)) for n in p["mu"])
     perr = adam_param_errors(k["params"], p["params"], p["mu"], TRAIN["lr"])
-    check(loss_err <= 1e-5, f"f32 step: loss {k['loss']} against {p['loss']} with the plain "
-          "attention")
-    check(mu_err <= TRAIN_F32_TOL, f"f32 step: gradients differ by {mu_err} of their largest")
+    check(loss_err <= 1e-5, f"{arch} f32 step: loss {k['loss']} against {p['loss']} with the "
+          "plain attention")
+    check(mu_err <= TRAIN_F32_TOL, f"{arch} f32 step: gradients differ by {mu_err} of their "
+          "largest")
     check(perr["conditioned_rel"] <= TRAIN_F32_TOL and perr["ill_conditioned_abs"]
-          <= 2 * TRAIN["lr"], f"f32 step: updated parameters differ: {perr}")
-    return dict(loss=k["loss"], plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err,
-                params=perr, launches=k["launches"], backward_launches=k["backward_launches"],
+          <= 2 * TRAIN["lr"], f"{arch} f32 step: updated parameters differ: {perr}")
+    return dict(arch=arch, layers=cfg.num_layers, head_dim=cfg.attention.head_dim, loss=k["loss"],
+                plain_loss=p["loss"], loss_err=loss_err, grad_rel_err=mu_err, params=perr,
+                launches=k["launches"], backward_launches=k["backward_launches"],
                 backward_route=want_route, backward_route_launches=k["backward_route_launches"],
                 split_bf16_launches=k["split_bf16_launches"])
+
+
+def train_f32_check(dev) -> dict:
+    """{arch: ``f32_step_check``} for each of F32_STEPS in turn (each frees
+    its memory before the next): deepseek-67b at D 128, then paligemma-3b
+    at D 256."""
+    return {arch: f32_step_check(dev, arch) for arch in F32_STEPS}
 
 
 def restart_check(dev, tmp: Path) -> dict:
@@ -3229,6 +3290,7 @@ class SSDBackwardCheck:
 
     def __exit__(self, *exc):
         self.patch.stop()
+        del self.patch  # it holds self: no cycle keeps the recorded tensors
 
 
 def plain_ssd():
@@ -3247,7 +3309,8 @@ def ssm_train_f32_check(dev) -> dict:
     under remat, and the backward kernel) against the same step from the
     same start with ``plain_ssd``: the loss within 1e-5, each first moment
     (0.1 times the gradient) within TRAIN_F32_TOL of its largest value,
-    each updated parameter by ``adam_param_errors``."""
+    each updated parameter by ``adam_param_errors``; its one backward
+    launch on the tensor cores (f32 x, B and C in pieces)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan
     from repro_torch.launch.train import make_batch, make_data
@@ -3281,6 +3344,9 @@ def ssm_train_f32_check(dev) -> dict:
           f"SSM f32 step: {k['launches']} forward and {k['backward_launches']} backward "
           "launches, not 2 and 1 (one layer, remat)")
     check(p["launches"] == 0 and p["backward_launches"] == 0, "the plain step launched a kernel")
+    check(not on_card or k["backward_route_launches"]["tensor_cores"] == 1,
+          f"SSM f32 step: backward launches by route {k['backward_route_launches']}, not on "
+          "the tensor cores")
     loss_err = abs(k["loss"] - p["loss"])
     mu_err = max(float((k["mu"][n] - p["mu"][n]).abs().max()
                        / p["mu"][n].abs().max().clamp_min(1e-30)) for n in p["mu"])
@@ -4581,9 +4647,11 @@ def run_resilient_path(dev) -> dict:
         if cfg.family == "ssm":
             launches = {"ssd_chunk": ssd_scan.ssd_chunk.launches,
                         "ssd_chunk_backward": ssd_scan.ssd_chunk_backward.launches}
+            routes = dict(ssd_scan.ssd_chunk_backward.route_launches)
         else:
             launches = {"flash_attention": fm.flash_attention.launches,
                         "flash_attention_backward": fm.flash_attention.backward_launches}
+            routes = dict(fm.flash_attention.backward_route_launches)
         check(all(n == cfg.num_layers * ran for n in launches.values()) or dev.type == "cpu",
               f"resilient_path {arch}: launches {launches}, not {cfg.num_layers} a layer for "
               f"each of {ran} steps")
@@ -4602,8 +4670,8 @@ def run_resilient_path(dev) -> dict:
         out[arch] = dict(config=cfg.name, steps=RESILIENT["steps"], steps_run=ran,
                          restarts=again["report"].restarts, restored_from=again["restored_from"],
                          tensors_equal=len(same), loss_first=again["losses"][0][1],
-                         loss_last=again["losses"][-1][1], launches=launches,
-                         straggler_events=again["report"].straggler_events,
+                         loss_last=again["losses"][-1][1], dtype=cfg.dtype, launches=launches,
+                         backward_route_launches=routes, straggler_events=again["report"].straggler_events,
                          straggler_steps=again["straggler_steps"],
                          step_ewma_ms=again["report"].final_step_time_ewma * 1e3,
                          seconds=again["seconds"])
@@ -4696,6 +4764,11 @@ def run_mesh_path(dev, train: dict) -> dict:
                                                  make_sharded_train_step, make_train_step)
 
     t_phase = time.perf_counter()
+    # This phase's steps need the card's memory whole: collect whatever the
+    # phase before left in reference cycles after its line (``emit``).
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated(dev)
     nccl_world(dev)
     try:
         mesh = make_dev_mesh(1, 1, device_type="cuda")
@@ -4776,8 +4849,13 @@ def run_mesh_path(dev, train: dict) -> dict:
         mp = distribute(leaves, params_shardings(leaves, mesh, mode))
         mb = distribute({"tokens": tokens}, batch_sharding({"tokens": tokens}, mesh))
         fm.reset_launches()
-        with ctx.use_mesh(mesh, ep=True), mock.patch.object(
-                moe, "_routed_ep", wraps=moe._routed_ep) as ep_calls:
+        ep_calls, real_ep = [0], moe._routed_ep
+
+        def counted_ep(*args, **kw):  # a counter: a mock would keep every call's tensors
+            ep_calls[0] += 1
+            return real_ep(*args, **kw)
+
+        with ctx.use_mesh(mesh, ep=True), mock.patch.object(moe, "_routed_ep", counted_ep):
             sync(dev)
             t0 = time.perf_counter()
             logits, _ = apply_with_leaves(mcfg, "prefill", mp, mb)
@@ -4786,8 +4864,8 @@ def run_mesh_path(dev, train: dict) -> dict:
         moe_launches = fm.flash_attention.launches
         logits = logits.full_tensor()
         moe_err = float((logits - ref_logits).abs().max())
-        check(ep_calls.call_count == mcfg.num_layers,
-              f"mesh_path: moe_apply_ep ran {ep_calls.call_count} times in "
+        check(ep_calls[0] == mcfg.num_layers,
+              f"mesh_path: moe_apply_ep ran {ep_calls[0]} times in "
               f"{mcfg.num_layers} layers")
         check(moe_launches == moe_ref_launches == mcfg.num_layers,
               f"mesh_path: {moe_launches} flash launches in the sharded prefill, "
@@ -4827,9 +4905,10 @@ def run_mesh_path(dev, train: dict) -> dict:
                losses=losses, unsharded_losses=ref_losses, loss_max_abs_diff=loss_err,
                params=params_err, step_ms=step_ms, train_path_warm_step_ms=train["warm_step_ms"],
                peak_bytes=peak, peak_gib=peak / 2**30, argument_bytes=arg_bytes,
+               allocated_gib_at_start=allocated_at_start / 2**30,
                launches=fwd, backward_launches=bwd, route_launches=fwd_routes,
                backward_route_launches=bwd_routes, train_path_launches_a_step=list(per_step),
-               moe=dict(arch=mcfg.name, layers=mcfg.num_layers, ep_calls=ep_calls.call_count,
+               moe=dict(arch=mcfg.name, layers=mcfg.num_layers, ep_calls=ep_calls[0],
                         logits_max_abs_diff=moe_err, ms=moe_ms, launches=moe_launches),
                decode=dict(logits_max_abs_diff=dec_err, ms=dec_ms),
                seconds=time.perf_counter() - t_phase)
@@ -5095,6 +5174,23 @@ def main(argv=None) -> int:
     cascade_dry = run_cascade_dryrun(dev)
     emit("script", seconds=time.perf_counter() - t_script)
     udf_fwd, udf_bwd = udf_rows["H128"]["forward"], udf_rows["H128"]["backward"]
+    res_ssm = resilient["mamba2-2.7b"]
+    ssd_bwd_runs = {  # path: (backward launches, by route, the type they ran in)
+        "ssm_train_path": (ssm_train["backward_launches"], ssm_train["backward_route_launches"],
+                           "bfloat16"),
+        "ssm_train_f32_check": (ssm_train["float32"]["backward_launches"],
+                                ssm_train["float32"]["backward_route_launches"], "float32"),
+        "resilient_path": (res_ssm["launches"]["ssd_chunk_backward"],
+                           res_ssm["backward_route_launches"], res_ssm["dtype"])}
+
+    def ssd_bwd_launches(dtype):
+        """The ssd_chunk backward's launches in ``dtype``, by path and by route."""
+        runs = {p: (n, r) for p, (n, r, t) in ssd_bwd_runs.items() if t == dtype}
+        return {"launches": sum(n for n, _ in runs.values()),
+                "launches_by_route": {k: sum(r[k] for _, r in runs.values())
+                                      for k in ssd_scan.ROUTES},
+                "launches_by_path": {p: n for p, (n, _) in runs.items()}}
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "cascade_score", "route": "cuda",
@@ -5226,22 +5322,30 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "note": "the gradient of that kernel; the JAX package has no backward kernel",
-        "launches": ssm_train["backward_launches"],
-        "launches_by_route": {r: ssm_train["backward_route_launches"][r]
-                              + ssm_train["float32"]["backward_route_launches"][r]
-                              for r in ssm_train["backward_route_launches"]},
-        "launches_by_path": {"ssm_train_path": ssm_train["backward_launches"],
-                             "ssm_train_f32_check": ssm_train["float32"]["backward_launches"]},
+        **ssd_bwd_launches("bfloat16"),
         "max_abs_err": max([ssd_bwd["max_err"]] + [max(e.values())
                                                    for e in ssm_train["layer_bwd_errors"]]),
         "max_err_is": "of each gradient's largest value",
         "ms": ssd_bwd["row"]["ms"], "plain_ms": ssd_bwd["row"]["plain_ms"],
         "bound_ms": ssd_bwd["row"]["bound_ms"], "bound_by": ssd_bwd["row"]["bound_by"],
         "cuda_core_bound_ms": ssd_bwd["row"]["cuda_core_bound_ms"],
-        "library_ms": None,
-        "float32": {k: ssd_bwd["row_float32"][k]
-                    for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "cuda_core_bound_ms", "library_ms")}}, {
+        "library_ms": None}, {
+        "name": "ssd_chunk_backward[float32]", "route": "cuda",
+        "kernel_route": ssd_bwd["row_float32"]["route"],
+        "kernels": list(ssd_bwd["row_float32"]["kernels"]),
+        "dtype": "float32", "shape": list(SSD_TRAIN_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "note": "the gradient of that kernel in f32",
+        **ssd_bwd_launches("float32"),
+        "max_abs_err": max(max(ssd_bwd["row_float32"]["max_err"].values()),
+                           ssd_bwd["max_err_float32"], ssm_train["float32"]["grad_rel_err"]),
+        "max_err_is": "of each gradient's largest value",
+        "ms": ssd_bwd["row_float32"]["ms"], "plain_ms": ssd_bwd["row_float32"]["plain_ms"],
+        "bound_ms": ssd_bwd["row_float32"]["bound_ms"],
+        "bound_by": ssd_bwd["row_float32"]["bound_by"],
+        "cuda_core_bound_ms": ssd_bwd["row_float32"]["cuda_core_bound_ms"],
+        "library_ms": None}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "kernel_route": bwd["rows"]["bfloat16"]["route"],
         "dtype": "bfloat16", "shape": list(BWD_SERVING_SHAPE),
@@ -5252,13 +5356,11 @@ def main(argv=None) -> int:
         "launches_by_route": {r: train["backward_route_launches"][r]
                               + sum(s["backward_route_launches"][r]
                                     for s in train["side_steps"].values())
-                              + train["float32"]["backward_route_launches"][r]
                               for r in train["backward_route_launches"]},
         "launches_by_path": {"train_path": train["backward_launches"],
                              "mesh_path": mesh["backward_launches"],
                              **{a: s["backward_launches"]
-                                for a, s in train["side_steps"].items()},
-                             "train_f32_check": train["float32"]["backward_launches"]},
+                                for a, s in train["side_steps"].items()}},
         "max_abs_err": max([bwd["max_err"]] + [max(e) for e in train["layer_bwd_errors"]]),
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["bfloat16"]["ms"], "plain_ms": bwd["rows"]["bfloat16"]["plain_ms"],
@@ -5303,18 +5405,36 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "note": "the gradient of that kernel in f32",
-        "launches": train["float32"]["backward_launches"],
-        "launches_by_route": train["float32"]["backward_route_launches"],
-        "split_bf16_launches": train["float32"]["split_bf16_launches"],
+        "launches": train["float32"]["deepseek-67b"]["backward_launches"],
+        "launches_by_route": train["float32"]["deepseek-67b"]["backward_route_launches"],
+        "split_bf16_launches": train["float32"]["deepseek-67b"]["split_bf16_launches"],
         "max_abs_err": bwd["rows"]["float32"]["max_err"],
         "max_err_is": "of each gradient's largest value",
         "ms": bwd["rows"]["float32"]["ms"], "plain_ms": bwd["rows"]["float32"]["plain_ms"],
         "bound_ms": bwd["rows"]["float32"]["bound_ms"], "bound_by": bwd["rows"]["float32"]["bound_by"],
         "cuda_core_bound_ms": bwd["rows"]["float32"]["cuda_core_bound_ms"],
-        "library_ms": bwd["rows"]["float32"]["library_ms"],
-        "d256": {k: bwd["rows"]["float32_D256"][k]
-                 for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
-                           "cuda_core_bound_ms", "library_ms")}}, {
+        "library_ms": bwd["rows"]["float32"]["library_ms"]}, {
+        "name": "flash_attention_bwd[float32_D256]", "route": "cuda",
+        "kernel_route": bwd["rows"]["float32_D256"]["route"],
+        "kernels": [v["kernel"] for v in bwd["rows"]["float32_D256"]["ptxas"].values()],
+        "dtype": "float32", "shape": list(VLM_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "note": "the gradient of that kernel in f32 at paligemma's head dim 256",
+        "launches": train["float32"]["paligemma-3b"]["backward_launches"],
+        "launches_by_route": train["float32"]["paligemma-3b"]["backward_route_launches"],
+        "launches_by_path": {
+            "train_f32_check[paligemma-3b]": train["float32"]["paligemma-3b"]["backward_launches"]},
+        "split_bf16_launches": train["float32"]["paligemma-3b"]["split_bf16_launches"],
+        "max_abs_err": max([bwd["rows"]["float32_D256"]["max_err"],
+                            train["float32"]["paligemma-3b"]["grad_rel_err"]]
+                           + bwd["max_err_float32_D256"]),
+        "max_err_is": "of each gradient's largest value",
+        "ms": bwd["rows"]["float32_D256"]["ms"], "plain_ms": bwd["rows"]["float32_D256"]["plain_ms"],
+        "bound_ms": bwd["rows"]["float32_D256"]["bound_ms"],
+        "bound_by": bwd["rows"]["float32_D256"]["bound_by"],
+        "cuda_core_bound_ms": bwd["rows"]["float32_D256"]["cuda_core_bound_ms"],
+        "library_ms": bwd["rows"]["float32_D256"]["library_ms"]}, {
         "name": "flash_attention_bwd[D16]", "route": "cuda",
         "kernel_route": bwd["rows"]["reduced_bfloat16"]["route"],
         "dtype": "bfloat16", "shape": list(BWD_REDUCED_SHAPE),

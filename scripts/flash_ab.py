@@ -1,4 +1,4 @@
-"""Time one tree's bf16 ``flash_attention`` kernels on the card, for A/B runs.
+"""Time one tree's ``flash_attention`` kernels on the card, for A/B runs.
 
     python3 scripts/flash_ab.py [--root TREE] [--iters 10]
 
@@ -10,12 +10,13 @@ its kernels, and times with CUDA events, causal, on one seeded input each:
   ``flash_attention`` takes ``return_lse``;
 * the backward at deepseek-67b's (1, 4096, 4096, 64, 8, 128) and
   paligemma's (4, 4096, 4096, 8, 1, 256) training shapes (with the
-  forward's lse where the tree's backward reads it).
+  forward's lse where the tree's backward reads it), and in f32 at
+  paligemma's shape on whichever route the tree takes there, with that
+  route.
 
 With ``--cuda-core-bwd`` it times instead only the backward's CUDA-core
 route, at the shapes that take it: the reduced configs' restart-check
-micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32 and paligemma's
-(4, 4096, 4096, 8, 1, 256) in f32.
+micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32.
 
 With ``--udf`` it times instead the forward (with and without the lse) and
 the backward at a transformer UDF's training shapes (2,000 records of 8
@@ -42,8 +43,8 @@ import torch
 FWD_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D)
 BWD_SHAPES = ((1, 4096, 4096, 64, 8, 128), (4, 4096, 4096, 8, 1, 256))
 CUDA_CORE_BWD = (((2, 256, 256, 4, 2, 16), torch.bfloat16),
-                 ((2, 256, 256, 4, 2, 16), torch.float32),
-                 ((4, 4096, 4096, 8, 1, 256), torch.float32))
+                 ((2, 256, 256, 4, 2, 16), torch.float32))
+F32_BWD_SHAPE = (4, 4096, 4096, 8, 1, 256)  # the f32 backward, on the route the tree takes
 UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128), (2000, 8, 8, 4, 2, 16))
 
 
@@ -97,10 +98,9 @@ def main() -> int:
                 raise SystemExit(f"flash_ab: {shape} {dtype} does not take the CUDA cores")
             q, k, v, dout = inputs(shape, seed=8, dtype=dtype)
             o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
-            iters = args.iters if shape[1] > 256 else 20 * args.iters
             out[f"cuda_core_backward_{'x'.join(map(str, shape))}_{str(dtype)[6:]}"] = timed(
                 lambda: fm.flash_attention_backward(q, k, v, o, dout, lse, causal=True),
-                iters, args.turns)
+                20 * args.iters, args.turns)
             del q, k, v, dout, o, lse
             torch.cuda.empty_cache()
         print("AB " + json.dumps(out), flush=True)
@@ -135,14 +135,19 @@ def main() -> int:
             runs[name].append(cuda_ms(fn, args.iters))
     out.update({name: {"ms": min(r), "runs": r} for name, r in runs.items()})
     del q, k, v
-    for shape in BWD_SHAPES:
-        q, k, v, dout = inputs(shape, seed=8)
+    for shape, dtype in (*((s, torch.bfloat16) for s in BWD_SHAPES),
+                         (F32_BWD_SHAPE, torch.float32)):
+        q, k, v, dout = inputs(shape, seed=8, dtype=dtype)
         if with_lse:
             o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
             extra = (lse,)
         else:
             o, extra = fm.flash_attention(q, k, v, causal=True), ()
-        out[f"backward_{'x'.join(map(str, shape))}"] = timed(
+        tag = "x".join(map(str, shape))
+        if dtype == torch.float32:
+            tag += "_float32"
+            out[f"route_{tag}"] = fm.backward_route(shape[5], dtype)
+        out[f"backward_{tag}"] = timed(
             lambda: fm.flash_attention_backward(q, k, v, o, dout, *extra, causal=True),
             max(1, args.iters // 2), args.turns)
         del q, k, v, dout, o, extra

@@ -9,8 +9,8 @@ training shape (mamba2-2.7b, 4 x 4,096 tokens in chunks of 256: nc 64, Q
 projection as ``ops.ssd`` passes them, on one seeded input each; each
 result is held against the plain formulas (``ssd_chunk_backward_plain``,
 8 chunks a call) and its largest error over each gradient's largest value
-reported.  A profile of 3 calls gives each of the backward's kernels its
-device µs a call.
+reported, with the route each type takes in that tree.  A profile of 3
+calls gives each of the backward's kernels its device µs a call.
 
 Prints one line ``AB {...}`` with the tree, the card (name and power limit
 from ``nvidia-smi``) and each time in ms (the least of ``--turns`` runs of
@@ -101,8 +101,9 @@ def main() -> int:
             if e.device_type == torch.autograd.DeviceType.CUDA and "bwd_" in e.name:
                 name = e.name.split("bwd_")[1].split("<")[0]
                 per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 3
-        out[str(dtype).removeprefix("torch.")] = {"ms": min(runs), "runs": runs,
-                                                  "max_err": errs, "kernel_us": per_kernel}
+        out[str(dtype).removeprefix("torch.")] = {
+            "route": ssd_scan.backward_route(ins[0], ins[2], ins[3]), "ms": min(runs),
+            "runs": runs, "max_err": errs, "kernel_us": per_kernel}
         del ins, got, want
         torch.cuda.empty_cache()
     print("AB " + json.dumps(out), flush=True)

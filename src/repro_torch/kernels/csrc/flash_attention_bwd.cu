@@ -104,7 +104,8 @@
 // two rows a thread; P while dP's product runs), then dQ += bf16(dS).K, K
 // read MN-major.  dQ is scaled in f32 at the end.
 //
-// f32, D in {64, 128}: `tc::dkdv_split<D>` then `tc::dq_split<D>`, the
+// f32, D in {64, 128, 256}: `tc::dkdv_split<D>` then `tc::dq_split<D>` (at
+// D 256 `tc::dkdv_split_wide` and `tc::dq_split_wide`, below), the
 // split route, on the tensor cores as the forward's f32 route is
 // (flash_attention.cu): every f32 operand enters as three bf16 pieces, hi =
 // bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), within 2^-25 |v|
@@ -147,17 +148,49 @@
 // D = 64).  Bound at (1, 4096, 64, 8, 128) causal: six products of pieces
 // of FA2's 6.87e11 flops at the bf16 peak, 4.17 ms, plus the pre-pass over
 // q, k, v and dO (f32 read, three bf16 pieces written: 0.75 GB, 0.23 ms);
-// the f32 CUDA-core peak gives 10.26 ms.  At D = 256 three pieces of a
-// 64-row Q tile alone would take 96 KB beside K and V's 192 KB, so f32 at D
-// 256 (and at D 16 and 32) stays on the CUDA cores.
+// the f32 CUDA-core peak gives 10.26 ms.
+//   D = 256: three pieces of a 64-row K tile take 96 KB, of V as much, and
+// of a 64-row Q or dO tile as much again, so no operand stays resident.
+// Both kernels stream every operand through a ring of slots in
+// 64-column chunks of the head dim (one chunk of each piece a slot, 128-byte
+// swizzled TMA boxes), and a stage takes 2 x 4 ring loads: four for the
+// scores, summed chunk by chunk into one accumulator (six products of
+// pieces a chunk, smallest first), and four for the gradient products,
+// which need the stage's scores whole; each of those chunks gives 64
+// columns of dK / dV / dQ in a fresh 64 x 64 accumulator (32 registers),
+// added to the running 64 x 256 f32 sum (128 registers a thread).  The
+// design trades L2 traffic for shared memory: K, V, Q and dO cross from L2
+// again for every stage.
+//   `tc::dkdv_split_wide`: one block per (64-row KV tile, KV head, batch),
+// 32-row q stages; a slot holds K's and V's chunk (3 x 8 KB each) and the
+// stage's Q and dO chunk (3 x 4 KB each), 73,728 B; the gradient loads
+// carry Q and dO only.  Consumer 0 sums S^T = K.Q^T, consumer 1 dP^T =
+// V.dO^T; P^T goes from 0 to 1 in shared memory (8 KB) as in dkdv_split;
+// then 0 sums dV and 1 dK.  Shared memory: three slots (two took 16.7 ms
+// where three take 14.6 at paligemma's shape on an H100 SXM at 700 W: the
+// loads' latency, not L2's bandwidth, held the ring), three sets of lse2 and Di rows (256 B each),
+// P^T, barriers: 231,216 B a block.  Registers a
+// consumer thread: 128 (sum) + 32 (fresh) + 16 (S^T) + 24 (pieces of P^T).
+//   `tc::dq_split_wide`: one block per (batch * head, 64-row q tile), 64-key
+// stages, consumer w taking keys 32 w .. 32 w + 31; a slot holds Q's, dO's,
+// K's and V's chunk (3 x 8 KB each), 98,304 B; the gradient loads carry K
+// only.  Each consumer sums its S and dP over the chunks, forms P and dS
+// in registers, and sums its own dQ; consumer 1's is added to consumer 0's
+// once at the end through the ring.  Two slots: 197,664 B a block;
+// registers 128 + 32 + 16 + 16 + 24 (pieces of dS).  Bound at (4, 4096,
+// 8, 1, 256) causal: six products of 6.87e11 flops at 989 TFLOP/s, 4.17
+// ms, plus the pre-pass (0.75 GB, 0.23 ms): 4.40 ms, operations; the
+// chunks' L2 traffic, about 50 GB (dK/dV) and 32 GB (dQ) a call, is what
+// the design pays for fitting in 227 KB.
 //
-// Otherwise (bf16 at D 16 and 32, f32 at D 16, 32 and 256): `bwd_dkdv` then `bwd_dq`
+// Otherwise (bf16 at D 16 and 32, f32 at D 16 and 32): `bwd_dkdv` then `bwd_dq`
 // on the CUDA cores (IEEE f32 FMAs, no TF32, no bf16 products), the same
-// block ownership: dK/dV one block per (batch * kv head, BK-row KV tile)
+// block ownership: dK/dV one block per (batch * kv head, 64-row KV tile)
 // looping over the group's query heads and the q tiles at or past the
 // causal frontier; dQ one block per (batch * head, 64-row q tile).  256
 // threads as 16 x 16; operands converted to f32 as they are staged into
-// shared memory (rows padded by one float); BK 64 rows, 32 at D = 256.
+// shared memory (rows padded by one float).  Only D 16 and 32 are built:
+// every wider head dim takes the tensor cores in both types.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -218,7 +251,7 @@ cudaError_t launch_prep(const void* o, const void* dout, const float* lse, float
   return cudaGetLastError();
 }
 
-// --------------------------------------- f32 at D 16, 32, 256, small D: CUDA cores
+// ------------------------------------------- bf16 and f32 at D 16, 32: CUDA cores
 namespace cc {
 
 constexpr int kThreads = 256;
@@ -226,7 +259,7 @@ constexpr int kThreads = 256;
 template <int D>
 struct Tile {
   static constexpr int BQ = 64;                  // query rows a tile
-  static constexpr int BK = D >= 256 ? 32 : 64;  // key rows a tile
+  static constexpr int BK = 64;                  // key rows a tile
   static constexpr int DS = D + 1;               // padded row stride of an operand tile
   static constexpr int PS = BK + 1;              // padded row stride of a p / dS tile
   static constexpr int R = BQ / 16;              // query rows a thread (S, dP, dQ)
@@ -516,7 +549,7 @@ cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
 
 }  // namespace cc
 
-// -------------- bf16, D in {64, 128, 256}, and split f32, D in {64, 128}: wgmma
+// ------------- bf16, D in {64, 128, 256}, and split f32, D in {64, 128, 256}: wgmma
 namespace tc {
 
 constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
@@ -1371,6 +1404,430 @@ __global__ void __launch_bounds__(kThreads, 1) dq_split(
   }
 }
 
+// ------------------------------ f32, D = 256: split-bf16 wgmma, streamed chunks
+// Three pieces of a 64-row K (or V) tile take 96 KB at D = 256, and of a
+// 64-row Q (or dO) tile as much again, so nothing stays resident: each
+// stage's operands stream through a ring of slots in 64-column chunks of
+// the head dim (one chunk of every piece a slot), and the sums over D run
+// chunk by chunk.  A stage is 2 NC ring loads: NC loads for the scores
+// (S^T and dP^T, or S and dP) and NC again for the gradient products,
+// which need the stage's scores whole before their first chunk.  K, V, Q
+// and dO chunks are read again from L2 for every stage; the bytes that
+// crossing costs bound these kernels as much as the six products do.
+template <int D>
+struct DkdvWideCfg {
+  static constexpr int BKV = kRows;              // KV rows a block
+  static constexpr int BQ = 32;                  // q rows a stage
+  static constexpr int NC = D / CW;              // head-dim chunks
+  static constexpr int kStages = 3;              // ring slots (2: 14% slower, NVIDIA H100)
+  static constexpr int kKc = BKV * CW * 2;       // one piece of a chunk of the K tile (or V)
+  static constexpr int kQc = BQ * CW * 2;        // one piece of a chunk of a stage's Q (or dO)
+  static constexpr int kSlotBytes = 6 * kKc + 6 * kQc;  // K_c, V_c, Q_c, dO_c pieces
+  static constexpr int kPBytes = BKV * BQ * 4;   // f32 P^T, consumer 0 to consumer 1
+  static constexpr int kStatBytes = 2 * BQ * 4;  // a stage's lse2 and Di rows, one set a slot
+  static constexpr int kBarBytes = 8 * 2 * kStages;
+  static constexpr size_t kSmem =
+      1024 + kStages * (kSlotBytes + kStatBytes) + kPBytes + kBarBytes;
+};
+
+// dK/dV on split-bf16 operands at D = 256: one block per (64-row KV tile,
+// KV head, batch), longest first; stages of 32 q rows (head of the group,
+// q tile) from the causal frontier on.  Consumer 0 sums S^T = K.Q^T and
+// consumer 1 dP^T = V.dO^T over the NC chunks (six products of pieces a
+// chunk, smallest first, into one accumulator), P^T goes from consumer 0
+// to consumer 1 as in dkdv_split, then each chunk c of the stage's dO (Q)
+// gives dV's (dK's) columns of chunk c: six products of P^T's (dS^T's)
+// pieces from registers into a fresh 64 x 64 accumulator, added to the
+// running 64 x 256 f32 sum in registers (128 a thread).  lse2 and Di, di:
+// (B, H, Sqp) f32 from bwd_prep; dk, dv f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_split_wide(
+    const __grid_constant__ SplitMaps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+    int Sqp, int Sk, int H, int K, int causal, float c, float scale) {
+  using C = DkdvWideCfg<D>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NC = C::NC, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t ring = base;                             // [slot]: K_c, V_c [piece][BKV][CW], Q_c, dO_c [piece][BQ][CW]
+  const uint32_t stat = ring + S * C::kSlotBytes;         // [slot]: lse2, Di rows
+  const uint32_t p_s = stat + S * C::kStatBytes;          // f32 P^T in accumulator order
+  const uint32_t bars = p_s + C::kPBytes;                 // full[slots], empty[slots]
+  auto full_bar = [&](int s) { return bars + 8u * s; };
+  auto empty_bar = [&](int s) { return bars + 8u * (S + s); };
+  auto slot = [&](int s) { return ring + s * C::kSlotBytes; };
+
+  const int b = blockIdx.x / K, kvh = blockIdx.x - b * K, G = H / K;
+  const int k0 = blockIdx.y * BKV;  // the first KV tiles, the longest under causal, first
+  const int n_q = (Sq + BQ - 1) / BQ;
+  const int first_q = causal ? min(k0 / BQ, n_q) : 0;  // q tiles holding a row >= k0
+  const int n_qt = n_q - first_q, n_it = G * n_qt;     // stages: (head of the group, q tile)
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int it = 0; it < n_it; ++it) {
+        const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ, h = kvh * G + g;
+        for (int l = 0; l < 2 * NC; ++l) {
+          const int r = it * 2 * NC + l, s = r % S, cc = l % NC;
+          const uint32_t sl = slot(s);
+          hopper::mbar_wait(empty_bar(s), ((r / S) & 1) ^ 1);
+          hopper::mbar_expect_tx(full_bar(s), 6 * C::kQc + (l < NC ? 6 * C::kKc : 0) +
+                                                  (l == 0 ? C::kStatBytes : 0));
+#pragma unroll
+          for (int piece = 0; piece < 3; ++piece) {
+            const uint32_t qo = sl + 6 * C::kKc + piece * C::kQc;
+            hopper::tma_load_4d(qo, &maps.q[piece], full_bar(s), cc * CW, h, q0, b);
+            hopper::tma_load_4d(qo + 3 * C::kQc, &maps.g[piece], full_bar(s), cc * CW, h, q0, b);
+            if (l < NC) {
+              const uint32_t ko = sl + piece * C::kKc;
+              hopper::tma_load_4d(ko, &maps.k[piece], full_bar(s), cc * CW, kvh, k0, b);
+              hopper::tma_load_4d(ko + 3 * C::kKc, &maps.v[piece], full_bar(s), cc * CW, kvh, k0,
+                                  b);
+            }
+          }
+          if (l == 0) {
+            const size_t row = ((size_t)b * H + h) * Sqp + q0;
+            hopper::bulk_load(stat + s * C::kStatBytes, lse2 + row, BQ * 4, full_bar(s));
+            hopper::bulk_load(stat + s * C::kStatBytes + BQ * 4, di + row, BQ * 4, full_bar(s));
+          }
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int kr0 = k0 + 16 * warp + lane / 4;  // this thread's KV rows: kr0 and kr0 + 8
+    float* const pbuf = reinterpret_cast<float*>(gbase + (p_s - base));
+    float acc[D / 2], x[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) x[i] = 0.f;
+
+    for (int it = 0; it < n_it; ++it) {
+      const int g = it / n_qt, q0 = (first_q + it - g * n_qt) * BQ;
+      const int r1 = it * 2 * NC;  // the stage's first ring load
+      // S^T = K.Q^T (consumer 0) or dP^T = V.dO^T (consumer 1), chunk by
+      // chunk of the head dim, six products of pieces each, all K-major
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int r = r1 + cc, s = r % S;
+        const uint32_t sl = slot(s);
+        const uint32_t a_s = sl + (wg == 0 ? 0 : 3 * C::kKc);
+        const uint32_t b_s = sl + 6 * C::kKc + (wg == 0 ? 0 : 3 * C::kQc);
+        hopper::mbar_wait(full_bar(s), (r / S) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+#pragma unroll
+          for (int kk = 0; kk < CW / 16; ++kk)
+            hopper::wgmma_ss(x, kmajor<BKV>(a_s + term_a(t) * C::kKc, 0, kk),
+                             kmajor<BQ>(b_s + term_b(t) * C::kQc, 0, kk), cc > 0 || t > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(x);
+        hopper::mbar_arrive(empty_bar(s));
+      }
+      const float* const l2s =
+          reinterpret_cast<const float*>(gbase + (stat + (r1 % S) * C::kStatBytes - base));
+      const float* const dis = l2s + BQ;
+
+      if (wg == 0) {
+        if (it > 0) hopper::named_sync<256>(kPairBar);  // consumer 1 has read the last P^T
+        // P^T = exp2(S^T c - lse2), masked entries 0, to consumer 1 in the
+        // accumulator's order (thread-contiguous: no bank conflicts)
+        const bool edge = (causal && k0 + BKV - 1 > q0) || q0 + BQ > Sq || k0 + BKV > Sk;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(l2s + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = exp2f(fmaf(x[i], c, -((e & 1) ? l2.y : l2.x)));
+            if (edge) {
+              const int qpos = q0 + col + (e & 1), kpos = kr0 + 8 * (e >> 1);
+              if (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+            }
+            x[i] = p;
+            pbuf[i * 128 + tid] = p;
+          }
+        }
+        hopper::named_arrive<256>(kPairBar + 1);  // P^T written
+      } else {  // dS^T = P^T (dP^T - Di)
+        hopper::named_sync<256>(kPairBar + 1);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dd = *reinterpret_cast<const float2*>(dis + 8 * j + 2 * (lane % 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            x[i] = pbuf[i * 128 + tid] * (x[i] - ((e & 1) ? dd.y : dd.x));
+          }
+        }
+        hopper::named_arrive<256>(kPairBar);  // P^T read
+      }
+
+      // P^T (or dS^T) in bf16 hi, mid and lo pieces as A operands from
+      // registers; chunk c of dO (or Q), MN-major, gives dV's (dK's)
+      // columns of chunk c: six products of pieces into a fresh
+      // accumulator, added to the running sum in f32
+      uint32_t xa[3][BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hopper::split3_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], xa[0][kk][e],
+                              xa[1][kk][e], xa[2][kk][e]);
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int r = r1 + NC + cc, s = r % S;
+        const uint32_t c_s = slot(s) + 6 * C::kKc + (wg == 0 ? 3 * C::kQc : 0);
+        hopper::mbar_wait(full_bar(s), (r / S) & 1);
+        float tile[CW / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            hopper::wgmma_rs(tile, xa[term_a(t)][kk], mnmajor<BQ>(c_s + term_b(t) * C::kQc, kk),
+                             t > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(tile);
+#pragma unroll
+        for (int i = 0; i < CW / 2; ++i) acc[cc * (CW / 2) + i] += tile[i];
+        hopper::mbar_arrive(empty_bar(s));
+      }
+    }
+
+    if (wg == 0 && n_it > 0) hopper::named_sync<256>(kPairBar);  // the last P^T read
+    // dV (consumer 0) or dK times the scale (consumer 1), f32, 8 bytes a
+    // thread, rows < Sk
+    float* const out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kpos = kr0 + 8 * hr;
+      if (kpos >= Sk) continue;
+      float* const row = out + (((size_t)b * Sk + kpos) * K + kvh) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j) =
+            make_float2(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+    }
+  }
+}
+
+template <int D>
+struct DqWideCfg {
+  static constexpr int BK = 64;                  // KV rows a stage: 32 a consumer
+  static constexpr int NC = D / CW;              // head-dim chunks
+  static constexpr int kStages = 2;              // ring slots
+  static constexpr int kQc = kRows * CW * 2;     // one piece of a chunk of the block's Q (or dO)
+  static constexpr int kKc = BK * CW * 2;        // one piece of a chunk of a stage's K (or V)
+  static constexpr int kSlotBytes = 6 * kQc + 6 * kKc;  // Q_c, dO_c, K_c, V_c pieces
+  static constexpr int kBarBytes = 8 * 2 * kStages;
+  static constexpr size_t kSmem = 1024 + kStages * kSlotBytes + kBarBytes;
+};
+
+// dQ on split-bf16 operands at D = 256: one block per (batch * head, 64-row
+// q tile), longest first; stages of 64 KV rows, consumer w taking rows 32 w
+// .. 32 w + 31 of each.  Per stage each sums S = Q.K_w^T and dP = dO.V_w^T
+// over the NC chunks (six products of pieces a chunk), P and dS in
+// registers, then each chunk c of K gives dQ's columns of chunk c: six
+// products of dS's pieces into a fresh accumulator added to the running
+// 64 x 256 f32 sum.  Consumer 1's sum is added to consumer 0's once at the
+// end, in a fixed order.  dq f32.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) dq_split_wide(
+    const __grid_constant__ SplitMaps maps, const float* __restrict__ lse2,
+    const float* __restrict__ di, float* __restrict__ dq, int Sq, int Sqp, int Sk, int H, int K,
+    int causal, float c, float scale) {
+  using C = DqWideCfg<D>;
+  constexpr int BK = C::BK, NC = C::NC, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t ring = base;  // [slot]: Q_c, dO_c [piece][64][CW], K_c, V_c [piece][BK][CW]
+  const uint32_t bars = ring + S * C::kSlotBytes;  // full[slots], empty[slots]
+  auto full_bar = [&](int s) { return bars + 8u * s; };
+  auto empty_bar = [&](int s) { return bars + 8u * (S + s); };
+  auto slot = [&](int s) { return ring + s * C::kSlotBytes; };
+
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest causal rows first
+  int n_kv = (Sk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + kRows - 1) / BK + 1);  // stages at or before the last row
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), 2 * 128);  // every consumer thread arrives
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int j = 0; j < n_kv; ++j)
+        for (int l = 0; l < 2 * NC; ++l) {
+          const int r = j * 2 * NC + l, s = r % S, cc = l % NC;
+          const uint32_t sl = slot(s);
+          hopper::mbar_wait(empty_bar(s), ((r / S) & 1) ^ 1);
+          hopper::mbar_expect_tx(full_bar(s), 3 * C::kKc + (l < NC ? 6 * C::kQc + 3 * C::kKc : 0));
+#pragma unroll
+          for (int piece = 0; piece < 3; ++piece) {
+            const uint32_t ko = sl + 6 * C::kQc + piece * C::kKc;
+            hopper::tma_load_4d(ko, &maps.k[piece], full_bar(s), cc * CW, kvh, j * BK, b);
+            if (l < NC) {
+              const uint32_t qo = sl + piece * C::kQc;
+              hopper::tma_load_4d(qo, &maps.q[piece], full_bar(s), cc * CW, h, q0, b);
+              hopper::tma_load_4d(qo + 3 * C::kQc, &maps.g[piece], full_bar(s), cc * CW, h, q0, b);
+              hopper::tma_load_4d(ko + 3 * C::kKc, &maps.v[piece], full_bar(s), cc * CW, kvh,
+                                  j * BK, b);
+            }
+          }
+        }
+    }
+  } else {  // ----------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const size_t row = ((size_t)b * H + h) * Sqp;
+    const float l2_0 = r0 < Sq ? lse2[row + r0] : 0.f, l2_1 = r0 + 8 < Sq ? lse2[row + r0 + 8] : 0.f;
+    const float di_0 = r0 < Sq ? di[row + r0] : 0.f, di_1 = r0 + 8 < Sq ? di[row + r0 + 8] : 0.f;
+
+    float acc[D / 2], s[BK / 4], dp[BK / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) s[i] = dp[i] = 0.f;
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int kw0 = j * BK + 32 * wg;  // this consumer's first key of the stage
+      const int r1 = j * 2 * NC;
+      // S = Q.K_w^T and dP = dO.V_w^T, chunk by chunk, six products of
+      // pieces each, all K-major, one commit group each
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int r = r1 + cc, st = r % S;
+        const uint32_t sl = slot(st), ks = sl + 6 * C::kQc;
+        hopper::mbar_wait(full_bar(st), (r / S) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+#pragma unroll
+          for (int kk = 0; kk < CW / 16; ++kk)
+            hopper::wgmma_ss(s, kmajor<kRows>(sl + term_a(t) * C::kQc, 0, kk),
+                             kmajor<BK>(ks + term_b(t) * C::kKc, 32 * wg, kk),
+                             cc > 0 || t > 0 || kk > 0);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+#pragma unroll
+          for (int kk = 0; kk < CW / 16; ++kk)
+            hopper::wgmma_ss(dp, kmajor<kRows>(sl + (3 + term_a(t)) * C::kQc, 0, kk),
+                             kmajor<BK>(ks + (3 + term_b(t)) * C::kKc, 32 * wg, kk),
+                             cc > 0 || t > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::mbar_arrive(empty_bar(st));
+      }
+
+      const bool edge = kw0 + 32 > Sk || (causal && kw0 + 31 > q0);
+#pragma unroll
+      for (int jj = 0; jj < BK / 16; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * jj + e, hr = e >> 1;
+          float p = exp2f(fmaf(s[x], c, -(hr ? l2_1 : l2_0)));
+          if (edge) {
+            const int kpos = kw0 + 8 * jj + 2 * (lane % 4) + (e & 1), qpos = r0 + 8 * hr;
+            if (kpos >= Sk || (causal && kpos > qpos)) p = 0.f;
+          }
+          dp[x] = p * (dp[x] - (hr ? di_1 : di_0));
+        }
+      // dS in bf16 hi, mid and lo as A operands from registers; chunk c of
+      // K_w (MN-major: a k16 step is 16 key rows) gives dQ's columns of
+      // chunk c, six products of pieces into a fresh accumulator added to
+      // the running sum in f32
+      uint32_t da[3][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hopper::split3_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1], da[0][kk][e],
+                              da[1][kk][e], da[2][kk][e]);
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int r = r1 + NC + cc, st = r % S;
+        const uint32_t ks = slot(st) + 6 * C::kQc;
+        hopper::mbar_wait(full_bar(st), (r / S) & 1);
+        float tile[CW / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            hopper::wgmma_rs(tile, da[term_a(t)][kk],
+                             mnmajor<BK>(ks + term_b(t) * C::kKc, 2 * wg + kk), t > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(tile);
+#pragma unroll
+        for (int i = 0; i < CW / 2; ++i) acc[cc * (CW / 2) + i] += tile[i];
+        hopper::mbar_arrive(empty_bar(st));
+      }
+    }
+
+    // dQ = (consumer 0's sum + consumer 1's) * scale: consumer 1's partial
+    // sum passes through the ring (every load consumed), in accumulator order
+    float* const red = reinterpret_cast<float*>(gbase + (ring - base));
+    hopper::named_sync<256>(kPairBar);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) red[i * 128 + tid] = acc[i];
+    }
+    hopper::named_sync<256>(kPairBar);
+    if (wg == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qpos = r0 + 8 * hr;
+        if (qpos >= Sq) continue;
+        float* const out = dq + (((size_t)b * Sq + qpos) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+        for (int jx = 0; jx < D / 8; ++jx) {
+          const int i = 4 * jx + 2 * hr;
+          *reinterpret_cast<float2*>(out + 8 * jx) =
+              make_float2((acc[i] + red[i * 128 + tid]) * scale,
+                          (acc[i + 1] + red[(i + 1) * 128 + tid]) * scale);
+        }
+      }
+    }
+  }
+}
+
 CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
                     int box_rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
@@ -1473,6 +1930,52 @@ cudaError_t split_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
   }
   *dyn = DqSplitCfg<D>::kSmem;
   return cudaFuncGetAttributes(a, dq_split<D>);
+}
+
+// The split route at D = 256: as launch_split, on the streamed-chunk kernels.
+template <int D>
+cudaError_t launch_split_wide(const void* const* qp, const void* const* kp,
+                              const void* const* vp, const void* const* gp, const float* lse2,
+                              const float* di, void* dq, void* dk, void* dv, int B, int Sq,
+                              int Sqp, int Sk, int H, int K, int causal, float scale,
+                              cudaStream_t st) {
+  using CK = DkdvWideCfg<D>;
+  using CQ = DqWideCfg<D>;
+  SplitMaps mk{}, mq{};
+  for (int i = 0; i < 3; ++i)
+    if (encode_map(&mk.q[i], qp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
+        encode_map(&mk.g[i], gp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
+        encode_map(&mk.k[i], kp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
+        encode_map(&mk.v[i], vp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
+        encode_map(&mq.q[i], qp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+        encode_map(&mq.g[i], gp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+        encode_map(&mq.k[i], kp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS ||
+        encode_map(&mq.v[i], vp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(dkdv_split_wide<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CK::kSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(dq_split_wide<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)CQ::kSmem)) != cudaSuccess)
+    return e;
+  const float c = scale * kLog2e;
+  dkdv_split_wide<D><<<dim3(B * K, (Sk + CK::BKV - 1) / CK::BKV), kThreads, CK::kSmem, st>>>(
+      mk, lse2, di, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sqp, Sk, H, K, causal,
+      c, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dq_split_wide<D><<<dim3(B * H, (Sq + kRows - 1) / kRows), kThreads, CQ::kSmem, st>>>(
+      mq, lse2, di, static_cast<float*>(dq), Sq, Sqp, Sk, H, K, causal, c, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t split_wide_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
+  if (which == 1) {
+    *dyn = DkdvWideCfg<D>::kSmem;
+    return cudaFuncGetAttributes(a, dkdv_split_wide<D>);
+  }
+  *dyn = DqWideCfg<D>::kSmem;
+  return cudaFuncGetAttributes(a, dq_split_wide<D>);
 }
 
 }  // namespace tc
@@ -1817,13 +2320,11 @@ cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_
   PACKED_DISPATCH(pk::resources, a, dyn)
 }
 
+// The CUDA-core route's head dims.
 #define BWD_DISPATCH(FN, T, ...)                 \
   switch (D) {                                   \
     case 16: return FN<T, 16>(__VA_ARGS__);      \
     case 32: return FN<T, 32>(__VA_ARGS__);      \
-    case 64: return FN<T, 64>(__VA_ARGS__);      \
-    case 128: return FN<T, 128>(__VA_ARGS__);    \
-    case 256: return FN<T, 256>(__VA_ARGS__);    \
     default: return cudaErrorInvalidValue;       \
   }
 // The tensor-core route's head dims.
@@ -1835,11 +2336,12 @@ cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_
     default: return cudaErrorInvalidValue;       \
   }
 
-// The split route's head dims.
-#define BWD_SPLIT_DISPATCH(FN, ...)              \
+// The split route's head dims (D = 256 on the streamed-chunk kernels).
+#define BWD_SPLIT_DISPATCH(FN, FN_WIDE, ...)     \
   switch (D) {                                   \
     case 64: return FN<64>(__VA_ARGS__);         \
     case 128: return FN<128>(__VA_ARGS__);       \
+    case 256: return FN_WIDE<256>(__VA_ARGS__);  \
     default: return cudaErrorInvalidValue;       \
   }
 
@@ -1892,8 +2394,8 @@ cudaError_t dispatch_split(int D, const void* o, const void* dout, const float* 
   float* const di = stats + rows;
   cudaError_t e = launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sqp, H, D, kLog2e, st);
   if (e != cudaSuccess) return e;
-  BWD_SPLIT_DISPATCH(tc::launch_split, qp, kp, vp, gp, stats, di, dq, dk, dv, B, Sq, Sqp, Sk, H,
-                     K, causal, scale, st)
+  BWD_SPLIT_DISPATCH(tc::launch_split, tc::launch_split_wide, qp, kp, vp, gp, stats, di, dq, dk,
+                     dv, B, Sq, Sqp, Sk, H, K, causal, scale, st)
 }
 
 template <typename T, int D>
@@ -1909,7 +2411,7 @@ cudaError_t dispatch_resources(int D, int is_bf16, int tensor_cores, int which,
                    : cudaFuncGetAttributes(a, bwd_prep<float>);
   }
   if (tensor_cores) {
-    if (!is_bf16) BWD_SPLIT_DISPATCH(tc::split_resources, which, a, dyn)
+    if (!is_bf16) BWD_SPLIT_DISPATCH(tc::split_resources, tc::split_wide_resources, which, a, dyn)
     BWD_TC_DISPATCH(tc::resources, which, a, dyn)
   }
   if (is_bf16) BWD_DISPATCH(cc_resources, __nv_bfloat16, which, a, dyn)
@@ -1923,13 +2425,15 @@ extern "C" {
 // The CUDA-core route.  q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv:
 // (B, Sk, K, D); all contiguous and of one type (bf16 when is_bf16, else
 // f32); lse: (B, H, Sq) f32, the forward's; stats: (2, B, H, Sq) f32
-// scratch.  Launches bwd_prep, bwd_dkdv and bwd_dq on `stream`; returns the
-// first launch's cudaError_t that is not cudaSuccess, else cudaSuccess.
+// scratch; D in {16, 32}.  Launches bwd_prep, bwd_dkdv and bwd_dq on
+// `stream`; returns the first launch's cudaError_t that is not cudaSuccess,
+// else cudaSuccess.  Any other D returns cudaErrorInvalidValue and launches
+// nothing.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* stats, void* dq,
                                void* dk, void* dv, int B, int Sq, int Sk, int H, int K, int D,
                                int causal, int is_bf16, float scale, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, K)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Sq, Sk, H, K) || (D != 16 && D != 32)) return (int)cudaErrorInvalidValue;
   return (int)dispatch_cc(D, is_bf16, q, k, v, o, dout, static_cast<const float*>(lse),
                           static_cast<float*>(stats), dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
                           static_cast<cudaStream_t>(stream));
@@ -1953,12 +2457,13 @@ int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v, c
                           static_cast<cudaStream_t>(stream));
 }
 
-// The split route: f32, D in {64, 128}.  o, dout: (B, Sq, H, D) f32
+// The split route: f32, D in {64, 128, 256}.  o, dout: (B, Sq, H, D) f32
 // contiguous; lse, stats as on the tensor-core route; qp, kp, vp, gp: the
 // three bf16 pieces (hi, mid, lo) of q, k, v and dout, each contiguous in
 // its operand's shape and 16-byte aligned; dq, dk, dv f32.  Launches
-// bwd_prep, tc::dkdv_split and tc::dq_split on `stream`; any other D or a
-// misaligned pointer returns cudaErrorInvalidValue and launches nothing.
+// bwd_prep, tc::dkdv_split and tc::dq_split (at D 256 tc::dkdv_split_wide
+// and tc::dq_split_wide) on `stream`; any other D or a misaligned pointer
+// returns cudaErrorInvalidValue and launches nothing.
 int flash_attention_bwd_split_launch(const void* o, const void* dout, const void* lse,
                                      void* stats, const void* const* qp, const void* const* kp,
                                      const void* const* vp, const void* const* gp, void* dq,

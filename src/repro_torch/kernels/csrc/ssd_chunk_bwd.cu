@@ -48,8 +48,9 @@
 // dS_h) B from the scratch's group sums, CUDA cores); cum goes through the
 // scratch too.
 //
-// bf16 x, B and C at the forward's tensor-core shapes (P in {16, 32, 64}, N
-// in {16, 32, 64, 128}, 16-byte alignment): `tc::bwd_scores` (S^T, one
+// x, B and C at the forward's tensor-core shapes (P in {16, 32, 64}, N in
+// {16, 32, 64, 128}, 16-byte alignment), bf16 as follows and f32 as the
+// paragraph after: `tc::bwd_scores` (S^T, one
 // wgmma chain a 64 x 64 tile), `tc::bwd_dx` and `tc::bwd_group`, on
 // wgmma.  The bf16 inputs are exact as one bf16 piece; every f32 operand of
 // a product (dy, dst, M = S * L, w * x, sum dS) enters as bf16 hi + lo
@@ -85,8 +86,29 @@
 // warpgroup 1's accumulator and stores dB_j: no atomics anywhere, so two
 // calls give the same bits.
 //
-// Every other call (f32 inputs, P 8 or 24, N 48, misaligned slices): five
-// kernels on the CUDA cores, IEEE f32.
+// f32 x, B and C at the same shapes (token strides 16 bytes apart) take
+// the same kernels with those three split into bf16 hi + lo as well (the
+// f32 forward's `tc::ssd_chunk_split` holds its limits so), every product
+// of two split operands as three products of pieces (lo.hi, hi.lo, hi.hi)
+// and u = w x . v with x as hi + lo: within 2.2e-5 of each gradient's
+// largest value in the CPU emulation (the f32 limits are 1e-4), and each lo
+// piece kept is needed (tests/test_torch_ssd_bwd_tc.py).  Shared memory is
+// what changes.  x's two pieces (64 KB at Q 256, P 64) and dy's (64 KB)
+// leave `tc::bwd_dx` no room for B's two pieces (128 KB), so v = B dst^T
+// comes from `tc::bwd_v`, a kernel of its own run after `tc::bwd_scores`:
+// one block per (chunk and group, 64-row band, run of 8 heads), B's band
+// and two heads' dst split by the threads (96 KB: two blocks an SM), v to
+// the scratch V (nc, H, Q, P) f32 (335 MB at the training shape, written
+// once and read once), and `tc::bwd_dx` reads its rows in the accumulator's
+// layout (142,344 B).  `tc::bwd_scores` splits B's band and C's rows (164,864
+// B); `tc::bwd_group` splits each head's x band rows into its two x buffers
+// (the bf16 route's double buffer, so x is not landed ahead: 217,096 B as in
+// bf16) and C into two tiles at the end; `bwd_dc` reads f32 B.  Bound at
+// (64, 256, 80, 1, 64, 128) f32: 1.22 GB of inputs and outputs, 0.36 ms on
+// bytes; the products of pieces take 0.27 ms at the bf16 peak.
+//
+// Every other call (P 8 or 24, N 48, misaligned slices): five kernels on
+// the CUDA cores, IEEE f32.
 //   1. `bwd_scores`: S = C B^T for a 32-row tile and the columns that reach
 //      it, written row-major and transposed.
 //   2. `bwd_head`: one block per chunk and head, 512 threads, a pair of
@@ -875,28 +897,73 @@ __device__ __forceinline__ float2 tile_pair(const uint8_t* tile, int t, int col)
   return __bfloat1622float2(v);
 }
 
+// The products of two operands' pieces (0 hi, 1 lo) that an f32 product
+// runs, small terms first: lo.hi, hi.lo, hi.hi (lo.lo, within 2^-34 of the
+// product, drops).  With one operand exact in bf16 (its hi piece alone) the
+// terms of the other's pieces run in the same order.
+template <bool kSplitA, bool kSplitB>
+struct Terms {
+  static constexpr int n = kSplitA && kSplitB ? 3 : kSplitA || kSplitB ? 2 : 1;
+  static __host__ __device__ constexpr int a(int t) {
+    return kSplitA && t == 0 ? 1 : 0;
+  }
+  static __host__ __device__ constexpr int b(int t) {
+    return kSplitB && t == (kSplitA ? 1 : 0) && n > 1 ? 1 : 0;
+  }
+};
+
+// Rows [r0, r1) of a (rows, W) operand of type T (row t at src + t tok) into
+// its swizzled tile(s) at shared address dst (laid out as load_bf16's), zeros
+// from row Q on: bf16 as it is by cp.async (complete once the caller has
+// committed and waited), f32 as bf16 hi and lo pieces (lo `lo_off` bytes
+// after hi) by the threads.
+template <typename T, int W, int SW, int KB>
+__device__ __forceinline__ void load_operand(uint8_t* gbase, uint32_t base, uint32_t dst,
+                                             uint32_t lo_off, const T* src, long long tok, int r0,
+                                             int r1, int Q, int rows_pad) {
+  if constexpr (sizeof(T) == 4)
+    stage_split<W, SW, KB>(gbase + (dst - base), gbase + (dst + lo_off - base), src, tok, r0, r1,
+                           Q, rows_pad);
+  else
+    load_bf16<W, SW>(dst, src, tok, r0, r1, Q, rows_pad);
+}
+
+// Two adjacent output values (8-byte aligned for f32, 4-byte for bf16).
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16(a, b);
+}
+
 // 1, tensor cores.  S^T = B C^T of chunk c and group g for row band j and
 // its column tiles i >= j, to the scratch as S^T[j][i] (row-major: the
-// layout bwd_dx reads).  bf16 x bf16 products are exact in f32, so S^T is
-// the CUDA-core kernel's up to the order of summation.  One block of two
-// warpgroups a band (warpgroup k takes the tiles i = j + k, j + k + 2); B's
-// band rows and C's rows i >= j arrive by cp.async; grid (nc * G, nt).
-template <int P, int N>
+// layout bwd_dx reads).  bf16 x bf16 products are exact in f32, so in bf16
+// S^T is the CUDA-core kernel's up to the order of summation; f32 B and C
+// enter as hi and lo pieces, three products.  One block of two warpgroups a
+// band (warpgroup k takes the tiles i = j + k, j + k + 2); B's band rows
+// and C's rows i >= j arrive by cp.async (bf16) or are split by the threads
+// (f32); grid (nc * G, nt).
+template <typename T, int P, int N>
 __global__ void __launch_bounds__(kTcThreads, 1) bwd_scores(
-    const __nv_bfloat16* __restrict__ B, const __nv_bfloat16* __restrict__ C,
-    float* __restrict__ St, int Q, int G, long long sB, long long sC) {
+    const T* __restrict__ B, const T* __restrict__ C, float* __restrict__ St, int Q, int G,
+    long long sB, long long sC) {
   using K = Cfg<P, N>;
+  using Tm = Terms<sizeof(T) == 4, sizeof(T) == 4>;
   constexpr int SWB = K::SWB, CWB = K::CWB;
   const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t b_s = base, c_s = base + kb_up(K::NCB * kRows * SWB);
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t bb = kb_up(K::NCB * kRows * SWB), cb = kb_up(K::NCB * qpad * SWB);
+  const uint32_t b_s = base, c_s = base + (sizeof(T) == 4 ? 2 : 1) * bb;  // piece p: + p bb, + p cb
   const int cgi = blockIdx.x, c = cgi / G, g = cgi % G, j = blockIdx.y, j0 = j * kRows;
   const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
-  load_bf16<N, SWB>(b_s, B + ((size_t)c * Q + j0) * sB + (size_t)g * N, sB, 0, kRows, Q - j0,
-                    kRows);
-  load_bf16<N, SWB>(c_s, C + (size_t)c * Q * sC + (size_t)g * N, sC, j0, qpad, Q, qpad);
+  load_operand<T, N, SWB, 4>(gbase, base, b_s, bb, B + ((size_t)c * Q + j0) * sB + (size_t)g * N,
+                             sB, 0, kRows, Q - j0, kRows);
+  load_operand<T, N, SWB, 4>(gbase, base, c_s, cb, C + (size_t)c * Q * sC + (size_t)g * N, sC, j0,
+                             qpad, Q, qpad);
   hopper::cp_async_commit();
   hopper::cp_async_wait<0>();
   hopper::fence_proxy_async();
@@ -908,13 +975,18 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_scores(
     float acc[32];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
-      hopper::wgmma_ss(acc, hopper::make_desc(b_s + ch * kRows * SWB + col, 16, 8 * SWB, K::kModeB),
-                       hopper::make_desc(c_s + ch * qpad * SWB + i0 * SWB + col, 16, 8 * SWB,
-                                         K::kModeB),
-                       kk > 0);
-    }
+    for (int t = 0; t < Tm::n; ++t)
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
+        hopper::wgmma_ss(
+            acc,
+            hopper::make_desc(b_s + Tm::a(t) * bb + ch * kRows * SWB + col, 16, 8 * SWB,
+                              K::kModeB),
+            hopper::make_desc(c_s + Tm::b(t) * cb + ch * qpad * SWB + i0 * SWB + col, 16, 8 * SWB,
+                              K::kModeB),
+            t > 0 || kk > 0);
+      }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -932,10 +1004,85 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_scores(
   }
 }
 
-template <int P, int N>
+template <typename T, int P, int N>
 __host__ __device__ constexpr uint32_t scores_smem_bytes(int qpad) {
   using K = Cfg<P, N>;
-  return 1024 + kb_up(K::NCB * kRows * K::SWB) + kb_up(K::NCB * qpad * K::SWB);
+  return 1024 + (sizeof(T) == 4 ? 2 : 1) *
+                    (kb_up(K::NCB * kRows * K::SWB) + kb_up(K::NCB * qpad * K::SWB));
+}
+
+// 1b, tensor cores, f32 inputs only.  v_h = B_j dst_h^T (64 x P) of chunk c
+// and row band j for a run of kVHeads heads of group g, to the scratch as
+// V[c][h][t][p] (f32): bwd_dx reads it instead of staging B, whose two
+// pieces would not fit beside x's and dy's.  B's band and each pair of
+// heads' dst are split into hi and lo pieces by the block's threads;
+// warpgroup k takes the pair's head k, three products of pieces (lo.hi,
+// hi.lo, hi.hi); grid (nc * G, nt, ceil(H / G / kVHeads)).
+constexpr int kVHeads = 8;
+
+template <int P, int N>
+__host__ __device__ constexpr uint32_t v_smem_bytes() {
+  using K = Cfg<P, N>;
+  return 1024 + 2 * kb_up(K::NCB * kRows * K::SWB) + 4 * kb_up(K::NCB * P * K::SWB);
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kTcThreads, 1) bwd_v(const float* __restrict__ B,
+                                                       const float* __restrict__ dst,
+                                                       float* __restrict__ V, int Q, int H, int G,
+                                                       long long sB) {
+  using K = Cfg<P, N>;
+  using Tm = Terms<true, true>;
+  constexpr int SWB = K::SWB, CWB = K::CWB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t bb = kb_up(K::NCB * kRows * SWB), db = kb_up(K::NCB * P * SWB);
+  const uint32_t b_s = base, d_s = base + 2 * bb;  // B: hi, lo; dst: [pair slot][hi, lo]
+  const int cgi = blockIdx.x, c = cgi / G, g = cgi % G, j0 = blockIdx.y * kRows;
+  const int rep = H / G, k0 = blockIdx.z * kVHeads, k1 = min(rep, k0 + kVHeads);
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+  const int r0 = j0 + 16 * warp + lane / 4, r1 = r0 + 8, cq = 2 * (lane % 4);
+  stage_split<N, SWB, 4>(gbase + (b_s - base), gbase + (b_s + bb - base),
+                         B + ((size_t)c * Q + j0) * sB + (size_t)g * N, sB, 0, kRows, Q - j0,
+                         kRows);
+  for (int k = k0; k < k1; k += 2) {
+    __syncthreads();  // the last pair's products have read its dst pieces
+    for (int e = 0; e < 2 && k + e < k1; ++e)
+      stage_split<N, SWB, 4>(gbase + (d_s + 2 * e * db - base), gbase + (d_s + (2 * e + 1) * db - base),
+                             dst + ((size_t)c * H + g * rep + k + e) * P * N, N, 0, P, P, P);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (k + wg >= k1) continue;
+    const uint32_t dw = d_s + 2 * wg * db;
+    float acc[P / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < Tm::n; ++t)
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
+        hopper::wgmma_ss(
+            acc,
+            hopper::make_desc(b_s + Tm::a(t) * bb + ch * kRows * SWB + col, 16, 8 * SWB,
+                              K::kModeB),
+            hopper::make_desc(dw + Tm::b(t) * db + ch * P * SWB + col, 16, 8 * SWB, K::kModeB),
+            t > 0 || kk > 0);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    float* const out = V + ((size_t)c * H + g * rep + k + wg) * Q * P;
+#pragma unroll
+    for (int jj = 0; jj < P / 8; ++jj) {
+      const int col = 8 * jj + cq;
+      if (r0 < Q) *reinterpret_cast<float2*>(out + (size_t)r0 * P + col) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+      if (r1 < Q)
+        *reinterpret_cast<float2*>(out + (size_t)r1 * P + col) =
+            make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+  }
 }
 
 // The row (column) band a warpgroup of bwd_dx owns: bands b and nt - 1 - b
@@ -943,23 +1090,31 @@ __host__ __device__ constexpr uint32_t scores_smem_bytes(int qpad) {
 // walks about half of the causal tiles.
 __device__ __forceinline__ int band_owner(int b, int nt) { return min(b, nt - 1 - b) % 2; }
 
-template <int P, int N>
+// bf16: x, dy's two pieces, B and dst's two pieces; f32: x's and dy's two
+// pieces each (v comes from bwd_v's scratch).
+template <typename T, int P, int N>
 __host__ __device__ constexpr uint32_t dx_smem_bytes(int qpad) {
   using K = Cfg<P, N>;
-  return 1024 + 3 * kb_up(qpad * K::SWX) + kb_up(K::NCB * qpad * K::SWB) +
-         2 * kb_up(K::NCB * P * K::SWB) + 4 * (2 * kMaxQ + 4 * kMaxQ + 2 * 4 * kRows + 2 * kMaxQ) +
-         8;
+  return 1024 + (sizeof(T) == 4 ? 4 * kb_up(qpad * K::SWX)
+                                : 3 * kb_up(qpad * K::SWX) + kb_up(K::NCB * qpad * K::SWB) +
+                                      2 * kb_up(K::NCB * P * K::SWB)) +
+         4 * (2 * kMaxQ + 4 * kMaxQ + 2 * 4 * kRows + 2 * kMaxQ) + 8;
 }
 
 // 2, tensor cores.  dx, ddA (and the head's cum, to `cum_out`) of chunk c
 // and head h: one block of two warpgroups; grid (nc * H).  The head's x,
 // dy (split into hi and lo), its group's B and its dst (split) are staged
-// in shared memory as swizzled wgmma operands.  Warpgroup `band_owner(b)`
-// takes row band b of the transposed tiles (rows j, columns i >= j):
-//   v_j    = B_j dst^T                  wgmma from shared memory (B exact, dst lo then hi)
+// in shared memory as swizzled wgmma operands; f32 x is split into hi and
+// lo as well, and B and dst are not staged: v comes from bwd_v's scratch
+// `V` (B's two pieces beside x's and dy's would take 256 KB at Q 256).
+// Warpgroup `band_owner(b)` takes row band b of the transposed tiles (rows
+// j, columns i >= j):
+//   v_j    = B_j dst^T                  wgmma from shared memory (B exact, dst lo then hi;
+//                                       f32: read from V)
 //   u_j    = w_j x_j . v_j,   dx_j = w_j v_j
 //   per column tile i:
-//     dM^T = x_j dy_i^T                 wgmma, dy lo then hi
+//     dM^T = x_j dy_i^T                 wgmma, dy lo then hi (f32: x lo.dy hi, x hi.dy lo,
+//                                       x hi.dy hi)
 //     M^T  = S^T exp(cum_i - cum_j)     S^T (bwd_scores' scratch) read while dM^T runs;
 //                                       selected to 0 where i < j or past Q
 //     G^T  = dM^T M^T (i > j): row sums to colG_j, column sums to this
@@ -968,24 +1123,27 @@ __host__ __device__ constexpr uint32_t dx_smem_bytes(int qpad) {
 //                                       dy MN-major: lo.hi, hi.lo, hi.hi
 // Then dcum_i = rowG_i - colG_i - u_i (+ sum u + ddec dec at Q - 1) and
 // ddA its reverse cumsum, as the CUDA-core kernel does.
-template <int P, int N>
+template <typename T, int P, int N>
 __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+    const T* __restrict__ xf, long long sx, const float* __restrict__ V,
     const float* __restrict__ dA, const float* __restrict__ dy,
     const float* __restrict__ dst, const float* __restrict__ ddec, const float* __restrict__ St,
-    __nv_bfloat16* __restrict__ dx, float* __restrict__ ddA, float* __restrict__ cum_out, int Q,
+    T* __restrict__ dx, float* __restrict__ ddA, float* __restrict__ cum_out, int Q,
     int H, int G) {
   using K = Cfg<P, N>;
+  constexpr bool kSplit = sizeof(T) == 4;  // f32 x in hi and lo pieces, v from V
+  using Tm = Terms<kSplit, true>;          // dM^T's products: x's pieces by dy's
   constexpr int SWX = K::SWX, SWB = K::SWB, CWB = K::CWB;
   const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  const uint32_t xb = kb_up(qpad * SWX), bb = kb_up(K::NCB * qpad * SWB),
-                 db = kb_up(K::NCB * P * SWB);
-  const uint32_t x_s = base, dyh_s = x_s + xb, dyl_s = dyh_s + xb, b_s = dyl_s + xb,
-                 dh_s = b_s + bb, dl_s = dh_s + db;
+  const uint32_t xb = kb_up(qpad * SWX), bb = kSplit ? 0 : kb_up(K::NCB * qpad * SWB),
+                 db = kSplit ? 0 : kb_up(K::NCB * P * SWB);
+  const uint32_t x_s = base, xl_s = x_s + xb, dyh_s = xl_s + (kSplit ? xb : 0),
+                 dyl_s = dyh_s + xb, b_s = dyl_s + xb, dh_s = b_s + bb, dl_s = dh_s + db;
   float* const cum = reinterpret_cast<float*>(gbase + (dl_s + db - base));
   float* const w = cum + kMaxQ;
   float* const rowGp = w + kMaxQ;          // [4 bands][kMaxQ]: band b's column sums of G^T
@@ -994,14 +1152,18 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
   float* const uu = colG + kMaxQ;           // [kMaxQ]
   const uint32_t bar = hopper::smem_addr(uu + kMaxQ);  // x and B arrived
   uint8_t* const xg = gbase + (x_s - base);
+  uint8_t* const xlg = gbase + (xl_s - base);
 
   const int c = blockIdx.x / H, h = blockIdx.x % H, g = h / (H / G);
   const long long cg = (long long)c * G + g;
   const int wg = threadIdx.x / 128, wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
 
-  // x and B by TMA (rows past Q arrive as zeros) while the threads split dy
-  // and dst (all of a thread's loads of each in flight at once)
-  if (threadIdx.x == 0) {
+  if constexpr (kSplit) {  // x split into hi and lo by the threads
+    stage_split<P, SWX, 8>(xg, xlg, xf + (size_t)c * Q * sx + (size_t)h * P, sx, 0, qpad, Q,
+                           qpad);
+  } else if (threadIdx.x == 0) {
+    // x and B by TMA (rows past Q arrive as zeros) while the threads split
+    // dy and dst (all of a thread's loads of each in flight at once)
     hopper::mbar_init(bar, 1);
     hopper::mbar_fence_init();
     hopper::mbar_expect_tx(bar, qpad * SWX + K::NCB * qpad * SWB);
@@ -1014,8 +1176,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
   }
   stage_split<P, SWX, 8>(gbase + (dyh_s - base), gbase + (dyl_s - base),
                          dy + ((size_t)c * Q * H + h) * P, (long long)H * P, 0, qpad, Q, qpad);
-  stage_split<N, SWB, 4>(gbase + (dh_s - base), gbase + (dl_s - base),
-                         dst + ((size_t)c * H + h) * P * N, N, 0, P, P, P);
+  if constexpr (!kSplit)
+    stage_split<N, SWB, 4>(gbase + (dh_s - base), gbase + (dl_s - base),
+                           dst + ((size_t)c * H + h) * P * N, N, 0, P, P, P);
   if (threadIdx.x < 32) {  // cum: each lane sums its 8 steps, then a shuffle scan
     float part[8], run = 0.f;
 #pragma unroll
@@ -1044,7 +1207,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
   }
   hopper::fence_proxy_async();
   __syncthreads();  // the mbarrier's init is visible before any thread waits on it
-  hopper::mbar_wait(bar, 0);
+  if constexpr (!kSplit) hopper::mbar_wait(bar, 0);
 
   const int p0 = 16 * warp + lane / 4, cq = 2 * (lane % 4);
   const float* const Sc = St + cg * Q * Q;
@@ -1055,29 +1218,50 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
     load_st(s, Sc, j0, r0, r1, Q, cq);
     // v_j = B_j dst^T: M rows j, N columns p, K the state dim (both K-major)
     float acc[P / 2];
-    hopper::wgmma_fence();
+    if constexpr (kSplit) {  // bwd_v's rows r0 and r1, in the accumulator's layout
+      const float* const vh = V + ((size_t)c * H + h) * Q * P;
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const uint32_t dp = t == 0 ? dl_s : dh_s;
-#pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) {
-        const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
-        hopper::wgmma_ss(acc, hopper::make_desc(b_s + ch * qpad * SWB + j0 * SWB + col, 16, 8 * SWB,
-                                                K::kModeB),
-                         hopper::make_desc(dp + ch * P * SWB + col, 16, 8 * SWB, K::kModeB),
-                         t > 0 || kk > 0);
+      for (int jj = 0; jj < P / 8; ++jj) {
+        const int col = 8 * jj + cq;
+        const float2 a = r0 < Q ? *reinterpret_cast<const float2*>(vh + (size_t)r0 * P + col)
+                                : make_float2(0.f, 0.f);
+        const float2 d = r1 < Q ? *reinterpret_cast<const float2*>(vh + (size_t)r1 * P + col)
+                                : make_float2(0.f, 0.f);
+        acc[4 * jj] = a.x;
+        acc[4 * jj + 1] = a.y;
+        acc[4 * jj + 2] = d.x;
+        acc[4 * jj + 3] = d.y;
       }
+    } else {
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t dp = t == 0 ? dl_s : dh_s;
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const uint32_t ch = kk * 16 / CWB, col = (kk * 16 % CWB) * 2;
+          hopper::wgmma_ss(acc, hopper::make_desc(b_s + ch * qpad * SWB + j0 * SWB + col, 16,
+                                                  8 * SWB, K::kModeB),
+                           hopper::make_desc(dp + ch * P * SWB + col, 16, 8 * SWB, K::kModeB),
+                           t > 0 || kk > 0);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    // u_j = w_j x_j . v_j; dx_j starts at w_j v_j
+    // u_j = w_j x_j . v_j (f32 x as hi + lo); dx_j starts at w_j v_j
     const float w0 = w[r0], w1 = w[r1];
     float u0 = 0.f, u1 = 0.f;
 #pragma unroll
     for (int jj = 0; jj < P / 8; ++jj) {
       const int col = 8 * jj + cq;
-      const float2 a = tile_pair<SWX>(xg, r0, col), d = tile_pair<SWX>(xg, r1, col);
+      float2 a = tile_pair<SWX>(xg, r0, col), d = tile_pair<SWX>(xg, r1, col);
+      if constexpr (kSplit) {
+        const float2 al = tile_pair<SWX>(xlg, r0, col), dl = tile_pair<SWX>(xlg, r1, col);
+        a = make_float2(a.x + al.x, a.y + al.y);
+        d = make_float2(d.x + dl.x, d.y + dl.y);
+      }
       u0 += a.x * acc[4 * jj] + a.y * acc[4 * jj + 1];
       u1 += d.x * acc[4 * jj + 2] + d.y * acc[4 * jj + 3];
       acc[4 * jj] *= w0;
@@ -1099,11 +1283,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
       float dm[32];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const uint32_t yp = t == 0 ? dyl_s : dyh_s;
+      for (int t = 0; t < Tm::n; ++t) {
+        const uint32_t xp = Tm::a(t) ? xl_s : x_s, yp = Tm::b(t) ? dyl_s : dyh_s;
 #pragma unroll
         for (int kk = 0; kk < P / 16; ++kk)
-          hopper::wgmma_ss(dm, hopper::make_desc(x_s + j0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
+          hopper::wgmma_ss(dm, hopper::make_desc(xp + j0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
                            hopper::make_desc(yp + i0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
                            t > 0 || kk > 0);
       }
@@ -1186,12 +1370,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
 #pragma unroll
     for (int jj = 0; jj < P / 8; ++jj) {
       const int col = 8 * jj + cq;
-      if (r0 < Q)
-        *reinterpret_cast<uint32_t*>(dx + (((size_t)c * Q + r0) * H + h) * P + col) =
-            hopper::pack_bf16(acc[4 * jj], acc[4 * jj + 1]);
+      if (r0 < Q) store_pair(dx + (((size_t)c * Q + r0) * H + h) * P + col, acc[4 * jj], acc[4 * jj + 1]);
       if (r1 < Q)
-        *reinterpret_cast<uint32_t*>(dx + (((size_t)c * Q + r1) * H + h) * P + col) =
-            hopper::pack_bf16(acc[4 * jj + 2], acc[4 * jj + 3]);
+        store_pair(dx + (((size_t)c * Q + r1) * H + h) * P + col, acc[4 * jj + 2], acc[4 * jj + 3]);
     }
   }
   __syncthreads();
@@ -1229,15 +1410,17 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_dx(
 // one's products run), dy's and dst's hi and lo pieces, and the landing
 // area where the next head's dy, dst (f32, as they are) and cum arrive by
 // cp.async.  At the end C and the warpgroups' exchange reuse the region.
-template <int P, int N>
+// f32 x takes the two x buffers as its hi and lo pieces (split by the
+// threads from device memory at each head), and f32 C two tiles.
+template <typename T, int P, int N>
 struct GroupSmem {
   using K = Cfg<P, N>;
-  uint32_t xb, yb, db, x, dyh, dyl, dh, dl, ly, ld, lc, c, comb, cum, total;
+  uint32_t xb, yb, db, x, dyh, dyl, dh, dl, ly, ld, lc, c, cb, comb, cum, total;
   __host__ __device__ constexpr explicit GroupSmem(int qpad)
       : xb(kb_up(kRows * K::SWX)), yb(kb_up(qpad * K::SWX)), db(kb_up(K::NCB * P * K::SWB)),
         x(0), dyh(2 * xb), dyl(dyh + yb), dh(dyl + yb), dl(dh + db), ly(dl + db),
         ld(ly + kb_up(qpad * P * 4)), lc(ld + kb_up(P * N * 4)), c(0),
-        comb(kb_up(K::NCB * qpad * K::SWB)),
+        cb(kb_up(K::NCB * qpad * K::SWB)), comb((sizeof(T) == 4 ? 2 : 1) * cb),
         cum(lc + 4 * kMaxQ > comb + 4 * kRows * N ? lc + 4 * kMaxQ : comb + 4 * kRows * N),
         total(1024 + cum + 2 * 4 * kMaxQ + 8) {}
 };
@@ -1248,23 +1431,28 @@ struct GroupSmem {
 // head order: its x rows of the band (TMA), dy rows i >= j, dst and its
 // cum from bwd_dx's scratch (bulk copies) arrive on one mbarrier (the next
 // head's while this head's products run), and dy and dst are split into hi
-// and lo pieces in shared memory.  Warpgroup k owns the column tiles i = j + k, j + k + 2
+// and lo pieces in shared memory (f32 x's band rows are split by the
+// threads from device memory there too: three products for dM^T, and C in
+// two pieces at the end).  Warpgroup k owns the column tiles i = j + k, j + k + 2
 // of the band and keeps their sum over heads of dS^T = (x_j dy_i^T) L^T in
 // registers (f32, in head order); warpgroup (head index) % 2 adds the
 // head's state term (w x)_j dst (A from registers: w x split hi + lo; dst
 // MN-major: lo.hi, hi.lo, hi.hi) to its dB accumulator.  At the end each
 // warpgroup adds (sum dS^T)_ji C_i (sum dS split hi + lo, C exact) for its
 // tiles, and warpgroup 0 adds warpgroup 1's accumulator: no atomics.
-template <int P, int N>
+template <typename T, int P, int N>
 __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
-    const __nv_bfloat16* __restrict__ C, const float* __restrict__ dst,
-    const float* __restrict__ cum_in, float* __restrict__ dSsum, __nv_bfloat16* __restrict__ dB,
+    const T* __restrict__ xf, long long sx, const T* __restrict__ C, const float* __restrict__ dst,
+    const float* __restrict__ cum_in, float* __restrict__ dSsum, T* __restrict__ dB,
     int Q, int H, int G, long long sC) {
   using K = Cfg<P, N>;
+  constexpr bool kSplit = sizeof(T) == 4;  // f32 x and C in hi and lo pieces
+  using Tm = Terms<kSplit, true>;          // dM^T's products: x's pieces by dy's
+  using Tc = Terms<true, kSplit>;          // dB's: (sum dS)'s pieces by C's
   constexpr int SWX = K::SWX, SWB = K::SWB, kLW = K::LW;
   const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
-  const GroupSmem<P, N> L(qpad);
+  const GroupSmem<T, P, N> L(qpad);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1289,8 +1477,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
   auto issue = [&](int k) {
     if (threadIdx.x != 0) return;
     const int h = g * rep + k;
-    hopper::mbar_expect_tx(bar, kRows * SWX + (qpad - j0) * P * 4 + P * N * 4 + Q * 4);
-    hopper::tma_load_4d(base + L.x + (k & 1) * L.xb, &xmap, bar, 0, h, j0, c);
+    hopper::mbar_expect_tx(bar, (kSplit ? 0 : kRows * SWX) + (qpad - j0) * P * 4 + P * N * 4 +
+                                    Q * 4);
+    if (!kSplit) hopper::tma_load_4d(base + L.x + (k & 1) * L.xb, &xmap, bar, 0, h, j0, c);
     for (int t = j; t < nt; ++t)
       for (int pc = 0; pc < P / kLW; ++pc)
         hopper::tma_load_4d(base + L.ly + ((pc * qpad) + t * kRows) * kLW * 4, &dymap, bar,
@@ -1318,6 +1507,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
     __syncthreads();  // head k has landed; head k - 1's products are done
     split_tile<P, SWX, kLW, 4>(gbase + L.dyh, gbase + L.dyl, land_dy, j0, qpad, qpad);
     split_tile<N, SWB, N, 4>(gbase + L.dh, gbase + L.dl, land_dst, 0, P, P);
+    if constexpr (kSplit)
+      stage_split<P, SWX, 2>(gbase + L.x, gbase + L.x + L.xb,
+                             xf + ((size_t)c * Q + j0) * sx + (size_t)(g * rep + k) * P, sx, 0,
+                             kRows, Q - j0, kRows);
     for (int t = threadIdx.x; t < kMaxQ; t += kTcThreads) {
       cum[t] = t < Q ? land_cum[t] : 0.f;
       w[t] = t < Q ? expf(land_cum[Q - 1] - land_cum[t]) : 0.f;
@@ -1325,8 +1518,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
     hopper::fence_proxy_async();
     __syncthreads();  // the pieces are written; the landing area is free
     if (k + 1 < rep) issue(k + 1);
-    const uint32_t x_s = base + L.x + (k & 1) * L.xb;
-    const uint8_t* const xg = gbase + L.x + (k & 1) * L.xb;
+    // bf16: head k's x; f32: its hi piece, the lo piece one buffer on
+    const uint32_t x_s = base + L.x + (kSplit ? 0 : (k & 1) * L.xb);
+    const uint8_t* const xg = gbase + (x_s - base);
     const float cj0 = cum[r0], cj1 = cum[r1];
 #pragma unroll
     for (int slot = 0; slot < 2; ++slot) {
@@ -1336,11 +1530,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
       float dm[32];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const uint32_t yp = base + (t == 0 ? L.dyl : L.dyh);
+      for (int t = 0; t < Tm::n; ++t) {
+        const uint32_t yp = base + (Tm::b(t) ? L.dyl : L.dyh), xp = x_s + Tm::a(t) * L.xb;
 #pragma unroll
         for (int kk = 0; kk < P / 16; ++kk)
-          hopper::wgmma_ss(dm, hopper::make_desc(x_s + kk * 32, 16, 8 * SWX, K::kModeX),
+          hopper::wgmma_ss(dm, hopper::make_desc(xp + kk * 32, 16, 8 * SWX, K::kModeX),
                            hopper::make_desc(yp + i0 * SWX + kk * 32, 16, 8 * SWX, K::kModeX),
                            t > 0 || kk > 0);
       }
@@ -1366,7 +1560,13 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int col = 16 * kk + 8 * hf + cq;
-          const float2 a = tile_pair<SWX>(xg, p0, col), d = tile_pair<SWX>(xg, p0 + 8, col);
+          float2 a = tile_pair<SWX>(xg, p0, col), d = tile_pair<SWX>(xg, p0 + 8, col);
+          if constexpr (kSplit) {  // x = hi + lo
+            const float2 al = tile_pair<SWX>(xg + L.xb, p0, col),
+                         dl = tile_pair<SWX>(xg + L.xb, p0 + 8, col);
+            a = make_float2(a.x + al.x, a.y + al.y);
+            d = make_float2(d.x + dl.x, d.y + dl.y);
+          }
           split_bf16(a.x * w0, a.y * w0, ah[kk][2 * hf], al[kk][2 * hf]);
           split_bf16(d.x * w1, d.y * w1, ah[kk][2 * hf + 1], al[kk][2 * hf + 1]);
         }
@@ -1390,7 +1590,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
   // C_i over this warpgroup's tiles; the sums to the scratch as
   // (sum_h dS_h)[i][j]
   __syncthreads();
-  load_bf16<N, SWB>(base + L.c, C + (size_t)c * Q * sC + (size_t)g * N, sC, j0, qpad, Q, qpad);
+  load_operand<T, N, SWB, 4>(gbase, base, base + L.c, L.cb, C + (size_t)c * Q * sC + (size_t)g * N,
+                             sC, j0, qpad, Q, qpad);
   hopper::cp_async_commit();
   hopper::cp_async_wait<0>();
   hopper::fence_proxy_async();
@@ -1420,12 +1621,12 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
+    for (int t = 0; t < Tc::n; ++t)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs(acc, t == 0 ? lo[kk] : hi[kk],
-                         hopper::make_desc(base + L.c + (i0 + 16 * kk) * SWB, qpad * SWB, 8 * SWB,
-                                           K::kModeB),
+        hopper::wgmma_rs(acc, Tc::a(t) ? lo[kk] : hi[kk],
+                         hopper::make_desc(base + L.c + Tc::b(t) * L.cb + (i0 + 16 * kk) * SWB,
+                                           qpad * SWB, 8 * SWB, K::kModeB),
                          1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -1439,7 +1640,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
     for (int e = 0; e < N / 2; ++e) comb[e * 128 + wt] = acc[e];
   __syncthreads();
   if (wg == 0) {
-    __nv_bfloat16* const ob = dB + (size_t)c * Q * G * N + (size_t)g * N;
+    T* const ob = dB + (size_t)c * Q * G * N + (size_t)g * N;
 #pragma unroll
     for (int jj = 0; jj < N / 8; ++jj) {
       const int col = 8 * jj + cq;
@@ -1447,10 +1648,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) bwd_group(
       const float a1 = acc[4 * jj + 1] + comb[(4 * jj + 1) * 128 + wt];
       const float b0 = acc[4 * jj + 2] + comb[(4 * jj + 2) * 128 + wt];
       const float b1 = acc[4 * jj + 3] + comb[(4 * jj + 3) * 128 + wt];
-      if (r0 < Q)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * G * N + col) = hopper::pack_bf16(a0, a1);
-      if (r1 < Q)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * G * N + col) = hopper::pack_bf16(b0, b1);
+      if (r0 < Q) store_pair(ob + (size_t)r0 * G * N + col, a0, a1);
+      if (r1 < Q) store_pair(ob + (size_t)r1 * G * N + col, b0, b1);
     }
   }
 }
@@ -1490,79 +1689,112 @@ CUresult encode_dy_map(CUtensorMap* map, const float* dy, int P, int H, int Q, i
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int P, int N>
+// T: bf16 or f32 x, B and C.  The scratch as ssd_chunk_bwd_tc_scratch_floats
+// gives it: S, S^T, sum_h dS_h, cum, then (f32) V.
+template <typename T, int P, int N>
 cudaError_t run(const void* x, const float* dA, const void* B, const void* C, const float* dy,
                 const float* dst, const float* ddec, void* dx, float* ddA, void* dB, void* dC,
                 float* scratch, int nc, int Q, int H, int G, long long sx, long long sB,
                 long long sC, cudaStream_t stream) {
-  using T = __nv_bfloat16;
+  constexpr bool kSplit = sizeof(T) == 4;
   const long long qq = (long long)nc * G * Q * Q;
   float* S = scratch;
   float* St = S + qq;
   float* dSsum = St + qq;
   float* cum = dSsum + qq;
+  float* V = cum + (long long)nc * H * Q;
   const int nt = (Q + kRows - 1) / kRows, qpad = nt * kRows;
   const dim3 tiles((Q + kTile - 1) / kTile, nc * G);
+  const T* xt = static_cast<const T*>(x);
   const T* Bt = static_cast<const T*>(B);
   const T* Ct = static_cast<const T*>(C);
-  const int sm_s = (int)scores_smem_bytes<P, N>(qpad);
+  const int sm_s = (int)scores_smem_bytes<T, P, N>(qpad);
   cudaError_t err =
-      cudaFuncSetAttribute(bwd_scores<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_s);
+      cudaFuncSetAttribute(bwd_scores<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_s);
   if (err != cudaSuccess) return err;
-  bwd_scores<P, N><<<dim3(nc * G, nt), kTcThreads, sm_s, stream>>>(Bt, Ct, St, Q, G, sB, sC);
+  bwd_scores<T, P, N><<<dim3(nc * G, nt), kTcThreads, sm_s, stream>>>(Bt, Ct, St, Q, G, sB, sC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   using K = Cfg<P, N>;
-  CUtensorMap xm, bm, dym;
-  if (encode_map(&xm, x, P, H, Q, nc, sx, P, K::SWX) != CUDA_SUCCESS ||
-      encode_map(&bm, B, N, G, Q, nc, sB, K::CWB, K::SWB) != CUDA_SUCCESS ||
-      encode_dy_map(&dym, dy, P, H, Q, nc, K::LW) != CUDA_SUCCESS)
+  CUtensorMap xm{}, bm{}, dym{};
+  if (encode_dy_map(&dym, dy, P, H, Q, nc, K::LW) != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  if constexpr (kSplit) {
+    const int sm_v = (int)v_smem_bytes<P, N>();
+    err = cudaFuncSetAttribute(bwd_v<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_v);
+    if (err != cudaSuccess) return err;
+    bwd_v<P, N><<<dim3(nc * G, nt, (H / G + kVHeads - 1) / kVHeads), kTcThreads, sm_v, stream>>>(
+        static_cast<const float*>(B), dst, V, Q, H, G, sB);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  } else if (encode_map(&xm, x, P, H, Q, nc, sx, P, K::SWX) != CUDA_SUCCESS ||
+             encode_map(&bm, B, N, G, Q, nc, sB, K::CWB, K::SWB) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
-  const int sm_dx = (int)dx_smem_bytes<P, N>(qpad);
-  err = cudaFuncSetAttribute(bwd_dx<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_dx);
+  }
+  const int sm_dx = (int)dx_smem_bytes<T, P, N>(qpad);
+  err = cudaFuncSetAttribute(bwd_dx<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_dx);
   if (err != cudaSuccess) return err;
-  bwd_dx<P, N><<<nc * H, kTcThreads, sm_dx, stream>>>(xm, bm, dA, dy, dst, ddec, St,
-                                                     static_cast<T*>(dx), ddA, cum, Q, H, G);
+  bwd_dx<T, P, N><<<nc * H, kTcThreads, sm_dx, stream>>>(xm, bm, xt, sx, V, dA, dy, dst, ddec, St,
+                                                        static_cast<T*>(dx), ddA, cum, Q, H, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int sm_g = (int)GroupSmem<P, N>(qpad).total;
-  err = cudaFuncSetAttribute(bwd_group<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_g);
+  const int sm_g = (int)GroupSmem<T, P, N>(qpad).total;
+  err = cudaFuncSetAttribute(bwd_group<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_g);
   if (err != cudaSuccess) return err;
-  bwd_group<P, N><<<dim3(nc * G, nt), kTcThreads, sm_g, stream>>>(
-      xm, dym, Ct, dst, cum, dSsum, static_cast<T*>(dB), Q, H, G, sC);
+  bwd_group<T, P, N><<<dim3(nc * G, nt), kTcThreads, sm_g, stream>>>(
+      xm, dym, xt, sx, Ct, dst, cum, dSsum, static_cast<T*>(dB), Q, H, G, sC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dc<T><<<tiles, kThreads, 0, stream>>>(Bt, dSsum, static_cast<T*>(dC), Q, G, N, sB);
   return cudaGetLastError();
 }
 
-template <int P, int N>
+// Kernel `which` of the route in launch order: bf16 0 bwd_scores, 1
+// bwd_dx, 2 bwd_group, 3 bwd_dc; f32 0 bwd_scores, 1 bwd_v, 2 bwd_dx, 3
+// bwd_group, 4 bwd_dc.
+template <typename T, int P, int N>
 cudaError_t resources_of(int which, int* regs, int* smem) {
-  using T = __nv_bfloat16;
+  if (sizeof(T) == 4) {
+    if (which == 1) return attrs(bwd_v<P, N>, (int)v_smem_bytes<P, N>(), regs, smem);
+    if (which > 1) --which;
+  }
   switch (which) {
-    case 0: return attrs(bwd_scores<P, N>, (int)scores_smem_bytes<P, N>(kMaxQ), regs, smem);
-    case 1: return attrs(bwd_dx<P, N>, (int)dx_smem_bytes<P, N>(kMaxQ), regs, smem);
-    case 2: return attrs(bwd_group<P, N>, (int)GroupSmem<P, N>(kMaxQ).total, regs, smem);
+    case 0: return attrs(bwd_scores<T, P, N>, (int)scores_smem_bytes<T, P, N>(kMaxQ), regs, smem);
+    case 1: return attrs(bwd_dx<T, P, N>, (int)dx_smem_bytes<T, P, N>(kMaxQ), regs, smem);
+    case 2: return attrs(bwd_group<T, P, N>, (int)GroupSmem<T, P, N>(kMaxQ).total, regs, smem);
     default: return attrs(bwd_dc<T>, 0, regs, smem);
   }
 }
 
-#define SSD_BWD_TC_DISPATCH(FN, ...)                                    \
+#define SSD_BWD_TC_DISPATCH(FN, T, ...)                                 \
   switch (P * 1000 + N) {                                               \
-    case 16016: return FN<16, 16>(__VA_ARGS__);                         \
-    case 16032: return FN<16, 32>(__VA_ARGS__);                         \
-    case 16064: return FN<16, 64>(__VA_ARGS__);                         \
-    case 16128: return FN<16, 128>(__VA_ARGS__);                        \
-    case 32016: return FN<32, 16>(__VA_ARGS__);                         \
-    case 32032: return FN<32, 32>(__VA_ARGS__);                         \
-    case 32064: return FN<32, 64>(__VA_ARGS__);                         \
-    case 32128: return FN<32, 128>(__VA_ARGS__);                        \
-    case 64016: return FN<64, 16>(__VA_ARGS__);                         \
-    case 64032: return FN<64, 32>(__VA_ARGS__);                         \
-    case 64064: return FN<64, 64>(__VA_ARGS__);                         \
-    case 64128: return FN<64, 128>(__VA_ARGS__);                        \
+    case 16016: return FN<T, 16, 16>(__VA_ARGS__);                      \
+    case 16032: return FN<T, 16, 32>(__VA_ARGS__);                      \
+    case 16064: return FN<T, 16, 64>(__VA_ARGS__);                      \
+    case 16128: return FN<T, 16, 128>(__VA_ARGS__);                     \
+    case 32016: return FN<T, 32, 16>(__VA_ARGS__);                      \
+    case 32032: return FN<T, 32, 32>(__VA_ARGS__);                      \
+    case 32064: return FN<T, 32, 64>(__VA_ARGS__);                      \
+    case 32128: return FN<T, 32, 128>(__VA_ARGS__);                     \
+    case 64016: return FN<T, 64, 16>(__VA_ARGS__);                      \
+    case 64032: return FN<T, 64, 32>(__VA_ARGS__);                      \
+    case 64064: return FN<T, 64, 64>(__VA_ARGS__);                      \
+    case 64128: return FN<T, 64, 128>(__VA_ARGS__);                     \
     default: return cudaErrorInvalidValue;                              \
   }
+
+template <typename T>
+cudaError_t launch(const void* x, const float* dA, const void* B, const void* C, const float* dy,
+                   const float* dst, const float* ddec, void* dx, float* ddA, void* dB, void* dC,
+                   float* scratch, int nc, int Q, int H, int G, int P, int N, long long sx,
+                   long long sB, long long sC, cudaStream_t stream) {
+  SSD_BWD_TC_DISPATCH(run, T, x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G,
+                      sx, sB, sC, stream)
+}
+
+template <typename T>
+cudaError_t resources(int which, int P, int N, int* regs, int* smem) {
+  SSD_BWD_TC_DISPATCH(resources_of, T, which, regs, smem)
+}
 
 }  // namespace tc
 
@@ -1609,28 +1841,43 @@ int ssd_chunk_bwd_resources(int which, int is_bf16, int P, int* regs, int* smem)
   return (int)resources_pb<float>(PB, which, regs, smem);
 }
 
-// The tensor-core route: bf16 x, B and C with P in {16, 32, 64} and N in
-// {16, 32, 64, 128}, data 16-byte aligned and token strides a multiple of 8
-// elements; otherwise as ssd_chunk_bwd_launch (the same scratch).  Any other
-// operand returns cudaErrorInvalidValue and launches nothing.
+// Floats of device scratch the tensor-core route needs: as
+// ssd_chunk_bwd_scratch_floats, then (f32 inputs) bwd_v's V (nc, H, Q, P).
+long long ssd_chunk_bwd_tc_scratch_floats(int nc, int Q, int H, int G, int P, int is_bf16) {
+  return ssd_chunk_bwd_scratch_floats(nc, Q, H, G) + (is_bf16 ? 0LL : (long long)nc * H * Q * P);
+}
+
+// The tensor-core route: x, B and C bf16 (is_bf16) or f32 with P in {16,
+// 32, 64} and N in {16, 32, 64, 128}, data 16-byte aligned and token strides
+// 16 bytes apart; otherwise as ssd_chunk_bwd_launch, with the scratch
+// ssd_chunk_bwd_tc_scratch_floats gives.  Any other operand returns
+// cudaErrorInvalidValue and launches nothing.
 int ssd_chunk_bwd_tc_launch(const void* x, const float* dA, const void* B, const void* C,
                             const float* dy, const float* dst, const float* ddec, void* dx,
                             float* ddA, void* dB, void* dC, float* scratch,
                             long long scratch_floats, int nc, int Q, int H, int G, int P, int N,
-                            long long sx, long long sB, long long sC, cudaStream_t stream) {
+                            long long sx, long long sB, long long sC, int is_bf16,
+                            cudaStream_t stream) {
+  const int step = is_bf16 ? 8 : 4;  // elements in 16 bytes
   if (nc < 1 || Q < 16 || Q > kMaxQ || Q % 16 || G < 1 || H % G ||
-      scratch_floats < ssd_chunk_bwd_scratch_floats(nc, Q, H, G) || sx % 8 || sB % 8 || sC % 8 ||
+      scratch_floats < ssd_chunk_bwd_tc_scratch_floats(nc, Q, H, G, P, is_bf16) || sx % step ||
+      sB % step || sC % step ||
       ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)dy | (uintptr_t)dst) % 16)
     return (int)cudaErrorInvalidValue;
-  SSD_BWD_TC_DISPATCH(tc::run, x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G,
-                      sx, sB, sC, stream)
+  if (is_bf16)
+    return (int)tc::launch<__nv_bfloat16>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc,
+                                          Q, H, G, P, N, sx, sB, sC, stream);
+  return (int)tc::launch<float>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G,
+                                P, N, sx, sB, sC, stream);
 }
 
 // Registers a thread and shared memory a block (static plus dynamic, at Q =
-// 256) of the tensor-core route's kernel `which` (0 bwd_scores, 1
-// tc::bwd_dx, 2 tc::bwd_group, 3 bwd_dc) at head dim P and state dim N.
-int ssd_chunk_bwd_tc_resources(int which, int P, int N, int* regs, int* smem) {
-  SSD_BWD_TC_DISPATCH(tc::resources_of, which, regs, smem)
+// 256) of the tensor-core route's kernel `which` at head dim P and state
+// dim N: bf16 0 bwd_scores, 1 tc::bwd_dx, 2 tc::bwd_group, 3 bwd_dc; f32 0
+// bwd_scores, 1 tc::bwd_v, 2 tc::bwd_dx, 3 tc::bwd_group, 4 bwd_dc.
+int ssd_chunk_bwd_tc_resources(int which, int is_bf16, int P, int N, int* regs, int* smem) {
+  if (is_bf16) return (int)tc::resources<__nv_bfloat16>(which, P, N, regs, smem);
+  return (int)tc::resources<float>(which, P, N, regs, smem);
 }
 
 const char* ssd_chunk_bwd_error_string(int err) {

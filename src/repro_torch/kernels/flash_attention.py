@@ -69,11 +69,12 @@ the launch: bf16 at D in ``TC_BWD_HEAD_DIMS`` takes the tensor cores
 does f32 at D in ``SPLIT_BWD_HEAD_DIMS`` (the split route: ``split_bf16``
 cuts q, k, v and dO into bf16 hi, mid and lo pieces first, P and dS are
 split in registers, and each product runs as six products of pieces, as
-the forward's f32 route does); every other call takes the CUDA cores
-(``"cuda_cores"``, IEEE f32).  All read the forward's lse, compute Di =
-rowsum(dO * O) in a pre-pass, then dK/dV with one block owning a KV tile
-across its query-head group and dQ with one block a q tile: no atomics, so
-two calls give the same bits.  ``flash_attention.backward_launches`` counts
+the forward's f32 route does; at D 256 the pieces stream through the
+kernels in 64-column chunks of the head dim); every other call (D 16 and
+32) takes the CUDA cores (``"cuda_cores"``, IEEE f32).  All read the
+forward's lse, compute Di = rowsum(dO * O) in a pre-pass, then dK/dV with
+one block owning a KV tile across its query-head group and dQ with one
+block a q tile: no atomics, so two calls give the same bits.  ``flash_attention.backward_launches`` counts
 the backward's CUDA calls (one a call, three kernels each, after the split
 route's four ``split_bf16`` launches, which ``split_bf16.launches``
 counts), ``flash_attention.backward_route_launches`` the same per route.
@@ -99,7 +100,7 @@ ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
 ROUTES = ("tensor_cores", "cuda_cores", "packed")
 BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
 TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
-SPLIT_BWD_HEAD_DIMS = (64, 128)  # f32 head dims it takes (split-bf16 operands)
+SPLIT_BWD_HEAD_DIMS = (64, 128, 256)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
 _KERNEL_CODE = {torch.bfloat16: 1, torch.float32: 2}  # the C entry's resource selector
 PACKED_ROWS = 128  # q rows a packed tile (packed::kRows in csrc/hopper.cuh)
@@ -667,7 +668,7 @@ def backward_kernels(D: int, dtype: torch.dtype, shape: tuple | None = None) -> 
     tname = "bf16" if dtype == torch.bfloat16 else "float"
     kernels = {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E")}
     if backward_route(D, dtype) == "tensor_cores":
-        kind = "split" if dtype == torch.float32 else "wgmma"
+        kind = "wgmma" if dtype == torch.bfloat16 else "split_wide" if D >= 256 else "split"
         kernels["dkdv"] = (f"tc::dkdv_{kind}<{D}>", f"dkdv_{kind}ILi{D}E")
         kernels["dq"] = (f"tc::dq_{kind}<{D}>", f"dq_{kind}ILi{D}E")
     else:

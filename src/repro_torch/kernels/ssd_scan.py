@@ -31,11 +31,12 @@ whose backward ``ssd_chunk_backward`` launches ``csrc/ssd_chunk_bwd.cu``
 on the card (f32 sums in a fixed order, no atomics; the JAX package
 differentiates its plain ``ssd_chunked`` instead) and runs
 ``ssd_chunk_backward_plain`` on the CPU.  ``backward_route`` picks its
-kernels before the launch: bf16 operands that the forward's tensor-core
-route takes (P in ``TC_P``, N in ``TC_N``, 16-byte alignment) go to the
-tensor cores (``"tensor_cores"``: wgmma, with the f32 operands dy, dstates,
-M = S * L, w * x and the group's sum of dS split into bf16 hi + lo); the
-rest, f32 inputs included, to the CUDA cores (``"cuda_cores"``, IEEE f32).
+kernels before the launch: operands that the forward's tensor-core route
+takes (P in ``TC_P``, N in ``TC_N``, 16-byte alignment) go to the tensor
+cores (``"tensor_cores"``: wgmma, with the f32 operands dy, dstates, M = S
+* L, w * x and the group's sum of dS split into bf16 hi + lo, and f32 x,
+B and C too, with v = B dstates^T computed into the scratch by a kernel of
+its own); the rest to the CUDA cores (``"cuda_cores"``, IEEE f32).
 ``ssd_chunk_backward.launches`` counts its launches,
 ``ssd_chunk_backward.route_launches`` the same per route.  Serving, under
 ``no_grad``, takes the bare forward.
@@ -299,9 +300,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.ssd_chunk_bwd_scratch_floats.restype = ll
         lib.ssd_chunk_bwd_resources.argtypes = [i, i, i, ip, ip]
         lib.ssd_chunk_bwd_resources.restype = i
-        lib.ssd_chunk_bwd_tc_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [vp]
+        lib.ssd_chunk_bwd_tc_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [i, vp]
         lib.ssd_chunk_bwd_tc_launch.restype = i
-        lib.ssd_chunk_bwd_tc_resources.argtypes = [i, i, i, ip, ip]
+        lib.ssd_chunk_bwd_tc_scratch_floats.argtypes = [i] * 6
+        lib.ssd_chunk_bwd_tc_scratch_floats.restype = ll
+        lib.ssd_chunk_bwd_tc_resources.argtypes = [i, i, i, i, ip, ip]
         lib.ssd_chunk_bwd_tc_resources.restype = i
         lib.ssd_chunk_bwd_error_string.argtypes = [i]
         lib.ssd_chunk_bwd_error_string.restype = ctypes.c_char_p
@@ -311,13 +314,10 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def backward_route(x, B, C) -> str:
     """The kernels a CUDA backward call takes, from dtype, shape and layout
-    alone (operands already checked by ``_check_operands``): bf16 where the
-    forward takes the tensor cores, otherwise the CUDA cores (f32 x and B
-    would enter the tensor-core kernels as two pieces each, more shared
-    memory than ``tc::bwd_dx`` has)."""
-    if x.dtype == torch.bfloat16 and route(x, B, C) == "tensor_cores":
-        return "tensor_cores"
-    return "cuda_cores"
+    alone (operands already checked by ``_check_operands``): the tensor
+    cores wherever the forward takes them, in bf16 and f32 alike (f32 x, B
+    and C as bf16 hi and lo pieces), otherwise the CUDA cores."""
+    return route(x, B, C)
 
 
 def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
@@ -360,9 +360,11 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     ddA = torch.empty((nc, Q, H), dtype=f32, device=dev)
     dB = torch.empty((nc, Q, G, N), dtype=B.dtype, device=dev)
     dC = torch.empty((nc, Q, G, N), dtype=C.dtype, device=dev)
-    n = lib.ssd_chunk_bwd_scratch_floats(nc, Q, H, G)
-    scratch = torch.empty(n, dtype=f32, device=dev)
     path = backward_route(x, B, C)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    n = (lib.ssd_chunk_bwd_tc_scratch_floats(nc, Q, H, G, P, is_bf16) if path == "tensor_cores"
+         else lib.ssd_chunk_bwd_scratch_floats(nc, Q, H, G))
+    scratch = torch.empty(n, dtype=f32, device=dev)
     if path == "tensor_cores":  # the tensor-core kernels read dy and dstates 16 bytes at a time
         dy, dstates = (t if t.data_ptr() % ALIGN == 0 else t.clone() for t in (dy, dstates))
     args = (x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
@@ -371,9 +373,9 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if path == "tensor_cores":
-            rc = lib.ssd_chunk_bwd_tc_launch(*args, stream)
+            rc = lib.ssd_chunk_bwd_tc_launch(*args, is_bf16, stream)
         else:
-            rc = lib.ssd_chunk_bwd_launch(*args, int(x.dtype == torch.bfloat16), stream)
+            rc = lib.ssd_chunk_bwd_launch(*args, is_bf16, stream)
     if rc != 0:
         msg = lib.ssd_chunk_bwd_error_string(rc).decode()
         raise RuntimeError(f"ssd_chunk_backward launch failed ({path}): CUDA error {rc} ({msg})")
@@ -386,19 +388,29 @@ BWD_KERNELS = {"cuda_cores": ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc", "
                "tensor_cores": ("tc::bwd_scores", "tc::bwd_dx", "tc::bwd_group", "bwd_dc")}
 
 
+def backward_kernels(path: str, dtype: torch.dtype) -> tuple:
+    """The kernels a backward call on ``path`` with inputs of ``dtype``
+    launches, in order: f32 on the tensor cores runs ``tc::bwd_v`` (v = B
+    dstates^T into the scratch) after ``tc::bwd_scores``."""
+    names = BWD_KERNELS[path]
+    if path == "tensor_cores" and dtype == torch.float32:
+        names = names[:1] + ("tc::bwd_v",) + names[1:]
+    return names
+
+
 def backward_resources(P: int, dtype: torch.dtype, path: str = "cuda_cores",
                        N: int = MAX_N) -> dict:
     """Registers a thread and shared memory a block (static plus dynamic;
     the tensor-core kernels' at Q 256) of each of a backward route's kernels
-    (``BWD_KERNELS[path]``) at head dim P, state dim N (the tensor-core
-    route's) and input ``dtype``."""
+    (``backward_kernels(path, dtype)``) at head dim P, state dim N (the
+    tensor-core route's) and input ``dtype``."""
     out = {}
     lib = _bwd_lib()
-    for which, name in enumerate(BWD_KERNELS[path]):
+    for which, name in enumerate(backward_kernels(path, dtype)):
         regs, smem = ctypes.c_int(0), ctypes.c_int(0)
         if path == "tensor_cores":
-            rc = lib.ssd_chunk_bwd_tc_resources(which, P, N, ctypes.byref(regs),
-                                                ctypes.byref(smem))
+            rc = lib.ssd_chunk_bwd_tc_resources(which, int(dtype == torch.bfloat16), P, N,
+                                                ctypes.byref(regs), ctypes.byref(smem))
         else:
             rc = lib.ssd_chunk_bwd_resources(which, int(dtype == torch.bfloat16), P,
                                              ctypes.byref(regs), ctypes.byref(smem))

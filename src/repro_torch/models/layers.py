@@ -24,6 +24,7 @@ import math
 from typing import Optional
 
 import torch
+import torch._dynamo  # noqa: F401  (see remat)
 from torch import nn
 from torch.utils import checkpoint
 
@@ -70,7 +71,11 @@ def trainable(model: nn.Module) -> nn.Module:
 def remat(cfg, fn, *args):
     """``fn(*args)``, recomputed in the backward instead of keeping its
     activations when ``cfg.remat`` is set and a graph is being built (the
-    JAX package's ``jax.checkpoint`` around each scanned layer)."""
+    JAX package's ``jax.checkpoint`` around each scanned layer).
+    ``checkpoint`` imports ``torch._dynamo`` on its first call, and that
+    import keeps the frames on the stack alive for the life of the
+    process: a train step's gradients and activations, which no collection
+    frees.  This module imports it first, with no step on the stack."""
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)

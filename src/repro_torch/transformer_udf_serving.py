@@ -138,11 +138,13 @@ def train_udf(params: dict, cfg, x: torch.Tensor, y: torch.Tensor, *, steps: int
 
 @dataclass(eq=False)
 class BackboneUDF(MLUDF):
-    """A transformer-backbone classifier as an ``MLUDF``: ``fn`` pads each
+    """A transformer-backbone classifier as an ``MLUDF``: a call pads each
     batch with zero records to ``bucket(n)`` rows (a MoE router sees the
     padding, and its capacity counts the padded tokens) and returns the
     argmax labels.  ``calls`` counts backbone calls (training steps, the
-    probes and every ``fn`` call)."""
+    probes and every call).  ``fn`` stays None: a bound method stored on
+    the instance would hold it in a reference cycle, and its backbone's
+    weights on the card until the cycle collector ran."""
 
     cfg: Any = None
     params: Optional[dict] = None
@@ -150,8 +152,8 @@ class BackboneUDF(MLUDF):
     train_accuracy: float = float("nan")
     calls: int = 0
 
-    def __post_init__(self):
-        self.fn = self.labels
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        return self.labels(x)
 
     @property
     def device(self) -> torch.device:

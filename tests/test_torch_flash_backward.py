@@ -281,14 +281,19 @@ SPLIT_TERMS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
 PIECE = ("hi", "mid", "lo")
 
 
-def _split_mm(pa, pb, drop=None):
+def _split_mm(pa, pb, drop=None, chunk=None):
     """a @ b from the pieces of a and b (f32-widened bf16 hi, mid, lo) as
     six products of pieces summed in f32 smallest first, less the one term
-    ``drop`` names ("hi.mid", ...)."""
+    ``drop`` names ("hi.mid", ...); with ``chunk``, chunk by chunk of that
+    many columns of a (rows of b), each chunk's six products added to one
+    sum in turn."""
     out = torch.zeros((*pa[0].shape[:-1], pb[0].shape[-1]))
-    for i, j in SPLIT_TERMS:
-        if drop != f"{PIECE[i]}.{PIECE[j]}":
-            out = out + pa[i] @ pb[j]
+    inner = pa[0].shape[-1]
+    step = chunk or inner
+    for c0 in range(0, inner, step):
+        for i, j in SPLIT_TERMS:
+            if drop != f"{PIECE[i]}.{PIECE[j]}":
+                out = out + pa[i][..., c0:c0 + step] @ pb[j][..., c0:c0 + step, :]
     return out
 
 
@@ -305,13 +310,18 @@ def _split_backward_emulation(q, k, v, out, dout, lse, causal, drop=None):
     stage's dV, dK (q stages of 32 rows at D >= 128, else 64, head by head)
     or dQ (KV tiles of as many rows, alternate tiles summed apart and added
     at the end) summed apart and added to the running sum in f32, the scale
-    applied to dK and dQ last.  Its sums round to nearest; the tensor cores'
-    truncation only the card shows.  ``drop``: "S:hi.mid" leaves that term
+    applied to dK and dQ last.  At D 256 (``tc::dkdv_split_wide``,
+    ``tc::dq_split_wide``) the scores S, S^T, dP and dP^T are summed over the
+    head dim in 64-column chunks, each chunk's six products added to the
+    running scores in turn (a dQ stage's 64 keys are two 32-row tiles, one
+    a consumer: the alternate tiles above).  Its sums round to nearest; the
+    tensor cores' truncation only the card shows.  ``drop``: "S:hi.mid" leaves that term
     out of a product (S, dP, dV, dK or dQ), "q:mid" the mid piece of an
     operand (q, k, v or dout)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G, rows = H // K, 32 if D >= 128 else 64
+    chunk = 64 if D >= 256 else None  # the head-dim chunks the scores are summed in
     scale = 1.0 / np.sqrt(D)
     f32 = torch.float32
     log2e = torch.tensor(1.4426950408889634, dtype=f32)
@@ -360,8 +370,8 @@ def _split_backward_emulation(q, k, v, out, dout, lse, causal, drop=None):
                 for q0 in range(0, Sq, rows):
                     qs = [x[g, q0:q0 + rows] for x in qp]
                     gs = [x[g, q0:q0 + rows] for x in gp]
-                    st = _split_mm(kp, t_(qs), term.get("S"))  # S^T (Sk, rows)
-                    dpt = _split_mm(vp, t_(gs), term.get("dP"))
+                    st = _split_mm(kp, t_(qs), term.get("S"), chunk)  # S^T (Sk, rows)
+                    dpt = _split_mm(vp, t_(gs), term.get("dP"), chunk)
                     p, ds = probs(st.T[None], dpt.T[None], slice(g, g + 1), q0, 0)
                     p, ds = p[0].T, ds[0].T  # P^T, dS^T (Sk, rows)
                     acc_v = acc_v + _split_mm(_split(p), gs, term.get("dV"))
@@ -374,8 +384,8 @@ def _split_backward_emulation(q, k, v, out, dout, lse, causal, drop=None):
             for j, k0 in enumerate(range(0, Sk, rows)):
                 ks = [x[k0:k0 + rows] for x in kp]
                 vs = [x[k0:k0 + rows] for x in vp]
-                s = _split_mm(qp, t_(ks), term.get("S"))  # (G, Sq, rows)
-                d = _split_mm(gp, t_(vs), term.get("dP"))
+                s = _split_mm(qp, t_(ks), term.get("S"), chunk)  # (G, Sq, rows)
+                d = _split_mm(gp, t_(vs), term.get("dP"), chunk)
                 _, ds = probs(s, d, slice(None), 0, k0)
                 acc[j % 2] = acc[j % 2] + _split_mm(_split(ds), ks, term.get("dQ"))
             dq[b, :, heads] = ((acc[0] + acc[1]) * scale).permute(1, 0, 2).to(q.dtype)
@@ -413,6 +423,15 @@ def test_one_piece_fewer_misses_the_f32_limit(drop):
     assert max(_split_ratio((1, 128, 128, 4, 1, 128), True, drop=drop)) > 1.0
 
 
+@pytest.mark.parametrize("drop", ["S:hi.mid", "dP:mid.hi", "dV:hi.mid", "dK:mid.hi",
+                                  "dQ:hi.mid", "q:mid", "k:mid", "v:mid", "dout:mid"])
+def test_one_piece_fewer_misses_the_f32_limit_at_d256(drop):
+    """The same at D 256, in its layout (the scores summed over 64-column
+    chunks of the head dim): three pieces and all six products are needed
+    there too."""
+    assert max(_split_ratio((1, 128, 128, 4, 1, 256), True, drop=drop)) > 1.0
+
+
 def test_split_emulation_without_rounding_is_the_plain_formulas():
     """On operands that are bf16 values already (exact in their hi piece;
     P and dS within 2^-25 in their three), the emulation is the plain
@@ -431,9 +450,9 @@ def test_split_emulation_without_rounding_is_the_plain_formulas():
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_route_for_every_head_dim_and_type(D, dtype):
-    """bf16 at D 64 / 128 / 256 and f32 at D 64 / 128 (split-bf16 operands)
-    on the tensor cores, every other (D, dtype) on the CUDA cores."""
-    tc_dims = (64, 128, 256) if dtype == torch.bfloat16 else (64, 128)
+    """bf16 and f32 (split-bf16 operands) at D 64 / 128 / 256 on the tensor
+    cores, D 16 and 32 on the CUDA cores."""
+    tc_dims = (64, 128, 256)
     want = "tensor_cores" if D in tc_dims else "cuda_cores"
     assert fa.backward_route(D, dtype) == want
     kernels = fa.backward_kernels(D, dtype)

@@ -650,7 +650,8 @@ def test_bwd_launch_counter_function_and_no_fallback(cuda):
                                            (32, "bfloat16", "cuda_cores"),
                                            (64, "float32", "tensor_cores"),
                                            (128, "float32", "tensor_cores"),
-                                           (256, "float32", "cuda_cores")])
+                                           (256, "float32", "tensor_cores"),
+                                           (32, "float32", "cuda_cores")])
 def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
     """Each (D, dtype) takes ``backward_route``'s kernels: one launch a
     backward through the autograd Function, counted on that route alone."""
@@ -676,6 +677,36 @@ def test_bwd_two_f32_calls_are_equal_bit_for_bit(cuda):
     consumers' partial sums added in a fixed order, no atomics."""
     rep = chip_smoke.bwd_repeat(cuda, dtype="float32")
     assert rep["route"] == "tensor_cores" and all(rep["bitwise_equal"])
+
+
+def test_bwd_two_f32_d256_calls_are_equal_bit_for_bit(cuda):
+    """The same at paligemma's shape in f32, on the split route's D 256
+    kernels (the head dim in chunks through the ring, a fixed order)."""
+    rep = chip_smoke.bwd_repeat(cuda, shape=chip_smoke.VLM_SHAPE, dtype="float32")
+    assert rep["route"] == "tensor_cores" and all(rep["bitwise_equal"])
+
+
+def test_bwd_f32_d256_planted_fault_is_caught(cuda):
+    """A skipped KV tile at paligemma's shape in f32 (the split route at D
+    256) fails the check."""
+    out = chip_smoke.bwd_planted_fault(cuda, "float32", chip_smoke.VLM_SHAPE)
+    assert out["route"] == "tensor_cores" and out["caught"]
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.BWD_CASES
+                                  if c[7] == "float32" and c[5] == 256],
+                         ids=lambda c: str(c))
+def test_bwd_f32_d256_on_the_split_route(cuda, case):
+    """Each f32 D 256 case on the split route's kernels (one launch,
+    counted there and with its four ``split_bf16`` launches) within 1e-4 of
+    each gradient's largest plain value."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    out = chip_smoke.check_bwd_case(case, cuda, seed=5)
+    assert out["route"] == "tensor_cores"
+    assert fa.flash_attention.backward_route_launches["tensor_cores"] == 1
+    assert fa.split_bf16.launches == 2 * 2 + 4  # two forwards' K and V, the backward's four
 
 
 @pytest.mark.parametrize("D,dtype", [(16, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),
@@ -771,11 +802,19 @@ def test_ssd_bwd_two_calls_are_equal_bit_for_bit(cuda):
     assert all(chip_smoke.ssd_bwd_repeat(cuda)["bitwise_equal"].values())
 
 
+def test_ssd_bwd_two_f32_calls_are_equal_bit_for_bit(cuda):
+    """f32 at the training shape on the tensor cores: fixed-order sums, no
+    atomics, the same bits."""
+    assert all(chip_smoke.ssd_bwd_repeat(cuda, "float32")["bitwise_equal"].values())
+
+
 @pytest.mark.parametrize("case,want", [
     ((2, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
     ((3, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), "tensor_cores"),
     ((2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"), "cuda_cores"),  # P 24, N 40
-    ((2, 256, 8, 1, 64, 128, "published", "float32", "sliced"), "cuda_cores")])
+    ((2, 256, 8, 1, 64, 128, "published", "float32", "sliced"), "tensor_cores"),
+    ((3, 80, 6, 3, 16, 16, "jax_test", "float32"), "tensor_cores"),
+    ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), "cuda_cores")])
 def test_ssd_bwd_routes_and_their_launch_counts(cuda, case, want):
     """Each call takes ``backward_route``'s kernels, counted on that route
     alone, and matches the plain formulas at the card limits."""
@@ -825,6 +864,7 @@ def test_ssm_train_path_short(cuda):
     assert (out["launches"], out["backward_launches"]) == (4 * steps, 2 * steps)
     assert out["backward_route_launches"] == {"tensor_cores": 2 * steps, "cuda_cores": 0}
     assert out["float32"]["backward_launches"] == 1
+    assert out["float32"]["backward_route_launches"] == {"tensor_cores": 1, "cuda_cores": 0}
 
 
 @pytest.mark.parametrize("spec,phase,want", [(chip_smoke.ENCDEC, "encdec_path", 2),

@@ -3,26 +3,31 @@ emulated in plain torch on the CPU: an emulation, not the kernel, which runs
 only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``
 ``ssd_bwd_kernels``).
 
-The route takes bf16 x, B and C, exact as one bf16 piece each; every f32
-operand of a product enters as bf16 hi + lo (``hopper::split_bf16``, |v - hi
-- lo| <= 2^-17 |v|), and each product is the sum of its pieces' products,
-each exact in f32, small terms first:
+bf16 x, B and C are exact as one bf16 piece each; f32 x, B and C enter as
+bf16 hi + lo (as the f32 forward's ``tc::ssd_chunk_split`` takes them), and
+so does every f32 operand of a product (``hopper::split_bf16``, |v - hi -
+lo| <= 2^-17 |v|).  Each product is the sum of its pieces' products but
+lo.lo, each exact in f32, small terms first (lo.hi, hi.lo, hi.hi; with one
+exact bf16 operand the two terms of the other's pieces):
 
-    v      = B dst^T                  B.dst_lo + B.dst_hi
-    dM^T   = x dy^T                   x.dy_lo + x.dy_hi
-    dx     = w v + M^T dy             M_lo.dy_hi + M_hi.dy_lo + M_hi.dy_hi
-    state  = sum_h (w x) dst          (wx)_lo.dst_hi + (wx)_hi.dst_lo + (wx)_hi.dst_hi
-    dB     = (sum dS)^T C + state     dS_lo.C + dS_hi.C
+    S^T    = B C^T                    (f32: B and C in pieces)
+    v      = B dst^T                  B's pieces . dst's
+    dM^T   = x dy^T                   x's pieces . dy's
+    dx     = w v + M^T dy             M's pieces . dy's
+    u      = w x . v                  x as hi + lo in f32
+    state  = sum_h (w x) dst          (w x)'s pieces . dst's
+    dB     = (sum dS)^T C + state     dS's pieces . C's
     dC     = (sum dS) B               f32 (the CUDA-core kernel)
 
-with M = S * L (S = C B^T in f32), L and w from the kernel's warp-scan
-cumsum, G = dM * M summed by rows and columns in f32, and dS = dM * L summed
-over the group's heads in head order.  Sums here are torch's f32 sums in its
-own order (the kernel's tensor cores truncate theirs; only the card shows
-that).  Held against ``ssd_chunk_backward_plain`` and ``jax.vjp`` of the JAX
-package's ``repro.kernels.ref.ssd_chunk_ref`` under the card limits
-(``chip_smoke.SSD_BWD_TOL``: one bf16 step, 2^-7, of each gradient's largest
-value for dx, dB and dC; ``SSD_BWD_DDA_TOL``, 1e-4, for ddA).
+with M = S * L, L and w from the kernel's warp-scan cumsum, G = dM * M
+summed by rows and columns in f32, and dS = dM * L summed over the group's
+heads in head order.  Sums here are torch's f32 sums in its own order (the
+kernel's tensor cores truncate theirs; only the card shows that).  Held
+against ``ssd_chunk_backward_plain`` and ``jax.vjp`` of the JAX package's
+``repro.kernels.ref.ssd_chunk_ref`` under the card limits
+(``chip_smoke.SSD_BWD_TOL``: in bf16 one bf16 step, 2^-7, of each
+gradient's largest value for dx, dB and dC, in f32 1e-4;
+``SSD_BWD_DDA_TOL``, 1e-4, for ddA).
 """
 import functools
 import sys
@@ -58,11 +63,11 @@ def quick_compiles():
     jax.config.update("jax_disable_most_optimizations", was)
 
 
-def _inputs(nc, q, h, g, p, n, kind, seed):
-    """Numpy-seeded bf16 x, B, C, f32 dA ("jax_test" -|N(0,1)| 0.1, the JAX
-    test's; "published" -A dt over Mamba-2's published ranges; "jax_init"
-    -softplus(N(0,1)), the JAX package's init) and the f32 output
-    gradients dy, dstates, ddecay."""
+def _inputs(nc, q, h, g, p, n, kind, seed, dtype=BF16):
+    """Numpy-seeded x, B, C in ``dtype``, f32 dA ("jax_test" -|N(0,1)| 0.1,
+    the JAX test's; "published" -A dt over Mamba-2's published ranges;
+    "jax_init" -softplus(N(0,1)), the JAX package's init) and the f32
+    output gradients dy, dstates, ddecay."""
     rng = np.random.RandomState(seed)
     f = np.float32
     x, B, C = (rng.randn(*s).astype(f) for s in ((nc, q, h, p), (nc, q, g, n), (nc, q, g, n)))
@@ -75,7 +80,7 @@ def _inputs(nc, q, h, g, p, n, kind, seed):
         A_log, dt_bias = (a[0] for a in chip_smoke.published_dynamics(1, h, seed))
         dA = -np.exp(A_log) * np.logaddexp(0.0, z + dt_bias)
     grads = (rng.randn(nc, q, h, p), rng.randn(nc, h, p, n), rng.randn(nc, h))
-    x, B, C = (torch.from_numpy(a).to(BF16) for a in (x, B, C))
+    x, B, C = (torch.from_numpy(a).to(dtype) for a in (x, B, C))
     return (x, torch.from_numpy(dA.astype(f)), B, C,
             *(torch.from_numpy(a.astype(f)) for a in grads))
 
@@ -86,37 +91,58 @@ def _split(t):
     return hi, (t - hi).to(BF16).float()
 
 
+def _product(spec, a, b, drop, name, a_name, b_name):
+    """einsum ``spec`` of two operands given as their pieces (one exact
+    bf16 piece, or f32 hi and lo), as the kernels run it: every pair of
+    pieces but lo.lo, small terms first (lo.hi, hi.lo, hi.hi), each exact
+    in f32.  ``drop`` "name:a_name_lo" leaves the terms of a's lo piece
+    out (likewise b's)."""
+    out = 0
+    for i, j in ((1, 0), (0, 1), (0, 0)):
+        if i >= len(a) or j >= len(b):
+            continue
+        if (i and drop == f"{name}:{a_name}_lo") or (j and drop == f"{name}:{b_name}_lo"):
+            continue
+        out = out + torch.einsum(spec, a[i], b[j])
+    return out
+
+
 def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None):
-    """The tensor-core route's arithmetic (module docstring); ``drop``
-    leaves one piece or term out: "dM:dy_lo", "v:dst_lo", "dx:M_lo",
-    "dx:dy_lo", "state:wx_lo", "state:dst_lo" or "dB:dS_lo".  Returns (dx,
+    """The tensor-core route's arithmetic (module docstring), in bf16 or
+    f32 (x, B and C then in hi and lo pieces too); ``drop`` leaves one
+    piece of one product out ("dM:dy_lo", "v:dst_lo", "dx:M_lo",
+    "dx:dy_lo", "state:wx_lo", "state:dst_lo", "dB:dS_lo"; in f32 also
+    "S:B_lo", "S:C_lo", "v:B_lo", "dM:x_lo", "dS:x_lo", "dB:C_lo") or an
+    f32 input's lo piece everywhere ("x:lo", "B:lo", "C:lo").  Returns (dx,
     ddA, dB, dC) as the kernel does."""
     nc, Q, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
-    keep = lambda name: drop != name  # noqa: E731
-    xf = x.float().reshape(nc, Q, G, rep, P)
-    Bf, Cf = B.float(), C.float()
+    f32_in = x.dtype == F32
+
+    def pieces(t, name):
+        if not f32_in:
+            return [t.float()]
+        hi, lo = _split(t.float())
+        return [hi] if drop == f"{name}:lo" else [hi, lo]
+
+    xp = [t.reshape(nc, Q, G, rep, P) for t in pieces(x, "x")]
+    xf = sum(xp)  # x as the kernels see it (hi + lo in f32)
+    Bp, Cp = pieces(B, "B"), pieces(C, "C")
+    Bf = B.float()
     cum = _warp_scan_cumsum(dA.transpose(1, 2)).reshape(nc, G, rep, Q)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
     L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), torch.zeros(()))
     w = torch.exp(cum[..., -1:] - cum)  # (nc, G, rep, Q)
     w_tok = w.permute(0, 3, 1, 2)[..., None]  # (nc, Q, G, rep, 1)
-    S = torch.einsum("cqgn,csgn->cgqs", Cf, Bf)
+    # S^T = B C^T (A = B's band rows, then C)
+    S = _product("csgn,cqgn->cgqs", Bp, Cp, drop, "S", "B", "C")
     M = S[:, :, None] * L  # (nc, G, rep, Q(i), Q(j))
-    dyh, dyl = _split(dy.reshape(nc, Q, G, rep, P))
-    dsth, dstl = _split(dst.reshape(nc, G, rep, P, N))
-    v = torch.einsum("csgn,cgrpn->csgrp", Bf, dstl) if keep("v:dst_lo") else 0
-    v = v + torch.einsum("csgn,cgrpn->csgrp", Bf, dsth)
-    dM = torch.einsum("cqgrp,csgrp->cgrqs", dyl, xf) if keep("dM:dy_lo") else 0
-    dM = dM + torch.einsum("cqgrp,csgrp->cgrqs", dyh, xf)
-    Mh, Ml = _split(M)
-    dx = w_tok * v
-    if keep("dx:M_lo"):
-        dx = dx + torch.einsum("cgrqs,cqgrp->csgrp", Ml, dyh)
-    if keep("dx:dy_lo"):
-        dx = dx + torch.einsum("cgrqs,cqgrp->csgrp", Mh, dyl)
-    dx = dx + torch.einsum("cgrqs,cqgrp->csgrp", Mh, dyh)
+    dyp = list(_split(dy.reshape(nc, Q, G, rep, P)))
+    dstp = list(_split(dst.reshape(nc, G, rep, P, N)))
+    v = _product("csgn,cgrpn->csgrp", Bp, dstp, drop, "v", "B", "dst")
+    dM = _product("csgrp,cqgrp->cgrqs", xp, dyp, drop, "dM", "x", "dy")
+    dx = w_tok * v + _product("cgrqs,cqgrp->csgrp", list(_split(M)), dyp, drop, "dx", "M", "dy")
     Gm = torch.where(torch.tril(torch.ones((Q, Q), dtype=torch.bool), -1), dM * M,
                      torch.zeros(()))
     u = w * (xf * v).sum(dim=-1).permute(0, 2, 3, 1)
@@ -124,22 +150,21 @@ def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None):
     last = u.sum(dim=-1) + ddec.reshape(nc, G, rep) * torch.exp(cum[..., -1])
     dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], dim=-1)
     ddA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    # the group's sum of dS over its heads in head order (bwd_group's own
+    # dM^T, from x's and dy's pieces again)
+    dMg = _product("csgrp,cqgrp->cgrqs", xp, dyp, drop, "dS", "x", "dy")
     dS = torch.zeros((nc, G, Q, Q))
-    for r in range(rep):  # head order
-        dS = dS + dM[:, :, r] * L[:, :, r]
-    xwh, xwl = _split(xf * w_tok)
+    for r in range(rep):
+        dS = dS + dMg[:, :, r] * L[:, :, r]
+    xw = list(_split(xf * w_tok))
     state = torch.zeros((nc, Q, G, N))
     for r in range(rep):
-        for a, b, name in ((xwl, dsth, "state:wx_lo"), (xwh, dstl, "state:dst_lo"),
-                           (xwh, dsth, None)):
-            if name is None or keep(name):
-                state = state + torch.einsum("csgp,cgpn->csgn", a[:, :, :, r], b[:, :, r])
-    dSh, dSl = _split(dS)
-    dB = torch.einsum("cgqs,cqgn->csgn", dSl, Cf) if keep("dB:dS_lo") else 0
-    dB = dB + torch.einsum("cgqs,cqgn->csgn", dSh, Cf) + state
+        state = state + _product("csgp,cgpn->csgn", [t[:, :, :, r] for t in xw],
+                                 [t[:, :, r] for t in dstp], drop, "state", "wx", "dst")
+    dB = _product("cgqs,cqgn->csgn", list(_split(dS)), Cp, drop, "dB", "dS", "C") + state
     dC = torch.einsum("cgqs,csgn->cqgn", dS, Bf)
     ddA = ddA.reshape(nc, H, Q).transpose(1, 2).contiguous()
-    return dx.reshape(nc, Q, H, P).to(BF16), ddA, dB.to(BF16), dC.to(BF16)
+    return dx.reshape(nc, Q, H, P).to(x.dtype), ddA, dB.to(B.dtype), dC.to(C.dtype)
 
 
 def _jax_vjp(x, dA, B, C, dy, dst, ddec):
@@ -207,16 +232,68 @@ def test_one_piece_fewer_misses_the_limit(drop):
     assert not chip_smoke.ssd_bwd_within(errs, "bfloat16")
 
 
+F32_CASES = CASES[:4]
+
+
+@pytest.mark.parametrize("case", F32_CASES,
+                         ids=[f"Q{c[1]}-P{c[4]}-N{c[5]}-{c[6]}" for c in F32_CASES])
+def test_f32_split_rounding_within_the_f32_limits(case):
+    """f32 x, B and C in hi and lo pieces, every product three products of
+    pieces: within the f32 limits (1e-4 of each gradient's largest value,
+    ddA 1e-4) of the plain formulas, with room (at most 2.2e-5 at these
+    cases and the module's Q 256 "jax_init" one), and at Q <= 80 of
+    ``jax.vjp`` of the JAX package's reference."""
+    args = _inputs(*case, seed=sum(case[:6]), dtype=F32)
+    got = _tc_backward_emulation(*args)
+    assert all(t.dtype == F32 for t in got)
+    errs = chip_smoke.check_ssd_bwd_output(f"{case} f32 vs plain", got,
+                                           ssd_chunk_backward_plain(*args), "float32")
+    assert max(errs.values()) <= chip_smoke.SSD_BWD_TOL["float32"] / 4, errs
+    if case[1] <= 80:
+        jerrs = chip_smoke.ssd_bwd_errors(got, _jax_vjp(*args))
+        assert chip_smoke.ssd_bwd_within(jerrs, "float32"), jerrs
+
+
+F32_KEPT = ["x:lo", "B:lo", "C:lo", "S:B_lo", "S:C_lo", "v:B_lo", "v:dst_lo", "dM:x_lo",
+            "dM:dy_lo", "dS:x_lo", "dS:dy_lo", "dx:M_lo", "dx:dy_lo", "state:wx_lo",
+            "state:dst_lo", "dB:dS_lo", "dB:C_lo"]
+
+
+@pytest.mark.parametrize("drop", F32_KEPT)
+def test_f32_one_piece_fewer_misses_the_limit(drop):
+    """In f32 every piece the route keeps is seen: an input's lo piece left
+    out everywhere (x, B, C) or one lo term of any product moves some
+    gradient past its 1e-4 limit (by 1.9e-4 to 3.1e-3 of its largest value
+    here; with every term the largest is 9.6e-6)."""
+    args = _inputs(1, 256, 4, 1, 64, 128, "published", seed=3, dtype=F32)
+    errs = chip_smoke.ssd_bwd_errors(_tc_backward_emulation(*args, drop=drop),
+                                     ssd_chunk_backward_plain(*args))
+    assert not chip_smoke.ssd_bwd_within(errs, "float32"), errs
+
+
 @pytest.mark.parametrize("kind,want", [
-    ("bf16", "tensor_cores"), ("sliced", "tensor_cores"), ("float32", "cuda_cores"),
+    ("bf16", "tensor_cores"), ("sliced", "tensor_cores"), ("float32", "tensor_cores"),
     ("p_8", "cuda_cores"), ("n_48", "cuda_cores"), ("x_misaligned", "cuda_cores"),
-    ("sliced_odd_stride", "cuda_cores"), ("f32_p_8", "cuda_cores")])
+    ("sliced_odd_stride", "cuda_cores"), ("f32_p_8", "cuda_cores"),
+    ("f32_x_misaligned", "cuda_cores"), ("f32_sliced_odd_stride", "cuda_cores")])
 def test_backward_route_is_decided_by_dtype_shape_and_layout(kind, want):
     """The backward's rule, on dtype, shape and layout alone (the same on any
-    device): the forward's tensor-core shapes and alignment in bf16 take
-    the tensor cores; f32 inputs and every other shape the CUDA cores."""
+    device): the forward's tensor-core shapes and alignment take the tensor
+    cores in bf16 and f32 alike; every other shape the CUDA cores."""
     x, B, C = _route_case(kind)
     assert ssd_scan.backward_route(x, B, C) == want
+
+
+@pytest.mark.parametrize("path,dtype,n", [("tensor_cores", BF16, 4), ("tensor_cores", F32, 5),
+                                          ("cuda_cores", F32, 5), ("cuda_cores", BF16, 5)])
+def test_backward_kernels_name_each_route(path, dtype, n):
+    """The kernels each route launches, in order (the names the card's
+    profile and resource report are read by): f32 on the tensor cores adds
+    ``tc::bwd_v`` after ``tc::bwd_scores``."""
+    names = ssd_scan.backward_kernels(path, dtype)
+    assert len(names) == n and names[-1 if path == "tensor_cores" else 3] == "bwd_dc"
+    assert ("tc::bwd_v" in names) == (path == "tensor_cores" and dtype == F32)
+    assert all(k.startswith("tc::") for k in names[:-1]) == (path == "tensor_cores")
 
 
 def test_cpu_backward_counts_no_launch():
