@@ -89,10 +89,12 @@ Each phase prints one JSON line:
               tensor cores) and in bf16 at the first 4, reported in bf16 at
               64 (``SSM_LOGIT_LAYERS``).
 10. ssd_timing — CUDA-event times of the kernel and its plain version at the
-              serving shape in bf16 and f32, beside the route's bound (and
-              in f32 the CUDA-core bound), with the route taken
-              and the kernel's registers, spills and shared memory a block;
-              and profiles of one SSM prefill and one decode step.
+              serving shape in bf16 and f32, and (since PR 31) at the
+              reduced mamba2's (16, 16, 16, 1, 8, 16), off the tensor-core
+              shapes (the CUDA-core route), beside the route's bound (and
+              in f32 the CUDA-core bound), with the route taken, the
+              kernel's registers, spills and shared memory a block and its
+              device µs; and profiles of one SSM prefill and one decode step.
 10a. moe_path — the MoE family at qwen3-moe-30b-a3b's published widths
               (d_model 2048, 32 query and 4 KV heads of 128 with qk-norm,
               128 experts top-8 of ff 768, vocab 151936), depth cut to 8
@@ -122,12 +124,13 @@ Each phase prints one JSON line:
               route's bound beside SDPA f32).
 10d. flash_bwd_kernels — the CUDA ``flash_attention`` backward (a Di
               pre-pass reading the forward's lse, then dK/dV a KV tile a
-              block over its query-head group, then dQ: bf16 at D 64, 128
-              and 256 on the tensor cores, f32 at the same head dims there
-              too on three bf16 pieces of every operand (the split route,
-              after four ``split_bf16`` launches; at D 256 the pieces
-              stream in 64-column chunks), D 16 and 32 on the CUDA
-              cores)
+              block over its query-head group, then dQ: bf16 at every head
+              dim on the tensor cores, f32 there too on three bf16 pieces of
+              every operand (the split route, after one ``split_bf16``
+              launch over q, k, v and dO from the same C call; at D 256
+              the pieces stream in 64-column chunks; since PR 31 D 16 and
+              32 too, with the forward's narrower swizzle, where the CUDA
+              cores ran them))
               against its plain PyTorch version, bf16 and f32, causal and
               full: the JAX package's test shapes, D 256, ragged lengths, a
               GQA group of 7, D 16 and the packed route's shapes (one pass,
@@ -142,7 +145,7 @@ Each phase prints one JSON line:
               ``flash_bwd_timing`` at (1, 4096, 64, 8, 128) in bf16 and f32,
               at paligemma's (4, 4096, 8, 1, 256) in bf16 and f32 and at the
               restart check's reduced (2, 256, 256, 4, 2, 16) in both types
-              (the CUDA cores): the kernel, its plain version and
+              (the tensor cores since PR 31): the kernel, its plain version and
               ``torch.autograd.grad`` through ``scaled_dot_product_attention``
               beside its bound (2.5 forwards' flops at the type's peak; on
               the split route six bf16 products of them and the pre-pass's
@@ -175,18 +178,21 @@ Each phase prints one JSON line:
               group, then (f32) v = B dst^T a kernel of its own, then dx
               and ddA per chunk and head on wgmma, then dB and the group
               sums of dS per chunk and 64-row band on wgmma, then dC; f32
-              x, B and C in two bf16 pieces; other calls on five CUDA-core
-              kernels; no atomics; each case on
+              x, B and C in two bf16 pieces; since PR 31 the calls off those
+              shapes on the one-pass kernel (mma.sync, one launch) at chunks
+              of at most 32 tokens and on the wgmma kernels, padded, at
+              longer ones; no atomics; each case on
               ``backward_route``'s kernels, counted by route) against its
               plain formulas: Q 64 / 128 /
               256, P 64, N 64 and 128, G 1 and 2, both types, B and C sliced
               from one projection, a ragged Q and P; 1e-4 (f32) or one bf16 step of
               each gradient's largest value, ddA 1e-4; planted faults (dx's
               state term dropped, one head left out of the group sums)
-              rejected in both types; two calls at the training shape bit for
-              bit in both types; then ``ssd_bwd_timing`` at (64, 256, 80,
-              1, 64, 128) in bf16 and f32:
-              the kernel and its plain formulas beside the bound, each
+              rejected in both types on both routes; two calls at the
+              training shape and at the reduced mamba2's (16, 16, 16, 1, 8,
+              16) bit for bit in both types; then ``ssd_bwd_timing`` at (64,
+              256, 80, 1, 64, 128) and at (16, 16, 16, 1, 8, 16) in bf16 and
+              f32: the kernel and its plain formulas beside the bound, each
               kernel's registers, spills, shared memory and device time.
 10g. ssm_train_path — ``launch.train.run`` at mamba2-2.7b's widths and all 64
               layers (bf16 weights, accum 1 and remat as ``configs/archs.py``
@@ -1296,7 +1302,7 @@ def time_flash(dev, dtype: str, iters: int, shape=SERVING_SHAPE) -> dict:
                                  ms_runs=[pre_a, pre_b], plain_ms=pre_plain,
                                  bound_ms=pre_bound, bound_by="bytes",
                                  share_of_bound=pre_bound / min(pre_a, pre_b),
-                                 ptxas=ptxas_entry(log, "split_bf16_kernel"))
+                                 ptxas=ptxas_entry(log, "split_bf16_segments"))
     emit("flash_timing", **row)
     return row
 
@@ -1712,20 +1718,21 @@ def ssd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores"):
             nbytes, flops)
 
 
-def time_ssd(dev, dtype: str, iters: int) -> dict:
-    """Kernel and plain version at the serving shape, in turns (plain,
-    kernel, kernel, plain), with the route the kernel took and its
-    registers, spills (the compiler's report) and shared memory a block.
-    No single PyTorch call computes the function, so there is no library
-    time."""
+def time_ssd(dev, dtype: str, iters: int, shape=SSD_SERVING) -> dict:
+    """Kernel and plain version at ``shape`` (the serving shape, or the
+    reduced mamba2's, off the tensor-core shapes), in turns (plain, kernel,
+    kernel, plain), with the route the kernel took and its registers,
+    spills (the compiler's report) and shared memory a block, and its device
+    µs a call from a profile of 3 calls.  No single PyTorch call computes
+    the function, so there is no library time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import resources, route, ssd_chunk, ssd_chunk_plain
 
-    case = (*SSD_SERVING, "published", dtype)
+    case = (*shape, "published", dtype)
     x, dA, B, C = ssd_inputs(case, dev, seed=7)
     errs = ssd_errors(ssd_chunk(x, dA, B, C), ssd_chunk_plain(x, dA, B, C), dA)
     path = route(x, B, C)
-    _nc, Q, _H, _G, P, N = SSD_SERVING
+    _nc, Q, _H, _G, P, N = shape
     if path == "cuda_cores":
         entry, fragment = ("ssd_chunk_kernel", "ssd_chunk_kernelI"
                            + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E")
@@ -1739,16 +1746,20 @@ def time_ssd(dev, dtype: str, iters: int) -> dict:
     kern_a = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=0)
-    bound_ms, bound_by, nbytes, flops = ssd_bound(*SSD_SERVING, dtype, route=path)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(*shape, dtype, route=path)
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SSD_SERVING), dtype=dtype, route=path, ms=ms, ms_runs=[kern_a, kern_b],
+    prof = device_profile(lambda: [ssd_chunk(x, dA, B, C) for _ in range(3)], dev)
+    hits = [t for t in prof["top"] if entry + "<" in t["name"]]
+    n = sum(t["count"] for t in hits)
+    kernel["device_us_a_call"] = sum(t["us"] for t in hits) / n if n else "not measured"
+    row = dict(shape=list(shape), dtype=dtype, route=path, ms=ms, ms_runs=[kern_a, kern_b],
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, gbytes_per_s=nbytes / (ms * 1e-3) / 1e9,
                share_of_bound=bound_ms / ms, max_abs_err=max(errs["y_diag"], errs["states"]),
                kernel=kernel)
     if dtype == "float32":
-        row["cuda_core_bound_ms"] = ssd_bound(*SSD_SERVING, dtype)[0]
+        row["cuda_core_bound_ms"] = ssd_bound(*shape, dtype)[0]
     emit("ssd_timing", **row)
     return row
 
@@ -1784,8 +1795,18 @@ SSD_BWD_CASES = tuple(
      # the tensor-core route's edges: ragged Q (80, 208), G 3 < H, P 16 and
      # 32, N 16 to 64
      (3, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), (2, 208, 4, 1, 32, 64, "published", "bfloat16"),
-     (4, 64, 4, 2, 16, 32, "jax_test", "bfloat16"))
+     (4, 64, 4, 2, 16, 32, "jax_test", "bfloat16"),
+     # the one-pass route (chunks of at most 32 tokens off those shapes): the
+     # reduced mamba2's shape in both types, and Q 32 with P 24, N 40 sliced
+     (16, 16, 16, 1, 8, 16, "published", "bfloat16"),
+     (16, 16, 16, 1, 8, 16, "published", "float32"),
+     (3, 32, 6, 3, 24, 40, "jax_test", "bfloat16", "sliced"))
 SSD_TRAIN_SHAPE = (64, 256, 80, 1, 64, 128)  # mamba2-2.7b, 4 x 4,096 tokens in chunks of 256
+# The reduced mamba2 of resilient_path: 8 x 32 tokens in chunks of 16,
+# d_inner 128 in heads of 8, one group of state dim 16: P 8 is off the
+# tensor-core shapes (the forward's CUDA-core route, the backward's one pass).
+SSD_REDUCED_SHAPE = (16, 16, 16, 1, 8, 16)
+SSD_FAULT_SHAPE = (8, 256, 16, 1, 64, 128)  # the planted faults' shape on the wgmma route
 # Each gradient's largest difference over its largest plain value.  Both
 # sum f32 products of the same values in different orders (the kernel's
 # cum in a warp scan, the card's torch.cumsum in another): against an f64
@@ -1859,15 +1880,16 @@ def check_ssd_bwd_case(case, dev, seed=0) -> dict:
     return check_ssd_bwd_output(str(case), got, want, case[7])
 
 
-def ssd_bwd_planted_faults(dev, dtype: str) -> dict:
-    """At (8, 256, 16, 1, 64, 128) with the JAX test's log-decays: the
+def ssd_bwd_planted_faults(dev, dtype: str, shape=SSD_FAULT_SHAPE) -> dict:
+    """At ``shape`` (SSD_FAULT_SHAPE on the wgmma route, or the reduced
+    mamba2's on the one-pass route) with the JAX test's log-decays: the
     kernel run with dstates zeroed (its dx without the state term w * B
     dst^T) and with one head's dy and dstates zeroed (its dB and dC without
     that head's share of the group sums), each held against the plain
     gradients of the true inputs: the check must reject both."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+    from repro_torch.kernels.ssd_scan import backward_route, ssd_chunk_backward
 
-    case = (8, 256, 16, 1, 64, 128, "jax_test", dtype)
+    case = (*shape, "jax_test", dtype)
     x, dA, B, C, dy, dst, ddec = ssd_bwd_inputs(case, dev, seed=3)
     want = ssd_bwd_plain_sliced(x, dA, B, C, dy, dst, ddec)
     clean = check_ssd_bwd_output(f"{case}, before the faults", ssd_chunk_backward(
@@ -1881,24 +1903,27 @@ def ssd_bwd_planted_faults(dev, dtype: str) -> dict:
     caught = {"dx_state_term_dropped": not ssd_bwd_within({"dx": no_state["dx"]}, dtype),
               "head_left_out_of_group_sum": not ssd_bwd_within(
                   {"dB": no_head["dB"], "dC": no_head["dC"]}, dtype)}
-    check(all(caught.values()), f"{dtype}: a planted backward fault passes the check: "
-          f"{caught} ({no_state}, {no_head})")
-    return dict(dtype=dtype, shape=list(case[:6]), clean=clean, dx_state_term_dropped=no_state,
-                head_left_out_of_group_sum=no_head, caught=caught)
+    check(all(caught.values()), f"{dtype} at {shape}: a planted backward fault passes the "
+          f"check: {caught} ({no_state}, {no_head})")
+    return dict(dtype=dtype, shape=list(case[:6]), route=backward_route(x, B, C), clean=clean,
+                dx_state_term_dropped=no_state, head_left_out_of_group_sum=no_head,
+                caught=caught)
 
 
-def ssd_bwd_repeat(dev, dtype: str = "bfloat16") -> dict:
-    """Two backward calls on the same inputs at the training shape: equal
-    bit for bit (no atomics; a restart that replays a step relies on it)."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk_backward
+def ssd_bwd_repeat(dev, dtype: str = "bfloat16", shape=SSD_TRAIN_SHAPE) -> dict:
+    """Two backward calls on the same inputs at ``shape`` (the training
+    shape, or the reduced mamba2's): equal bit for bit (no atomics; a
+    restart that replays a step relies on it)."""
+    from repro_torch.kernels.ssd_scan import backward_route, ssd_chunk_backward
 
-    args = ssd_bwd_inputs((*SSD_TRAIN_SHAPE, "published", dtype, "sliced"), dev, seed=11)
+    args = ssd_bwd_inputs((*shape, "published", dtype, "sliced"), dev, seed=11)
     a = ssd_chunk_backward(*args)
     b = ssd_chunk_backward(*args)
     sync(dev)
     equal = {n: torch.equal(u, v) for n, u, v in zip(SSD_BWD_NAMES, a, b)}
-    check(all(equal.values()), f"two ssd_chunk backward calls differ: {equal}")
-    return dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, bitwise_equal=equal)
+    check(all(equal.values()), f"two ssd_chunk backward calls at {shape} differ: {equal}")
+    return dict(shape=list(shape), dtype=dtype, route=backward_route(args[0], args[2], args[3]),
+                bitwise_equal=equal)
 
 
 def ssd_bwd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores") -> tuple:
@@ -1913,17 +1938,23 @@ def ssd_bwd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores") -> tuple:
     dy, two for v (dst in two pieces), three for the state term; per chunk
     and group one for S, one for dC, two for dB's (sum dS)^T C; in f32 (x,
     B and C in two pieces too) three for each of dM, M^T dy, v and the
-    state term, and three for S, one for dC, three for dB."""
+    state term, and three for S, one for dC, three for dB.  The one-pass
+    route runs the same pieces but dC as products of (sum dS)'s two pieces
+    too: one more in bf16 (two for dC), two more in f32 (three for dC), per
+    chunk and group."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * nc * Q * H * P + 4 * nc * Q * G * N) + 4 * (
         2 * nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
     pairs = Q * (Q + 1) // 2
     flops = 2 * nc * (H * (2 * pairs * P + 2 * Q * P * N) + G * 3 * pairs * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if route == "tensor_cores" and dtype == "bfloat16":
-        t_ops = 2 * nc * (H * 5 * (pairs * P + Q * P * N) + G * 4 * pairs * N) / BF16_FLOPS
-    elif route == "tensor_cores":
-        t_ops = 2 * nc * (H * 6 * (pairs * P + Q * P * N) + G * 7 * pairs * N) / BF16_FLOPS
+    one_pass = route == "one_pass"  # dC as products of pieces too
+    if route in ("tensor_cores", "one_pass") and dtype == "bfloat16":
+        t_ops = 2 * nc * (H * 5 * (pairs * P + Q * P * N)
+                          + G * (5 if one_pass else 4) * pairs * N) / BF16_FLOPS
+    elif route in ("tensor_cores", "one_pass"):
+        t_ops = 2 * nc * (H * 6 * (pairs * P + Q * P * N)
+                          + G * (9 if one_pass else 7) * pairs * N) / BF16_FLOPS
     else:
         t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
@@ -1940,6 +1971,8 @@ def ssd_bwd_fragments(path: str, P: int, N: int, dtype: str) -> dict:
     for k in backward_kernels(path, getattr(torch, dtype)):
         if k == "tc::bwd_v":  # f32 only: not templated on the type
             out[k] = f"bwd_vILi{P}ELi{N}E"
+        elif k == "op::bwd_chunk":  # templated on the type alone
+            out[k] = f"bwd_chunkI{tname}E"
         elif k.startswith("tc::"):
             out[k] = f"{k[4:]}I{tname}Li{P}ELi{N}E"
         else:
@@ -1947,18 +1980,18 @@ def ssd_bwd_fragments(path: str, P: int, N: int, dtype: str) -> dict:
     return out
 
 
-def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
-    """The backward kernel and its plain formulas at the training shape, in
-    turns (plain, kernel, kernel, plain), beside the bound of the route it
-    takes; each of the route's kernels' registers, spills (the compiler's
-    report), shared memory and device time from a profile of 3 calls.  No
-    single PyTorch call computes this gradient, so there is no library
-    time."""
+def time_ssd_bwd(dev, dtype: str, iters: int, shape=SSD_TRAIN_SHAPE) -> dict:
+    """The backward kernel and its plain formulas at ``shape`` (the training
+    shape, or the reduced mamba2's), in turns (plain, kernel, kernel,
+    plain), beside the bound of the route it takes; each of the route's
+    kernels' registers, spills (the compiler's report), shared memory and
+    device time from a profile of 3 calls.  No single PyTorch call computes
+    this gradient, so there is no library time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import (backward_kernels, backward_resources,
                                               backward_route, ssd_chunk_backward)
 
-    case = (*SSD_TRAIN_SHAPE, "published", dtype, "sliced")
+    case = (*shape, "published", dtype, "sliced")
     args = ssd_bwd_inputs(case, dev, seed=7)
     path = backward_route(args[0], args[2], args[3])
     errs = check_ssd_bwd_output(f"{case}, timed", ssd_chunk_backward(*args),
@@ -1967,11 +2000,11 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
     kern_a = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk_backward(*args), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=0)
-    bound_ms, bound_by, nbytes, flops, cc_ms = ssd_bwd_bound(*SSD_TRAIN_SHAPE, dtype, route=path)
-    P, N = SSD_TRAIN_SHAPE[4], SSD_TRAIN_SHAPE[5]
+    bound_ms, bound_by, nbytes, flops, cc_ms = ssd_bwd_bound(*shape, dtype, route=path)
+    _nc, Q, H, G, P, N = shape
     frag = ssd_bwd_fragments(path, P, N, dtype)
     log = _build.library_path("ssd_chunk_bwd").with_suffix(".log").read_text()
-    res = backward_resources(P, args[0].dtype, path, N)
+    res = backward_resources(P, args[0].dtype, path, N, Q=Q, rep=H // G)
     prof = device_profile(lambda: [ssd_chunk_backward(*args) for _ in range(3)], dev)
     kernel_us = {}
     names = backward_kernels(path, args[0].dtype)
@@ -1980,7 +2013,7 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
         n = sum(t["count"] for t in hits)
         kernel_us[k] = sum(t["us"] for t in hits) / n if n else "not measured"
     ms = min(kern_a, kern_b)
-    row = dict(shape=list(SSD_TRAIN_SHAPE), dtype=dtype, route=path, ms=ms,
+    row = dict(shape=list(shape), dtype=dtype, route=path, ms=ms,
                ms_runs=[kern_a, kern_b], plain_ms=min(plain_a, plain_b),
                plain_ms_runs=[plain_a, plain_b], plain="ssd_chunk_backward_plain, "
                f"{SSD_BWD_SLICE} chunks a call", library_ms=None, bound_ms=bound_ms,
@@ -1994,10 +2027,25 @@ def time_ssd_bwd(dev, dtype: str, iters: int) -> dict:
     return row
 
 
+def ssd_bwd_route_rule(case) -> str:
+    """The backward route a SSD_BWD_CASES case must take: the wgmma kernels
+    at the forward's tensor-core head and state dims (and, padded, off them
+    at chunks longer than ONE_PASS_MAX_Q), the one-pass kernel off them at
+    shorter chunks (the cases' layouts are aligned where their dims are
+    on)."""
+    from repro_torch.kernels import ssd_scan
+
+    Q, P, N = case[1], case[4], case[5]
+    if (P in ssd_scan.TC_P and N in ssd_scan.TC_N) or Q > ssd_scan.ONE_PASS_MAX_Q:
+        return "tensor_cores"
+    return "one_pass"
+
+
 def run_ssd_bwd_kernels(dev) -> dict:
-    """Phase 10f: every SSD_BWD_CASES case against the plain formulas, the
-    planted faults in both types, two calls bit for bit at the training
-    shape, then ``ssd_bwd_timing`` there in bf16 and in f32."""
+    """Phase 10f: every SSD_BWD_CASES case against the plain formulas, each
+    on its route, the planted faults in both types on both routes, two calls
+    bit for bit at the training shape and at the reduced mamba2's (the
+    one-pass route), then ``ssd_bwd_timing`` at both in bf16 and in f32."""
     from repro_torch.kernels import ssd_scan
 
     t0 = time.perf_counter()
@@ -2007,33 +2055,42 @@ def run_ssd_bwd_kernels(dev) -> dict:
         before = dict(ssd_scan.ssd_chunk_backward.route_launches)
         errs.append(check_ssd_bwd_case(case, dev, seed=i))
         routes.append(route_taken(ssd_scan.ssd_chunk_backward, before))
-        want = ("tensor_cores" if case[4] in ssd_scan.TC_P and case[5] in ssd_scan.TC_N
-                else "cuda_cores")
+        want = ssd_bwd_route_rule(case)
         check(routes[-1] in (want, "plain"), f"{case}: took the {routes[-1]} route, not {want}")
     launches = ssd_scan.ssd_chunk_backward.launches
     check(launches == len(SSD_BWD_CASES) or dev.type == "cpu",
           f"{launches} backward launches for {len(SSD_BWD_CASES)} cases")
-    faults = [ssd_bwd_planted_faults(dev, dt) for dt in ("bfloat16", "float32")]
+    faults = [ssd_bwd_planted_faults(dev, dt, shape) for shape in (SSD_FAULT_SHAPE,
+                                                                   SSD_REDUCED_SHAPE)
+              for dt in ("bfloat16", "float32")]
     repeat = ssd_bwd_repeat(dev)
     torch.cuda.empty_cache()
     repeat32 = ssd_bwd_repeat(dev, "float32")
+    repeat_reduced = [ssd_bwd_repeat(dev, dt, SSD_REDUCED_SHAPE) for dt in ("bfloat16", "float32")]
     emit("ssd_bwd_kernels", cases=len(SSD_BWD_CASES), seconds=time.perf_counter() - t0,
          max_err={dt: {n: max(e[n] for c, e in zip(SSD_BWD_CASES, errs) if c[7] == dt)
                        for n in SSD_BWD_NAMES} for dt in SSD_BWD_TOL},
          tol=SSD_BWD_TOL, ddA_tol=SSD_BWD_DDA_TOL, launches=launches,
          launches_by_route=dict(ssd_scan.ssd_chunk_backward.route_launches),
          cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(SSD_BWD_CASES, routes))
-                              for r in ssd_scan.ROUTES} for dt in SSD_BWD_TOL},
+                              for r in ssd_scan.BWD_ROUTES} for dt in SSD_BWD_TOL},
          planted_faults=faults, repeat=repeat, repeat_float32=repeat32,
+         repeat_reduced=repeat_reduced,
          shapes=[list(c) + [t, e] for c, t, e in zip(SSD_BWD_CASES, routes, errs)])
     torch.cuda.empty_cache()
     row = time_ssd_bwd(dev, "bfloat16", iters=5)
     torch.cuda.empty_cache()
     row32 = time_ssd_bwd(dev, "float32", iters=3)  # the f32 step's route (tensor cores)
     torch.cuda.empty_cache()
+    reduced = {dt: time_ssd_bwd(dev, dt, iters=100, shape=SSD_REDUCED_SHAPE)
+               for dt in ("bfloat16", "float32")}
     return {"max_err": max(max(e.values()) for e in errs), "row": row, "row_float32": row32,
+            "rows_reduced": reduced,
             "max_err_float32": max(max(e.values()) for c, e in zip(SSD_BWD_CASES, errs)
-                                   if c[7] == "float32")}
+                                   if c[7] == "float32"),
+            "max_err_one_pass": max([max(e.values()) for c, e in zip(SSD_BWD_CASES, errs)
+                                     if ssd_bwd_route_rule(c) == "one_pass"]
+                                    + [max(r["max_err"].values()) for r in reduced.values()])}
 
 
 # ------------------------------------------------------------- phase 12a
@@ -2623,7 +2680,7 @@ BWD_CASES = tuple(  # (B, Sq, Sk, H, K, D, causal, dtype): the JAX package's tes
     for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 128, 384, 4, 1, 128),
                   (2, 64, 64, 2, 1, 256), (1, 100, 100, 14, 2, 64), (1, 77, 131, 8, 1, 16))
 ) + ((16400, 8, 8, 4, 2, 16, True, "float32"),) + tuple(  # batch x heads past 65,535
-    # on the CUDA cores (in bf16 that shape takes the packed route); then the
+    # on the tensor cores (in bf16 that shape takes the packed route); then the
     # packed route (Sq 1 full only: a causal row over one key has dq = dk = 0
     # exactly, and the relative limit would hold rounding noise)
     (*shape, causal, "bfloat16") for shape in PACKED_SHAPES for causal in (True, False)
@@ -2829,7 +2886,7 @@ def time_flash_bwd(dev, dtype: str, shape, iters: int) -> dict:
     per_kernel = {}  # us a launch over the launches the profiler kept (it may drop some)
     names = {role: fragment_name(name) for role, (name, _) in kernels.items()}
     if fm.split_bf16.launches > split_before:  # the split route's pre-pass
-        names["split_bf16"] = "split_bf16_kernel"
+        names["split_bf16"] = "split_bf16_segments"
     for role, frag in names.items():
         hits = [t for t in prof["top"] if frag in t["name"]]
         n = sum(t["count"] for t in hits)
@@ -3011,8 +3068,8 @@ def f32_step_check(dev, arch: str) -> dict:
     ``adam_param_errors``; two forward launches a layer (remat) and one
     backward launch a layer, all on ``backward_route``'s kernels (f32 at D
     64, 128 and 256: the split route), with the split route's
-    ``split_bf16`` launches counted (two a forward launch, four a
-    backward)."""
+    ``split_bf16`` launches counted (two a forward launch, one a
+    backward: q, k, v and dO in one launch since PR 31)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.launch.train import make_batch, make_data, with_depth
@@ -3050,7 +3107,7 @@ def f32_step_check(dev, arch: str) -> dict:
     check(k["backward_route_launches"][want_route] == attn,
           f"{arch} f32 step: backward launches by route {k['backward_route_launches']}, not on "
           f"{want_route}")
-    split_want = 2 * k["launches"] + 4 * k["backward_launches"]
+    split_want = 2 * k["launches"] + k["backward_launches"]  # K and V; the backward's q, k, v, dO
     check(want_route != "tensor_cores" or k["split_bf16_launches"] == split_want,
           f"{arch} f32 step: {k['split_bf16_launches']} split_bf16 launches, not {split_want}")
     loss_err = abs(k["loss"] - p["loss"])
@@ -3084,7 +3141,8 @@ def restart_check(dev, tmp: Path) -> dict:
     answers by restoring the last checkpoint (step ``fail_at`` - 1 rounded
     down to ``ckpt_every``) and the data cursor: the two runs' parameters
     and moments must be equal bit for bit.  The straight run's backward
-    launches are counted by route."""
+    launches are counted by route, all on the tensor cores (D 16: since PR
+    31, the CUDA cores before)."""
     from repro_torch.configs import reduced_config
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.launch.train import run
@@ -3096,6 +3154,8 @@ def restart_check(dev, tmp: Path) -> dict:
     straight = run(cfg, ckpt_dir=tmp / "straight", **kw)
     sync(dev)
     bwd_routes = dict(fm.flash_attention.backward_route_launches)
+    check(dev.type == "cpu" or {r for r, n in bwd_routes.items() if n} == {"tensor_cores"},
+          f"restart check: backward launches by route {bwd_routes}, not all on the tensor cores")
     again = run(cfg, ckpt_dir=tmp / "restarted", fail_at=RESTART["fail_at"], **kw)
     check(again["report"].restarts == 1, f"{again['report'].restarts} restarts, not 1")
     same = [torch.equal(a, b) for a, b in zip(straight["params"].parameters(),
@@ -4628,7 +4688,9 @@ def run_resilient_path(dev) -> dict:
     preempted before step 15 (restored from step 10), which must end equal
     bit for bit to it (parameters, moments, every step's loss); the kernel
     launches of the preempted run (flash forward and backward a layer a
-    step run, or ``ssd_chunk`` and its backward) and its straggler events."""
+    step run, or ``ssd_chunk`` and its backward), the backward's all on one
+    route (packed; the SSM's on the one-pass kernel since PR 31, on the
+    CUDA cores before) and its straggler events."""
     from repro_torch import resilient_training
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.kernels import ssd_scan
@@ -4648,10 +4710,16 @@ def run_resilient_path(dev) -> dict:
             launches = {"ssd_chunk": ssd_scan.ssd_chunk.launches,
                         "ssd_chunk_backward": ssd_scan.ssd_chunk_backward.launches}
             routes = dict(ssd_scan.ssd_chunk_backward.route_launches)
+            fwd_routes = dict(ssd_scan.ssd_chunk.route_launches)  # P 8: the CUDA cores
+            want = "one_pass"  # P 8: off the wgmma shapes, chunks of 16
         else:
             launches = {"flash_attention": fm.flash_attention.launches,
                         "flash_attention_backward": fm.flash_attention.backward_launches}
             routes = dict(fm.flash_attention.backward_route_launches)
+            fwd_routes = dict(fm.flash_attention.route_launches)
+            want = "packed"  # a 32-token sequence at D 16
+        check(dev.type == "cpu" or {r for r, n in routes.items() if n} == {want},
+              f"resilient_path {arch}: backward launches by route {routes}, not all {want}")
         check(all(n == cfg.num_layers * ran for n in launches.values()) or dev.type == "cpu",
               f"resilient_path {arch}: launches {launches}, not {cfg.num_layers} a layer for "
               f"each of {ran} steps")
@@ -4671,7 +4739,9 @@ def run_resilient_path(dev) -> dict:
                          restarts=again["report"].restarts, restored_from=again["restored_from"],
                          tensors_equal=len(same), loss_first=again["losses"][0][1],
                          loss_last=again["losses"][-1][1], dtype=cfg.dtype, launches=launches,
-                         backward_route_launches=routes, straggler_events=again["report"].straggler_events,
+                         forward_route_launches=fwd_routes, backward_route_launches=routes,
+                         cuda_core_backward_launches=routes.get("cuda_cores", 0),
+                         straggler_events=again["report"].straggler_events,
                          straggler_steps=again["straggler_steps"],
                          step_ewma_ms=again["report"].final_step_time_ewma * 1e3,
                          seconds=again["seconds"])
@@ -5122,6 +5192,8 @@ def main(argv=None) -> int:
     del ssm["model"], ssm["tokens"]
     torch.cuda.empty_cache()
     ssd_rows = {dt: time_ssd(dev, dt, iters=10) for dt in ("bfloat16", "float32")}
+    ssd_rows_reduced = {dt: time_ssd(dev, dt, iters=100, shape=SSD_REDUCED_SHAPE)
+                        for dt in ("bfloat16", "float32")}
     ssd_row, ssd32_row = ssd_rows["bfloat16"], ssd_rows["float32"]
     flash32_row = flash_rows["float32"]
     torch.cuda.empty_cache()
@@ -5183,13 +5255,14 @@ def main(argv=None) -> int:
         "resilient_path": (res_ssm["launches"]["ssd_chunk_backward"],
                            res_ssm["backward_route_launches"], res_ssm["dtype"])}
 
-    def ssd_bwd_launches(dtype):
-        """The ssd_chunk backward's launches in ``dtype``, by path and by route."""
-        runs = {p: (n, r) for p, (n, r, t) in ssd_bwd_runs.items() if t == dtype}
-        return {"launches": sum(n for n, _ in runs.values()),
-                "launches_by_route": {k: sum(r[k] for _, r in runs.values())
-                                      for k in ssd_scan.ROUTES},
-                "launches_by_path": {p: n for p, (n, _) in runs.items()}}
+    def ssd_bwd_launches(dtype, route):
+        """The ssd_chunk backward's launches in ``dtype`` on ``route``, by
+        path, and its launches in ``dtype`` by route."""
+        runs = {p: r for p, (_n, r, t) in ssd_bwd_runs.items() if t == dtype}
+        return {"launches": sum(r[route] for r in runs.values()),
+                "launches_by_route": {k: sum(r[k] for r in runs.values())
+                                      for k in ssd_scan.BWD_ROUTES},
+                "launches_by_path": {p: r[route] for p, r in runs.items() if r[route]}}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -5317,12 +5390,45 @@ def main(argv=None) -> int:
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
         "library_ms": None}, {
+        "name": "ssd_chunk[cuda_cores]", "route": "cuda",
+        "kernel_route": ssd_rows_reduced["bfloat16"]["route"],
+        "kernel": ssd_rows_reduced["bfloat16"]["kernel"]["entry"],
+        "dtype": "bfloat16", "shape": list(SSD_REDUCED_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "note": "the forward off the tensor-core shapes: the reduced mamba2's P 8",
+        "launches": res_ssm["forward_route_launches"]["cuda_cores"],
+        "launches_by_path": {"resilient_path": res_ssm["forward_route_launches"]["cuda_cores"]},
+        "max_abs_err": max([max(e["y_diag"], e["states"]) for c, e in zip(SSD_CASES, ssd_errs)
+                            if c[4] not in ssd_scan.TC_P or c[5] not in ssd_scan.TC_N]
+                           + [r["max_abs_err"] for r in ssd_rows_reduced.values()]),
+        **{k: ssd_rows_reduced["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "device_us_a_call": ssd_rows_reduced["bfloat16"]["kernel"]["device_us_a_call"],
+        "float32": {k: ssd_rows_reduced["float32"][k] for k in ("route", "ms", "plain_ms",
+                                                                "bound_ms", "bound_by")},
+        "library_ms": None}, {
+        "name": "ssd_chunk_backward[one_pass]", "route": "cuda",
+        "kernel_route": ssd_bwd["rows_reduced"]["bfloat16"]["route"],
+        "kernels": list(ssd_bwd["rows_reduced"]["bfloat16"]["kernels"]),
+        "dtype": "bfloat16", "shape": list(SSD_REDUCED_SHAPE),
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:44",
+        "note": "the gradient of that kernel at chunks of at most 32 tokens off the wgmma "
+                "shapes, one launch: the reduced mamba2's (resilient_path)",
+        **ssd_bwd_launches("bfloat16", "one_pass"),
+        "max_abs_err": ssd_bwd["max_err_one_pass"],
+        "max_err_is": "of each gradient's largest value",
+        **{k: ssd_bwd["rows_reduced"]["bfloat16"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms")},
+        "float32": {k: ssd_bwd["rows_reduced"]["float32"][k]
+                    for k in ("route", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None}, {
         "name": "ssd_chunk_backward", "route": "cuda", "kernel_route": ssd_bwd["row"]["route"],
         "dtype": "bfloat16", "shape": list(SSD_TRAIN_SHAPE),
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "note": "the gradient of that kernel; the JAX package has no backward kernel",
-        **ssd_bwd_launches("bfloat16"),
+        **ssd_bwd_launches("bfloat16", "tensor_cores"),
         "max_abs_err": max([ssd_bwd["max_err"]] + [max(e.values())
                                                    for e in ssm_train["layer_bwd_errors"]]),
         "max_err_is": "of each gradient's largest value",
@@ -5337,7 +5443,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
         "note": "the gradient of that kernel in f32",
-        **ssd_bwd_launches("float32"),
+        **ssd_bwd_launches("float32", "tensor_cores"),
         "max_abs_err": max(max(ssd_bwd["row_float32"]["max_err"].values()),
                            ssd_bwd["max_err_float32"], ssm_train["float32"]["grad_rel_err"]),
         "max_err_is": "of each gradient's largest value",
@@ -5440,17 +5546,21 @@ def main(argv=None) -> int:
         "dtype": "bfloat16", "shape": list(BWD_REDUCED_SHAPE),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "note": "the gradient of that kernel at the restart check's reduced config",
-        "launches": train["restart"]["backward_route_launches"]["cuda_cores"],
+        "note": "the gradient of that kernel at the restart check's reduced config (D 16 on "
+                "the tensor cores since PR 31)",
+        "kernels": [v["kernel"] for v in bwd["rows"]["reduced_bfloat16"]["ptxas"].values()],
+        "launches": train["restart"]["backward_route_launches"]["tensor_cores"],
         "launches_by_route": train["restart"]["backward_route_launches"],
         "launches_by_path": {
-            "train_path_restart": train["restart"]["backward_route_launches"]["cuda_cores"]},
-        "max_abs_err": bwd["rows"]["reduced_bfloat16"]["max_err"],
+            "train_path_restart": train["restart"]["backward_route_launches"]["tensor_cores"]},
+        "max_abs_err": max(bwd["rows"]["reduced_bfloat16"]["max_err"],
+                           bwd["rows"]["reduced_float32"]["max_err"]),
         "max_err_is": "of each gradient's largest value",
-        "ms": bwd["rows"]["reduced_bfloat16"]["ms"],
-        "plain_ms": bwd["rows"]["reduced_bfloat16"]["plain_ms"],
-        "bound_ms": bwd["rows"]["reduced_bfloat16"]["bound_ms"], "bound_by": bwd["rows"]["reduced_bfloat16"]["bound_by"],
-        "library_ms": bwd["rows"]["reduced_bfloat16"]["library_ms"]}]}), flush=True)
+        **{k: bwd["rows"]["reduced_bfloat16"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "float32": {k: bwd["rows"]["reduced_float32"][k]
+                    for k in ("route", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

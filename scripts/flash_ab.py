@@ -14,9 +14,12 @@ its kernels, and times with CUDA events, causal, on one seeded input each:
   paligemma's shape on whichever route the tree takes there, with that
   route.
 
-With ``--cuda-core-bwd`` it times instead only the backward's CUDA-core
-route, at the shapes that take it: the reduced configs' restart-check
-micro-batch (2, 256, 256, 4, 2, 16) in bf16 and f32.
+With ``--reduced-bwd`` it times instead only the backward at the reduced
+configs' restart-check micro-batch (2, 256, 256, 4, 2, 16), in bf16 and
+f32, on the route the tree takes there (the CUDA cores until D 16 moved to
+the tensor cores), with that route and each of its kernels' device µs a
+call from a profile of 5 calls, taken after every timing (a profile in the
+process slows the host's later launches).
 
 With ``--udf`` it times instead the forward (with and without the lse) and
 the backward at a transformer UDF's training shapes (2,000 records of 8
@@ -32,6 +35,7 @@ build/parent``) and run parent, change, change, parent in one card call.
 from __future__ import annotations
 
 import argparse
+import functools
 import inspect
 import json
 import subprocess
@@ -42,8 +46,8 @@ import torch
 
 FWD_SHAPE = (4, 4096, 4096, 64, 8, 128)  # (B, Sq, Sk, H, K, D)
 BWD_SHAPES = ((1, 4096, 4096, 64, 8, 128), (4, 4096, 4096, 8, 1, 256))
-CUDA_CORE_BWD = (((2, 256, 256, 4, 2, 16), torch.bfloat16),
-                 ((2, 256, 256, 4, 2, 16), torch.float32))
+REDUCED_BWD = (((2, 256, 256, 4, 2, 16), torch.bfloat16),
+               ((2, 256, 256, 4, 2, 16), torch.float32))
 F32_BWD_SHAPE = (4, 4096, 4096, 8, 1, 256)  # the f32 backward, on the route the tree takes
 UDF_SHAPES = ((2000, 8, 8, 128, 8, 128), (2000, 8, 8, 32, 4, 128), (2000, 8, 8, 4, 2, 16))
 
@@ -67,6 +71,23 @@ def inputs(shape, seed: int, dtype=torch.bfloat16):
             for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D), (B, Sq, H, D))]
 
 
+def kernel_us(fn, calls: int) -> dict:
+    """{kernel: device µs a call} from a profile of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
 def timed(fn, iters: int, turns: int) -> dict:
     runs = [cuda_ms(fn, iters) for _ in range(turns)]
     return {"ms": min(runs), "runs": runs}
@@ -77,8 +98,8 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--turns", type=int, default=3)
-    ap.add_argument("--cuda-core-bwd", action="store_true",
-                    help="time only the backward's CUDA-core route (CUDA_CORE_BWD)")
+    ap.add_argument("--reduced-bwd", action="store_true",
+                    help="time only the backward at the reduced shape (REDUCED_BWD)")
     ap.add_argument("--udf", action="store_true",
                     help="time only the UDF training shapes (UDF_SHAPES)")
     args = ap.parse_args()
@@ -92,17 +113,22 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     with_lse = "return_lse" in inspect.signature(fm.flash_attention).parameters
     out = {"root": str(args.root), "card": smi, "iters": args.iters}
-    if args.cuda_core_bwd:
-        for shape, dtype in CUDA_CORE_BWD:
-            if fm.backward_route(shape[5], dtype) != "cuda_cores":
-                raise SystemExit(f"flash_ab: {shape} {dtype} does not take the CUDA cores")
+    if args.reduced_bwd:
+        calls = {}
+        for shape, dtype in REDUCED_BWD:
             q, k, v, dout = inputs(shape, seed=8, dtype=dtype)
             o, lse = fm.flash_attention(q, k, v, causal=True, return_lse=True)
-            out[f"cuda_core_backward_{'x'.join(map(str, shape))}_{str(dtype)[6:]}"] = timed(
-                lambda: fm.flash_attention_backward(q, k, v, o, dout, lse, causal=True),
-                20 * args.iters, args.turns)
-            del q, k, v, dout, o, lse
-            torch.cuda.empty_cache()
+            tag = f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}"
+            calls[tag] = functools.partial(fm.flash_attention_backward, q, k, v, o, dout, lse,
+                                           causal=True)
+            out[f"route_{tag}"] = fm.backward_route(shape[5], dtype, shape[:5])
+        for _ in range(args.turns):  # in turns, and every timing before any profile
+            for tag, call in calls.items():
+                out.setdefault(f"backward_{tag}", {"runs": []})["runs"].append(
+                    cuda_ms(call, 20 * args.iters))
+        for tag, call in calls.items():
+            out[f"backward_{tag}"]["ms"] = min(out[f"backward_{tag}"]["runs"])
+            out[f"kernel_us_{tag}"] = kernel_us(call, 5)
         print("AB " + json.dumps(out), flush=True)
         return 0
 

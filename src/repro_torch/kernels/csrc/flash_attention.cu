@@ -120,8 +120,8 @@
 // model's own inputs on an H100 (twice the limit; the CPU emulation rounds to nearest
 // and cannot show it); per tile it stays a few ulp (9e-6 there, the
 // CUDA-core kernel's own difference from the plain version).  For the same
-// reason each product's small terms go first.  K and V are
-// split once a call by `split_bf16_kernel` into bf16 pieces in device
+// reason each product's small terms go first.  K and V are split once a
+// call by `split_bf16_segments` (split_bf16.cuh) into bf16 pieces in device
 // memory (K and V are H / K times smaller than q under GQA, and every q
 // tile of a head group reads them again), and loaded by TMA as in bf16: a
 // stage holds three pieces of a K tile and three of a V tile.  Each
@@ -155,6 +155,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
@@ -174,7 +175,7 @@ using hopper::term_a;
 using hopper::term_b;
 
 // kSplit: f32 operands as bf16 hi, mid and lo pieces (q split by the
-// consumers, K and V by `split_bf16_kernel` beforehand); otherwise bf16.
+// consumers, K and V by `split_bf16_segments` beforehand); otherwise bf16.
 // Split at D = 256: one consumer warpgroup (its q pieces alone take 96 KB),
 // 32-row KV tiles in separate K and V rings of one stage each (kSepKV: the
 // next tile's K loads while this tile's V is in use, and its V while the
@@ -627,33 +628,6 @@ cudaError_t resources(int* regs, int* smem) {
   return err;
 }
 
-// f32 -> bf16 hi, mid and lo (hopper::split3_bf16), n elements, 4 a thread;
-// the split route's K and V pre-pass.
-__global__ void split_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi,
-                                  __nv_bfloat16* __restrict__ mid, __nv_bfloat16* __restrict__ lo,
-                                  long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; 4 * i < n; i += stride) {
-    if (4 * i + 4 <= n) {
-      const float4 v = reinterpret_cast<const float4*>(src)[i];
-      uint2 h, m, l;
-      hopper::split3_bf16(v.x, v.y, h.x, m.x, l.x);
-      hopper::split3_bf16(v.z, v.w, h.y, m.y, l.y);
-      reinterpret_cast<uint2*>(hi)[i] = h;
-      reinterpret_cast<uint2*>(mid)[i] = m;
-      reinterpret_cast<uint2*>(lo)[i] = l;
-    } else {
-      for (long long e = 4 * i; e < n; ++e) {
-        uint32_t h, m, l;
-        hopper::split3_bf16(src[e], 0.f, h, m, l);
-        hi[e] = __ushort_as_bfloat16((unsigned short)(h & 0xFFFFu));
-        mid[e] = __ushort_as_bfloat16((unsigned short)(m & 0xFFFFu));
-        lo[e] = __ushort_as_bfloat16((unsigned short)(l & 0xFFFFu));
-      }
-    }
-  }
-}
-
 }  // namespace tc
 
 // ------------------------------------------- bf16, short sequences: packed
@@ -954,14 +928,7 @@ int split_bf16_launch(const void* src, void* hi, void* mid, void* lo, long long 
                       void* stream) {
   if (n < 1 || ((uintptr_t)src | (uintptr_t)hi | (uintptr_t)mid | (uintptr_t)lo) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const long long units = (n + 3) / 4;
-  const int threads = 256;
-  const long long blocks = (units + threads - 1) / threads;
-  tc::split_bf16_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<__nv_bfloat16*>(hi),
-      static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), n);
-  return (int)cudaGetLastError();
+  return (int)split::launch(src, hi, mid, lo, n, static_cast<cudaStream_t>(stream));
 }
 
 // A kernel's registers a thread at launch and shared memory a block

@@ -59,7 +59,7 @@
 // one of two routes the wrapper picks before the launch
 // (`flash_attention.backward_route`):
 //
-// bf16, D in {64, 128, 256}: `tc::dkdv_wgmma<D>` then `tc::dq_wgmma<D>`, on
+// bf16, D in {16, ..., 256}: `tc::dkdv_wgmma<D>` then `tc::dq_wgmma<D>`, on
 // the tensor cores.  A bf16 x bf16 product is exact in f32, so wgmma with
 // f32 accumulation gives the plain version's f32 S and dP up to the order of
 // summation; the scale is applied in f32 (folded into exp2 for S, to dK and
@@ -71,7 +71,8 @@
 // Both kernels have the forward's shape: 384 threads, warpgroup 2 the
 // producer (one thread issues every TMA load through full/empty mbarriers;
 // `setmaxnreg` 24), warpgroups 0 and 1 consume (240).  Tiles are 128-byte
-// swizzled, 64 columns a chunk, loaded by rank-4 tensor maps over
+// swizzled, 64 columns a chunk (below D 64 one chunk of D columns, 2 D-byte
+// swizzled), loaded by rank-4 tensor maps over
 // (D, heads, S, B), so GQA is a coordinate and rows past Sq or Sk arrive as
 // zeros; only the causal diagonal and the ragged edge are masked (p = 0).
 //   dK/dV: one block per (KV tile, KV head, batch), issued longest first
@@ -104,16 +105,19 @@
 // two rows a thread; P while dP's product runs), then dQ += bf16(dS).K, K
 // read MN-major.  dQ is scaled in f32 at the end.
 //
-// f32, D in {64, 128, 256}: `tc::dkdv_split<D>` then `tc::dq_split<D>` (at
+// f32, D in {16, ..., 256}: `tc::dkdv_split<D>` then `tc::dq_split<D>` (at
 // D 256 `tc::dkdv_split_wide` and `tc::dq_split_wide`, below), the
 // split route, on the tensor cores as the forward's f32 route is
 // (flash_attention.cu): every f32 operand enters as three bf16 pieces, hi =
 // bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), within 2^-25 |v|
 // (hopper.cuh), and every product as six wgmma products of pieces, smallest
 // first (mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi; each bf16 x bf16
-// term exact in f32).  q, k, v and dO are split beforehand by the forward
-// library's `split_bf16_kernel` into bf16 pieces in device memory (the
-// dK/dV kernel reads every Q and dO tile again for each KV tile), loaded by
+// term exact in f32).  q, k, v and dO are split beforehand by
+// `split_bf16_segments` (split_bf16.cuh: the four tensors in one launch
+// from the same C entry, where four calls from Python cost 0.3 ms of host
+// time at the reduced shape)
+// into bf16 pieces in device memory (the dK/dV kernel reads every Q and dO
+// tile again for each KV tile), loaded by
 // TMA as in bf16; P^T / P and dS^T / dS are split in registers, never
 // rounded, so dV's product sees p in v's type (f32) as the plain formulas
 // do.  The scale stays in f32 (folded into exp2, applied to dK and dQ
@@ -183,14 +187,13 @@
 // chunks' L2 traffic, about 50 GB (dK/dV) and 32 GB (dQ) a call, is what
 // the design pays for fitting in 227 KB.
 //
-// Otherwise (bf16 at D 16 and 32, f32 at D 16 and 32): `bwd_dkdv` then `bwd_dq`
-// on the CUDA cores (IEEE f32 FMAs, no TF32, no bf16 products), the same
-// block ownership: dK/dV one block per (batch * kv head, 64-row KV tile)
-// looping over the group's query heads and the q tiles at or past the
-// causal frontier; dQ one block per (batch * head, 64-row q tile).  256
-// threads as 16 x 16; operands converted to f32 as they are staged into
-// shared memory (rows padded by one float).  Only D 16 and 32 are built:
-// every wider head dim takes the tensor cores in both types.
+// D 16 and 32 (the reduced configs' training) run the same kernels,
+// instantiated at that head dim with the forward's swizzle
+// (flash_attention.cu): one chunk of 2 D bytes a row, 32- or 64-byte
+// swizzled TMA boxes and descriptors (`packed::Sw`).  A bf16 x bf16 product
+// is as exact at D 16 as at 128, so the arithmetic, the block ownership and
+// the fixed order of every sum are unchanged; no route of this file runs on
+// the CUDA cores.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,6 +201,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
@@ -205,13 +209,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ inline float ld(const float* p) { return *p; }
 __device__ inline float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ inline void st(float* p, float x) { *p = x; }
-__device__ inline void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// x rounded to T (to nearest even), back in f32: p as the P.V product sees it
-__device__ inline float round_to(float x, const float*) { return x; }
-__device__ inline float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // ------------------------------------------------------------ both routes
 // One warp a row of the (B, H, Sqp) scratch: Di = rowsum(dO * O) (lanes
@@ -251,304 +248,6 @@ cudaError_t launch_prep(const void* o, const void* dout, const float* lse, float
   return cudaGetLastError();
 }
 
-// ------------------------------------------- bf16 and f32 at D 16, 32: CUDA cores
-namespace cc {
-
-constexpr int kThreads = 256;
-
-template <int D>
-struct Tile {
-  static constexpr int BQ = 64;                  // query rows a tile
-  static constexpr int BK = 64;                  // key rows a tile
-  static constexpr int DS = D + 1;               // padded row stride of an operand tile
-  static constexpr int PS = BK + 1;              // padded row stride of a p / dS tile
-  static constexpr int R = BQ / 16;              // query rows a thread (S, dP, dQ)
-  static constexpr int C = BK / 16;              // key columns a thread (S, dP)
-  static constexpr int RK = BK / 16;             // key rows a thread (dK, dV)
-  static constexpr int DJ = D / 16;              // head-dim columns a thread
-};
-
-template <int D>
-size_t dkdv_smem() {
-  using T = Tile<D>;
-  return sizeof(float) * ((size_t)(2 * T::BK + 2 * T::BQ) * T::DS + 2 * T::BQ * T::PS + 2 * T::BQ);
-}
-
-template <int D>
-size_t dq_smem() {
-  using T = Tile<D>;
-  return sizeof(float) * ((size_t)(2 * T::BK + 2 * T::BQ) * T::DS + T::BQ * T::PS + 2 * T::BQ);
-}
-
-// rows [row0, row0 + rows) of one head of a (S, heads, D) slab into dst
-// (f32, row stride D + 1), times mul; rows at or past S as zeros.
-template <int D, typename T>
-__device__ inline void stage(float* dst, const T* src, int row0, int rows, int S,
-                             size_t row_stride, float mul) {
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    dst[r * (D + 1) + d] = row0 + r < S ? ld(src + (size_t)(row0 + r) * row_stride + d) * mul : 0.f;
-  }
-}
-
-// s = qs . ks^T and dp = gs . vs^T for a thread's R x C entries.
-template <int D>
-__device__ inline void scores(const float* qs, const float* gs, const float* ks,
-                              const float* vs, int tx, int ty,
-                              float (&s)[Tile<D>::R][Tile<D>::C],
-                              float (&dp)[Tile<D>::R][Tile<D>::C]) {
-  constexpr int R = Tile<D>::R, C = Tile<D>::C, DS = Tile<D>::DS;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[R], gv[R], kv[C], vv[C];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      qv[i] = qs[(ty + 16 * i) * DS + d];
-      gv[i] = gs[(ty + 16 * i) * DS + d];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      kv[c] = ks[(tx + 16 * c) * DS + d];
-      vv[c] = vs[(tx + 16 * c) * DS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-        dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
-      }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkdv(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int K, int causal,
-    float scale) {
-  using Tl = Tile<D>;
-  constexpr int BQ = Tl::BQ, BK = Tl::BK, DS = Tl::DS, PS = Tl::PS, R = Tl::R, C = Tl::C,
-                RK = Tl::RK, DJ = Tl::DJ;
-  extern __shared__ float smem[];
-  float* ks = smem;           // BK x DS  keys
-  float* vs = ks + BK * DS;   // BK x DS  values
-  float* qs = vs + BK * DS;   // BQ x DS  scaled queries
-  float* gs = qs + BQ * DS;   // BQ x DS  output gradient dO
-  float* ps = gs + BQ * DS;   // BQ x PS  p rounded to v's type
-  float* dss = ps + BQ * PS;  // BQ x PS  dS
-  float* ls = dss + BQ * PS;  // BQ       lse
-  float* dis = ls + BQ;       // BQ       Di
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bk = blockIdx.x, b = bk / K, kvh = bk - b * K, G = H / K;
-  const int k0 = blockIdx.y * BK;  // blocks of the first KV tiles, the longest, first
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
-  const size_t kv_off = (size_t)b * Sk * kv_row + (size_t)kvh * D;
-  stage<D>(ks, k + kv_off, k0, BK, Sk, kv_row, 1.f);
-  stage<D>(vs, v + kv_off, k0, BK, Sk, kv_row, 1.f);
-
-  float acc_k[RK][DJ], acc_v[RK][DJ];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_q = (Sq + BQ - 1) / BQ;
-  const int first_q = causal ? min(k0 / BQ, n_q) : 0;  // q tiles holding a row >= k0
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * D;
-    const size_t row_off = ((size_t)b * H + h) * Sq;
-    for (int qt = first_q; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // ks, vs staged (first pass); the last pass's tiles read
-      stage<D>(qs, q + q_off, q0, BQ, Sq, q_row, scale);
-      stage<D>(gs, dout + q_off, q0, BQ, Sq, q_row, 1.f);
-      for (int r = tid; r < BQ; r += kThreads) {
-        const bool in = q0 + r < Sq;
-        ls[r] = in ? lse[row_off + q0 + r] : 0.f;
-        dis[r] = in ? di[row_off + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[R][C], dp[R][C];
-      scores<D>(qs, gs, ks, vs, tx, ty, s, dp);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = ty + 16 * i, qpos = q0 + r;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int col = tx + 16 * c, kpos = k0 + col;
-          const bool masked = qpos >= Sq || kpos >= Sk || (causal && kpos > qpos);
-          const float p = masked ? 0.f : expf(s[i][c] - ls[r]);
-          ps[r * PS + col] = round_to(p, v);
-          dss[r * PS + col] = p * (dp[i][c] - dis[r]);
-        }
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float pv[RK], sv[RK], gv[DJ], qv[DJ];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          pv[i] = ps[r * PS + ty + 16 * i];
-          sv[i] = dss[r * PS + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          gv[j] = gs[r * DS + tx + 16 * j];
-          qv[j] = qs[r * DS + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos >= Sk) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const size_t off = kv_off + (size_t)kpos * kv_row + tx + 16 * j;
-      st(dk + off, acc_k[i][j]);
-      st(dv + off, acc_v[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-    T* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, float scale) {
-  using Tl = Tile<D>;
-  constexpr int BQ = Tl::BQ, BK = Tl::BK, DS = Tl::DS, PS = Tl::PS, R = Tl::R, C = Tl::C,
-                DJ = Tl::DJ;
-  extern __shared__ float smem[];
-  float* qs = smem;           // BQ x DS  scaled queries
-  float* gs = qs + BQ * DS;   // BQ x DS  dO
-  float* ks = gs + BQ * DS;   // BK x DS  keys
-  float* vs = ks + BK * DS;   // BK x DS  values
-  float* dss = vs + BK * DS;  // BQ x PS  dS
-  float* ls = dss + BQ * PS;  // BQ       lse
-  float* dis = ls + BQ;       // BQ       Di
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kvh = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)K * D;
-  const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * D;
-  const size_t kv_off = (size_t)b * Sk * kv_row + (size_t)kvh * D;
-  const size_t row_off = (size_t)bh * Sq;
-  stage<D>(qs, q + q_off, q0, BQ, Sq, q_row, scale);
-  stage<D>(gs, dout + q_off, q0, BQ, Sq, q_row, 1.f);
-  for (int r = tid; r < BQ; r += kThreads) {
-    const bool in = q0 + r < Sq;
-    ls[r] = in ? lse[row_off + q0 + r] : 0.f;
-    dis[r] = in ? di[row_off + q0 + r] : 0.f;
-  }
-
-  float acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  int n_kv = (Sk + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + BQ + BK - 1) / BK);
-  for (int jt = 0; jt < n_kv; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // qs, gs, ls, dis staged (first tile); the last tile's ks, vs, dss read
-    stage<D>(ks, k + kv_off, k0, BK, Sk, kv_row, 1.f);
-    stage<D>(vs, v + kv_off, k0, BK, Sk, kv_row, 1.f);
-    __syncthreads();
-    float s[R][C], dp[R][C];
-    scores<D>(qs, gs, ks, vs, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty + 16 * i, qpos = q0 + r;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int col = tx + 16 * c, kpos = k0 + col;
-        const bool masked = qpos >= Sq || kpos >= Sk || (causal && kpos > qpos);
-        const float p = masked ? 0.f : expf(s[i][c] - ls[r]);
-        dss[r * PS + col] = p * (dp[i][c] - dis[r]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv[R], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) sv[i] = dss[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = ks[c * DS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= Sq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      st(dq + q_off + (size_t)qpos * q_row + tx + 16 * j, acc[i][j] * scale);
-  }
-}
-
-// lse, di: the (B, H, Sq) f32 rows `bwd_prep` wrote.
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Sk, int H, int K, int causal, float scale, cudaStream_t st) {
-  using Tl = Tile<D>;
-  const size_t s2 = dkdv_smem<D>(), s3 = dq_smem<D>();
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)s2)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)s3)) != cudaSuccess)
-    return e;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dout);
-  const int nq = (Sq + Tl::BQ - 1) / Tl::BQ, nk = (Sk + Tl::BK - 1) / Tl::BK;
-  // batch x heads on x (up to 2^31 - 1 blocks), the tiles on y
-  bwd_dkdv<T, D><<<dim3(B * K, nk), kThreads, s2, st>>>(
-      qt, kt, vt, gt, lse, di, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, K, causal,
-      scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq<T, D><<<dim3(B * H, nq), kThreads, s3, st>>>(qt, kt, vt, gt, lse, di,
-                                                      static_cast<T*>(dq), Sq, Sk, H, K, causal,
-                                                      scale);
-  return cudaGetLastError();
-}
-
-// which: 1 dK/dV, 2 dQ.
-template <typename T, int D>
-cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
-  if (which == 1) {
-    *dyn = dkdv_smem<D>();
-    return cudaFuncGetAttributes(a, bwd_dkdv<T, D>);
-  }
-  *dyn = dq_smem<D>();
-  return cudaFuncGetAttributes(a, bwd_dq<T, D>);
-}
-
-}  // namespace cc
-
 // ------------- bf16, D in {64, 128, 256}, and split f32, D in {64, 128, 256}: wgmma
 namespace tc {
 
@@ -557,10 +256,13 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr int kRows = 64;       // rows a consumer warpgroup owns, and every TMA box's rows
 constexpr int kStages = 2;      // ring depth
-constexpr int SW = 128;         // bytes of a swizzled chunk row
-constexpr int CW = 64;          // bf16 columns a chunk
-constexpr uint32_t kMode = 1;   // descriptor swizzle: 128 B
+constexpr int SW = 128;         // bytes of a swizzled chunk row from D 64 on (below: 2 D)
+constexpr int CW = 64;          // bf16 columns a chunk (below D 64: D)
 constexpr int kPairBar = 3;     // named barrier of both consumers (1 + wg: one consumer's)
+
+// The descriptor's swizzle mode for rows of `sw` bytes: 128, 64 or 32 B.
+__host__ __device__ constexpr uint32_t mode_of(int sw) { return sw == 128 ? 1 : sw == 64 ? 2 : 3; }
+constexpr uint32_t kMode = mode_of(SW);
 
 // The tensor maps of a launch; g is dO.
 struct Maps {
@@ -569,19 +271,21 @@ struct Maps {
 
 using hopper::pack_bf16;
 
-// K-major operand: rows from row0 of a [chunk][ROWS][CW] tile, k16 step kk
-// (32 bytes along a chunk row).
-template <int ROWS>
+// K-major operand: rows from row0 of a [chunk][ROWS][SWB / 2] tile whose rows
+// are SWB bytes, k16 step kk (32 bytes along a chunk row).
+template <int ROWS, int SWB = SW>
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
-  return hopper::make_desc(tile + (kk * 16 / CW) * ROWS * SW + row0 * SW + (kk * 16 % CW) * 2, 16,
-                           8 * SW, kMode);
+  constexpr int CWB = SWB / 2;
+  return hopper::make_desc(tile + (kk * 16 / CWB) * ROWS * SWB + row0 * SWB + (kk * 16 % CWB) * 2,
+                           16, 8 * SWB, mode_of(SWB));
 }
 
-// MN-major B operand of a [chunk][ROWS][CW] tile: K rows [16 kk, 16 kk + 16),
-// N columns from chunk c0 on.
-template <int ROWS>
+// MN-major B operand of a [chunk][ROWS][SWB / 2] tile: K rows [16 kk, 16 kk +
+// 16), N columns from chunk c0 on.
+template <int ROWS, int SWB = SW>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int c0 = 0) {
-  return hopper::make_desc(tile + c0 * ROWS * SW + kk * 16 * SW, ROWS * SW, 8 * SW, kMode);
+  return hopper::make_desc(tile + c0 * ROWS * SWB + kk * 16 * SWB, ROWS * SWB, 8 * SWB,
+                           mode_of(SWB));
 }
 
 // A consumer's 64 x W accumulator times `mul`, rounded to bf16, staged in `sm`
@@ -618,7 +322,7 @@ struct DkdvCfg {
   static constexpr int BQ = 64;                          // q rows a stage
   static constexpr int NQ = kSplitD ? BQ / 2 : BQ;       // S^T columns a consumer computes
   static constexpr int DW = kSplitD ? D / 2 : D;         // dK/dV columns a consumer sums
-  static constexpr int NC = D / CW;
+  static constexpr int NC = packed::Sw<D>::NC;  // chunks across D (the forward's swizzle)
   static constexpr int kKVBytes = BKV * D * 2;           // the K tile; the V tile
   static constexpr int kQBytes = BQ * D * 2;             // a stage's Q tile; its dO tile
   static constexpr int kStageBytes = 2 * kQBytes + 1024;  // then lse2 and Di rows, 1 KB aligned
@@ -636,6 +340,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
     int Sq, int Sqp, int Sk, int H, int K, int causal, float c, float scale) {
   using C = DkdvCfg<D>;
   constexpr int BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, DW = C::DW, NC = C::NC;
+  // this head dim's swizzle, as the forward's: 128-byte rows of 64 columns a
+  // chunk from D 64 on, one chunk of 2 D bytes below (shadows tc::SW, tc::CW)
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -723,11 +430,11 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(s, kmajor<BKV>(k_s, kr, kk), kmajor<BQ>(qt, qc, kk), kk > 0);
+          hopper::wgmma_ss(s, kmajor<BKV, SW>(k_s, kr, kk), kmajor<BQ, SW>(qt, qc, kk), kk > 0);
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(dp, kmajor<BKV>(v_s, kr, kk), kmajor<BQ>(gt, qc, kk), kk > 0);
+          hopper::wgmma_ss(dp, kmajor<BKV, SW>(v_s, kr, kk), kmajor<BQ, SW>(gt, qc, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::fence_regs(dp);
         hopper::wgmma_wait<1>();
@@ -792,12 +499,12 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
             hopper::wgmma_ss_tb(acc_v, hopper::make_desc(p_s + kk * 32, 16, 8 * SW, kMode),
-                                mnmajor<BQ>(gt, kk, c0), 1);
+                                mnmajor<BQ, SW>(gt, kk, c0), 1);
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
             hopper::wgmma_ss_tb(acc_k,
                                 hopper::make_desc(p_s + BKV * BQ * 2 + kk * 32, 16, 8 * SW, kMode),
-                                mnmajor<BQ>(qt, kk, c0), 1);
+                                mnmajor<BQ, SW>(qt, kk, c0), 1);
         } else {
           // bf16 P^T and dS^T as A operands from registers: the k16 slice kk
           // of the accumulator is A fragment kk.  dV's product runs while
@@ -812,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
           hopper::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < NQ / 16; ++kk)
-            hopper::wgmma_rs(acc_v, pa[kk], mnmajor<BQ>(gt, kk), 1);
+            hopper::wgmma_rs(acc_v, pa[kk], mnmajor<BQ, SW>(gt, kk), 1);
           hopper::wgmma_commit();
           hopper::fence_regs(acc_v);
           hopper::wgmma_wait<1>();  // dP^T done; dV may still run
@@ -827,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
           hopper::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < NQ / 16; ++kk)
-            hopper::wgmma_rs(acc_k, da[kk], mnmajor<BQ>(qt, kk), 1);
+            hopper::wgmma_rs(acc_k, da[kk], mnmajor<BQ, SW>(qt, kk), 1);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -855,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_wgmma(
 template <int D>
 struct DqCfg {
   static constexpr int BK = D >= 256 ? 32 : 128;  // KV rows a stage
-  static constexpr int NC = D / CW;
+  static constexpr int NC = packed::Sw<D>::NC;  // chunks across D (the forward's swizzle)
   static constexpr int kWGBytes = kRows * D * 2;  // a consumer's Q rows; its dO rows
   static constexpr int kTileBytes = BK * D * 2;   // a stage's K tile; its V tile
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
@@ -869,6 +576,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_wgmma(
     int K, int causal, float c, float scale) {
   using C = DqCfg<D>;
   constexpr int BK = C::BK, NC = C::NC, BQ = 2 * kRows;
+  // this head dim's swizzle, as the forward's: 128-byte rows of 64 columns a
+  // chunk from D 64 on, one chunk of 2 D bytes below (shadows tc::SW, tc::CW)
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -951,11 +661,11 @@ __global__ void __launch_bounds__(kThreads, 1) dq_wgmma(
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(s, kmajor<kRows>(qw, 0, kk), kmajor<BK>(kt, 0, kk), kk > 0);
+          hopper::wgmma_ss(s, kmajor<kRows, SW>(qw, 0, kk), kmajor<BK, SW>(kt, 0, kk), kk > 0);
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(dp, kmajor<kRows>(gw, 0, kk), kmajor<BK>(vt, 0, kk), kk > 0);
+          hopper::wgmma_ss(dp, kmajor<kRows, SW>(gw, 0, kk), kmajor<BK, SW>(vt, 0, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::fence_regs(dp);
         hopper::wgmma_wait<1>();
@@ -987,7 +697,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_wgmma(
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) hopper::wgmma_rs(acc, da[kk], mnmajor<BK>(kt, kk), 1);
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::wgmma_rs(acc, da[kk], mnmajor<BK, SW>(kt, kk), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
@@ -1019,7 +730,7 @@ template <int D>
 struct DkdvSplitCfg {
   static constexpr int BKV = kRows;               // KV rows a block
   static constexpr int BQ = D >= 128 ? 32 : 64;   // q rows a stage
-  static constexpr int NC = D / CW;
+  static constexpr int NC = packed::Sw<D>::NC;  // chunks across D (the forward's swizzle)
   static constexpr int kKVBytes = BKV * D * 2;    // one piece of the K tile; of the V tile
   static constexpr int kQBytes = BQ * D * 2;      // one piece of a stage's Q tile; of its dO tile
   static constexpr int kStageBytes = 6 * kQBytes + 1024;  // then lse2 and Di rows, 1 KB aligned
@@ -1038,6 +749,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_split(
     int Sqp, int Sk, int H, int K, int causal, float c, float scale) {
   using C = DkdvSplitCfg<D>;
   constexpr int BKV = C::BKV, BQ = C::BQ, NC = C::NC;
+  // this head dim's swizzle, as the forward's: 128-byte rows of 64 columns a
+  // chunk from D 64 on, one chunk of 2 D bytes below (shadows tc::SW, tc::CW)
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1128,8 +842,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_split(
       for (int t = 0; t < 6; ++t)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(x, kmajor<BKV>(a_s + term_a(t) * C::kKVBytes, 0, kk),
-                           kmajor<BQ>(b_s + term_b(t) * C::kQBytes, 0, kk), t > 0 || kk > 0);
+          hopper::wgmma_ss(x, kmajor<BKV, SW>(a_s + term_a(t) * C::kKVBytes, 0, kk),
+                           kmajor<BQ, SW>(b_s + term_b(t) * C::kQBytes, 0, kk), t > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(x);
@@ -1191,8 +905,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_split(
       for (int t = 0; t < 6; ++t)
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          hopper::wgmma_rs(tile, xa[term_a(t)][kk], mnmajor<BQ>(c_s + term_b(t) * C::kQBytes, kk),
-                           t > 0 || kk > 0);
+          hopper::wgmma_rs(tile, xa[term_a(t)][kk],
+                           mnmajor<BQ, SW>(c_s + term_b(t) * C::kQBytes, kk), t > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(tile);
@@ -1222,7 +936,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_split(
 template <int D>
 struct DqSplitCfg {
   static constexpr int BK = D >= 128 ? 32 : 64;  // KV rows a stage
-  static constexpr int NC = D / CW;
+  static constexpr int NC = packed::Sw<D>::NC;  // chunks across D (the forward's swizzle)
   static constexpr int kQBytes = kRows * D * 2;  // one piece of the block's Q rows; of its dO rows
   static constexpr int kTileBytes = BK * D * 2;  // one piece of a stage's K tile; of its V tile
   static constexpr int kStageBytes = 6 * kTileBytes;
@@ -1238,6 +952,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_split(
     int causal, float c, float scale) {
   using C = DqSplitCfg<D>;
   constexpr int BK = C::BK, NC = C::NC;
+  // this head dim's swizzle, as the forward's: 128-byte rows of 64 columns a
+  // chunk from D 64 on, one chunk of 2 D bytes below (shadows tc::SW, tc::CW)
+  constexpr int SW = packed::Sw<D>::SW, CW = packed::Sw<D>::CW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1320,15 +1037,15 @@ __global__ void __launch_bounds__(kThreads, 1) dq_split(
       for (int t = 0; t < 6; ++t)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(s, kmajor<kRows>(q_s + term_a(t) * C::kQBytes, 0, kk),
-                           kmajor<BK>(kt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
+          hopper::wgmma_ss(s, kmajor<kRows, SW>(q_s + term_a(t) * C::kQBytes, 0, kk),
+                           kmajor<BK, SW>(kt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int t = 0; t < 6; ++t)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss(dp, kmajor<kRows>(g_s + term_a(t) * C::kQBytes, 0, kk),
-                           kmajor<BK>(vt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
+          hopper::wgmma_ss(dp, kmajor<kRows, SW>(g_s + term_a(t) * C::kQBytes, 0, kk),
+                           kmajor<BK, SW>(vt + term_b(t) * C::kTileBytes, 0, kk), t > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::fence_regs(dp);
       hopper::wgmma_wait<1>();
@@ -1367,8 +1084,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_split(
       for (int t = 0; t < 6; ++t)
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          hopper::wgmma_rs(tile, da[term_a(t)][kk], mnmajor<BK>(kt + term_b(t) * C::kTileBytes, kk),
-                           t > 0 || kk > 0);
+          hopper::wgmma_rs(tile, da[term_a(t)][kk],
+                           mnmajor<BK, SW>(kt + term_b(t) * C::kTileBytes, kk), t > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(tile);
@@ -1833,11 +1550,12 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, 
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)CW, 1, (cuuint32_t)box_rows, 1};
+  // the forward's swizzle: boxes of 64 columns from D 64 on, of D columns below
+  const cuuint32_t box[4] = {(cuuint32_t)(D >= 64 ? CW : D), 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                packed::swizzle_of(D), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -1887,7 +1605,7 @@ cudaError_t resources(int which, cudaFuncAttributes* a, size_t* dyn) {
 }
 
 // The split route: qp, kp, vp, gp are the bf16 (hi, mid, lo) pieces of q,
-// k, v and dO (split_bf16_kernel's output, 16-byte aligned); dq, dk, dv f32.
+// k, v and dO (the split pre-pass's output, 16-byte aligned); dq, dk, dv f32.
 template <int D>
 cudaError_t launch_split(const void* const* qp, const void* const* kp, const void* const* vp,
                          const void* const* gp, const float* lse2, const float* di, void* dq,
@@ -1900,12 +1618,26 @@ cudaError_t launch_split(const void* const* qp, const void* const* kp, const voi
     if (encode_map(&mk.q[i], qp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
         encode_map(&mk.g[i], gp[i], D, H, Sq, B, CK::BQ) != CUDA_SUCCESS ||
         encode_map(&mk.k[i], kp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
-        encode_map(&mk.v[i], vp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS ||
-        encode_map(&mq.q[i], qp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
-        encode_map(&mq.g[i], gp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
-        encode_map(&mq.k[i], kp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS ||
-        encode_map(&mq.v[i], vp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS)
+        encode_map(&mk.v[i], vp[i], D, K, Sk, B, CK::BKV) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
+  // dQ's maps where its boxes differ from dK/dV's (below D 128 they are the
+  // same: each encode is host time a small call feels)
+  for (int i = 0; i < 3; ++i) {
+    if (CK::BQ == kRows) {
+      mq.q[i] = mk.q[i];
+      mq.g[i] = mk.g[i];
+    } else if (encode_map(&mq.q[i], qp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS ||
+               encode_map(&mq.g[i], gp[i], D, H, Sq, B, kRows) != CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
+    }
+    if (CK::BKV == CQ::BK) {
+      mq.k[i] = mk.k[i];
+      mq.v[i] = mk.v[i];
+    } else if (encode_map(&mq.k[i], kp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS ||
+               encode_map(&mq.v[i], vp[i], D, K, Sk, B, CQ::BK) != CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
+    }
+  }
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(dkdv_split<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)CK::kSmem)) != cudaSuccess ||
@@ -2320,16 +2052,11 @@ cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_
   PACKED_DISPATCH(pk::resources, a, dyn)
 }
 
-// The CUDA-core route's head dims.
-#define BWD_DISPATCH(FN, T, ...)                 \
-  switch (D) {                                   \
-    case 16: return FN<T, 16>(__VA_ARGS__);      \
-    case 32: return FN<T, 32>(__VA_ARGS__);      \
-    default: return cudaErrorInvalidValue;       \
-  }
 // The tensor-core route's head dims.
 #define BWD_TC_DISPATCH(FN, ...)                 \
   switch (D) {                                   \
+    case 16: return FN<16>(__VA_ARGS__);         \
+    case 32: return FN<32>(__VA_ARGS__);         \
     case 64: return FN<64>(__VA_ARGS__);         \
     case 128: return FN<128>(__VA_ARGS__);       \
     case 256: return FN<256>(__VA_ARGS__);       \
@@ -2339,6 +2066,8 @@ cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_
 // The split route's head dims (D = 256 on the streamed-chunk kernels).
 #define BWD_SPLIT_DISPATCH(FN, FN_WIDE, ...)     \
   switch (D) {                                   \
+    case 16: return FN<16>(__VA_ARGS__);         \
+    case 32: return FN<32>(__VA_ARGS__);         \
     case 64: return FN<64>(__VA_ARGS__);         \
     case 128: return FN<128>(__VA_ARGS__);       \
     case 256: return FN_WIDE<256>(__VA_ARGS__);  \
@@ -2347,26 +2076,6 @@ cudaError_t dispatch_packed_resources(int D, int N, cudaFuncAttributes* a, size_
 
 bool bad_shape(int B, int Sq, int Sk, int H, int K) {
   return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || (long long)B * H > 2147483647LL;
-}
-
-cudaError_t dispatch_cc(int D, int is_bf16, const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, const float* lse, float* stats,
-                        void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
-                        int causal, float scale, cudaStream_t st) {
-  if ((long long)B * H * Sq > INT_MAX) return cudaErrorInvalidValue;
-  const int rows = B * H * Sq;
-  float* const di = stats + rows;
-  cudaError_t e = is_bf16 ? launch_prep<__nv_bfloat16>(o, dout, lse, stats, di, rows, Sq, Sq, H,
-                                                       D, 1.f, st)
-                          : launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sq, H, D, 1.f,
-                                               st);
-  if (e != cudaSuccess) return e;
-  if (is_bf16) {
-    BWD_DISPATCH(cc::launch, __nv_bfloat16, q, k, v, dout, stats, di, dq, dk, dv, B, Sq, Sk, H,
-                 K, causal, scale, st)
-  }
-  BWD_DISPATCH(cc::launch, float, q, k, v, dout, stats, di, dq, dk, dv, B, Sq, Sk, H, K, causal,
-               scale, st)
 }
 
 cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, const void* o,
@@ -2384,64 +2093,56 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, cons
                   scale, st)
 }
 
-cudaError_t dispatch_split(int D, const void* o, const void* dout, const float* lse, float* stats,
-                           const void* const* qp, const void* const* kp, const void* const* vp,
-                           const void* const* gp, void* dq, void* dk, void* dv, int B, int Sq,
+// The split route: q, k, v and dout (f32) into their bf16 pieces in
+// `pieces` ([q, k, v, dout][hi, mid, lo], each piece contiguous in its
+// operand's shape), then the pre-pass and the kernels.
+cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, float* stats,
+                           __nv_bfloat16* pieces, void* dq, void* dk, void* dv, int B, int Sq,
                            int Sk, int H, int K, int causal, float scale, cudaStream_t st) {
   const int Sqp = (Sq + tc::kRows - 1) / tc::kRows * tc::kRows;
   if ((long long)B * H * Sqp > INT_MAX) return cudaErrorInvalidValue;
+  const long long nq = (long long)B * Sq * H * D, nk = (long long)B * Sk * K * D;
+  const void* src[4] = {q, k, v, dout};
+  const long long n[4] = {nq, nk, nk, nq};
+  void* p[4][3];
+  __nv_bfloat16* at = pieces;
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 3; ++i, at += n[t]) p[t][i] = at;
+  cudaError_t e = split::launch_segments(4, src, p, n, st);
+  if (e != cudaSuccess) return e;
   const int rows = B * H * Sqp;
   float* const di = stats + rows;
-  cudaError_t e = launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sqp, H, D, kLog2e, st);
+  e = launch_prep<float>(o, dout, lse, stats, di, rows, Sq, Sqp, H, D, kLog2e, st);
   if (e != cudaSuccess) return e;
+  const void* const* qp = p[0];
+  const void* const* kp = p[1];
+  const void* const* vp = p[2];
+  const void* const* gp = p[3];
   BWD_SPLIT_DISPATCH(tc::launch_split, tc::launch_split_wide, qp, kp, vp, gp, stats, di, dq, dk,
                      dv, B, Sq, Sqp, Sk, H, K, causal, scale, st)
 }
 
-template <typename T, int D>
-cudaError_t cc_resources(int which, cudaFuncAttributes* a, size_t* dyn) {
-  return cc::resources<T, D>(which, a, dyn);
-}
-
-cudaError_t dispatch_resources(int D, int is_bf16, int tensor_cores, int which,
-                               cudaFuncAttributes* a, size_t* dyn) {
+cudaError_t dispatch_resources(int D, int is_bf16, int which, cudaFuncAttributes* a,
+                               size_t* dyn) {
   if (which == 0) {
     *dyn = 0;
     return is_bf16 ? cudaFuncGetAttributes(a, bwd_prep<__nv_bfloat16>)
                    : cudaFuncGetAttributes(a, bwd_prep<float>);
   }
-  if (tensor_cores) {
-    if (!is_bf16) BWD_SPLIT_DISPATCH(tc::split_resources, tc::split_wide_resources, which, a, dyn)
-    BWD_TC_DISPATCH(tc::resources, which, a, dyn)
-  }
-  if (is_bf16) BWD_DISPATCH(cc_resources, __nv_bfloat16, which, a, dyn)
-  BWD_DISPATCH(cc_resources, float, which, a, dyn)
+  if (!is_bf16) BWD_SPLIT_DISPATCH(tc::split_resources, tc::split_wide_resources, which, a, dyn)
+  BWD_TC_DISPATCH(tc::resources, which, a, dyn)
 }
 
 }  // namespace
 
 extern "C" {
 
-// The CUDA-core route.  q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv:
-// (B, Sk, K, D); all contiguous and of one type (bf16 when is_bf16, else
-// f32); lse: (B, H, Sq) f32, the forward's; stats: (2, B, H, Sq) f32
-// scratch; D in {16, 32}.  Launches bwd_prep, bwd_dkdv and bwd_dq on
-// `stream`; returns the first launch's cudaError_t that is not cudaSuccess,
-// else cudaSuccess.  Any other D returns cudaErrorInvalidValue and launches
-// nothing.
-int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const void* lse, void* stats, void* dq,
-                               void* dk, void* dv, int B, int Sq, int Sk, int H, int K, int D,
-                               int causal, int is_bf16, float scale, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, K) || (D != 16 && D != 32)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_cc(D, is_bf16, q, k, v, o, dout, static_cast<const float*>(lse),
-                          static_cast<float*>(stats), dq, dk, dv, B, Sq, Sk, H, K, causal, scale,
-                          static_cast<cudaStream_t>(stream));
-}
-
-// The tensor-core route: bf16, D in {64, 128, 256}, operands as above with
-// q, k, v and dout 16-byte aligned (TMA); stats: (2, B, H, Sqp) f32 scratch,
-// Sqp = Sq rounded up to a multiple of 64, 16-byte aligned.  Launches
+// The tensor-core route: bf16, D in {16, 32, 64, 128, 256}.  q, o, dout, dq:
+// (B, Sq, H, D); k, v, dk, dv: (B, Sk, K, D); all contiguous, q, k, v and
+// dout 16-byte aligned (TMA); lse: (B, H, Sq) f32, the forward's; stats:
+// (2, B, H, Sqp) f32 scratch, Sqp = Sq rounded up to a multiple of 64,
+// 16-byte aligned.  Launches
 // bwd_prep, tc::dkdv_wgmma and tc::dq_wgmma on `stream`; any other D or a
 // misaligned pointer returns cudaErrorInvalidValue and launches nothing.
 int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v, const void* o,
@@ -2457,36 +2158,36 @@ int flash_attention_bwd_tc_launch(const void* q, const void* k, const void* v, c
                           static_cast<cudaStream_t>(stream));
 }
 
-// The split route: f32, D in {64, 128, 256}.  o, dout: (B, Sq, H, D) f32
-// contiguous; lse, stats as on the tensor-core route; qp, kp, vp, gp: the
-// three bf16 pieces (hi, mid, lo) of q, k, v and dout, each contiguous in
-// its operand's shape and 16-byte aligned; dq, dk, dv f32.  Launches
-// bwd_prep, tc::dkdv_split and tc::dq_split (at D 256 tc::dkdv_split_wide
-// and tc::dq_split_wide) on `stream`; any other D or a misaligned pointer
+// The split route: f32, D in {16, 32, 64, 128, 256}.  q, k, v, o, dout and
+// the gradients f32, shaped and aligned as on the tensor-core route; lse,
+// stats as there; pieces: bf16 scratch of 3 (2 B Sq H D + 2 B Sk K D)
+// elements, 16-byte aligned.  Launches split_bf16_segments on q, k, v and
+// dout (one launch, into pieces: [q, k, v, dout][hi, mid, lo]), bwd_prep,
+// tc::dkdv_split and tc::dq_split (at D 256 tc::dkdv_split_wide and
+// tc::dq_split_wide) on `stream`; any other D or a misaligned pointer
 // returns cudaErrorInvalidValue and launches nothing.
-int flash_attention_bwd_split_launch(const void* o, const void* dout, const void* lse,
-                                     void* stats, const void* const* qp, const void* const* kp,
-                                     const void* const* vp, const void* const* gp, void* dq,
-                                     void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
-                                     int D, int causal, float scale, void* stream) {
-  uintptr_t bits = (uintptr_t)stats | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
-  for (int i = 0; i < 3; ++i)
-    bits |= (uintptr_t)qp[i] | (uintptr_t)kp[i] | (uintptr_t)vp[i] | (uintptr_t)gp[i];
-  if (bad_shape(B, Sq, Sk, H, K) || bits % 16 != 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_split(D, o, dout, static_cast<const float*>(lse),
-                             static_cast<float*>(stats), qp, kp, vp, gp, dq, dk, dv, B, Sq, Sk, H,
-                             K, causal, scale, static_cast<cudaStream_t>(stream));
+int flash_attention_bwd_split_launch(const void* q, const void* k, const void* v, const void* o,
+                                     const void* dout, const void* lse, void* stats, void* pieces,
+                                     void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+                                     int K, int D, int causal, float scale, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, K) || (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)stats |
+       (uintptr_t)pieces | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_split(D, q, k, v, o, dout, static_cast<const float*>(lse),
+                             static_cast<float*>(stats), static_cast<__nv_bfloat16*>(pieces), dq,
+                             dk, dv, B, Sq, Sk, H, K, causal, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Registers a thread (at launch), shared memory a block (static plus
 // dynamic) and local memory a thread (spills) of kernel `which` (0 prep, 1
-// dK/dV, 2 dQ) of the route (tensor_cores 1, else the CUDA cores) at head
-// dim D.
-int flash_attention_bwd_resources(int D, int is_bf16, int tensor_cores, int which, int* regs,
-                                  int* smem, int* local) {
+// dK/dV, 2 dQ) of the tensor-core route (the split route in f32) at head dim D.
+int flash_attention_bwd_resources(int D, int is_bf16, int which, int* regs, int* smem,
+                                  int* local) {
   cudaFuncAttributes a;
   size_t dyn = 0;
-  const cudaError_t e = dispatch_resources(D, is_bf16, tensor_cores, which, &a, &dyn);
+  const cudaError_t e = dispatch_resources(D, is_bf16, which, &a, &dyn);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *smem = (int)(a.sharedSizeBytes + dyn);

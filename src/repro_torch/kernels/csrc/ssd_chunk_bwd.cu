@@ -42,11 +42,13 @@
 // peak; the tensor-core route's bf16 products of pieces (2.2e11 flops) take
 // 0.22 ms at the 989 TFLOP/s bf16 peak, so there bytes bound it.
 //
-// Two routes; the wrapper picks one before the launch
-// (`ssd_scan.backward_route`).  Both compute S = C B^T once per chunk and
-// group into a device scratch first and end with `bwd_dc` (dC = (sum_h
-// dS_h) B from the scratch's group sums, CUDA cores); cum goes through the
-// scratch too.
+// Two routes, both on the tensor cores; the wrapper picks one before the
+// launch (`ssd_scan.backward_route`): the one-pass kernel (`op::bwd_chunk`,
+// below the wgmma kernels) for the calls off the wgmma shapes at chunks of
+// at most 32 tokens, the wgmma kernels for every other call.  The wgmma
+// kernels compute S = C B^T once per chunk and group into a device scratch
+// first and end with `bwd_dc` (dC = (sum_h dS_h) B from the scratch's group
+// sums, CUDA cores); cum goes through the scratch too.
 //
 // x, B and C at the forward's tensor-core shapes (P in {16, 32, 64}, N in
 // {16, 32, 64, 128}, 16-byte alignment), bf16 as follows and f32 as the
@@ -107,30 +109,11 @@
 // (64, 256, 80, 1, 64, 128) f32: 1.22 GB of inputs and outputs, 0.36 ms on
 // bytes; the products of pieces take 0.27 ms at the bf16 peak.
 //
-// Every other call (P 8 or 24, N 48, misaligned slices): five kernels on
-// the CUDA cores, IEEE f32.
-//   1. `bwd_scores`: S = C B^T for a 32-row tile and the columns that reach
-//      it, written row-major and transposed.
-//   2. `bwd_head`: one block per chunk and head, 512 threads, a pair of
-//      threads owning row/column j with half the head dim each (their
-//      partial dot products meet by a shuffle).  x and dy of the head sit
-//      in shared memory (f32, 128 KB at P 64).  v comes from B and dst
-//      staged 32 state columns at a time; then row j walks i >= j for dx_j
-//      and G's column sum (the warp walks its 16 rows' span together, so
-//      dy's row is a broadcast and S's row a coalesced load, 8 rows of S
-//      loaded a group ahead), and row i walks j < i for G's row sum.  A
-//      fixed tree sums u; warp 0 scans cum forward and dcum backward.  The
-//      head's cum goes to the scratch for kernels 3 and 5.
-//   3. `bwd_dssum`: the group reduction.  sum_h dS_h is a (Q, Q) f32 tile,
-//      256 KB at Q 256, more than a block's shared memory, so one block owns
-//      a 64 x 64 tile (I, J <= I) of it (10 blocks a chunk and group at Q
-//      256) and sums dS_h over the group's heads in head order (mamba2 has
-//      G 1: all 80 heads), each thread a 4 x 4 register tile of the
-//      products dy_I x_J^T; the sums go to the scratch.
-//   4. `bwd_dc`: 32 rows of dC a block from the scratch's rows.
-//   5. `bwd_db`: one block owns 32 rows of dB: (sum_h dS_h)^T C over the
-//      rows i >= j of the scratch, then the state term over the group's
-//      heads in head order.
+// Every other call (P 8 or 24, N 40 or 48, misaligned or odd-stride
+// slices) at chunks longer than 32 tokens takes the wgmma kernels on
+// operands the wrapper zero-pads to the next P of {16, 32, 64} and N of
+// {16, 32, 64, 128} in fresh aligned copies (`ssd_scan.pad_to_tensor_cores`:
+// zero columns add exact zeros to every sum).
 // B and C are read as `ssd_chunk` takes them, strided slices of the
 // projection (a token stride each); x likewise; dy, dst, ddec and dA are
 // contiguous and the outputs are written contiguous.
@@ -143,11 +126,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads a block (bwd_head: kHeadThreads)
+constexpr int kThreads = 256;  // threads a block of bwd_dc
 constexpr int kMaxQ = 256;     // chunk length at most (and a multiple of 16)
 constexpr int kMaxN = 128;     // state dim at most
 constexpr int kTile = 32;      // rows (columns) of the group kernels' tiles
-constexpr int kNStage = 32;    // state columns staged at a time in bwd_head
 constexpr int kPMax = 64;      // head dim at most
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -181,348 +163,7 @@ __device__ void warp_scan(float* v, int Q, bool reverse) {
   }
 }
 
-// 1. S = C B^T for rows [i0, i0 + 32) of chunk c, group g; columns j <=
-// i0 + 31 (the others are never read).  grid (Q / 32, nc * G).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bwd_scores(
-    const T* __restrict__ C, const T* __restrict__ B, float* __restrict__ S,
-    float* __restrict__ St, int Q, int G, int N, long long sB, long long sC) {
-  __shared__ float Cs[kTile][kNStage + 1];
-  __shared__ float Bs[kMaxQ][kNStage + 1];
-  const int t = threadIdx.x;
-  const int i0 = blockIdx.x * kTile;
-  const int cg = blockIdx.y, c = cg / G, g = cg % G;
-  const int j = t;
-  const bool active = j < Q && j < i0 + kTile;
-  float acc[kTile];
-#pragma unroll
-  for (int r = 0; r < kTile; ++r) acc[r] = 0.f;
-  for (int n0 = 0; n0 < N; n0 += kNStage) {
-    __syncthreads();
-    for (int idx = t; idx < kTile * kNStage; idx += kThreads) {
-      const int r = idx / kNStage, nn = idx % kNStage, i = i0 + r, n = n0 + nn;
-      Cs[r][nn] = (i < Q && n < N) ? ld(C + ((long long)c * Q + i) * sC + (long long)g * N + n) : 0.f;
-    }
-    for (int idx = t; idx < Q * kNStage; idx += kThreads) {
-      const int jj = idx / kNStage, nn = idx % kNStage, n = n0 + nn;
-      Bs[jj][nn] = n < N ? ld(B + ((long long)c * Q + jj) * sB + (long long)g * N + n) : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int nn = 0; nn < kNStage; ++nn) {
-        const float b = Bs[j][nn];
-#pragma unroll
-        for (int r = 0; r < kTile; ++r) acc[r] += Cs[r][nn] * b;
-      }
-    }
-  }
-  if (!active) return;
-  const long long base = (long long)cg * Q * Q;
-#pragma unroll
-  for (int r = 0; r < kTile; ++r) {
-    const int i = i0 + r;
-    if (i < Q) {
-      S[base + (long long)i * Q + j] = acc[r];
-      St[base + (long long)j * Q + i] = acc[r];
-    }
-  }
-}
-
-constexpr int kAhead = 8;  // rows of S (S^T) a thread loads one group ahead in bwd_head
-
-// Shared memory of bwd_head<PB>, in floats.
-__host__ __device__ constexpr int head_smem_floats(int PB) {
-  return 2 * kMaxQ * PB            // xs, dys
-         + kMaxQ * (kNStage + 1)   // Bs
-         + kNStage * PB            // Ds (transposed: a state column's P values together)
-         + 3 * kMaxQ;              // cum, w, red
-}
-
-// Rows i0 .. i0 + kAhead of column `col` of a (Q, Q) matrix at `base`
-// (rows from `rows` on read as 0): a group of independent loads that
-// bwd_head keeps in flight while it works on the group before.
-__device__ __forceinline__ void load_group(float (&out)[kAhead], const float* __restrict__ S,
-                                           long long base, int i0, int rows, int Q, int col) {
-#pragma unroll
-  for (int k = 0; k < kAhead; ++k)
-    out[k] = i0 + k < rows ? S[base + (long long)(i0 + k) * Q + col] : 0.f;
-}
-
-// 2. dx and ddA of chunk c, head h (and the head's cum to `cum_out`).
-// Row (column) j belongs to the thread pair 2j, 2j + 1, each holding half
-// of the head dim (PB / 2 values of x_j, dy_j, dx_j), so a warp walks 16
-// rows and a thread keeps half the registers; the pair's partial dot
-// products meet by a shuffle.  grid (nc * H), kHeadThreads threads.
-constexpr int kHeadThreads = 2 * kMaxQ;
-
-template <typename T, int PB>
-__global__ void __launch_bounds__(kHeadThreads) bwd_head(
-    const T* __restrict__ x, const float* __restrict__ dA, const T* __restrict__ B,
-    const float* __restrict__ dy, const float* __restrict__ dst, const float* __restrict__ ddec,
-    const float* __restrict__ S, const float* __restrict__ St, T* __restrict__ dx,
-    float* __restrict__ ddA, float* __restrict__ cum_out, int Q, int H, int G, int P, int N,
-    long long sx, long long sB) {
-  constexpr int PH = PB / 2;  // a thread's share of the head dim
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                         // (kMaxQ, PB)
-  float* dys = xs + kMaxQ * PB;             // (kMaxQ, PB)
-  float* Bs = dys + kMaxQ * PB;             // (kMaxQ, kNStage + 1)
-  float* Ds = Bs + kMaxQ * (kNStage + 1);   // (kNStage, PB)
-  float* cum = Ds + kNStage * PB;           // (kMaxQ)
-  float* wv = cum + kMaxQ;                  // (kMaxQ)
-  float* red = wv + kMaxQ;                  // (kMaxQ): u, then dcum
-  const int t = threadIdx.x, j = t >> 1, hf = t & 1, p0 = hf * PH;
-  const int c = blockIdx.x / H, h = blockIdx.x % H, g = h / (H / G);
-  const long long cg = (long long)c * G + g;
-  const long long sbase = cg * Q * Q;
-
-  for (int idx = t; idx < Q * PB; idx += kHeadThreads) {
-    const int i = idx / PB, p = idx % PB;
-    const long long tok = (long long)c * Q + i;
-    xs[idx] = p < P ? ld(x + tok * sx + (long long)h * P + p) : 0.f;
-    dys[idx] = p < P ? dy[(tok * H + h) * P + p] : 0.f;
-  }
-  if (t < Q) cum[t] = dA[((long long)c * Q + t) * H + h];
-  __syncthreads();
-  if (t < 32) warp_scan(cum, Q, false);
-  __syncthreads();
-  const float cum_last = cum[Q - 1];
-  if (t < Q) {
-    wv[t] = expf(cum_last - cum[t]);
-    cum_out[((long long)c * H + h) * Q + t] = cum[t];
-  }
-
-  // v_j = B_j dst^T (this thread's half of p), 32 state columns at a time
-  float acc[PH];
-#pragma unroll
-  for (int p = 0; p < PH; ++p) acc[p] = 0.f;
-  for (int n0 = 0; n0 < N; n0 += kNStage) {
-    __syncthreads();
-    for (int idx = t; idx < Q * kNStage; idx += kHeadThreads) {
-      const int jj = idx / kNStage, nn = idx % kNStage, n = n0 + nn;
-      Bs[jj * (kNStage + 1) + nn] =
-          n < N ? ld(B + ((long long)c * Q + jj) * sB + (long long)g * N + n) : 0.f;
-    }
-    for (int idx = t; idx < PB * kNStage; idx += kHeadThreads) {
-      const int p = idx / kNStage, nn = idx % kNStage, n = n0 + nn;
-      Ds[nn * PB + p] = (p < P && n < N) ? dst[(((long long)c * H + h) * P + p) * N + n] : 0.f;
-    }
-    __syncthreads();
-    if (j < Q) {
-      for (int nn = 0; nn < kNStage; ++nn) {
-        const float b = Bs[j * (kNStage + 1) + nn];
-        const float4* d = reinterpret_cast<const float4*>(Ds + nn * PB + p0);
-#pragma unroll
-        for (int p4 = 0; p4 < PH / 4; ++p4) {
-          const float4 v = d[p4];
-          acc[4 * p4] += b * v.x;
-          acc[4 * p4 + 1] += b * v.y;
-          acc[4 * p4 + 2] += b * v.z;
-          acc[4 * p4 + 3] += b * v.w;
-        }
-      }
-    }
-  }
-
-  // the state terms: u_j, and dx_j starts at w_j v_j
-  const int jc = j < Q ? j : 0;  // a row to read for threads past Q
-  float xr[PH];
-#pragma unroll
-  for (int p = 0; p < PH; ++p) xr[p] = xs[jc * PB + p0 + p];
-  float u = 0.f;
-#pragma unroll
-  for (int p = 0; p < PH; ++p) u += xr[p] * acc[p];
-  u += __shfl_xor_sync(0xffffffffu, u, 1);
-  const float wj = j < Q ? wv[j] : 0.f;
-  u *= wj;
-#pragma unroll
-  for (int p = 0; p < PH; ++p) acc[p] *= wj;
-  if (hf == 0) red[j] = u;  // rows past Q hold 0
-
-  // pass 1: row j walks the rows i >= j with its warp (the warp starts at
-  // its first row): dx_j += M_ij dy_i, colG_j += G_ij for i > j
-  float colG = 0.f;
-  {
-    const float cj = cum[jc];
-    const int start = j & ~15;
-    float cur[kAhead], nxt[kAhead];
-    load_group(cur, S, sbase, start, Q, Q, jc);
-    for (int g0 = start; g0 < Q; g0 += kAhead) {
-      load_group(nxt, S, sbase, g0 + kAhead, Q, Q, jc);
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        const int i = g0 + k;
-        const bool on = j < Q && i < Q && i >= j;
-        const int ic = i < Q ? i : 0;
-        const float m = on ? cur[k] * expf(cum[ic] - cj) : 0.f;
-        const float4* dyi = reinterpret_cast<const float4*>(dys + ic * PB + p0);
-        float dm = 0.f;
-#pragma unroll
-        for (int p4 = 0; p4 < PH / 4; ++p4) {
-          const float4 d = dyi[p4];
-          dm += d.x * xr[4 * p4] + d.y * xr[4 * p4 + 1] + d.z * xr[4 * p4 + 2] +
-                d.w * xr[4 * p4 + 3];
-          acc[4 * p4] += m * d.x;
-          acc[4 * p4 + 1] += m * d.y;
-          acc[4 * p4 + 2] += m * d.z;
-          acc[4 * p4 + 3] += m * d.w;
-        }
-        dm += __shfl_xor_sync(0xffffffffu, dm, 1);
-        colG += (on && i > j) ? dm * m : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) cur[k] = nxt[k];
-    }
-  }
-  if (j < Q) {
-    T* out = dx + ((long long)c * Q + j) * H * P + (long long)h * P + p0;
-#pragma unroll
-    for (int p = 0; p < PH; ++p)
-      if (p0 + p < P) st(out + p, acc[p]);
-  }
-
-  // pass 2: row i = j walks the columns jj < i with its warp: rowG_i += G_i,jj
-  float rowG = 0.f;
-  {
-    float dyr[PH];
-#pragma unroll
-    for (int p = 0; p < PH; ++p) dyr[p] = dys[jc * PB + p0 + p];
-    const float ci = cum[jc];
-    const int stop = min((j | 15) + 1, Q);  // the warp's last row + 1
-    float cur[kAhead], nxt[kAhead];
-    load_group(cur, St, sbase, 0, stop, Q, jc);
-    for (int g0 = 0; g0 < stop; g0 += kAhead) {
-      load_group(nxt, St, sbase, g0 + kAhead, stop, Q, jc);
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        const int jj = g0 + k;
-        const bool on = j < Q && jj < j;
-        const int jjc = jj < Q ? jj : 0;
-        const float m = on ? cur[k] * expf(ci - cum[jjc]) : 0.f;
-        const float4* xj = reinterpret_cast<const float4*>(xs + jjc * PB + p0);
-        float dm = 0.f;
-#pragma unroll
-        for (int p4 = 0; p4 < PH / 4; ++p4) {
-          const float4 v = xj[p4];
-          dm += dyr[4 * p4] * v.x + dyr[4 * p4 + 1] * v.y + dyr[4 * p4 + 2] * v.z +
-                dyr[4 * p4 + 3] * v.w;
-        }
-        dm += __shfl_xor_sync(0xffffffffu, dm, 1);
-        rowG += on ? dm * m : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) cur[k] = nxt[k];
-    }
-  }
-
-  // sum of u in a fixed tree
-  __syncthreads();
-  for (int s = kMaxQ / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
-  }
-  const float u_sum = red[0];
-  __syncthreads();
-  float dc = rowG - colG - u;
-  if (j == Q - 1) dc += u_sum + ddec[(long long)c * H + h] * expf(cum_last);
-  if (hf == 0) red[j] = j < Q ? dc : 0.f;
-  __syncthreads();
-  if (t < 32) warp_scan(red, Q, true);
-  __syncthreads();
-  if (t < Q) ddA[((long long)c * Q + t) * H + h] = red[t];
-}
-
-// 3. sum_h dS_h over the group's heads, in head order, for one 64 x 64
-// tile (I, J <= I) of chunk c, group g, to the scratch: a register-tiled
-// product.  Thread (ty, tx) owns rows ty + 16 r and columns tx + 16 c
-// (r, c < 4) of the tile: its loads of a row of dy are float4 broadcasts
-// across the warp's 16 threads of one ty, those of x float4 rows 68 floats
-// apart (at most two threads a bank), and its stores of a tile row are
-// coalesced.  Per head: dM = dy_I x_J^T over P from shared
-// memory, times L selected to 0 above the diagonal (the exp there may
-// overflow).  grid (tile pairs, nc * G).
-constexpr int kSq = 64;                 // the tile's rows and columns
-constexpr int kSqPad = kPMax + 4;       // a row of P floats, 16-byte aligned
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bwd_dssum(
-    const T* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ cum,
-    float* __restrict__ dSsum, int Q, int H, int G, int P, long long sx) {
-  __shared__ __align__(16) float dys[kSq][kSqPad];  // dy_h rows of I
-  __shared__ __align__(16) float xs[kSq][kSqPad];   // x_h rows of J
-  __shared__ float cumI[kSq], cumJ[kSq];
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  int I = 0, pair = blockIdx.x;
-  while (pair > I) pair -= ++I;  // (I, J) from the pair index: J = pair <= I
-  const int J = pair, i0 = I * kSq, j0 = J * kSq;
-  const int cg = blockIdx.y, c = cg / G, g = cg % G;
-  const int rep = H / G;
-  const int P4 = (P + 3) / 4;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) acc[r][cc] = 0.f;
-  for (int k = 0; k < rep; ++k) {
-    const int h = g * rep + k;
-    __syncthreads();
-    for (int idx = t; idx < kSq * P4 * 4; idx += kThreads) {
-      const int row = idx / (P4 * 4), p = idx % (P4 * 4);
-      const int i = i0 + row, jr = j0 + row;
-      dys[row][p] = (i < Q && p < P) ? dy[(((long long)c * Q + i) * H + h) * P + p] : 0.f;
-      xs[row][p] = (jr < Q && p < P)
-                       ? ld(x + ((long long)c * Q + jr) * sx + (long long)h * P + p) : 0.f;
-    }
-    if (t < kSq) {
-      const float* cumh = cum + ((long long)c * H + h) * Q;
-      cumI[t] = i0 + t < Q ? cumh[i0 + t] : 0.f;
-      cumJ[t] = j0 + t < Q ? cumh[j0 + t] : 0.f;
-    }
-    __syncthreads();
-    float dm[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) dm[r][cc] = 0.f;
-    for (int p4 = 0; p4 < P4; ++p4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = *reinterpret_cast<const float4*>(&dys[ty + 16 * r][4 * p4]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        b[cc] = *reinterpret_cast<const float4*>(&xs[tx + 16 * cc][4 * p4]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          dm[r][cc] += a[r].x * b[cc].x + a[r].y * b[cc].y + a[r].z * b[cc].z + a[r].w * b[cc].w;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int j = j0 + tx + 16 * cc;
-        const bool keep = j <= i && i < Q;
-        const float l = keep ? expf(cumI[ty + 16 * r] - cumJ[tx + 16 * cc]) : 0.f;
-        acc[r][cc] += keep ? dm[r][cc] * l : 0.f;
-      }
-    }
-  }
-  const long long base = (long long)cg * Q * Q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int j = j0 + tx + 16 * cc;
-      if (i < Q && j < Q) dSsum[base + (long long)i * Q + j] = acc[r][cc];
-    }
-  }
-}
-
-// 4. Rows [i0, i0 + 32) of dC = (sum_h dS_h) B over j <= i, for chunk c
+// Rows [i0, i0 + 32) of dC = (sum_h dS_h) B over j <= i, for chunk c
 // and group g: a thread owns column n and 16 rows, the scratch's rows read
 // as float4 broadcasts after a transposed staging.  grid (Q / 32, nc * G).
 constexpr int kRowPad = kTile + 4;  // a row of 32 floats, 16-byte aligned
@@ -574,146 +215,6 @@ __global__ void __launch_bounds__(kThreads) bwd_dc(
   }
 }
 
-// 5. Rows [j0, j0 + 32) of dB for chunk c and group g: (sum_h dS_h)^T C
-// over i >= j, then sum over the group's heads of (w_h x_h) dst_h.  A
-// thread owns column n and 16 rows; their operands are read as float4
-// broadcasts.  grid (Q / 32, nc * G).
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bwd_db(
-    const T* __restrict__ x, const T* __restrict__ C, const float* __restrict__ dst,
-    const float* __restrict__ cum, const float* __restrict__ dSsum, T* __restrict__ dB, int Q,
-    int H, int G, int P, int N, long long sx, long long sC) {
-  __shared__ __align__(16) float dSc[kTile][kRowPad];  // [i][j]
-  __shared__ float Cc[kTile][kMaxN];                     // [i][n]
-  __shared__ __align__(16) float xw[kPMax][kRowPad];    // [p][j]: w_h(j) x_h[j, p]
-  const int t = threadIdx.x;
-  const int j0 = blockIdx.x * kTile;
-  const int cg = blockIdx.y, c = cg / G, g = cg % G;
-  const int rep = H / G;
-  const int n = t & 127, half = t >> 7;
-  const long long base = (long long)cg * Q * Q;
-  float acc[kTile / 2];
-#pragma unroll
-  for (int rr = 0; rr < kTile / 2; ++rr) acc[rr] = 0.f;
-  for (int ib = j0; ib < Q; ib += kTile) {
-    __syncthreads();
-    for (int idx = t; idx < kTile * kTile; idx += kThreads) {
-      const int ii = idx / kTile, jj = idx % kTile, i = ib + ii, jcol = j0 + jj;
-      dSc[ii][jj] = (i < Q && jcol < Q) ? dSsum[base + (long long)i * Q + jcol] : 0.f;
-    }
-    for (int idx = t; idx < kTile * kMaxN; idx += kThreads) {
-      const int ii = idx / kMaxN, nn = idx % kMaxN, i = ib + ii;
-      Cc[ii][nn] = (i < Q && nn < N) ? ld(C + ((long long)c * Q + i) * sC + (long long)g * N + nn) : 0.f;
-    }
-    __syncthreads();
-    for (int ii = 0; ii < kTile; ++ii) {
-      const float cv = Cc[ii][n];
-      const float4* d = reinterpret_cast<const float4*>(&dSc[ii][half * (kTile / 2)]);
-#pragma unroll
-      for (int q = 0; q < kTile / 8; ++q) {
-        const float4 v = d[q];
-        acc[4 * q] += v.x * cv;
-        acc[4 * q + 1] += v.y * cv;
-        acc[4 * q + 2] += v.z * cv;
-        acc[4 * q + 3] += v.w * cv;
-      }
-    }
-  }
-  for (int k = 0; k < rep; ++k) {
-    const int h = g * rep + k;
-    const float* cumh = cum + ((long long)c * H + h) * Q;
-    const float last = cumh[Q - 1];
-    __syncthreads();
-    for (int idx = t; idx < kTile * P; idx += kThreads) {
-      const int jj = idx / P, p = idx % P, jrow = j0 + jj;
-      xw[p][jj] = jrow < Q ? expf(last - cumh[jrow]) *
-                                 ld(x + ((long long)c * Q + jrow) * sx + (long long)h * P + p)
-                           : 0.f;
-    }
-    __syncthreads();
-    if (n < N) {
-      const float* dh = dst + ((long long)c * H + h) * P * N + n;
-#pragma unroll 4
-      for (int p = 0; p < P; ++p) {
-        const float d = dh[(long long)p * N];
-        const float4* xv = reinterpret_cast<const float4*>(&xw[p][half * (kTile / 2)]);
-#pragma unroll
-        for (int q = 0; q < kTile / 8; ++q) {
-          const float4 v = xv[q];
-          acc[4 * q] += v.x * d;
-          acc[4 * q + 1] += v.y * d;
-          acc[4 * q + 2] += v.z * d;
-          acc[4 * q + 3] += v.w * d;
-        }
-      }
-    }
-  }
-  if (n >= N) return;
-#pragma unroll
-  for (int rr = 0; rr < kTile / 2; ++rr) {
-    const int jrow = j0 + half * (kTile / 2) + rr;
-    if (jrow < Q) st(dB + (((long long)c * Q + jrow) * G + g) * N + n, acc[rr]);
-  }
-}
-
-int pb_for(int P) { return P <= 16 ? 16 : P <= 32 ? 32 : 64; }
-
-template <typename T, int PB>
-cudaError_t run(const void* x, const float* dA, const void* B, const void* C, const float* dy,
-                const float* dst, const float* ddec, void* dx, float* ddA, void* dB, void* dC,
-                float* scratch, int nc, int Q, int H, int G, int P, int N, long long sx,
-                long long sB, long long sC, cudaStream_t stream) {
-  const long long qq = (long long)nc * G * Q * Q;
-  float* S = scratch;
-  float* St = S + qq;
-  float* dSsum = St + qq;
-  float* cum = dSsum + qq;
-  const dim3 tiles((Q + kTile - 1) / kTile, nc * G);
-  const T* xt = static_cast<const T*>(x);
-  const T* Bt = static_cast<const T*>(B);
-  const T* Ct = static_cast<const T*>(C);
-  bwd_scores<T><<<tiles, kThreads, 0, stream>>>(Ct, Bt, S, St, Q, G, N, sB, sC);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem = head_smem_floats(PB) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(bwd_head<T, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  bwd_head<T, PB><<<nc * H, kHeadThreads, smem, stream>>>(
-      xt, dA, Bt, dy, dst, ddec, S, St, static_cast<T*>(dx), ddA, cum, Q, H, G, P, N, sx, sB);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int sq = (Q + kSq - 1) / kSq;
-  bwd_dssum<T><<<dim3(sq * (sq + 1) / 2, nc * G), kThreads, 0, stream>>>(xt, dy, cum, dSsum, Q,
-                                                                        H, G, P, sx);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dc<T><<<tiles, kThreads, 0, stream>>>(Bt, dSsum, static_cast<T*>(dC), Q, G, N, sB);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_db<T><<<tiles, kThreads, 0, stream>>>(xt, Ct, dst, cum, dSsum, static_cast<T*>(dB), Q, H,
-                                            G, P, N, sx, sC);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int PB, const void* x, const float* dA, const void* B, const void* C,
-                     const float* dy, const float* dst, const float* ddec, void* dx, float* ddA,
-                     void* dB, void* dC, float* scratch, int nc, int Q, int H, int G, int P,
-                     int N, long long sx, long long sB, long long sC, cudaStream_t stream) {
-  switch (PB) {
-    case 16:
-      return run<T, 16>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G, P, N,
-                        sx, sB, sC, stream);
-    case 32:
-      return run<T, 32>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G, P, N,
-                        sx, sB, sC, stream);
-    default:
-      return run<T, 64>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H, G, P, N,
-                        sx, sB, sC, stream);
-  }
-}
-
 template <typename F>
 cudaError_t attrs(F* fn, int dynamic_smem, int* regs, int* smem) {
   cudaFuncAttributes a;
@@ -722,26 +223,6 @@ cudaError_t attrs(F* fn, int dynamic_smem, int* regs, int* smem) {
   *regs = a.numRegs;
   *smem = (int)a.sharedSizeBytes + dynamic_smem;
   return cudaSuccess;
-}
-
-template <typename T, int PB>
-cudaError_t resources_of(int which, int* regs, int* smem) {
-  switch (which) {
-    case 0: return attrs(bwd_scores<T>, 0, regs, smem);
-    case 1: return attrs(bwd_head<T, PB>, head_smem_floats(PB) * (int)sizeof(float), regs, smem);
-    case 2: return attrs(bwd_dssum<T>, 0, regs, smem);
-    case 3: return attrs(bwd_dc<T>, 0, regs, smem);
-    default: return attrs(bwd_db<T>, 0, regs, smem);
-  }
-}
-
-template <typename T>
-cudaError_t resources_pb(int PB, int which, int* regs, int* smem) {
-  switch (PB) {
-    case 16: return resources_of<T, 16>(which, regs, smem);
-    case 32: return resources_of<T, 32>(which, regs, smem);
-    default: return resources_of<T, 64>(which, regs, smem);
-  }
 }
 
 // --------------------------------------------------- bf16: tensor cores
@@ -1798,6 +1279,376 @@ cudaError_t resources(int which, int P, int N, int* regs, int* smem) {
 
 }  // namespace tc
 
+// ------------------------------- chunks of at most 32 tokens: one pass
+// The calls the wgmma kernels do not take as they are (P 8 or 24, N 40 or
+// 48, misaligned or odd-stride slices) at chunks of Q <= 32 tokens: the
+// reduced mamba2's 16 (nc 16, Q 16, H 16, G 1, P 8, N 16).  There a
+// wgmma kernel's block holds one ragged 16-row tile of a head, and a chain
+// of short launches sets the time (the padded wgmma route's four took 47
+// us of device time at that shape on an H100, its pads and slices more of
+// the host's; the bound is well under 1 us).  So one launch does it all:
+// one block of eight warps per chunk and group.
+//   B and C of the group are staged in shared memory (f32) and S = C B^T
+// computed once (Q x Q).  Warp w then takes the group's heads w, w + 8,
+// ... in order, each on its own: cum by a shuffle scan of its lanes (token
+// = lane), w, v = B dst^T, u, dx = w v + M^T dy, dM = dy x^T, G = dM M
+// summed by rows and columns, dS = dM L added to the warp's own (Q x Q)
+// partial sum in shared memory, dcum and ddA by a reverse shuffle scan.
+// After a barrier the eight partial sums are added in warp order (a fixed
+// order: no atomics, two calls give the same bits), and the warps share the
+// output tiles of dC = (sum dS) B and dB = (sum dS)^T C + sum_h (w x)_h
+// dst_h, the state term head by head, each head's product into a fresh
+// accumulator added in f32.  Every product runs on the tensor cores as
+// mma.sync m16n8k16 tiles whose fragments the threads gather from shared
+// or device memory (a few KB a head: L2), each f32 operand as bf16 hi + lo
+// and three products of pieces (lo.hi, hi.lo, hi.hi), bf16 inputs exact as
+// one piece: the wgmma kernels' arithmetic (their dC ran in f32 on the CUDA
+// cores; here it is a product of pieces too).  P, N and Q are padded to
+// the tile shape with zeros in the gathers, which add exact zeros.
+namespace op {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxQ = 32;     // chunk length at most: one lane a token
+constexpr int kMaxRep = 256;  // heads a group at most: their w rows stay in shared memory
+
+// Offsets of a launch's shared memory, in floats: S (Q x Q), B and C (Q x
+// NK, N padded to 16), the warps' partial sums of dS (kWarps x Q x Q), their
+// sum, w of every head of the group (rep x Q), and each warp's cum, row and
+// column sums of G, and u (kMaxQ each).
+struct Smem {
+  int S, Bs, Cs, part, dss, w, cum, rg, cg, u, total;
+  __host__ __device__ Smem(int Q, int NK, int rep) {
+    S = 0;
+    Bs = S + Q * Q;
+    Cs = Bs + Q * NK;
+    part = Cs + Q * NK;
+    dss = part + kWarps * Q * Q;
+    w = dss + Q * Q;
+    cum = w + rep * Q;
+    rg = cum + kWarps * kMaxQ;
+    cg = rg + kWarps * kMaxQ;
+    u = cg + kWarps * kMaxQ;
+    total = u + kWarps * kMaxQ;
+  }
+};
+
+// The A fragment (mma_bf16's register order) of rows r0 .. r0 + 15 and
+// columns k0 .. k0 + 15 of f(row, col).
+template <class F>
+__device__ __forceinline__ void frag_a(float (&a)[8], F f, int r0, int k0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  a[0] = f(r0 + g, k0 + 2 * t);
+  a[1] = f(r0 + g, k0 + 2 * t + 1);
+  a[2] = f(r0 + g + 8, k0 + 2 * t);
+  a[3] = f(r0 + g + 8, k0 + 2 * t + 1);
+  a[4] = f(r0 + g, k0 + 2 * t + 8);
+  a[5] = f(r0 + g, k0 + 2 * t + 9);
+  a[6] = f(r0 + g + 8, k0 + 2 * t + 8);
+  a[7] = f(r0 + g + 8, k0 + 2 * t + 9);
+}
+
+// The B fragment of rows k0 .. k0 + 15 and columns n0 .. n0 + 7 of f(k, n).
+template <class F>
+__device__ __forceinline__ void frag_b(float (&b)[4], F f, int k0, int n0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  b[0] = f(k0 + 2 * t, n0 + g);
+  b[1] = f(k0 + 2 * t + 1, n0 + g);
+  b[2] = f(k0 + 2 * t + 8, n0 + g);
+  b[3] = f(k0 + 2 * t + 9, n0 + g);
+}
+
+// d += a.b on one m16n8k16 tile from f32 fragments, a (b) as bf16 hi + lo
+// where kA (kB), else as bf16 alone (a bf16 input, exact): the products of
+// pieces but lo.lo, small terms first.
+template <bool kA, bool kB>
+__device__ __forceinline__ void mma_split(float (&d)[4], const float (&a)[8], const float (&b)[4]) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) hopper::split_bf16(a[2 * r], a[2 * r + 1], ah[r], al[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) hopper::split_bf16(b[2 * r], b[2 * r + 1], bh[r], bl[r]);
+  if (kA) hopper::mma_bf16(d, al, bh[0], bh[1]);
+  if (kB) hopper::mma_bf16(d, ah, bl[0], bl[1]);
+  hopper::mma_bf16(d, ah, bh[0], bh[1]);
+}
+
+// Row and column of accumulator element e of the tile at (m0, n0).
+__device__ __forceinline__ int acc_row(int m0, int e) {
+  return m0 + threadIdx.x % 32 / 4 + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int n0, int e) {
+  return n0 + 2 * (threadIdx.x % 4) + (e & 1);
+}
+
+// grid (nc * G), kThreads threads; Q 16 or 32, P <= 64, N <= 128, H / G <=
+// kMaxRep.  Operands as the CUDA-core and wgmma routes take them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bwd_chunk(
+    const T* __restrict__ x, const float* __restrict__ dA, const T* __restrict__ B,
+    const T* __restrict__ C, const float* __restrict__ dy, const float* __restrict__ dst,
+    const float* __restrict__ ddec, T* __restrict__ dx, float* __restrict__ ddA,
+    T* __restrict__ dB, T* __restrict__ dC, int Q, int H, int G, int P, int N, long long sx,
+    long long sB, long long sC) {
+  constexpr bool kF32 = sizeof(T) == 4;  // f32 x, B and C enter as hi + lo too
+  constexpr int kMaxQT = kMaxQ / 16, kMaxPT = kPMax / 8;
+  extern __shared__ __align__(16) float sm[];
+  const int NK = (N + 15) / 16 * 16, PK = (P + 15) / 16 * 16, QT = Q / 16, rep = H / G;
+  const Smem L(Q, NK, rep);
+  float* const S = sm + L.S;
+  float* const Bs = sm + L.Bs;
+  float* const Cs = sm + L.Cs;
+  float* const dss = sm + L.dss;
+  float* const wsm = sm + L.w;
+  const int cgi = blockIdx.x, c = cgi / G, g = cgi % G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* const part = sm + L.part + warp * Q * Q;  // this warp's partial sum of dS
+  float* const cumw = sm + L.cum + warp * kMaxQ;
+  float* const rgw = sm + L.rg + warp * kMaxQ;
+  float* const cgw = sm + L.cg + warp * kMaxQ;
+  float* const uw = sm + L.u + warp * kMaxQ;
+  const long long tok0 = (long long)c * Q;  // the chunk's first token
+  float a[8], b[4];
+
+  for (int e = tid; e < Q * NK; e += kThreads) {
+    const int j = e / NK, n = e % NK;
+    Bs[e] = n < N ? ld(B + (tok0 + j) * sB + (long long)g * N + n) : 0.f;
+    Cs[e] = n < N ? ld(C + (tok0 + j) * sC + (long long)g * N + n) : 0.f;
+  }
+  for (int e = tid; e < kWarps * Q * Q; e += kThreads) sm[L.part + e] = 0.f;
+  __syncthreads();
+  // S = C B^T
+  for (int tile = warp; tile < QT * 2 * QT; tile += kWarps) {
+    const int m0 = tile / (2 * QT) * 16, n0 = tile % (2 * QT) * 8;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < NK; k0 += 16) {
+      frag_a(a, [&](int i, int n) { return Cs[i * NK + n]; }, m0, k0);
+      frag_b(b, [&](int n, int j) { return Bs[j * NK + n]; }, k0, n0);
+      mma_split<kF32, kF32>(d, a, b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[acc_row(m0, e) * Q + acc_col(n0, e)] = d[e];
+  }
+  __syncthreads();
+
+  for (int hl = warp; hl < rep; hl += kWarps) {
+    const int h = g * rep + hl;
+    auto X = [&](int j, int p) {
+      return p < P ? ld(x + (tok0 + j) * sx + (long long)h * P + p) : 0.f;
+    };
+    auto DY = [&](int i, int p) { return p < P ? dy[((tok0 + i) * H + h) * P + p] : 0.f; };
+    auto DST = [&](int p, int n) {
+      return p < P && n < N ? dst[(((long long)c * H + h) * P + p) * N + n] : 0.f;
+    };
+    // cum: an inclusive scan over the lanes (lane = token); w
+    float cv = lane < Q ? dA[(tok0 + lane) * H + h] : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, cv, o);
+      if (lane >= o) cv += y;
+    }
+    const float clast = __shfl_sync(0xffffffffu, cv, Q - 1);
+    if (lane < Q) {
+      cumw[lane] = cv;
+      wsm[hl * Q + lane] = expf(clast - cv);
+    }
+    __syncwarp();
+
+    // v = B dst^T (rows j, columns p), then dx = w v and u = w x . v
+    float acc[kMaxQT][kMaxPT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+      for (int pt = 0; pt < kMaxPT; ++pt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][pt][e] = 0.f;
+        if (mt >= QT || pt * 8 >= PK) continue;
+        for (int k0 = 0; k0 < NK; k0 += 16) {
+          frag_a(a, [&](int j, int n) { return Bs[j * NK + n]; }, mt * 16, k0);
+          frag_b(b, [&](int n, int p) { return DST(p, n); }, k0, pt * 8);
+          mma_split<kF32, true>(acc[mt][pt], a, b);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt) {
+      if (mt >= QT) continue;
+      float up[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pt = 0; pt < kMaxPT; ++pt) {
+        if (pt * 8 >= PK) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          up[e >> 1] += X(acc_row(mt * 16, e), acc_col(pt * 8, e)) * acc[mt][pt][e];
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        up[hr] += __shfl_xor_sync(0xffffffffu, up[hr], 1);
+        up[hr] += __shfl_xor_sync(0xffffffffu, up[hr], 2);
+        const int j = acc_row(mt * 16, 2 * hr);
+        const float wj = wsm[hl * Q + j];
+        if (lane % 4 == 0) uw[j] = wj * up[hr];
+#pragma unroll
+        for (int pt = 0; pt < kMaxPT; ++pt) {
+          acc[mt][pt][2 * hr] *= wj;
+          acc[mt][pt][2 * hr + 1] *= wj;
+        }
+      }
+    }
+    // dx += M^T dy over the rows i >= j, M^T[j][i] = S[i][j] exp(cum_i - cum_j)
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+      for (int pt = 0; pt < kMaxPT; ++pt) {
+        if (mt >= QT || pt * 8 >= PK) continue;
+        for (int k0 = mt * 16; k0 < Q; k0 += 16) {
+          frag_a(a, [&](int j, int i) {
+            return i >= j ? S[i * Q + j] * expf(cumw[i] - cumw[j]) : 0.f;
+          }, mt * 16, k0);
+          frag_b(b, DY, k0, pt * 8);
+          mma_split<true, true>(acc[mt][pt], a, b);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = acc_row(mt * 16, e), p = acc_col(pt * 8, e);
+          if (p < P) st(dx + ((tok0 + j) * H + h) * P + p, acc[mt][pt][e]);
+        }
+      }
+
+    // dM = dy x^T (rows i, columns j); G = dM M and dS = dM L below the diagonal
+    float rg[kMaxQT][2], cg[2 * kMaxQT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt) rg[mt][0] = rg[mt][1] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * kMaxQT; ++nt) cg[nt][0] = cg[nt][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * kMaxQT; ++nt) {
+        if (mt >= QT || nt >= 2 * QT || nt * 8 > mt * 16 + 15) continue;
+        float dm[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k0 = 0; k0 < PK; k0 += 16) {
+          frag_a(a, DY, mt * 16, k0);
+          frag_b(b, [&](int p, int j) { return X(j, p); }, k0, nt * 8);
+          mma_split<true, kF32>(dm, a, b);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = acc_row(mt * 16, e), j = acc_col(nt * 8, e);
+          if (j > i) continue;
+          const float l = expf(cumw[i] - cumw[j]);
+          part[i * Q + j] += dm[e] * l;
+          if (j < i) {
+            const float gv = dm[e] * (S[i * Q + j] * l);
+            rg[mt][e >> 1] += gv;
+            cg[nt][e & 1] += gv;
+          }
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float v = rg[mt][hr];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (mt < QT && lane % 4 == 0) rgw[acc_row(mt * 16, 2 * hr)] = v;
+      }
+#pragma unroll
+    for (int nt = 0; nt < 2 * kMaxQT; ++nt)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        float v = cg[nt][e1];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (nt < 2 * QT && lane < 4) cgw[acc_col(nt * 8, e1)] = v;
+      }
+    __syncwarp();
+    // dcum_i = rowG_i - colG_i - u_i (+ sum u + ddec dec at Q - 1); ddA its
+    // reverse cumsum, by a shuffle scan
+    float ui = lane < Q ? uw[lane] : 0.f;
+    float dc = lane < Q ? rgw[lane] - cgw[lane] - ui : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ui += __shfl_xor_sync(0xffffffffu, ui, o);
+    if (lane == Q - 1) dc += ui + ddec[(long long)c * H + h] * expf(clast);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_down_sync(0xffffffffu, dc, o);
+      if (lane + o < 32) dc += y;
+    }
+    if (lane < Q) ddA[(tok0 + lane) * H + h] = dc;
+    __syncwarp();  // the next head overwrites this warp's cum, sums and u
+  }
+  __syncthreads();
+  // sum_h dS_h: the warps' partial sums in warp order
+  for (int e = tid; e < Q * Q; e += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += sm[L.part + w * Q * Q + e];
+    dss[e] = v;
+  }
+  __syncthreads();
+  // dC = (sum dS) B and dB = (sum dS)^T C + sum_h (w x)_h dst_h, a tile a warp in turn
+  const int ntn = NK / 8, tiles = QT * ntn;
+  for (int tile = warp; tile < 2 * tiles; tile += kWarps) {
+    const bool is_b = tile >= tiles;
+    const int tt = is_b ? tile - tiles : tile, m0 = tt / ntn * 16, n0 = tt % ntn * 8;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < Q; k0 += 16) {
+      if (is_b) {
+        frag_a(a, [&](int j, int i) { return dss[i * Q + j]; }, m0, k0);
+        frag_b(b, [&](int i, int n) { return Cs[i * NK + n]; }, k0, n0);
+      } else {
+        frag_a(a, [&](int i, int j) { return dss[i * Q + j]; }, m0, k0);
+        frag_b(b, [&](int j, int n) { return Bs[j * NK + n]; }, k0, n0);
+      }
+      mma_split<true, kF32>(d, a, b);
+    }
+    if (is_b) {
+      for (int hl = 0; hl < rep; ++hl) {  // the state term, head by head
+        const int h = g * rep + hl;
+        float t4[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k0 = 0; k0 < PK; k0 += 16) {
+          frag_a(a, [&](int j, int p) {
+            return p < P ? wsm[hl * Q + j] * ld(x + (tok0 + j) * sx + (long long)h * P + p)
+                         : 0.f;
+          }, m0, k0);
+          frag_b(b, [&](int p, int n) {
+            return p < P && n < N ? dst[(((long long)c * H + h) * P + p) * N + n] : 0.f;
+          }, k0, n0);
+          mma_split<true, true>(t4, a, b);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] += t4[e];
+      }
+    }
+    T* const out = is_b ? dB : dC;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = acc_row(m0, e), n = acc_col(n0, e);
+      if (n < N) st(out + ((tok0 + row) * G + g) * N + n, d[e]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const float* dA, const void* B, const void* C, const float* dy,
+                   const float* dst, const float* ddec, void* dx, float* ddA, void* dB, void* dC,
+                   int nc, int Q, int H, int G, int P, int N, long long sx, long long sB,
+                   long long sC, cudaStream_t stream) {
+  const int smem = Smem(Q, (N + 15) / 16 * 16, H / G).total * (int)sizeof(float);
+  const cudaError_t err =
+      cudaFuncSetAttribute(bwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  bwd_chunk<T><<<nc * G, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), dA, static_cast<const T*>(B), static_cast<const T*>(C), dy, dst,
+      ddec, static_cast<T*>(dx), ddA, static_cast<T*>(dB), static_cast<T*>(dC), Q, H, G, P, N, sx,
+      sB, sC);
+  return cudaGetLastError();
+}
+
+}  // namespace op
+
 }  // namespace
 
 extern "C" {
@@ -1808,49 +1659,22 @@ long long ssd_chunk_bwd_scratch_floats(int nc, int Q, int H, int G) {
   return 3LL * nc * G * Q * Q + (long long)nc * H * Q;
 }
 
-// x: (nc, Q, H, P) and B, C: (nc, Q, G, N) of one type (bf16 when is_bf16,
-// else f32), each token's row packed, tokens `s*` elements apart; dA (nc, Q,
-// H), dy (nc, Q, H, P), dst (nc, H, P, N) and ddec (nc, H) contiguous f32.
-// Writes dx (nc, Q, H, P), dB and dC (nc, Q, G, N) contiguous in the inputs'
-// type and ddA (nc, Q, H) f32.  Q a multiple of 16 up to 256, P <= 64, N <=
-// 128, H % G == 0.  Returns a cudaError_t (0 on success), after checking
-// cudaGetLastError() behind every launch.
-int ssd_chunk_bwd_launch(const void* x, const float* dA, const void* B, const void* C,
-                         const float* dy, const float* dst, const float* ddec, void* dx,
-                         float* ddA, void* dB, void* dC, float* scratch,
-                         long long scratch_floats, int nc, int Q, int H, int G, int P, int N,
-                         long long sx, long long sB, long long sC, int is_bf16,
-                         cudaStream_t stream) {
-  if (nc < 1 || Q < 16 || Q > kMaxQ || Q % 16 || P < 1 || P > kPMax || N < 1 || N > kMaxN ||
-      G < 1 || H % G || scratch_floats < ssd_chunk_bwd_scratch_floats(nc, Q, H, G))
-    return (int)cudaErrorInvalidValue;
-  const int PB = pb_for(P);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(PB, x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch,
-                                        nc, Q, H, G, P, N, sx, sB, sC, stream);
-  return (int)dispatch<float>(PB, x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, scratch, nc, Q, H,
-                              G, P, N, sx, sB, sC, stream);
-}
-
-// Registers a thread and shared memory a block (static plus dynamic) of
-// kernel `which` (0 bwd_scores, 1 bwd_head, 2 bwd_dssum, 3 bwd_dc, 4
-// bwd_db) for head dim P and the input type.
-int ssd_chunk_bwd_resources(int which, int is_bf16, int P, int* regs, int* smem) {
-  const int PB = pb_for(P);
-  if (is_bf16) return (int)resources_pb<__nv_bfloat16>(PB, which, regs, smem);
-  return (int)resources_pb<float>(PB, which, regs, smem);
-}
-
 // Floats of device scratch the tensor-core route needs: as
 // ssd_chunk_bwd_scratch_floats, then (f32 inputs) bwd_v's V (nc, H, Q, P).
 long long ssd_chunk_bwd_tc_scratch_floats(int nc, int Q, int H, int G, int P, int is_bf16) {
   return ssd_chunk_bwd_scratch_floats(nc, Q, H, G) + (is_bf16 ? 0LL : (long long)nc * H * Q * P);
 }
 
-// The tensor-core route: x, B and C bf16 (is_bf16) or f32 with P in {16,
-// 32, 64} and N in {16, 32, 64, 128}, data 16-byte aligned and token strides
-// 16 bytes apart; otherwise as ssd_chunk_bwd_launch, with the scratch
-// ssd_chunk_bwd_tc_scratch_floats gives.  Any other operand returns
+// The wgmma route.  x: (nc, Q, H, P) and B, C: (nc, Q, G, N) of one type
+// (bf16 when is_bf16, else f32), each token's row packed, tokens `s*`
+// elements apart, with P in {16, 32, 64} and N in {16, 32, 64, 128}, data
+// 16-byte aligned and token strides 16 bytes apart; dA (nc, Q, H), dy (nc,
+// Q, H, P), dst (nc, H, P, N) and ddec (nc, H) contiguous f32, dy and dst
+// 16-byte aligned.  Writes dx (nc, Q, H, P), dB and dC (nc, Q, G, N)
+// contiguous in the inputs' type and ddA (nc, Q, H) f32, using the scratch
+// ssd_chunk_bwd_tc_scratch_floats gives.  Q a multiple of 16 up to 256, H
+// % G == 0.  Returns a cudaError_t (0 on success), after checking
+// cudaGetLastError() behind every launch; any other operand returns
 // cudaErrorInvalidValue and launches nothing.
 int ssd_chunk_bwd_tc_launch(const void* x, const float* dA, const void* B, const void* C,
                             const float* dy, const float* dst, const float* ddec, void* dx,
@@ -1878,6 +1702,33 @@ int ssd_chunk_bwd_tc_launch(const void* x, const float* dA, const void* B, const
 int ssd_chunk_bwd_tc_resources(int which, int is_bf16, int P, int N, int* regs, int* smem) {
   if (is_bf16) return (int)tc::resources<__nv_bfloat16>(which, P, N, regs, smem);
   return (int)tc::resources<float>(which, P, N, regs, smem);
+}
+
+// The one-pass route: Q 16 or 32, P <= 64, N <= 128, H / G <= 256; operands
+// as ssd_chunk_bwd_tc_launch takes them, at any alignment and token stride.
+// One launch, no scratch; any other shape returns cudaErrorInvalidValue and
+// launches nothing.
+int ssd_chunk_bwd_op_launch(const void* x, const float* dA, const void* B, const void* C,
+                            const float* dy, const float* dst, const float* ddec, void* dx,
+                            float* ddA, void* dB, void* dC, int nc, int Q, int H, int G, int P,
+                            int N, long long sx, long long sB, long long sC, int is_bf16,
+                            cudaStream_t stream) {
+  if (nc < 1 || (Q != 16 && Q != 32) || P < 1 || P > kPMax || N < 1 || N > kMaxN || G < 1 ||
+      H % G || H / G > op::kMaxRep)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)op::launch<__nv_bfloat16>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, nc, Q, H, G,
+                                          P, N, sx, sB, sC, stream);
+  return (int)op::launch<float>(x, dA, B, C, dy, dst, ddec, dx, ddA, dB, dC, nc, Q, H, G, P, N,
+                                sx, sB, sC, stream);
+}
+
+// Registers a thread and shared memory a block (static plus dynamic) of the
+// one-pass kernel at chunk length Q, state dim N and H / G heads a group.
+int ssd_chunk_bwd_op_resources(int is_bf16, int Q, int N, int rep, int* regs, int* smem) {
+  const int dyn = op::Smem(Q, (N + 15) / 16 * 16, rep).total * (int)sizeof(float);
+  if (is_bf16) return (int)attrs(op::bwd_chunk<__nv_bfloat16>, dyn, regs, smem);
+  return (int)attrs(op::bwd_chunk<float>, dyn, regs, smem);
 }
 
 const char* ssd_chunk_bwd_error_string(int err) {

@@ -19,8 +19,7 @@ On the card every forward call takes the tensor cores (``route`` says
 KV tiles in separate K and V rings, and P.V in two column halves).
 Nothing retries on another route: a failed build or launch raises.
 ``flash_attention.launches`` counts the CUDA launches,
-``flash_attention.route_launches`` the same per route (the forward's
-"cuda_cores" count stays 0; the backward still has such a route).
+``flash_attention.route_launches`` the same per route.
 
 Short sequences in bf16 (a transformer UDF's 8 tokens; ``packed_plan``
 says which) take the packed route (``"packed"``) forward and backward
@@ -63,21 +62,22 @@ Gradients: whenever grad is enabled and q, k or v requires it,
 the lse; its backward is ``flash_attention_backward``: on the card the
 hand-written kernels of ``csrc/flash_attention_bwd.cu``, on the CPU
 ``flash_attention_backward_plain``, the same formulas in plain PyTorch.
-``backward_route`` picks the card's kernels from dtype and head dim before
-the launch: bf16 at D in ``TC_BWD_HEAD_DIMS`` takes the tensor cores
-(``"tensor_cores"``: wgmma, bf16 P and dS as operands, f32 sums), and so
-does f32 at D in ``SPLIT_BWD_HEAD_DIMS`` (the split route: ``split_bf16``
-cuts q, k, v and dO into bf16 hi, mid and lo pieces first, P and dS are
-split in registers, and each product runs as six products of pieces, as
-the forward's f32 route does; at D 256 the pieces stream through the
-kernels in 64-column chunks of the head dim); every other call (D 16 and
-32) takes the CUDA cores (``"cuda_cores"``, IEEE f32).  All read the
-forward's lse, compute Di = rowsum(dO * O) in a pre-pass, then dK/dV with
-one block owning a KV tile across its query-head group and dQ with one
-block a q tile: no atomics, so two calls give the same bits.  ``flash_attention.backward_launches`` counts
+``backward_route`` picks the card's kernels before the launch: the packed
+route where the forward takes it, else the tensor cores at every head dim
+(``"tensor_cores"``): bf16 as wgmma with bf16 P and dS as operands and f32
+sums, f32 on the split route (``split_bf16`` cuts q, k, v and dO into bf16
+hi, mid and lo pieces first, P and dS are split in registers, and each
+product runs as six products of pieces, as the forward's f32 route does;
+at D 256 the pieces stream through the kernels in 64-column chunks of the
+head dim; below D 64 the tiles take the forward's narrower swizzle).  Both
+read the forward's lse, compute Di = rowsum(dO * O) in a pre-pass, then
+dK/dV with one block owning a KV tile across its query-head group and dQ
+with one block a q tile: no atomics, so two calls give the same bits.
+``flash_attention.backward_launches`` counts
 the backward's CUDA calls (one a call, three kernels each, after the split
-route's four ``split_bf16`` launches, which ``split_bf16.launches``
-counts), ``flash_attention.backward_route_launches`` the same per route.
+route's pre-pass over q, k, v and dO in one launch, which
+``split_bf16.launches`` counts), ``flash_attention.backward_route_launches``
+the same per route.
 ``flash_attention_plain`` itself cannot be differentiated (it works on its
 scores in place): it stays the forward's oracle.
 """
@@ -97,10 +97,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 MAX_BATCH_HEADS = 2**31 - 1  # batch * heads the C entries take: every grid's x dim
 ALIGN = 16  # bytes: TMA's alignment of a tensor's base address
-ROUTES = ("tensor_cores", "cuda_cores", "packed")
+ROUTES = ("tensor_cores", "packed")
 BWD_FLOPS_FACTOR = 2.5  # FlashAttention-2's count: the backward is 2.5 forwards
-TC_BWD_HEAD_DIMS = (64, 128, 256)  # bf16 head dims the backward's tensor-core route takes
-SPLIT_BWD_HEAD_DIMS = (64, 128, 256)  # f32 head dims it takes (split-bf16 operands)
 TC_BWD_ROW_ALIGN = 64  # its scratch rows: Sq padded to a stage's q rows (tc::kRows in the .cu)
 _KERNEL_CODE = {torch.bfloat16: 1, torch.float32: 2}  # the C entry's resource selector
 PACKED_ROWS = 128  # q rows a packed tile (packed::kRows in csrc/hopper.cuh)
@@ -143,16 +141,13 @@ def _bwd_lib() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = ctypes.CDLL(str(_build.build("flash_attention_bwd")))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_bwd_launch.argtypes = [vp] * 10 + [i] * 8 + [ctypes.c_float, vp]
-        lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_tc_launch.argtypes = [vp] * 10 + [i] * 7 + [ctypes.c_float, vp]
         lib.flash_attention_bwd_tc_launch.restype = i
-        pieces = ctypes.c_void_p * 3
-        lib.flash_attention_bwd_split_launch.argtypes = [vp] * 4 + [pieces] * 4 + [vp] * 3 + [
-            i] * 7 + [ctypes.c_float, vp]
+        lib.flash_attention_bwd_split_launch.argtypes = [vp] * 11 + [i] * 7 + [ctypes.c_float,
+                                                                                vp]
         lib.flash_attention_bwd_split_launch.restype = i
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.flash_attention_bwd_resources.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.flash_attention_bwd_resources.argtypes = [i, i, i, ip, ip, ip]
         lib.flash_attention_bwd_resources.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -271,7 +266,7 @@ def split_bf16_plain(t):
 
 def split_bf16(t):
     """``split_bf16_plain`` of a contiguous f32 tensor: a CUDA tensor
-    launches ``split_bf16_kernel`` (bit for bit the plain version), a CPU
+    launches ``split_bf16_segments`` (bit for bit the plain version), a CPU
     tensor runs the plain version.  Returns (hi, mid, lo), bf16 of t's
     shape.  ``split_bf16.launches`` counts the launches."""
     if t.dtype != torch.float32 or not t.is_contiguous() or t.numel() == 0:
@@ -287,8 +282,7 @@ def split_bf16(t):
     n = t.numel()
     out = torch.empty((3, -(-n // 8) * 8), dtype=torch.bfloat16, device=t.device)  # 16 B rows
     pieces = tuple(out[i, :n].view(t.shape) for i in range(3))
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
+    with _build.on_device(t.device) as stream:
         rc = lib.split_bf16_launch(t.data_ptr(), *(x.data_ptr() for x in pieces), n, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
@@ -390,8 +384,7 @@ def _attend(q, k, v, causal: bool, scale: float | None, want_lse: bool = False):
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if want_lse else None
     lse_ptr = lse.data_ptr() if want_lse else None  # null: the kernel writes no lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _build.on_device(q.device) as stream:
         if path == "packed":
             plan = packed_plan(B, Sq, Sk, H, K, D, q.dtype)
             rc = lib.flash_attention_packed_launch(
@@ -514,13 +507,13 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
 def backward_route(D: int, dtype: torch.dtype, shape: tuple | None = None) -> str:
     """The backward kernels a CUDA call of head dim ``D`` and ``dtype``
     takes: the packed kernel where ``shape`` (B, Sq, Sk, H, K) is short
-    enough for ``packed_plan`` (the forward's rule), else by head dim and
-    type."""
+    enough for ``packed_plan`` (the forward's rule), else the tensor cores
+    (f32 on the split route)."""
+    if D not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"no backward route for head dim {D} in {dtype}")
     if shape is not None and packed_plan(*shape, D, dtype) is not None:
         return "packed"
-    if D in (TC_BWD_HEAD_DIMS if dtype == torch.bfloat16 else SPLIT_BWD_HEAD_DIMS):
-        return "tensor_cores"
-    return "cuda_cores"
+    return "tensor_cores"
 
 
 def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = True,
@@ -533,8 +526,9 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     the ``backward_route`` kernels of ``csrc/flash_attention_bwd.cu``, which
     need ``lse`` (or raises); a CPU tensor runs
     ``flash_attention_backward_plain``, which recomputes it.  On the split
-    route (f32 on the tensor cores) ``split_bf16`` first cuts q, k, v and
-    dout into their bf16 pieces."""
+    route (f32 on the tensor cores) the same C call first cuts q, k, v and
+    dout into their bf16 pieces (one launch over the four, counted in
+    ``split_bf16.launches``)."""
     B, Sq, Sk, H, K, D = _check_operands(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -569,37 +563,37 @@ def flash_attention_backward(q, k, v, out, dout, lse=None, *, causal: bool = Tru
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if path == "packed":  # one kernel, one pass: no scratch
         plan = packed_plan(B, Sq, Sk, H, K, D, q.dtype)
-        with torch.cuda.device(q.device):
+        with _build.on_device(q.device) as stream:
             rc = lib.flash_attention_bwd_packed_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, D,
-                plan.U, plan.P, plan.tiles, plan.N, int(causal), scale,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                plan.U, plan.P, plan.tiles, plan.N, int(causal), scale, stream)
         _count_backward(lib, rc, path)
         return dq, dk, dv
-    split = path == "tensor_cores" and q.dtype == torch.float32
-    pieces = [split_bf16(t) for t in (q, k, v, dout)] if split else None
-    rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN if path == "tensor_cores" else Sq
+    split = q.dtype == torch.float32
+    rows = -(-Sq // TC_BWD_ROW_ALIGN) * TC_BWD_ROW_ALIGN
     if B * H * rows > MAX_BATCH_HEADS:  # the scratch's rows are counted in an int
         raise ValueError(f"batch * heads * rows = {B * H * rows} exceeds {MAX_BATCH_HEADS}")
-    stats = torch.empty((2, B, H, rows), dtype=torch.float32, device=q.device)  # lse, Di
+    # one scratch allocation (a host call costs as much as these kernels at
+    # small shapes): the (2, B, H, rows) f32 lse and Di rows, then on the
+    # split route the bf16 pieces of q, k, v and dout (rows * 8 bytes keep
+    # them 16-byte aligned)
+    stats_bytes = 8 * B * H * rows
+    pieces_bytes = 6 * (2 * q.numel() + 2 * k.numel()) if split else 0
+    scratch = torch.empty(stats_bytes + pieces_bytes, dtype=torch.uint8, device=q.device)
+    stats = scratch.data_ptr()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), stats, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, Sq, Sk, H, K, D, int(causal))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if split:
-            ptrs = ctypes.c_void_p * 3
-            rc = lib.flash_attention_bwd_split_launch(
-                out.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
-                *(ptrs(*(t.data_ptr() for t in p)) for p in pieces), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, D, int(causal), scale, stream)
-        elif path == "tensor_cores":
-            rc = lib.flash_attention_bwd_tc_launch(*args, scale, stream)
+    with _build.on_device(q.device) as stream:
+        if split:  # q, k, v, dout's bf16 pieces: one split_bf16 launch in the same call
+            rc = lib.flash_attention_bwd_split_launch(*args[:7], stats + stats_bytes, *args[7:],
+                                                      scale, stream)
         else:
-            rc = lib.flash_attention_bwd_launch(*args, int(q.dtype == torch.bfloat16), scale,
-                                                stream)
+            rc = lib.flash_attention_bwd_tc_launch(*args, scale, stream)
     _count_backward(lib, rc, path)
+    if split:
+        split_bf16.launches += 1
     return dq, dk, dv
 
 
@@ -666,15 +660,10 @@ def backward_kernels(D: int, dtype: torch.dtype, shape: tuple | None = None) -> 
         return {"packed": (f"pk::packed_bwd<{D}, {N}>", f"packed_bwdILi{D}ELi{N}E")}
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
     tname = "bf16" if dtype == torch.bfloat16 else "float"
-    kernels = {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E")}
-    if backward_route(D, dtype) == "tensor_cores":
-        kind = "wgmma" if dtype == torch.bfloat16 else "split_wide" if D >= 256 else "split"
-        kernels["dkdv"] = (f"tc::dkdv_{kind}<{D}>", f"dkdv_{kind}ILi{D}E")
-        kernels["dq"] = (f"tc::dq_{kind}<{D}>", f"dq_{kind}ILi{D}E")
-    else:
-        kernels["dkdv"] = (f"cc::bwd_dkdv<{tname}, {D}>", f"bwd_dkdvI{t}Li{D}E")
-        kernels["dq"] = (f"cc::bwd_dq<{tname}, {D}>", f"bwd_dqI{t}Li{D}E")
-    return kernels
+    kind = "wgmma" if dtype == torch.bfloat16 else "split_wide" if D >= 256 else "split"
+    return {"prep": (f"bwd_prep<{tname}>", f"bwd_prepI{t}E"),
+            "dkdv": (f"tc::dkdv_{kind}<{D}>", f"dkdv_{kind}ILi{D}E"),
+            "dq": (f"tc::dq_{kind}<{D}>", f"dq_{kind}ILi{D}E")}
 
 
 def backward_resources(D: int, dtype: torch.dtype, shape: tuple | None = None) -> dict:
@@ -692,8 +681,7 @@ def backward_resources(D: int, dtype: torch.dtype, shape: tuple | None = None) -
             rc = lib.flash_attention_bwd_packed_resources(
                 D, packed_plan(*shape, D, dtype).N, *(ctypes.byref(x) for x in vals))
         else:
-            rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16),
-                                                   int(path == "tensor_cores"), which,
+            rc = lib.flash_attention_bwd_resources(D, int(dtype == torch.bfloat16), which,
                                                    *(ctypes.byref(x) for x in vals))
         if rc != 0:
             raise RuntimeError(f"flash_attention_bwd_resources: CUDA error {rc}")

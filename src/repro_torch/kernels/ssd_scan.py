@@ -30,14 +30,20 @@ Under grad ``ssd_chunk`` goes through the autograd Function ``SSDChunk``,
 whose backward ``ssd_chunk_backward`` launches ``csrc/ssd_chunk_bwd.cu``
 on the card (f32 sums in a fixed order, no atomics; the JAX package
 differentiates its plain ``ssd_chunked`` instead) and runs
-``ssd_chunk_backward_plain`` on the CPU.  ``backward_route`` picks its
-kernels before the launch: operands that the forward's tensor-core route
-takes (P in ``TC_P``, N in ``TC_N``, 16-byte alignment) go to the tensor
-cores (``"tensor_cores"``: wgmma, with the f32 operands dy, dstates, M = S
-* L, w * x and the group's sum of dS split into bf16 hi + lo, and f32 x,
-B and C too, with v = B dstates^T computed into the scratch by a kernel of
-its own); the rest to the CUDA cores (``"cuda_cores"``, IEEE f32).
-``ssd_chunk_backward.launches`` counts its launches,
+``ssd_chunk_backward_plain`` on the CPU.  Every backward call takes the
+tensor cores, on one of two routes ``backward_route`` picks before the
+launch.  Where the forward takes the tensor cores, the wgmma kernels
+(``"tensor_cores"``: the f32 operands dy, dstates, M = S * L, w * x and
+the group's sum of dS split into bf16 hi + lo, and f32 x, B and C too,
+with v = B dstates^T computed into the scratch by a kernel of its own).
+Elsewhere (P off ``TC_P``, N off ``TC_N``, data or token strides not
+16-byte aligned): at chunks of at most ``ONE_PASS_MAX_Q`` tokens the
+one-pass kernel (``"one_pass"``: one launch, a block a chunk and group,
+a warp a head, mma.sync on the same pieces); longer chunks take the wgmma
+kernels on operands zero-padded to the next head and state dims of
+``TC_P`` and ``TC_N`` in fresh aligned copies (``pad_to_tensor_cores``),
+the gradients cut back (``unpad_grads``): zero columns add exact zeros to
+every sum.  ``ssd_chunk_backward.launches`` counts its launches,
 ``ssd_chunk_backward.route_launches`` the same per route.  Serving, under
 ``no_grad``, takes the bare forward.
 
@@ -60,9 +66,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q, MAX_P, MAX_N = 256, 64, 128
 Q_STEP = 16  # chunk lengths are multiples of this
 MAX_BLOCKS = 2**31 - 1  # the kernel's grid puts chunks * heads on its x axis
-ROUTES = ("tensor_cores", "cuda_cores")
+ROUTES = ("tensor_cores", "cuda_cores")  # the forward's
+BWD_ROUTES = ("tensor_cores", "one_pass")  # the backward's: both on the tensor cores
 TC_P, TC_N = (16, 32, 64), (16, 32, 64, 128)  # the tensor-core kernels' head and state dims
 ALIGN = 16  # bytes: a base address and a token stride for TMA and 16-byte loads
+ONE_PASS_MAX_Q = 32  # the backward's one-pass kernel: chunks of at most 32 tokens
+ONE_PASS_MAX_REP = 256  # and at most 256 heads a group
 
 _LIB = None
 
@@ -130,13 +139,16 @@ def _check_operands(x, dA, B, C):
     return nc, Q, H, G, P, N
 
 
+def _aligned(t) -> bool:
+    """Whether operand ``t``'s data and token stride are 16-byte aligned
+    (TMA's and the tensor-core kernels' 16-byte loads)."""
+    return t.data_ptr() % ALIGN == 0 and t.stride(1) * t.element_size() % ALIGN == 0
+
+
 def route(x, B, C) -> str:
     """The kernel a CUDA call takes, from dtype, shape and layout alone
     (operands already checked by ``_check_operands``)."""
-    P, N = x.shape[3], B.shape[3]
-    aligned = all(t.data_ptr() % ALIGN == 0 and t.stride(1) * t.element_size() % ALIGN == 0
-                  for t in (x, B, C))
-    if P in TC_P and N in TC_N and aligned:
+    if x.shape[3] in TC_P and B.shape[3] in TC_N and all(map(_aligned, (x, B, C))):
         return "tensor_cores"
     return "cuda_cores"
 
@@ -218,8 +230,7 @@ def _forward(x, dA, B, C):
     states = torch.empty((nc, H, P, N), dtype=f32, device=x.device)
     decay = torch.empty((nc, H), dtype=f32, device=x.device)
     split = path == "tensor_cores" and x.dtype == torch.float32
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _build.on_device(x.device) as stream:
         if split:
             n = ctypes.c_longlong(0)
             rc = lib.ssd_chunk_split_scratch(nc, Q, H, G, ctypes.byref(n))
@@ -294,18 +305,16 @@ def _bwd_lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build.build("ssd_chunk_bwd")))
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ssd_chunk_bwd_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [i, vp]
-        lib.ssd_chunk_bwd_launch.restype = i
-        lib.ssd_chunk_bwd_scratch_floats.argtypes = [i] * 4
-        lib.ssd_chunk_bwd_scratch_floats.restype = ll
-        lib.ssd_chunk_bwd_resources.argtypes = [i, i, i, ip, ip]
-        lib.ssd_chunk_bwd_resources.restype = i
         lib.ssd_chunk_bwd_tc_launch.argtypes = [vp] * 12 + [ll] + [i] * 6 + [ll] * 3 + [i, vp]
         lib.ssd_chunk_bwd_tc_launch.restype = i
         lib.ssd_chunk_bwd_tc_scratch_floats.argtypes = [i] * 6
         lib.ssd_chunk_bwd_tc_scratch_floats.restype = ll
         lib.ssd_chunk_bwd_tc_resources.argtypes = [i, i, i, i, ip, ip]
         lib.ssd_chunk_bwd_tc_resources.restype = i
+        lib.ssd_chunk_bwd_op_launch.argtypes = [vp] * 11 + [i] * 6 + [ll] * 3 + [i, vp]
+        lib.ssd_chunk_bwd_op_launch.restype = i
+        lib.ssd_chunk_bwd_op_resources.argtypes = [i] * 4 + [ip, ip]
+        lib.ssd_chunk_bwd_op_resources.restype = i
         lib.ssd_chunk_bwd_error_string.argtypes = [i]
         lib.ssd_chunk_bwd_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
@@ -314,10 +323,61 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def backward_route(x, B, C) -> str:
     """The kernels a CUDA backward call takes, from dtype, shape and layout
-    alone (operands already checked by ``_check_operands``): the tensor
-    cores wherever the forward takes them, in bf16 and f32 alike (f32 x, B
-    and C as bf16 hi and lo pieces), otherwise the CUDA cores."""
-    return route(x, B, C)
+    alone (operands already checked by ``_check_operands``), in bf16 and
+    f32 alike: the wgmma kernels (``"tensor_cores"``) where the forward
+    takes the tensor cores; otherwise, at chunks of at most
+    ``ONE_PASS_MAX_Q`` tokens, the one-pass kernel (``"one_pass"``:
+    mma.sync, one launch); otherwise the wgmma kernels on the operands
+    ``pad_to_tensor_cores`` makes."""
+    if route(x, B, C) == "tensor_cores":
+        return "tensor_cores"
+    Q, H, G = x.shape[1], x.shape[2], B.shape[2]
+    if Q <= ONE_PASS_MAX_Q and H // G <= ONE_PASS_MAX_REP:
+        return "one_pass"
+    return "tensor_cores"
+
+
+def _tc_width(n: int, dims: tuple) -> int:
+    """The smallest of the tensor-core kernels' ``dims`` at least ``n``."""
+    return next(d for d in dims if d >= n)
+
+
+def pad_to_tensor_cores(x, B, C, dy, dstates):
+    """(x, B, C, dy, dstates) of a backward call as the tensor-core kernels
+    take them: x and dy zero-padded to the head dim ``_tc_width(P, TC_P)``,
+    B and C to the state dim ``_tc_width(N, TC_N)``, dstates to both, each
+    padded or misaligned operand in a fresh contiguous copy of its type
+    (16-byte aligned, as every new allocation is); operands taken as they
+    are pass unchanged.  A plain function of tensors on any device.  Zero
+    columns of x, dy, B, C and dstates add exact zeros to every sum of the
+    backward and leave dA's gradient as it was, so ``unpad_grads`` of the
+    padded call's gradients are the unpadded call's."""
+    P, N = x.shape[3], B.shape[3]
+    Pp, Np = _tc_width(P, TC_P), _tc_width(N, TC_N)
+
+    def fit(t, width):
+        if t.shape[-1] == width and _aligned(t):
+            return t
+        if t.shape[-1] == width:  # misaligned: a fresh copy
+            return t.clone(memory_format=torch.contiguous_format)
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+    if dstates.shape[2:] != (Pp, Np):
+        dstates = torch.nn.functional.pad(dstates, (0, Np - N, 0, Pp - P))
+    elif dstates.data_ptr() % ALIGN:
+        dstates = dstates.clone()
+    return fit(x, Pp), fit(B, Np), fit(C, Np), fit(dy, Pp), dstates
+
+
+def unpad_grads(grads, P: int, N: int):
+    """(dx, ddA, dB, dC) of a padded call cut back to head dim ``P`` and
+    state dim ``N``, contiguous (unchanged where nothing was padded)."""
+    dx, ddA, dB, dC = grads
+    if dx.shape[3] != P:
+        dx = dx[..., :P].contiguous()
+    if dB.shape[3] != N:
+        dB, dC = dB[..., :N].contiguous(), dC[..., :N].contiguous()
+    return dx, ddA, dB, dC
 
 
 def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
@@ -331,7 +391,8 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
     CUDA launches, ``ssd_chunk_backward.route_launches`` the same per
     route."""
     nc, Q, H, G, P, N = _check_operands(x, dA, B, C)
-    strides = [_token_stride(t, name) for t, name in ((x, "x"), (B, "B"), (C, "C"))]
+    for t, name in ((x, "x"), (B, "B"), (C, "C")):
+        _token_stride(t, name)
     f32 = torch.float32
     grads = []
     for t, name, shape in ((dy, "dy", (nc, Q, H, P)), (dstates, "dstates", (nc, H, P, N)),
@@ -356,41 +417,63 @@ def ssd_chunk_backward(x, dA, B, C, dy, dstates, ddecay):
         raise ValueError(f"chunks * groups = {nc * G} exceeds {MAX_GRID_Y}")
     lib = _bwd_lib()
     dev = x.device
-    dx = torch.empty((nc, Q, H, P), dtype=x.dtype, device=dev)
-    ddA = torch.empty((nc, Q, H), dtype=f32, device=dev)
-    dB = torch.empty((nc, Q, G, N), dtype=B.dtype, device=dev)
-    dC = torch.empty((nc, Q, G, N), dtype=C.dtype, device=dev)
     path = backward_route(x, B, C)
+    if path == "one_pass":
+        return _one_pass(lib, x, dA, B, C, dy, dstates, ddecay)
+    x, B, C, dy, dstates = pad_to_tensor_cores(x, B, C, dy, dstates)
+    Pp, Np = x.shape[3], B.shape[3]
+    strides = [t.stride(1) for t in (x, B, C)]
+    dx = torch.empty((nc, Q, H, Pp), dtype=x.dtype, device=dev)
+    ddA = torch.empty((nc, Q, H), dtype=f32, device=dev)
+    dB = torch.empty((nc, Q, G, Np), dtype=B.dtype, device=dev)
+    dC = torch.empty((nc, Q, G, Np), dtype=C.dtype, device=dev)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    n = (lib.ssd_chunk_bwd_tc_scratch_floats(nc, Q, H, G, P, is_bf16) if path == "tensor_cores"
-         else lib.ssd_chunk_bwd_scratch_floats(nc, Q, H, G))
+    n = lib.ssd_chunk_bwd_tc_scratch_floats(nc, Q, H, G, Pp, is_bf16)
     scratch = torch.empty(n, dtype=f32, device=dev)
-    if path == "tensor_cores":  # the tensor-core kernels read dy and dstates 16 bytes at a time
-        dy, dstates = (t if t.data_ptr() % ALIGN == 0 else t.clone() for t in (dy, dstates))
     args = (x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
             dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), scratch.data_ptr(), n, nc, Q, H, G, P, N, *strides)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if path == "tensor_cores":
-            rc = lib.ssd_chunk_bwd_tc_launch(*args, is_bf16, stream)
-        else:
-            rc = lib.ssd_chunk_bwd_launch(*args, is_bf16, stream)
+            dC.data_ptr(), scratch.data_ptr(), n, nc, Q, H, G, Pp, Np, *strides)
+    with _build.on_device(dev) as stream:
+        rc = lib.ssd_chunk_bwd_tc_launch(*args, is_bf16, stream)
     if rc != 0:
         msg = lib.ssd_chunk_bwd_error_string(rc).decode()
         raise RuntimeError(f"ssd_chunk_backward launch failed ({path}): CUDA error {rc} ({msg})")
     ssd_chunk_backward.launches += 1
     ssd_chunk_backward.route_launches[path] += 1
+    return unpad_grads((dx, ddA, dB, dC), P, N)
+
+
+def _one_pass(lib, x, dA, B, C, dy, dstates, ddecay):
+    """``ssd_chunk_backward`` on the one-pass kernel (``backward_route``
+    says ``"one_pass"``): operands as they came, one launch, no scratch."""
+    nc, Q, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = x.device
+    dx = torch.empty((nc, Q, H, P), dtype=x.dtype, device=dev)
+    ddA = torch.empty((nc, Q, H), dtype=torch.float32, device=dev)
+    dB = torch.empty((nc, Q, G, N), dtype=B.dtype, device=dev)
+    dC = torch.empty((nc, Q, G, N), dtype=C.dtype, device=dev)
+    with _build.on_device(dev) as stream:
+        rc = lib.ssd_chunk_bwd_op_launch(
+            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), nc, Q, H, G, P, N, x.stride(1), B.stride(1), C.stride(1),
+            int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        msg = lib.ssd_chunk_bwd_error_string(rc).decode()
+        raise RuntimeError(f"ssd_chunk_backward launch failed (one_pass): CUDA error {rc} ({msg})")
+    ssd_chunk_backward.launches += 1
+    ssd_chunk_backward.route_launches["one_pass"] += 1
     return dx, ddA, dB, dC
 
 
-BWD_KERNELS = {"cuda_cores": ("bwd_scores", "bwd_head", "bwd_dssum", "bwd_dc", "bwd_db"),
-               "tensor_cores": ("tc::bwd_scores", "tc::bwd_dx", "tc::bwd_group", "bwd_dc")}
+BWD_KERNELS = {"tensor_cores": ("tc::bwd_scores", "tc::bwd_dx", "tc::bwd_group", "bwd_dc"),
+               "one_pass": ("op::bwd_chunk",)}
 
 
 def backward_kernels(path: str, dtype: torch.dtype) -> tuple:
     """The kernels a backward call on ``path`` with inputs of ``dtype``
-    launches, in order: f32 on the tensor cores runs ``tc::bwd_v`` (v = B
+    launches, in order: f32 on the wgmma route runs ``tc::bwd_v`` (v = B
     dstates^T into the scratch) after ``tc::bwd_scores``."""
     names = BWD_KERNELS[path]
     if path == "tensor_cores" and dtype == torch.float32:
@@ -398,22 +481,24 @@ def backward_kernels(path: str, dtype: torch.dtype) -> tuple:
     return names
 
 
-def backward_resources(P: int, dtype: torch.dtype, path: str = "cuda_cores",
-                       N: int = MAX_N) -> dict:
-    """Registers a thread and shared memory a block (static plus dynamic;
-    the tensor-core kernels' at Q 256) of each of a backward route's kernels
-    (``backward_kernels(path, dtype)``) at head dim P, state dim N (the
-    tensor-core route's) and input ``dtype``."""
+def backward_resources(P: int, dtype: torch.dtype, path: str = "tensor_cores",
+                       N: int = MAX_N, Q: int = ONE_PASS_MAX_Q, rep: int = 1) -> dict:
+    """Registers a thread and shared memory a block (static plus dynamic)
+    of each of a backward route's kernels (``backward_kernels(path,
+    dtype)``) at head dim P, state dim N and input ``dtype``: the wgmma
+    kernels' at Q 256, the one-pass kernel's at chunk length Q and ``rep``
+    heads a group."""
     out = {}
     lib = _bwd_lib()
+    is_bf16 = int(dtype == torch.bfloat16)
     for which, name in enumerate(backward_kernels(path, dtype)):
         regs, smem = ctypes.c_int(0), ctypes.c_int(0)
-        if path == "tensor_cores":
-            rc = lib.ssd_chunk_bwd_tc_resources(which, int(dtype == torch.bfloat16), P, N,
-                                                ctypes.byref(regs), ctypes.byref(smem))
+        if path == "one_pass":
+            rc = lib.ssd_chunk_bwd_op_resources(is_bf16, Q, N, rep, ctypes.byref(regs),
+                                                ctypes.byref(smem))
         else:
-            rc = lib.ssd_chunk_bwd_resources(which, int(dtype == torch.bfloat16), P,
-                                             ctypes.byref(regs), ctypes.byref(smem))
+            rc = lib.ssd_chunk_bwd_tc_resources(which, is_bf16, P, N, ctypes.byref(regs),
+                                                ctypes.byref(smem))
         if rc != 0:
             raise RuntimeError(f"ssd_chunk_bwd_resources: CUDA error {rc}")
         out[name] = {"registers_at_launch": regs.value, "smem_bytes": smem.value}
@@ -426,7 +511,7 @@ def reset_launches() -> None:
     ssd_chunk.launches = 0
     ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
     ssd_chunk_backward.launches = 0
-    ssd_chunk_backward.route_launches = dict.fromkeys(ROUTES, 0)
+    ssd_chunk_backward.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 reset_launches()

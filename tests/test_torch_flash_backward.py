@@ -262,6 +262,33 @@ def test_tensor_core_arithmetic_matches_jax_grad_of_mha(shape, causal):
         assert ratio <= 1.0, f"d{name}: {ratio} of the bf16 limit"
 
 
+NEW_TC_SHAPES = {"reduced": (2, 256, 256, 4, 2, 16), "d32": (1, 128, 128, 4, 4, 32)}
+
+
+@pytest.mark.parametrize("kind", list(NEW_TC_SHAPES))
+@pytest.mark.parametrize("route", ["bf16", "split_f32"])
+def test_d16_and_d32_arithmetic_matches_jax_grad_of_mha(kind, route):
+    """The head dims the tensor cores took over from the CUDA cores (the
+    restart check's reduced (2, 256, 256, 4, 2, 16) and D 32 at (1, 128,
+    128, 4, 4, 32)), causal: the bf16 route's rounding within the bf16
+    limit of ``jax.grad`` of ``layers.mha``, the split route's arithmetic
+    within the f32 limit, as at every other head dim."""
+    shape = NEW_TC_SHAPES[kind]
+    if route == "split_f32":
+        ratios = _split_ratio(shape, True)
+        assert max(ratios) <= 1.0, f"(dq, dk, dv): {ratios} of the f32 limit"
+        return
+    q, k, v, g = _inputs(shape, seed=sum(shape))
+    bf16 = torch.bfloat16
+    tq, tk, tv = (torch.from_numpy(x).to(bf16) for x in (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=True, return_lse=True)
+    got = _tc_backward_emulation(tq, tk, tv, out, torch.from_numpy(g).to(bf16), lse, True)
+    want = _jax_grads(q, k, v, g.astype(jnp.bfloat16).astype(np.float32), True, "bfloat16")
+    for name, a, ref in zip("qkv", got, want):
+        ratio = _limit_ratio(a.float().numpy(), ref, TOL["bfloat16"])
+        assert ratio <= 1.0, f"d{name}: {ratio} of the bf16 limit"
+
+
 def test_tensor_core_emulation_is_the_plain_formulas_up_to_its_rounding():
     """In f32 operands and without the bf16 rounding of P and dS, the
     emulation's arithmetic is the plain backward's: a fault in the
@@ -450,17 +477,18 @@ def test_split_emulation_without_rounding_is_the_plain_formulas():
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_route_for_every_head_dim_and_type(D, dtype):
-    """bf16 and f32 (split-bf16 operands) at D 64 / 128 / 256 on the tensor
-    cores, D 16 and 32 on the CUDA cores."""
-    tc_dims = (64, 128, 256)
-    want = "tensor_cores" if D in tc_dims else "cuda_cores"
-    assert fa.backward_route(D, dtype) == want
+    """bf16 and f32 (split-bf16 operands) at every head dim, D 16 and 32
+    included, on the tensor cores: no backward route is left on the CUDA
+    cores."""
+    assert fa.backward_route(D, dtype) == "tensor_cores"
+    assert "cuda_cores" not in fa.ROUTES
     kernels = fa.backward_kernels(D, dtype)
     assert list(kernels) == ["prep", "dkdv", "dq"]
-    assert kernels["dkdv"][0].startswith("tc::") == (want == "tensor_cores")
-    split = want == "tensor_cores" and dtype == torch.float32
+    assert all(kernels[r][0].startswith("tc::") for r in ("dkdv", "dq"))
+    split = dtype == torch.float32
     assert all(("split" in kernels[r][0]) == split for r in ("dkdv", "dq"))
-    assert ("wgmma" in kernels["dkdv"][0]) == (want == "tensor_cores" and not split)
+    assert ("wgmma" in kernels["dkdv"][0]) == (not split)
+    assert kernels["dkdv"][1].endswith(f"ILi{D}E")
 
 
 def test_cpu_route_launches_nothing():

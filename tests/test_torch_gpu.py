@@ -647,14 +647,19 @@ def test_bwd_launch_counter_function_and_no_fallback(cuda):
 @pytest.mark.parametrize("D,dtype,want", [(64, "bfloat16", "tensor_cores"),
                                            (128, "bfloat16", "tensor_cores"),
                                            (256, "bfloat16", "tensor_cores"),
-                                           (32, "bfloat16", "cuda_cores"),
+                                           (32, "bfloat16", "tensor_cores"),
                                            (64, "float32", "tensor_cores"),
                                            (128, "float32", "tensor_cores"),
                                            (256, "float32", "tensor_cores"),
-                                           (32, "float32", "cuda_cores")])
+                                           (32, "float32", "tensor_cores"),
+                                           (16, "bfloat16", "tensor_cores"),
+                                           (16, "float32", "tensor_cores")])
 def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
     """Each (D, dtype) takes ``backward_route``'s kernels: one launch a
-    backward through the autograd Function, counted on that route alone."""
+    backward through the autograd Function, counted on that route alone
+    (D 16 and 32 on the tensor cores too since their swizzle follows the
+    forward's; f32 with its four ``split_bf16`` launches in the same C
+    call, all four tensors in one launch)."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, dout = chip_smoke.make_bwd_case((1, 192, 192, 4, 2, D, True, dtype), cuda, seed=2)
@@ -664,6 +669,16 @@ def test_bwd_routes_and_their_launch_counts(cuda, D, dtype, want):
     fa.flash_attention(*leaves, causal=True).backward(dout)
     torch.cuda.synchronize()
     assert fa.flash_attention.backward_route_launches == {**dict.fromkeys(fa.ROUTES, 0), want: 1}
+    assert fa.split_bf16.launches == (2 + 1 if dtype == "float32" else 0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bwd_reduced_two_calls_are_equal_bit_for_bit(cuda, dtype):
+    """The restart check's reduced (2, 256, 256, 4, 2, 16) on the tensor
+    cores in both types, twice on the same inputs: the same bits (the
+    restart replays steps on it)."""
+    rep = chip_smoke.bwd_repeat(cuda, shape=chip_smoke.BWD_REDUCED_SHAPE, dtype=dtype)
+    assert rep["route"] == "tensor_cores" and all(rep["bitwise_equal"])
 
 
 def test_bwd_two_calls_are_equal_bit_for_bit(cuda):
@@ -698,15 +713,15 @@ def test_bwd_f32_d256_planted_fault_is_caught(cuda):
                          ids=lambda c: str(c))
 def test_bwd_f32_d256_on_the_split_route(cuda, case):
     """Each f32 D 256 case on the split route's kernels (one launch,
-    counted there and with its four ``split_bf16`` launches) within 1e-4 of
-    each gradient's largest plain value."""
+    counted there and with its one ``split_bf16`` launch over q, k, v and
+    dO) within 1e-4 of each gradient's largest plain value."""
     from repro_torch.kernels import flash_attention as fa
 
     fa.reset_launches()
     out = chip_smoke.check_bwd_case(case, cuda, seed=5)
     assert out["route"] == "tensor_cores"
     assert fa.flash_attention.backward_route_launches["tensor_cores"] == 1
-    assert fa.split_bf16.launches == 2 * 2 + 4  # two forwards' K and V, the backward's four
+    assert fa.split_bf16.launches == 2 * 2 + 1  # two forwards' K and V; the backward's one
 
 
 @pytest.mark.parametrize("D,dtype", [(16, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),
@@ -792,10 +807,12 @@ def test_ssd_bwd_kernel_matches_plain_version(cuda, case):
     chip_smoke.check_ssd_bwd_case(case, cuda, seed=sum(case[:6]))
 
 
+@pytest.mark.parametrize("shape,route", [(chip_smoke.SSD_FAULT_SHAPE, "tensor_cores"),
+                                         (chip_smoke.SSD_REDUCED_SHAPE, "one_pass")])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_ssd_bwd_planted_faults_are_caught(cuda, dtype):
-    out = chip_smoke.ssd_bwd_planted_faults(cuda, dtype)
-    assert all(out["caught"].values())
+def test_ssd_bwd_planted_faults_are_caught(cuda, dtype, shape, route):
+    out = chip_smoke.ssd_bwd_planted_faults(cuda, dtype, shape)
+    assert out["route"] == route and all(out["caught"].values())
 
 
 def test_ssd_bwd_two_calls_are_equal_bit_for_bit(cuda):
@@ -808,16 +825,33 @@ def test_ssd_bwd_two_f32_calls_are_equal_bit_for_bit(cuda):
     assert all(chip_smoke.ssd_bwd_repeat(cuda, "float32")["bitwise_equal"].values())
 
 
+@pytest.mark.parametrize("shape,route", [(chip_smoke.SSD_REDUCED_SHAPE, "one_pass"),
+                                         ((2, 48, 4, 2, 24, 40), "tensor_cores")])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_bwd_off_shape_calls_are_equal_bit_for_bit(cuda, dtype, shape, route):
+    """The calls off the wgmma head and state dims, on the one-pass kernel
+    (the reduced mamba2's chunks of 16: the warps' partial sums of dS added
+    in warp order) and on the wgmma kernels after padding (chunks of 48),
+    twice on the same inputs: the same bits."""
+    rep = chip_smoke.ssd_bwd_repeat(cuda, dtype, shape)
+    assert rep["route"] == route and all(rep["bitwise_equal"].values())
+
+
 @pytest.mark.parametrize("case,want", [
     ((2, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
     ((3, 80, 6, 3, 16, 16, "jax_test", "bfloat16"), "tensor_cores"),
-    ((2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"), "cuda_cores"),  # P 24, N 40
+    ((2, 48, 4, 2, 24, 40, "near_zero", "bfloat16"), "tensor_cores"),  # P 24, N 40: padded
     ((2, 256, 8, 1, 64, 128, "published", "float32", "sliced"), "tensor_cores"),
     ((3, 80, 6, 3, 16, 16, "jax_test", "float32"), "tensor_cores"),
-    ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), "cuda_cores")])
+    ((2, 48, 4, 2, 24, 40, "jax_test", "float32"), "tensor_cores"),
+    ((16, 16, 16, 1, 8, 16, "published", "bfloat16"), "one_pass"),  # the reduced mamba2's
+    ((16, 16, 16, 1, 8, 16, "published", "float32"), "one_pass"),
+    ((3, 32, 6, 3, 24, 40, "jax_test", "bfloat16", "sliced"), "one_pass")])
 def test_ssd_bwd_routes_and_their_launch_counts(cuda, case, want):
     """Each call takes ``backward_route``'s kernels, counted on that route
-    alone, and matches the plain formulas at the card limits."""
+    alone, and matches the plain formulas at the card limits: the wgmma
+    kernels at their head and state dims and, padded, at longer chunks off
+    them; the one-pass kernel at chunks of at most 32 tokens off them."""
     from repro_torch.kernels import ssd_scan
 
     x, _dA, B, C = chip_smoke.ssd_inputs(case, cuda, seed=4)[:4]
@@ -825,7 +859,7 @@ def test_ssd_bwd_routes_and_their_launch_counts(cuda, case, want):
     ssd_scan.reset_launches()
     chip_smoke.check_ssd_bwd_case(case, cuda, seed=4)
     assert ssd_scan.ssd_chunk_backward.route_launches == {r: int(r == want)
-                                                          for r in ssd_scan.ROUTES}
+                                                          for r in ssd_scan.BWD_ROUTES}
 
 
 def test_ssd_bwd_launch_counter_function_and_no_fallback(cuda):
@@ -862,9 +896,9 @@ def test_ssm_train_path_short(cuda):
     out = chip_smoke.run_ssm_train_path(cuda, layers=2)
     steps = chip_smoke.SSM_TRAIN["steps"]
     assert (out["launches"], out["backward_launches"]) == (4 * steps, 2 * steps)
-    assert out["backward_route_launches"] == {"tensor_cores": 2 * steps, "cuda_cores": 0}
+    assert out["backward_route_launches"] == {"tensor_cores": 2 * steps, "one_pass": 0}
     assert out["float32"]["backward_launches"] == 1
-    assert out["float32"]["backward_route_launches"] == {"tensor_cores": 1, "cuda_cores": 0}
+    assert out["float32"]["backward_route_launches"] == {"tensor_cores": 1, "one_pass": 0}
 
 
 @pytest.mark.parametrize("spec,phase,want", [(chip_smoke.ENCDEC, "encdec_path", 2),

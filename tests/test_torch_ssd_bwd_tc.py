@@ -107,9 +107,11 @@ def _product(spec, a, b, drop, name, a_name, b_name):
     return out
 
 
-def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None):
+def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None, one_pass=False):
     """The tensor-core route's arithmetic (module docstring), in bf16 or
-    f32 (x, B and C then in hi and lo pieces too); ``drop`` leaves one
+    f32 (x, B and C then in hi and lo pieces too); ``one_pass``: the
+    one-pass kernel's, which differs in two places (dC as the products of
+    sum dS's and B's pieces, u from x itself); ``drop`` leaves one
     piece of one product out ("dM:dy_lo", "v:dst_lo", "dx:M_lo",
     "dx:dy_lo", "state:wx_lo", "state:dst_lo", "dB:dS_lo"; in f32 also
     "S:B_lo", "S:C_lo", "v:B_lo", "dM:x_lo", "dS:x_lo", "dB:C_lo") or an
@@ -145,7 +147,8 @@ def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None):
     dx = w_tok * v + _product("cgrqs,cqgrp->csgrp", list(_split(M)), dyp, drop, "dx", "M", "dy")
     Gm = torch.where(torch.tril(torch.ones((Q, Q), dtype=torch.bool), -1), dM * M,
                      torch.zeros(()))
-    u = w * (xf * v).sum(dim=-1).permute(0, 2, 3, 1)
+    xu = x.float().reshape(nc, Q, G, rep, P) if one_pass else xf
+    u = w * (xu * v).sum(dim=-1).permute(0, 2, 3, 1)
     dcum = Gm.sum(dim=-1) - Gm.sum(dim=-2) - u
     last = u.sum(dim=-1) + ddec.reshape(nc, G, rep) * torch.exp(cum[..., -1])
     dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], dim=-1)
@@ -162,7 +165,10 @@ def _tc_backward_emulation(x, dA, B, C, dy, dst, ddec, drop=None):
         state = state + _product("csgp,cgpn->csgn", [t[:, :, :, r] for t in xw],
                                  [t[:, :, r] for t in dstp], drop, "state", "wx", "dst")
     dB = _product("cgqs,cqgn->csgn", list(_split(dS)), Cp, drop, "dB", "dS", "C") + state
-    dC = torch.einsum("cgqs,csgn->cqgn", dS, Bf)
+    if one_pass:
+        dC = _product("cgqs,csgn->cqgn", list(_split(dS)), Bp, drop, "dC", "dS", "B")
+    else:
+        dC = torch.einsum("cgqs,csgn->cqgn", dS, Bf)
     ddA = ddA.reshape(nc, H, Q).transpose(1, 2).contiguous()
     return dx.reshape(nc, Q, H, P).to(x.dtype), ddA, dB.to(B.dtype), dC.to(C.dtype)
 
@@ -271,29 +277,112 @@ def test_f32_one_piece_fewer_misses_the_limit(drop):
     assert not chip_smoke.ssd_bwd_within(errs, "float32"), errs
 
 
+ONE_PASS_CASES = [  # (nc, Q, H, G, P, N, dA kind, dtype): the one-pass route's shapes
+    (16, 16, 16, 1, 8, 16, "published", "bfloat16"), (16, 16, 16, 1, 8, 16, "published", "float32"),
+    (3, 32, 6, 3, 24, 40, "jax_test", "bfloat16"), (2, 32, 4, 2, 8, 48, "jax_init", "float32"),
+]
+
+
+@pytest.mark.parametrize("case", ONE_PASS_CASES, ids=[
+    f"Q{c[1]}-P{c[4]}-N{c[5]}-{c[6]}-{c[7]}" for c in ONE_PASS_CASES])
+def test_one_pass_rounding_within_the_card_limits(case):
+    """The one-pass kernel's arithmetic (the wgmma route's pieces, dC as a
+    product of pieces too, u from x itself) at the shapes it takes (chunks
+    of at most 32 tokens off the wgmma head and state dims; the reduced
+    mamba2's P 8 first): within the card limits of the plain formulas, and
+    of ``jax.vjp`` of the JAX package's reference, in both types."""
+    assert ssd_scan.backward_route(*_route_operands(case)) == "one_pass"
+    args = _inputs(*case[:7], seed=sum(case[:6]), dtype=getattr(torch, case[7]))
+    got = _tc_backward_emulation(*args, one_pass=True)
+    chip_smoke.check_ssd_bwd_output(f"{case} vs plain", got, ssd_chunk_backward_plain(*args),
+                                    case[7])
+    jerrs = chip_smoke.ssd_bwd_errors(got, _jax_vjp(*args))
+    assert chip_smoke.ssd_bwd_within(jerrs, case[7]), jerrs
+
+
+def _route_operands(case):
+    """Zero x, B and C of ``case``'s shape and type: what ``backward_route``
+    reads."""
+    nc, Q, H, G, P, N = case[:6]
+    dt = getattr(torch, case[7])
+    return (torch.zeros((nc, Q, H, P), dtype=dt), torch.zeros((nc, Q, G, N), dtype=dt),
+            torch.zeros((nc, Q, G, N), dtype=dt))
+
+
+PAD_CASES = {  # the wgmma kernels' padding: (nc, Q, H, G, P, N, dA kind), B and C's layout
+    "p_8": ((2, 64, 4, 2, 8, 16, "published"), "packed"),
+    "p_24_n_40": ((2, 48, 4, 2, 24, 40, "jax_test"), "packed"),
+    "odd_stride_slice": ((2, 64, 4, 2, 16, 32, "jax_init"), "odd_stride"),
+}
+
+
+@pytest.mark.parametrize("kind", list(PAD_CASES))
+def test_padding_onto_the_wgmma_shapes_is_exact(kind):
+    """``pad_to_tensor_cores`` (f32): zero columns of x, dy, B, C and
+    dstates add exact zeros, so the plain backward of the padded operands,
+    cut back by ``unpad_grads``, is the plain backward of the unpadded ones
+    (within 1e-6 of each gradient's largest value: exact here), whose
+    operands the wgmma kernels then take (the forward's tensor-core rule);
+    both match ``jax.vjp`` of the JAX package's reference."""
+    case, layout = PAD_CASES[kind]
+    nc, Q, H, G, P, N = case[:6]
+    x, dA, B, C, dy, dst, ddec = _inputs(*case, seed=sum(case[:6]), dtype=F32)
+    if layout == "odd_stride":  # B and C slices of one projection, token stride 2 G N + 1
+        wide = torch.zeros((nc, Q, 2 * G * N + 1))
+        wide[..., :G * N], wide[..., G * N:2 * G * N] = B.flatten(2), C.flatten(2)
+        B = wide[..., :G * N].unflatten(2, (G, N))
+        C = wide[..., G * N:2 * G * N].unflatten(2, (G, N))
+    assert ssd_scan.route(x, B, C) == "cuda_cores"  # the forward's rule does not take them
+    padded = ssd_scan.pad_to_tensor_cores(x, B, C, dy, dst)
+    px, pB, pC = padded[:3]
+    assert ssd_scan.route(px, pB, pC) == "tensor_cores"
+    assert px.shape[3] in ssd_scan.TC_P and pB.shape[3] in ssd_scan.TC_N
+    got = ssd_scan.unpad_grads(ssd_chunk_backward_plain(px, dA, pB, pC, *padded[3:], ddec), P, N)
+    want = ssd_chunk_backward_plain(x, dA, B, C, dy, dst, ddec)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max()), name
+    jerrs = chip_smoke.ssd_bwd_errors(got, _jax_vjp(x, dA, B.contiguous(), C.contiguous(), dy,
+                                                    dst, ddec))
+    assert chip_smoke.ssd_bwd_within(jerrs, "float32"), jerrs
+
+
 @pytest.mark.parametrize("kind,want", [
     ("bf16", "tensor_cores"), ("sliced", "tensor_cores"), ("float32", "tensor_cores"),
-    ("p_8", "cuda_cores"), ("n_48", "cuda_cores"), ("x_misaligned", "cuda_cores"),
-    ("sliced_odd_stride", "cuda_cores"), ("f32_p_8", "cuda_cores"),
-    ("f32_x_misaligned", "cuda_cores"), ("f32_sliced_odd_stride", "cuda_cores")])
+    ("p_8", "tensor_cores"), ("n_48", "tensor_cores"), ("x_misaligned", "tensor_cores"),
+    ("sliced_odd_stride", "tensor_cores"), ("f32_p_8", "tensor_cores"),
+    ("f32_x_misaligned", "tensor_cores"), ("f32_sliced_odd_stride", "tensor_cores")])
 def test_backward_route_is_decided_by_dtype_shape_and_layout(kind, want):
-    """The backward's rule, on dtype, shape and layout alone (the same on any
-    device): the forward's tensor-core shapes and alignment take the tensor
-    cores in bf16 and f32 alike; every other shape the CUDA cores."""
+    """The backward's rule (the same on any device): every dtype, shape and
+    layout takes the tensor cores, in bf16 and f32 alike.  What the forward
+    keeps on the CUDA cores (P 8, N 48, misaligned data, odd token strides)
+    goes through ``pad_to_tensor_cores`` first, whose operands the forward's
+    tensor-core rule takes; operands it takes already pass unchanged."""
     x, B, C = _route_case(kind)
     assert ssd_scan.backward_route(x, B, C) == want
+    nc, Q, H, P = x.shape
+    dy, dst = torch.zeros((nc, Q, H, P)), torch.zeros((nc, H, P, B.shape[3]))
+    px, pB, pC, pdy, pdst = ssd_scan.pad_to_tensor_cores(x, B, C, dy, dst)
+    assert ssd_scan.route(px, pB, pC) == "tensor_cores"
+    assert pdy.shape[3] == px.shape[3] and pdst.shape[2:] == (px.shape[3], pB.shape[3])
+    kept = [p is t for p, t in ((px, x), (pB, B), (pC, C))]
+    assert all(kept) == (ssd_scan.route(x, B, C) == "tensor_cores")
 
 
 @pytest.mark.parametrize("path,dtype,n", [("tensor_cores", BF16, 4), ("tensor_cores", F32, 5),
-                                          ("cuda_cores", F32, 5), ("cuda_cores", BF16, 5)])
+                                          ("one_pass", F32, 1), ("one_pass", BF16, 1)])
 def test_backward_kernels_name_each_route(path, dtype, n):
     """The kernels each route launches, in order (the names the card's
-    profile and resource report are read by): f32 on the tensor cores adds
-    ``tc::bwd_v`` after ``tc::bwd_scores``."""
+    profile and resource report are read by): f32 on the wgmma route adds
+    ``tc::bwd_v`` after ``tc::bwd_scores``; the one-pass route is one
+    kernel in both types."""
     names = ssd_scan.backward_kernels(path, dtype)
-    assert len(names) == n and names[-1 if path == "tensor_cores" else 3] == "bwd_dc"
+    assert len(names) == n
     assert ("tc::bwd_v" in names) == (path == "tensor_cores" and dtype == F32)
-    assert all(k.startswith("tc::") for k in names[:-1]) == (path == "tensor_cores")
+    if path == "tensor_cores":
+        assert names[-1] == "bwd_dc" and all(k.startswith("tc::") for k in names[:-1])
+    else:
+        assert names == ("op::bwd_chunk",)
 
 
 def test_cpu_backward_counts_no_launch():
@@ -305,4 +394,4 @@ def test_cpu_backward_counts_no_launch():
     want = ssd_chunk_backward_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ssd_scan.ssd_chunk_backward.launches == 0
-    assert ssd_scan.ssd_chunk_backward.route_launches == dict.fromkeys(ssd_scan.ROUTES, 0)
+    assert ssd_scan.ssd_chunk_backward.route_launches == dict.fromkeys(ssd_scan.BWD_ROUTES, 0)
