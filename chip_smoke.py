@@ -62,18 +62,24 @@ Each phase prints one JSON line:
               call), and in f32 ``split_bf16`` alone; and profiles of one
               prefill and one decode step.
 8. ssd_kernels — the CUDA ``ssd_chunk`` (wgmma on the tensor cores where
-              shape and layout allow, f32 as two bf16 pieces; otherwise CUDA
-              cores)
+              shape and layout allow, f32 as two bf16 pieces;
+              otherwise the one-pass kernel, mma.sync in one launch, at
+              chunks of at most 32 tokens, and the wgmma kernels on padded
+              operands at longer ones)
               against its plain PyTorch version on the card, each output by
               a limit relative to its largest plain value (``chunk_decay``
               element by element): the JAX package's test shapes, G = 2 < H,
               the tensor-core route's edges (ragged Q, P 16 and 32, N 16 to
               64, B and C sliced from one wider tensor), Q = 256 with
-              realistic, near-zero and JAX-init log-decays, and the serving
-              shape (mamba2-2.7b, 4 x 4,096 tokens) in f32 and bf16, each on
-              the route it must take; and planted faults the check must
-              reject (``chunk_decay`` forced to 0 in both types; M rounded to
-              bf16 alone; in f32 inputs without their lo pieces).
+              realistic, near-zero and JAX-init log-decays, the one-pass
+              route's shapes (the reduced mamba2's, Q 32 with P 24 and N 40
+              sliced), and the serving shape (mamba2-2.7b, 4 x 4,096 tokens)
+              in f32 and bf16, each on the route ``ssd_scan.route`` must
+              pick; planted faults the check must reject (``chunk_decay``
+              forced to 0 in both types; M rounded to bf16 alone; in f32
+              inputs without their lo pieces; on the one-pass kernel states
+              without its decay weight and one head's y from its
+              neighbour's M); two one-pass calls bit for bit.
 9. ssm_path — the SSM family's serving path at mamba2-2.7b's full width and
               depth (64 layers, d_model 2560, 80 heads of 64, d_state 128,
               vocab 50288), bf16, seeded random weights with Mamba-2's
@@ -91,10 +97,12 @@ Each phase prints one JSON line:
 10. ssd_timing — CUDA-event times of the kernel and its plain version at the
               serving shape in bf16 and f32, and (since PR 31) at the
               reduced mamba2's (16, 16, 16, 1, 8, 16), off the tensor-core
-              shapes (the CUDA-core route), beside the route's bound (and
-              in f32 the CUDA-core bound), with the route taken, the
-              kernel's registers, spills and shared memory a block and its
-              device µs; and profiles of one SSM prefill and one decode step.
+              shapes (the one-pass route), beside the route's
+              bound (and in f32 the CUDA-core bound), with the route taken,
+              the kernel's registers, spills and shared memory a block and
+              its device µs (from a profile in a fresh process, a number
+              at the reduced shape); and profiles of one SSM
+              prefill and one decode step.
 10a. moe_path — the MoE family at qwen3-moe-30b-a3b's published widths
               (d_model 2048, 32 query and 4 KV heads of 128 with qk-norm,
               128 experts top-8 of ff 768, vocab 151936), depth cut to 8
@@ -182,7 +190,7 @@ Each phase prints one JSON line:
               shapes on the one-pass kernel (mma.sync, one launch) at chunks
               of at most 32 tokens and on the wgmma kernels, padded, at
               longer ones; no atomics; each case on
-              ``backward_route``'s kernels, counted by route) against its
+              ``ssd_scan.route``'s kernels, counted by route) against its
               plain formulas: Q 64 / 128 /
               256, P 64, N 64 and 128, G 1 and 2, both types, B and C sliced
               from one projection, a ragged Q and P; 1e-4 (f32) or one bf16 step of
@@ -480,6 +488,10 @@ DECODE_TOL = 8e-2
 # (nc, Q, H, G, P, N) = (4 x 4096 / 256 chunks, 256, 80, 1, 64, 128).
 SSM = dict(arch="mamba2-2.7b", layers=64, batch=4, prompt=4096, new_tokens=32)
 SSD_SERVING = (64, 256, 80, 1, 64, 128)
+# The reduced mamba2 of resilient_path: 8 x 32 tokens in chunks of 16,
+# d_inner 128 in heads of 8, one group of state dim 16: P 8 is off the
+# tensor-core shapes (the one-pass route, forward and backward).
+SSD_REDUCED_SHAPE = (16, 16, 16, 1, 8, 16)
 # ssd_chunk kernel vs its plain version, y_diag and states: the largest
 # difference over the tensor's largest plain value.  Both widen to f32 and sum
 # in f32 in other orders; 1e-4 is the JAX package's kernel test tolerance
@@ -510,8 +522,8 @@ SSM_LOGIT_LAYERS = 4
 # "sliced": B and C slices of one wider tensor, as the model passes them
 # (ssd_inputs)
 SSD_CASES = (
-    # the JAX package's test shapes (tests/test_kernels.py:75); P = 8 in bf16
-    # takes the CUDA-core route
+    # the JAX package's test shapes (tests/test_kernels.py:75); P = 8 takes
+    # the one-pass route at Q 16 and the padded wgmma route at Q 80
     (2, 16, 4, 4, 8, 16, "jax_test", "float32"), (4, 64, 2, 2, 16, 32, "jax_test", "float32"),
     (2, 16, 4, 4, 8, 16, "jax_test", "bfloat16"),
     # G = 2 < H, and chunks that are not a multiple of the 64-row tile
@@ -530,6 +542,11 @@ SSD_CASES = (
     (8, 256, 16, 1, 64, 128, "jax_init", "bfloat16"),
     # B and C at the token stride of one wider tensor, as in the model
     (4, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"),
+    # the one-pass route: the reduced mamba2's shape, and Q 32 with P 24, N
+    # 40 (the state dim padded to 48 inside the kernel), G 3, sliced
+    (16, 16, 16, 1, 8, 16, "published", "bfloat16"), (16, 16, 16, 1, 8, 16, "published", "float32"),
+    (3, 32, 6, 3, 24, 40, "jax_test", "bfloat16", "sliced"),
+    (3, 32, 6, 3, 24, 40, "jax_test", "float32", "sliced"),
     # the serving shape
     (*SSD_SERVING, "published", "float32"), (*SSD_SERVING, "published", "bfloat16"),
 )
@@ -1474,6 +1491,50 @@ def ssd_planted_fault(dev, dtype: str = "bfloat16") -> dict:
     return out
 
 
+def ssd_one_pass_faults(dev, dtype: str, shape=SSD_REDUCED_SHAPE) -> dict:
+    """The check against faults of the one-pass kernel at ``shape`` (the
+    reduced mamba2's), each made by the kernel itself and held against the
+    plain version of the true inputs: states without its decay weight w (the
+    kernel's states at dA = 0, where w = 1) and head 5's y_diag taken from
+    its neighbour's M (the kernel run with head 5's dA replaced by head 6's:
+    one group, so S is shared and only L moves).  The check must reject
+    both."""
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk, ssd_chunk_plain
+
+    x, dA, B, C = ssd_inputs((*shape, "published", dtype), dev, seed=5)
+    check(route(x, B, C) == "one_pass", f"{shape} {dtype}: not on the one-pass route")
+    y, st, dec = ssd_chunk(x, dA, B, C)
+    ref = ssd_chunk_plain(x, dA, B, C)
+    clean = check_ssd_output(f"{shape} {dtype}, before the faults", (y, st, dec), ref, dA)
+    no_decay = ssd_errors((y, ssd_chunk(x, torch.zeros_like(dA), B, C)[1], dec), ref, dA)
+    shifted = dA.clone()
+    shifted[:, :, 5] = dA[:, :, 6]
+    y_bad = y.clone()
+    y_bad[:, :, 5] = ssd_chunk(x, shifted, B, C)[0][:, :, 5]
+    neighbour = ssd_errors((y_bad, st, dec), ref, dA)
+    caught = {"states_without_decay_weight": no_decay["states_rel"] > SSD_TOL,
+              "y_from_neighbours_M": neighbour["y_diag_rel"] > SSD_TOL}
+    check(all(caught.values()), f"{dtype} at {shape}: a planted one-pass fault passes the "
+          f"check: {caught} ({no_decay}, {neighbour})")
+    return dict(dtype=dtype, shape=list(shape), route="one_pass", clean=clean,
+                states_without_decay_weight_rel=no_decay["states_rel"],
+                y_from_neighbours_M_rel=neighbour["y_diag_rel"], caught=caught)
+
+
+def ssd_repeat(dev, dtype: str, shape=SSD_REDUCED_SHAPE) -> dict:
+    """Two forward calls on the same inputs at ``shape`` (the reduced
+    mamba2's, on the one-pass route): equal bit for bit (fixed-order sums,
+    no atomics)."""
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk
+
+    x, dA, B, C = ssd_inputs((*shape, "published", dtype), dev, seed=11)
+    a, b = ssd_chunk(x, dA, B, C), ssd_chunk(x, dA, B, C)
+    sync(dev)
+    equal = {n: torch.equal(u, v) for n, u, v in zip(("y_diag", "states", "chunk_decay"), a, b)}
+    check(all(equal.values()), f"two ssd_chunk calls at {shape} in {dtype} differ: {equal}")
+    return dict(shape=list(shape), dtype=dtype, route=route(x, B, C), bitwise_equal=equal)
+
+
 # ------------------------------------------------------------- phase 9
 def set_published_dynamics(model, cfg, seed: int) -> None:
     A_log, dt_bias = published_dynamics(cfg.num_layers, cfg.ssm_heads, seed)
@@ -1702,15 +1763,16 @@ def ssd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores"):
     over the peak for the input type (bf16 tensor cores, or IEEE f32 CUDA
     cores): C B^T over N once per chunk and group for the causal pairs, the
     scores times x over P per head, and the states over Q per head.  The f32
-    tensor-core route's own bound counts its three bf16 products of pieces
-    at the bf16 peak instead."""
+    routes' own bound (``route`` "tensor_cores" or "one_pass": both split
+    x, B and C) counts their three bf16 products of pieces at the bf16 peak
+    instead; the default figure puts f32 work at the CUDA-core peak."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (nc * Q * H * P + 2 * nc * Q * G * N) + 4 * (
         nc * Q * H + nc * Q * H * P + nc * H * P * N + nc * H)
     pairs = Q * (Q + 1) // 2
     flops = 2 * nc * (G * pairs * N + H * pairs * P + H * Q * P * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if dtype == "float32" and route == "tensor_cores":
+    if dtype == "float32" and route in ("tensor_cores", "one_pass"):
         t_ops = SPLIT_PRODUCTS["ssd_chunk"] * flops / BF16_FLOPS
     else:
         t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS)
@@ -1718,14 +1780,73 @@ def ssd_bound(nc, Q, H, G, P, N, dtype, route="cuda_cores"):
             nbytes, flops)
 
 
+def ssd_entry(path: str, dtype: str, P: int, N: int) -> tuple:
+    """(kernel, a fragment of its mangled name in the compiler's report) of
+    the forward kernel a call on ``path`` runs, at the head and state dims
+    ``ssd_scan.pad_operands`` gives the wgmma kernels."""
+    from repro_torch.kernels import ssd_scan
+
+    if path == "one_pass":
+        return "fwd_chunk", "fwd_chunkI" + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E"
+    P, N = ssd_scan._tc_width(P, ssd_scan.TC_P), ssd_scan._tc_width(N, ssd_scan.TC_N)
+    entry = "ssd_chunk_wgmma" if dtype == "bfloat16" else "ssd_chunk_split"
+    return entry, f"{entry}ILi{P}ELi{N}E"
+
+
+def ssd_device_us(shape, dtypes, calls: int = 3) -> dict:
+    """{dtype: device µs a call} of the forward's kernel at ``shape``, from a
+    profile of ``calls`` calls in this process ("not measured" where the
+    profiler recorded no event of it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk
+
+    out = {}
+    for dtype in dtypes:
+        x, dA, B, C = ssd_inputs((*shape, "published", dtype), torch.device("cuda"), seed=7)
+        entry = ssd_entry(route(x, B, C), dtype, shape[4], shape[5])[0]
+        ssd_chunk(x, dA, B, C)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ssd_chunk(x, dA, B, C)
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and entry + "<" in e.name]
+        out[dtype] = sum(us) / len(us) if us else "not measured"
+    return out
+
+
+_SSD_DEVICE_US: dict = {}  # shape -> {dtype: device µs a call}, from fresh processes
+
+
+def fresh_ssd_device_us(shape, dtype: str):
+    """The forward kernel's device µs a call at ``shape`` in ``dtype``, from
+    ``ssd_device_us`` in a fresh process (the kernels already built; one
+    process a shape, both types): late in this script's process the
+    profiler records no device event of these kernels (PERF.md §7)."""
+    if shape not in _SSD_DEVICE_US:
+        code = ("import json, chip_smoke; "
+                f"print('DEVICE_US ' + json.dumps(chip_smoke.ssd_device_us({tuple(shape)}, "
+                "('bfloat16', 'float32'))))")
+        run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("DEVICE_US ")]
+        check(run.returncode == 0 and len(lines) == 1, f"the fresh profile process failed "
+              f"({run.returncode}): {run.stderr[-2000:]}")
+        _SSD_DEVICE_US[shape] = json.loads(lines[0].removeprefix("DEVICE_US "))
+    return _SSD_DEVICE_US[shape][dtype]
+
+
 def time_ssd(dev, dtype: str, iters: int, shape=SSD_SERVING) -> dict:
     """Kernel and plain version at ``shape`` (the serving shape, or the
     reduced mamba2's, off the tensor-core shapes), in turns (plain, kernel,
     kernel, plain), with the route the kernel took and its registers,
     spills (the compiler's report) and shared memory a block, and its device
-    µs a call from a profile of 3 calls.  No single PyTorch call computes
-    the function, so there is no library time."""
-    from repro_torch.kernels import _build
+    µs a call from a profile of 3 calls in a fresh process
+    (``fresh_ssd_device_us``).  No single PyTorch call computes the
+    function, so there is no library time."""
+    from repro_torch.kernels import _build, ssd_scan
     from repro_torch.kernels.ssd_scan import resources, route, ssd_chunk, ssd_chunk_plain
 
     case = (*shape, "published", dtype)
@@ -1733,25 +1854,19 @@ def time_ssd(dev, dtype: str, iters: int, shape=SSD_SERVING) -> dict:
     errs = ssd_errors(ssd_chunk(x, dA, B, C), ssd_chunk_plain(x, dA, B, C), dA)
     path = route(x, B, C)
     _nc, Q, _H, _G, P, N = shape
-    if path == "cuda_cores":
-        entry, fragment = ("ssd_chunk_kernel", "ssd_chunk_kernelI"
-                           + ("13__nv_bfloat16" if dtype == "bfloat16" else "f") + "E")
-    else:
-        entry = "ssd_chunk_wgmma" if dtype == "bfloat16" else "ssd_chunk_split"
-        fragment = f"{entry}ILi{P}ELi{N}E"
+    entry, fragment = ssd_entry(path, dtype, P, N)
+    if path == "tensor_cores":  # the dims the wgmma kernels see
+        P, N = ssd_scan._tc_width(P, ssd_scan.TC_P), ssd_scan._tc_width(N, ssd_scan.TC_N)
     log = _build.library_path("ssd_chunk").with_suffix(".log").read_text()
     kernel = dict(route=path, entry=entry, **ptxas_entry(log, fragment),
-                  **resources(path, Q, P, N, x.dtype))
+                  **resources(path, Q, P, N, x.dtype),
+                  device_us_a_call=fresh_ssd_device_us(tuple(shape), dtype))
     plain_a = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=1)
     kern_a = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=2)
     kern_b = cuda_ms(lambda: ssd_chunk(x, dA, B, C), dev, iters, warmup=0)
     plain_b = cuda_ms(lambda: ssd_chunk_plain(x, dA, B, C), dev, 2, warmup=0)
     bound_ms, bound_by, nbytes, flops = ssd_bound(*shape, dtype, route=path)
     ms = min(kern_a, kern_b)
-    prof = device_profile(lambda: [ssd_chunk(x, dA, B, C) for _ in range(3)], dev)
-    hits = [t for t in prof["top"] if entry + "<" in t["name"]]
-    n = sum(t["count"] for t in hits)
-    kernel["device_us_a_call"] = sum(t["us"] for t in hits) / n if n else "not measured"
     row = dict(shape=list(shape), dtype=dtype, route=path, ms=ms, ms_runs=[kern_a, kern_b],
                plain_ms=min(plain_a, plain_b), plain_ms_runs=[plain_a, plain_b],
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
@@ -1802,10 +1917,6 @@ SSD_BWD_CASES = tuple(
      (16, 16, 16, 1, 8, 16, "published", "float32"),
      (3, 32, 6, 3, 24, 40, "jax_test", "bfloat16", "sliced"))
 SSD_TRAIN_SHAPE = (64, 256, 80, 1, 64, 128)  # mamba2-2.7b, 4 x 4,096 tokens in chunks of 256
-# The reduced mamba2 of resilient_path: 8 x 32 tokens in chunks of 16,
-# d_inner 128 in heads of 8, one group of state dim 16: P 8 is off the
-# tensor-core shapes (the forward's CUDA-core route, the backward's one pass).
-SSD_REDUCED_SHAPE = (16, 16, 16, 1, 8, 16)
 SSD_FAULT_SHAPE = (8, 256, 16, 1, 64, 128)  # the planted faults' shape on the wgmma route
 # Each gradient's largest difference over its largest plain value.  Both
 # sum f32 products of the same values in different orders (the kernel's
@@ -1887,7 +1998,7 @@ def ssd_bwd_planted_faults(dev, dtype: str, shape=SSD_FAULT_SHAPE) -> dict:
     dst^T) and with one head's dy and dstates zeroed (its dB and dC without
     that head's share of the group sums), each held against the plain
     gradients of the true inputs: the check must reject both."""
-    from repro_torch.kernels.ssd_scan import backward_route, ssd_chunk_backward
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk_backward
 
     case = (*shape, "jax_test", dtype)
     x, dA, B, C, dy, dst, ddec = ssd_bwd_inputs(case, dev, seed=3)
@@ -1905,7 +2016,7 @@ def ssd_bwd_planted_faults(dev, dtype: str, shape=SSD_FAULT_SHAPE) -> dict:
                   {"dB": no_head["dB"], "dC": no_head["dC"]}, dtype)}
     check(all(caught.values()), f"{dtype} at {shape}: a planted backward fault passes the "
           f"check: {caught} ({no_state}, {no_head})")
-    return dict(dtype=dtype, shape=list(case[:6]), route=backward_route(x, B, C), clean=clean,
+    return dict(dtype=dtype, shape=list(case[:6]), route=route(x, B, C), clean=clean,
                 dx_state_term_dropped=no_state, head_left_out_of_group_sum=no_head,
                 caught=caught)
 
@@ -1914,7 +2025,7 @@ def ssd_bwd_repeat(dev, dtype: str = "bfloat16", shape=SSD_TRAIN_SHAPE) -> dict:
     """Two backward calls on the same inputs at ``shape`` (the training
     shape, or the reduced mamba2's): equal bit for bit (no atomics; a
     restart that replays a step relies on it)."""
-    from repro_torch.kernels.ssd_scan import backward_route, ssd_chunk_backward
+    from repro_torch.kernels.ssd_scan import route, ssd_chunk_backward
 
     args = ssd_bwd_inputs((*shape, "published", dtype, "sliced"), dev, seed=11)
     a = ssd_chunk_backward(*args)
@@ -1922,7 +2033,7 @@ def ssd_bwd_repeat(dev, dtype: str = "bfloat16", shape=SSD_TRAIN_SHAPE) -> dict:
     sync(dev)
     equal = {n: torch.equal(u, v) for n, u, v in zip(SSD_BWD_NAMES, a, b)}
     check(all(equal.values()), f"two ssd_chunk backward calls at {shape} differ: {equal}")
-    return dict(shape=list(shape), dtype=dtype, route=backward_route(args[0], args[2], args[3]),
+    return dict(shape=list(shape), dtype=dtype, route=route(args[0], args[2], args[3]),
                 bitwise_equal=equal)
 
 
@@ -1988,12 +2099,12 @@ def time_ssd_bwd(dev, dtype: str, iters: int, shape=SSD_TRAIN_SHAPE) -> dict:
     device time from a profile of 3 calls.  No single PyTorch call computes
     this gradient, so there is no library time."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import (backward_kernels, backward_resources,
-                                              backward_route, ssd_chunk_backward)
+    from repro_torch.kernels.ssd_scan import (backward_kernels, backward_resources, route,
+                                              ssd_chunk_backward)
 
     case = (*shape, "published", dtype, "sliced")
     args = ssd_bwd_inputs(case, dev, seed=7)
-    path = backward_route(args[0], args[2], args[3])
+    path = route(args[0], args[2], args[3])
     errs = check_ssd_bwd_output(f"{case}, timed", ssd_chunk_backward(*args),
                                 ssd_bwd_plain_sliced(*args), dtype)
     plain_a = cuda_ms(lambda: ssd_bwd_plain_sliced(*args), dev, 1, warmup=1)
@@ -2027,12 +2138,12 @@ def time_ssd_bwd(dev, dtype: str, iters: int, shape=SSD_TRAIN_SHAPE) -> dict:
     return row
 
 
-def ssd_bwd_route_rule(case) -> str:
-    """The backward route a SSD_BWD_CASES case must take: the wgmma kernels
-    at the forward's tensor-core head and state dims (and, padded, off them
-    at chunks longer than ONE_PASS_MAX_Q), the one-pass kernel off them at
-    shorter chunks (the cases' layouts are aligned where their dims are
-    on)."""
+def ssd_route_rule(case) -> str:
+    """The route a SSD_CASES or SSD_BWD_CASES case must take, forward and
+    backward alike: the wgmma kernels at their head and state dims (and,
+    padded, off them at chunks longer than ONE_PASS_MAX_Q), the one-pass
+    kernel off them at shorter chunks (the cases' layouts are aligned where
+    their dims are on)."""
     from repro_torch.kernels import ssd_scan
 
     Q, P, N = case[1], case[4], case[5]
@@ -2055,7 +2166,7 @@ def run_ssd_bwd_kernels(dev) -> dict:
         before = dict(ssd_scan.ssd_chunk_backward.route_launches)
         errs.append(check_ssd_bwd_case(case, dev, seed=i))
         routes.append(route_taken(ssd_scan.ssd_chunk_backward, before))
-        want = ssd_bwd_route_rule(case)
+        want = ssd_route_rule(case)
         check(routes[-1] in (want, "plain"), f"{case}: took the {routes[-1]} route, not {want}")
     launches = ssd_scan.ssd_chunk_backward.launches
     check(launches == len(SSD_BWD_CASES) or dev.type == "cpu",
@@ -2073,7 +2184,7 @@ def run_ssd_bwd_kernels(dev) -> dict:
          tol=SSD_BWD_TOL, ddA_tol=SSD_BWD_DDA_TOL, launches=launches,
          launches_by_route=dict(ssd_scan.ssd_chunk_backward.route_launches),
          cases_by_route={dt: {r: sum(c[7] == dt and t == r for c, t in zip(SSD_BWD_CASES, routes))
-                              for r in ssd_scan.BWD_ROUTES} for dt in SSD_BWD_TOL},
+                              for r in ssd_scan.ROUTES} for dt in SSD_BWD_TOL},
          planted_faults=faults, repeat=repeat, repeat_float32=repeat32,
          repeat_reduced=repeat_reduced,
          shapes=[list(c) + [t, e] for c, t, e in zip(SSD_BWD_CASES, routes, errs)])
@@ -2089,7 +2200,7 @@ def run_ssd_bwd_kernels(dev) -> dict:
             "max_err_float32": max(max(e.values()) for c, e in zip(SSD_BWD_CASES, errs)
                                    if c[7] == "float32"),
             "max_err_one_pass": max([max(e.values()) for c, e in zip(SSD_BWD_CASES, errs)
-                                     if ssd_bwd_route_rule(c) == "one_pass"]
+                                     if ssd_route_rule(c) == "one_pass"]
                                     + [max(r["max_err"].values()) for r in reduced.values()])}
 
 
@@ -4688,9 +4799,9 @@ def run_resilient_path(dev) -> dict:
     preempted before step 15 (restored from step 10), which must end equal
     bit for bit to it (parameters, moments, every step's loss); the kernel
     launches of the preempted run (flash forward and backward a layer a
-    step run, or ``ssd_chunk`` and its backward), the backward's all on one
-    route (packed; the SSM's on the one-pass kernel since PR 31, on the
-    CUDA cores before) and its straggler events."""
+    step run, or ``ssd_chunk`` and its backward), all on one route (packed;
+    the SSM's forward and backward on the one-pass kernels) and its
+    straggler events."""
     from repro_torch import resilient_training
     from repro_torch.kernels import flash_attention as fm
     from repro_torch.kernels import ssd_scan
@@ -4710,7 +4821,7 @@ def run_resilient_path(dev) -> dict:
             launches = {"ssd_chunk": ssd_scan.ssd_chunk.launches,
                         "ssd_chunk_backward": ssd_scan.ssd_chunk_backward.launches}
             routes = dict(ssd_scan.ssd_chunk_backward.route_launches)
-            fwd_routes = dict(ssd_scan.ssd_chunk.route_launches)  # P 8: the CUDA cores
+            fwd_routes = dict(ssd_scan.ssd_chunk.route_launches)
             want = "one_pass"  # P 8: off the wgmma shapes, chunks of 16
         else:
             launches = {"flash_attention": fm.flash_attention.launches,
@@ -4720,6 +4831,8 @@ def run_resilient_path(dev) -> dict:
             want = "packed"  # a 32-token sequence at D 16
         check(dev.type == "cpu" or {r for r, n in routes.items() if n} == {want},
               f"resilient_path {arch}: backward launches by route {routes}, not all {want}")
+        check(dev.type == "cpu" or {r for r, n in fwd_routes.items() if n} == {want},
+              f"resilient_path {arch}: forward launches by route {fwd_routes}, not all {want}")
         check(all(n == cfg.num_layers * ran for n in launches.values()) or dev.type == "cpu",
               f"resilient_path {arch}: launches {launches}, not {cfg.num_layers} a layer for "
               f"each of {ran} steps")
@@ -4740,7 +4853,6 @@ def run_resilient_path(dev) -> dict:
                          tensors_equal=len(same), loss_first=again["losses"][0][1],
                          loss_last=again["losses"][-1][1], dtype=cfg.dtype, launches=launches,
                          forward_route_launches=fwd_routes, backward_route_launches=routes,
-                         cuda_core_backward_launches=routes.get("cuda_cores", 0),
                          straggler_events=again["report"].straggler_events,
                          straggler_steps=again["straggler_steps"],
                          step_ewma_ms=again["report"].final_step_time_ewma * 1e3,
@@ -5171,8 +5283,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ssd_errs = [check_ssd_case(case, dev, seed=i) for i, case in enumerate(SSD_CASES)]
     ssd_faults = [ssd_planted_fault(dev, dt) for dt in ("bfloat16", "float32")]
+    one_pass_faults = [ssd_one_pass_faults(dev, dt) for dt in ("bfloat16", "float32")]
+    ssd_repeats = [ssd_repeat(dev, dt) for dt in ("bfloat16", "float32")]
     for c, e in zip(SSD_CASES, ssd_errs):
-        want = "tensor_cores" if c[4] in ssd_scan.TC_P and c[5] in ssd_scan.TC_N else "cuda_cores"
+        want = ssd_route_rule(c)
         check(e["route"] == want, f"{c}: took the {e['route']} route, not {want}")
     emit("ssd_kernels", cases=len(SSD_CASES), seconds=time.perf_counter() - t0,
          max_y_diag_rel={dt: max(e["y_diag_rel"] for c, e in zip(SSD_CASES, ssd_errs)
@@ -5181,9 +5295,13 @@ def main(argv=None) -> int:
                                  if c[7] == dt) for dt in ("float32", "bfloat16")},
          max_chunk_decay_rel=max(e["chunk_decay_rel"] for e in ssd_errs), tol=SSD_TOL,
          decay_tol=DECAY_TOL, planted_fault=ssd_faults[0], planted_faults_f32=ssd_faults[1],
+         one_pass_faults=one_pass_faults, repeat_reduced=ssd_repeats,
          cases_by_route={dt: {r: sum(c[7] == dt and e["route"] == r
                                      for c, e in zip(SSD_CASES, ssd_errs))
                               for r in ssd_scan.ROUTES} for dt in ("float32", "bfloat16")},
+         padded_cases=sum(e["route"] == "tensor_cores" and (c[4] not in ssd_scan.TC_P
+                                                            or c[5] not in ssd_scan.TC_N)
+                          for c, e in zip(SSD_CASES, ssd_errs)),
          cases_detail=[dict(case=list(c), **e) for c, e in zip(SSD_CASES, ssd_errs)])
     torch.cuda.empty_cache()
 
@@ -5194,6 +5312,9 @@ def main(argv=None) -> int:
     ssd_rows = {dt: time_ssd(dev, dt, iters=10) for dt in ("bfloat16", "float32")}
     ssd_rows_reduced = {dt: time_ssd(dev, dt, iters=100, shape=SSD_REDUCED_SHAPE)
                         for dt in ("bfloat16", "float32")}
+    check(all(isinstance(r["kernel"]["device_us_a_call"], float)
+              for r in ssd_rows_reduced.values()),
+          "the reduced ssd_timing rows' device µs were not measured")
     ssd_row, ssd32_row = ssd_rows["bfloat16"], ssd_rows["float32"]
     flash32_row = flash_rows["float32"]
     torch.cuda.empty_cache()
@@ -5261,7 +5382,7 @@ def main(argv=None) -> int:
         runs = {p: r for p, (_n, r, t) in ssd_bwd_runs.items() if t == dtype}
         return {"launches": sum(r[route] for r in runs.values()),
                 "launches_by_route": {k: sum(r[k] for r in runs.values())
-                                      for k in ssd_scan.BWD_ROUTES},
+                                      for k in ssd_scan.ROUTES},
                 "launches_by_path": {p: r[route] for p, r in runs.items() if r[route]}}
 
     print(smi, flush=True)
@@ -5390,17 +5511,18 @@ def main(argv=None) -> int:
         "bound_ms": ssd32_row["bound_ms"], "bound_by": ssd32_row["bound_by"],
         "cuda_core_bound_ms": ssd32_row["cuda_core_bound_ms"],
         "library_ms": None}, {
-        "name": "ssd_chunk[cuda_cores]", "route": "cuda",
+        "name": "ssd_chunk[one_pass]", "route": "cuda",
         "kernel_route": ssd_rows_reduced["bfloat16"]["route"],
         "kernel": ssd_rows_reduced["bfloat16"]["kernel"]["entry"],
         "dtype": "bfloat16", "shape": list(SSD_REDUCED_SHAPE),
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:44",
-        "note": "the forward off the tensor-core shapes: the reduced mamba2's P 8",
-        "launches": res_ssm["forward_route_launches"]["cuda_cores"],
-        "launches_by_path": {"resilient_path": res_ssm["forward_route_launches"]["cuda_cores"]},
-        "max_abs_err": max([max(e["y_diag"], e["states"]) for c, e in zip(SSD_CASES, ssd_errs)
-                            if c[4] not in ssd_scan.TC_P or c[5] not in ssd_scan.TC_N]
+        "note": "the forward at chunks of at most 32 tokens off the wgmma shapes, one "
+                "mma.sync launch: the reduced mamba2's (resilient_path)",
+        "launches": res_ssm["forward_route_launches"]["one_pass"],
+        "launches_by_path": {"resilient_path": res_ssm["forward_route_launches"]["one_pass"]},
+        "max_abs_err": max([max(e["y_diag"], e["states"]) for e in ssd_errs
+                            if e["route"] == "one_pass"]
                            + [r["max_abs_err"] for r in ssd_rows_reduced.values()]),
         **{k: ssd_rows_reduced["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "device_us_a_call": ssd_rows_reduced["bfloat16"]["kernel"]["device_us_a_call"],

@@ -76,16 +76,17 @@ def inputs(dtype, seed: int, shape=SHAPE):
 
 def _backward(ssd_scan, ins, forced):
     """One backward call on ``ins``; ``forced`` a route to take instead of
-    ``backward_route``'s (to time the padded wgmma route where the one-pass
-    kernel would run)."""
+    ``route``'s (to time the padded wgmma route where the one-pass kernel
+    would run; a tree whose backward has a rule of its own,
+    ``backward_route``, reads ``route`` first)."""
     if forced is None:
         return ssd_scan.ssd_chunk_backward(*ins)
-    rule = ssd_scan.backward_route
-    ssd_scan.backward_route = lambda *_: forced
+    rule = ssd_scan.route
+    ssd_scan.route = lambda *_: forced
     try:
         return ssd_scan.ssd_chunk_backward(*ins)
     finally:
-        ssd_scan.backward_route = rule
+        ssd_scan.route = rule
 
 
 def main() -> int:
@@ -125,7 +126,7 @@ def main() -> int:
             got = call()
             errs = {n: float((a.float() - b.float()).abs().max() / b.float().abs().max())
                     for n, a, b in zip(("dx", "ddA", "dB", "dC"), got, want)}
-            out[key] = {"route": forced or ssd_scan.backward_route(ins[0], ins[2], ins[3]),
+            out[key] = {"route": forced or ssd_scan.route(ins[0], ins[2], ins[3]),
                         "max_err": errs}
     for _ in range(args.turns):  # in turns: the card warms over a run
         for key, call in calls.items():

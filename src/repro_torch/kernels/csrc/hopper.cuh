@@ -484,6 +484,74 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma_bf16 on fragments a warp gathers element by element (the `ssd_chunk`
+// one-pass kernels, forward and backward): f(row, col) gives an f32 value,
+// and each f32 operand enters as bf16 hi + lo (split_bf16).
+//
+// The A fragment (mma_bf16's register order) of rows r0 .. r0 + 15 and
+// columns k0 .. k0 + 15 of f(row, col).
+template <class F>
+__device__ __forceinline__ void frag_a(float (&a)[8], F f, int r0, int k0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  a[0] = f(r0 + g, k0 + 2 * t);
+  a[1] = f(r0 + g, k0 + 2 * t + 1);
+  a[2] = f(r0 + g + 8, k0 + 2 * t);
+  a[3] = f(r0 + g + 8, k0 + 2 * t + 1);
+  a[4] = f(r0 + g, k0 + 2 * t + 8);
+  a[5] = f(r0 + g, k0 + 2 * t + 9);
+  a[6] = f(r0 + g + 8, k0 + 2 * t + 8);
+  a[7] = f(r0 + g + 8, k0 + 2 * t + 9);
+}
+
+// The B fragment of rows k0 .. k0 + 15 and columns n0 .. n0 + 7 of f(k, n).
+template <class F>
+__device__ __forceinline__ void frag_b(float (&b)[4], F f, int k0, int n0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  b[0] = f(k0 + 2 * t, n0 + g);
+  b[1] = f(k0 + 2 * t + 1, n0 + g);
+  b[2] = f(k0 + 2 * t + 8, n0 + g);
+  b[3] = f(k0 + 2 * t + 9, n0 + g);
+}
+
+// An A (B) fragment as bf16 hi and lo pieces.
+__device__ __forceinline__ void split_a(const float (&a)[8], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) split_bf16(a[2 * r], a[2 * r + 1], hi[r], lo[r]);
+}
+__device__ __forceinline__ void split_b(const float (&b)[4], uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) split_bf16(b[2 * r], b[2 * r + 1], hi[r], lo[r]);
+}
+
+// d += a.b on one m16n8k16 tile from pieces: a's lo piece where kA, b's
+// where kB (a bf16 input is exact as its hi piece alone): the products of
+// pieces but lo.lo, small terms first (lo.hi, hi.lo, hi.hi).
+template <bool kA, bool kB>
+__device__ __forceinline__ void mma_pieces(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  if (kA) mma_bf16(d, al, bh[0], bh[1]);
+  if (kB) mma_bf16(d, ah, bl[0], bl[1]);
+  mma_bf16(d, ah, bh[0], bh[1]);
+}
+
+// mma_pieces from f32 fragments, split here.
+template <bool kA, bool kB>
+__device__ __forceinline__ void mma_split(float (&d)[4], const float (&a)[8], const float (&b)[4]) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  split_a(a, ah, al);
+  split_b(b, bh, bl);
+  mma_pieces<kA, kB>(d, ah, al, bh, bl);
+}
+
+// Row and column of accumulator element e of the tile at (m0, n0).
+__device__ __forceinline__ int acc_row(int m0, int e) {
+  return m0 + threadIdx.x % 32 / 4 + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int n0, int e) {
+  return n0 + 2 * (threadIdx.x % 4) + (e & 1);
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------------------------

@@ -26,7 +26,7 @@
 // 0.86 GB, 0.257 ms, its bound on either route.
 //
 // Three kernels; the wrapper picks one by dtype, shape and layout before the
-// launch, and a route that does not take its operands refuses them.
+// launch, and a kernel that does not take its operands refuses them.
 //
 // bf16, P in {16, 32, 64}, N in {16, 32, 64, 128}, x, B and C 16-byte
 // aligned with token strides of a multiple of 8 elements:
@@ -111,21 +111,29 @@
 // serving shape: bytes, 0.257 ms (the three products take 0.13 ms at the
 // bf16 peak).
 //
-// bf16 and f32 operands outside those shapes: `ssd_chunk_kernel`, IEEE f32
-// on CUDA cores (67 TFLOP/s, 0.65 ms at the serving shape).  One block of 256
-// threads per (chunk, head).  dA's chunk goes to shared memory and one
-// thread sums it in sequence (the CPU's order).  y_diag runs over 64 x 64
-// tiles (i, j) with j <= i only: L is exactly 0 above the diagonal, so the
-// skipped tiles are exact.  For each row tile i the block keeps C_i in
-// shared memory and a 4 x 4 register tile of y per thread; for each j it
-// loads B_j and x_j, forms the 64 x 64 scores C_i B_j^T over N in registers,
-// multiplies by L (selected to 0 where j > i), parks them in shared memory,
-// and accumulates scores @ x_j.  Then states: x_j scaled by
-// exp(cum[Q-1] - cum) and B_j per tile, a 4 x 8 register tile of the (P, N)
-// state per thread.  Row strides of the score and B/C tiles are padded to an
-// odd number of floats, so that the inner loops read shared memory without
-// bank conflicts.  B and C are read through their group's offset and the
-// token strides the wrapper passes.  Shared memory is 100 KB.
+// bf16 and f32 operands off those shapes (P 8 or 24, N 40 or 48,
+// misaligned data or odd token strides) at chunks of at most 32 tokens:
+// `op::fwd_chunk`, one launch on the tensor cores as mma.sync m16n8k16.
+// These are the reduced configs' calls (the reduced mamba2's (nc 16, Q 16,
+// H 16, G 1, P 8, N 16), bound by bytes at about 0.1 us), where a chain of
+// fixed costs sets the time, not the products; the kernel keeps that chain
+// short.  A block of four warps takes a chunk and a run of four heads of
+// one group (grid (nc G, ceil(H / G / 4)): 64 blocks at the reduced shape
+// on 132 SMs, where a block a chunk and group would give 16).  Its threads
+// stage the group's B and C (f32, the state dim zero-padded to 16) and
+// form S = C B^T once, each warp its tiles below the diagonal; meanwhile
+// each warp stages its head's x (the head dim padded to 16), scans dA in
+// a fixed order (a lane a token, an inclusive shuffle scan) and writes
+// chunk_decay.  Then each warp on its own head: M = S * L, L selected to
+// 0 above the diagonal before its exp (there cum_i - cum_j > 0 may
+// overflow), into the warp's shared memory; y_diag = M x; states = (w
+// x)^T B with w = exp(cum[Q-1] - cum).  M and w x are f32 and enter their
+// products split into bf16 hi + lo, as on the wgmma route; with f32 inputs
+// x, B and C do too, and every product is its pieces' products but lo.lo
+// (the split route's arithmetic).  The fragments are gathered from shared
+// memory; the sums are f32 in a fixed order, so two calls give the same
+// bits.  Longer chunks off the wgmma shapes take the wgmma kernels on
+// operands the wrapper zero-pads to their shapes (`ssd_scan.route`).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,206 +142,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-// ----------------------------------------------- f32 (and other shapes): CUDA cores
-namespace cc {
-
-constexpr int kT = 64;            // rows and columns of one (i, j) tile
-constexpr int kThreads = 256;     // 16 x 16: ty picks rows, tx picks columns
-constexpr int kMaxQ = 256;
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
-constexpr int kBS = kMaxN + 1;    // padded row stride of the B and C tiles
-constexpr int kXS = kMaxP;        // row stride of the x tile
-constexpr int kSS = kT + 1;       // padded row stride of the score tile
-constexpr size_t kSmemFloats = kMaxQ + 2 * kT * kBS + kT * kXS + kT * kSS;
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
-
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// rows [r0, r0 + kT) of a (Q, width) operand with token stride `tok` into
-// `dst` (row stride `ds`), zeros past Q and past `width`; `scale` (may be
-// null) multiplies row r by scale[r0 + r].
-template <typename T, int kW>
-__device__ inline void load_tile(float* dst, int ds, const T* src, long long tok, int r0, int Q,
-                                 int width, const float* scale, float scale_ref) {
-  for (int e = threadIdx.x; e < kT * kW; e += kThreads) {
-    const int r = e / kW, col = e - r * kW;
-    const int t = r0 + r;
-    float v = 0.f;
-    if (t < Q && col < width) {
-      v = to_f32(src[(size_t)t * tok + col]);
-      if (scale != nullptr) v *= expf(scale_ref - scale[t]);
-    }
-    dst[r * ds + col] = v;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(
-    const T* __restrict__ x, const float* __restrict__ dA, const T* __restrict__ B,
-    const T* __restrict__ C, float* __restrict__ y, float* __restrict__ states,
-    float* __restrict__ decay, int Q, int H, int G, int P, int N, long long x_tok,
-    long long b_tok, long long c_tok) {
-  extern __shared__ float smem[];
-  float* cum = smem;              // kMaxQ      cumsum of dA
-  float* cs = cum + kMaxQ;        // kT x kBS   C rows of tile i
-  float* bs = cs + kT * kBS;      // kT x kBS   B rows of tile j
-  float* xs = bs + kT * kBS;      // kT x kXS   x rows of tile j
-  float* ss = xs + kT * kXS;      // kT x kSS   scores * L of tile (i, j)
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int blk = blockIdx.x;
-  const int c = blk / H, h = blk - c * H;
-  const int g = h / (H / G);
-  const T* xc = x + (size_t)c * Q * x_tok + (size_t)h * P;
-  const T* bc = B + (size_t)c * Q * b_tok + (size_t)g * N;
-  const T* cc = C + (size_t)c * Q * c_tok + (size_t)g * N;
-
-  for (int t = tid; t < Q; t += kThreads) cum[t] = dA[((size_t)c * Q + t) * H + h];
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int t = 0; t < Q; ++t) {
-      s += cum[t];
-      cum[t] = s;
-    }
-    decay[blk] = expf(s);
-  }
-  __syncthreads();
-  const float cum_end = cum[Q - 1];
-  const int nt = (Q + kT - 1) / kT;
-
-  // ---- y_diag over the causal tiles (i, j), j <= i
-  for (int it = 0; it < nt; ++it) {
-    const int i0 = it * kT;
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    for (int jt = 0; jt <= it; ++jt) {
-      const int j0 = jt * kT;
-      __syncthreads();  // the last pass's readers of cs, bs, xs and ss are done
-      if (jt == 0) load_tile<T, kMaxN>(cs, kBS, cc, c_tok, i0, Q, N, nullptr, 0.f);
-      load_tile<T, kMaxN>(bs, kBS, bc, b_tok, j0, Q, N, nullptr, 0.f);
-      load_tile<T, kMaxP>(xs, kXS, xc, x_tok, j0, Q, P, nullptr, 0.f);
-      __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = cs[(ty + 16 * a) * kBS + n];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) bv[b] = bs[(tx + 16 * b) * kBS + n];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) s[a][b] = fmaf(cv[a], bv[b], s[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = i0 + ty + 16 * a;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int col = j0 + tx + 16 * b;
-          // select, then exp: above the diagonal cum[r] - cum[col] > 0 may overflow
-          const float l = (col <= r && r < Q) ? expf(cum[r] - cum[col]) : 0.f;
-          ss[(ty + 16 * a) * kSS + tx + 16 * b] = s[a][b] * l;
-        }
-      }
-      __syncthreads();
-
-      const int jn = min(kT, Q - j0);
-#pragma unroll 4
-      for (int k = 0; k < jn; ++k) {
-        float sv[4], xv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) sv[a] = ss[(ty + 16 * a) * kSS + k];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) xv[b] = xs[k * kXS + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(sv[a], xv[b], acc[a][b]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = i0 + ty + 16 * a;
-      if (r >= Q) continue;
-      float* yrow = y + (((size_t)c * Q + r) * H + h) * P;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int p = tx + 16 * b;
-        if (p < P) yrow[p] = acc[a][b];
-      }
-    }
-  }
-
-  // ---- states[p][n] = sum_t x[t][p] * exp(cum_end - cum[t]) * B[t][n]
-  float st[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) st[a][b] = 0.f;
-  for (int jt = 0; jt < nt; ++jt) {
-    const int j0 = jt * kT;
-    __syncthreads();
-    load_tile<T, kMaxN>(bs, kBS, bc, b_tok, j0, Q, N, nullptr, 0.f);
-    load_tile<T, kMaxP>(xs, kXS, xc, x_tok, j0, Q, P, cum, cum_end);
-    __syncthreads();
-    const int jn = min(kT, Q - j0);
-#pragma unroll 4
-    for (int k = 0; k < jn; ++k) {
-      float xv[4], bv[8];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) xv[a] = xs[k * kXS + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 8; ++b) bv[b] = bs[k * kBS + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) st[a][b] = fmaf(xv[a], bv[b], st[a][b]);
-    }
-  }
-  float* sblk = states + (size_t)blk * P * N;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int p = ty + 16 * a;
-    if (p >= P) continue;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int n = tx + 16 * b;
-      if (n < N) sblk[(size_t)p * N + n] = st[a][b];
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* dA, const void* B, const void* C, void* y,
-                   void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
-                   long long x_tok, long long b_tok, long long c_tok, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
-  if (err != cudaSuccess) return err;
-  ssd_chunk_kernel<T><<<nc * H, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dA), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<float*>(y), static_cast<float*>(states),
-      static_cast<float*>(decay), Q, H, G, P, N, x_tok, b_tok, c_tok);
-  return cudaGetLastError();
-}
-
-
-}  // namespace cc
 
 // ------------------------------------------------- bf16: tensor cores
 namespace tc {
@@ -1063,38 +871,237 @@ cudaError_t dispatch_resources(int is_bf16, int Q, int P, int N, int* regs, int*
 
 }  // namespace tc
 
+// ------------------------------- chunks of at most 32 tokens: one pass
+namespace op {
+
+constexpr int kWarps = 4;  // heads a block: a warp a head
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxQ = 32;  // chunk length at most: a lane a token for the scan
+constexpr int kMaxP = 64;
+constexpr int kMaxN = 128;
+constexpr int kMaxRep = 256;  // heads a group at most (the backward's one-pass limit)
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Offsets of a launch's shared memory, in floats: S (Q x Q), B and C (Q x
+// NK, N padded to 16), then each warp's x (Q x PK, P padded to 16), M (Q x
+// Q), cum and w (kMaxQ each).
+struct Smem {
+  int S, Bs, Cs, x, M, cum, w, total;
+  __host__ __device__ Smem(int Q, int NK, int PK) {
+    S = 0;
+    Bs = S + Q * Q;
+    Cs = Bs + Q * NK;
+    x = Cs + Q * NK;
+    M = x + kWarps * Q * PK;
+    cum = M + kWarps * Q * Q;
+    w = cum + kWarps * kMaxQ;
+    total = w + kWarps * kMaxQ;
+  }
+};
+
+// grid (nc * G, ceil(H / G / kWarps)), kThreads threads; Q 16 or 32, P <=
+// kMaxP, N <= kMaxN.  x, B and C at any alignment and token stride.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fwd_chunk(
+    const T* __restrict__ x, const float* __restrict__ dA, const T* __restrict__ B,
+    const T* __restrict__ C, float* __restrict__ y, float* __restrict__ states,
+    float* __restrict__ decay, int Q, int H, int G, int P, int N, long long sx, long long sB,
+    long long sC) {
+  constexpr bool kF32 = sizeof(T) == 4;  // f32 x, B and C enter as hi + lo too
+  constexpr int kMaxQT = kMaxQ / 16, kMaxPT = kMaxP / 8, kMaxNT = kMaxN / 8;
+  extern __shared__ __align__(16) float sm[];
+  const int NK = (N + 15) / 16 * 16, PK = (P + 15) / 16 * 16, QT = Q / 16, rep = H / G;
+  const Smem L(Q, NK, PK);
+  float* const S = sm + L.S;
+  float* const Bs = sm + L.Bs;
+  float* const Cs = sm + L.Cs;
+  const int cgi = blockIdx.x, c = cgi / G, g = cgi % G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hl = blockIdx.y * kWarps + warp;  // this warp's head in the group
+  const bool active = hl < rep;
+  const long long h = (long long)g * rep + hl;
+  float* const xs = sm + L.x + warp * Q * PK;
+  float* const Ms = sm + L.M + warp * Q * Q;
+  float* const cumw = sm + L.cum + warp * kMaxQ;
+  float* const ww = sm + L.w + warp * kMaxQ;
+  const long long tok0 = (long long)c * Q;  // the chunk's first token
+  float a[8], b[4];
+  uint32_t ah[4], al[4], bh[2], bl[2];
+
+  float cv = active && lane < Q ? dA[(tok0 + lane) * H + h] : 0.f;
+  for (int e = tid; e < Q * NK; e += kThreads) {
+    const int j = e / NK, n = e % NK;
+    Bs[e] = n < N ? ld(B + (tok0 + j) * sB + (long long)g * N + n) : 0.f;
+    Cs[e] = n < N ? ld(C + (tok0 + j) * sC + (long long)g * N + n) : 0.f;
+  }
+  if (active) {
+    for (int e = lane; e < Q * PK; e += 32) {
+      const int j = e / PK, p = e % PK;
+      xs[e] = p < P ? ld(x + (tok0 + j) * sx + h * P + p) : 0.f;
+    }
+    // cum: an inclusive scan over the lanes (lane = token); w and chunk_decay
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, cv, o);
+      if (lane >= o) cv += v;
+    }
+    const float clast = __shfl_sync(0xffffffffu, cv, Q - 1);
+    if (lane < Q) {
+      cumw[lane] = cv;
+      ww[lane] = expf(clast - cv);
+    }
+    if (lane == 0) decay[(long long)c * H + h] = expf(clast);
+  }
+  __syncthreads();
+  // S = C B^T, the tiles at or below the diagonal (M is 0 above it)
+  for (int tile = warp; tile < QT * 2 * QT; tile += kWarps) {
+    const int m0 = tile / (2 * QT) * 16, n0 = tile % (2 * QT) * 8;
+    if (n0 > m0 + 15) continue;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < NK; k0 += 16) {
+      hopper::frag_a(a, [&](int i, int n) { return Cs[i * NK + n]; }, m0, k0);
+      hopper::frag_b(b, [&](int n, int j) { return Bs[j * NK + n]; }, k0, n0);
+      hopper::mma_split<kF32, kF32>(d, a, b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[hopper::acc_row(m0, e) * Q + hopper::acc_col(n0, e)] = d[e];
+  }
+  __syncthreads();
+  if (!active) return;  // past the block's last barrier
+
+  // M = S * L: L selected to 0 above the diagonal, then exponentiated
+  for (int e = lane; e < Q * Q; e += 32) {
+    const int i = e / Q, j = e % Q;
+    Ms[e] = j <= i ? S[e] * expf(cumw[i] - cumw[j]) : 0.f;
+  }
+  __syncwarp();
+
+  // y_diag = M x: each k16 step of M split once, for every column tile of x
+  float acc[kMaxQT][kMaxPT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+    for (int pt = 0; pt < kMaxPT; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][pt][e] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < kMaxQT; ++mt) {
+    if (mt >= QT) continue;
+#pragma unroll
+    for (int kt = 0; kt <= mt; ++kt) {  // M is 0 right of the diagonal tile
+      hopper::frag_a(a, [&](int i, int j) { return Ms[i * Q + j]; }, mt * 16, kt * 16);
+      hopper::split_a(a, ah, al);
+#pragma unroll
+      for (int pt = 0; pt < kMaxPT; ++pt) {
+        if (pt * 8 >= P) continue;
+        hopper::frag_b(b, [&](int j, int p) { return xs[j * PK + p]; }, kt * 16, pt * 8);
+        hopper::split_b(b, bh, bl);
+        hopper::mma_pieces<true, kF32>(acc[mt][pt], ah, al, bh, bl);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMaxQT; ++mt)
+#pragma unroll
+    for (int pt = 0; pt < kMaxPT; ++pt) {
+      if (mt >= QT || pt * 8 >= P) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = hopper::acc_row(mt * 16, e), p = hopper::acc_col(pt * 8, e);
+        if (p < P) y[((tok0 + i) * H + h) * P + p] = acc[mt][pt][e];
+      }
+    }
+
+  // states = (w x)^T B: rows p, columns n, k over the chunk's tokens
+  for (int mt = 0; mt * 16 < P; ++mt) {
+    float st[kMaxNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = 0.f;
+    for (int kt = 0; kt < QT; ++kt) {
+      hopper::frag_a(a, [&](int p, int j) { return ww[j] * xs[j * PK + p]; }, mt * 16, kt * 16);
+      hopper::split_a(a, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt) {
+        if (nt * 8 >= N) continue;
+        hopper::frag_b(b, [&](int j, int n) { return Bs[j * NK + n]; }, kt * 16, nt * 8);
+        hopper::split_b(b, bh, bl);
+        hopper::mma_pieces<true, kF32>(st[nt], ah, al, bh, bl);
+      }
+    }
+    float* const sh = states + ((long long)c * H + h) * P * N;
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt) {
+      if (nt * 8 >= N) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = hopper::acc_row(mt * 16, e), n = hopper::acc_col(nt * 8, e);
+        if (p < P && n < N) sh[(long long)p * N + n] = st[nt][e];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* dA, const void* B, const void* C, void* y,
+                   void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
+                   long long sx, long long sB, long long sC, cudaStream_t stream) {
+  const int smem = Smem(Q, (N + 15) / 16 * 16, (P + 15) / 16 * 16).total * (int)sizeof(float);
+  if (smem > 48 * 1024) {  // past the default: ask for it (only at the widest shapes)
+    const cudaError_t err =
+        cudaFuncSetAttribute(fwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(nc * G, (H / G + kWarps - 1) / kWarps);
+  fwd_chunk<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dA), static_cast<const T*>(B),
+      static_cast<const T*>(C), static_cast<float*>(y), static_cast<float*>(states),
+      static_cast<float*>(decay), Q, H, G, P, N, sx, sB, sC);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t resources(int Q, int P, int N, int* regs, int* smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fwd_chunk<T>);
+  *regs = attr.numRegs;
+  *smem = (int)attr.sharedSizeBytes +
+          Smem(Q, (N + 15) / 16 * 16, (P + 15) / 16 * 16).total * (int)sizeof(float);
+  return err;
+}
+
+}  // namespace op
+
+// The shapes every entry takes: Q a multiple of 16 up to 256, H % G == 0,
+// P <= 64, N <= 128, nc * H blocks at most 2^31 - 1.
+bool bad_shape(int nc, int Q, int H, int G, int P, int N) {
+  return nc < 1 || Q < 16 || Q > tc::kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 || P < 1 ||
+         P > op::kMaxP || N < 1 || N > op::kMaxN || (long long)nc * H > 2147483647LL;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x: (nc, Q, H, P) and B, C: (nc, Q, G, N) of one type (bf16 when is_bf16,
-// else f32), each token's row packed, tokens `*_tok` elements apart; dA:
-// (nc, Q, H) contiguous f32.  Writes y (nc, Q, H, P), states (nc, H, P, N)
-// and decay (nc, H), contiguous f32.  tensor_cores picks the route: 1 the
-// wgmma kernel (bf16 only; P in {16, 32, 64}, N in {16, 32, 64, 128},
-// x, B, C 16-byte aligned with token strides of a multiple of 8 elements),
-// 0 the CUDA-core kernel.  Returns the launch's cudaError_t; a route that
-// does not take the operands returns cudaErrorInvalidValue and launches
-// nothing.
+// The wgmma route, bf16.  x: (nc, Q, H, P) and B, C: (nc, Q, G, N) bf16,
+// each token's row packed, tokens `*_tok` elements apart, P in {16, 32,
+// 64}, N in {16, 32, 64, 128}, x, B, C 16-byte aligned with token strides
+// of a multiple of 8 elements; dA: (nc, Q, H) contiguous f32.  Writes y
+// (nc, Q, H, P), states (nc, H, P, N) and decay (nc, H), contiguous f32.
+// Returns the launch's cudaError_t; operands it does not take return
+// cudaErrorInvalidValue and launch nothing.
 int ssd_chunk_launch(const void* x, const void* dA, const void* B, const void* C, void* y,
                      void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
-                     long long x_tok, long long b_tok, long long c_tok, int is_bf16,
-                     int tensor_cores, void* stream) {
-  if (nc < 1 || Q < 16 || Q > cc::kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 || P < 1 ||
-      P > cc::kMaxP || N < 1 || N > cc::kMaxN || (long long)nc * H > 2147483647LL)
+                     long long x_tok, long long b_tok, long long c_tok, void* stream) {
+  const bool aligned = ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) % 16 == 0 &&
+                       x_tok % 8 == 0 && b_tok % 8 == 0 && c_tok % 8 == 0;
+  if (bad_shape(nc, Q, H, G, P, N) || !tc::takes(P, N) || !aligned)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
-    const bool aligned = ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) % 16 == 0 &&
-                         x_tok % 8 == 0 && b_tok % 8 == 0 && c_tok % 8 == 0;
-    if (!is_bf16 || !tc::takes(P, N) || !aligned) return (int)cudaErrorInvalidValue;
-    return (int)tc::dispatch(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N, x_tok, b_tok,
-                             c_tok, st);
-  }
-  return (int)(is_bf16 ? cc::launch<__nv_bfloat16>(x, dA, B, C, y, states, decay, nc, Q, H, G,
-                                                   P, N, x_tok, b_tok, c_tok, st)
-                       : cc::launch<float>(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N,
-                                           x_tok, b_tok, c_tok, st));
+  return (int)tc::dispatch(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N, x_tok, b_tok, c_tok,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The split route (f32 operands on the tensor cores): as ssd_chunk_launch
@@ -1107,8 +1114,7 @@ int ssd_chunk_split_launch(const void* x, const void* dA, const void* B, const v
                            void* states, void* decay, void* scores, long long scores_floats,
                            int nc, int Q, int H, int G, int P, int N, long long x_tok,
                            long long b_tok, long long c_tok, void* stream) {
-  if (nc < 1 || Q < 16 || Q > cc::kMaxQ || Q % 16 != 0 || G < 1 || H % G != 0 ||
-      !tc::takes(P, N) || (long long)nc * H > 2147483647LL ||
+  if (bad_shape(nc, Q, H, G, P, N) || !tc::takes(P, N) ||
       ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)scores) % 16 != 0 ||
       x_tok % 4 != 0 || b_tok % 4 != 0 || c_tok % 4 != 0)
     return (int)cudaErrorInvalidValue;
@@ -1127,22 +1133,38 @@ int ssd_chunk_split_scratch(int nc, int Q, int H, int G, long long* floats) {
   return (int)tc::split_scratch_floats(nc, Q, H, G, floats);
 }
 
+// The one-pass route: Q 16 or 32 and H / G <= 256, P <= 64, N <= 128, x, B
+// and C bf16 (is_bf16) or f32 at any alignment and token stride (each
+// token's row packed); dA and the outputs as ssd_chunk_launch.  One launch,
+// no scratch; any other shape returns cudaErrorInvalidValue and launches
+// nothing.
+int ssd_chunk_op_launch(const void* x, const void* dA, const void* B, const void* C, void* y,
+                        void* states, void* decay, int nc, int Q, int H, int G, int P, int N,
+                        long long x_tok, long long b_tok, long long c_tok, int is_bf16,
+                        void* stream) {
+  if (bad_shape(nc, Q, H, G, P, N) || Q > op::kMaxQ || H / G > op::kMaxRep ||
+      (long long)nc * G > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? op::launch<__nv_bfloat16>(x, dA, B, C, y, states, decay, nc, Q, H, G, P,
+                                                   N, x_tok, b_tok, c_tok, st)
+                       : op::launch<float>(x, dA, B, C, y, states, decay, nc, Q, H, G, P, N,
+                                           x_tok, b_tok, c_tok, st));
+}
+
 // A route's registers a thread and shared memory a block (static plus the
 // dynamic bytes its launch asks for) at chunk length Q, head dim P and
-// state dim N; tensor_cores with f32 (is_bf16 0) is the split route.
-int ssd_chunk_resources(int tensor_cores, int is_bf16, int Q, int P, int N, int* regs,
+// state dim N: one_pass 1 the one-pass kernel, else the wgmma route's
+// (with f32, is_bf16 0, the split kernel).
+int ssd_chunk_resources(int one_pass, int is_bf16, int Q, int P, int N, int* regs,
                         int* smem_bytes) {
-  if (tensor_cores) {
-    if (!tc::takes(P, N)) return (int)cudaErrorInvalidValue;
-    return (int)tc::dispatch_resources(is_bf16, Q, P, N, regs, smem_bytes);
+  if (one_pass) {
+    if (bad_shape(1, Q, 1, 1, P, N) || Q > op::kMaxQ) return (int)cudaErrorInvalidValue;
+    return (int)(is_bf16 ? op::resources<__nv_bfloat16>(Q, P, N, regs, smem_bytes)
+                         : op::resources<float>(Q, P, N, regs, smem_bytes));
   }
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      is_bf16 ? cudaFuncGetAttributes(&attr, cc::ssd_chunk_kernel<__nv_bfloat16>)
-              : cudaFuncGetAttributes(&attr, cc::ssd_chunk_kernel<float>);
-  *regs = attr.numRegs;
-  *smem_bytes = (int)(attr.sharedSizeBytes + cc::kSmemBytes);
-  return (int)err;
+  if (!tc::takes(P, N)) return (int)cudaErrorInvalidValue;
+  return (int)tc::dispatch_resources(is_bf16, Q, P, N, regs, smem_bytes);
 }
 
 const char* ssd_chunk_error_string(int err) {

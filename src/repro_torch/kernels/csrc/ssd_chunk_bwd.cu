@@ -1333,56 +1333,17 @@ struct Smem {
   }
 };
 
-// The A fragment (mma_bf16's register order) of rows r0 .. r0 + 15 and
-// columns k0 .. k0 + 15 of f(row, col).
-template <class F>
-__device__ __forceinline__ void frag_a(float (&a)[8], F f, int r0, int k0) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  a[0] = f(r0 + g, k0 + 2 * t);
-  a[1] = f(r0 + g, k0 + 2 * t + 1);
-  a[2] = f(r0 + g + 8, k0 + 2 * t);
-  a[3] = f(r0 + g + 8, k0 + 2 * t + 1);
-  a[4] = f(r0 + g, k0 + 2 * t + 8);
-  a[5] = f(r0 + g, k0 + 2 * t + 9);
-  a[6] = f(r0 + g + 8, k0 + 2 * t + 8);
-  a[7] = f(r0 + g + 8, k0 + 2 * t + 9);
-}
-
-// The B fragment of rows k0 .. k0 + 15 and columns n0 .. n0 + 7 of f(k, n).
-template <class F>
-__device__ __forceinline__ void frag_b(float (&b)[4], F f, int k0, int n0) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  b[0] = f(k0 + 2 * t, n0 + g);
-  b[1] = f(k0 + 2 * t + 1, n0 + g);
-  b[2] = f(k0 + 2 * t + 8, n0 + g);
-  b[3] = f(k0 + 2 * t + 9, n0 + g);
-}
-
-// d += a.b on one m16n8k16 tile from f32 fragments, a (b) as bf16 hi + lo
-// where kA (kB), else as bf16 alone (a bf16 input, exact): the products of
-// pieces but lo.lo, small terms first.
-template <bool kA, bool kB>
-__device__ __forceinline__ void mma_split(float (&d)[4], const float (&a)[8], const float (&b)[4]) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) hopper::split_bf16(a[2 * r], a[2 * r + 1], ah[r], al[r]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) hopper::split_bf16(b[2 * r], b[2 * r + 1], bh[r], bl[r]);
-  if (kA) hopper::mma_bf16(d, al, bh[0], bh[1]);
-  if (kB) hopper::mma_bf16(d, ah, bl[0], bl[1]);
-  hopper::mma_bf16(d, ah, bh[0], bh[1]);
-}
-
-// Row and column of accumulator element e of the tile at (m0, n0).
-__device__ __forceinline__ int acc_row(int m0, int e) {
-  return m0 + threadIdx.x % 32 / 4 + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int n0, int e) {
-  return n0 + 2 * (threadIdx.x % 4) + (e & 1);
-}
+// The fragment gathers and the split products (hopper.cuh), shared with
+// the forward's one-pass kernel (csrc/ssd_chunk.cu `op::fwd_chunk`).
+using hopper::acc_col;
+using hopper::acc_row;
+using hopper::frag_a;
+using hopper::frag_b;
+using hopper::mma_split;
 
 // grid (nc * G), kThreads threads; Q 16 or 32, P <= 64, N <= 128, H / G <=
-// kMaxRep.  Operands as the CUDA-core and wgmma routes take them.
+// kMaxRep.  Operands as the wgmma route takes them, at any alignment and
+// token stride.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) bwd_chunk(
     const T* __restrict__ x, const float* __restrict__ dA, const T* __restrict__ B,

@@ -314,15 +314,18 @@ def test_ssd_launch_counter_and_no_fallback(cuda):
 @pytest.mark.parametrize("case,want", [
     ((2, 64, 4, 2, 16, 32, "published", "bfloat16"), "tensor_cores"),
     ((4, 256, 8, 1, 64, 128, "published", "bfloat16", "sliced"), "tensor_cores"),
-    ((2, 64, 4, 2, 8, 32, "published", "bfloat16"), "cuda_cores"),  # P = 8
-    ((2, 64, 4, 2, 16, 48, "published", "bfloat16"), "cuda_cores"),  # N = 48
+    ((2, 64, 4, 2, 8, 32, "published", "bfloat16"), "tensor_cores"),  # P = 8: padded
+    ((2, 64, 4, 2, 16, 48, "published", "bfloat16"), "tensor_cores"),  # N = 48: padded
     ((2, 64, 4, 2, 16, 32, "published", "float32"), "tensor_cores"),
     ((3, 208, 4, 1, 64, 128, "published", "float32"), "tensor_cores"),
-    ((2, 64, 4, 2, 8, 32, "published", "float32"), "cuda_cores"),  # P = 8
+    ((2, 64, 4, 2, 8, 32, "published", "float32"), "tensor_cores"),  # P = 8: padded
+    ((16, 16, 16, 1, 8, 16, "published", "bfloat16"), "one_pass"),  # the reduced mamba2's
+    ((16, 16, 16, 1, 8, 16, "published", "float32"), "one_pass"),
 ])
 def test_ssd_routes_and_their_launch_counts(cuda, case, want):
     """Each call launches on the route its dtype, shape and layout pick, and
-    only that route's count moves; both routes match the plain version."""
+    only that route's count moves; every route matches the plain
+    version."""
     from repro_torch.kernels.ssd_scan import route, ssd_chunk
 
     x, dA, B, C = chip_smoke.ssd_inputs(case, cuda, seed=1)
@@ -335,35 +338,71 @@ def test_ssd_routes_and_their_launch_counts(cuda, case, want):
 
 
 def test_ssd_tensor_core_route_refuses_a_misaligned_layout(cuda):
-    """x 2 bytes past a 16-byte boundary cannot be read by TMA: the call
-    takes the CUDA-core route, decided before the launch, and the C entry
-    refuses the tensor-core route for it without launching."""
+    """x 2 bytes past a 16-byte boundary cannot be read by TMA: at Q 64 the
+    call takes the wgmma kernels on an aligned copy (the padded route,
+    decided before the launch), and the wgmma entry itself refuses the
+    misaligned x without launching."""
     from repro_torch.kernels import ssd_scan
 
     x, dA, B, C = chip_smoke.ssd_inputs((2, 64, 4, 2, 16, 32, "published", "bfloat16"), cuda,
                                         seed=2)
     shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
     shifted.copy_(x)
-    assert ssd_scan.route(shifted, B, C) == "cuda_cores"
+    assert ssd_scan.route(shifted, B, C) == "tensor_cores"
+    assert not ssd_scan.at_tensor_core_shapes(shifted, B, C)
     before = dict(ssd_scan.ssd_chunk.route_launches)
     got = ssd_scan.ssd_chunk(shifted, dA, B, C)
-    assert chip_smoke.route_taken(ssd_scan.ssd_chunk, before) == "cuda_cores"
+    assert chip_smoke.route_taken(ssd_scan.ssd_chunk, before) == "tensor_cores"
     chip_smoke.check_ssd_output("misaligned x", got, ssd_scan.ssd_chunk_plain(shifted, dA, B, C),
                                 dA)
     out = [torch.empty(s, dtype=torch.float32, device=cuda)
            for s in ((2, 64, 4, 16), (2, 4, 16, 32), (2, 4))]
     rc = ssd_scan._lib().ssd_chunk_launch(
         shifted.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
-        *(t.data_ptr() for t in out), 2, 64, 4, 2, 16, 32, 64, 64, 64, 1, 1,
+        *(t.data_ptr() for t in out), 2, 64, 4, 2, 16, 32, 64, 64, 64,
         torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_one_pass_planted_faults_are_caught(cuda, dtype):
+    out = chip_smoke.ssd_one_pass_faults(cuda, dtype)
+    assert all(out["caught"].values())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_one_pass_calls_are_equal_bit_for_bit(cuda, dtype):
+    out = chip_smoke.ssd_repeat(cuda, dtype)
+    assert out["route"] == "one_pass" and all(out["bitwise_equal"].values())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_outputs_share_one_allocation_under_autograd(cuda, dtype):
+    """On the card y_diag and states are views of one allocation and
+    chunk_decay has its own; through ``SSDChunk`` (under grad, the one-pass
+    route) their gradients reach ``ssd_chunk_backward`` as separate
+    tensors' would: the leaves' grads equal a direct backward call bit for
+    bit."""
+    from repro_torch.kernels import ssd_scan
+
+    x, dA, B, C = chip_smoke.ssd_inputs((*chip_smoke.SSD_REDUCED_SHAPE, "published", dtype),
+                                        cuda, seed=3)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dA, B, C)]
+    y, st, dec = ssd_scan.ssd_chunk(*leaves)
+    assert y.untyped_storage().data_ptr() == st.untyped_storage().data_ptr()
+    assert dec.untyped_storage().data_ptr() != y.untyped_storage().data_ptr()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    grads = [torch.randn(t.shape, generator=gen, device=cuda) for t in (y, st, dec)]
+    torch.autograd.backward((y, st, dec), grads)
+    want = ssd_scan.ssd_chunk_backward(x, dA, B, C, *grads)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
 
 
 def test_ssm_path_short_prompt(cuda):
     out = chip_smoke.run_ssm_path(cuda, layers=2, batch=2, prompt=512, new_tokens=16)
     assert out["launches"] == out["prefill_launches"] == 2
-    assert out["route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
-    assert out["f32_route_launches"] == {"tensor_cores": 2, "cuda_cores": 0}
+    assert out["route_launches"] == {"tensor_cores": 2, "one_pass": 0}
+    assert out["f32_route_launches"] == {"tensor_cores": 2, "one_pass": 0}
     assert out["planted_fault"]["caught"]
 
 
@@ -848,18 +887,18 @@ def test_ssd_bwd_off_shape_calls_are_equal_bit_for_bit(cuda, dtype, shape, route
     ((16, 16, 16, 1, 8, 16, "published", "float32"), "one_pass"),
     ((3, 32, 6, 3, 24, 40, "jax_test", "bfloat16", "sliced"), "one_pass")])
 def test_ssd_bwd_routes_and_their_launch_counts(cuda, case, want):
-    """Each call takes ``backward_route``'s kernels, counted on that route
+    """Each call takes ``route``'s kernels, counted on that route
     alone, and matches the plain formulas at the card limits: the wgmma
     kernels at their head and state dims and, padded, at longer chunks off
     them; the one-pass kernel at chunks of at most 32 tokens off them."""
     from repro_torch.kernels import ssd_scan
 
     x, _dA, B, C = chip_smoke.ssd_inputs(case, cuda, seed=4)[:4]
-    assert ssd_scan.backward_route(x, B, C) == want
+    assert ssd_scan.route(x, B, C) == want
     ssd_scan.reset_launches()
     chip_smoke.check_ssd_bwd_case(case, cuda, seed=4)
     assert ssd_scan.ssd_chunk_backward.route_launches == {r: int(r == want)
-                                                          for r in ssd_scan.BWD_ROUTES}
+                                                          for r in ssd_scan.ROUTES}
 
 
 def test_ssd_bwd_launch_counter_function_and_no_fallback(cuda):

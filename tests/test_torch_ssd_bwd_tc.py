@@ -291,7 +291,7 @@ def test_one_pass_rounding_within_the_card_limits(case):
     of at most 32 tokens off the wgmma head and state dims; the reduced
     mamba2's P 8 first): within the card limits of the plain formulas, and
     of ``jax.vjp`` of the JAX package's reference, in both types."""
-    assert ssd_scan.backward_route(*_route_operands(case)) == "one_pass"
+    assert ssd_scan.route(*_route_operands(case)) == "one_pass"
     args = _inputs(*case[:7], seed=sum(case[:6]), dtype=getattr(torch, case[7]))
     got = _tc_backward_emulation(*args, one_pass=True)
     chip_smoke.check_ssd_bwd_output(f"{case} vs plain", got, ssd_chunk_backward_plain(*args),
@@ -301,7 +301,7 @@ def test_one_pass_rounding_within_the_card_limits(case):
 
 
 def _route_operands(case):
-    """Zero x, B and C of ``case``'s shape and type: what ``backward_route``
+    """Zero x, B and C of ``case``'s shape and type: what ``route``
     reads."""
     nc, Q, H, G, P, N = case[:6]
     dt = getattr(torch, case[7])
@@ -332,10 +332,11 @@ def test_padding_onto_the_wgmma_shapes_is_exact(kind):
         wide[..., :G * N], wide[..., G * N:2 * G * N] = B.flatten(2), C.flatten(2)
         B = wide[..., :G * N].unflatten(2, (G, N))
         C = wide[..., G * N:2 * G * N].unflatten(2, (G, N))
-    assert ssd_scan.route(x, B, C) == "cuda_cores"  # the forward's rule does not take them
+    assert not ssd_scan.at_tensor_core_shapes(x, B, C)  # the wgmma kernels do not take them
     padded = ssd_scan.pad_to_tensor_cores(x, B, C, dy, dst)
     px, pB, pC = padded[:3]
     assert ssd_scan.route(px, pB, pC) == "tensor_cores"
+    assert ssd_scan.at_tensor_core_shapes(px, pB, pC)
     assert px.shape[3] in ssd_scan.TC_P and pB.shape[3] in ssd_scan.TC_N
     got = ssd_scan.unpad_grads(ssd_chunk_backward_plain(px, dA, pB, pC, *padded[3:], ddec), P, N)
     want = ssd_chunk_backward_plain(x, dA, B, C, dy, dst, ddec)
@@ -353,20 +354,22 @@ def test_padding_onto_the_wgmma_shapes_is_exact(kind):
     ("sliced_odd_stride", "tensor_cores"), ("f32_p_8", "tensor_cores"),
     ("f32_x_misaligned", "tensor_cores"), ("f32_sliced_odd_stride", "tensor_cores")])
 def test_backward_route_is_decided_by_dtype_shape_and_layout(kind, want):
-    """The backward's rule (the same on any device): every dtype, shape and
-    layout takes the tensor cores, in bf16 and f32 alike.  What the forward
-    keeps on the CUDA cores (P 8, N 48, misaligned data, odd token strides)
-    goes through ``pad_to_tensor_cores`` first, whose operands the forward's
-    tensor-core rule takes; operands it takes already pass unchanged."""
+    """The backward's rule (the forward's, the same on any device): at
+    chunks of 64 tokens every dtype, shape and layout takes the wgmma
+    kernels, in bf16 and f32 alike.  What they do not take as it is (P 8,
+    N 48, misaligned data, odd token strides) goes through
+    ``pad_to_tensor_cores`` first, whose operands they take; operands they
+    take already pass unchanged."""
     x, B, C = _route_case(kind)
-    assert ssd_scan.backward_route(x, B, C) == want
+    assert ssd_scan.route(x, B, C) == want
     nc, Q, H, P = x.shape
     dy, dst = torch.zeros((nc, Q, H, P)), torch.zeros((nc, H, P, B.shape[3]))
     px, pB, pC, pdy, pdst = ssd_scan.pad_to_tensor_cores(x, B, C, dy, dst)
     assert ssd_scan.route(px, pB, pC) == "tensor_cores"
     assert pdy.shape[3] == px.shape[3] and pdst.shape[2:] == (px.shape[3], pB.shape[3])
     kept = [p is t for p, t in ((px, x), (pB, B), (pC, C))]
-    assert all(kept) == (ssd_scan.route(x, B, C) == "tensor_cores")
+    assert ssd_scan.at_tensor_core_shapes(px, pB, pC)
+    assert all(kept) == ssd_scan.at_tensor_core_shapes(x, B, C)
 
 
 @pytest.mark.parametrize("path,dtype,n", [("tensor_cores", BF16, 4), ("tensor_cores", F32, 5),
@@ -394,4 +397,4 @@ def test_cpu_backward_counts_no_launch():
     want = ssd_chunk_backward_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ssd_scan.ssd_chunk_backward.launches == 0
-    assert ssd_scan.ssd_chunk_backward.route_launches == dict.fromkeys(ssd_scan.BWD_ROUTES, 0)
+    assert ssd_scan.ssd_chunk_backward.route_launches == dict.fromkeys(ssd_scan.ROUTES, 0)

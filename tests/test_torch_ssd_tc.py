@@ -241,12 +241,19 @@ def _route_case(kind):
 
 @pytest.mark.parametrize("kind,want", [
     ("bf16", "tensor_cores"), ("sliced", "tensor_cores"), ("float32", "tensor_cores"),
-    ("p_8", "cuda_cores"), ("n_48", "cuda_cores"), ("x_misaligned", "cuda_cores"),
-    ("sliced_odd_stride", "cuda_cores"), ("f32_p_8", "cuda_cores"),
-    ("f32_x_misaligned", "cuda_cores"), ("f32_sliced_odd_stride", "cuda_cores")])
+    ("p_8", "tensor_cores"), ("n_48", "tensor_cores"), ("x_misaligned", "tensor_cores"),
+    ("sliced_odd_stride", "tensor_cores"), ("f32_p_8", "tensor_cores"),
+    ("f32_x_misaligned", "tensor_cores"), ("f32_sliced_odd_stride", "tensor_cores")])
 def test_route_is_decided_by_dtype_shape_and_layout(kind, want):
-    """The rule the wrapper applies before a CUDA launch, on the operands'
-    dtype, shape and layout alone (the same on any device): bf16 and f32
-    alike at P in TC_P, N in TC_N, 16-byte aligned data and token strides
-    to the tensor cores, all else to the CUDA cores."""
-    assert ssd_scan.route(*_route_case(kind)) == want
+    """The rule the wrapper applies before a CUDA launch, forward and
+    backward alike, on the operands' dtype, shape and layout alone (the
+    same on any device).  At chunks of 64 tokens everything takes the
+    wgmma kernels: as it is at P in TC_P, N in TC_N, 16-byte aligned data
+    and token strides (``at_tensor_core_shapes``), in bf16 and f32 alike;
+    all else on the operands ``pad_operands`` makes (shorter chunks off
+    those shapes take the one-pass kernel: tests/test_torch_ssd_one_pass.py)."""
+    x, B, C = _route_case(kind)
+    assert ssd_scan.route(x, B, C) == want
+    direct = kind in ("bf16", "sliced", "float32")
+    assert ssd_scan.at_tensor_core_shapes(x, B, C) == direct
+    assert ssd_scan.at_tensor_core_shapes(*ssd_scan.pad_operands(x, B, C))
