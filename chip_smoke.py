@@ -14,7 +14,12 @@ Each phase prints one JSON line:
 3. main_path — the port's optimize-and-execute path at the ``twitter``
               profile's full width (F=64, four UDFs of hidden 48 and depth
               2, a 5% optimization sample of 40,000 records) over a stream
-              of 1,048,576 records, for two queries; then a profile of 16
+              of 1,048,576 records, for two queries, each query's value
+              sets printed.  The UDFs' and an ``mlp1`` proxy's initial
+              weights drawn for the card must equal the CPU draw bit for
+              bit; the UDFs trained on the card are reported against the
+              same UDFs trained on the CPU (label agreement and the CPU
+              UDFs' value sets, not checked); then a profile of 16
               tiles of each (device busy share, pinned and pageable
               uploads, the host's busiest calls).
 4. timing   — CUDA-event times of the kernel and its plain version at the
@@ -679,6 +684,37 @@ def tie_rows(plan, x: np.ndarray, rows: np.ndarray, tol: float) -> set:
     return out
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def initial_draws(ds, prof, dev) -> dict:
+    """The paper loop's initial weights drawn for ``dev`` against the CPU
+    draw, bit for bit: each UDF body (``_train_udf_model`` at 0 steps, at
+    its column's hidden width and seed) and an ``mlp1`` proxy
+    (``train_mlp`` at 0 steps)."""
+    from repro_torch.data.synthetic import _train_udf_model
+    from repro_torch.training.proxy_models import train_mlp
+
+    x = ds.x[:prof["udf_train_rows"]]
+    udf_equal = []
+    for j in range(prof["n_columns"]):
+        h = int(prof["udf_hidden"] * prof["cost_scale"].get(j, 1.0))
+        y = ds.truth[:len(x), j]
+        got, want = (_train_udf_model(x, y, ds.n_classes[j], h, prof["udf_depth"], j,
+                                      steps=0, device=d) for d in (dev, "cpu"))
+        udf_equal.append(all(same_bits(a, b) for lg, lw in zip(got, want)
+                             for a, b in zip(lg, lw)))
+    y = np.where(ds.truth[:len(x), 0] >= 2, 1.0, -1.0).astype(np.float32)
+    got, want = (train_mlp(x, y, seed=3, steps=0, device=d) for d in (dev, "cpu"))
+    mlp_equal = all(same_bits(getattr(got, n), getattr(want, n))
+                    for n in ("w1", "b1", "w2", "b2"))
+    check(all(udf_equal), f"UDF initial weights on {dev} differ from the CPU draw: {udf_equal}")
+    check(mlp_equal, f"mlp1 initial weights on {dev} differ from the CPU draw")
+    return dict(udf_initial_weights_equal=udf_equal, mlp1_initial_weights_equal=mlp_equal)
+
+
 def run_main_path(dev, n_stream: int):
     from repro_torch.core import (OptimizeOptions, build_plan, execute_plan, orig_plan,
                                   plan_accuracy)
@@ -696,19 +732,29 @@ def run_main_path(dev, n_stream: int):
                      train_rows=prof["udf_train_rows"], seed=0,
                      declared_cost_ms=prof["declared_cost_ms"],
                      cost_scale=prof["cost_scale"], device=dev)
+    setup_s = time.perf_counter() - t0
+    draws = initial_draws(ds, prof, dev)
+    # the same UDFs trained on the CPU: the initial weights are equal, the
+    # trained ones differ by the devices' summation orders (reported only)
+    cpu_udfs = make_udfs(ds, hidden=prof["udf_hidden"], depth=prof["udf_depth"],
+                         train_rows=prof["udf_train_rows"], seed=0,
+                         declared_cost_ms=prof["declared_cost_ms"],
+                         cost_scale=prof["cost_scale"], device="cpu")
+    agreement = [float(np.mean(u(ds.x) == c(ds.x))) for u, c in zip(udfs, cpu_udfs)]
     stream = make_drifting_stream(ds, n_stream, 0, seed=1).x
     k = int(prof["k_frac"] * prof["n"])
     x_opt = ds.x[:k]
     emit("main_path_setup", records=n_stream, k=k, features=prof["n_features"],
          udf_train_accuracy=[u.train_accuracy for u in udfs],
-         setup_s=time.perf_counter() - t0)
+         cpu_udf_train_accuracy=[u.train_accuracy for u in cpu_udfs],
+         label_agreement_vs_cpu=agreement, **draws, setup_s=setup_s)
     tile = 8192
     n_tiles = -(-n_stream // tile)
     plans, outcomes = [], {}
     cascade_score.launches = 0
     for name, cols, sel, A, kind, seed in QUERIES:
-        q = make_query(ds, udfs, columns=cols, target_selectivity=sel, accuracy_target=A,
-                       seed=seed)
+        q, cpu_q = (make_query(ds, u, columns=cols, target_selectivity=sel, accuracy_target=A,
+                               seed=seed) for u in (udfs, cpu_udfs))
         t0 = time.perf_counter()
         plan = build_plan(q, x_opt, OptimizeOptions(mode="core", kind=kind), device=dev)
         optimize_s = time.perf_counter() - t0
@@ -735,7 +781,10 @@ def run_main_path(dev, n_stream: int):
         saving = 1.0 - res.model_cost_ms / orig.model_cost_ms
         check(acc >= A - 0.05, f"{name}: accuracy {acc:.4f} < {A - 0.05}")
         outcomes[name] = dict(passed=res.passed, accuracy=acc, orig=orig)
-        emit("main_path", query=name, kind=kind, order=list(plan.order),
+        emit("main_path", query=name, kind=kind,
+             values=[sorted(p.values) for p in q.predicates],
+             cpu_udf_values=[sorted(p.values) for p in cpu_q.predicates],
+             order=list(plan.order),
              families=[None if s.proxy is None else s.proxy.family for s in plan.stages],
              hidden=[None if s.proxy is None else int(s.proxy.packed().hidden)
                      for s in plan.stages],

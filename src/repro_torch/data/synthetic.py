@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.query import MLUDF, Predicate, Query
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 
 @dataclass
@@ -279,17 +279,20 @@ def _train_udf_model(x, y, n_classes: int, hidden: int, depth: int, seed: int,
                      steps: int = 400, *, device="cuda"):
     """Train a small-but-real MLP classifier (the expensive UDF body):
     full-batch softmax cross-entropy, momentum 0.9, lr 0.05.  The initial
-    weights are ``randn / sqrt(fan_in)`` from a ``torch.Generator`` on
-    ``device`` seeded with ``seed``, zero biases.  Returns the trained
-    ``[(W, b), ...]`` layer list."""
+    weights are the JAX package's: layer ``i`` is ``normal(ks[i]) /
+    sqrt(fan_in)`` with ``ks = split(key(seed), depth + 1)`` from
+    ``util.prng`` (its ``jax.random`` stream, drawn on the host, so every
+    device starts from the same bits), zero biases.  Training sums in the
+    device's own order, so the trained weights drift from the reference's
+    by roundoff.  Returns the trained ``[(W, b), ...]`` layer list."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    ks = prng.split(prng.key(seed), depth + 1)
     F = x.shape[1]
     dims = [F] + [hidden] * depth + [n_classes]
     params = []
     for i in range(len(dims) - 1):
-        params.append(torch.randn(dims[i], dims[i + 1], generator=gen, device=dev)
-                      / float(np.sqrt(dims[i])))
+        w = prng.normal(ks[i], (dims[i], dims[i + 1])) / np.sqrt(np.float32(dims[i]))
+        params.append(w.to(dev))
         params.append(torch.zeros(dims[i + 1], device=dev))
     xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
     yt = torch.as_tensor(np.asarray(y, np.int64), device=dev)
@@ -326,7 +329,9 @@ def make_udfs(
     COST MODEL uses (times the column's scale); when None the cost is
     profiled on the device instead.  ``weights``: per column, trained
     ``[(W, b), ...]`` layers (numpy or tensors) to use instead of training
-    — how the JAX package's UDFs are carried across.
+    — how the JAX package's trained UDFs are carried across.  Without it
+    each UDF starts from the JAX package's initial weights for the same
+    seed (``_train_udf_model``) and is trained here.
     """
     dev = resolve_device(device)
     udfs = []

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 
 @dataclass(frozen=True, eq=False)
@@ -154,15 +154,22 @@ def linear_score(params: LinearParams, x) -> torch.Tensor:
     return ((x - params.mean) / params.scale) @ params.w + params.b
 
 
+def _inv_sqrt(n: int) -> np.float32:
+    """``1 / sqrt(n)`` in float32, as XLA folds a division by ``jnp.sqrt(n)``."""
+    return np.float32(1.0) / np.sqrt(np.float32(n))
+
+
 def train_mlp(x, y, *, seed: int = 0, steps: int = 300, hidden: int = 32,
               lr: float = 0.05, init: Optional[Sequence] = None,
               device="cuda") -> MLPParams:
     """Shallow NN proxy: one hidden layer, weighted BCE loss, y in {-1, +1}.
 
     ``init`` injects the initial ``(w1, b1, w2, b2)``; without it they are
-    drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
-    (``randn / sqrt(fan_in)``, zero biases).  torch cannot reproduce the
-    JAX package's ``jax.random`` draws, so parity runs inject its init."""
+    the JAX package's for ``seed``: ``k1, k2 = split(key(seed))`` from
+    ``util.prng``, ``w1 = normal(k1) / sqrt(F)``, ``w2 = normal(k2) /
+    sqrt(hidden)``, zero biases, drawn on the host.  The reference draws
+    them under ``jit``, which folds the divisor into the normal's
+    ``sqrt(2)`` as a reciprocal; ``normal``'s ``scale`` does the same."""
     dev = resolve_device(device)
     x = _as_tensor(x, dev)
     y = _as_tensor(y, dev)
@@ -172,10 +179,10 @@ def train_mlp(x, y, *, seed: int = 0, steps: int = 300, hidden: int = 32,
     yb = (y > 0).to(torch.float32)
     wts = _class_weights(y > 0)
     if init is None:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        w1 = torch.randn(F, hidden, generator=gen, device=dev) / float(np.sqrt(F))
+        k1, k2 = prng.split(prng.key(seed))
+        w1 = prng.normal(k1, (F, hidden), scale=_inv_sqrt(F)).to(dev)
         b1 = torch.zeros(hidden, device=dev)
-        w2 = torch.randn(hidden, generator=gen, device=dev) / float(np.sqrt(hidden))
+        w2 = prng.normal(k2, (hidden,), scale=_inv_sqrt(hidden)).to(dev)
         b2 = torch.zeros((), device=dev)
     else:
         w1, b1, w2, b2 = (_as_tensor(a, dev) for a in init)

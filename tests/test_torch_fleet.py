@@ -16,7 +16,10 @@ the reference's.  The failure injections give the reference's
 resolution, failover, fence and re-sync counts, its decisions and its
 swap log.  The thread transport equals the
 inline one exactly, and a two-worker process fleet on the CPU commits a
-swap and equals an inline run on the same streams."""
+swap and equals an inline run on the same streams: the JAX package's
+process-transport workload, with the port's own UDFs (which start from the
+reference's initial weights and ask the reference's query), on shards
+that drift alike."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,7 +238,12 @@ def test_process_transport_commits_a_swap_on_the_cpu():
     """Two worker processes rebuild the workload from the spec's seeds on
     the CPU (the JAX package's process-transport spec); the fleet commits
     a swap and decides as an inline run on the same streams does.  Each
-    worker has its own start deadline, so a hung worker fails the test."""
+    worker has its own start deadline, so a hung worker fails the test.
+
+    The port's UDFs ask the reference's query of this spec.  Its two shards
+    drift alike (drift skew 0): at the JAX package's skew of 0.3 only the
+    shard that drifts harder votes, short of K 2's quorum of 2, in both
+    packages (``scripts/reference_fleet_votes.py``)."""
     spec = {"dataset": dict(n=7000, n_features=64, n_columns=3, correlation=0.9,
                             feature_noise=0.9, label_noise=0.2, seed=41),
             "udfs": dict(hidden=16, depth=1, train_rows=1000, seed=41, declared_cost_ms=10.0),
@@ -244,8 +252,12 @@ def test_process_transport_commits_a_swap_on_the_cpu():
     ds = tsyn.make_dataset(**spec["dataset"])
     udfs = tsyn.make_udfs(ds, **spec["udfs"], device="cpu")
     q = tsyn.make_query(ds, udfs, **spec["query"])
+    jds = jsyn.make_dataset(**spec["dataset"])
+    jq = jsyn.make_query(jds, jsyn.make_udfs(jds, **spec["udfs"]), **spec["query"])
+    assert [p.values for p in q.predicates] == [p.values for p in jq.predicates]
     opts = OptimizeOptions(mode="core", step=0.05, keep_state=True)
-    xs = [s.x for s in tsyn.make_sharded_drifting_streams(ds, 2, 700, 2000, **STREAMS)]
+    streams = dict(STREAMS, drift_skew=0.0)
+    xs = [s.x for s in tsyn.make_sharded_drifting_streams(ds, 2, 700, 2000, **streams)]
     orig = set(execute_plan(orig_plan(q), np.concatenate(xs), device="cpu").passed.tolist())
     runs = [_run(ShardedCascadeServer, build_plan(q, ds.x[:1200], opts, device="cpu"), xs,
                  orig, policy=AdaptivePolicy(**POLICY), device="cpu", **kw)
