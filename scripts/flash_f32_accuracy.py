@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     cfg = get_config(cs.DENSE["arch"]).replace(num_layers=args.layers, dtype="float32")
     fam = get_family(cfg)
     model = fam.init(0, cfg, device=dev)
-    tokens = make_batch(cfg, cs.DENSE["batch"], cs.DENSE["prompt"], seed=0,
+    tokens = make_batch(cfg, cs.DENSE["batch"], cs.DENSE["prompt"], key=0,
                         device=dev)["tokens"]
     r = args.request
     seen = []

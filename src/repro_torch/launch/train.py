@@ -18,11 +18,14 @@ simulated preemption before that step, once: the runner restores the last
 checkpoint, rewinds the data cursor and goes on).  The default ``--arch``
 is deepseek-67b (the JAX launcher's default is mamba2-2.7b).
 
-The batch is ``--batch`` sequences of ``--seq`` tokens (a VLM's text
-shortened by its patch prefix) from a seeded stream of 8,192 random
-sequences (``data/pipeline.py``), cut into ``cfg.accum_steps``
-micro-batches; a VLM's patches and an encoder-decoder's frames are drawn
-by ``np.random.RandomState(step)``.
+The weights are the JAX launcher's, ``init_train_state(cfg, PRNGKey(0))``
+(``util/prng.py``: threefry2x32, on the card by the ``threefry`` kernel).
+The batch is the JAX launcher's too: for the dense, MoE, SSM and hybrid
+families ``--batch`` sequences of ``--seq`` tokens from a stream of 8,192
+random sequences drawn by ``np.random.RandomState(0)`` (``data/pipeline.py``);
+an encoder-decoder's or a VLM's whole batch (tokens, labels, frames or
+patches) is ``registry.make_batch(cfg, batch, seq, PRNGKey(step))``.  Each
+is cut into ``cfg.accum_steps`` micro-batches.
 The checkpointed state is (params, optimizer state, cursor) in the JAX
 package's layout (``models/leaves.py``), so each package reads the other's.
 """
@@ -42,10 +45,11 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import Cursor, ShardedStream
 from repro_torch.distributed.fault_tolerance import ResilientRunner, StragglerDetector
 from repro_torch.models import leaves
-from repro_torch.models.registry import _token_len, stub_embeddings
+from repro_torch.models import registry
+from repro_torch.models.registry import _token_len
 from repro_torch.training import optim
 from repro_torch.training.train_loop import init_train_state, make_train_step
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 DATA_ROWS = 8192
 
@@ -100,14 +104,15 @@ def make_data(cfg, seq: int, rows: int = DATA_ROWS, seed: int = 0) -> np.ndarray
 
 
 def make_batch(cfg, seqs: np.ndarray, step: int, device) -> dict:
-    """Tokens and next-token labels of ``seqs``; a VLM's ``patches`` or an
-    encoder-decoder's ``frames`` drawn by ``np.random.RandomState(step)``
-    (``registry.stub_embeddings``)."""
+    """Step ``step``'s batch from the stream's ``seqs`` (B, S + 1): tokens and
+    next-token labels; for an encoder-decoder or a VLM instead
+    ``registry.make_batch(cfg, B, seq, PRNGKey(step))``, the JAX launchers'
+    batch, at the sequence length ``seq`` whose text is S tokens."""
+    if cfg.family in ("encdec", "vlm"):
+        seq = seqs.shape[1] - 1 + (cfg.encoder.num_prefix if cfg.family == "vlm" else 0)
+        return registry.make_batch(cfg, seqs.shape[0], seq, prng.key(step), device)
     tokens = torch.from_numpy(seqs.astype(np.int64))
-    batch = {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
-    stubs = stub_embeddings(cfg, seqs.shape[0], seqs.shape[1] - 1, np.random.RandomState(step))
-    batch.update({k: v.to(device) for k, v in stubs.items()})
-    return batch
+    return {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
 
 
 def with_depth(cfg, layers: int):

@@ -4,7 +4,7 @@ package's ``models/encdec.py``.
 The family API:
 
     enc_len_for(cfg, seq_len)            -> encoder length
-    init(seed, cfg, device)              -> EncDec (an nn.Module)
+    init(key, cfg, device)               -> EncDec (an nn.Module)
     encode(params, cfg, frames)          -> memory (B,E,d)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
     loss(params, cfg, batch)             -> (scalar, aux)
@@ -40,51 +40,59 @@ def enc_len_for(cfg, seq_len: int) -> int:
 
 
 class EncLayer(nn.Module):
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
-        drawn = generator is not None
+        drawn = key is not None
+        k1, k2 = key.split() if drawn else (None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
+        self.attn = L.init_gqa(k1, cfg) if drawn else L.GQA(cfg, device=device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.mlp = L.init_mlp(generator, cfg) if drawn else L.MLP(cfg, device=device)
+        self.mlp = L.init_mlp(k2, cfg) if drawn else L.MLP(cfg, device=device)
 
 
 class DecLayer(nn.Module):
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
-        drawn = generator is not None
+        drawn = key is not None
+        k1, k2, k3 = key.split(3) if drawn else (None, None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.self_attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
+        self.self_attn = L.init_gqa(k1, cfg) if drawn else L.GQA(cfg, device=device)
         self.ln_x = L.init_rms_for(cfg, cfg.d_model, device)
-        self.cross_attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
+        self.cross_attn = L.init_gqa(k2, cfg) if drawn else L.GQA(cfg, device=device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.mlp = L.init_mlp(generator, cfg) if drawn else L.MLP(cfg, device=device)
+        self.mlp = L.init_mlp(k3, cfg) if drawn else L.MLP(cfg, device=device)
 
 
 class EncDec(nn.Module):
     """The model's weights: ``embed`` (token embedding and head),
     ``enc_layers``, ``dec_layers``, ``enc_norm`` and ``final_norm``.
-    Drawn from ``generator`` (on ``device``) when one is given, else left
-    empty for ``interop.encdec_params`` to fill."""
+    Drawn from ``key`` (an ``L.Key``: ``k_emb, k_enc, k_dec = split(key,
+    3)``, each stack's layers from ``split(k, n)``) when one is given, else
+    left empty for ``interop.encdec_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
-        self.embed = (L.init_embed(generator, cfg) if generator is not None
+        n_enc, n_dec = cfg.encoder.num_layers, cfg.num_layers
+        if key is not None:
+            k_emb, k_enc, k_dec = key.split(3)
+            enc_keys, dec_keys = k_enc.split(n_enc), k_dec.split(n_dec)
+        else:
+            enc_keys, dec_keys = [None] * n_enc, [None] * n_dec
+        self.embed = (L.init_embed(k_emb, cfg) if key is not None
                       else L.Embedding(cfg, device=device))
-        self.enc_layers = nn.ModuleList(EncLayer(cfg, generator, device=device)
-                                        for _ in range(cfg.encoder.num_layers))
-        self.dec_layers = nn.ModuleList(DecLayer(cfg, generator, device=device)
-                                        for _ in range(cfg.num_layers))
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, k, device=device) for k in enc_keys)
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, k, device=device) for k in dec_keys)
         self.enc_norm = L.init_rms_for(cfg, cfg.d_model, device)
         self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
 
 
-def init(seed: int, cfg, device="cuda") -> EncDec:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
-    "meta" the shapes and types alone (``layers.seeded``)."""
+def init(key, cfg, device="cuda") -> EncDec:
+    """The JAX package's initial weights for ``key`` (an int read as
+    ``PRNGKey(key)``, or a (2,) uint32 key); on "meta" the shapes and types
+    alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return EncDec(cfg, L.seeded(seed, dev), device=dev)
+    return EncDec(cfg, L.seeded(key, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

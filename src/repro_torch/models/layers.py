@@ -10,9 +10,11 @@ the same numbers):
   hold their weights (no ``forward``); the plain functions beside them
   (``gqa_attend``, ``mlp_apply``, ...) take the module as ``p`` and do the
   arithmetic, under the names the JAX package gives them.
-* Initialisation draws from an explicit ``torch.Generator`` on the weights'
-  device; it cannot reproduce ``jax.random``'s numbers, so tests carry the
-  JAX package's weights across with ``interop.transformer_params``.
+* Initialisation takes a ``jax.random`` key (``Key``: the key and the
+  device its draws land on) and follows the JAX package's split tree, each
+  weight drawn by ``util/prng.py`` (threefry2x32: numpy on the CPU, the
+  ``threefry`` kernel on the card, straight into the parameter), so one key
+  gives the JAX package's initial weights bit for bit on either device.
 * Parameters are created with ``requires_grad=False`` (the serving paths
   never build a graph); ``trainable`` turns gradients on for training, and
   ``remat`` runs a layer under ``torch.utils.checkpoint`` where the JAX
@@ -21,8 +23,9 @@ the same numbers):
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch._dynamo  # noqa: F401  (see remat)
 from torch import nn
@@ -31,7 +34,7 @@ from torch.utils import checkpoint
 from repro_torch.distributed import ctx
 from repro_torch.kernels import _mesh
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 F32 = torch.float32
 
@@ -40,21 +43,61 @@ def param_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(generator: torch.Generator, shape, in_axis: int = -2, dtype=torch.bfloat16):
-    """Truncated-normal fan-in init: std 1/sqrt(fan_in), cut at 2 std."""
-    std = 1.0 / math.sqrt(shape[in_axis])
-    w = torch.empty(shape, dtype=F32, device=generator.device)
-    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
-    return w.to(dtype)
+class Key(NamedTuple):
+    """A ``jax.random`` key (a ``(2,)`` uint32 array) and the device its
+    draws land on: what the inits pass down where the JAX package passes a
+    key."""
+
+    key: np.ndarray
+    device: torch.device
+
+    def split(self, n: int = 2) -> list:
+        """``jax.random.split(key, n)``, each on this device."""
+        return [Key(k, self.device) for k in prng.split(self.key, n)]
+
+    def fold_in(self, data: int) -> "Key":
+        return Key(prng.fold_in(self.key, data), self.device)
 
 
-def seeded(seed: int, device: torch.device) -> Optional[torch.Generator]:
-    """``torch.Generator(device).manual_seed(seed)``, or None on "meta",
+def dense_init(key: Key, shape, in_axis: int = -2, dtype=torch.bfloat16, *, out=None,
+               times=None) -> torch.Tensor:
+    """Truncated-normal fan-in init, as the JAX package's:
+    ``(truncated_normal(key, -2, 2, shape) * (1 / sqrt(fan_in))).astype(dtype)``,
+    into ``out`` (a parameter) when given; ``times`` multiplies the result
+    in ``dtype`` (a ``conv_w``'s ``* 0.1``)."""
+    std = np.float32(1.0 / math.sqrt(shape[in_axis]))
+    return prng.truncated_normal(key.key, shape, std=std, dtype=dtype, times=times,
+                                 device=key.device, out=out)
+
+
+def seeded(key, device: torch.device) -> Optional[Key]:
+    """The family inits' ``Key``: ``key`` an int (read as
+    ``jax.random.PRNGKey(key)``) or a ``(2,)`` uint32 key.  None on "meta",
     where a family's ``init`` then builds its weights' shapes and types
     without drawing them (``registry.params_spec``)."""
     if device.type == "meta":
         return None
-    return torch.Generator(device=device).manual_seed(seed)
+    return Key(prng.as_key(key), device)
+
+
+def split_stack(key: Optional[Key], n: int):
+    """A family init's ``k_emb, k_layers = split(key)`` and ``stack_init``'s
+    ``split(k_layers, n)``: (the embedding's key, the n layers' keys), or
+    (None, [None] * n) without a key.  ``stack_init`` vmaps the layer init
+    over those keys, which draws what a loop over them draws."""
+    if key is None:
+        return None, [None] * n
+    k_emb, k_layers = key.split()
+    return k_emb, k_layers.split(n)
+
+
+def draw_into(key: Key, module: nn.Module, names) -> None:
+    """``dense_init`` each of ``module``'s weights ``names`` in place, the
+    i-th from ``key.split(len(names))[i]`` (an init's ``jax.random.split``
+    and one draw a key)."""
+    for k, name in zip(key.split(len(names)), names):
+        w = getattr(module, name)
+        dense_init(k, tuple(w.shape), dtype=w.dtype, out=w.data)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -218,12 +261,9 @@ class GQA(nn.Module):
             self.k_norm = _param(torch.ones((a.head_dim,), dtype=F32, device=device))
 
 
-def init_gqa(generator: torch.Generator, cfg, d_model: Optional[int] = None) -> GQA:
-    p = GQA(cfg, d_model, device=generator.device)
-    with torch.no_grad():
-        for name in ("wq", "wk", "wv", "wo"):
-            w = getattr(p, name)
-            w.copy_(dense_init(generator, tuple(w.shape), dtype=w.dtype))
+def init_gqa(key: Key, cfg, d_model: Optional[int] = None) -> GQA:
+    p = GQA(cfg, d_model, device=key.device)
+    draw_into(key, p, ("wq", "wk", "wv", "wo"))  # split(key, 4)
     return p
 
 
@@ -326,12 +366,9 @@ class MLP(nn.Module):
         self.wo = _param(torch.empty((f, d), dtype=dt, device=device))
 
 
-def init_mlp(generator: torch.Generator, cfg, d_ff: Optional[int] = None,
-             d_model: Optional[int] = None) -> MLP:
-    p = MLP(cfg, d_ff, d_model, device=generator.device)
-    with torch.no_grad():
-        for w in (p.wg, p.wi, p.wo):
-            w.copy_(dense_init(generator, tuple(w.shape), dtype=w.dtype))
+def init_mlp(key: Key, cfg, d_ff: Optional[int] = None, d_model: Optional[int] = None) -> MLP:
+    p = MLP(cfg, d_ff, d_model, device=key.device)
+    draw_into(key, p, ("wg", "wi", "wo"))  # split(key, 3)
     return p
 
 
@@ -357,13 +394,12 @@ class Embedding(nn.Module):
                                               device=device))
 
 
-def init_embed(generator: torch.Generator, cfg) -> Embedding:
-    p = Embedding(cfg, device=generator.device)
-    with torch.no_grad():
-        p.embed.copy_(dense_init(generator, tuple(p.embed.shape), in_axis=-1,
-                                 dtype=p.embed.dtype))
-        if not cfg.tie_embeddings:
-            p.lm_head.copy_(dense_init(generator, tuple(p.lm_head.shape), dtype=p.lm_head.dtype))
+def init_embed(key: Key, cfg) -> Embedding:
+    p = Embedding(cfg, device=key.device)
+    k1, k2 = key.split()
+    dense_init(k1, tuple(p.embed.shape), in_axis=-1, dtype=p.embed.dtype, out=p.embed.data)
+    if not cfg.tie_embeddings:
+        dense_init(k2, tuple(p.lm_head.shape), dtype=p.lm_head.dtype, out=p.lm_head.data)
     return p
 
 

@@ -38,12 +38,12 @@ class MLA(nn.Module):
         self.kv_norm = L._param(torch.ones((rank,), dtype=L.F32, device=device))
 
 
-def init_mla(generator: torch.Generator, cfg) -> MLA:
-    p = MLA(cfg, device=generator.device)
-    with torch.no_grad():
-        for name in ("wq", "wkv_a", "wkv_b", "wo"):
-            w = getattr(p, name)
-            w.copy_(L.dense_init(generator, tuple(w.shape), dtype=w.dtype))
+def init_mla(key: L.Key, cfg) -> MLA:
+    p = MLA(cfg, device=key.device)
+    # split(key, 5): the fifth key is unused (no q compression)
+    for k, name in zip(key.split(5), ("wq", "wkv_a", "wkv_b", "wo")):
+        w = getattr(p, name)
+        L.dense_init(k, tuple(w.shape), dtype=w.dtype, out=w.data)
     return p
 
 

@@ -1,7 +1,7 @@
 """Mixture-of-Experts decoder family (qwen3-moe, deepseek-v2-lite): the
 family API of the JAX package's ``models/moe.py``:
 
-    init(seed, cfg, device)              -> MoETransformer (an nn.Module)
+    init(key, cfg, device)               -> MoETransformer (an nn.Module)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
     backbone(params, cfg, x, positions)  -> (activations, aux loss)
     loss(params, cfg, batch)             -> (ce + aux, {"aux", "ce"})
@@ -62,13 +62,15 @@ class Experts(nn.Module):
             self.shared = L.MLP(cfg, d_ff=m.num_shared * f, device=device)
 
 
-def init_experts(generator: torch.Generator, cfg) -> Experts:
-    p = Experts(cfg, device=generator.device)
-    with torch.no_grad():
-        for w in (p.router, p.wg, p.wi, p.wo):
-            w.copy_(L.dense_init(generator, tuple(w.shape), dtype=w.dtype))
-        if cfg.moe.num_shared:
-            p.shared = L.init_mlp(generator, cfg, d_ff=cfg.moe.num_shared * cfg.moe.expert_ff)
+def init_experts(key: L.Key, cfg) -> Experts:
+    """split(key, 5): the f32 router (d, E), the experts' (E, d, f) / (E,
+    f, d) weights (fan-in on axis -2) and the shared MLP."""
+    p = Experts(cfg, device=key.device)
+    ks = key.split(5)
+    for k, w in zip(ks, (p.router, p.wg, p.wi, p.wo)):
+        L.dense_init(k, tuple(w.shape), dtype=w.dtype, out=w.data)
+    if cfg.moe.num_shared:
+        p.shared = L.init_mlp(ks[4], cfg, d_ff=cfg.moe.num_shared * cfg.moe.expert_ff)
     return p
 
 
@@ -272,71 +274,76 @@ def _is_mla(cfg) -> bool:
     return cfg.attention.kind == "mla"
 
 
-def _init_attn(generator, cfg, device):
+def _init_attn(key, cfg, device):
     if _is_mla(cfg):
-        return MLA.init_mla(generator, cfg) if generator is not None else MLA.MLA(
-            cfg, device=device)
-    return L.init_gqa(generator, cfg) if generator is not None else L.GQA(cfg, device=device)
+        return MLA.init_mla(key, cfg) if key is not None else MLA.MLA(cfg, device=device)
+    return L.init_gqa(key, cfg) if key is not None else L.GQA(cfg, device=device)
 
 
 class MoELayer(nn.Module):
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
+        k1, k2 = key.split() if key is not None else (None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.attn = _init_attn(generator, cfg, device)
+        self.attn = _init_attn(k1, cfg, device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.experts = (init_experts(generator, cfg) if generator is not None
-                        else Experts(cfg, device=device))
+        self.experts = init_experts(k2, cfg) if key is not None else Experts(cfg, device=device)
 
 
 class DenseLayer(nn.Module):
     """A leading dense layer (deepseek-v2-lite's layer 0): its MLP is
     ``dense_ff`` wide."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
         ff = cfg.moe.dense_ff
+        k1, k2 = key.split() if key is not None else (None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.attn = _init_attn(generator, cfg, device)
+        self.attn = _init_attn(k1, cfg, device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.mlp = (L.init_mlp(generator, cfg, d_ff=ff) if generator is not None
+        self.mlp = (L.init_mlp(k2, cfg, d_ff=ff) if key is not None
                     else L.MLP(cfg, d_ff=ff, device=device))
 
 
-def init_moe_layer(generator: torch.Generator, cfg) -> MoELayer:
-    return MoELayer(cfg, generator, device=generator.device)
+def init_moe_layer(key: L.Key, cfg) -> MoELayer:
+    return MoELayer(cfg, key, device=key.device)
 
 
-def init_dense_layer(generator: torch.Generator, cfg) -> DenseLayer:
-    return DenseLayer(cfg, generator, device=generator.device)
+def init_dense_layer(key: L.Key, cfg) -> DenseLayer:
+    return DenseLayer(cfg, key, device=key.device)
 
 
 class MoETransformer(nn.Module):
     """The model's weights: ``embed``, ``dense_layers`` (the first
     ``moe.first_dense``), ``layers`` (the MoE layers) and ``final_norm``.
-    Drawn from ``generator`` when one is given, else left empty for
-    ``interop.moe_params`` to fill."""
+    Drawn from ``key`` (``k_emb, k_dense, k_layers = split(key, 3)``, each
+    stack's layers from ``split(k, n)``) when one is given, else left empty
+    for ``interop.moe_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
-        n_dense = cfg.moe.first_dense
-        self.embed = (L.init_embed(generator, cfg) if generator is not None
+        n_dense, n_moe = cfg.moe.first_dense, cfg.num_layers - cfg.moe.first_dense
+        if key is not None:
+            k_emb, k_dense, k_layers = key.split(3)
+            dense_keys, moe_keys = k_dense.split(n_dense), k_layers.split(n_moe)
+        else:
+            dense_keys, moe_keys = [None] * n_dense, [None] * n_moe
+        self.embed = (L.init_embed(k_emb, cfg) if key is not None
                       else L.Embedding(cfg, device=device))
-        self.dense_layers = nn.ModuleList(DenseLayer(cfg, generator, device=device)
-                                          for _ in range(n_dense))
-        self.layers = nn.ModuleList(MoELayer(cfg, generator, device=device)
-                                    for _ in range(cfg.num_layers - n_dense))
+        self.dense_layers = nn.ModuleList(DenseLayer(cfg, k, device=device) for k in dense_keys)
+        self.layers = nn.ModuleList(MoELayer(cfg, k, device=device) for k in moe_keys)
         self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
 
 
-def init(seed: int, cfg, device="cuda") -> MoETransformer:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
-    "meta" the shapes and types alone (``layers.seeded``)."""
+def init(key, cfg, device="cuda") -> MoETransformer:
+    """The JAX package's initial weights for ``key`` (an int read as
+    ``PRNGKey(key)``, or a (2,) uint32 key); on "meta" the shapes and types
+    alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return MoETransformer(cfg, L.seeded(seed, dev), device=dev)
+    return MoETransformer(cfg, L.seeded(key, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

@@ -2,11 +2,10 @@
 ``configs/archs.py`` (dense, MoE, SSM, hybrid, encdec, VLM)."""
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.models import encdec, moe, rglru, ssm, transformer, vlm
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm, "hybrid": rglru, "encdec": encdec,
             "vlm": vlm}
@@ -27,34 +26,27 @@ def _token_len(cfg, seq_len: int) -> int:
     return seq_len
 
 
-def stub_embeddings(cfg, batch: int, seq_len: int, rng: np.random.RandomState) -> dict:
-    """The stub frontends' inputs, standard normals drawn by ``rng`` in bf16
-    on the CPU: a VLM's ``patches`` (batch, num_prefix, d_model), an
-    encoder-decoder's ``frames`` (batch, enc_len_for(seq_len), d_model);
-    {} for the other families."""
-    if cfg.family == "vlm":
-        shape = (batch, cfg.encoder.num_prefix, cfg.d_model)
-    elif cfg.family == "encdec":
-        shape = (batch, encdec.enc_len_for(cfg, seq_len), cfg.d_model)
-    else:
-        return {}
-    name = "patches" if cfg.family == "vlm" else "frames"
-    return {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        torch.bfloat16)}
-
-
-def make_batch(cfg, batch: int, seq_len: int, seed: int = 0, device="cuda"):
-    """{"tokens": (batch, S) int64} drawn uniformly from the vocabulary by
-    ``np.random.RandomState(seed)``, so a test can hand the same inputs to
-    the JAX package; S is ``seq_len`` less a VLM's patch prefix.  A VLM
-    batch also carries ``patches`` and an encoder-decoder batch ``frames``
-    (``stub_embeddings``), drawn next from the same generator."""
+def make_batch(cfg, batch: int, seq_len: int, key=None, device="cuda") -> dict:
+    """The JAX package's ``make_batch``: ``k1, k2, k3 = split(key, 3)``,
+    ``tokens`` and ``labels`` (batch, S) int32 ``randint`` draws over the
+    vocabulary from k1 and k2 (S is ``seq_len`` less a VLM's patch prefix),
+    held as int64 (the port's index type); an encoder-decoder's ``frames``
+    (batch, enc_len_for(seq_len), d_model) or a VLM's ``patches`` (batch,
+    num_prefix, d_model) a bf16 ``normal`` from k3.  ``key`` is an int (read
+    as ``PRNGKey(key)``), a (2,) uint32 key or None (``PRNGKey(0)``).  On the
+    card every draw is one launch of the threefry kernel."""
     get_family(cfg)
     dev = resolve_device(device)
-    rng = np.random.RandomState(seed)
-    tokens = rng.randint(0, cfg.vocab_size, (batch, _token_len(cfg, seq_len)))
-    out = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
-    out.update({k: v.to(dev) for k, v in stub_embeddings(cfg, batch, seq_len, rng).items()})
+    k1, k2, k3 = prng.split(prng.as_key(0 if key is None else key), 3)
+    shape = (batch, _token_len(cfg, seq_len))
+    out = {name: prng.randint(k, shape, 0, cfg.vocab_size, dtype=torch.int64, device=dev)
+           for name, k in (("tokens", k1), ("labels", k2))}
+    if cfg.family == "encdec":
+        out["frames"] = prng.normal(k3, (batch, encdec.enc_len_for(cfg, seq_len), cfg.d_model),
+                                    dtype=torch.bfloat16, device=dev)
+    if cfg.family == "vlm":
+        out["patches"] = prng.normal(k3, (batch, cfg.encoder.num_prefix, cfg.d_model),
+                                     dtype=torch.bfloat16, device=dev)
     return out
 
 

@@ -27,13 +27,14 @@ writes into its tensors in place.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 F32 = torch.float32
 _C = 8.0  # RG-LRU exponent scale (Griffin paper)
@@ -42,9 +43,11 @@ _C = 8.0  # RG-LRU exponent scale (Griffin paper)
 # --------------------------------------------------------------- RG-LRU
 class RGLRU(nn.Module):
     """The recurrent branch's weights, named as the JAX package's keys
-    (``lambda`` included, registered by name)."""
+    (``lambda`` included, registered by name).  Drawn from ``key`` (an
+    ``L.Key``) as the JAX package's ``init_rglru``: ``split(key, 6)``, the
+    out projection from ``fold_in(key, 7)``."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         h = cfg.hybrid
         d, w = cfg.d_model, h.lru_width
@@ -63,15 +66,26 @@ class RGLRU(nn.Module):
         self.bi = L._param(torch.zeros((w,), dtype=F32, device=device))
         self.register_parameter("lambda", empty((w,), F32))
         self.wo = empty((w, d))
-        if generator is not None:
+        if key is not None:
+            ks = key.split(6)
             with torch.no_grad():
-                # Lambda so that a = exp(-c softplus(lambda)) lies in [0.9, 0.999]
-                u = torch.rand((w,), generator=generator, device=device) * (0.999 - 0.9) + 0.9
-                getattr(self, "lambda").copy_(torch.log(torch.expm1(-torch.log(u) / _C)))
-                for name, shape in (("wx", (d, w)), ("wgate", (d, w)), ("wa", (w, w)),
-                                    ("wi", (w, w)), ("wo", (w, d))):
-                    getattr(self, name).copy_(L.dense_init(generator, shape, dtype=dt))
-                self.conv_w.copy_(L.dense_init(generator, (h.conv_width, w), dtype=dt) * 0.1)
+                getattr(self, "lambda").copy_(lru_lambda(ks[0], w))
+            for k, name in zip(ks[1:], ("wx", "wgate", "conv_w", "wa", "wi")):
+                p = getattr(self, name)
+                L.dense_init(k, tuple(p.shape), dtype=dt, out=p.data,
+                             times=0.1 if name == "conv_w" else None)
+            L.dense_init(key.fold_in(7), (w, d), dtype=dt, out=self.wo.data)
+
+
+def lru_lambda(key: L.Key, w: int) -> torch.Tensor:
+    """``lambda = log(expm1(-log(u) / c))``, u uniform on [0.9, 0.999) drawn
+    on the key's device, so that a = exp(-c softplus(lambda)) lies in [0.9,
+    0.999]: ``w`` f32 values computed on the host through XLA's CPU ``log``
+    and ``expm1`` (``util/prng.py``), as the JAX package computes them;
+    torch's differ by an ulp."""
+    u = prng.uniform(key.key, (w,), 0.9, 0.999, device=key.device).cpu().numpy()
+    lam = prng.log32(prng.expm1_32(-prng.log32(u) / np.float32(_C)))
+    return torch.from_numpy(lam)
 
 
 def _lru_gates(p: RGLRU, x):
@@ -150,39 +164,43 @@ class Block(nn.Module):
     """One block: ``ln1``, ``ln2``, ``mlp`` and ``rec`` (an RG-LRU) or
     ``attn`` (local MQA), as the JAX package's block dict."""
 
-    def __init__(self, cfg, kind: str, generator=None, *, device):
+    def __init__(self, cfg, kind: str, key=None, *, device):
         super().__init__()
-        drawn = generator is not None
+        drawn = key is not None
+        k1, k2 = key.split() if drawn else (None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
         if kind == "rec":
-            self.rec = RGLRU(cfg, generator, device=device)
+            self.rec = RGLRU(cfg, k1, device=device)
         else:
-            self.attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
-        self.mlp = L.init_mlp(generator, cfg) if drawn else L.MLP(cfg, device=device)
+            self.attn = L.init_gqa(k1, cfg) if drawn else L.GQA(cfg, device=device)
+        self.mlp = L.init_mlp(k2, cfg) if drawn else L.MLP(cfg, device=device)
 
 
 class Griffin(nn.Module):
     """The model's weights: ``embed``, ``blocks`` (heterogeneous, in
     ``cfg.layer_kinds()`` order) and ``final_norm``.  Drawn from
-    ``generator`` (on ``device``) when one is given, else left empty for
+    ``key`` (an ``L.Key``: ``k_emb, k_blocks = split(key)``, block i from
+    ``split(k_blocks, L)[i]``) when one is given, else left empty for
     ``interop.rglru_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
-        self.embed = (L.init_embed(generator, cfg) if generator is not None
+        k_emb, block_keys = L.split_stack(key, cfg.num_layers)
+        self.embed = (L.init_embed(k_emb, cfg) if key is not None
                       else L.Embedding(cfg, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, kind, generator, device=device)
-                                    for kind in cfg.layer_kinds())
+        self.blocks = nn.ModuleList(Block(cfg, kind, k, device=device)
+                                    for kind, k in zip(cfg.layer_kinds(), block_keys))
         self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
 
 
-def init(seed: int, cfg, device="cuda") -> Griffin:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
-    "meta" the shapes and types alone (``layers.seeded``)."""
+def init(key, cfg, device="cuda") -> Griffin:
+    """The JAX package's initial weights for ``key`` (an int read as
+    ``PRNGKey(key)``, or a (2,) uint32 key); on "meta" the shapes and types
+    alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Griffin(cfg, L.seeded(seed, dev), device=dev)
+    return Griffin(cfg, L.seeded(key, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

@@ -45,11 +45,11 @@ def _widths(cfg):
 
 class Layer(nn.Module):
     """One SSD block's weights, named as the JAX package's dict keys.
-    Drawn from ``generator`` (on ``device``) when one is given, with the
-    JAX package's init: ``A_log`` 0, ``D`` 1, ``dt_bias`` 0, ``conv_w``
-    fan-in normal times 0.1."""
+    Drawn from ``key`` (an ``L.Key``) when one is given, with the JAX
+    package's init: ``split(key, 4)`` for in_proj, conv_w (fan-in normal
+    times 0.1 in bf16) and out_proj; ``A_log`` 0, ``D`` 1, ``dt_bias`` 0."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
         s = cfg.ssm
@@ -69,34 +69,35 @@ class Layer(nn.Module):
         self.dt_bias = L._param(torch.zeros((h,), dtype=F32, device=device))
         self.gate_norm = L._param(torch.ones((di,), dtype=F32, device=device))
         self.out_proj = empty((di, d))
-        if generator is not None:
-            with torch.no_grad():
-                self.in_proj.copy_(L.dense_init(generator, (d, in_dim), dtype=dt))
-                self.conv_w.copy_(L.dense_init(generator, (s.d_conv, conv_dim), dtype=dt) * 0.1)
-                self.out_proj.copy_(L.dense_init(generator, (di, d), dtype=dt))
+        if key is not None:
+            ks = key.split(4)
+            L.dense_init(ks[0], (d, in_dim), dtype=dt, out=self.in_proj.data)
+            L.dense_init(ks[1], (s.d_conv, conv_dim), dtype=dt, out=self.conv_w.data, times=0.1)
+            L.dense_init(ks[2], (di, d), dtype=dt, out=self.out_proj.data)
 
 
 class Mamba2(nn.Module):
     """The model's weights: ``embed`` (token embedding and head),
-    ``layers`` and ``final_norm``.  Drawn from ``generator`` (on
-    ``device``) when one is given, else left empty for
+    ``layers`` and ``final_norm``.  Drawn from ``key`` (an ``L.Key``) with
+    the JAX package's split tree when one is given, else left empty for
     ``interop.ssm_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
-        self.embed = (L.init_embed(generator, cfg) if generator is not None
+        k_emb, layer_keys = L.split_stack(key, cfg.num_layers)
+        self.embed = (L.init_embed(k_emb, cfg) if key is not None
                       else L.Embedding(cfg, device=device))
-        self.layers = nn.ModuleList(Layer(cfg, generator, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Layer(cfg, k, device=device) for k in layer_keys)
         self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
 
 
-def init(seed: int, cfg, device="cuda") -> Mamba2:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
-    "meta" the shapes and types alone (``layers.seeded``)."""
+def init(key, cfg, device="cuda") -> Mamba2:
+    """The JAX package's initial weights for ``key`` (an int read as
+    ``PRNGKey(key)``, or a (2,) uint32 key); on "meta" the shapes and types
+    alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Mamba2(cfg, L.seeded(seed, dev), device=dev)
+    return Mamba2(cfg, L.seeded(key, dev), device=dev)
 
 
 def _split_proj(cfg, proj):

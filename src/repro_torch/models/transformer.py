@@ -2,7 +2,7 @@
 
 The family API of the JAX package's ``models/transformer.py``:
 
-    init(seed, cfg, device)              -> Transformer (an nn.Module)
+    init(key, cfg, device)               -> Transformer (an nn.Module)
     forward(params, cfg, batch)          -> logits (B,S,V) fp32
     loss(params, cfg, batch)             -> (scalar, aux)
     init_cache(cfg, batch, max_len)      -> cache dict
@@ -25,36 +25,38 @@ from repro_torch.util import resolve_device
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
+        k1, k2 = key.split() if key is not None else (None, None)
         self.ln1 = L.init_rms_for(cfg, cfg.d_model, device)
-        drawn = generator is not None
-        self.attn = L.init_gqa(generator, cfg) if drawn else L.GQA(cfg, device=device)
+        self.attn = L.init_gqa(k1, cfg) if key is not None else L.GQA(cfg, device=device)
         self.ln2 = L.init_rms_for(cfg, cfg.d_model, device)
-        self.mlp = L.init_mlp(generator, cfg) if drawn else L.MLP(cfg, device=device)
+        self.mlp = L.init_mlp(k2, cfg) if key is not None else L.MLP(cfg, device=device)
 
 
 class Transformer(nn.Module):
     """The model's weights: ``embed`` (token embedding and head), ``layers``
-    and ``final_norm``.  Drawn from ``generator`` (on ``device``) when one
-    is given, else left empty for ``interop.transformer_params`` to fill."""
+    and ``final_norm``.  Drawn from ``key`` (an ``L.Key``) with the JAX
+    package's split tree when one is given, else left empty for
+    ``interop.transformer_params`` to fill."""
 
-    def __init__(self, cfg, generator=None, *, device):
+    def __init__(self, cfg, key=None, *, device):
         super().__init__()
         device = resolve_device(device)
-        self.embed = (L.init_embed(generator, cfg) if generator is not None
+        k_emb, layer_keys = L.split_stack(key, cfg.num_layers)
+        self.embed = (L.init_embed(k_emb, cfg) if key is not None
                       else L.Embedding(cfg, device=device))
-        self.layers = nn.ModuleList(Layer(cfg, generator, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Layer(cfg, k, device=device) for k in layer_keys)
         self.final_norm = L.init_rms_for(cfg, cfg.d_model, device)
 
 
-def init(seed: int, cfg, device="cuda") -> Transformer:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``; on
-    "meta" the shapes and types alone (``layers.seeded``)."""
+def init(key, cfg, device="cuda") -> Transformer:
+    """The JAX package's initial weights for ``key`` (an int read as
+    ``PRNGKey(key)``, or a (2,) uint32 key); on "meta" the shapes and types
+    alone (``layers.seeded``)."""
     dev = resolve_device(device)
-    return Transformer(cfg, L.seeded(seed, dev), device=dev)
+    return Transformer(cfg, L.seeded(key, dev), device=dev)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

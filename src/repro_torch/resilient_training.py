@@ -5,24 +5,22 @@ simulated preemption with restart, and straggler detection.
     PYTHONPATH=src python -m repro_torch.resilient_training [--arch mamba2-2.7b] [--device cpu]
 
 The flow of the JAX package's ``examples/resilient_training.py``: the
-reduced config of ``--arch`` (every family), ``make_train_step(cfg, lr=1e-3)``,
-a ``ShardedStream`` of batch 8 over a ``RandomState(0)`` token matrix of
-shape (4096, 33), a ``Checkpointer(keep=2)`` saving asynchronously at step
-0 and every 10 steps, a preemption before step ``steps // 2`` answered by
-``ResilientRunner`` from the latest checkpoint, and a
-``StragglerDetector(threshold=3.0)``.
+reduced config of ``--arch`` (every family) initialised from
+``PRNGKey(0)`` (the JAX example's weights, ``util/prng.py``),
+``make_train_step(cfg, lr=1e-3)``, a ``ShardedStream`` of batch 8 over a
+``RandomState(0)`` token matrix of shape (4096, 33) (an encoder-decoder's
+or a VLM's batch drawn whole by ``registry.make_batch(cfg, 8, 32 or 40,
+PRNGKey(step))``, as the JAX example draws it), a ``Checkpointer(keep=2)``
+saving asynchronously at step 0 and every 10 steps, a preemption before
+step ``steps // 2`` answered by ``ResilientRunner`` from the latest
+checkpoint, and a ``StragglerDetector(threshold=3.0)``.
 
-Two differences from the JAX example, both deliberate:
-
-* the checkpoint holds the data cursor with the parameters and the
-  optimizer state (``launch.train.state_tree``), and a restart rewinds the
-  stream to it, so a restarted run replays the same batches and ends equal
-  bit for bit to a run without the preemption (the JAX example's iterator
-  runs on, so its replayed steps see later batches);
-* an encoder-decoder or a VLM trains on the stream's tokens too, with its
-  frames or patches drawn by ``np.random.RandomState(step)``
-  (``launch.train.make_batch``); the JAX example draws that batch whole from
-  ``jax.random.PRNGKey(step)``, which torch cannot reproduce.
+One difference from the JAX example, deliberate: the checkpoint holds the
+data cursor with the parameters and the optimizer state
+(``launch.train.state_tree``), and a restart rewinds the stream to it, so a
+restarted run replays the same batches and ends equal bit for bit to a run
+without the preemption (the JAX example's iterator runs on, so its replayed
+steps see later batches).
 """
 from __future__ import annotations
 
@@ -61,7 +59,7 @@ def run(arch: str = "deepseek-67b", steps: int = 30, *, device="cuda", preempt: 
     """Train ``reduced_config(arch)`` for ``steps`` steps through
     ``ResilientRunner``, preempted once before step ``steps // 2`` when
     ``preempt``.  ``init``: (params, optimizer state) to start from instead
-    of ``init_train_state(cfg, 0)`` (how the JAX package's initial state is
+    of ``init_train_state(cfg, PRNGKey(0))`` (how a JAX package's state is
     carried across).  Checkpoints go under a temporary directory.  Returns {"cfg", "params", "opt", "losses" (a
     (step, loss) pair for every step run, replays included), "report",
     "restored_from", "seconds"}."""

@@ -260,8 +260,9 @@ def init_opt_state(cfg, params):
         vc={k: torch.zeros_like(v, device=dev) for k, v in st.vc.items()})
 
 
-def init_train_state(cfg, seed: int = 0, device="cuda"):
+def init_train_state(cfg, key=0, device="cuda"):
     """(params with gradients on, optimizer state): the family's weights
-    from ``torch.Generator(device).manual_seed(seed)``."""
-    params = L.trainable(get_family(cfg).init(seed, cfg, resolve_device(device)))
+    for ``key`` (an int read as ``PRNGKey(key)``, or a (2,) uint32 key), the
+    JAX package's ``init_train_state(cfg, key)``'s."""
+    params = L.trainable(get_family(cfg).init(key, cfg, resolve_device(device)))
     return params, init_opt_state(cfg, params)

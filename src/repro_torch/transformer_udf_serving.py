@@ -45,7 +45,7 @@ from repro_torch.launch.train import with_depth
 from repro_torch.models.registry import get_family
 from repro_torch.serving.engine import CascadeServer
 from repro_torch.training import optim
-from repro_torch.util import resolve_device
+from repro_torch.util import prng, resolve_device
 
 SEQ = 8  # token embeddings a record is projected to
 TRAIN_ROWS = 2000  # the UDFs' training rows and CORE's optimization sample
@@ -74,13 +74,16 @@ def bucket(n: int) -> int:
 
 
 def init_udf_params(cfg, n_features: int, n_classes: int, seed: int, device="cuda") -> dict:
-    """``{"backbone", "proj", "head"}``: the family's weights and two f32
-    matrices of standard normals times 0.05, all from seed ``seed``."""
+    """``{"backbone", "proj", "head"}``, the JAX example's initial tree:
+    ``k1, k2, k3 = split(PRNGKey(seed), 3)``, the family's weights from k1
+    and two f32 matrices of standard normals times 0.05 (an eager product)
+    from k2 and k3 (``util/prng.py``; on the card each one launch of the
+    threefry kernel)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return {"backbone": get_family(cfg).init(seed, cfg, dev),
-            "proj": torch.randn(n_features, SEQ * cfg.d_model, generator=gen, device=dev) * 0.05,
-            "head": torch.randn(cfg.d_model, n_classes, generator=gen, device=dev) * 0.05}
+    k1, k2, k3 = prng.split(prng.key(seed), 3)
+    return {"backbone": get_family(cfg).init(k1, cfg, dev),
+            "proj": prng.normal(k2, (n_features, SEQ * cfg.d_model), times=0.05, device=dev),
+            "head": prng.normal(k3, (cfg.d_model, n_classes), times=0.05, device=dev)}
 
 
 def udf_logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,7 @@ def _case(dtype):
         cfg = reduced_config(ARCH).replace(dtype=dtype)
         jparams = jed.init(jax.random.PRNGKey(5), jcfg)
         model = interop.encdec_params(jparams, cfg, device="cpu")
-        tb = make_batch(cfg, BATCH, PROMPT + NEW, seed=2, device="cpu")
+        tb = make_batch(cfg, BATCH, PROMPT + NEW, key=2, device="cpu")
         jb = {"tokens": jnp.asarray(tb["tokens"].numpy(), jnp.int32),
               "frames": jnp.asarray(tb["frames"].float().numpy()).astype(jnp.bfloat16)}
         _CASES[dtype] = (jcfg, cfg, jparams, model, tb, jb)
@@ -72,7 +72,7 @@ def _case(dtype):
 def test_registry_batch_and_init():
     cfg = reduced_config(ARCH)
     assert get_family(cfg) is encdec
-    b = make_batch(cfg, 2, 40, seed=1, device="cpu")
+    b = make_batch(cfg, 2, 40, key=1, device="cpu")
     assert b["frames"].shape == (2, encdec.enc_len_for(cfg, 40), cfg.d_model)
     assert b["frames"].dtype == torch.bfloat16 and b["tokens"].shape == (2, 40)
     m = encdec.init(0, cfg, device="cpu")

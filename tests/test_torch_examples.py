@@ -1,7 +1,8 @@
 """The port's three remaining examples against the JAX package's own
 (``examples/*.py``, loaded by path and run with the same cuts as the
 port's), on the same numpy-seeded inputs, with the JAX package's weights
-carried across (torch cannot reproduce ``jax.random``):
+carried across (trained weights differ by roundoff, so the flows after
+training are held on the reference's weights):
 
 * ``video_cascade``: the JAX UDFs' trained layers carried across as
   ``tests/test_torch_serve_cli.py`` carries them.  For each of core-a,
@@ -22,6 +23,12 @@ carried across (torch cannot reproduce ``jax.random``):
   bit for bit to a run without the preemption (the port checkpoints the
   data cursor; the JAX example's iterator runs on, so its replayed steps
   see later batches and only the dense and SSM families are held to it).
+  Without carried weights too: the port's own ``PRNGKey(0)`` init (the
+  reference's, ``util/prng.py``) gives the reference's losses before the
+  preemption within 5e-2 for those two and for seamless-m4t-medium, whose
+  batches both packages draw from ``make_batch(..., PRNGKey(step))``; and
+  step 0 of ``launch.train`` in f32 reports the JAX launcher's loss within
+  1e-5 at reduced deepseek-67b and paligemma-3b.
 * the backbone UDFs (``make_backbone_udf``, ``interop.backbone_udf_params``)
   at both reduced configs: logits at the JAX initial weights within 5e-2
   (the MoE's expert choices pinned to the reference's, each own choice that
@@ -192,14 +199,9 @@ def test_video_cascade_matches_reference(video, mode):
 
 
 # ------------------------------------------------------- resilient training
-@pytest.fixture(scope="module", params=["deepseek-67b", "mamba2-2.7b"])
-def resilient(request, tmp_path_factory):
-    """The JAX example's ``main`` at RESILIENT_STEPS steps, recording its
-    initial state, every step's state and its losses; then the port's run
-    from that initial state: straight, preempted (checkpoints every 3
-    steps, so the restart restores step 3), and straight to the
-    preemption's step."""
-    arch = request.param
+def _run_resilient_reference(arch, ckdir) -> dict:
+    """The JAX example's ``main`` at RESILIENT_STEPS steps: {"init": its
+    initial state, "states": every step's (step, state), "losses"}."""
     mod = _example("resilient_training")
     seen = {"states": []}
     real_init, real_runner = mod.init_train_state, mod.ResilientRunner
@@ -219,13 +221,23 @@ def resilient(request, tmp_path_factory):
 
             super().__init__(recorded, *a, **kw)
 
-    ckdir = tmp_path_factory.mktemp("jax_ckpt")
     mod.init_train_state, mod.ResilientRunner = init_train_state, Runner
     mod.tempfile = types.SimpleNamespace(mkdtemp=lambda prefix: str(ckdir))
     with mock.patch.object(sys, "argv", ["resilient_training.py", "--arch", arch,
                                          "--steps", str(RESILIENT_STEPS)]):
         mod.main()
+    return seen
 
+
+@pytest.fixture(scope="module", params=["deepseek-67b", "mamba2-2.7b"])
+def resilient(request, tmp_path_factory):
+    """The JAX example's run (``_run_resilient_reference``); then the port's
+    run from its initial state: straight, preempted (checkpoints every 3
+    steps, so the restart restores step 3), and straight to the
+    preemption's step; and the port's own run to there, from its own
+    ``PRNGKey(0)`` init."""
+    arch = request.param
+    seen = _run_resilient_reference(arch, tmp_path_factory.mktemp("jax_ckpt"))
     cfg = reduced_config(arch)
 
     def carried():
@@ -238,7 +250,72 @@ def resilient(request, tmp_path_factory):
     preempted = resilient_training.run(arch, RESILIENT_STEPS, ckpt_every=3, init=carried(), **kw)
     half = resilient_training.run(arch, RESILIENT_STEPS // 2, preempt=False, init=carried(),
                                   **kw)
-    return dict(arch=arch, cfg=cfg, seen=seen, straight=straight, preempted=preempted, half=half)
+    own = resilient_training.run(arch, RESILIENT_STEPS // 2, preempt=False, **kw)
+    return dict(arch=arch, cfg=cfg, seen=seen, straight=straight, preempted=preempted, half=half,
+                own=own)
+
+
+def _own_losses_match(seen, own):
+    fail_at = RESILIENT_STEPS // 2
+    ref = seen["losses"][:fail_at]
+    got = [loss for _, loss in own["losses"]]
+    assert len(got) == fail_at
+    assert got == pytest.approx(ref, abs=LOGIT_TOL, rel=LOGIT_TOL)
+
+
+def test_resilient_own_init_matches_reference_before_the_preemption(resilient):
+    """Without carried weights: the port's ``PRNGKey(0)`` init is the JAX
+    example's (``util/prng.py``), so its losses before the preemption are
+    the reference's within LOGIT_TOL."""
+    _own_losses_match(resilient["seen"], resilient["own"])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
+def test_resilient_keyed_batches_match_reference(arch, tmp_path):
+    """An encoder-decoder draws its whole batch from ``make_batch(cfg, 8, 32,
+    PRNGKey(step))`` in both packages: from its own init, the port's
+    losses before the preemption are the JAX example's within LOGIT_TOL."""
+    seen = _run_resilient_reference(arch, tmp_path / "jax_ckpt")
+    own = resilient_training.run(arch, RESILIENT_STEPS // 2, preempt=False, device="cpu",
+                                 log=quiet)
+    _own_losses_match(seen, own)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-67b", "paligemma-3b"])
+def test_launcher_step_zero_loss_matches_reference(arch, tmp_path):
+    """Step 0 of ``launch.train`` at a reduced config in f32 reports the JAX
+    launcher's step-0 loss within 1e-5: the same ``PRNGKey(0)`` weights and
+    the same batch (the stream's first sequences; a VLM's
+    ``make_batch(cfg, 8, 64, PRNGKey(0))``)."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+
+    losses = []
+    real_step = jtrain.make_train_step
+
+    def make_train_step(cfg, **kw):
+        step = jax.jit(real_step(cfg, **kw))
+
+        def recorded(p, o, b):
+            out = step(p, o, b)
+            losses.append(float(out[2]["loss"]))
+            return out
+        return recorded
+
+    real_config = jtrain.reduced_config
+    f32 = lambda name: real_config(name).replace(dtype="float32")  # noqa: E731
+    with mock.patch.object(jtrain, "make_train_step", make_train_step), \
+            mock.patch.object(jtrain, "reduced_config", f32), \
+            mock.patch.object(jtrain, "jax", types.SimpleNamespace(
+                jit=lambda f: f, random=jax.random, devices=jax.devices)), \
+            mock.patch.object(sys, "argv", ["train.py", "--arch", arch, "--steps", "1",
+                                            "--ckpt-every", "100",
+                                            "--ckpt-dir", str(tmp_path / "jax")]):
+        jtrain.main()
+    cfg = reduced_config(arch).replace(dtype="float32")
+    got = ttrain.run(cfg, steps=1, batch=8, seq=64, device="cpu", ckpt_every=0, log=quiet)
+    assert len(losses) == 1
+    assert got["losses"][0] == pytest.approx(losses[0], abs=1e-5, rel=1e-5)
 
 
 def test_resilient_losses_match_reference_before_the_preemption(resilient):

@@ -16,10 +16,13 @@ launches counted; the ``ssd_chunk`` backward kernel against its plain
 formulas, its planted faults, two calls bit for bit, its counter through
 ``SSDChunk``, a two-layer SSM train path, and the encoder-decoder (flash
 launches where ``layers.mha`` routes them) and hybrid (none) paths and
-training steps.  On the card: ``python -m pytest -m gpu
-tests/test_torch_gpu.py`` (``-k f32`` for the f32 routes, ``-k "bwd or
-train or lse"`` for the backward and training, ``-k "ssd_bwd or ssm_train
-or encdec or side_steps"`` for slice O's)."""
+training steps; the ``threefry`` kernel (``jax.random``'s draws) bit for
+bit against its plain version for every transform, past 2^32 elements at
+sampled indices, and every reduced family's init and batch against the CPU
+draw.  On the card: ``python -m pytest -m gpu tests/test_torch_gpu.py``
+(``-k f32`` for the f32 routes, ``-k "bwd or train or lse"`` for the
+backward and training, ``-k "ssd_bwd or ssm_train or encdec or
+side_steps"`` for slice O's, ``-k threefry`` for the draws)."""
 import sys
 from pathlib import Path
 
@@ -607,10 +610,11 @@ def test_moe_decode_is_deterministic_on_the_card(cuda):
     outputs (the combine adds each token's rows in a fixed order; no
     atomics)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
     from repro_torch.models import moe
 
     cfg = get_config("qwen3-moe-30b-a3b")
-    p = moe.init_experts(torch.Generator(device=cuda).manual_seed(0), cfg)
+    p = moe.init_experts(L.seeded(0, cuda), cfg)
     x = torch.randn(4, 512, cfg.d_model, device=cuda, dtype=torch.bfloat16,
                     generator=torch.Generator(device=cuda).manual_seed(1))
     a, aux_a = moe.moe_apply(p, cfg, x)
@@ -1007,3 +1011,52 @@ def test_mesh_train_step_on_one_card_matches_the_unsharded_step(cuda):
             assert torch.equal(sp[k].to_local().detach(), w), k
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ threefry
+@pytest.mark.parametrize("shape", chip_smoke.THREEFRY_SHAPES)
+def test_threefry_kernel_matches_plain_version(cuda, shape):
+    """Every transform of the kernel against ``util/prng.py``'s numpy draw
+    bit for bit, one launch a draw, the result on the card in its dtype."""
+    from repro_torch.kernels import threefry
+    from repro_torch.util import prng
+
+    for name, draw in chip_smoke.threefry_draws(prng.key(sum(shape))):
+        before = threefry.fill.launches
+        got = draw(shape, cuda)
+        assert got.is_cuda and threefry.fill.launches == before + 1, name
+        assert chip_smoke.bits_equal(got, draw(shape, "cpu")), name
+
+
+def test_threefry_kernel_past_two_to_the_32_and_its_refusals(cuda):
+    """Bits of a draw of 2^32 + 8 elements at sampled indices around 2^32
+    against ``Draw.at``; the wrapper refuses a dtype or layout the kernel
+    does not write, before any launch."""
+    import numpy as np
+
+    from repro_torch.kernels import threefry
+    from repro_torch.util import prng
+
+    k = prng.key(1)
+    with prng.recording() as drawn:
+        prng.bits(k, (chip_smoke.THREEFRY_BIG,), device=cuda)
+    (t, draw), = drawn
+    idx = chip_smoke.sample_indices(t.numel(), np.random.RandomState(1), around=(2**32,))
+    assert len(idx) > chip_smoke.THREEFRY_SAMPLES and (idx >= 2**32).any()
+    assert chip_smoke.check_sampled("bits past 2^32", t, draw, idx) == 0.0
+    del t, drawn
+    before = threefry.fill.launches
+    with pytest.raises(ValueError):
+        prng.normal(k, (4,), device=cuda, out=torch.empty(4, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        prng.uniform(k, (4, 4), device=cuda, out=torch.empty(4, 8, device=cuda)[:, :4])
+    assert threefry.fill.launches == before
+
+
+from repro_torch.configs.archs import ALL as ARCHS  # noqa: E402
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_threefry_family_init_on_card_equals_cpu(cuda, arch):
+    for seed in (0, 1):
+        chip_smoke.family_on_card_vs_cpu(cuda, arch, seed)

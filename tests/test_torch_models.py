@@ -68,7 +68,7 @@ def _case(arch, dtype, **changes):
         jcfg, cfg = _configs(arch, dtype, **changes)
         jparams = _jax_params(jcfg)
         model = interop.transformer_params(jparams, cfg, device="cpu")
-        batch = make_batch(cfg, BATCH, TOTAL, seed=1, device="cpu")
+        batch = make_batch(cfg, BATCH, TOTAL, key=1, device="cpu")
         jtokens = jnp.asarray(batch["tokens"].numpy(), jnp.int32)
         jlogits = jax_get_family(jcfg).forward(jparams, jcfg, {"tokens": jtokens})
         _CASES[key] = (jcfg, cfg, jparams, model, batch, jtokens, np.asarray(jlogits))
@@ -167,9 +167,9 @@ def test_registry():
     assert get_family(reduced_config("mamba2-2.7b")) is ssm
     with pytest.raises(NotImplementedError, match="no family"):
         get_family(cfg.replace(family="speech"))
-    a = make_batch(cfg, 2, 10, seed=5, device="cpu")["tokens"]
+    a = make_batch(cfg, 2, 10, key=5, device="cpu")["tokens"]
     assert a.shape == (2, 10) and a.dtype == torch.int64
-    assert torch.equal(a, make_batch(cfg, 2, 10, seed=5, device="cpu")["tokens"])
+    assert torch.equal(a, make_batch(cfg, 2, 10, key=5, device="cpu")["tokens"])
     assert int(a.max()) < cfg.vocab_size
     assert get_config("deepseek-67b").d_ff == 22016
 

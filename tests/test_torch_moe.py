@@ -160,7 +160,7 @@ def _case(arch, dtype, lifted=False):
         jparams = _jax_params(arch, dtype)
         convert = interop.vlm_params if cfg.family == "vlm" else interop.moe_params
         model = convert(jparams, cfg, device="cpu")
-        batch = make_batch(cfg, BATCH, TOTAL, seed=1, device="cpu")
+        batch = make_batch(cfg, BATCH, TOTAL, key=1, device="cpu")
         jbatch = _jax_batch(batch)
         jlogits, routes = _record_reference_routes(
             lambda: jax_get_family(jcfg).forward(jparams, jcfg, jbatch))
@@ -354,15 +354,15 @@ def test_registry_and_batches():
     assert get_family(reduced_config("recurrentgemma-2b")) is rglru
     assert get_family(reduced_config("seamless-m4t-medium")) is encdec
     cfg = reduced_config("paligemma-3b")
-    b = make_batch(cfg, 2, 20, seed=5, device="cpu")
+    b = make_batch(cfg, 2, 20, key=5, device="cpu")
     P = cfg.encoder.num_prefix
     assert b["tokens"].shape == (2, 20 - P) and b["patches"].shape == (2, P, cfg.d_model)
     assert b["patches"].dtype == torch.bfloat16
-    again = make_batch(cfg, 2, 20, seed=5, device="cpu")
+    again = make_batch(cfg, 2, 20, key=5, device="cpu")
     assert torch.equal(b["patches"], again["patches"]) and torch.equal(b["tokens"],
                                                                          again["tokens"])
-    dense = make_batch(reduced_config("qwen3-moe-30b-a3b"), 2, 20, seed=5, device="cpu")
-    assert dense.keys() == {"tokens"} and dense["tokens"].shape == (2, 20)
+    dense = make_batch(reduced_config("qwen3-moe-30b-a3b"), 2, 20, key=5, device="cpu")
+    assert dense.keys() == {"tokens", "labels"} and dense["tokens"].shape == (2, 20)
 
 
 def test_init_draws_every_weight_at_published_shapes():

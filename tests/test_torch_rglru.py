@@ -72,7 +72,7 @@ def _case(dtype):
         assert cfg.attention.window < PROMPT
         jparams = jrg.init(jax.random.PRNGKey(7), jcfg)
         model = interop.rglru_params(jparams, cfg, device="cpu")
-        tokens = make_batch(cfg, BATCH, PROMPT + NEW, seed=4, device="cpu")["tokens"]
+        tokens = make_batch(cfg, BATCH, PROMPT + NEW, key=4, device="cpu")["tokens"]
         _CASES[dtype] = (jcfg, cfg, jparams, model, tokens,
                          jnp.asarray(tokens.numpy(), jnp.int32))
     return _CASES[dtype]

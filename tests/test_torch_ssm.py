@@ -62,7 +62,7 @@ def _case(dtype, dynamics):
             jparams["layers"]["A_log"] = jnp.asarray(A_log)
             jparams["layers"]["dt_bias"] = jnp.asarray(dt_bias)
         model = interop.ssm_params(jparams, cfg, device="cpu")
-        tokens = make_batch(cfg, BATCH, PROMPT + NEW, seed=1, device="cpu")["tokens"]
+        tokens = make_batch(cfg, BATCH, PROMPT + NEW, key=1, device="cpu")["tokens"]
         _CASES[key] = (jcfg, cfg, jparams, model, tokens, jnp.asarray(tokens.numpy(), jnp.int32))
     return _CASES[key]
 
